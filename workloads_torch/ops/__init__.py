@@ -1,0 +1,2 @@
+"""The port's kernels: each a hand-written CUDA kernel beside its plain
+PyTorch version (see ``paged_attention``), built by ``_build``."""

@@ -1,0 +1,212 @@
+"""Paged decode attention: the hand-written CUDA kernel and its plain
+PyTorch version.
+
+The serving hot op: one new query token per sequence attends over that
+sequence's KV history, stored in non-contiguous fixed-size pages of a
+pool ``[layers, n_pages, kv_heads, page_size, head_dim]`` and mapped by
+a block table.  Port of ``workloads/ops/paged_attention.py``.
+
+``paged_attention`` launches the kernel ``csrc/paged_attention.cu``
+(which replaces the TPU kernel ``_paged_decode_kernel``) on CUDA
+tensors, and runs ``paged_attention_reference`` on CPU tensors.  There
+is no other switch: a CUDA tensor of a shape the kernel does not take
+raises ``ValueError``; it never goes to the plain version.
+``paged_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+# The kernel's compile-time limits (csrc/paged_attention.cu).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_MAX_GROUP = 8
+_MAX_SMEM_BYTES = 232_448  # what one H100 block may use (227 KB)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_gqa(heads: int, kv_heads: int) -> None:
+    if heads % kv_heads:
+        raise ValueError(
+            f"q heads ({heads}) must be a multiple of kv heads ({kv_heads})"
+        )
+
+
+def paged_attention_reference(
+    q, k_pages, v_pages, tables, lengths, *, layer: int, window: int | None
+) -> torch.Tensor:
+    """The plain PyTorch version, mirroring the JAX package's
+    ``_paged_attention_xla``: gather each row's table-mapped pages into a
+    dense [batch, T, kv_heads, hd] view, mask by per-row length (and
+    window), float32 softmax, grouped-query heads, zeros for length-0
+    rows."""
+    batch, heads, head_dim = q.shape
+    kv_heads, page_size = k_pages.shape[2], k_pages.shape[3]
+    group = heads // kv_heads
+    max_pages = tables.shape[1]
+    tables = tables.long()
+    lengths = lengths.long()
+
+    def view(pool):
+        g = pool[layer][tables]  # [b, maxp, Hkv, ps, hd]
+        g = g.permute(0, 1, 3, 2, 4)
+        return g.reshape(batch, max_pages * page_size, kv_heads, head_dim)
+
+    k, v = view(k_pages), view(v_pages)
+    qg = q.reshape(batch, kv_heads, group, head_dim)
+    s = torch.einsum("bngk,btnk->bngt", qg.float(), k.float()) / (head_dim**0.5)
+    ids = torch.arange(max_pages * page_size, device=q.device)
+    mask = ids[None, :] < lengths[:, None]
+    if window is not None:
+        mask &= ids[None, :] >= (lengths - window)[:, None]
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngt,btnk->bngk", p, v.float())
+    # Length-0 rows have an all-False mask: the kernel writes zeros.
+    out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
+    return out.reshape(batch, heads, head_dim).to(q.dtype)
+
+
+def _kernel_library():
+    lib = _build.load("paged_attention")
+    if not getattr(lib, "_pa_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.paged_attention_fwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr,            # q, k, v, tables, lengths, out
+            i32, i32, i32, i32, i32, i32, i32, i32,  # dtype, B, H, Hkv, hd, ps, P, maxp
+            i32, i32, ctypes.c_float, ptr,           # layer, window, scale, stream
+        ]
+        lib.paged_attention_fwd.restype = i32
+        lib.paged_attention_smem_bytes.argtypes = [i32, i32, i32]
+        lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.paged_attention_error_string.argtypes = [i32]
+        lib.paged_attention_error_string.restype = ctypes.c_char_p
+        lib._pa_typed = True
+    return lib
+
+
+def _check_kernel_inputs(q, k_pages, v_pages, tables, lengths) -> None:
+    """What the CUDA kernel takes; anything else raises ValueError."""
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("tables", tables), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError(
+            f"q ({q.dtype}) and the pools ({k_pages.dtype}) must share a dtype"
+        )
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("tables and lengths must be int32")
+    head_dim = q.shape[2]
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}"
+        )
+    group = q.shape[1] // k_pages.shape[2]
+    if group > KERNEL_MAX_GROUP:
+        raise ValueError(
+            f"kernel takes at most {KERNEL_MAX_GROUP} query heads per kv "
+            f"head, got {group}"
+        )
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch(q, k_pages, v_pages, tables, lengths, layer, window):
+    _check_kernel_inputs(q, k_pages, v_pages, tables, lengths)
+    lib = _kernel_library()
+    batch, heads, head_dim = q.shape
+    _, n_pages, kv_heads, page_size, _ = k_pages.shape
+    code = _DTYPE_CODES[q.dtype]
+    smem = lib.paged_attention_smem_bytes(code, page_size, head_dim)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(
+            f"page_size {page_size} x head_dim {head_dim} in {q.dtype} needs "
+            f"{smem} bytes of shared memory; one block holds {_MAX_SMEM_BYTES}"
+        )
+    out = torch.empty_like(q)
+    if batch == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_attention_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            code, batch, heads, kv_heads, head_dim, page_size, n_pages,
+            tables.shape[1], layer, window or 0,
+            ctypes.c_float(1.0 / head_dim**0.5), stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: CUDA error {err} "
+            f"({lib.paged_attention_error_string(err).decode()})"
+        )
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    layer: int = 0,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Decode attention over a paged KV cache.
+
+    q: [batch, heads, head_dim], the current token's queries;
+    k_pages/v_pages: [layers, n_pages, kv_heads, page_size, head_dim]
+    (the whole pool, with ``layer`` selecting inside it — no per-layer
+    copy); tables: [batch, max_pages] int32 physical page ids;
+    lengths: [batch] int32 valid positions per row (the query's own k/v
+    already written at position length-1).  kv_heads may be fewer than
+    heads (grouped-query).  Returns [batch, heads, head_dim] in q's
+    dtype.
+
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    batch, heads, head_dim = q.shape
+    layers, n_pages, kv_heads, page_size, hd2 = k_pages.shape
+    if hd2 != head_dim:
+        raise ValueError(
+            f"head_dim mismatch: q has {head_dim}, pages have {hd2}"
+        )
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"k/v page pools disagree: {tuple(k_pages.shape)} vs "
+            f"{tuple(v_pages.shape)}"
+        )
+    if not (0 <= layer < layers):
+        raise ValueError(f"layer {layer} out of range [0, {layers})")
+    if tables.ndim != 2 or tables.shape[0] != batch or lengths.shape != (batch,):
+        raise ValueError(
+            f"tables {tuple(tables.shape)} / lengths {tuple(lengths.shape)} "
+            f"do not match batch {batch}"
+        )
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    _check_gqa(heads, kv_heads)
+    if q.is_cuda:
+        return _launch(q, k_pages, v_pages, tables, lengths, layer, window)
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("tables", tables), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    return paged_attention_reference(
+        q, k_pages, v_pages, tables, lengths, layer=layer, window=window
+    )
+
+
+paged_attention.launches = 0

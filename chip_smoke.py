@@ -8,7 +8,7 @@ Phases, each of which fails the run loudly:
 1. device: require CUDA; print the card's name and power limit
    (nvidia-smi) and turn TF32 off for float32 matmuls and convolutions;
 2. build every CUDA kernel of the port from the sources in this
-   checkout (one nvcc per source, started together);
+   checkout (one nvcc per source);
 3. hold each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32, at the serving path's shapes and its variants;
 4. drive the main path: a ``ServeEngine`` at the full width of the
@@ -16,7 +16,9 @@ Phases, each of which fails the run loudly:
    d_ff 8192, vocab 32768, bf16, page_size 64; depth uncut, random
    weights from a seed) serving a mixed stream of requests to the
    end, with every kernel launch counted; then one teacher-forced
-   decode step through the kernel and through the plain version;
+   decode step through the kernel and through the plain version, in
+   float32 and in bfloat16, the bf16 limit being the step's own bf16
+   precision floor measured in the same run;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main path's shapes, beside the bound
    the card's memory rate and peak arithmetic rate set.
@@ -48,11 +50,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # differ by about one bf16 ulp (2^-8 = 3.9e-3 at magnitude 1); float32
 # differs only by summation order and expf.
 KERNEL_ATOL = {"bfloat16": 1e-2, "float32": 1e-4}
-# Whole decode step at full width, kernel route against plain route,
-# relative to the largest logit: in bf16 an attention output that rounds to
-# the neighbouring bf16 value (2^-8 relative) is re-rounded through 8 bf16
-# layers; in float32 only summation order differs.
-STEP_LOGITS_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Whole decode step at full width, kernel route against plain route, in
+# float32, relative to the largest logit: only summation order differs.
+# In bf16 the limit is measured, not set: the plain route in bf16 against
+# the plain route in float32 on the same weights and tokens (the precision
+# floor of the bf16 step), which the kernel's difference must not exceed.
+STEP_F32_RTOL = 1e-4
 
 FULL = dict(
     d_model=2048, n_heads=16, n_layers=8, d_ff=8192, vocab_size=32768,
@@ -256,10 +259,9 @@ def main() -> int:
 
     # 2. build
     phase("build")
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    print(f"  built {built} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in _build.KERNELS:
+        print(f"  built {name} in {_build.build(name):.2f} s (0 when reused)",
+              flush=True)
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
@@ -329,26 +331,38 @@ def main() -> int:
 
     profile_chunk(torch, engine, rng, f)
 
-    # One teacher-forced decode step, kernel route against plain route,
-    # in the serving dtype and in float32.
+    # One teacher-forced decode step, kernel route against plain route, in
+    # float32 and in the serving dtype (same weights, bf16-valued, and
+    # the same tokens).
     from dataclasses import replace
 
-    for dtype in (torch.bfloat16, torch.float32):
-        step_config = replace(config, dtype=dtype)
+    steps = {}
+    for dtype in (torch.float32, torch.bfloat16):
         step_params = params if dtype == config.dtype else cast_params(params, dtype)
-        got, want = teacher_forced_step(torch, paged_mod, pa, step_params,
-                                        step_config, f["page_size"])
-        name = str(dtype).split(".")[1]
-        scale = want.abs().max().item()
-        tol = STEP_LOGITS_RTOL[name] * scale
-        step_err = (got - want).abs().max().item()
-        print(f"  teacher-forced decode step {name}: logits kernel vs plain "
-              f"max_abs_err {step_err:.3e} (tol {tol:.3e} = "
-              f"{STEP_LOGITS_RTOL[name]} x max |logit| {scale:.3e})", flush=True)
-        if not torch.isfinite(got).all() or not step_err <= tol:
-            fail(f"{name} decode step through the kernel disagrees with the "
-                 "plain route")
+        steps[dtype] = teacher_forced_step(torch, paged_mod, pa, step_params,
+                                           replace(config, dtype=dtype), f["page_size"])
         del step_params
+    got32, want32 = steps[torch.float32]
+    got16, want16 = steps[torch.bfloat16]
+    scale = want32.abs().max().item()
+    f32_err = (got32 - want32).abs().max().item()
+    f32_tol = STEP_F32_RTOL * scale
+    bf16_err = (got16 - want16).abs().max().item()
+    bf16_floor = (want16 - want32).abs().max().item()
+    bf16_rms = (got16 - want16).square().mean().sqrt().item()
+    floor_rms = (want16 - want32).square().mean().sqrt().item()
+    print(f"  teacher-forced decode step, max |logit| {scale:.4e}: float32 kernel "
+          f"vs plain {f32_err:.4e} (limit {f32_tol:.4e} = {STEP_F32_RTOL} x max); "
+          f"bfloat16 kernel vs plain max {bf16_err:.4e} rms {bf16_rms:.4e} "
+          f"(limits: the bf16 floor, plain bf16 vs plain float32, max "
+          f"{bf16_floor:.4e} rms {floor_rms:.4e})", flush=True)
+    if not (torch.isfinite(got32).all() and torch.isfinite(got16).all()):
+        fail("the teacher-forced decode step gave non-finite logits")
+    if not f32_err <= f32_tol:
+        fail("float32 decode step through the kernel disagrees with the plain route")
+    if not (bf16_err <= bf16_floor and bf16_rms <= floor_rms):
+        fail("bfloat16 decode step through the kernel differs from the plain "
+             "route by more than bf16 differs from float32")
 
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
@@ -419,7 +433,6 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,

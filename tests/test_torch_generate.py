@@ -48,7 +48,7 @@ def test_cached_logits_match_dense_forward(config):
     params = _params(config)
     tokens = _tokens((2, 10))
     dense = forward(params, tokens, config)
-    cache = init_kv_cache(config, 2, 10)
+    cache = init_kv_cache(config, 2, 10, device="cpu")
     for pos in range(10):
         logits, cache = decode_step(params, cache, tokens[:, pos], pos, config)
         np.testing.assert_allclose(
@@ -155,3 +155,23 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(_params(), torch.zeros((1, 3), dtype=torch.long), CONFIG, 2)
     assert workloads_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("helper", ["init_kv_cache", "init_page_pools", "table_array",
+                                    "params_from_jax"])
+def test_buffer_helpers_do_not_default_to_cpu(monkeypatch, helper):
+    """The helpers that allocate on a device take the entry points' rule:
+    no device means cuda, and without CUDA they raise."""
+    from workloads_torch import convert, paged
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "init_kv_cache": lambda: init_kv_cache(CONFIG, 1, 4),
+        "init_page_pools": lambda: paged.init_page_pools(CONFIG, 4, 4),
+        "table_array": lambda: paged.table_array([[0, 1]], 2),
+        "params_from_jax": lambda: convert.params_from_jax(
+            {"embed": np.zeros((4, 2), np.float32),
+             "unembed": np.zeros((2, 4), np.float32), "layers": []}),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[helper]()

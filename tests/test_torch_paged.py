@@ -41,7 +41,7 @@ def _tokens(shape, seed, vocab=256):
 def _lockstep_reference(params, config, tokens):
     """Contiguous-cache logits for a [batch, steps] token stream."""
     batch, steps = tokens.shape
-    cache = init_kv_cache(config, batch, steps)
+    cache = init_kv_cache(config, batch, steps, device="cpu")
     out = []
     for pos in range(steps):
         logits, cache = decode_step(params, cache, tokens[:, pos], pos, config)
@@ -68,13 +68,13 @@ def test_paged_decode_matches_contiguous(config):
     ctrl = PagePool(n_pages=16, page_size=page_size)
     for b in range(batch):
         ctrl.allocate(b, 1)
-    pools = init_page_pools(config, 16, page_size)
+    pools = init_page_pools(config, 16, page_size, device="cpu")
     want = _lockstep_reference(params, config, tokens)
     max_pages = ctrl.pages_needed(steps)
     for pos in range(steps):
         for b in range(batch):
             ctrl.extend(b, pos + 1)
-        tables = table_array([ctrl.tables[b] for b in range(batch)], max_pages)
+        tables = table_array([ctrl.tables[b] for b in range(batch)], max_pages, device="cpu")
         got, pools = paged_decode_step(params, pools, tables, tokens[:, pos], pos, config)
         np.testing.assert_allclose(got.numpy(), want[pos].numpy(), atol=ATOL,
                                    err_msg=f"position {pos}")
@@ -91,11 +91,11 @@ def test_per_row_positions_match_lockstep(params):
                                                      tokens[r:r + 1, :d + steps])):
             want[(r, pos)] = lg
     ctrl = PagePool(n_pages=32, page_size=page_size)
-    pools = init_page_pools(CONFIG, 32, page_size)
+    pools = init_page_pools(CONFIG, 32, page_size, device="cpu")
     for r, d in enumerate(depths):
         ctrl.allocate(r, d + steps)
     tables = table_array([ctrl.tables[0], ctrl.tables[1]],
-                         ctrl.pages_needed(max(depths) + steps))
+                         ctrl.pages_needed(max(depths) + steps), device="cpu")
     for r, d in enumerate(depths):
         for pos in range(d):
             _, pools = paged_decode_step(params, pools, tables[r:r + 1],
@@ -116,9 +116,9 @@ def test_decode_chunk_matches_steps_and_freezes_parked_rows(params):
     """A chunk equals the same greedy steps one by one; a parked row
     (occupancy False, all-trash table) keeps its position and token."""
     ctrl = PagePool(n_pages=16, page_size=4)
-    pools = init_page_pools(CONFIG, 16, 4)
+    pools = init_page_pools(CONFIG, 16, 4, device="cpu")
     ctrl.allocate("a", 12)
-    tables = table_array([ctrl.tables["a"], []], 3, fill=ctrl.trash)
+    tables = table_array([ctrl.tables["a"], []], 3, fill=ctrl.trash, device="cpu")
     prompt = _tokens((1, 5), 9)
     for pos in range(5):
         logits, pools = paged_decode_step(params, pools, tables[:1],
@@ -152,11 +152,11 @@ def test_ragged_prefill_matches_contiguous(params):
     for r, n in enumerate(lengths):
         prompts[r, :n] = _tokens((n,), 10 + r)
     ctrl = PagePool(n_pages=32, page_size=page_size)
-    pools = init_page_pools(CONFIG, 32, page_size)
+    pools = init_page_pools(CONFIG, 32, page_size, device="cpu")
     for r, n in enumerate(lengths):
         ctrl.allocate(r, n)
     tables = table_array([ctrl.tables[r] for r in range(3)],
-                         ctrl.pages_needed(bucket), fill=ctrl.trash)
+                         ctrl.pages_needed(bucket), fill=ctrl.trash, device="cpu")
     logits, pools = paged_prefill(params, pools, tables, prompts,
                                   torch.tensor(lengths, dtype=torch.int32), CONFIG)
     for r, n in enumerate(lengths):
@@ -167,7 +167,7 @@ def test_ragged_prefill_matches_contiguous(params):
     for r, n in enumerate(lengths):
         ctrl.extend(r, n + 1)
     tables = table_array([ctrl.tables[r] for r in range(3)],
-                         ctrl.pages_needed(bucket + 1), fill=ctrl.trash)
+                         ctrl.pages_needed(bucket + 1), fill=ctrl.trash, device="cpu")
     step_logits, pools = paged_decode_step(params, pools, tables, tok,
                                            torch.tensor(lengths), CONFIG)
     for r, n in enumerate(lengths):
@@ -188,11 +188,11 @@ def test_chunked_prefill_matches_single_prefill(params):
 
     def run(chunked):
         ctrl = PagePool(n_pages=24, page_size=ps)
-        pools = init_page_pools(CONFIG, 24, ps)
+        pools = init_page_pools(CONFIG, 24, ps, device="cpu")
         for r, n in enumerate(lengths):
             ctrl.allocate(r, n)
         tables = table_array([ctrl.tables[r] for r in range(3)],
-                             C * n_chunks // ps, fill=ctrl.trash)
+                             C * n_chunks // ps, fill=ctrl.trash, device="cpu")
         if not chunked:
             logits, pools = paged_prefill(params, pools, tables, prompts, lens, CONFIG)
         else:
@@ -213,7 +213,7 @@ def test_chunked_prefill_matches_single_prefill(params):
 
 
 def test_prefill_chunk_validates_geometry(params):
-    pools = init_page_pools(CONFIG, 8, 4)
+    pools = init_page_pools(CONFIG, 8, 4, device="cpu")
     tables = torch.zeros((1, 4), dtype=torch.int32)
     lens = torch.tensor([3], dtype=torch.int32)
     with pytest.raises(ValueError, match="multiple of page_size"):
@@ -230,7 +230,7 @@ def test_prefill_padding_never_writes_other_pages(params, row_start):
     and, with ``row_start``, columns before the row's own start are
     redirected to the trash page: the victim keeps its bytes."""
     ctrl = PagePool(n_pages=16, page_size=4)
-    k, v = init_page_pools(CONFIG, 16, 4)
+    k, v = init_page_pools(CONFIG, 16, 4, device="cpu")
     victim = ctrl.allocate("victim", 4)
     assert victim == [0]
     k[:, 0] = 7.25
@@ -238,12 +238,12 @@ def test_prefill_padding_never_writes_other_pages(params, row_start):
     ctrl.allocate("row", 6)
     if row_start is None:
         # True length 2 (1 real page), bucket 8: column 1 pads with 0.
-        tables = table_array([ctrl.tables["row"][:1]], 2)
+        tables = table_array([ctrl.tables["row"][:1]], 2, device="cpu")
         lens, start = torch.tensor([2], dtype=torch.int32), None
     else:
         # The row's first column is the victim's page, marked as already
         # written (a shared prefix page): reads use it, writes skip it.
-        tables = table_array([[0, ctrl.tables["row"][0]]], 2)
+        tables = table_array([[0, ctrl.tables["row"][0]]], 2, device="cpu")
         lens, start = torch.tensor([6], dtype=torch.int32), torch.tensor([row_start])
     prompts = torch.zeros((1, 8), dtype=torch.long)
     prompts[0, :2] = torch.tensor([5, 6])
@@ -351,7 +351,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build_all()
+        _build.build("paged_attention")
     name = _build.library_path("paged_attention").name
     assert name.startswith("libpaged_attention-") and name.endswith(".so")
     assert _build.library_path("paged_attention") == _build.library_path("paged_attention")
@@ -411,4 +411,4 @@ def test_pool_exhaustion_and_double_allocate_fail_loud():
     ctrl.release("a")
     ctrl.allocate("a", 4)  # fine after release
     with pytest.raises(ValueError, match="exceeds"):
-        table_array([[0, 1, 2]], 2)
+        table_array([[0, 1, 2]], 2, device="cpu")

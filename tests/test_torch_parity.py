@@ -28,6 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from tests.test_torch_golden import (  # noqa: E402
     CASE_IDS,
@@ -40,7 +41,6 @@ from tests.test_torch_golden import (  # noqa: E402
     GOLDEN,
     PREFILL_LENGTHS,
     PREFILL_PAGE_SIZE,
-    TOL,
     case_key,
     compare,
     compare_filter,
@@ -55,6 +55,7 @@ from workloads import paged as jpaged  # noqa: E402
 from workloads import serve as jserve  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
 from workloads_torch import convert  # noqa: E402
+from workloads_torch import model as tmodel  # noqa: E402
 
 JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 
@@ -91,8 +92,21 @@ def _np(a) -> np.ndarray:
 
 def jax_outputs(case, tree_bf16: dict, inp: dict) -> dict:
     """What the JAX package computes for one case (the keys of
-    tests/test_torch_golden.torch_outputs)."""
-    config = jax_config(case)
+    tests/test_torch_golden.torch_outputs, plus ``attention_xla`` from
+    its gathered-view attention route).
+
+    bfloat16 cases run with jit disabled, so each operation rounds to
+    bf16 where the source says: under jit XLA fuses elementwise chains
+    and drops intermediate roundings (the jitted bf16 forward differs
+    from the eager one by as much as from float32).  They skip the
+    greedy streams, which are compared in float32 only."""
+    if case[0] == "f32":
+        return _jax_outputs(jax_config(case), tree_bf16, inp, streams=True)
+    with jax.disable_jit():
+        return _jax_outputs(jax_config(case), tree_bf16, inp, streams=False)
+
+
+def _jax_outputs(config, tree_bf16: dict, inp: dict, streams: bool) -> dict:
     params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
     out = {"forward": _np(jmodel.forward(params, jnp.asarray(inp["forward_tokens"]), config))}
 
@@ -137,13 +151,14 @@ def jax_outputs(case, tree_bf16: dict, inp: dict) -> dict:
         )
         step_logits.append(lg)
     out["decode_logits"] = _np(jnp.stack(step_logits[-3:], axis=1))
-    chunk, _ = jpaged.paged_decode_chunk(
-        params, pools, tables, toks[:, DECODE_STEPS],
-        jnp.full((2,), DECODE_STEPS, jnp.int32), jnp.ones(2, bool),
-        jax.random.PRNGKey(0), jnp.float32(0.0), jnp.int32(0), jnp.float32(1.0),
-        config=config, chunk=DECODE_CHUNK, sampling=False,
-    )
-    out["chunk_tokens"] = np.asarray(chunk).astype(np.int64)
+    if streams:
+        chunk, _ = jpaged.paged_decode_chunk(
+            params, pools, tables, toks[:, DECODE_STEPS],
+            jnp.full((2,), DECODE_STEPS, jnp.int32), jnp.ones(2, bool),
+            jax.random.PRNGKey(0), jnp.float32(0.0), jnp.int32(0), jnp.float32(1.0),
+            config=config, chunk=DECODE_CHUNK, sampling=False,
+        )
+        out["chunk_tokens"] = np.asarray(chunk).astype(np.int64)
 
     ps = PREFILL_PAGE_SIZE
     ctrl = jpaged.PagePool(n_pages=8, page_size=ps)
@@ -167,15 +182,16 @@ def jax_outputs(case, tree_bf16: dict, inp: dict) -> dict:
     out["prefill_k"] = _np(pools[0][:, real])
     out["prefill_v"] = _np(pools[1][:, real])
 
-    engine = jserve.ServeEngine(
-        params, config, slots=2, page_size=4, prompt_bucket=12, chunk=4
-    )
-    rids = [
-        engine.submit(inp[f"engine_prompt{i}"], int(inp[f"engine_new{i}"]))
-        for i in range(ENGINE_REQUESTS)
-    ]
-    served = engine.run()
-    out["engine_tokens"] = engine_array([served[r] for r in rids])
+    if streams:
+        engine = jserve.ServeEngine(
+            params, config, slots=2, page_size=4, prompt_bucket=12, chunk=4
+        )
+        rids = [
+            engine.submit(inp[f"engine_prompt{i}"], int(inp[f"engine_new{i}"]))
+            for i in range(ENGINE_REQUESTS)
+        ]
+        served = engine.run()
+        out["engine_tokens"] = engine_array([served[r] for r in rids])
     return out
 
 
@@ -204,13 +220,18 @@ def test_port_matches_jax_live(trees, case):
     # (numpy in the case's dtype, as the JAX CLI casts it).
     np_dtype = np.float32 if case[0] == "f32" else ml_dtypes.bfloat16
     params = convert.params_from_jax(
-        jax.tree.map(lambda a: np.asarray(a).astype(np_dtype), tree)
+        jax.tree.map(lambda a: np.asarray(a).astype(np_dtype), tree), device="cpu"
     )
     got = torch_outputs(case, params, inp)
     compare(case, got, want)
-    tol = TOL[case[0]]["attention"]
-    np.testing.assert_allclose(got["attention"], want["attention_xla"],
-                               atol=tol, rtol=tol)
+
+
+def test_gelu_matches_jax_bit_for_bit_in_bf16():
+    """The port's gelu rounds to bf16 where jax.nn.gelu does."""
+    x = 3.0 * np.random.default_rng(0).standard_normal(200_000).astype(np.float32)
+    want = _np(jax.nn.gelu(jnp.asarray(x, jnp.bfloat16)))
+    got = tmodel._gelu_tanh(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_filter_logits_matches_jax_live():
@@ -220,9 +241,8 @@ def test_filter_logits_matches_jax_live():
 
 def write_goldens(path: str = GOLDEN) -> None:
     """Freeze the JAX package's outputs for tests/test_torch_golden.py.
-    Only float32 cases keep their greedy streams (bf16 streams are not
-    compared) and only unwindowed cases keep their written pages, so
-    the fixture stays under 1 MB."""
+    Only unwindowed cases keep their written pages, so the fixture
+    stays under 1 MB."""
     inp = make_inputs()
     arrays = {f"input/{k}": np.asarray(v) for k, v in inp.items()}
     trees = {None: jax_params_bf16(None), 2: jax_params_bf16(2)}
@@ -230,10 +250,6 @@ def write_goldens(path: str = GOLDEN) -> None:
         arrays.update(flat_bits(tree, f"params_{'gqa' if kv else 'mha'}"))
     for case in CASES:
         out = jax_outputs(case, trees[case[1]], inp)
-        out.pop("attention_xla")
-        if case[0] != "f32":
-            out.pop("chunk_tokens")
-            out.pop("engine_tokens")
         if case[2] is not None:
             out.pop("prefill_k")
             out.pop("prefill_v")

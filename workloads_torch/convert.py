@@ -15,14 +15,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
+
 
 def _is_bfloat16(a: np.ndarray) -> bool:
     return a.dtype.name == "bfloat16"
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """One leaf: float32/int arrays copy as they are, bfloat16 arrays by
-    their bits."""
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """One leaf on ``device``: float32/int arrays copy as they are,
+    bfloat16 arrays by their bits."""
     a = np.asarray(a)
     if _is_bfloat16(a):
         bits = np.ascontiguousarray(a).view(np.int16)
@@ -30,8 +32,10 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def params_from_jax(tree, device="cpu") -> dict:
-    """The port's parameter dict from the JAX package's numpy tree."""
+def params_from_jax(tree, device=None) -> dict:
+    """The port's parameter dict from the JAX package's numpy tree, on
+    ``device`` (None means ``cuda``, ``resolve_device``)."""
+    device = resolve_device(device)
     return {
         "embed": tensor_from_numpy(tree["embed"], device),
         "unembed": tensor_from_numpy(tree["unembed"], device),

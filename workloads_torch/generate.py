@@ -32,13 +32,13 @@ from .model import (
 
 
 def init_kv_cache(
-    config: ModelConfig, batch: int, max_len: int, device="cpu"
+    config: ModelConfig, batch: int, max_len: int, device=None
 ) -> torch.Tensor:
     """Per-layer (k, v) buffers: [layers, 2, batch, max_len, kv_heads,
-    head_dim]."""
+    head_dim], on ``device`` (None means ``cuda``, ``resolve_device``)."""
     return torch.zeros(
         (config.n_layers, 2, batch, max_len, config.kv_heads, config.head_dim),
-        dtype=config.dtype, device=device,
+        dtype=config.dtype, device=resolve_device(device),
     )
 
 

@@ -18,7 +18,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
 
 @dataclass(frozen=True)
@@ -202,9 +201,22 @@ def _attention(x: torch.Tensor, layer: dict, config: ModelConfig) -> torch.Tenso
     return torch.einsum("bshk,hkd->bsd", out, weight(layer["wo"], x.dtype))
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x)`` (the tanh approximation), op for op in x's
+    dtype with each constant first rounded to that dtype, as JAX's weakly
+    typed scalars are.  In bf16 every intermediate rounds where JAX's
+    does, so the result is bit-identical; ``torch.nn.functional.gelu``
+    computes in float32 and rounds once, which differs from JAX in many
+    bf16 outputs."""
+    def const(v: float) -> float:
+        return torch.tensor(v, dtype=x.dtype).item()
+
+    inner = const((2.0 / torch.pi) ** 0.5) * (x + const(0.044715) * x**3)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def _mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation.
-    hidden = F.gelu(x @ weight(layer["w_up"], x.dtype), approximate="tanh")
+    hidden = _gelu_tanh(x @ weight(layer["w_up"], x.dtype))
     return hidden @ weight(layer["w_down"], x.dtype)
 
 

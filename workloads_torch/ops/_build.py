@@ -10,9 +10,8 @@ interface (no PyTorch headers, so a build takes seconds), for
 Builds happen at first use, into ``build/workloads_torch/`` at the root
 of the checkout (listed in .gitignore).  The file name carries a hash of
 the source and the flags, so an edited source rebuilds and an unchanged
-one is reused.  ``build_all`` starts one nvcc per source, all at once.
-A failed build raises with nvcc's stderr; ptxas's register and
-shared-memory report is kept beside the library (``.log``).
+one is reused.  A failed build raises with nvcc's stderr; ptxas's
+register and shared-memory report is kept beside the library (``.log``).
 
 Nothing here runs when the module is imported: the CPU tests import it
 on hosts with no nvcc.
@@ -60,35 +59,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names=KERNELS) -> dict[str, float]:
-    """Build every named kernel that is not built yet, one nvcc each, all
-    started together.  Returns {name: build seconds} (0.0 when reused)."""
+def build(name: str) -> float:
+    """Build ``name``'s library unless it is built already.  Returns the
+    build seconds (0.0 when reused)."""
+    out = library_path(name)
+    if out.exists():
+        return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
-    seconds = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            seconds[name] = 0.0
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+            f"{proc.stderr}{proc.stdout}"
         )
-        started[name] = (proc, tmp, out, time.perf_counter())
-    for name, (proc, tmp, out, t0) in started.items():
-        stdout, stderr = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-                f"{stderr}{stdout}"
-            )
-        out.with_suffix(".log").write_text(stdout + stderr)
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return seconds
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return time.perf_counter() - t0
 
 
 def build_log(name: str) -> str:
@@ -101,7 +93,7 @@ def load(name: str) -> ctypes.CDLL:
     """``name``'s library, built first if needed and loaded once."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all((name,))
+        build(name)
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from . import resolve_device
 from .generate import decode_block, sample_logits
 from .model import (
     ModelConfig,
@@ -169,10 +170,12 @@ class PagePool:
 
 
 def init_page_pools(
-    config: ModelConfig, n_pages: int, page_size: int, device="cpu"
+    config: ModelConfig, n_pages: int, page_size: int, device=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The device-side (k, v) pools, each [layers, n_pages + 1, kv_heads,
-    page_size, head_dim]; the last page is the trash page."""
+    page_size, head_dim]; the last page is the trash page.  ``device``
+    None means ``cuda`` (``resolve_device``)."""
+    device = resolve_device(device)
     shape = (
         config.n_layers, n_pages + 1, config.kv_heads, page_size,
         config.head_dim,
@@ -184,17 +187,18 @@ def init_page_pools(
 
 
 def table_array(
-    tables: list[list[int]], max_pages: int, fill: int = 0, device="cpu"
+    tables: list[list[int]], max_pages: int, fill: int = 0, device=None
 ) -> torch.Tensor:
-    """Stack host tables into a padded [batch, max_pages] int32 tensor.
-    ``fill`` pads short tables; rows PARKED with positions outside their
-    table must fill with the pool's trash index."""
+    """Stack host tables into a padded [batch, max_pages] int32 tensor on
+    ``device`` (None means ``cuda``, ``resolve_device``).  ``fill`` pads
+    short tables; rows PARKED with positions outside their table must
+    fill with the pool's trash index."""
     out = []
     for t in tables:
         if len(t) > max_pages:
             raise ValueError(f"table length {len(t)} exceeds {max_pages}")
         out.append(list(t) + [fill] * (max_pages - len(t)))
-    return torch.tensor(out, dtype=torch.int32, device=device)
+    return torch.tensor(out, dtype=torch.int32, device=resolve_device(device))
 
 
 def _rope_rows(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

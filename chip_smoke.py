@@ -8,20 +8,32 @@ Phases, each of which fails the run loudly:
 1. device: require CUDA; print the card's name and power limit
    (nvidia-smi) and turn TF32 off for float32 matmuls and convolutions;
 2. build every CUDA kernel of the port from the sources in this
-   checkout (one nvcc per source);
+   checkout (one nvcc per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, in
-   bfloat16 and float32, at the serving path's shapes and its variants;
-4. drive the main path: a ``ServeEngine`` at the full width of the
-   widest model the repo defines (d_model 2048, 16 heads, 8 layers,
-   d_ff 8192, vocab 32768, bf16, page_size 64; depth uncut, random
-   weights from a seed) serving a mixed stream of requests to the
-   end, with every kernel launch counted; then one teacher-forced
-   decode step through the kernel and through the plain version, in
-   float32 and in bfloat16, the bf16 limit being the step's own bf16
-   precision floor measured in the same run;
+   bfloat16 and float32: K1 (paged attention) at the serving path's
+   shapes and variants, K2-K4 (flash attention forward, dq, dk/dv) over
+   MHA and GQA, causal and full, a window, segment_ids, narrow heads
+   and ragged sequence lengths;
+4. the serving path: a ``ServeEngine`` at the full width of the widest
+   model the repo defines (d_model 2048, 16 heads, 8 layers, d_ff 8192,
+   vocab 32768, bf16, page_size 64; depth uncut, random weights from a
+   seed) serving a mixed stream of requests to the end, with every
+   kernel launch counted; then one teacher-forced decode step through
+   the kernel and through the plain version, in float32 and in bfloat16,
+   the bf16 limit being the step's own bf16 precision floor measured in
+   the same run;
 5. time each kernel, its plain version and the closest single PyTorch
-   call with CUDA events at the main path's shapes, beside the bound
-   the card's memory rate and peak arithmetic rate set.
+   call with CUDA events at the main paths' shapes, beside the bound the
+   card's memory rate and peak arithmetic rate set;
+6. the training path, ``workloads_torch.train`` at the same model's full
+   width (batch 8, seq 2048, flash attention, bf16 compute over float32
+   master weights, AdamW with a bf16 first moment): steps on one fixed
+   batch whose loss must fall, then steps on synthetic batches, with
+   every kernel launch counted (K2 = K3 = K4 = n_layers a step; K2 twice
+   that with remat); one teacher-forced step through the kernels and
+   through the plain versions, loss and every gradient leaf, in float32
+   and in bfloat16 against the step's bf16 floor; step time, tokens/s
+   and MFU from CUDA events; a profiled step split by kernel name.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -56,10 +68,28 @@ KERNEL_ATOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # the plain route in float32 on the same weights and tokens (the precision
 # floor of the bf16 step), which the kernel's difference must not exceed.
 STEP_F32_RTOL = 1e-4
+# Flash kernels against their plain versions, as a share of the largest
+# |value| compared: float32 differs by summation order; bf16 by a flipped
+# bf16 rounding of p, ds or the output (one ulp is 2^-8 of the value).
+FLASH_SHARE = {"bfloat16": 2.0**-7, "float32": 1e-5}
+# The full-width training step in float32, kernel route against plain
+# route: the loss within 1e-5 of itself and each gradient leaf within
+# 1e-3 of its largest value (attention's summation order differs, and
+# the backward carries the difference through 8 layers).  In bf16 the
+# limit is measured: plain bf16 against plain float32 on the same
+# parameters and tokens.
+TRAIN_F32_LOSS_RTOL = 1e-5
+# AdamW's learning rate for the training path.  The JAX package's default,
+# 1e-3 with no warm-up, drove the full-width loss up on one fixed batch
+# (14.99, 24.37, 45.45, 35.53, 100.77 over 5 steps on the H100); at 1e-4
+# the same steps show the model learning.
+TRAIN_LR = 1e-4
+TRAIN_F32_GRAD_SHARE = 1e-3
 
 FULL = dict(
     d_model=2048, n_heads=16, n_layers=8, d_ff=8192, vocab_size=32768,
     page_size=64, decode_prompt=32, decode_lens=(64, 512), slots=8,
+    train_batch=8, train_seq=2048,
 )
 
 
@@ -70,6 +100,30 @@ def fail(msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel instance from ``ptxas -v``'s report: its name
+    and template arguments (read from the mangled name), registers and
+    spills."""
+    import re
+
+    rows, kernel, spills = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(?<=\d)((?:flash|paged)_\w+?_kernel)I(\w*?)E", line)
+            if m:
+                args = re.sub(r"^13__nv_bfloat16", "bf16, ", m.group(2))
+                args = re.sub(r"^f(?=Li)", "float, ", args).replace("Li", "")
+                kernel = f"{m.group(1)}<{args}>"
+            else:
+                kernel = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.split(":")[-1].strip()
+        elif "Used" in line and "registers" in line:
+            used = line.split(":")[-1].strip()
+            rows.append(f"{kernel}: {used}; {spills}")
+    return rows
 
 
 def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -223,6 +277,368 @@ def teacher_forced_step(torch, paged_mod, pa, params, config, ps):
     return got, want
 
 
+def kernel_counters(pa, fa) -> dict:
+    """Every kernel wrapper of the port by its kernel's name; each counts
+    its launches in ``.launches``."""
+    return {"paged_attention": pa.paged_attention, "flash_fwd": fa.flash_fwd,
+            "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv}
+
+
+def reset_counts(counters: dict) -> None:
+    for wrapper in counters.values():
+        wrapper.launches = 0
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: wrapper.launches for name, wrapper in counters.items()}
+
+
+def share(torch, got, want) -> float:
+    """max |got - want| as a share of max |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def flash_inputs(torch, *, batch, seq, heads, kv_heads, hd, segments, dtype, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(h):
+        return torch.randn(batch, seq, h, hd, generator=g, device="cuda").to(dtype)
+
+    q, k, v, dout = randn(heads), randn(kv_heads), randn(kv_heads), randn(heads)
+    seg = None
+    if segments:
+        seg = torch.sort(torch.randint(0, 3, (batch, seq), generator=g, device="cuda"),
+                         dim=1).values.to(torch.int32)
+    return q, k, v, dout, seg
+
+
+def flash_errors(torch, fa, q, k, v, dout, seg, causal, window):
+    """K2, K3 and K4 once each against the plain forward and backward
+    (the backward kernels take the plain forward's out and lse), as
+    shares of the largest |value|: {K2 out, K2 lse (abs), K3 dq, K4 dk, K4 dv}."""
+    out, lse = fa.flash_fwd(q, k, v, causal, window, seg)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, causal, window, seg)
+    delta = fa._delta(want_out, dout)
+    dq = fa.flash_bwd_dq(q, k, v, dout, want_lse, delta, causal, window, seg)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, causal, window, seg)
+    want = fa.flash_backward_reference(q, k, v, want_out, dout, want_lse, causal, window,
+                                       seg)
+    torch.cuda.synchronize()
+    return {"out": share(torch, out, want_out),
+            "lse": (lse - want_lse).abs().max().item(),
+            "dq": share(torch, dq, want[0]), "dk": share(torch, dk, want[1]),
+            "dv": share(torch, dv, want[2])}
+
+
+def check_flash_cases(torch, fa):
+    """Phase 3: K2, K3 and K4 against their plain versions."""
+    cases = [
+        ("MHA causal hd=128 S=300", dict(batch=2, seq=300, heads=4, kv_heads=4, hd=128,
+                                         segments=False), True, None),
+        ("GQA G=4 causal hd=64 S=257", dict(batch=1, seq=257, heads=16, kv_heads=4,
+                                            hd=64, segments=False), True, None),
+        ("GQA G=8 full hd=64 S=200", dict(batch=1, seq=200, heads=16, kv_heads=2, hd=64,
+                                          segments=False), False, None),
+        ("window 100 hd=128 S=1000", dict(batch=1, seq=1000, heads=4, kv_heads=4, hd=128,
+                                          segments=False), True, 100),
+        ("segment_ids causal hd=64", dict(batch=2, seq=190, heads=4, kv_heads=2, hd=64,
+                                          segments=True), True, None),
+        ("segment_ids full hd=16", dict(batch=2, seq=150, heads=4, kv_heads=4, hd=16,
+                                        segments=True), False, None),
+        ("tiny hd=16 G=2 window 5", dict(batch=2, seq=65, heads=4, kv_heads=2, hd=16,
+                                         segments=False), True, 5),
+    ]
+    for name, shape, causal, window in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, dout, seg = flash_inputs(torch, dtype=dtype, seed=2, **shape)
+            errs = flash_errors(torch, fa, q, k, v, dout, seg, causal, window)
+            limit = FLASH_SHARE[str(dtype).split(".")[1]]
+            print(f"  K2-K4 {name:28s} {str(dtype):15s} share of max: out "
+                  f"{errs['out']:.2e} dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+                  f"{errs['dv']:.2e} (limit {limit:.1e}); lse abs {errs['lse']:.2e}",
+                  flush=True)
+            if not (max(errs[x] for x in ("out", "dq", "dk", "dv")) <= limit
+                    and errs["lse"] <= 1e-4):
+                fail(f"K2-K4 disagree with their plain versions: {name} {dtype}")
+
+
+def flash_numbers(torch, fa, f) -> list[dict]:
+    """Phase 5 for K2, K3 and K4 at the training path's attention shape
+    (batch 8, 16 heads, seq 2047, head_dim 128, causal, bf16): each
+    kernel, its plain version and the library call, CUDA-event timed,
+    beside its bound.  Returns the kernels' records without launches."""
+    B, S, H, hd = f["train_batch"], f["train_seq"] - 1, f["n_heads"], f["d_model"] // f["n_heads"]
+    q, k, v, dout, _ = flash_inputs(torch, batch=B, seq=S, heads=H, kv_heads=H, hd=hd,
+                                    segments=False, dtype=torch.bfloat16, seed=4)
+    errs = flash_errors(torch, fa, q, k, v, dout, None, True, None)
+    if not max(errs[x] for x in ("out", "dq", "dk", "dv")) <= FLASH_SHARE["bfloat16"]:
+        fail(f"K2-K4 at the training shapes disagree with their plain versions: {errs}")
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = fa._delta(out, dout)
+    ms = {
+        "flash_fwd": cuda_ms(lambda i: fa.flash_fwd(q, k, v), 10, 2),
+        "flash_bwd_dq": cuda_ms(lambda i: fa.flash_bwd_dq(q, k, v, dout, lse, delta), 10, 2),
+        "flash_bwd_dkv": cuda_ms(lambda i: fa.flash_bwd_dkv(q, k, v, dout, lse, delta),
+                                 10, 2),
+    }
+    plain_fwd = cuda_ms(lambda i: fa.flash_forward_reference(q, k, v), 3, 1)
+    # The plain backward computes dq, dk and dv in one pass: its time
+    # stands beside K3 and K4 alike.
+    plain_bwd = cuda_ms(lambda i: fa.flash_backward_reference(q, k, v, out, dout, lse), 3, 1)
+    # Library yardstick (the port never calls it): one
+    # scaled_dot_product_attention call, forward for K2 and its backward
+    # for K3 and K4 together, on the same inputs in [B, H, S, hd].
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    lib_fwd = cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=True), 20)
+    lib_out = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+    lib_err = share(torch, lib_out, out)
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+    lib_o = sdpa(*leaves, is_causal=True)
+    lib_bwd = cuda_ms(lambda i: torch.autograd.grad(lib_o, leaves, dot, retain_graph=True),
+                      10)
+    del lib_o, leaves
+    # Bounds from the work these inputs need: the causal mask leaves
+    # S(S+1)/2 (q, k) pairs per head; each product is 2*hd flops a pair.
+    pairs = S * (S + 1) // 2 * B * H
+    elt = B * S * H * hd * 2  # one bf16 [B, S, H, hd] tensor, bytes
+    rows = B * H * S * 4  # one float32 [B*H, S] row vector, bytes
+    work = {  # flops, bytes read once and written once
+        "flash_fwd": (2 * 2 * hd * pairs, 4 * elt + rows),
+        "flash_bwd_dq": (3 * 2 * hd * pairs, 5 * elt + 2 * rows),
+        "flash_bwd_dkv": (4 * 2 * hd * pairs, 6 * elt + 2 * rows),
+    }
+    plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd, "flash_bwd_dkv": plain_bwd}
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
+    err = {"flash_fwd": errs["out"], "flash_bwd_dq": errs["dq"],
+           "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+    replaces = {"flash_fwd": "workloads/ops/attention.py:52",
+                "flash_bwd_dq": "workloads/ops/attention.py:269",
+                "flash_bwd_dkv": "workloads/ops/attention.py:333"}
+    records = []
+    for name, (flops, nbytes) in work.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        print(f"  {name} at B={B} H={H} S={S} hd={hd} causal bf16: kernel "
+              f"{ms[name]:.3f} ms, plain {plain[name]:.3f} ms, library {library[name]:.3f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), {flops / ms[name] / 1e9:.1f} TFLOP/s achieved, "
+              f"share of max vs plain {err[name]:.2e}", flush=True)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "workloads_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces[name], "launches": None, "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain[name], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library[name],
+        })
+    print(f"  library forward vs kernel share of max {lib_err:.2e}; plain and library "
+          f"backward times cover dq, dk and dv together", flush=True)
+    return records
+
+
+def plain_flash_fn(torch, fa):
+    """Causal flash attention through the plain forward and backward
+    only, as an ``attention_fn`` for the training step's plain route."""
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = fa.flash_forward_reference(q, k, v)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out, lse = ctx.saved_tensors
+            return fa.flash_backward_reference(q, k, v, out, dout, lse)
+
+    return PlainFlash.apply
+
+
+def loss_and_grads(torch, model_mod, train_mod, params, tokens, config, attention_fn=None):
+    leaves = train_mod.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = model_mod.loss_fn(params, tokens, config, attention_fn)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.item(), grads
+
+
+def profile_train_step(torch, step, params, state, tokens):
+    """Where one training step's device time goes: torch.profiler over one
+    step, read from its chrome trace (kernels by name, their summed time
+    against the step's wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = os.path.join(ROOT, "build", "workloads_torch", "train_step_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    busy_ms = sum(sum(v) for v in by_name.values())
+    if busy_ms == 0:
+        print("  profiled train step: device time not measured (no kernel events)",
+              flush=True)
+        return
+    print(f"  profiled train step: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, "
+          f"device idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+    for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:16]:
+        print(f"    {sum(durs):9.2f} ms {len(durs):6d} launches  {name[:100]}", flush=True)
+
+
+def train_path(torch, model_mod, train_mod, fa, counters, f) -> dict:
+    """Phase 6: the training path at full width.  Returns the kernels'
+    launch counts over the main run (the fixed-batch and synthetic
+    steps)."""
+    from dataclasses import replace
+
+    config = model_mod.ModelConfig(
+        d_model=f["d_model"], n_heads=f["n_heads"], n_layers=f["n_layers"],
+        d_ff=f["d_ff"], vocab_size=f["vocab_size"], max_seq_len=f["train_seq"],
+        dtype=torch.bfloat16, attention_impl="flash",
+    )
+    B, L = f["train_batch"], config.n_layers
+    (params, state), optimizer = train_mod.make_train_state(
+        config, seed=0, device="cuda", optimizer=train_mod.AdamW(lr=TRAIN_LR))
+    step = train_mod.make_train_step(config, optimizer)
+    fixed = train_mod.synthetic_batch(config, B, seed=0, device="cuda")
+    print(f"  batch {B} x {config.max_seq_len} tokens (forward at seq "
+          f"{config.max_seq_len - 1}), {config.n_layers} layers, remat off, AdamW lr "
+          f"{TRAIN_LR}", flush=True)
+
+    # (a) the main run: 5 steps on one fixed batch, then 3 on new batches.
+    reset_counts(counters)
+    losses = []
+    for _ in range(5):
+        params, state, loss = step(params, state, fixed)
+        losses.append(loss.item())
+    for s in range(1, 4):
+        params, state, loss = step(params, state,
+                                   train_mod.synthetic_batch(config, B, seed=s, device="cuda"))
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    n_steps = len(losses)
+    print(f"  losses, 5 steps on one batch then 3 new batches: "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    print(f"  launches over {n_steps} steps: {launches}", flush=True)
+    if not all(x == x and abs(x) < 1e9 for x in losses):
+        fail("non-finite training loss")
+    if not losses[4] < losses[0]:
+        fail(f"the loss did not fall over 5 steps on one batch: {losses[:5]}")
+    want = {"paged_attention": 0, "flash_fwd": L * n_steps, "flash_bwd_dq": L * n_steps,
+            "flash_bwd_dkv": L * n_steps}
+    if launches != want:
+        fail(f"training launches {launches}, expected {want}")
+    remat_step = train_mod.make_train_step(replace(config, remat_layers=True), optimizer)
+    reset_counts(counters)
+    params, state, _ = remat_step(params, state, fixed)
+    torch.cuda.synchronize()
+    remat = read_counts(counters)
+    print(f"  launches in one step with remat_layers: {remat}", flush=True)
+    if remat != {**want, "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}:
+        fail(f"remat step launches {remat}, expected K2 = {2 * L}, K3 = K4 = {L}")
+
+    # (c) step time, tokens/s and MFU (CUDA events, after the warm-up above).
+    iters = 3
+    step_ms = cuda_ms(lambda i: step(params, state, fixed), iters, warmup=1)
+    tokens = B * (config.max_seq_len - 1)
+    flops = train_step_flops(config, B)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    print(f"  training step {step_ms:.1f} ms (mean of {iters}), {tokens / step_ms * 1e3:.1f} "
+          f"tokens/s, {flops / 1e12:.2f} TFLOP a step, MFU {mfu:.4f} of 989 TFLOP/s",
+          flush=True)
+    x = torch.randn(tokens, config.d_model, device="cuda")
+    w = params["unembed"]
+    unembed_ms = cuda_ms(lambda i: x @ w, 5, 1)
+    print(f"  the float32 unembed product alone [{tokens}, {config.d_model}] @ "
+          f"[{config.d_model}, {config.vocab_size}]: {unembed_ms:.2f} ms (TF32 off); "
+          f"the step runs it and its two gradient products", flush=True)
+    del x
+
+    # (d) one profiled step.
+    profile_train_step(torch, step, params, state, fixed)
+    del state
+
+    # (b) one teacher-forced step, kernel route against plain route, in
+    # float32 and in bf16, with remat on both routes so that the dense
+    # plain backward fits beside the activations; depth uncut.
+    plain_fn = plain_flash_fn(torch, fa)
+    tokens_b = train_mod.synthetic_batch(config, B, seed=9, device="cuda")
+    cfg32 = replace(config, dtype=torch.float32, remat_layers=True)
+    cfg16 = replace(config, remat_layers=True)
+    loss_p32, g_p32 = loss_and_grads(torch, model_mod, train_mod, params, tokens_b, cfg32,
+                                     plain_fn)
+    loss_k32, g_k32 = loss_and_grads(torch, model_mod, train_mod, params, tokens_b, cfg32)
+    f32_shares = [share(torch, a, b) for a, b in zip(g_k32, g_p32)]
+    del g_k32
+    loss_p16, g_p16 = loss_and_grads(torch, model_mod, train_mod, params, tokens_b, cfg16,
+                                     plain_fn)
+    floor = [((a - b).abs().max().item(), (a - b).square().mean().sqrt().item())
+             for a, b in zip(g_p16, g_p32)]
+    del g_p32
+    loss_k16, g_k16 = loss_and_grads(torch, model_mod, train_mod, params, tokens_b, cfg16)
+    got = [((a - b).abs().max().item(), (a - b).square().mean().sqrt().item())
+           for a, b in zip(g_k16, g_p16)]
+    del g_k16, g_p16
+    names = ["embed", "unembed"] + [f"layers/{i}/{n}" for i, layer in
+                                    enumerate(params["layers"]) for n in sorted(layer)]
+    print(f"  teacher-forced step, depth {config.n_layers}: float32 loss kernel "
+          f"{loss_k32:.7f} plain {loss_p32:.7f}; gradient leaves kernel vs plain, share of "
+          f"max: largest {max(f32_shares):.2e} (limit {TRAIN_F32_GRAD_SHARE:.0e})",
+          flush=True)
+    print(f"  bf16 loss kernel {loss_k16:.7f} plain {loss_p16:.7f} (bf16 floor: plain bf16 "
+          f"vs plain float32 {abs(loss_p16 - loss_p32):.3e}, kernel vs plain "
+          f"{abs(loss_k16 - loss_p16):.3e})", flush=True)
+    bad = []
+    for name, (g_max, g_rms), (f_max, f_rms) in zip(names, got, floor):
+        if not (g_max <= f_max and g_rms <= f_rms):
+            bad.append(name)
+    worst = max(range(len(names)), key=lambda i: got[i][0] / max(floor[i][0], 1e-30))
+    print(f"  bf16 gradient leaves kernel vs plain within the floor (max and rms) for "
+          f"{len(names) - len(bad)} of {len(names)}; closest: {names[worst]} max "
+          f"{got[worst][0]:.3e} rms {got[worst][1]:.3e} against floor max "
+          f"{floor[worst][0]:.3e} rms {floor[worst][1]:.3e}", flush=True)
+    if not abs(loss_k32 - loss_p32) <= TRAIN_F32_LOSS_RTOL * abs(loss_p32):
+        fail("float32 training loss through the kernels disagrees with the plain route")
+    if not max(f32_shares) <= TRAIN_F32_GRAD_SHARE:
+        fail("float32 gradients through the kernels disagree with the plain route")
+    if not abs(loss_k16 - loss_p16) <= abs(loss_p16 - loss_p32):
+        fail("bf16 training loss through the kernels differs from the plain route by more "
+             "than bf16 differs from float32")
+    if bad:
+        fail(f"bf16 gradients through the kernels differ from the plain route by more than "
+             f"bf16 differs from float32 for {bad}")
+    return launches
+
+
+def train_step_flops(config, batch: int) -> float:
+    """Analytic FLOPs of one training step, as the JAX package's
+    perfbench counts them: 3x the forward's matmul work (weights, the
+    unembed, and causal attention at half the square)."""
+    d, ff = config.d_model, config.d_ff
+    kv_proj = 2 * d * (config.kv_heads * config.head_dim)
+    layer_params = config.n_layers * (2 * d * d + kv_proj + 2 * d * ff)
+    seq = config.max_seq_len - 1
+    tokens = batch * seq
+    fwd_dense = 2 * tokens * (layer_params + d * config.vocab_size)
+    fwd_attn = config.n_layers * batch * (4 * seq * seq * d) * 0.5
+    return 3 * (fwd_dense + fwd_attn)
+
+
 def main() -> int:
     try:
         import torch
@@ -232,9 +648,12 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
     sys.path.insert(0, ROOT)
     try:
+        from workloads_torch import model as model_mod
         from workloads_torch import paged as paged_mod
+        from workloads_torch import train as train_mod
         from workloads_torch.model import ModelConfig, cast_params, init_params
         from workloads_torch.ops import _build
+        from workloads_torch.ops import attention as fa
         from workloads_torch.ops import paged_attention as pa
         from workloads_torch.serve import ServeEngine
     except ImportError as exc:
@@ -257,21 +676,28 @@ def main() -> int:
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} device {kind}",
           flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together.
     phase("build")
-    for name in _build.KERNELS:
-        print(f"  built {name} in {_build.build(name):.2f} s (0 when reused)",
-              flush=True)
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+        seconds = list(pool.map(_build.build, _build.KERNELS))
+    print(f"  built {len(_build.KERNELS)} sources in parallel in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, sec in zip(_build.KERNELS, seconds):
+        print(f"  built {name} in {sec:.2f} s (0 when reused)", flush=True)
+        for line in ptxas_report(_build.build_log(name)):
+            print(f"  ptxas {line}", flush=True)
 
     # 3. kernel against plain
     phase("kernel against plain version")
     check_kernel_cases(torch, pa)
+    check_flash_cases(torch, fa)
+    counters = kernel_counters(pa, fa)
 
-    # 4. main path at full width
-    phase("main path: ServeEngine at full width")
+    # 4. the serving path at full width
+    phase("serving path: ServeEngine at full width")
     f = FULL
     max_new = [f["decode_lens"][0], f["decode_lens"][1], 128, 256] * 3
     config = ModelConfig(
@@ -301,13 +727,13 @@ def main() -> int:
         engine.submit(rng.integers(0, config.vocab_size, f["decode_prompt"]), n)
         for n in max_new
     ]
-    pa.paged_attention.launches = 0
+    reset_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     served = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pa.paged_attention.launches
+    launches = read_counts(counters)["paged_attention"]
     decode_steps = engine.chunks_run * engine.chunk
     tokens_per_s = engine.generated_tokens / wall
     statuses = {r.rid: r.status for r in engine.completed}
@@ -442,7 +868,18 @@ def main() -> int:
     }
     if not main_err <= KERNEL_ATOL["bfloat16"]:
         fail(f"K1 at the main path's shapes: max_abs_err {main_err}")
-    print(json.dumps({"kernels": [record]}), flush=True)
+    del engine, params, q, k, v, views, out_k, out_p, lib_out
+    torch.cuda.empty_cache()
+    flash_records = flash_numbers(torch, fa, f)
+    torch.cuda.empty_cache()
+
+    # 6. the training path at full width
+    phase("training path: workloads_torch.train at full width")
+    train_launches = train_path(torch, model_mod, train_mod, fa, counters, f)
+    for rec in flash_records:
+        rec["launches"] = train_launches[rec["name"]]
+    print(f"  card: {card}", flush=True)
+    print(json.dumps({"kernels": [record, *flash_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

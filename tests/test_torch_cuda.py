@@ -1,6 +1,8 @@
-"""Card-only tests of the port: the CUDA paged-attention kernel against
-its plain PyTorch version, its launch count and its refusals, and the
-engine on the card against generate().  They skip without a CUDA device.
+"""Card-only tests of the port: the CUDA kernels (paged attention K1,
+flash attention K2-K4) against their plain PyTorch versions, their
+launch counts and refusals, the engine on the card against generate(),
+and the training step's kernel launches.  They skip without a CUDA
+device.
 On a machine with a card (and without jax, which tests/conftest.py
 imports):
 
@@ -10,8 +12,11 @@ imports):
 import pytest
 import torch
 
+import workloads_torch.model as tmodel
+from workloads_torch import train as ttrain
 from workloads_torch.generate import generate
 from workloads_torch.model import ModelConfig, init_params
+from workloads_torch.ops import attention as fa
 from workloads_torch.ops import paged_attention as pa
 from workloads_torch.serve import ServeEngine
 
@@ -100,3 +105,115 @@ def test_engine_on_the_card_matches_generate(cuda):
         want = generate(params, torch.tensor([p]), config, 10)[0].tolist()
         assert served[rid] == want
     assert engine.ctrl.used_pages == 0
+
+
+# Flash kernels against their plain versions, as a share of the largest
+# |value|: float32 differs by summation order; bf16 by a flipped bf16
+# rounding of p, ds or the output (one ulp is 2^-8 of the value).
+FLASH_SHARE = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def _share(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _flash_inputs(dtype, batch, seq, heads, kv_heads, hd, segments, seed=0):
+    g = torch.Generator("cuda").manual_seed(seed)
+    q = torch.randn(batch, seq, heads, hd, generator=g, device="cuda").to(dtype)
+    k = torch.randn(batch, seq, kv_heads, hd, generator=g, device="cuda").to(dtype)
+    v = torch.randn(batch, seq, kv_heads, hd, generator=g, device="cuda").to(dtype)
+    dout = torch.randn(batch, seq, heads, hd, generator=g, device="cuda").to(dtype)
+    seg = None
+    if segments:
+        seg = torch.sort(torch.randint(0, 3, (batch, seq), generator=g, device="cuda"),
+                         dim=1).values.to(torch.int32)
+    return q, k, v, dout, seg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "batch, seq, heads, kv_heads, hd, causal, window, segments",
+    [
+        (2, 130, 4, 4, 64, True, None, False),
+        (1, 200, 8, 2, 32, True, None, False),
+        (1, 100, 8, 1, 16, False, None, False),
+        (2, 150, 4, 4, 16, True, 37, False),
+        (2, 97, 4, 2, 128, True, None, True),
+        (1, 64, 2, 2, 128, False, None, True),
+    ],
+)
+def test_flash_kernels_match_plain_versions(cuda, dtype, batch, seq, heads, kv_heads, hd,
+                                            causal, window, segments):
+    q, k, v, dout, seg = _flash_inputs(dtype, batch, seq, heads, kv_heads, hd, segments)
+    counts = [fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches]
+    out, lse = fa.flash_fwd(q, k, v, causal, window, seg)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, causal, window, seg)
+    delta = fa._delta(want_out, dout)
+    dq = fa.flash_bwd_dq(q, k, v, dout, want_lse, delta, causal, window, seg)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, causal, window, seg)
+    want = fa.flash_backward_reference(q, k, v, want_out, dout, want_lse, causal, window, seg)
+    torch.cuda.synchronize()
+    assert [fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches] == [
+        c + 1 for c in counts]
+    limit = FLASH_SHARE[dtype]
+    assert _share(out, want_out) <= limit
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    for got_g, want_g in zip((dq, dk, dv), want):
+        assert _share(got_g, want_g) <= limit
+
+
+def test_flash_kernels_take_a_view_off_the_16_byte_boundary(cuda):
+    """The bf16 kernels load 16 bytes at a time; a contiguous view that
+    starts 2 bytes into its storage still gives the plain result."""
+    shape = (1, 70, 4, 64)
+    n = 70 * 4 * 64
+    flat = torch.randn(3 * n + 1, device="cuda").to(torch.bfloat16)
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(shape) for i in range(3))
+    assert q.data_ptr() % 16
+    out, lse = fa.flash_fwd(q, k, v)
+    want, want_lse = fa.flash_forward_reference(q, k, v)
+    assert _share(out, want) <= FLASH_SHARE[torch.bfloat16]
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+def test_flash_autograd_launches_each_kernel_once(cuda):
+    q, k, v, dout, _ = _flash_inputs(torch.bfloat16, 1, 70, 4, 2, 64, False)
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    counts = [fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches]
+    fa.flash_attention(*leaves).backward(dout)
+    assert [fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches] == [
+        c + 1 for c in counts]
+    xla = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    fa.flash_attention(*xla, bwd_impl="xla").backward(dout)
+    assert fa.flash_bwd_dq.launches == counts[1] + 1  # xla runs the plain backward
+    for a, b in zip(leaves, xla):
+        assert _share(a.grad, b.grad) <= FLASH_SHARE[torch.bfloat16]
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    before = fa.flash_fwd.launches
+    q = torch.randn(1, 16, 2, 48, device="cuda")
+    with pytest.raises(ValueError, match="head_dim in"):
+        fa.flash_attention(q, q, q)
+    q = torch.randn(1, 16, 16, 16, device="cuda")
+    with pytest.raises(ValueError, match="at most 8"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert fa.flash_fwd.launches == before
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_launches_the_flash_kernels(cuda, monkeypatch, remat):
+    """One training step on the flash route: K2, K3 and K4 once per layer
+    (K2 twice with remat, whose backward recomputes the forward)."""
+    monkeypatch.setattr(tmodel, "flash_min_seq", lambda: 1)
+    config = ModelConfig(max_seq_len=65, n_layers=2, attention_impl="flash",
+                         remat_layers=remat)
+    (params, state), opt = ttrain.make_train_state(config, device="cuda")
+    step = ttrain.make_train_step(config, opt)
+    tokens = ttrain.synthetic_batch(config, 2, device="cuda")
+    counts = [fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches]
+    _, _, loss = step(params, state, tokens)
+    assert torch.isfinite(loss)
+    n = config.n_layers
+    assert [fa.flash_fwd.launches - counts[0], fa.flash_bwd_dq.launches - counts[1],
+            fa.flash_bwd_dkv.launches - counts[2]] == [2 * n if remat else n, n, n]

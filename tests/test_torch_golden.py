@@ -17,22 +17,26 @@ Tolerances, with their reasons:
   the tiny model's logits are only ~1e-2:
   - 2^-10 where the reference rounds to bf16 at the same places as the
     port: the dense forward, decode_block, the paged prefill's logits
-    and pages, and the gathered-view attention route (``attention_xla``).
-    The JAX side runs with jit disabled (tests/test_torch_parity.py says
-    why).  Readings: the port is bit-identical (0); the port run in
-    float32 misses JAX's bf16 output by 0.0032-0.0090 of the largest
-    value, and that control must fail
-    (``test_bf16_limits_reject_controls``).  ``python -m
+    and pages, and paged attention against JAX's Pallas kernel
+    (``attention``), whose softmax weights both round to bf16 before the
+    p.v product.  The JAX side runs with jit disabled (tests/
+    test_torch_parity.py says why).  Readings: the port is
+    bit-identical (0); the port run in float32 misses JAX's bf16 output
+    by 0.0030-0.0090 of the largest value, and that control must fail
+    (``test_bf16_limits_reject_controls``).  The control that keeps the
+    softmax weights in float32 (``attention_f32p``, the port's kernel
+    before it followed the Pallas rounding) matches JAX's gathered-view
+    route (``attention_xla``) bit for bit and misses the Pallas kernel
+    by 0.0016-0.0033, so it must fail there
+    (``test_attention_rounding_control_fails``).  ``python -m
     tests.test_torch_golden`` prints these readings.
-  - 2^-6 against the paged decode step and JAX's Pallas kernel
-    (``decode_logits``, ``attention``).  The kernel rounds the softmax
-    weights to bf16 before the p.v product, where the port keeps them in
-    float32; and at the decode step's [batch, 1, d] shape, XLA and
-    PyTorch sum rmsnorm's float32 mean in different orders, so one ulp
-    can flip a bf16 rounding.  Readings: the port is within
-    0.0016-0.0078 of the largest value; zeros must fail.  The bf16
-    arithmetic of the decode step is held through the functions it
-    shares with the rows above.
+  - 2^-6 against the paged decode step (``decode_logits``).  At its
+    [batch, 1, d] shape, XLA and PyTorch sum rmsnorm's float32 mean in
+    different orders, so one ulp can flip a bf16 rounding (no pairwise,
+    halving or lane-strided order reproduces XLA's on the CPU).
+    Readings: the port is within 0.0034-0.0061 of the largest value;
+    zeros must fail.  The bf16 arithmetic of the decode step is held
+    through the functions it shares with the rows above.
   Greedy bf16 streams are not compared, since near-ties flip.
 * filter_logits: the same kept set and kept values within 1e-5.
 """
@@ -77,8 +81,8 @@ COMPARISONS = [
     ("prefill_logits", "prefill_logits", BF16_SAME_ROUNDING),
     ("prefill_k", "prefill_k", BF16_SAME_ROUNDING),
     ("prefill_v", "prefill_v", BF16_SAME_ROUNDING),
-    ("attention", "attention_xla", BF16_SAME_ROUNDING),
-    ("attention", "attention", BF16_PALLAS_ROUTE),
+    ("attention", "attention", BF16_SAME_ROUNDING),
+    ("attention_f32p", "attention_xla", BF16_SAME_ROUNDING),
     ("decode_logits", "decode_logits", BF16_PALLAS_ROUTE),
 ]
 FILTER_ATOL = 1e-5
@@ -178,10 +182,13 @@ def torch_outputs(case, params: dict, inp: dict) -> dict:
         q = torch.from_numpy(inp["attn_q"]).to(dtype)
         kp = torch.from_numpy(inp[f"attn_k{kv}"]).to(dtype)
         vp = torch.from_numpy(inp[f"attn_v{kv}"]).to(dtype)
+        tables = torch.from_numpy(inp["attn_tables"])
+        lengths = torch.from_numpy(inp["attn_lengths"])
         out["attention"] = _np(tpa.paged_attention(
-            q, kp, vp, torch.from_numpy(inp["attn_tables"]),
-            torch.from_numpy(inp["attn_lengths"]), layer=1,
-            window=config.attention_window,
+            q, kp, vp, tables, lengths, layer=1, window=config.attention_window,
+        ))
+        out["attention_f32p"] = _np(attention_f32p(
+            q, kp, vp, tables, lengths, 1, config.attention_window
         ))
 
         # Teacher-forced paged decode, then a greedy chunk from there.
@@ -243,6 +250,31 @@ def torch_outputs(case, params: dict, inp: dict) -> dict:
     out["engine_tokens"] = engine_array([served[r] for r in rids])
     assert engine.ctrl.used_pages == 0
     return out
+
+
+def attention_f32p(q, k_pages, v_pages, tables, lengths, layer, window):
+    """Control: paged attention with float32 softmax weights (one dense
+    softmax over the gathered view, no rounding of p before p.v), which
+    is what JAX's gathered-view route computes and what the port did
+    before it followed the Pallas kernel's rounding."""
+    batch, heads, hd = q.shape
+    kv_heads, ps = k_pages.shape[2], k_pages.shape[3]
+    t = tables.shape[1] * ps
+
+    def view(pool):
+        g = pool[layer][tables.long()].permute(0, 1, 3, 2, 4)
+        return g.reshape(batch, t, kv_heads, hd).float()
+
+    qg = q.reshape(batch, kv_heads, heads // kv_heads, hd).float()
+    s = torch.einsum("bngk,btnk->bngt", qg, view(k_pages)) / hd**0.5
+    ids = torch.arange(t)
+    mask = ids[None, :] < lengths.long()[:, None]
+    if window is not None:
+        mask &= ids[None, :] >= (lengths.long() - window)[:, None]
+    p = torch.softmax(torch.where(mask[:, None, None], s, tpa.NEG_INF), dim=-1)
+    out = torch.einsum("bngt,btnk->bngk", p, view(v_pages))
+    out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
+    return out.reshape(batch, heads, hd).to(q.dtype)
 
 
 def engine_array(streams) -> np.ndarray:
@@ -355,6 +387,27 @@ def test_bf16_limits_reject_controls(golden, case):
     assert same_rounding <= set(mismatches(case, got, want))
     zeros = {k: np.zeros_like(v) for k, v in got.items()}
     assert len(mismatches(case, zeros, want)) == sum(w in want for _, w, _ in COMPARISONS)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] == "bf16"],
+                         ids=[i for c, i in zip(CASES, CASE_IDS) if c[0] == "bf16"])
+def test_attention_rounding_control_fails(golden, case):
+    """The float32-weight control misses JAX's Pallas kernel at the
+    limit the port meets, so the limit tells the two roundings apart."""
+    kv = case[1] or 4  # kv heads: the GQA cases have 2, MHA all 4
+    dtype = DTYPES[case[0]]
+    inp = _golden_inputs(golden)
+    args = (torch.from_numpy(inp["attn_q"]).to(dtype),
+            torch.from_numpy(inp[f"attn_k{kv}"]).to(dtype),
+            torch.from_numpy(inp[f"attn_v{kv}"]).to(dtype),
+            torch.from_numpy(inp["attn_tables"]),
+            torch.from_numpy(inp["attn_lengths"]))
+    want = _case_outputs(golden, case)["attention"]
+    control = _np(attention_f32p(*args, 1, case[2]))
+    port = _np(tpa.paged_attention(*args, layer=1, window=case[2]))
+    scale = np.abs(want).max()
+    assert np.abs(port - want).max() / scale <= BF16_SAME_ROUNDING
+    assert np.abs(control - want).max() / scale > BF16_SAME_ROUNDING
 
 
 def test_filter_logits_matches_jax_goldens(golden):

@@ -1,8 +1,10 @@
-"""PyTorch port of the JAX serving workloads, for NVIDIA Hopper (sm_90a).
+"""PyTorch port of the JAX serving and training workloads, for NVIDIA
+Hopper (sm_90a).
 
 Mirrors ``workloads/`` module for module (``model``, ``generate``,
-``paged``, ``serve``, ``errors``, ``ops.paged_attention``) and imports
-nothing of it: the JAX package stays the reference, and this package
+``paged``, ``serve``, ``train``, ``checkpoint``, ``errors``,
+``ops.paged_attention``, ``ops.attention``, ``ops.kernel_select``) and
+imports nothing of it: the JAX package stays the reference, and this package
 runs on a host with no JAX installed.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

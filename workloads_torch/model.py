@@ -8,9 +8,13 @@ dict as the JAX pytree (``embed``, ``unembed``, ``layers[i]`` with
 the same way.  Layouts match the JAX package at every public function:
 activations are ``[batch, seq, heads, head_dim]``.
 
-Only the ``native`` attention route is ported here: the dense masked
-core that the serving engine's prefill runs.  The flash route, the
-int8 weight representation and training come with later slices.
+Attention has the JAX package's two routes: ``native``, the dense
+masked core that the serving engine's prefill runs, and ``flash``
+(``ops.attention.flash_attention``, the CUDA kernels K2-K4 on the
+card), which ``_attention`` takes for long sequences exactly where the
+JAX package does.  ``loss_fn`` is the training loss
+(``workloads_torch.train``).  The int8 weight representation comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
+
+from .ops import kernel_select
 
 
 @dataclass(frozen=True)
@@ -29,14 +36,25 @@ class ModelConfig:
     d_ff: int = 128
     max_seq_len: int = 128
     dtype: torch.dtype = torch.bfloat16
+    # "native": the dense masked core.  "flash": the flash kernels
+    # (ops/attention.py) for long sequences, routed by _attention.
+    attention_impl: str = "native"
     # Grouped-query attention: None = multi-head (kv heads == n_heads).
     n_kv_heads: int | None = None
     # Sliding-window attention: None = full causal span; a positive
     # window bounds each token's attention to the last ``window``
     # positions.
     attention_window: int | None = None
+    # Recompute each transformer layer in the backward pass
+    # (torch.utils.checkpoint, the counterpart of jax.checkpoint):
+    # activations are recomputed instead of stored.
+    remat_layers: bool = False
 
     def __post_init__(self):
+        if self.attention_impl not in ("native", "flash"):
+            raise ValueError(
+                f"attention_impl must be 'native' or 'flash', got {self.attention_impl!r}"
+            )
         if self.n_kv_heads is not None and (
             self.n_kv_heads < 1 or self.n_heads % self.n_kv_heads
         ):
@@ -188,16 +206,60 @@ def project_qkv(x: torch.Tensor, layer: dict):
     return q, kv[0], kv[1]
 
 
-def _attention(x: torch.Tensor, layer: dict, config: ModelConfig) -> torch.Tensor:
-    seq = x.shape[1]
+# Routing thresholds for attention_impl="flash", as in the JAX package:
+# the dense core below the crossover sequence length, unless its
+# [batch, heads, seq, seq] float32 score matrix would pass the cap.  The
+# crossover is a hardware property to be measured per device kind; no
+# H100 row is measured yet, so every kind takes the default.
+_FLASH_MIN_SEQ_BY_KIND: tuple[tuple[str, int], ...] = ()
+_FLASH_MIN_SEQ_DEFAULT = 2048
+_DENSE_SCORE_BYTES_CAP = 256 << 20
+
+
+def flash_min_seq() -> int:
+    """The flash/dense crossover for the CUDA device of this process
+    (the default for kinds not measured, and on the CPU)."""
+    kind = kernel_select.device_kind()
+    for marker, crossover in _FLASH_MIN_SEQ_BY_KIND:
+        if kind is not None and marker in kind:
+            return crossover
+    return _FLASH_MIN_SEQ_DEFAULT
+
+
+def _pick_kernel(seq: int) -> str:
+    """Per-bucket flash/dense routing (ops/kernel_select.py), with
+    ``flash_min_seq()`` as the fallback where no table applies."""
+    return kernel_select.kernel_for_seq(seq, default_min_seq=flash_min_seq())
+
+
+def _attention(
+    x: torch.Tensor, layer: dict, config: ModelConfig, attention_fn=None
+) -> torch.Tensor:
+    batch, seq, _ = x.shape
     q, k, v = project_qkv(x, layer)
     angles = rope_angles(torch.arange(seq, device=x.device), config.head_dim)
     q, k = apply_rope(q, angles), apply_rope(k, angles)
-    ids = torch.arange(seq, device=x.device)
-    mask = ids[None, :] <= ids[:, None]
-    if config.attention_window is not None:
-        mask &= ids[None, :] > ids[:, None] - config.attention_window
-    out = masked_attention(q, k, v, mask[None, None], config.head_dim)
+    if attention_fn is not None:
+        # An injected core computes full causal spans; training full-span
+        # while serving windowed would be a train/serve mismatch.
+        if config.attention_window is not None:
+            raise ValueError(
+                "attention_window is not supported with an injected attention_fn"
+            )
+        out = attention_fn(q, k, v)
+    elif config.attention_impl == "flash" and (
+        _pick_kernel(seq) == "flash"
+        or 4 * batch * config.n_heads * seq * seq > _DENSE_SCORE_BYTES_CAP
+    ):
+        from .ops.attention import flash_attention
+
+        out = flash_attention(q, k, v, window=config.attention_window)
+    else:
+        ids = torch.arange(seq, device=x.device)
+        mask = ids[None, :] <= ids[:, None]
+        if config.attention_window is not None:
+            mask &= ids[None, :] > ids[:, None] - config.attention_window
+        out = masked_attention(q, k, v, mask[None, None], config.head_dim)
     return torch.einsum("bshk,hkd->bsd", out, weight(layer["wo"], x.dtype))
 
 
@@ -220,11 +282,37 @@ def _mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
     return hidden @ weight(layer["w_down"], x.dtype)
 
 
-def forward(params: dict, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def forward(
+    params: dict, tokens: torch.Tensor, config: ModelConfig, attention_fn=None
+) -> torch.Tensor:
     """Logits for next-token prediction.  tokens: [batch, seq] integer."""
     x = params["embed"].to(config.dtype)[tokens.long()]
+
+    def layer_step(x, layer):
+        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, attention_fn)
+        return x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
+
     for layer in params["layers"]:
-        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config)
-        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
+        if config.remat_layers and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                layer_step, x, layer, use_reentrant=False
+            )
+        else:
+            x = layer_step(x, layer)
     # Final projection in float32 for a stable softmax/loss.
     return x.float() @ weight(params["unembed"], torch.float32)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token negative log-likelihood."""
+    logprobs = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logprobs, -1, targets.long()[..., None])[..., 0]
+    return nll.mean()
+
+
+def loss_fn(
+    params: dict, tokens: torch.Tensor, config: ModelConfig, attention_fn=None
+) -> torch.Tensor:
+    """Causal LM cross-entropy: predict tokens[:, 1:] from tokens[:, :-1]."""
+    logits = forward(params, tokens[:, :-1], config, attention_fn)
+    return cross_entropy(logits, tokens[:, 1:])

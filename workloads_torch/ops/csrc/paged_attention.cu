@@ -5,7 +5,9 @@
 // that row's KV history, stored in fixed-size pages of a pool
 // [layers, pages, kv_heads, page_size, head_dim] and mapped by a block table
 // [batch, max_pages]; per-row lengths, an optional sliding window, grouped-query
-// heads, a float32 online softmax, and zeros for a length-0 row.
+// heads, a float32 online softmax whose weights are rounded to the value
+// dtype before the p.v product (as the Pallas kernel's p.astype(v.dtype)),
+// and zeros for a length-0 row.
 //
 // What bounds it: bytes.  A decode step does ~4 flops per K/V byte it reads,
 // far below the ~295 flops/byte at which an H100's tensor cores become the
@@ -40,6 +42,12 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// v rounded to T and back: the Pallas kernel casts its softmax weights to
+// the value dtype before the p.v product.
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -164,10 +172,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       const float m_prev = m_s[g];
       const float m_new = fmaxf(m_prev, mx);
       const float alpha = expf(m_prev - m_new);
+      // l sums the float32 weights; the p.v product takes them rounded to
+      // the value dtype, as the Pallas kernel does.
       float sum = 0.f;
       for (int t = lane; t < page_size; t += 32) {
         const float p = s[t] == kNegInf ? 0.f : expf(s[t] - m_new);
-        s[t] = p;
+        s[t] = round_to(p, v_tile);
         sum += p;
       }
       sum = warp_sum(sum);

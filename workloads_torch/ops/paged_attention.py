@@ -40,35 +40,48 @@ def _check_gqa(heads: int, kv_heads: int) -> None:
 def paged_attention_reference(
     q, k_pages, v_pages, tables, lengths, *, layer: int, window: int | None
 ) -> torch.Tensor:
-    """The plain PyTorch version, mirroring the JAX package's
-    ``_paged_attention_xla``: gather each row's table-mapped pages into a
-    dense [batch, T, kv_heads, hd] view, mask by per-row length (and
-    window), float32 softmax, grouped-query heads, zeros for length-0
-    rows."""
+    """The plain PyTorch version, the kernel's specification: the Pallas
+    kernel's online softmax, page by page over each row's table-mapped
+    pages, masked by per-row length (and window), grouped-query heads.
+    Scores and the running (m, l, acc) are float32; each page's weights
+    ``p`` are rounded to the value dtype before the ``p·v`` product, as
+    ``_paged_decode_kernel`` does (``p.astype(v.dtype)``), while ``l``
+    sums them unrounded.  Dead pages change nothing; length-0 rows give
+    zeros."""
     batch, heads, head_dim = q.shape
     kv_heads, page_size = k_pages.shape[2], k_pages.shape[3]
     group = heads // kv_heads
     max_pages = tables.shape[1]
     tables = tables.long()
     lengths = lengths.long()
+    sm_scale = 1.0 / head_dim**0.5
 
     def view(pool):
-        g = pool[layer][tables]  # [b, maxp, Hkv, ps, hd]
-        g = g.permute(0, 1, 3, 2, 4)
-        return g.reshape(batch, max_pages * page_size, kv_heads, head_dim)
+        return pool[layer][tables]  # [b, maxp, Hkv, ps, hd]
 
     k, v = view(k_pages), view(v_pages)
-    qg = q.reshape(batch, kv_heads, group, head_dim)
-    s = torch.einsum("bngk,btnk->bngt", qg.float(), k.float()) / (head_dim**0.5)
-    ids = torch.arange(max_pages * page_size, device=q.device)
-    mask = ids[None, :] < lengths[:, None]
-    if window is not None:
-        mask &= ids[None, :] >= (lengths - window)[:, None]
-    s = torch.where(mask[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bngt,btnk->bngk", p, v.float())
-    # Length-0 rows have an all-False mask: the kernel writes zeros.
-    out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
+    qg = q.reshape(batch, kv_heads, group, head_dim).float()
+    m = torch.full((batch, kv_heads, group, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((batch, kv_heads, group, head_dim), device=q.device)
+    offsets = torch.arange(page_size, device=q.device)
+    for j in range(max_pages):
+        ids = j * page_size + offsets
+        mask = ids[None, :] < lengths[:, None]
+        if window is not None:
+            mask &= ids[None, :] >= (lengths - window)[:, None]
+        mask = mask[:, None, None, :]
+        s = torch.einsum("bngk,bntk->bngt", qg, k[:, j].float()) * sm_scale
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bngt,bntk->bngk", p.to(v.dtype).float(), v[:, j].float())
+        acc = acc * alpha + pv
+        m = m_new
+    # Length-0 rows walk no live page: l == 0 and the kernel writes zeros.
+    out = acc / torch.where(l > 0, l, 1.0)
     return out.reshape(batch, heads, head_dim).to(q.dtype)
 
 

@@ -8,12 +8,15 @@ Phases, each of which fails the run loudly:
 1. device: require CUDA; print the card's name and power limit
    (nvidia-smi) and turn TF32 off for float32 matmuls and convolutions;
 2. build every CUDA kernel of the port from the sources in this
-   checkout (one nvcc per source, all started together);
+   checkout (one nvcc per source, all started together), print each
+   kernel instance's registers and spills, and fail if the wgmma
+   kernels (bf16 K3 and K4 at head_dim 64 and 128) spill;
 3. hold each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32: K1 (paged attention) at the serving path's
    shapes and variants, K2-K4 (flash attention forward, dq, dk/dv) over
-   MHA and GQA, causal and full, a window, segment_ids, narrow heads
-   and ragged sequence lengths;
+   MHA and GQA, causal and full, windows within and across tiles,
+   segment_ids, narrow heads (the mma.sync route of K3/K4) and ragged
+   sequence lengths up to the training path's 2,047;
 4. the serving path: a ``ServeEngine`` at the full width of the widest
    model the repo defines (d_model 2048, 16 heads, 8 layers, d_ff 8192,
    vocab 32768, bf16, page_size 64; depth uncut, random weights from a
@@ -102,27 +105,29 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def ptxas_report(log: str) -> list[str]:
-    """One line per kernel instance from ``ptxas -v``'s report: its name
-    and template arguments (read from the mangled name), registers and
-    spills."""
+def ptxas_report(log: str) -> list[tuple[str, str, int]]:
+    """One row per kernel instance from ``ptxas -v``'s report: its name
+    and template arguments (read from the mangled name), the report's
+    registers-and-spills text, and its spill-store bytes."""
     import re
 
-    rows, kernel, spills = [], "?", ""
+    rows, kernel, spills, stores = [], "?", "", 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(?<=\d)((?:flash|paged)_\w+?_kernel)I(\w*?)E", line)
+            m = re.search(r"(?<=\d)((?:flash|paged)_\w+?_kernel)I((?:Li\d+E|13__nv_bfloat16|f)+)E",
+                          line)
             if m:
-                args = re.sub(r"^13__nv_bfloat16", "bf16, ", m.group(2))
-                args = re.sub(r"^f(?=Li)", "float, ", args).replace("Li", "")
-                kernel = f"{m.group(1)}<{args}>"
+                args = [n or ("bf16" if bf else "float")
+                        for n, bf, _ in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2))]
+                kernel = f"{m.group(1)}<{', '.join(args)}>"
             else:
                 kernel = line.split("'")[1]
         elif "spill stores" in line:
             spills = line.split(":")[-1].strip()
+            stores = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif "Used" in line and "registers" in line:
             used = line.split(":")[-1].strip()
-            rows.append(f"{kernel}: {used}; {spills}")
+            rows.append((kernel, f"{used}; {spills}", stores))
     return rows
 
 
@@ -347,6 +352,10 @@ def check_flash_cases(torch, fa):
                                         segments=True), False, None),
         ("tiny hd=16 G=2 window 5", dict(batch=2, seq=65, heads=4, kv_heads=2, hd=16,
                                          segments=False), True, 5),
+        ("GQA G=4 causal hd=128 S=2047", dict(batch=1, seq=2047, heads=16, kv_heads=4,
+                                              hd=128, segments=False), True, None),
+        ("window 200 hd=64 S=700", dict(batch=1, seq=700, heads=8, kv_heads=8, hd=64,
+                                        segments=False), True, 200),
     ]
     for name, shape, causal, window in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -421,10 +430,11 @@ def flash_numbers(torch, fa, f) -> list[dict]:
         ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
         bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
         print(f"  {name} at B={B} H={H} S={S} hd={hd} causal bf16: kernel "
-              f"{ms[name]:.3f} ms, plain {plain[name]:.3f} ms, library {library[name]:.3f} ms, "
+              f"{ms[name]:.4f} ms, plain {plain[name]:.3f} ms, library {library[name]:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB), {flops / ms[name] / 1e9:.1f} TFLOP/s achieved, "
-              f"share of max vs plain {err[name]:.2e}", flush=True)
+              f"{bound_ms / ms[name]:.3f} of the bound, share of max vs plain "
+              f"{err[name]:.2e}", flush=True)
         records.append({
             "name": name, "route": "cuda",
             "source": "workloads_torch/ops/csrc/flash_attention.cu",
@@ -495,8 +505,11 @@ def profile_train_step(torch, step, params, state, tokens):
         return
     print(f"  profiled train step: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, "
           f"device idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
-    for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:16]:
-        print(f"    {sum(durs):9.2f} ms {len(durs):6d} launches  {name[:100]}", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    # The 16 largest, and the port's own kernels wherever they rank.
+    for rank, (name, durs) in enumerate(ranked):
+        if rank < 16 or "flash_" in name or "paged_" in name:
+            print(f"    {sum(durs):9.2f} ms {len(durs):6d} launches  {name[:100]}", flush=True)
 
 
 def train_path(torch, model_mod, train_mod, fa, counters, f) -> dict:
@@ -685,10 +698,17 @@ def main() -> int:
         seconds = list(pool.map(_build.build, _build.KERNELS))
     print(f"  built {len(_build.KERNELS)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    spilled = []
     for name, sec in zip(_build.KERNELS, seconds):
         print(f"  built {name} in {sec:.2f} s (0 when reused)", flush=True)
-        for line in ptxas_report(_build.build_log(name)):
-            print(f"  ptxas {line}", flush=True)
+        for kernel, text, stores in ptxas_report(_build.build_log(name)):
+            print(f"  ptxas {kernel}: {text}", flush=True)
+            if "_wgmma_kernel" in kernel and stores:
+                spilled.append(kernel)
+    # The bf16 K3 and K4 at head_dim 64 and 128 hold head_dim-wide float32
+    # accumulators in registers: a spill there is a design fault.
+    if spilled:
+        fail(f"ptxas spills in the wgmma kernels: {spilled}")
 
     # 3. kernel against plain
     phase("kernel against plain version")

@@ -117,6 +117,20 @@ def _share(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+def _grad_shares(got, want):
+    """Each gradient's max |error| as a share of its largest |value|.  A
+    gradient that is zero in exact arithmetic carries only rounding noise
+    (seq 1: one visible key, a constant softmax, so dq = dk = 0); below
+    1e-3 of the call's largest gradient it is measured against that."""
+    top = max(w.float().abs().max().item() for w in want)
+    shares = []
+    for g, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        scale = top if scale < 1e-3 * top else scale
+        shares.append((g.float() - w.float()).abs().max().item() / scale)
+    return shares
+
+
 def _flash_inputs(dtype, batch, seq, heads, kv_heads, hd, segments, seed=0):
     g = torch.Generator("cuda").manual_seed(seed)
     q = torch.randn(batch, seq, heads, hd, generator=g, device="cuda").to(dtype)
@@ -124,10 +138,35 @@ def _flash_inputs(dtype, batch, seq, heads, kv_heads, hd, segments, seed=0):
     v = torch.randn(batch, seq, kv_heads, hd, generator=g, device="cuda").to(dtype)
     dout = torch.randn(batch, seq, heads, hd, generator=g, device="cuda").to(dtype)
     seg = None
-    if segments:
+    if segments == "single":
+        # Three segments, the middle one a single row that sees only itself.
+        seg = torch.zeros(batch, seq, dtype=torch.int32, device="cuda")
+        seg[:, seq // 2] = 1
+        seg[:, seq // 2 + 1:] = 2
+    elif segments:
         seg = torch.sort(torch.randint(0, 3, (batch, seq), generator=g, device="cuda"),
                          dim=1).values.to(torch.int32)
     return q, k, v, dout, seg
+
+
+# The wgmma kernels (bf16 K3 and K4 at head_dim 64 and 128) cut q and k
+# into 64-row TMA boxes, 128-row q tiles (K3) and 128-key tiles (K4):
+# sequence lengths on either side of those edges, GQA groups 1, 4 and 8,
+# windows shorter than a tile and across tiles, segment boundaries and
+# full attention.
+_EDGE_CASES = [
+    (1, seq, heads, kv_heads, hd, True, None, False)
+    for seq in (1, 63, 64, 65, 127, 128, 129)
+    for heads, kv_heads, hd in ((4, 4, 64), (8, 2, 128), (8, 1, 128))
+] + [
+    (1, 2047, 16, 4, 128, True, None, False),
+    (1, 2047, 8, 8, 64, True, None, False),
+    (2, 300, 8, 2, 128, True, 37, False),
+    (1, 700, 4, 1, 64, True, 200, False),
+    (2, 257, 8, 8, 128, False, None, False),
+    (2, 190, 8, 1, 64, False, None, True),
+    (1, 300, 4, 2, 128, True, None, "single"),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -140,7 +179,7 @@ def _flash_inputs(dtype, batch, seq, heads, kv_heads, hd, segments, seed=0):
         (2, 150, 4, 4, 16, True, 37, False),
         (2, 97, 4, 2, 128, True, None, True),
         (1, 64, 2, 2, 128, False, None, True),
-    ],
+    ] + _EDGE_CASES,
 )
 def test_flash_kernels_match_plain_versions(cuda, dtype, batch, seq, heads, kv_heads, hd,
                                             causal, window, segments):
@@ -158,22 +197,47 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, batch, seq, heads, kv_h
     limit = FLASH_SHARE[dtype]
     assert _share(out, want_out) <= limit
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
-    for got_g, want_g in zip((dq, dk, dv), want):
-        assert _share(got_g, want_g) <= limit
+    assert max(_grad_shares((dq, dk, dv), want)) <= limit
+    if segments == "single":
+        # The lone row's softmax is constant: its dq is zero up to rounding.
+        row = dq[:, seq // 2].float().abs().max().item()
+        assert row <= 1e-3 * dq.float().abs().max().item()
+
+
+@pytest.mark.parametrize("hd, heads, kv_heads", [(64, 8, 8), (128, 16, 2)])
+def test_flash_backward_launches_repeat_bit_identically(cuda, hd, heads, kv_heads):
+    """K4 sums each GQA group inside one CTA and K3 each q tile's keys in
+    one order, with no atomics: two launches give the same bits."""
+    q, k, v, dout, seg = _flash_inputs(torch.bfloat16, 2, 333, heads, kv_heads, hd, True)
+    out, lse = fa.flash_forward_reference(q, k, v, True, None, seg)
+    delta = fa._delta(out, dout)
+    first = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, True, None, seg),
+             *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, True, None, seg))
+    second = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, True, None, seg),
+              *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, True, None, seg))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_kernels_take_a_view_off_the_16_byte_boundary(cuda):
-    """The bf16 kernels load 16 bytes at a time; a contiguous view that
-    starts 2 bytes into its storage still gives the plain result."""
+    """The bf16 kernels load 16 bytes at a time and a TMA map needs a
+    16-byte-aligned base; contiguous views that start 2 bytes into their
+    storage still give the plain results, forward and backward."""
     shape = (1, 70, 4, 64)
     n = 70 * 4 * 64
-    flat = torch.randn(3 * n + 1, device="cuda").to(torch.bfloat16)
-    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(shape) for i in range(3))
+    flat = torch.randn(4 * n + 1, device="cuda").to(torch.bfloat16)
+    q, k, v, dout = (flat[1 + i * n:1 + (i + 1) * n].view(shape) for i in range(4))
     assert q.data_ptr() % 16
     out, lse = fa.flash_fwd(q, k, v)
     want, want_lse = fa.flash_forward_reference(q, k, v)
     assert _share(out, want) <= FLASH_SHARE[torch.bfloat16]
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    delta = fa._delta(want, dout)
+    grads = (fa.flash_bwd_dq(q, k, v, dout, want_lse, delta),
+             *fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta))
+    want_grads = fa.flash_backward_reference(q, k, v, want, dout, want_lse)
+    assert max(_grad_shares(grads, want_grads)) <= FLASH_SHARE[torch.bfloat16]
 
 
 def test_flash_autograd_launches_each_kernel_once(cuda):

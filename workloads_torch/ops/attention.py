@@ -11,8 +11,13 @@ the three TPU kernels:
 * K3 ``flash_bwd_dq``  <- ``_flash_bwd_dq_kernel``   (dq)
 * K4 ``flash_bwd_dkv`` <- ``_flash_bwd_dkv_kernel``  (dk, dv)
 
-Each kernel has a bf16 version on tensor cores (``mma.sync``) and a
-float32 version on CUDA cores, picked by the input dtype.
+Each kernel has a bf16 version on tensor cores and a float32 version on
+CUDA cores, picked by the input dtype.  In bf16, K3 and K4 at head_dim
+64 and 128 run Hopper's warpgroup products (``wgmma``) fed by TMA
+through a shared-memory ring, warp-specialised; K2, and K3 and K4 at
+head_dim 16 and 32 (narrower than one 64-column TMA box), run warp-level
+``mma.sync``.  The route is fixed at compile time by head_dim: no CUDA
+tensor reaches a plain version.
 
 ``FlashAttention`` (a ``torch.autograd.Function``) launches them on
 CUDA tensors and runs the plain versions on CPU tensors.  There is no
@@ -252,7 +257,8 @@ def _check_kernel_inputs(q, k, v, segment_ids) -> None:
 def _launch(fn_name: str, tensors, q, k, causal, window):
     """One kernel launch on q's device and current stream; tensors are the
     pointer arguments in order.  (Every head_dim the kernels take fits
-    their shared memory: at most 166,400 bytes, K4 at head_dim 128.)"""
+    their shared memory: at most 167,800 bytes, the bf16 K4 at head_dim
+    128.)"""
     lib = _kernel_library()
     batch, seq, heads, head_dim = q.shape
     ptrs = [0 if t is None else t.data_ptr() for t in tensors]
@@ -271,7 +277,8 @@ def _launch(fn_name: str, tensors, q, k, causal, window):
 
 def _operand(x):
     """x contiguous on a 16-byte boundary: the bf16 kernels load 16 bytes
-    at a time, and a contiguous view may start anywhere in its storage."""
+    at a time, a TMA tensor map needs a 16-byte-aligned base, and a
+    contiguous view may start anywhere in its storage."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 

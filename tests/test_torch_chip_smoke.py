@@ -27,6 +27,14 @@ def _log(*entries):
          "flash_bwd_dq_wgmma_kernel<64>"),
         (_PREFIX + "21flash_fwd_bf16_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PKiPS1_Pfiiiiif",
          "flash_fwd_bf16_kernel<128>"),
+        (_PREFIX + "22flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16"
+         "Pfiiiiif", "flash_fwd_wgmma_kernel<64>"),
+        (_PREFIX + "22flash_fwd_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16"
+         "Pfiiiiif", "flash_fwd_wgmma_kernel<128>"),
+        ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelI13__nv_bfloat16"
+         "Li128ELi1EEEvNS_6ParamsE", "paged_decode_kernel<bf16, 128, 1>"),
+        ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelIfLi16ELi8EEEv"
+         "NS_6ParamsE", "paged_decode_kernel<float, 16, 8>"),
         ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelI13__nv_bfloat16"
          "Li128EEEvPKT_", "paged_decode_kernel<bf16, 128>"),
         ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelIfLi64EEEvPKT_",

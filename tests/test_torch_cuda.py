@@ -73,6 +73,49 @@ def test_kernel_matches_plain_version(cuda, dtype, heads, kv_heads, hd, ps, wind
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 9])
+@pytest.mark.parametrize("heads, kv_heads, hd, ps, window",
+                         [(16, 16, 128, 64, None), (16, 2, 128, 64, 100), (4, 2, 16, 4, 5)])
+def test_split_kernel_matches_plain_version_and_repeats(cuda, dtype, splits, heads, kv_heads,
+                                                        hd, ps, window):
+    """The page walk cut into 1, 2, 3 and more shares than a row has live
+    pages (6): within the plain version's tolerance, zeros for the
+    length-0 row, and three launches bit-identical (the merge goes in
+    split order and the tickets are back at 0)."""
+    lengths = [0, 1, ps - 1, ps, ps + 1, 5 * ps + 3]
+    q, k, v, tables, lens = _inputs(dtype, heads, kv_heads, hd, ps, lengths)
+    want = pa.paged_attention_reference(q, k, v, tables, lens, layer=1, window=window)
+    before = pa.paged_attention.launches
+    runs = [pa.paged_attention(q, k, v, tables, lens, layer=1, window=window, splits=splits)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 3
+    assert torch.all(runs[0][0] == 0)
+    torch.testing.assert_close(runs[0].float(), want.float(), atol=ATOL[dtype], rtol=0)
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    for buf in pa._tickets.values():
+        assert not buf.any()
+
+
+def test_split_kernel_leaves_clean_tickets_after_a_refusal(cuda):
+    """A call refused before its launch touches no ticket: the next split
+    launch still merges."""
+    q, k, v, tables, lens = _inputs(torch.bfloat16, 8, 8, 64, 16, [80, 1, 0, 47])
+    want = pa.paged_attention_reference(q, k, v, tables, lens, layer=0, window=None)
+    first = pa.paged_attention(q, k, v, tables, lens, splits=3)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_attention(q, k, v, tables.long(), lens, splits=3)
+    with pytest.raises(ValueError, match="splits"):
+        pa.paged_attention(q, k, v, tables, lens, splits=0)
+    again = pa.paged_attention(q, k, v, tables, lens, splits=3)
+    torch.cuda.synchronize()
+    for buf in pa._tickets.values():
+        assert not buf.any()
+    assert torch.equal(first, again)
+    torch.testing.assert_close(again.float(), want.float(), atol=ATOL[torch.bfloat16], rtol=0)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, tables, lens = _inputs(torch.float32, 4, 4, 48, 4, [3, 5])
     before = pa.paged_attention.launches
@@ -149,8 +192,8 @@ def _flash_inputs(dtype, batch, seq, heads, kv_heads, hd, segments, seed=0):
     return q, k, v, dout, seg
 
 
-# The wgmma kernels (bf16 K3 and K4 at head_dim 64 and 128) cut q and k
-# into 64-row TMA boxes, 128-row q tiles (K3) and 128-key tiles (K4):
+# The wgmma kernels (bf16 K2, K3 and K4 at head_dim 64 and 128) cut q and k
+# into 64-row TMA boxes, 128-row q tiles (K2, K3) and 128-key tiles (K4):
 # sequence lengths on either side of those edges, GQA groups 1, 4 and 8,
 # windows shorter than a tile and across tiles, segment boundaries and
 # full attention.
@@ -218,6 +261,34 @@ def test_flash_backward_launches_repeat_bit_identically(cuda, hd, heads, kv_head
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd, heads, kv_heads", [(64, 8, 8), (128, 16, 2)])
+def test_flash_forward_launches_repeat_bit_identically(cuda, hd, heads, kv_heads):
+    """K2 on the wgmma route walks each row's keys in one order: two
+    launches give the same out and lse."""
+    q, k, v, _, seg = _flash_inputs(torch.bfloat16, 2, 333, heads, kv_heads, hd, True)
+    first = fa.flash_fwd(q, k, v, True, None, seg)
+    second = fa.flash_fwd(q, k, v, True, None, seg)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd, heads, kv_heads, seq, window",
+                         [(64, 8, 2, 300, None), (128, 8, 8, 257, None), (128, 4, 1, 700, 200)])
+def test_flash_backward_takes_the_forward_kernels_out_and_lse(cuda, hd, heads, kv_heads, seq,
+                                                              window):
+    """Through FlashAttention the backward kernels are fed K2's own out and
+    lse (the other tests feed them the plain forward's): the gradients
+    stay within the limit of the plain forward and backward."""
+    q, k, v, dout, _ = _flash_inputs(torch.bfloat16, 1, seq, heads, kv_heads, hd, False)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    fa.flash_attention(*leaves, window=window).backward(dout)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, True, window)
+    want = fa.flash_backward_reference(q, k, v, want_out, dout, want_lse, True, window)
+    torch.cuda.synchronize()
+    assert max(_grad_shares([x.grad for x in leaves], want)) <= FLASH_SHARE[torch.bfloat16]
 
 
 def test_flash_kernels_take_a_view_off_the_16_byte_boundary(cuda):

@@ -12,12 +12,12 @@ the three TPU kernels:
 * K4 ``flash_bwd_dkv`` <- ``_flash_bwd_dkv_kernel``  (dk, dv)
 
 Each kernel has a bf16 version on tensor cores and a float32 version on
-CUDA cores, picked by the input dtype.  In bf16, K3 and K4 at head_dim
-64 and 128 run Hopper's warpgroup products (``wgmma``) fed by TMA
-through a shared-memory ring, warp-specialised; K2, and K3 and K4 at
-head_dim 16 and 32 (narrower than one 64-column TMA box), run warp-level
-``mma.sync``.  The route is fixed at compile time by head_dim: no CUDA
-tensor reaches a plain version.
+CUDA cores, picked by the input dtype.  In bf16 at head_dim 64 and 128
+all three run Hopper's warpgroup products (``wgmma``) fed by TMA through
+a shared-memory ring, warp-specialised; at head_dim 16 and 32 (narrower
+than one 64-column TMA box) they run warp-level ``mma.sync``.  The route
+is fixed at compile time by head_dim: no CUDA tensor reaches a plain
+version.  Every route of K2 walks k in blocks of ``KERNEL_BLOCK`` keys.
 
 ``FlashAttention`` (a ``torch.autograd.Function``) launches them on
 CUDA tensors and runs the plain versions on CPU tensors.  There is no
@@ -399,7 +399,8 @@ def flash_attention(
     ``bwd_impl`` picks the backward: "pallas" (the blocked recompute
     kernels, K3 and K4 on the card) or "xla" (the dense plain backward).
     ``block_q``/``block_k`` are the JAX signature's block sizes: the CUDA
-    kernels use their own 64-row tiles, and the CPU's plain forward
+    kernels use their own tiles (64 keys a softmax block), and the CPU's
+    plain forward
     walks k in ``block_k`` blocks (clamped as the JAX package does), so
     its bf16 roundings follow the Pallas kernel's."""
     del block_q  # the q block changes no result

@@ -19,28 +19,29 @@
 // the ~295 flops per byte at which an H100's tensor cores become the limit.
 // So the bf16 kernels are built around the tensor cores.  Each kernel comes
 // in versions picked by the input dtype and, for the backward, head_dim:
-//   * bf16 K3 and K4 at head_dim 64 and 128 (the training path): Hopper's
-//     warpgroup products, `wgmma.mma_async`, fed from a shared-memory ring
-//     that the Tensor Memory Accelerator fills (`cp.async.bulk.tensor` with
-//     `mbarrier`s), warp-specialised: one producer warp keeps the next tiles'
-//     copies in flight while two consumer warpgroups (64 rows each) run the
-//     products, so a tile's copy overlaps the previous tile's math;
-//     `setmaxnreg` moves registers from the producer to the consumers.  The
-//     score products take both operands from shared memory; p and ds,
-//     rounded to bf16, become register A operands of the gradient products
-//     (the wgmma accumulator and register-A layouts match lane for lane).
-//     The mask is evaluated only on tiles that the diagonal, the window edge,
+//   * bf16 at head_dim 64 and 128 (the training path), all three kernels:
+//     Hopper's warpgroup products, `wgmma.mma_async`, fed from a
+//     shared-memory ring that the Tensor Memory Accelerator fills
+//     (`cp.async.bulk.tensor` with `mbarrier`s), warp-specialised: one
+//     producer warp keeps the next tiles' copies in flight while two
+//     consumer warpgroups (64 rows each) run the products, so a tile's copy
+//     overlaps the previous tile's math; `setmaxnreg` moves registers from
+//     the producer to the consumers.  K3's and K4's score products take both
+//     operands from shared memory, K2's takes q from registers; p and ds,
+//     rounded to bf16, become register A operands of the next products (the
+//     wgmma accumulator and register-A layouts match lane for lane).  The
+//     mask is evaluated only on tiles that the diagonal, the window edge,
 //     the end of seq or a segment boundary cut; fully visible tiles skip it.
-//     Section "wgmma backward" below has the layouts;
-//   * bf16 K2, and bf16 K3 and K4 at head_dim 16 and 32 (tests and the tiny
-//     configurations, where a 64-column TMA box is wider than the head):
-//     warp-level mma.sync m16n8k16 tensor-core products, bf16 operands and
-//     float32 accumulators.  A CTA is 4 warps; each warp owns 16 rows of a
-//     64-row tile.  Tiles are staged in shared memory with 16-byte loads into
-//     rows padded by 8 elements (16 bytes), so ldmatrix reads them without
-//     bank conflicts.  The rounding of p and ds to bf16 is the conversion of
-//     the score fragments into the next product's operand.  This is a
-//     compile-time dispatch on head_dim (`launch<HD>`), not a fallback;
+//     Sections "wgmma backward" and "wgmma forward" below have the layouts;
+//   * bf16 at head_dim 16 and 32 (tests and the tiny configurations, where a
+//     64-column TMA box is wider than the head): warp-level mma.sync
+//     m16n8k16 tensor-core products, bf16 operands and float32 accumulators.
+//     A CTA is 4 warps; each warp owns 16 rows of a 64-row tile.  Tiles are
+//     staged in shared memory with 16-byte loads into rows padded by 8
+//     elements (16 bytes), so ldmatrix reads them without bank conflicts.
+//     The rounding of p and ds to bf16 is the conversion of the score
+//     fragments into the next product's operand.  This is a compile-time
+//     dispatch on head_dim (`launch<HD>`), not a fallback;
 //   * float32: float32 FMAs on CUDA cores from padded shared-memory tiles
 //     (tensor cores would round the operands to TF32).  256 threads; each
 //     thread owns a 4x4 block of a 64x64 score tile (rows ty*4+i, columns
@@ -59,10 +60,9 @@
 //     past the window (K4: attention.py:393-396);
 //   * every load and store is bounded by seq (2047 is not a multiple of the
 //     tile), and every tensor offset is 64-bit.
-// Left for later work: K2 on wgmma.  (Issuing a tile's gradient products
-// with the next tile's score products, to overlap them inside a
-// warpgroup, measured no faster on an H100: the two consumer warpgroups
-// already fill each other's gaps.)
+// (Issuing a tile's gradient products with the next tile's score products,
+// to overlap them inside a warpgroup, measured no faster in K3 and K4 on an
+// H100: the two consumer warpgroups already fill each other's gaps.)
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
@@ -1008,6 +1008,7 @@ constexpr int kConsumerWarps = 8;
 constexpr int kStages = 3;  // ring depth (2 measured 3-8% slower on an H100)
 constexpr int kMixedSegs = -2147483647 - 1;  // a tile whose segment ids differ
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -1096,6 +1097,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most the newest committed group is still running.
+__device__ __forceinline__ void wgmma_wait_but_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 
 // Keeps the compiler from moving accesses to registers that an asynchronous
 // wgmma reads or writes across the instructions that order it.
@@ -1155,6 +1160,22 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[32] (+)= A.B, m64n64k16, A from registers, B from shared memory K-major.
+__device__ __forceinline__ void wgmma_rs_kmajor_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d[64] += A.B, m64n128k16, A from registers, B from shared memory MN-major.
@@ -1313,19 +1334,25 @@ __device__ __forceinline__ void dkv_q_range(int k0, int n_qt, int causal, int wi
   if (causal && window > 0) hi = min(hi, (k0 + 127 + window - 1) / 64);
 }
 
-// The k tiles (64 keys) that K3's 128-row q tile at q0 walks: stop past the
+// The k tiles (64 keys) that the `rows` q rows from qa walk: stop past the
 // diagonal, skip tiles before the window.
-__device__ __forceinline__ void dq_k_range(int q0, int n_kt, int causal, int window, int& lo,
-                                           int& hi) {
+__device__ __forceinline__ void k_tile_range(int qa, int rows, int n_kt, int causal, int window,
+                                             int& lo, int& hi) {
   lo = 0;
   hi = n_kt - 1;
   if (causal) {
-    hi = min(hi, (q0 + 127) / 64);
+    hi = min(hi, (qa + rows - 1) / 64);
     if (window > 0) {
-      const int x = q0 - window - 63;  // tiles starting at or before x end before the window
+      const int x = qa - window - 63;  // tiles starting at or before x end before the window
       lo = x < 0 ? 0 : x / 64 + 1;
     }
   }
+}
+
+// K3's and K2's 128-row q tile at q0.
+__device__ __forceinline__ void dq_k_range(int q0, int n_kt, int causal, int window, int& lo,
+                                           int& hi) {
+  k_tile_range(q0, 128, n_kt, causal, window, lo, hi);
 }
 
 // K4, bf16, head_dim 64 or 128.  Grid (batch*kv_heads, 128-key tiles).
@@ -1739,6 +1766,389 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// wgmma forward: bf16 K2 at head_dim 64 and 128.
+//
+// The CTA of K3: two consumer warpgroups of 64 q rows each and a producer
+// warp.  The producer loads the 128-row Q tile once, then streams the kv
+// head's K and V tiles of 64 keys through the ring.  For each tile a
+// warpgroup computes s = q K^T (m64n64k16, q from registers, K from shared
+// memory), runs the online softmax on the accumulator layout in registers
+// (row max over the 4 lanes of a row; the row sum stays a per-lane partial
+// until the end), and adds o += p V with p, rounded to bf16, as the register
+// A operand and V read MN-major from the slot.  o (HD / 2 float32 registers
+// a thread), m and l never leave registers.  The scale is folded into exp2:
+// m is kept in the log2 domain, and lse = m ln2 + ln l.  The softmax block
+// is the tile's 64 keys, as in the plain forward the kernel is held to.
+//
+// What it is built around, in the order of what each gained on an H100 at
+// batch 8, 16 heads, seq 2,047, head_dim 128: the q tile runs fastest in the
+// grid, so the CTAs in flight share a few heads' K and V in L2 (with batch x
+// head fastest every tile came from device memory); a ring of kFwdStages
+// slots; tile j + 1's score product issued before tile j's p.v, so a
+// warpgroup's exponentials run under its own products.
+
+// Shared memory of K2, byte offsets from a 1024-byte-aligned base.
+constexpr int kFwdStages = 4;  // ring depth (3 measured 6% slower on an H100)
+
+template <int HD>
+struct FwdSmem {
+  static constexpr int kTileQ = 128 * HD * 2;  // q: 128 rows
+  static constexpr int kTileK = 64 * HD * 2;   // K or V: 64 keys
+  static constexpr int q = 0;
+  static constexpr int ring = kTileQ;
+  static constexpr int kSlot = 2 * kTileK;     // K, then V
+  // Per slot: the keys' segment ids [64] and their common one, padded.
+  static constexpr int keys = ring + kFwdStages * kSlot;
+  static constexpr int kKeyBytes = 64 * 4 + 16;
+  // The q rows' segment ids [128] and each warpgroup's common one [2].
+  static constexpr int rows = keys + kFwdStages * kKeyBytes;
+  static constexpr int bars = rows + 128 * 4 + 16;
+  static constexpr int total = bars + (1 + 2 * kFwdStages) * 8;
+  static constexpr size_t alloc = total + 1024;
+};
+static_assert(FwdSmem<128>::alloc <= 232448, "K2's ring must fit one block");
+
+// Rows [row0 + 16w, +16) x columns [16kk, +16) of a TMA-written tile (boxes of
+// `box_rows` rows x 128 bytes, 128-byte swizzle: the 16-byte chunk index of
+// a row is XORed with the row's low 3 bits) as warp w's register A operand:
+// (fr, fc..fc+1), (fr + 8, fc..), (fr, fc + 8..), (fr + 8, fc + 8..).
+__device__ __forceinline__ void load_a_sw128(uint32_t (&a)[4], const unsigned char* tile,
+                                             int box_rows, int fr, int fc, int kk) {
+  const unsigned char* box = tile + (kk >> 2) * box_rows * 128;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int row = fr + 8 * (x & 1);
+    const int chunk = 2 * (kk & 3) + (x >> 1);
+    a[x] = *reinterpret_cast<const uint32_t*>(box + row * 128 + ((chunk ^ (row & 7)) << 4) +
+                                              2 * fc);
+  }
+}
+
+// 2^x in one instruction; flushes results below 2^-126 to 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One 64 x 64 score tile's online-softmax step, in place: s becomes p, and
+// m2 (the running max of s * scale * log2e) and l (this lane's partial row
+// sums) are brought to the new max; alpha is what the caller owes o, once
+// no product is writing it.  Element 4j + 2i + e of s is (row r[i], column
+// ka + 8j + fc + e).
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&alpha)[2], float (&m2)[2],
+                                             float (&l)[2], const int (&r)[2],
+                                             const int (&row_seg)[2], const int* col_seg, int ka,
+                                             int fc, float scale_log2, const MaskArgs& m) {
+  // A masked tile scales and masks first and subtracts the max after, so
+  // that a masked entry under a max still at -1e30 gives exp2(0), as the
+  // plain version does (a later visible key wipes it: alpha is 0 then).  A
+  // fully visible tile takes its max of the raw scores and folds scale and
+  // max into one fused multiply-add.
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int x = 4 * j + 2 * i + e;
+        if (kMask) {
+          const int c = 8 * j + fc + e;
+          const bool ok = visible(r[i], ka + c, m.seq, m.causal, m.window) &&
+                          (!m.seg || col_seg[c] == row_seg[i]);
+          s[x] = ok ? s[x] * scale_log2 : kNegInf;
+        }
+        mx[i] = fmaxf(mx[i], s[x]);
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float tile_max = quad_max(mx[i]);
+    const float m_new = fmaxf(m2[i], kMask ? tile_max : tile_max * scale_log2);
+    alpha[i] = fast_exp2(m2[i] - m_new);
+    m2[i] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * i + e;
+        s[x] = fast_exp2(kMask ? s[x] - m_new : fmaf(s[x], scale_log2, -m_new));
+        sum += s[x];
+      }
+    // l sums the float32 weights; the p.v product takes them rounded to bf16.
+    l[i] = l[i] * alpha[i] + sum;
+  }
+}
+
+// o's rows brought to the new max.
+template <int R>
+__device__ __forceinline__ void rescale_rows(float (&o)[R], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      o[4 * j + 2 * i] *= alpha[i];
+      o[4 * j + 2 * i + 1] *= alpha[i];
+    }
+}
+
+// K2, bf16, head_dim 64 or 128.  Grid (batch*heads, 128-row q tiles), the
+// last q tile first (under a causal mask it walks the most k tiles).
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
+                       bf16* __restrict__ out, float* __restrict__ lse, int seq, int heads,
+                       int kv_heads, int causal, int window, float sm_scale) {
+  using L = FwdSmem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = aligned_smem(smem_raw);
+  const uint32_t sbase = smem_u32(base);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kFwdStages;
+  int* row_seg_s = reinterpret_cast<int*>(base + L::rows);
+
+  // The q tile runs fastest in the grid, so that the CTAs in flight walk the
+  // K and V of a few heads and find them in L2.
+  const int n_qt = (seq + 127) / 128;
+  const int bh = blockIdx.x / n_qt;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int hk = h / (heads / kv_heads);
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * 128;
+  int kt_lo, kt_hi;
+  dq_k_range(q0, (seq + 63) / 64, causal, window, kt_lo, kt_hi);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 32);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != kProducerWarp) return;
+    if (seg) {
+      const int* sg = seg + (int64_t)b * seq;
+      int v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + lane + 32 * i;
+        v[i] = row < seq ? sg[row] : -1;
+        row_seg_s[lane + 32 * i] = v[i];
+      }
+      const int u0 = uniform_seg(v[0], v[1]);
+      const int u1 = uniform_seg(v[2], v[3]);
+      if (lane == 0) {
+        row_seg_s[128] = u0;
+        row_seg_s[129] = u1;
+      }
+    }
+    if (lane == 0) {
+      mbar_arrive_tx(q_full, L::kTileQ);
+      tma_tile<HD>(sbase + L::q, &tm_q, q_full, h, q0, b, 128);
+    } else {
+      mbar_arrive(q_full);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+      const int k0 = kt * 64;
+      mbar_wait(&empty[stage], phase ^ 1);
+      int* seg_s = reinterpret_cast<int*>(base + L::keys + stage * L::kKeyBytes);
+      int sv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = k0 + lane + 32 * i;
+        sv[i] = key < seq && seg ? seg[(int64_t)b * seq + key] : -1;
+        seg_s[lane + 32 * i] = sv[i];
+      }
+      const int u = uniform_seg(sv[0], sv[1]);
+      if (lane == 0) {
+        seg_s[64] = u;
+        const uint32_t slot = sbase + L::ring + stage * L::kSlot;
+        mbar_arrive_tx(&full[stage], L::kSlot);
+        tma_tile<HD>(slot, &tm_k, &full[stage], hk, k0, b, 64);
+        tma_tile<HD>(slot + L::kTileK, &tm_v, &full[stage], hk, k0, b, 64);
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == kFwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp / 4;
+    const int qa = q0 + 64 * wg;  // this warpgroup's first q row
+    const int qz = qa + 63;
+    const int fr = (warp % 4) * 16 + lane / 4;
+    const int fc = 2 * (lane % 4);
+    const int qr[2] = {qa + fr, qa + fr + 8};
+    const MaskArgs m{seg, seq, causal, window};
+    const float scale_log2 = sm_scale * kLog2e;
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    int qseg[2] = {0, 0};
+    int qseg_common = 0;
+    if (seg) {
+      qseg[0] = row_seg_s[64 * wg + fr];
+      qseg[1] = row_seg_s[64 * wg + fr + 8];
+      qseg_common = row_seg_s[128 + wg];
+    }
+    // This warpgroup's q rows as register A operands, HD / 16 fragments:
+    // with q in shared memory too, an m64n64k16 score product would read
+    // 4 KB for 32 clocks of tensor-core work, all an SM's shared memory gives.
+    uint32_t qa_frag[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      load_a_sw128(qa_frag[kk], base + L::q, 128, 64 * wg + fr, fc, kk);
+    // This warpgroup's own live tiles [wlo, whi] of the CTA's walk; the
+    // tiles outside are exact no-ops for its rows and are only released.
+    int wlo, whi;
+    k_tile_range(qa, 64, (seq + 63) / 64, causal, window, wlo, whi);
+    wlo = max(wlo, kt_lo);
+    whi = qa < seq ? min(whi, kt_hi) : wlo - 1;
+    int stage = 0;
+    uint32_t phase = 0;
+    auto release = [&]() {  // hand the slot back and move to the next
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == kFwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    auto k_desc = [&]() { return sw128_desc(sbase + L::ring + stage * L::kSlot, 16); };
+    auto v_desc = [&]() {
+      return sw128_desc(sbase + L::ring + stage * L::kSlot + L::kTileK, 64 * 128);
+    };
+    // s = q K^T of the tile in this slot; the caller commits.
+    auto issue_scores = [&](float (&s)[32]) {
+      const uint64_t kd = k_desc();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_rs_kmajor_n64(s, qa_frag[kk], kmajor(kd, 64, 0, kk), kk > 0);
+    };
+    // The softmax step of tile kt, whose keys' segment ids are in this slot.
+    auto softmax = [&](float (&s)[32], float (&alpha)[2], int kt) {
+      const int ka = kt * 64;
+      const int* seg_s = reinterpret_cast<const int*>(base + L::keys + stage * L::kKeyBytes);
+      // Rows past seq are never written, so only the keys' end counts.
+      const bool whole = (!seg || (seg_s[64] != kMixedSegs && seg_s[64] == qseg_common)) &&
+                         ka + 63 < seq &&
+                         (!causal || (ka + 63 <= qa && (window <= 0 || ka > qz - window)));
+      if (whole)
+        softmax_tile<false>(s, alpha, m2, l, qr, qseg, seg_s, ka, fc, scale_log2, m);
+      else
+        softmax_tile<true>(s, alpha, m2, l, qr, qseg, seg_s, ka, fc, scale_log2, m);
+    };
+
+    int kt = kt_lo;
+    for (; kt < wlo && kt <= kt_hi; ++kt) {
+      mbar_wait(&full[stage], phase);
+      release();
+    }
+    if (wlo <= whi) {
+      // Tile j + 1's score product is issued before tile j's p.v, and its
+      // softmax runs while p.v does: the exponentials of one tile hide
+      // under the tensor cores' work on the other.  Every issue is on the
+      // one path through the loop.
+      float s[32], alpha[2];
+      uint32_t a[4][4];
+      mbar_wait(&full[stage], phase);
+      wgmma_fence();
+      issue_scores(s);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      softmax(s, alpha, kt);  // o is still zero: alpha is owed nothing
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], s, kk);
+      for (; kt < whi; ++kt) {
+        const uint64_t vd = v_desc();  // tile kt's V, in the slot still held
+        const int held = stage;
+        int next = stage + 1;
+        uint32_t next_phase = phase;
+        if (next == kFwdStages) {
+          next = 0;
+          next_phase ^= 1;
+        }
+        mbar_wait(&full[next], next_phase);
+        stage = next;
+        fence_regs(o);
+        fence_regs(a);
+        wgmma_fence();
+        issue_scores(s);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(o, a[kk], mnmajor(vd, 0, kk));
+        wgmma_commit();
+        wgmma_wait_but_one();
+        fence_regs(s);
+        softmax(s, alpha, kt + 1);
+        wgmma_wait_all();
+        fence_regs(o);
+        fence_regs(a);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[held]);
+        phase = next_phase;
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale_rows(o, alpha);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], s, kk);
+      }
+      const uint64_t vd = v_desc();
+      fence_regs(o);
+      fence_regs(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(o, a[kk], mnmajor(vd, 0, kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(a);
+      release();
+      ++kt;
+    }
+    for (; kt <= kt_hi; ++kt) {
+      mbar_wait(&full[stage], phase);
+      release();
+    }
+
+    // l_safe as attention.py:131: a row with l == 0 writes 0 and lse -1e30.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float l_row = quad_sum(l[i]);
+      if (qr[i] >= seq) continue;
+      const float l_safe = l_row > 0.f ? l_row : 1.f;
+      const float inv = 1.f / l_safe;
+      bf16* op = out + (((int64_t)b * seq + qr[i]) * heads + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        store_pair(op + 8 * j + fc, o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      if (lane % 4 == 0)
+        lse[(int64_t)bh * seq + qr[i]] =
+            l_row > 0.f ? m2[i] * kLn2 + logf(l_row) : kNegInf;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch.
 
 template <typename Kernel>
@@ -1891,8 +2301,26 @@ cudaError_t launch_dq_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
+// K2 on wgmma: q in 128-row boxes, K and V in 64-row boxes.
+template <int HD>
+cudaError_t launch_fwd_wgmma(const Args& a) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = bf16_map<HD>(&mq, a.q, a.batch, a.seq, a.heads, 128)) != cudaSuccess ||
+      (err = bf16_map<HD>(&mk, a.k, a.batch, a.seq, a.kv_heads, 64)) != cudaSuccess ||
+      (err = bf16_map<HD>(&mv, a.v, a.batch, a.seq, a.kv_heads, 64)) != cudaSuccess)
+    return err;
+  auto kernel = flash_fwd_wgmma_kernel<HD>;
+  if ((err = allow_smem(kernel, FwdSmem<HD>::alloc)) != cudaSuccess) return err;
+  dim3 grid(a.batch * a.heads * ((a.seq + 127) / 128));
+  kernel<<<grid, kWsThreads, FwdSmem<HD>::alloc, a.stream>>>(
+      mq, mk, mv, a.seg, static_cast<bf16*>(a.out0), static_cast<float*>(a.out1), a.seq,
+      a.heads, a.kv_heads, a.causal, a.window, a.sm_scale);
+  return cudaGetLastError();
+}
+
 // which: 0 = K2 forward, 1 = K3 dq, 2 = K4 dk/dv; dtype: 0 = float32, 1 = bf16.
-// The bf16 backward takes wgmma at head_dim 64 and 128 and mma.sync below.
+// The bf16 kernels take wgmma at head_dim 64 and 128 and mma.sync below.
 template <int HD>
 cudaError_t launch(int which, int dtype, const Args& a) {
   if (dtype == 0) {
@@ -1904,13 +2332,14 @@ cudaError_t launch(int which, int dtype, const Args& a) {
       return launch_dkv<float>(flash_bwd_dkv_f32_kernel<HD>, kThreads, dkv_f32_smem_bytes<HD>(),
                                a);
   } else if (dtype == 1) {
-    if (which == 0)
-      return launch_fwd<bf16>(flash_fwd_bf16_kernel<HD>, kMmaThreads, fwd_bf16_smem_bytes<HD>(),
-                              a);
     if constexpr (HD >= 64) {
+      if (which == 0) return launch_fwd_wgmma<HD>(a);
       if (which == 1) return launch_dq_wgmma<HD>(a);
       if (which == 2) return launch_dkv_wgmma<HD>(a);
     } else {
+      if (which == 0)
+        return launch_fwd<bf16>(flash_fwd_bf16_kernel<HD>, kMmaThreads,
+                                fwd_bf16_smem_bytes<HD>(), a);
       if (which == 1)
         return launch_dq<bf16>(flash_bwd_dq_bf16_kernel<HD>, kMmaThreads,
                                bwd_bf16_smem_bytes<HD>(), a);

@@ -23,11 +23,18 @@ Phases, each of which fails the run loudly:
 4. the serving path: a ``ServeEngine`` at the full width of the widest
    model the repo defines (d_model 2048, 16 heads, 8 layers, d_ff 8192,
    vocab 32768, bf16, page_size 64; depth uncut, random weights from a
-   seed) serving a mixed stream of requests to the end, with every
-   kernel launch counted; then one teacher-forced decode step through
-   the kernel and through the plain version, in float32 and in bfloat16,
-   the bf16 limit being the step's own bf16 precision floor measured in
-   the same run;
+   seed) serving a mixed stream of requests to the end three times, each
+   decode step a replay of the engine's captured CUDA graph: at the
+   defaults, with ``superstep_k=4, pipelined=True``, and with
+   ``prefill_budget=64``; every request ``ok`` with its full token
+   count, no page left in use, the three greedy streams identical, every
+   kernel launch counted (K1 n_layers a decode step, and in a profiled
+   chunk as many as the profiler's trace shows); one chunk through the
+   graph and through the eager loop from the same state, bit-identical
+   and timed; then one teacher-forced decode step through the kernel and
+   through the plain version, at 8 rows and at 2 (where K1 splits each
+   row's pages), in float32 and in bfloat16, the bf16 limit being the
+   step's own bf16 precision floor measured in the same run;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -244,10 +251,12 @@ def check_kernel_cases(torch, pa):
                 fail(f"K1 disagrees with its plain version: {name} {dtype}")
 
 
-def profile_chunk(torch, engine, rng, f):
+def profile_chunk(torch, engine, rng, f, pa):
     """Where one decode chunk's time goes: torch.profiler over one engine
     step with every slot decoding, read from its chrome trace (device
-    kernels by name, their summed time against the step's wall time)."""
+    kernels by name, their summed time against the step's wall time).
+    K1's launch count over the step must equal the profiler's count of
+    its kernel.  Returns (wall ms, device ms, K1 counted, K1 traced)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(f["slots"]):
@@ -255,12 +264,14 @@ def profile_chunk(torch, engine, rng, f):
                       3 * engine.chunk)
     engine.step()  # admission and a first chunk, outside the window
     torch.cuda.synchronize()
+    before = pa.paged_attention.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = pa.paged_attention.launches - before
     trace = os.path.join(ROOT, "build", "workloads_torch", "decode_chunk_trace.json")
     prof.export_chrome_trace(trace)
     with open(trace) as fh:
@@ -270,25 +281,131 @@ def profile_chunk(torch, engine, rng, f):
         if e.get("cat") == "kernel":
             by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
     engine.run()
+    traced = sum(len(v) for name, v in by_name.items() if "paged_decode_kernel" in name)
     busy_ms = sum(sum(v) for v in by_name.values())
+    print(f"  K1 launches over the profiled chunk: counted {counted}, kernels in the "
+          f"profiler's trace {traced}", flush=True)
     if busy_ms == 0:
-        print("  profiled decode chunk: device time not measured (no kernel "
-              "events in the trace)", flush=True)
-        return
-    print(f"  profiled decode chunk ({engine.chunk} steps, {f['slots']} rows): "
-          f"wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms, device "
+        fail("profiled decode chunk: no kernel events in the trace (device time not "
+             "measured, K1's count unchecked)")
+    print(f"  profiled decode chunk ({engine.chunk} steps, {f['slots']} rows, CUDA graph "
+          f"replays): wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms, device "
           f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
     for name, durs in top:
         print(f"    {sum(durs):9.3f} ms {len(durs):6d} launches  {name[:90]}",
               flush=True)
+    if counted != traced or counted != engine.config.n_layers * engine.chunk:
+        fail(f"K1 counted {counted} launches over the profiled chunk, the trace shows "
+             f"{traced}, n_layers x chunk is {engine.config.n_layers * engine.chunk}")
+    return wall_ms, busy_ms, counted, traced
 
 
-def teacher_forced_step(torch, paged_mod, pa, params, config, ps):
-    """Prefill 8 rows of ragged length, then run one decode step through
-    the kernel and, on a copy of the pools, through the plain version.
-    Returns (kernel logits, plain logits)."""
-    lengths = [32, 100, 200, 300, 400, 500, 543, 1]
+def drain(torch, engine, requests, counters, label):
+    """Serve ``requests`` to the end after one warm-up request (graph
+    capture, first launches), with every kernel launch counted over the
+    timed run.  Fails unless every request is ``ok`` with its full token
+    count, no page is left in use, and K1 launched n_layers times a
+    decode step.  Returns the streams and the run's numbers."""
+    engine.submit(requests[0][0], 2)
+    engine.run()
+    chunks0, tokens0, over0, super0 = (engine.chunks_run, engine.generated_tokens,
+                                       engine.tokens_overdecoded, engine.supersteps_run)
+    rids = [engine.submit(p, n) for p, n in requests]
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)["paged_attention"]
+    decode_steps = (engine.chunks_run - chunks0) * engine.chunk
+    tokens = engine.generated_tokens - tokens0
+    out = {"streams": [served.get(r) for r in rids], "wall": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "decode_steps": decode_steps,
+           "launches": launches, "overdecoded": engine.tokens_overdecoded - over0}
+    print(f"  {label}: drained in {wall:.3f} s: {tokens} tokens, {decode_steps} decode "
+          f"steps ({engine.supersteps_run - super0} supersteps, {out['overdecoded']} tokens "
+          f"over-decoded), decode tokens/s {out['tokens_per_s']:.1f}, paged_attention "
+          f"launches {launches}, pages in use after drain {engine.ctrl.used_pages}",
+          flush=True)
+    statuses = {r.rid: r.status for r in engine.completed}
+    for rid, (_, n), toks in zip(rids, requests, out["streams"]):
+        if statuses.get(rid) != "ok" or toks is None or len(toks) != n:
+            fail(f"{label} {rid}: status {statuses.get(rid)}, "
+                 f"{None if toks is None else len(toks)} tokens, wanted {n}")
+        if not all(0 <= t < engine.config.vocab_size for t in toks):
+            fail(f"{label} {rid}: token out of the vocabulary")
+    if engine.ctrl.used_pages != 0:
+        fail(f"{label}: {engine.ctrl.used_pages} pages still in use after the drain")
+    if launches == 0 or launches != engine.config.n_layers * decode_steps:
+        fail(f"{label}: paged_attention launched {launches} times, expected "
+             f"n_layers x decode steps = {engine.config.n_layers * decode_steps}")
+    return out
+
+
+def graph_against_eager_chunk(torch, paged_mod, engine, rng, f):
+    """One decode chunk from the same state through the engine's CUDA
+    graph and through the eager loop (``paged_decode_chunk``): the tokens
+    and the pools must be bit-identical.  Each is timed on the host's
+    clock to a synchronise (the chunk's wall time, what a client waits),
+    three times from the restored state.  Returns (graph ms, eager ms)."""
+    for _ in range(f["slots"]):
+        engine.submit(rng.integers(0, engine.config.vocab_size, f["decode_prompt"]),
+                      2 * engine.chunk)
+    engine._admit()  # prefill and first tokens; no chunk yet
+    engine._cover_chunk()
+    inputs = (engine._dev(engine._tables), engine._dev(engine._tokens),
+              engine._dev(engine._positions), engine._dev(engine._occupied))
+    saved = [p.clone() for p in engine.pools]
+
+    def restore():
+        for pool, copy in zip(engine.pools, saved):
+            pool.copy_(copy)
+        torch.cuda.synchronize()
+
+    def graph_chunk():
+        return engine._graph.run(*inputs, *engine._unbounded, engine.chunk)[0].clone()
+
+    def eager_chunk():
+        with torch.inference_mode():
+            return paged_mod.paged_decode_chunk(
+                engine.params, engine.pools, *inputs, None, 0.0, 0, 1.0, engine.config,
+                engine.chunk, False)[0]
+
+    results, times = {}, {}
+    for name, fn in (("graph", graph_chunk), ("eager", eager_chunk)):
+        restore()
+        fn()  # the graph's capture, and first launches, outside the timing
+        runs = []
+        for _ in range(3):
+            restore()
+            t0 = time.perf_counter()
+            toks = fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        results[name] = (toks, [p.clone() for p in engine.pools])
+        times[name] = sum(runs) / len(runs)
+    restore()
+    engine.close()
+    same_tokens = torch.equal(results["graph"][0], results["eager"][0])
+    same_pools = all(torch.equal(a, b) for a, b in zip(results["graph"][1],
+                                                       results["eager"][1]))
+    print(f"  one chunk ({engine.chunk} steps, {f['slots']} rows) from the same state: "
+          f"CUDA graph {times['graph']:.3f} ms, eager loop {times['eager']:.3f} ms "
+          f"(host clock to a synchronise, mean of 3); tokens "
+          f"{'bit-identical' if same_tokens else 'DIFFER'}, pools "
+          f"{'bit-identical' if same_pools else 'DIFFER'}", flush=True)
+    if not (same_tokens and same_pools):
+        fail("the decode chunk through the CUDA graph differs from the eager loop")
+    return times["graph"], times["eager"]
+
+
+def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, splits=None):
+    """Prefill rows of the given lengths, then run one decode step through
+    the kernel (with the host's split count, or ``splits``) and, on a copy
+    of the pools, through the plain version.  Returns (kernel logits,
+    plain logits)."""
     cover = -(-max(lengths) // ps)
     n_pages = len(lengths) * cover
     with torch.inference_mode():
@@ -310,8 +427,13 @@ def teacher_forced_step(torch, paged_mod, pa, params, config, ps):
             [tables, torch.full((len(lengths), 1), n_pages, dtype=torch.int32,
                                 device="cuda")], dim=1).contiguous()
         ref_pools = (pools[0].clone(), pools[1].clone())
+
+        def kernel(q, kp, vp, t, ln, layer):
+            return pa.paged_attention(q, kp, vp, t, ln, layer=layer,
+                                      window=config.attention_window, splits=splits)
+
         got, _ = paged_mod._decode_core(params, pools, tables_dec, tok,
-                                        lens.long(), config)
+                                        lens.long(), config, attention_fn=kernel)
 
         def plain(q, kp, vp, t, ln, layer):
             return pa.paged_attention_reference(q, kp, vp, t, ln, layer=layer,
@@ -795,82 +917,90 @@ def main() -> int:
         w.numel() for w in [params["embed"], params["unembed"]]
         + [t for layer in params["layers"] for t in layer.values()]
     )
-    engine = ServeEngine(
-        params, config, slots=f["slots"], page_size=f["page_size"],
-        chunk=f["page_size"], device="cuda",
-    )
-    print(f"  model {n_params / 1e6:.1f}M params, pool "
-          f"{tuple(engine.pools[0].shape)} x2, {len(max_new)} requests, "
-          f"prompt {f['decode_prompt']}, max_new_tokens {max_new}", flush=True)
     import numpy as np
 
     rng = np.random.default_rng(0)
-    rids = [
-        engine.submit(rng.integers(0, config.vocab_size, f["decode_prompt"]), n)
-        for n in max_new
-    ]
-    reset_counts(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    served = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts(counters)["paged_attention"]
-    decode_steps = engine.chunks_run * engine.chunk
-    tokens_per_s = engine.generated_tokens / wall
-    statuses = {r.rid: r.status for r in engine.completed}
-    print(f"  drained in {wall:.3f} s: {engine.generated_tokens} tokens, "
-          f"{engine.chunks_run} chunks = {decode_steps} decode steps, "
-          f"decode tokens/s {tokens_per_s:.1f}, "
-          f"paged_attention launches {launches}, pages in use after drain "
-          f"{engine.ctrl.used_pages}", flush=True)
-    for rid, n in zip(rids, max_new):
-        toks = served.get(rid)
-        if statuses.get(rid) != "ok" or toks is None or len(toks) != n:
-            fail(f"{rid}: status {statuses.get(rid)}, "
-                 f"{None if toks is None else len(toks)} tokens, wanted {n}")
-        if not all(0 <= t < config.vocab_size for t in toks):
-            fail(f"{rid}: token out of the vocabulary")
-    if engine.ctrl.used_pages != 0:
-        fail(f"{engine.ctrl.used_pages} pages still in use after the drain")
-    if launches == 0 or launches != config.n_layers * decode_steps:
-        fail(f"paged_attention launched {launches} times, expected "
-             f"n_layers x decode steps = {config.n_layers * decode_steps}")
-
-    profile_chunk(torch, engine, rng, f)
+    requests = [(rng.integers(0, config.vocab_size, f["decode_prompt"]), n) for n in max_new]
+    base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["page_size"],
+                device="cuda")
+    engine = ServeEngine(params, config, **base)
+    print(f"  model {n_params / 1e6:.1f}M params, pool "
+          f"{tuple(engine.pools[0].shape)} x2, {len(max_new)} requests, "
+          f"prompt {f['decode_prompt']}, max_new_tokens {max_new}", flush=True)
+    drains = {"defaults": drain(torch, engine, requests, counters, "drain at the defaults")}
+    launches = drains["defaults"]["launches"]
+    tokens_per_s = drains["defaults"]["tokens_per_s"]
+    chunk_wall, chunk_busy, _, _ = profile_chunk(torch, engine, rng, f, pa)
+    graph_chunk_ms, eager_chunk_ms = graph_against_eager_chunk(
+        torch, paged_mod, ServeEngine(params, config, **base), rng, f)
+    max_pages = engine.max_pages
+    del engine
+    for name, kw in (("superstep_k=4 pipelined", dict(superstep_k=4, pipelined=True)),
+                     ("prefill_budget=64", dict(prefill_budget=64))):
+        engine = ServeEngine(params, config, **base, **kw)
+        drains[name] = drain(torch, engine, requests, counters, f"drain with {name}")
+        del engine
+        torch.cuda.empty_cache()
+    for name, run in drains.items():
+        if run["streams"] != drains["defaults"]["streams"]:
+            fail(f"the greedy streams of the drain with {name} differ from the drain at "
+                 f"the defaults")
+    print(f"  the {len(drains)} drains' greedy streams are identical", flush=True)
 
     # One teacher-forced decode step, kernel route against plain route, in
     # float32 and in the serving dtype (same weights, bf16-valued, and
-    # the same tokens).
+    # the same tokens): at 8 rows (K1 takes one split) and at 2 rows,
+    # where K1 cuts each row's pages into the host's split count.
     from dataclasses import replace
 
-    steps = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        step_params = params if dtype == config.dtype else cast_params(params, dtype)
-        steps[dtype] = teacher_forced_step(torch, paged_mod, pa, step_params,
-                                           replace(config, dtype=dtype), f["page_size"])
-        del step_params
-    got32, want32 = steps[torch.float32]
-    got16, want16 = steps[torch.bfloat16]
-    scale = want32.abs().max().item()
-    f32_err = (got32 - want32).abs().max().item()
-    f32_tol = STEP_F32_RTOL * scale
-    bf16_err = (got16 - want16).abs().max().item()
-    bf16_floor = (want16 - want32).abs().max().item()
-    bf16_rms = (got16 - want16).square().mean().sqrt().item()
-    floor_rms = (want16 - want32).square().mean().sqrt().item()
-    print(f"  teacher-forced decode step, max |logit| {scale:.4e}: float32 kernel "
-          f"vs plain {f32_err:.4e} (limit {f32_tol:.4e} = {STEP_F32_RTOL} x max); "
-          f"bfloat16 kernel vs plain max {bf16_err:.4e} rms {bf16_rms:.4e} "
-          f"(limits: the bf16 floor, plain bf16 vs plain float32, max "
-          f"{bf16_floor:.4e} rms {floor_rms:.4e})", flush=True)
-    if not (torch.isfinite(got32).all() and torch.isfinite(got16).all()):
-        fail("the teacher-forced decode step gave non-finite logits")
-    if not f32_err <= f32_tol:
-        fail("float32 decode step through the kernel disagrees with the plain route")
-    if not (bf16_err <= bf16_floor and bf16_rms <= floor_rms):
-        fail("bfloat16 decode step through the kernel differs from the plain "
-             "route by more than bf16 differs from float32")
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    step_rows = {8: [32, 100, 200, 300, 400, 500, 543, 1], 2: [543, 300]}
+    for rows, lengths in step_rows.items():
+        width = -(-max(lengths) // f["page_size"]) + 1
+        split_f32 = pa.choose_splits(rows, config.kv_heads, width, sm_count)
+        splits_here = {dtype: pa.choose_splits(rows, config.kv_heads, width, sm_count, dtype)
+                       for dtype in (torch.float32, torch.bfloat16)}
+        steps = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            step_params = params if dtype == config.dtype else cast_params(params, dtype)
+            steps[dtype] = teacher_forced_step(torch, paged_mod, pa, step_params,
+                                               replace(config, dtype=dtype), f["page_size"],
+                                               lengths)
+            del step_params
+        got32, want32 = steps[torch.float32]
+        got16, want16 = steps[torch.bfloat16]
+        if split_f32 > 1:
+            # Not a gate: the split route in bf16, which the host no longer
+            # takes (ROADMAP Queue C), against the same floor.
+            forced, _ = teacher_forced_step(torch, paged_mod, pa, params, config,
+                                            f["page_size"], lengths, splits=split_f32)
+            print(f"  bf16 decode step, {rows} rows, K1 forced to {split_f32} splits: kernel "
+                  f"vs plain max {(forced - want16).abs().max().item():.4e} rms "
+                  f"{(forced - want16).square().mean().sqrt().item():.4e} (floor max "
+                  f"{(want16 - want32).abs().max().item():.4e} rms "
+                  f"{(want16 - want32).square().mean().sqrt().item():.4e})", flush=True)
+        scale = want32.abs().max().item()
+        f32_err = (got32 - want32).abs().max().item()
+        f32_tol = STEP_F32_RTOL * scale
+        bf16_err = (got16 - want16).abs().max().item()
+        bf16_floor = (want16 - want32).abs().max().item()
+        bf16_rms = (got16 - want16).square().mean().sqrt().item()
+        floor_rms = (want16 - want32).square().mean().sqrt().item()
+        print(f"  teacher-forced decode step, {rows} rows (K1 splits: float32 "
+              f"{splits_here[torch.float32]}, bf16 {splits_here[torch.bfloat16]}), max "
+              f"|logit| {scale:.4e}: float32 kernel vs plain {f32_err:.4e} (limit "
+              f"{f32_tol:.4e} = {STEP_F32_RTOL} x max); bfloat16 kernel vs plain max "
+              f"{bf16_err:.4e} rms {bf16_rms:.4e} (limits: the bf16 floor, plain bf16 vs "
+              f"plain float32, max {bf16_floor:.4e} rms {floor_rms:.4e})", flush=True)
+        if not (torch.isfinite(got32).all() and torch.isfinite(got16).all()):
+            fail("the teacher-forced decode step gave non-finite logits")
+        if not f32_err <= f32_tol:
+            fail(f"float32 decode step through the kernel disagrees with the plain route "
+                 f"({rows} rows)")
+        if not (bf16_err <= bf16_floor and bf16_rms <= floor_rms):
+            fail(f"bfloat16 decode step through the kernel differs from the plain route by "
+                 f"more than bf16 differs from float32 ({rows} rows, "
+                 f"{splits_here[torch.bfloat16]} splits)")
 
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
@@ -878,7 +1008,6 @@ def main() -> int:
     B, H, hd, L = f["slots"], config.n_heads, config.head_dim, config.n_layers
     ps = f["page_size"]
     depth = f["decode_prompt"] + f["decode_lens"][1]
-    max_pages = engine.max_pages
     q, k, v, live_tables, lens = paged_inputs(
         torch, batch=B, heads=H, kv_heads=config.kv_heads, head_dim=hd,
         page_size=ps, lengths=[depth] * B, layers=L, dtype=torch.bfloat16, seed=3,
@@ -897,7 +1026,8 @@ def main() -> int:
     # the library call are timed as CUDA graphs of 8 x L launches.
     n_graph = 8 * L
     splits = pa.choose_splits(B, config.kv_heads, max_pages,
-                              torch.cuda.get_device_properties(0).multi_processor_count)
+                              torch.cuda.get_device_properties(0).multi_processor_count,
+                              torch.bfloat16)
     launches_before = pa.paged_attention.launches
     kernel_ms = graph_ms(
         lambda i: pa.paged_attention(q, k, v, tables, lens, layer=i % L), n_graph)
@@ -945,7 +1075,8 @@ def main() -> int:
           f"GB/s achieved, {bound_ms / kernel_ms:.3f} of the bound; kernel and sdpa timed "
           f"as CUDA graphs of {n_graph} launches", flush=True)
     # Not a gate: one row as long as the engine's table holds, where only
-    # the split fills the card.
+    # the split fills the card: the split count its shapes give (float32
+    # pools take it; bf16 pools keep one split, ROADMAP Queue C) against 1.
     long_len = max_pages * ps
     q1, k1, v1, t1, l1 = paged_inputs(
         torch, batch=1, heads=H, kv_heads=config.kv_heads, head_dim=hd, page_size=ps,
@@ -953,16 +1084,17 @@ def main() -> int:
     )
     long_splits = pa.choose_splits(1, config.kv_heads, max_pages,
                                    torch.cuda.get_device_properties(0).multi_processor_count)
-    long_err = (pa.paged_attention(q1, k1, v1, t1, l1, layer=0).float()
+    long_err = (pa.paged_attention(q1, k1, v1, t1, l1, layer=0, splits=long_splits).float()
                 - pa.paged_attention_reference(q1, k1, v1, t1, l1, layer=0,
                                                window=None).float()).abs().max().item()
-    long_ms = graph_ms(lambda i: pa.paged_attention(q1, k1, v1, t1, l1, layer=i % L), n_graph)
+    long_ms = graph_ms(lambda i: pa.paged_attention(q1, k1, v1, t1, l1, layer=i % L,
+                                                    splits=long_splits), n_graph)
     long_one_ms = graph_ms(
         lambda i: pa.paged_attention(q1, k1, v1, t1, l1, layer=i % L, splits=1), n_graph)
     pa.paged_attention.launches = launches_before
     long_bytes = 2 * long_len * config.kv_heads * hd * elt
     print(f"  K1 at B=1, one row of {long_len} positions: {long_ms * 1e3:.2f} us with the "
-          f"host's {long_splits} splits, {long_one_ms * 1e3:.2f} us with 1 "
+          f"shapes' {long_splits} splits, {long_one_ms * 1e3:.2f} us with 1 "
           f"({long_bytes / 1e6:.2f} MB of pages: {long_bytes / long_ms / 1e6:.1f} and "
           f"{long_bytes / long_one_ms / 1e6:.1f} GB/s), max_abs_err {long_err:.2e}",
           flush=True)
@@ -982,11 +1114,18 @@ def main() -> int:
         "library_ms": library_ms,
         "splits": splits,
         "decode_tokens_per_s": tokens_per_s,
+        "drains": {name: {key: run[key] for key in
+                          ("tokens_per_s", "decode_steps", "launches", "overdecoded")}
+                   for name, run in drains.items()},
+        "chunk_wall_ms": chunk_wall,
+        "chunk_device_ms": chunk_busy,
+        "chunk_graph_ms": graph_chunk_ms,
+        "chunk_eager_ms": eager_chunk_ms,
         "card": card,
     }
     if not main_err <= KERNEL_ATOL["bfloat16"]:
         fail(f"K1 at the main path's shapes: max_abs_err {main_err}")
-    del engine, params, q, k, v, views, out_k, out_p, lib_out
+    del params, q, k, v, views, out_k, out_p, lib_out
     torch.cuda.empty_cache()
     flash_records = flash_numbers(torch, fa, f)
     torch.cuda.empty_cache()

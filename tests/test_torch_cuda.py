@@ -1,7 +1,10 @@
 """Card-only tests of the port: the CUDA kernels (paged attention K1,
 flash attention K2-K4) against their plain PyTorch versions, their
-launch counts and refusals, the engine on the card against generate(),
-and the training step's kernel launches.  They skip without a CUDA
+launch counts and refusals, the engine on the card against generate()
+and against the CPU engine in its scheduling modes, the decode step's
+CUDA graph against the eager loop, the engine's uploads against its
+host mirrors, K1's split route in a bf16 decode step, and the training
+step's kernel launches.  They skip without a CUDA
 device.
 On a machine with a card (and without jax, which tests/conftest.py
 imports):
@@ -18,6 +21,7 @@ from workloads_torch.generate import generate
 from workloads_torch.model import ModelConfig, init_params
 from workloads_torch.ops import attention as fa
 from workloads_torch.ops import paged_attention as pa
+from workloads_torch.paged import paged_decode_chunk
 from workloads_torch.serve import ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -352,3 +356,169 @@ def test_train_step_launches_the_flash_kernels(cuda, monkeypatch, remat):
     n = config.n_layers
     assert [fa.flash_fwd.launches - counts[0], fa.flash_bwd_dq.launches - counts[1],
             fa.flash_bwd_dkv.launches - counts[2]] == [2 * n if remat else n, n, n]
+
+
+# ---- the engine's decode step as a CUDA graph ---------------------------
+
+
+def _on(params: dict, device) -> dict:
+    return {"embed": params["embed"].to(device), "unembed": params["unembed"].to(device),
+            "layers": [{k: w.to(device) for k, w in layer.items()} for layer in params["layers"]]}
+
+
+@pytest.mark.parametrize("sampling", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slots", [2, 4])
+def test_decode_graph_chunk_equals_the_eager_chunk(cuda, slots, dtype, sampling):
+    """One chunk through the engine's CUDA graph and through the eager
+    loop from the same state (pools, inputs, generator): tokens and pools
+    bit-identical, the sampled draws too (each replay advances the
+    generator as an eager step does).  At 2 and 4 rows float32 pools take
+    K1's split route inside the graph (bf16 pools keep one split); K1's
+    count moves n_layers a replay."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
+    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+                                dtype)
+    engine = ServeEngine(params, config, slots=slots, page_size=4, prompt_bucket=12, chunk=4,
+                         temperature=0.8 if sampling else 0.0, top_k=40 if sampling else 0,
+                         generator=torch.Generator("cuda").manual_seed(7))
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pa.choose_splits(slots, config.kv_heads, engine.max_pages, sm_count) > 1
+    for i in range(slots):
+        engine.submit([5 + i, 9, 13, 2, 40][: 1 + 2 * i], 12)
+    engine._admit()
+    engine._cover_chunk()
+    inputs = (engine._dev(engine._tables), engine._dev(engine._tokens),
+              engine._dev(engine._positions), engine._dev(engine._occupied))
+    engine._graph.capture()  # its warm-up writes the trash page: before the state is kept
+    saved = [p.clone() for p in engine.pools]
+    state = engine.generator.get_state()
+    before = pa.paged_attention.launches
+    graph_toks = engine._graph.run(*inputs, *engine._unbounded, engine.chunk)[0].clone()
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches - before == config.n_layers * engine.chunk
+    graph_pools = [p.clone() for p in engine.pools]
+    for pool, copy in zip(engine.pools, saved):
+        pool.copy_(copy)
+    engine.generator.set_state(state)
+    with torch.inference_mode():
+        eager_toks, _ = paged_decode_chunk(
+            engine.params, engine.pools, *inputs, engine.generator if sampling else None,
+            engine.temperature, engine.top_k, engine.top_p, config, engine.chunk, sampling)
+    torch.cuda.synchronize()
+    assert torch.equal(graph_toks, eager_toks)
+    for a, b in zip(graph_pools, engine.pools):
+        assert torch.equal(a, b)
+
+
+_MODES = [{}, {"pipelined": True}, {"superstep_k": 2}, {"batched_admission": False},
+          {"superstep_k": 4, "pipelined": True, "prefill_budget": 8}]
+
+
+@pytest.mark.parametrize("mode", _MODES, ids=["defaults", "pipelined", "k2", "serial",
+                                              "k4-pipelined-budget"])
+def test_card_engine_streams_equal_the_cpu_engine(cuda, mode):
+    """float32: the engine on the card (graph replays, pinned uploads and
+    readbacks) emits the CPU engine's greedy streams, and K1 launched
+    n_layers times a decode step."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
+    params = init_params(config, torch.Generator().manual_seed(0))
+    rng = torch.Generator().manual_seed(3)
+    requests = [(torch.randint(0, 256, (n,), generator=rng).tolist(), new)
+                for n, new in ((3, 17), (19, 9), (11, 24), (1, 5), (26, 12))]
+    streams = {}
+    for device in ("cpu", "cuda"):
+        engine = ServeEngine(_on(params, device), config, slots=2, page_size=4,
+                             prompt_bucket=8, chunk=4, device=device, **mode)
+        rids = [engine.submit(p, n) for p, n in requests]
+        before = pa.paged_attention.launches
+        served = engine.run()
+        streams[device] = [served[r] for r in rids]
+        assert engine.ctrl.used_pages == 0
+    assert pa.paged_attention.launches - before == (
+        config.n_layers * engine.chunks_run * engine.chunk)
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_engine_uploads_do_not_race_the_host_mirrors(cuda):
+    """Host mirrors change right after a dispatch (positions advance,
+    tables extend, slots retire).  With the stream busy, so that every
+    upload queues behind device work, scribbling on the mirror an upload
+    was made from until the device has caught up changes no token."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
+    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+    requests = [([3, 1, 4, 1, 5], 17), ([2, 7], 9), ([9] * 11, 13), ([6, 6], 20)]
+
+    def serve(racing: bool):
+        engine = ServeEngine(params, config, slots=2, page_size=4, prompt_bucket=8,
+                             superstep_k=2, pipelined=True, prefill_budget=8)
+        if racing:
+            upload = engine._dev
+
+            def racing_dev(mirror):
+                torch.cuda._sleep(1_000_000)  # the upload queues behind this
+                out = upload(mirror)
+                kept = mirror.copy()
+                mirror[...] = 1 if mirror.dtype == bool else 3
+                torch.cuda.synchronize()
+                mirror[...] = kept
+                return out
+
+            engine._dev = racing_dev
+        rids = [engine.submit(p, n) for p, n in requests]
+        served = engine.run()
+        assert engine.ctrl.used_pages == 0
+        return [served[r] for r in rids]
+
+    assert serve(racing=True) == serve(racing=False)
+
+
+def test_sampled_graph_stream_is_seeded(cuda):
+    """Sampling inside the graph: one generator seed gives one stream,
+    another seed another, and the draws change from step to step."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
+    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+
+    def serve(seed):
+        engine = ServeEngine(params, config, slots=2, page_size=4, prompt_bucket=8,
+                             superstep_k=2, pipelined=True, temperature=0.8, top_k=40,
+                             generator=torch.Generator("cuda").manual_seed(seed))
+        rids = [engine.submit([1 + i, 2], 24) for i in range(3)]
+        served = engine.run()
+        return [served[r] for r in rids]
+
+    first = serve(5)
+    assert serve(5) == first
+    assert serve(6) != first
+    assert all(len(s) == 24 and len(set(s)) > 4 for s in first)
+
+
+def test_bf16_decode_step_at_two_rows_keeps_one_split_within_its_floor(cuda):
+    """Two rows, where the shapes alone would cut each row's pages into
+    several splits: bf16 pools keep one split (a split bf16 step lands
+    outside the step's bf16 floor, ROADMAP Queue C), and the bf16 decode
+    step through the kernel stays within that floor (plain bf16 against
+    plain float32), by max and by rms, as chip_smoke.py holds it."""
+    import chip_smoke
+    from dataclasses import replace
+
+    from workloads_torch import paged as tpaged
+
+    config = ModelConfig(d_model=512, n_heads=8, n_layers=4, d_ff=2048, vocab_size=4096,
+                         max_seq_len=512, dtype=torch.bfloat16)
+    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+                                torch.bfloat16)
+    lengths, ps = [431, 250], 16
+    width = -(-max(lengths) // ps) + 1
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pa.choose_splits(2, config.kv_heads, width, sm_count) > 1
+    assert pa.choose_splits(2, config.kv_heads, width, sm_count, torch.bfloat16) == 1
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs[dtype] = chip_smoke.teacher_forced_step(
+            torch, tpaged, pa, tmodel.cast_params(params, dtype),
+            replace(config, dtype=dtype), ps, lengths)
+    (_, want32), (got16, want16) = runs[torch.float32], runs[torch.bfloat16]
+    err, floor = (got16 - want16).abs(), (want16 - want32).abs()
+    assert err.max() <= floor.max()
+    assert err.square().mean().sqrt() <= floor.square().mean().sqrt()

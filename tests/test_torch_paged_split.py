@@ -96,6 +96,16 @@ def test_choose_splits_is_a_function_of_shapes(batch, kv_heads, max_pages, sm_co
     assert pa.choose_splits(batch, kv_heads, max_pages, sm_count) == want
 
 
+@pytest.mark.parametrize("batch, kv_heads", [(2, 16), (1, 16), (4, 2)])
+def test_bf16_pools_keep_one_split(batch, kv_heads):
+    """bf16 split shares round p against their own max, which puts a bf16
+    decode step outside its floor on the card: bf16 keeps one split where
+    float32 takes several."""
+    assert pa.choose_splits(batch, kv_heads, 10, 132) > 1
+    assert pa.choose_splits(batch, kv_heads, 10, 132, torch.bfloat16) == 1
+    assert pa.choose_splits(batch, kv_heads, 10, 132, torch.float32) > 1
+
+
 def test_cpu_wrapper_ignores_the_split_count():
     q, k, v, tables, lens = _inputs(torch.float32, 4, 4)
     want = pa.paged_attention(q, k, v, tables, lens, layer=1)

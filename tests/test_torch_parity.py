@@ -6,11 +6,14 @@ Slow by the repo's rule (it imports jax and workloads); run it with
 The JAX side runs its Pallas paged-attention kernel in interpret mode, as
 the JAX package's own CPU tests do.  The comparisons and their tolerances
 live in tests/test_torch_golden.py, which holds the port against the
-frozen outputs of this file in the fast tier;
+frozen outputs of this file in the fast tier, and so do
+tests/test_torch_superstep.py (the decode superstep) and
+tests/test_torch_schedule.py (the engine's scheduling modes) against
+tests/test_torch_superstep_golden.npz;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates tests/test_torch_golden.npz from the JAX package.
+regenerates both fixtures from the JAX package.
 """
 
 from __future__ import annotations
@@ -47,7 +50,32 @@ from tests.test_torch_golden import (  # noqa: E402
     engine_array,
     filter_outputs,
     make_inputs,
+    tiny_config,
     torch_outputs,
+)
+from tests.test_torch_schedule import (  # noqa: E402
+    ENGINE_KW,
+    SCHEDULE_CASE,
+    SCHEDULE_MODES,
+    mode_key,
+    mode_kwargs,
+    schedule_requests,
+    trace_engine,
+)
+from tests.test_torch_superstep import (  # noqa: E402
+    SS_CASES,
+    SS_CASE_IDS,
+    SS_CHUNK,
+    SS_EOS_STEP,
+    SS_KS,
+    SS_LIVE,
+    SS_BUDGET,
+    SS_START,
+    SUPERSTEP_GOLDEN,
+    port_superstep,
+    superstep_inputs,
+    superstep_mismatches,
+    written_slots,
 )
 from workloads import generate as jgen  # noqa: E402
 from workloads import model as jmodel  # noqa: E402
@@ -56,6 +84,7 @@ from workloads import serve as jserve  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
 from workloads_torch import convert  # noqa: E402
 from workloads_torch import model as tmodel  # noqa: E402
+from workloads_torch import serve as tserve  # noqa: E402
 
 JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 
@@ -239,6 +268,118 @@ def test_filter_logits_matches_jax_live():
     compare_filter(filter_outputs(inp), jax_filter_outputs(inp))
 
 
+def jax_superstep(case, tree_bf16: dict, inp: dict, eos, k: int) -> dict:
+    """The JAX package's paged_decode_superstep from the stored state
+    (bf16 with jit disabled, as ``jax_outputs`` runs it)."""
+    config = jax_config(case)
+
+    def run():
+        params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
+        kv = config.kv_heads
+        pools = tuple(jnp.asarray(inp[f"pool_{n}{kv}"], config.dtype) for n in ("k", "v"))
+        toks, tok, pos, live, budget, pools = jpaged.paged_decode_superstep(
+            params, pools, jnp.asarray(inp["tables"]), jnp.asarray(inp["tokens"], jnp.int32),
+            jnp.asarray(SS_START, jnp.int32), jnp.asarray(SS_LIVE),
+            jnp.asarray(SS_BUDGET, jnp.int32), jnp.asarray(eos, jnp.int32),
+            jax.random.split(jax.random.PRNGKey(0), k), jnp.float32(0.0), jnp.int32(0),
+            jnp.float32(1.0), config=config, chunk=SS_CHUNK, k=k, sampling=False,
+        )
+        pos = np.asarray(pos).astype(np.int64)
+        wk, wv = written_slots(tuple(torch.from_numpy(_np(p)) for p in pools),
+                               inp["tables"], pos)
+        return {"tokens": np.asarray(toks).astype(np.int64),
+                "tok": np.asarray(tok).astype(np.int64), "pos": pos,
+                "live": np.asarray(live), "budget": np.asarray(budget),
+                "written_k": wk, "written_v": wv}
+
+    if case[0] == "f32":
+        return run()
+    with jax.disable_jit():
+        return run()
+
+
+def superstep_eos(case, tree_bf16: dict, inp: dict) -> np.ndarray:
+    """Each row's eos: the token its stream without eos emits at the step
+    SS_EOS_STEP names (-1, no eos, for the other rows)."""
+    free = jax_superstep(case, tree_bf16, inp, np.full(4, -1), 2)["tokens"]
+    eos = np.full(4, -1, np.int64)
+    for row, step in SS_EOS_STEP.items():
+        eos[row] = free[row, step]
+    return eos
+
+
+def jax_engine_trace(mode, tree_bf16: dict) -> tuple[np.ndarray, np.ndarray]:
+    config = jax_config(SCHEDULE_CASE)
+    params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
+    engine = jserve.ServeEngine(params, config, **ENGINE_KW, **mode_kwargs(mode))
+    return trace_engine(engine, schedule_requests())
+
+
+@pytest.mark.parametrize("k", SS_KS)
+@pytest.mark.parametrize("case", SS_CASES, ids=SS_CASE_IDS)
+def test_superstep_matches_jax_live(trees, case, k):
+    inp = superstep_inputs()
+    tree = trees[case[1]]
+    eos = superstep_eos(case, tree, inp)
+    want = jax_superstep(case, tree, inp, eos, k)
+    np_dtype = np.float32 if case[0] == "f32" else ml_dtypes.bfloat16
+    params = convert.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a).astype(np_dtype), tree), device="cpu"
+    )
+    got = port_superstep(case, params, inp, eos, k, final_pos=want["pos"])
+    assert not superstep_mismatches(case, got, want), superstep_mismatches(case, got, want)
+
+
+@pytest.mark.parametrize("mode", SCHEDULE_MODES, ids=[mode_key(m) for m in SCHEDULE_MODES])
+def test_engine_schedule_matches_jax_live(trees, mode):
+    """The port's streams and per-step telemetry against the JAX engine in
+    the same mode, and the JAX engine's streams on the golden run equal
+    its default mode's (what the fast tier assumes)."""
+    want_tokens, want_trace = jax_engine_trace(mode, trees[SCHEDULE_CASE[1]])
+    params = convert.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a).astype(np.float32), trees[SCHEDULE_CASE[1]]),
+        device="cpu",
+    )
+    engine = tserve.ServeEngine(params, tiny_config(SCHEDULE_CASE), device="cpu",
+                                **ENGINE_KW, **mode_kwargs(mode))
+    tokens, telemetry = trace_engine(engine, schedule_requests())
+    np.testing.assert_array_equal(tokens, want_tokens)
+    np.testing.assert_array_equal(telemetry, want_trace)
+    inp = make_inputs()
+    config = jax_config(SCHEDULE_CASE)
+    jparams = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), trees[SCHEDULE_CASE[1]])
+    runs = []
+    for kw in ({}, mode_kwargs(mode)):
+        jengine = jserve.ServeEngine(jparams, config, **ENGINE_KW, **kw)
+        rids = [jengine.submit(inp[f"engine_prompt{i}"], int(inp[f"engine_new{i}"]))
+                for i in range(ENGINE_REQUESTS)]
+        served = jengine.run()
+        runs.append(engine_array([served[r] for r in rids]))
+    np.testing.assert_array_equal(runs[1], runs[0])
+
+
+def write_superstep_goldens(path: str = SUPERSTEP_GOLDEN) -> None:
+    """Freeze the JAX package's superstep outputs and its engine's
+    per-step scheduling telemetry for tests/test_torch_superstep.py and
+    tests/test_torch_schedule.py."""
+    inp = superstep_inputs()
+    arrays = {f"superstep/input/{k}": np.asarray(v) for k, v in inp.items()}
+    trees = {None: jax_params_bf16(None), 2: jax_params_bf16(2)}
+    for case in SS_CASES:
+        key = case_key(case)
+        eos = superstep_eos(case, trees[case[1]], inp)
+        arrays[f"superstep/{key}/eos"] = eos
+        for k in SS_KS:
+            out = jax_superstep(case, trees[case[1]], inp, eos, k)
+            arrays.update({f"superstep/{key}/k{k}/{n}": v for n, v in out.items()})
+    for mode in SCHEDULE_MODES:
+        tokens, telemetry = jax_engine_trace(mode, trees[SCHEDULE_CASE[1]])
+        arrays[f"schedule/{mode_key(mode)}/tokens"] = tokens
+        arrays[f"schedule/{mode_key(mode)}/telemetry"] = telemetry
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_goldens(path: str = GOLDEN) -> None:
     """Freeze the JAX package's outputs for tests/test_torch_golden.py.
     Only unwindowed cases keep their written pages, so the fixture
@@ -263,3 +404,4 @@ if __name__ == "__main__":
     if sys.argv[1:] != ["--write-goldens"]:
         sys.exit("usage: python tests/test_torch_parity.py --write-goldens")
     write_goldens()
+    write_superstep_goldens()

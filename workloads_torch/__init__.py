@@ -5,7 +5,9 @@ Mirrors ``workloads/`` module for module (``model``, ``generate``,
 ``paged``, ``serve``, ``train``, ``checkpoint``, ``errors``,
 ``ops.paged_attention``, ``ops.attention``, ``ops.kernel_select``) and
 imports nothing of it: the JAX package stays the reference, and this package
-runs on a host with no JAX installed.
+runs on a host with no JAX installed.  ``decode_graph`` has no JAX
+counterpart: it is the port's stand-in for a jitted decode loop, the
+serving engine's decode step as a CUDA graph.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit ``cpu`` they raise instead of moving

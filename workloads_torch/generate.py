@@ -122,7 +122,6 @@ def filter_logits(
     logits = logits.reshape(-1, vocab).float()
     logits = logits / max(float(temperature), 1e-3)
     sorted_desc = torch.sort(logits, dim=-1, descending=True).values
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
 
     # top-k threshold: the k-th largest logit, disabled -> -inf.
     k_idx = min(max(int(top_k) - 1, 0), vocab - 1)
@@ -141,7 +140,9 @@ def filter_logits(
         p_cut = torch.full_like(p_cut, -torch.inf)
 
     cutoff = torch.maximum(k_cut, p_cut)[:, None]
-    logits = torch.where(logits >= cutoff, logits, neg_inf)
+    # A Python scalar, not a tensor made on the host: a decode step that
+    # samples is captured as a CUDA graph, where no host copy may run.
+    logits = torch.where(logits >= cutoff, logits, float("-inf"))
     return logits.reshape(*lead, vocab)
 
 

@@ -16,7 +16,8 @@ raises ``ValueError``; it never goes to the plain version.
 The kernel cuts each row's live pages into ``splits`` contiguous shares,
 one CTA each, and merges the shares' float32 ``(m, l, acc)`` in split
 order inside the same launch.  ``choose_splits`` picks the count on the
-host from shapes alone (no device value is read), and
+host from shapes and dtype alone (no device value is read; bf16 pools
+keep one split), and
 ``paged_attention_split_reference`` is that arithmetic in plain PyTorch:
 the tests hold it to ``paged_attention_reference``; nothing on the
 serving path calls it.
@@ -97,13 +98,23 @@ def paged_attention_reference(
     return out.reshape(batch, heads, head_dim).to(q.dtype)
 
 
-def choose_splits(batch: int, kv_heads: int, max_pages: int, sm_count: int) -> int:
+def choose_splits(
+    batch: int, kv_heads: int, max_pages: int, sm_count: int,
+    dtype: torch.dtype = torch.float32,
+) -> int:
     """How many CTAs share one (row, kv head)'s page walk: as many as give
     every SM one CTA, at most one a table column, and 1 once batch x
     kv_heads CTAs pass half the SMs.  (On an H100 a second CTA an SM read
     slower than one at the serving shapes: the partials' round trip
     through the workspace costs more than the fuller card gains.)  A pure
-    function of shapes: ``lengths`` stays on the device."""
+    function of shapes and dtype: ``lengths`` stays on the device.
+
+    bf16 pools keep one split: each later share rounds its ``p`` to bf16
+    against its own running max, not the row's as the Pallas kernel does,
+    and a whole bf16 decode step through the split kernel lands outside
+    the step's bf16 floor (ROADMAP Queue C)."""
+    if dtype == torch.bfloat16:
+        return 1
     ctas = max(batch * kv_heads, 1)
     return max(1, min(sm_count // ctas, max_pages))
 
@@ -274,7 +285,7 @@ def _launch(q, k_pages, v_pages, tables, lengths, layer, window, splits=None):
             f"{smem} bytes of shared memory; one block holds {_MAX_SMEM_BYTES}"
         )
     if splits is None:
-        splits = choose_splits(batch, kv_heads, max_pages, _sm_count(q.device))
+        splits = choose_splits(batch, kv_heads, max_pages, _sm_count(q.device), q.dtype)
     if splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
     out = torch.empty_like(q)

@@ -201,6 +201,53 @@ def table_array(
     return torch.tensor(out, dtype=torch.int32, device=resolve_device(device))
 
 
+def _page_index(page, device) -> torch.Tensor:
+    """A page id (int or 0-d tensor) as a [1] int64 index on ``device``;
+    a device tensor stays on the device (no host read)."""
+    return torch.as_tensor(page, device=device).long().reshape(1)
+
+
+def read_page(pools: tuple[torch.Tensor, torch.Tensor], src):
+    """Copy ONE physical page (all layers, k and v) out of the pools:
+    (k [L, Hkv, ps, hd], v [L, Hkv, ps, hd]), new tensors that later pool
+    writes do not change."""
+    idx = _page_index(src, pools[0].device)
+    return tuple(pool.index_select(1, idx)[:, 0] for pool in pools)
+
+
+def read_pages(pools: tuple[torch.Tensor, torch.Tensor], srcs):
+    """Copy N physical pages out of the pools in one gather per pool:
+    (k [L, n, Hkv, ps, hd], v [L, n, Hkv, ps, hd]); column ``i`` holds
+    exactly ``read_page(srcs[i])``'s bytes."""
+    idx = torch.as_tensor(srcs, device=pools[0].device).long().reshape(-1)
+    return tuple(pool.index_select(1, idx) for pool in pools)
+
+
+def write_page(
+    pools: tuple[torch.Tensor, torch.Tensor], k_page, v_page, dst
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write one page's k/v ([L, Hkv, ps, hd] each) into the pools at
+    physical page ``dst``, IN PLACE; returns the same pool tensors (a
+    captured CUDA graph holds their addresses, so they are never
+    rebound).  ``read_page`` -> ``write_page`` round-trips bit-exactly."""
+    idx = _page_index(dst, pools[0].device)
+    for pool, page in zip(pools, (k_page, v_page)):
+        pool.index_copy_(1, idx, page.to(pool.device, pool.dtype)[:, None])
+    return pools
+
+
+def copy_page(
+    pools: tuple[torch.Tensor, torch.Tensor], src, dst
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Duplicate one physical page (all layers, k and v) onto ``dst``, IN
+    PLACE; returns the same pool tensors."""
+    device = pools[0].device
+    src_idx, dst_idx = _page_index(src, device), _page_index(dst, device)
+    for pool in pools:
+        pool.index_copy_(1, dst_idx, pool.index_select(1, src_idx))
+    return pools
+
+
 def _rope_rows(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """Rotate x [batch, s, heads, head_dim] by per-row angles
     [batch, head_dim//2] (one position per row) or [batch, s,
@@ -328,6 +375,83 @@ def paged_decode_chunk(
         tok = torch.where(occupancy, nxt, tok)
         toks.append(nxt)
     return torch.stack(toks, dim=1), pools
+
+
+def decode_superstep_step(
+    params: dict,
+    pools: tuple[torch.Tensor, torch.Tensor],
+    tables: torch.Tensor,
+    tok: torch.Tensor,
+    pos: torch.Tensor,
+    live: torch.Tensor,
+    budget: torch.Tensor,
+    eos: torch.Tensor,
+    generator: torch.Generator | None,
+    temperature: float,
+    top_k: int,
+    top_p: float,
+    config: ModelConfig,
+    sampling: bool,
+):
+    """ONE decode step with device-side retirement, the body of
+    ``paged_decode_superstep`` (and the step ``decode_graph`` captures):
+    emit a token for every row, advance live rows, then retire a row on
+    the step it emits ``eos`` or exhausts its ``budget``; retired and
+    parked rows freeze their position and token.  Returns (emitted
+    [batch], tok, pos, live, budget); the pools update in place."""
+    logits, _ = _decode_core(params, pools, tables, tok, pos, config)
+    nxt = sample_logits(
+        logits, generator if sampling else None, temperature, top_k, top_p
+    )
+    pos = torch.where(live, pos + 1, pos)
+    tok = torch.where(live, nxt, tok)
+    budget = torch.where(live, budget - 1, budget)
+    # Retire AFTER the emit: the terminal token is this step's output.
+    live = live & (nxt != eos) & (budget > 0)
+    return nxt, tok, pos, live, budget
+
+
+@torch.inference_mode()
+def paged_decode_superstep(
+    params: dict,
+    pools: tuple[torch.Tensor, torch.Tensor],
+    tables: torch.Tensor,
+    token: torch.Tensor,
+    positions: torch.Tensor,
+    live: torch.Tensor,
+    budget: torch.Tensor,
+    eos: torch.Tensor,
+    generator: torch.Generator | None,
+    temperature: float,
+    top_k: int,
+    top_p: float,
+    config: ModelConfig,
+    chunk: int,
+    k: int,
+    sampling: bool,
+):
+    """``k`` chained decode chunks (``k * chunk`` steps) with device-side
+    retirement, the JAX package's ``paged_decode_superstep`` as a loop.
+    live: [batch] bool, False rows (empty slots, rows retired earlier)
+    frozen like ``paged_decode_chunk``'s parked rows; budget: [batch]
+    remaining tokens; eos: [batch] ids (-1 = none).  Draws come from
+    ``generator`` in the order ``k`` chunk calls take them.  tables must
+    cover each live row up to its retirement ceiling: a retired row keeps
+    writing its frozen position.  Returns (tokens [batch, k*chunk], tok,
+    pos, live, budget, pools): the carry after the last step, on the
+    device, and the pools updated in place."""
+    tok = token.long()
+    pos = torch.broadcast_to(
+        torch.as_tensor(positions, device=token.device), token.shape
+    ).long()
+    toks = []
+    for _ in range(k * chunk):
+        nxt, tok, pos, live, budget = decode_superstep_step(
+            params, pools, tables, tok, pos, live, budget, eos, generator,
+            temperature, top_k, top_p, config, sampling,
+        )
+        toks.append(nxt)
+    return torch.stack(toks, dim=1), tok, pos, live, budget, pools
 
 
 def _redirect_padding(

@@ -13,10 +13,24 @@ Pages are committed at admission for a request's worst-case lifetime
 and released at retirement, so allocation can never fail mid-stream;
 a request that does not fit yet waits in the queue.
 
-This slice ports the core engine: batched admission, plain chunked
-decode, eos/budget retirement, back-pressure (``max_pending``) and
-``close``.  Pipelining, supersteps, prefix caching, fan-out,
-speculation, adapters and the fleet are not ported yet.
+Scheduling, as in the JAX engine: ``batched_admission=False`` admits
+one request per prefill dispatch and first-token readback;
+``prefill_budget`` caps each step's prefill chunks and carries
+half-prefilled admissions across steps; ``pipelined`` reads a chunk
+back only after the next one is dispatched; ``superstep_k > 1`` runs
+``k`` chunks a dispatch with retirement decided on the device, and
+turns the step around (dispatch, then admission while the device
+computes, then one readback).  Greedy streams are the same in every
+mode.
+
+On the card every decode step is a replay of one captured CUDA graph
+(``decode_graph.DecodeGraph``); host mirrors go up through pinned
+buffers without a synchronise, and readbacks land in pinned buffers
+behind an event, so a dispatch returns while the device computes.  CPU
+engines run the eager ``paged_decode_chunk`` and
+``paged_decode_superstep``.  Prefix caching, fan-out, speculation,
+adapters, the lifecycle seams (cancel, deadlines, quarantine, health)
+and the fleet are not ported yet.
 
 Run on the card with ``python -m workloads_torch.serve``; pass
 ``--device cpu`` for the plain PyTorch path on the CPU.
@@ -33,6 +47,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .decode_graph import DecodeGraph
 from .errors import EngineClosed, InvalidRequest, QueueFull, RequestTooLarge
 from .generate import sample_logits
 from .model import ModelConfig, cast_params, init_params
@@ -40,8 +55,14 @@ from .paged import (
     PagePool,
     init_page_pools,
     paged_decode_chunk,
+    paged_decode_superstep,
+    paged_prefill,
     paged_prefill_chunk,
 )
+
+# The chunk path's budget on the graph route: larger than any request's,
+# so a live row stays live through the chunk (eos -1 matches no token).
+_UNBOUNDED = 2**30
 
 
 @dataclass
@@ -92,13 +113,38 @@ class Request:
         return self.t_admit - self.t_submit
 
 
+class _Readback:
+    """Decoded tokens on their way to the host.  From the card they are
+    copied into pinned memory behind an event as soon as they are
+    dispatched (before anything later can overwrite their buffer), so
+    the host blocks only when it reads them."""
+
+    def __init__(self, toks: torch.Tensor):
+        self.event = None
+        if toks.is_cuda:
+            self.host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+            self.host.copy_(toks, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = toks
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 class ServeEngine:
     """Continuous-batching serving engine over the paged KV cache.
 
     Static once constructed: ``slots`` batch rows, a ``prompt_bucket``
-    prefill width, a ``chunk`` decode length and a page pool, on
-    ``device`` (default ``cuda``; pass ``"cpu"`` explicitly).  ``params``
-    must already live on that device, in ``config.dtype``."""
+    prefill width, a ``chunk`` decode length, the scheduling mode
+    (``pipelined``, ``superstep_k``, ``batched_admission``,
+    ``prefill_budget``) and a page pool, on ``device`` (default
+    ``cuda``; pass ``"cpu"`` explicitly).  ``params`` must already live
+    on that device, in ``config.dtype``.  ``pools`` keep their storage
+    for the engine's life: on the card a captured graph holds them."""
 
     def __init__(
         self,
@@ -116,6 +162,10 @@ class ServeEngine:
         generator: torch.Generator | None = None,
         max_pending: int | None = None,
         completed_limit: int | None = None,
+        pipelined: bool = False,
+        superstep_k: int = 1,
+        batched_admission: bool = True,
+        prefill_budget: int | None = None,
         device=None,
     ):
         if slots < 1:
@@ -125,6 +175,13 @@ class ServeEngine:
                 f"max_pending must be >= 1 or None (unbounded), got "
                 f"{max_pending}"
             )
+        if prefill_budget is not None and prefill_budget < 1:
+            raise ValueError(
+                f"prefill_budget must be >= 1 token/step or None "
+                f"(unbudgeted), got {prefill_budget}"
+            )
+        if superstep_k < 1:
+            raise ValueError(f"superstep_k must be >= 1, got {superstep_k}")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -147,10 +204,22 @@ class ServeEngine:
                 f"prompt_bucket {self.prompt_bucket} must be a multiple of "
                 f"page_size {page_size} (chunked prefill is page-aligned)"
             )
-        # A chunk may overshoot a request's retirement point, so tables
-        # and the position range cover one chunk past it; chunked
-        # prefill also needs bucket-aligned page coverage.
-        self._overshoot = self.chunk
+        self.pipelined = pipelined
+        self.superstep_k = superstep_k
+        self.batched_admission = batched_admission
+        # With a budget (tokens a step) each step dispatches at most
+        # max(1, budget // prompt_bucket) prefill chunks; admissions
+        # whose prompts need more wait in ``_inflight_prefill`` with
+        # their pages committed, so one long prompt never holds up the
+        # step's decode.  A budget always sweeps (the serial path cannot
+        # park a half-prefilled prompt).
+        self.prefill_budget = prefill_budget
+        # A dispatch may overshoot a request's retirement point by its
+        # k chunks, and pipelined stepping sees retirement one dispatch
+        # later still, so tables and the position range cover that far
+        # past it; chunked prefill also needs bucket-aligned page
+        # coverage.
+        self._overshoot = self.chunk * superstep_k * (2 if pipelined else 1)
         bucket_pages = self.prompt_bucket // page_size
         prefill_cover = -(-config.max_seq_len // self.prompt_bucket) * bucket_pages
         self.max_pages = max(
@@ -180,10 +249,47 @@ class ServeEngine:
         self._ids = itertools.count()
         self.max_pending = max_pending
         self._closed = False
+        # Mid-prefill admissions (plan dicts with a chunk "cursor"): their
+        # slots are reserved but not occupied until the first token lands.
+        self._inflight_prefill: list[dict] = []
+        # Slots admitted since the last decode dispatch: a chained
+        # dispatch takes their host state, the device carry for the rest.
+        self._fresh_slots: set[int] = set()
+        # Pipelined chunk path: the unread chunk (readback, slot->request
+        # snapshot at dispatch) and the device-side last tokens.
+        self._pending_read = None
+        self._chained_tok: torch.Tensor | None = None
+        # Supersteps dispatched but not consumed, and (pipelined) the
+        # device-side (tok, pos, live, budget) carry the next one chains on.
+        self._pending_super: deque = deque()
+        self._super_chained: tuple | None = None
+        # On the card: the decode step as a CUDA graph, replayed per step.
+        self._graph = None
+        if self.device.type == "cuda":
+            self._graph = DecodeGraph(
+                params, self.pools, config, slots=slots,
+                max_pages=self.max_pages, max_steps=self.chunk * superstep_k,
+                generator=self.generator, temperature=self.temperature,
+                top_k=self.top_k, top_p=self.top_p, sampling=self.sampling,
+            )
+            self._unbounded = (
+                torch.full((slots,), _UNBOUNDED, dtype=torch.int32, device=self.device),
+                torch.full((slots,), -1, dtype=torch.int32, device=self.device),
+            )
         # Telemetry.
         self.chunks_run = 0
+        self.supersteps_run = 0
+        # Decode steps computed past a row's retirement (a superstep's
+        # dead tail), reconciled at each superstep readback.
+        self.tokens_overdecoded = 0
         self.generated_tokens = 0
-        self.prefill_dispatches = 0
+        self.prefills_run = 0
+        self.prefill_tokens = 0  # prompt tokens forwarded
+        self.prefill_sweeps = 0  # batched-admission sweeps
+        self.prefill_dispatches = 0  # prefill program calls
+        self.prefill_deferred_tokens = 0  # prompt tokens the budget parked
+        self.admission_readbacks = 0  # first-token host reads
+        self.requests_admitted = 0
         self.requests_retired = 0
         self.requests_failed = 0
         self.queue_rejections = 0
@@ -243,9 +349,11 @@ class ServeEngine:
             exc.request = rejected
             raise exc
         rid = rid if rid is not None else f"req-{next(self._ids)}"
-        in_flight = {r.rid for r in self.pending} | {
-            r.rid for r in self._slot_req.values()
-        }
+        in_flight = (
+            {r.rid for r in self.pending}
+            | {r.rid for r in self._slot_req.values()}
+            | {p["req"].rid for p in self._inflight_prefill}
+        )
         if rid in in_flight:
             raise InvalidRequest(f"request id {rid!r} is already in flight")
         self.pending.append(
@@ -261,8 +369,8 @@ class ServeEngine:
 
     def _worst_case_pages(self, prompt_len: int, max_new_tokens: int) -> int:
         """Pages a request can hold over its lifetime: retirement is seen
-        at chunk boundaries, so its final position can overshoot
-        prompt + max_new - 1 by up to one chunk."""
+        at dispatch boundaries, so its final position can overshoot
+        prompt + max_new - 1 by ``_overshoot``."""
         return self.ctrl.pages_needed(
             prompt_len + max_new_tokens - 1 + self._overshoot
         )
@@ -277,6 +385,7 @@ class ServeEngine:
         self._tables[slot] = self.ctrl.trash
         self._positions[slot] = 0
         self._tokens[slot] = 0
+        self._fresh_slots.discard(slot)
         return req
 
     def _retire(self, slot: int) -> Request:
@@ -297,18 +406,38 @@ class ServeEngine:
         return req
 
     def _dev(self, mirror: np.ndarray) -> torch.Tensor:
-        """A host mirror as a fresh device tensor (a copy: the mirror
-        changes after the dispatch)."""
-        return torch.tensor(mirror, device=self.device)
+        """A host mirror as a fresh device tensor, copied first: the
+        mirror changes after the dispatch.  To the card it goes through a
+        pinned copy without a synchronise, so the upload queues behind
+        the work in flight instead of waiting for it; the pinned block
+        is not reused before the copy has run."""
+        host = torch.from_numpy(np.ascontiguousarray(mirror))
+        if self.device.type == "cpu":
+            return host.clone()
+        return host.pin_memory().to(self.device, non_blocking=True)
 
-    # ---- batched admission: plan -> sweep -> finish ---------------------
+    def _fresh_mask(self) -> torch.Tensor:
+        """[slots] bool device mask of the slots admitted since the last
+        decode dispatch, which a chained dispatch takes from the host."""
+        fresh = np.zeros(self.slots, bool)
+        fresh[list(self._fresh_slots)] = True
+        return self._dev(fresh)
+
+    # ---- admission ------------------------------------------------------
 
     def _admit(self) -> list[Request]:
-        """Fill free slots from the pending queue: plan every admission
-        of this step, run one prefill sweep over all of them, sample the
-        first tokens in one call.  Returns the requests that finished at
-        admission (max_new_tokens == 1 or an instant eos); a retirement
-        there frees budget, so the loop plans again on untouched slots."""
+        """Fill free slots from the pending queue.  Batched (the
+        default): every admission of the step rides one prefill sweep and
+        one first-token readback; serial: one prefill and one readback
+        per admission; with a ``prefill_budget``: the resumable budgeted
+        sweep.  Returns the requests that finished at admission
+        (max_new_tokens == 1 or an instant eos); in the batched loop a
+        retirement there frees budget, so it plans again on untouched
+        slots."""
+        if self.prefill_budget is not None:
+            return self._admit_budgeted()
+        if not self.batched_admission:
+            return self._admit_serial()
         finished: list[Request] = []
         used: set[int] = set()
         while True:
@@ -317,15 +446,85 @@ class ServeEngine:
                 return finished
             used.update(p["slot"] for p in plans)
             emitted = self._sweep_prefill(plans)
-            batch_finished, retry = self._finish_admissions(plans, emitted)
+            batch_finished = self._finish_admissions(plans, emitted)
             finished += batch_finished
-            if not retry:
+            if not batch_finished:
                 return finished
 
+    def _take_head(self) -> Request:
+        req = self.pending.popleft()
+        req.t_admit = time.perf_counter()
+        req.status = "running"
+        self.requests_admitted += 1
+        return req
+
+    def _admit_serial(self) -> list[Request]:
+        """Serial admission: allocate the prompt's pages, prefill it (one
+        batch-1 call per admission), sample its first token with a
+        readback of its own."""
+        finished = []
+        for slot in range(self.slots):
+            if self._occupied[slot] or not self.pending:
+                continue
+            head = self.pending[0]
+            need = self._worst_case_pages(len(head.prompt), head.max_new_tokens)
+            if self._committed_pages + need > self.ctrl.n_pages:
+                break  # FIFO: no queue-jumping by smaller requests
+            req = self._take_head()
+            seq = self._seq_id(slot, req)
+            n = len(req.prompt)
+            table = np.full((1, self.max_pages), self.ctrl.trash, np.int32)
+            pages = self.ctrl.allocate(seq, n)
+            table[0, : len(pages)] = pages
+            logits = self._run_prefill(self._dev(table), req.prompt)
+            tok = int(sample_logits(
+                logits, self.generator if self.sampling else None,
+                self.temperature, self.top_k, self.top_p,
+            )[0])
+            self.admission_readbacks += 1
+            if self._land_first_token(slot, req, seq, need, n, tok):
+                finished.append(req)
+            else:
+                self._committed_pages += need
+        return finished
+
+    def _run_prefill(self, table: torch.Tensor, prompt: list[int]) -> torch.Tensor:
+        """Prefill one admission: one bucket-wide ``paged_prefill`` for a
+        prompt that fits, page-aligned ``paged_prefill_chunk`` calls for a
+        longer one.  Returns its [1, vocab] next-token logits."""
+        n, B = len(prompt), self.prompt_bucket
+        bp = B // self.page_size
+        self.prefills_run += 1
+        self.prefill_tokens += n
+        lengths = self._dev(np.asarray([n], np.int32))
+        if n <= B:
+            self.prefill_dispatches += 1
+            tokens = np.zeros((1, B), np.int64)
+            tokens[0, :n] = prompt
+            logits, _ = paged_prefill(
+                self.params, self.pools, table, self._dev(tokens), lengths,
+                self.config,
+            )
+            return logits
+        n_chunks = -(-n // B)
+        for ci in range(n_chunks):
+            self.prefill_dispatches += 1
+            tokens = np.zeros((1, B), np.int64)
+            width = min(B, n - ci * B)
+            tokens[0, :width] = prompt[ci * B : ci * B + width]
+            logits, _ = paged_prefill_chunk(
+                self.params, self.pools, table, self._dev(tokens), lengths,
+                self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp,
+                emit=ci == n_chunks - 1,
+            )
+        return logits
+
     def _plan_admissions(self, used: set) -> list[dict]:
-        """Scan the queue in order (free slots ascending, FIFO, stop at
-        the first request the page budget defers), committing worst-case
-        pages and allocating the prompt's pages; no device work."""
+        """Scan the queue in the serial path's order (free slots
+        ascending, FIFO, stop at the first request the page budget
+        defers), committing worst-case pages and allocating the prompt's
+        pages; no device work.  ``used`` excludes slots taken earlier in
+        this step and slots mid-prefill."""
         plans: list[dict] = []
         for slot in range(self.slots):
             if slot in used or self._occupied[slot] or not self.pending:
@@ -335,9 +534,7 @@ class ServeEngine:
             if self._committed_pages + need > self.ctrl.n_pages:
                 # FIFO: no queue-jumping by smaller requests.
                 break
-            req = self.pending.popleft()
-            req.t_admit = time.perf_counter()
-            req.status = "running"
+            req = self._take_head()
             seq = self._seq_id(slot, req)
             self.ctrl.allocate(seq, len(req.prompt))
             self._committed_pages += need
@@ -347,78 +544,193 @@ class ServeEngine:
             })
         return plans
 
-    def _sweep_prefill(self, plans: list[dict]) -> torch.Tensor:
-        """Stack the planned rows into one ragged [slots, bucket] batch and
-        run paged_prefill_chunk over the page-aligned chunks any row
-        covers; each row's logits are taken from the chunk where its
-        prompt ends.  Dead rows compute on trash tables.  Returns the
-        [slots, vocab] first-token logits."""
-        B, S = self.prompt_bucket, self.slots
-        bp = B // self.page_size
-        lengths = np.zeros(S, np.int32)
-        tables = np.full((S, self.max_pages), self.ctrl.trash, np.int32)
-        for p in plans:
+    def _prefill_row_arrays(self, rows: list[dict]):
+        """The prefill sweep's per-row inputs: host lengths, and device
+        tables and lengths (rows not in ``rows`` keep trash tables and
+        length 0, as parked decode rows do)."""
+        lengths = np.zeros(self.slots, np.int32)
+        tables = np.full((self.slots, self.max_pages), self.ctrl.trash, np.int32)
+        for p in rows:
             lengths[p["slot"]] = p["n"]
             t = self.ctrl.tables[p["seq"]]
             tables[p["slot"], : len(t)] = t
-        tables_dev, lengths_dev = self._dev(tables), self._dev(lengths)
-        emitted = torch.zeros(
-            (S, self.config.vocab_size), dtype=torch.float32, device=self.device
+        return lengths, self._dev(tables), self._dev(lengths)
+
+    def _dispatch_prefill_ci(
+        self, rows: list[dict], ci: int, lengths: np.ndarray, tables_dev,
+        lengths_dev, emitted: torch.Tensor,
+    ) -> torch.Tensor:
+        """ONE [slots, bucket] prefill chunk at chunk index ``ci`` for
+        ``rows``; a row's logits land in ``emitted`` from the chunk where
+        its prompt ends.  The unbudgeted and the budgeted sweep both
+        dispatch through here."""
+        B, bp = self.prompt_bucket, self.prompt_bucket // self.page_size
+        start = ci * B
+        chunk = np.zeros((self.slots, B), np.int64)
+        for p in rows:
+            width = min(B, p["n"] - start)
+            if width > 0:
+                chunk[p["slot"], :width] = p["req"].prompt[start : start + width]
+        logits, _ = paged_prefill_chunk(
+            self.params, self.pools, tables_dev, self._dev(chunk), lengths_dev,
+            self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=True,
         )
-        for ci in range(-(-int(lengths.max()) // B)):
-            start = ci * B
-            chunk = np.zeros((S, B), np.int64)
-            for p in plans:
-                width = min(B, p["n"] - start)
-                if width > 0:
-                    chunk[p["slot"], :width] = p["req"].prompt[start : start + width]
-            logits, self.pools = paged_prefill_chunk(
-                self.params, self.pools, tables_dev, self._dev(chunk),
-                lengths_dev, self.config, start_page=ci * bp,
-                cover_pages=(ci + 1) * bp, emit=True,
+        self.prefill_dispatches += 1
+        emit_mask = (lengths > start) & (lengths <= start + B)
+        return torch.where(self._dev(emit_mask)[:, None], logits, emitted)
+
+    def _sweep_prefill(self, plans: list[dict]) -> torch.Tensor:
+        """Stack the planned rows into one ragged [slots, bucket] batch and
+        run the page-aligned chunks any row covers.  Returns the
+        [slots, vocab] first-token logits."""
+        for p in plans:
+            self.prefills_run += 1
+            self.prefill_tokens += p["n"]
+        lengths, tables_dev, lengths_dev = self._prefill_row_arrays(plans)
+        emitted = torch.zeros(
+            (self.slots, self.config.vocab_size), dtype=torch.float32,
+            device=self.device,
+        )
+        self.prefill_sweeps += 1
+        for ci in range(-(-int(lengths.max()) // self.prompt_bucket)):
+            emitted = self._dispatch_prefill_ci(
+                plans, ci, lengths, tables_dev, lengths_dev, emitted
             )
-            self.prefill_dispatches += 1
-            emit_mask = (lengths > start) & (lengths <= start + B)
-            emitted = torch.where(self._dev(emit_mask)[:, None], logits, emitted)
         return emitted
 
     def _finish_admissions(
         self, plans: list[dict], emitted: torch.Tensor
-    ) -> tuple[list[Request], bool]:
+    ) -> list[Request]:
         """Sample every row's first token in one call, read the batch back
-        once, then apply emission and at-admission retirement.  Returns
-        (requests finished at admission, whether one of them rolled back
-        its page commitment)."""
+        once, then apply emission and at-admission retirement (which
+        rolls the plan's page commitment back).  Returns the requests
+        finished at admission."""
         toks = sample_logits(
             emitted, self.generator if self.sampling else None,
             self.temperature, self.top_k, self.top_p,
         ).cpu().numpy()
-        finished, retry = [], False
+        self.admission_readbacks += 1
+        finished = []
         for p in plans:
-            slot, req, seq = p["slot"], p["req"], p["seq"]
-            tok = int(toks[slot])
-            req.tokens.append(tok)
-            req.t_first = time.perf_counter()
-            self.generated_tokens += 1
-            if len(req.tokens) >= req.max_new_tokens or tok == req.eos_token:
-                req.done = True
-                req.status = "ok"
-                req.t_done = req.t_first
-                self.ctrl.release(seq)
-                self._committed_pages -= p["need"]
-                finished.append(req)
-                self.requests_retired += 1
-                self.completed.append(req)
-                retry = True
-                continue
-            self._slot_req[slot] = req
-            self._occupied[slot] = True
-            self._slot_commit[slot] = p["need"]
-            table = self.ctrl.tables[seq]
-            self._tables[slot, : len(table)] = table
-            self._positions[slot] = p["n"]
-            self._tokens[slot] = tok
-        return finished, retry
+            slot = p["slot"]
+            if self._land_first_token(slot, p["req"], p["seq"], p["need"], p["n"],
+                                      int(toks[slot])):
+                self._committed_pages -= p["need"]  # the plan's, rolled back
+                finished.append(p["req"])
+        return finished
+
+    def _land_first_token(
+        self, slot: int, req: Request, seq, need: int, n: int, tok: int
+    ) -> bool:
+        """Emit an admission's first token.  A request that ends there
+        retires at once, its pages released; any other takes its slot,
+        to decode from position ``n`` at the next dispatch.  Returns
+        whether it retired."""
+        req.tokens.append(tok)
+        req.t_first = time.perf_counter()
+        self.generated_tokens += 1
+        if len(req.tokens) >= req.max_new_tokens or tok == req.eos_token:
+            req.done = True
+            req.status = "ok"
+            req.t_done = req.t_first
+            self.ctrl.release(seq)
+            self.requests_retired += 1
+            self.completed.append(req)
+            return True
+        self._slot_req[slot] = req
+        self._occupied[slot] = True
+        self._fresh_slots.add(slot)
+        self._slot_commit[slot] = need
+        table = self.ctrl.tables[seq]
+        self._tables[slot, : len(table)] = table
+        self._positions[slot] = n
+        self._tokens[slot] = tok
+        return False
+
+    # ---- budgeted chunked-prefill interleaving --------------------------
+
+    def _admit_budgeted(self) -> list[Request]:
+        """Resumable admission under ``prefill_budget``: plan new
+        admissions as the unbudgeted path does, dispatch at most
+        ``max(1, prefill_budget // prompt_bucket)`` chunks across every
+        mid-prefill row, finish the rows whose last chunk ran (one fused
+        readback) and carry the rest to the next step.  Under
+        ``pipelined`` the decode readback due is consumed between the
+        sweep's dispatch and its readback, so it overlaps the prefill.
+        No same-step re-plan after an at-admission retirement: the freed
+        budget admits next step."""
+        budget = max(1, self.prefill_budget // self.prompt_bucket)
+        finished: list[Request] = []
+        used = {p["slot"] for p in self._inflight_prefill}
+        new_plans = self._plan_admissions(used)
+        for p in new_plans:
+            p["cursor"] = 0
+            p["last_ci"] = -(-p["n"] // self.prompt_bucket) - 1
+            self.prefills_run += 1
+            self.prefill_tokens += p["n"]
+        self._inflight_prefill.extend(new_plans)
+        if not self._inflight_prefill:
+            return finished
+        emitted = self._sweep_prefill_budgeted(budget)
+        if self.pipelined:
+            if self._pending_read is not None:
+                read, snapshot = self._pending_read
+                self._pending_read = None
+                finished += self._consume_chunk(read, snapshot)
+            if len(self._pending_super) > 1:
+                # The superstep loop admits with the newest superstep in
+                # flight; the previous one's readback overlaps the sweep.
+                read, snapshot = self._pending_super.popleft()
+                finished += self._consume_superstep(read, snapshot)
+        completed = [p for p in self._inflight_prefill if p["cursor"] > p["last_ci"]]
+        if completed:
+            finished += self._finish_admissions(completed, emitted)
+            self._inflight_prefill = [
+                p for p in self._inflight_prefill if p["cursor"] <= p["last_ci"]
+            ]
+        for p in self._inflight_prefill:
+            self.prefill_deferred_tokens += max(
+                0, p["n"] - p["cursor"] * self.prompt_bucket
+            )
+        return finished
+
+    def _sweep_prefill_budgeted(self, max_chunks: int) -> torch.Tensor:
+        """Dispatch up to ``max_chunks`` prompt-bucket chunks across the
+        mid-prefill rows, oldest admission first; every row whose cursor
+        sits at the same chunk index rides the same dispatch.  Returns the
+        [slots, vocab] logits of the rows whose last chunk ran."""
+        emitted = torch.zeros(
+            (self.slots, self.config.vocab_size), dtype=torch.float32,
+            device=self.device,
+        )
+        if not any(p["cursor"] <= p["last_ci"] for p in self._inflight_prefill):
+            return emitted
+        self.prefill_sweeps += 1
+        group_key, arrays = None, None
+        for _ in range(max_chunks):
+            todo = [p for p in self._inflight_prefill if p["cursor"] <= p["last_ci"]]
+            if not todo:
+                break
+            ci = todo[0]["cursor"]
+            group = [p for p in todo if p["cursor"] == ci]
+            key = tuple(id(p) for p in group)
+            if key != group_key:
+                # A group's inputs depend only on its rows: an unchanged
+                # group reuses one upload.
+                arrays, group_key = self._prefill_row_arrays(group), key
+            emitted = self._dispatch_prefill_ci(group, ci, *arrays, emitted)
+            for p in group:
+                p["cursor"] += 1
+        return emitted
+
+    def _abort_partial(self, plan: dict) -> Request:
+        """Drop one mid-prefill admission: release its pages and roll back
+        its commitment.  The request's fate is the caller's."""
+        self._inflight_prefill = [q for q in self._inflight_prefill if q is not plan]
+        if plan["seq"] in self.ctrl.tables:
+            self.ctrl.release(plan["seq"])
+        self._committed_pages -= plan["need"]
+        return plan["req"]
 
     # ---- decode ---------------------------------------------------------
 
@@ -426,33 +738,70 @@ class ServeEngine:
     def step(self) -> list[Request]:
         """One engine iteration: admit into free slots, run one decode
         chunk for every occupied slot, retire finished requests.  Returns
-        the requests that finished during this step."""
+        the requests that finished during this step.
+
+        With ``pipelined`` a chunk's tokens are read back only after the
+        next chunk is dispatched on its device-side last tokens, so
+        emission and retirement lag one chunk; tokens are the same.  With
+        ``superstep_k > 1`` the step runs ``_step_superstep``."""
         if self._closed:
             raise EngineClosed("engine is closed; no further steps")
+        if self.superstep_k > 1:
+            return self._step_superstep()
         finished = self._admit()
         return finished + self._step_decode()
 
     def _step_decode(self) -> list[Request]:
+        finished: list[Request] = []
         if not self._occupied.any():
-            return []
-        # Page coverage for the whole chunk, allocated on demand (within
-        # the admission-time commitment).
+            if self._pending_read is not None:
+                read, snapshot = self._pending_read
+                self._pending_read = None
+                finished += self._consume_chunk(read, snapshot)
+            return finished
+        self._cover_chunk()
+        tok_in = self._dev(self._tokens)
+        if self.pipelined and self._chained_tok is not None:
+            tok_in = torch.where(self._fresh_mask(), tok_in, self._chained_tok)
+        self._fresh_slots.clear()
+        tables, pos, occupied = (
+            self._dev(self._tables), self._dev(self._positions),
+            self._dev(self._occupied),
+        )
+        if self._graph is None:
+            toks, _ = paged_decode_chunk(
+                self.params, self.pools, tables, tok_in, pos, occupied,
+                self.generator, self.temperature, self.top_k, self.top_p,
+                self.config, self.chunk, self.sampling,
+            )
+            last = toks[:, -1]
+        else:
+            toks, last, *_ = self._graph.run(
+                tables, tok_in, pos, occupied, *self._unbounded, self.chunk
+            )
+        self.chunks_run += 1
+        read = _Readback(toks)
+        snapshot = dict(self._slot_req)
+        for slot in snapshot:
+            self._positions[slot] += self.chunk
+        if not self.pipelined:
+            return finished + self._consume_chunk(read, snapshot)
+        self._chained_tok = last
+        prev, self._pending_read = self._pending_read, (read, snapshot)
+        if prev is not None:
+            # Reading the previous chunk now overlaps the one in flight.
+            finished += self._consume_chunk(*prev)
+        return finished
+
+    def _cover_chunk(self) -> None:
+        """Extend every occupied row's table one chunk past its position
+        (which already counts chunks dispatched and not read), within the
+        admission-time commitment."""
         for slot, req in self._slot_req.items():
             table = self.ctrl.extend(
                 self._seq_id(slot, req), int(self._positions[slot]) + self.chunk
             )
             self._tables[slot, : len(table)] = table
-        toks, self.pools = paged_decode_chunk(
-            self.params, self.pools, self._dev(self._tables),
-            self._dev(self._tokens), self._dev(self._positions),
-            self._dev(self._occupied), self.generator, self.temperature,
-            self.top_k, self.top_p, self.config, self.chunk, self.sampling,
-        )
-        self.chunks_run += 1
-        snapshot = dict(self._slot_req)
-        for slot in snapshot:
-            self._positions[slot] += self.chunk
-        return self._consume_chunk(toks, snapshot)
 
     def _emit(self, req: Request, toks_row) -> None:
         """Append a row's decoded tokens to its request, flipping ``done``
@@ -464,15 +813,120 @@ class ServeEngine:
                 req.done = True
                 break
 
-    def _consume_chunk(self, toks_dev, snapshot: dict) -> list[Request]:
+    def _consume_chunk(self, read: _Readback, snapshot: dict) -> list[Request]:
         """Read a chunk's tokens back (the host sync point) and apply
-        emission and retirement."""
-        toks = toks_dev.cpu().numpy()
+        emission and retirement for the slots as they were at dispatch."""
+        toks = read.numpy()
         finished = []
         for slot, req in snapshot.items():
+            if req.done:
+                # Retired between dispatch and read (pipelined lag).
+                continue
             self._emit(req, toks[slot])
             self._tokens[slot] = toks[slot, -1]
             if req.done:
+                finished.append(self._retire(slot))
+        return finished
+
+    # ---- decode supersteps (superstep_k > 1) ----------------------------
+
+    def _step_superstep(self) -> list[Request]:
+        """One double-buffered iteration: the superstep for the slots
+        occupied NOW is dispatched first, admission (planning, prefill
+        sweeps) runs while it computes, and its one readback comes last.
+        Requests admitted in that window join the next superstep.  Under
+        ``pipelined`` the newest superstep stays in flight, chained on
+        the device, while the previous one is consumed."""
+        finished: list[Request] = []
+        dispatched = False
+        if self._occupied.any():
+            self._dispatch_superstep()
+            dispatched = True
+        finished += self._admit()
+        keep = 1 if (self.pipelined and dispatched) else 0
+        while len(self._pending_super) > keep:
+            read, snapshot = self._pending_super.popleft()
+            finished += self._consume_superstep(read, snapshot)
+        return finished
+
+    def _dispatch_superstep(self) -> None:
+        """Dispatch one superstep (``superstep_k`` chunks, retirement on
+        the device) for the occupied slots.  Page pre-commitment: each
+        live row's table extends up front over the whole superstep
+        (position + k*chunk, two supersteps while one is still in flight
+        for it), capped at the row's retirement ceiling (the last position
+        its budget can reach, +1 for the frozen slot dead steps keep
+        writing), so nothing is allocated mid-superstep and the admission
+        commitment is never overrun."""
+        span = self.superstep_k * self.chunk
+        in_flight: set[int] = set()
+        for _, snap in self._pending_super:
+            in_flight.update(snap)
+        eos = np.full(self.slots, -1, np.int32)
+        budget = np.zeros(self.slots, np.int32)
+        for slot, req in self._slot_req.items():
+            pos = int(self._positions[slot])
+            # Position and emitted count advance together at consume, so
+            # the ceiling holds while a superstep is in flight.
+            ceiling = pos + (req.max_new_tokens - len(req.tokens)) + 1
+            bound = pos + span * (2 if slot in in_flight else 1)
+            table = self.ctrl.extend(self._seq_id(slot, req), min(bound, ceiling))
+            self._tables[slot, : len(table)] = table
+            if req.eos_token is not None:
+                eos[slot] = req.eos_token
+            budget[slot] = req.max_new_tokens - len(req.tokens)
+        tok_in = self._dev(self._tokens)
+        pos_in = self._dev(self._positions)
+        live_in = self._dev(self._occupied)
+        budget_in = self._dev(budget)
+        if self.pipelined and self._super_chained is not None:
+            # Chain on the previous superstep's device carry; only fresh
+            # slots take their host state.
+            fresh = self._fresh_mask()
+            carry = self._super_chained
+            tok_in, pos_in, live_in, budget_in = (
+                torch.where(fresh, host, chained)
+                for host, chained in zip((tok_in, pos_in, live_in, budget_in), carry)
+            )
+        self._fresh_slots.clear()
+        tables, eos_in = self._dev(self._tables), self._dev(eos)
+        if self._graph is None:
+            toks, *carry, _ = paged_decode_superstep(
+                self.params, self.pools, tables, tok_in, pos_in, live_in,
+                budget_in, eos_in, self.generator, self.temperature, self.top_k,
+                self.top_p, self.config, self.chunk, self.superstep_k, self.sampling,
+            )
+        else:
+            toks, *carry = self._graph.run(
+                tables, tok_in, pos_in, live_in, budget_in, eos_in, span
+            )
+        self.chunks_run += self.superstep_k
+        self.supersteps_run += 1
+        if self.pipelined:
+            self._super_chained = tuple(carry)
+        self._pending_super.append((_Readback(toks), dict(self._slot_req)))
+
+    def _consume_superstep(self, read: _Readback, snapshot: dict) -> list[Request]:
+        """The superstep's one readback: emit each row's live prefix
+        (``_emit``'s eos/max_new rule is the device's retirement mask, so
+        the host mirrors advance as the device did), retire finished
+        rows, and count the dead steps each retiring row sat frozen for."""
+        toks = read.numpy()
+        span = toks.shape[1]
+        finished = []
+        for slot, req in snapshot.items():
+            if req.done:
+                # Retired between dispatch and read (pipelined lag): the
+                # chained live mask parked it for the whole superstep.
+                self.tokens_overdecoded += span
+                continue
+            before = len(req.tokens)
+            self._emit(req, toks[slot])
+            advance = len(req.tokens) - before
+            self._positions[slot] += advance
+            self._tokens[slot] = toks[slot, advance - 1]
+            if req.done:
+                self.tokens_overdecoded += span - advance
                 finished.append(self._retire(slot))
         return finished
 
@@ -485,21 +939,35 @@ class ServeEngine:
         return out
 
     def close(self) -> None:
-        """Idempotent shutdown: pending and running requests fail with
-        ``EngineClosed`` recorded, their pages release; later submit and
-        step raise ``EngineClosed``."""
+        """Idempotent shutdown: pending, mid-prefill and running requests
+        fail with ``EngineClosed`` recorded, their pages release, work in
+        flight is dropped unread; later submit and step raise
+        ``EngineClosed``."""
         if self._closed:
             return
         self._closed = True
+        self._pending_read = None
+        self._chained_tok = None
+        self._pending_super.clear()
+        self._super_chained = None
+        self._fresh_slots.clear()
         err = "EngineClosed: engine closed with the request in flight"
         for slot in sorted(self._slot_req):
             self._fail(self._release_slot(slot), err)
+        for plan in list(self._inflight_prefill):
+            self._fail(self._abort_partial(plan), err)
         while self.pending:
             self._fail(self.pending.popleft(), err)
 
     @property
     def idle(self) -> bool:
-        return not self.pending and not self._occupied.any()
+        return (
+            not self.pending
+            and not self._occupied.any()
+            and not self._inflight_prefill
+            and self._pending_read is None
+            and not self._pending_super
+        )
 
     def run(self) -> dict[str, list[int]]:
         """Drive step() until every submitted request has finished;
@@ -527,6 +995,21 @@ def main(argv=None) -> int:
     parser.add_argument("--top-p", type=float, default=0.95)
     parser.add_argument("--kv-heads", type=int, default=None,
                         help="grouped-query kv heads (default: n_heads)")
+    parser.add_argument("--prefill-budget", type=int, default=None,
+                        metavar="TOKENS",
+                        help="cap prefill work at TOKENS a step (at least one "
+                        "chunk always runs) and carry the rest of long "
+                        "prompts across steps, so a long prefill never holds "
+                        "up the decode chunk (omit to prefill each admission "
+                        "to the end)")
+    parser.add_argument("--pipelined", action="store_true",
+                        help="read each chunk back after the next one is "
+                        "dispatched (same tokens)")
+    parser.add_argument("--superstep-k", type=int, default=1, metavar="K",
+                        help="run K chained decode chunks a dispatch with "
+                        "eos/max-token retirement on the device, admission "
+                        "overlapping the device's work (same greedy tokens "
+                        "for every K)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the "
                         "plain PyTorch path)")
@@ -552,7 +1035,9 @@ def main(argv=None) -> int:
         params, config, slots=args.slots, page_size=page_size,
         prompt_bucket=bucket, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
-        generator=torch.Generator(device).manual_seed(42), device=device,
+        generator=torch.Generator(device).manual_seed(42),
+        pipelined=args.pipelined, superstep_k=args.superstep_k,
+        prefill_budget=args.prefill_budget, device=device,
     )
     rng = np.random.default_rng(7)
     for i in range(args.requests):
@@ -571,7 +1056,9 @@ def main(argv=None) -> int:
     rate = generated / elapsed if elapsed > 0 and generated else 0.0
     print(
         f"done: {args.requests} requests, {engine.generated_tokens} tokens, "
-        f"{engine.chunks_run} chunks, steady-state ≈ {rate:.0f} tok/s "
+        f"{engine.chunks_run} chunks ({engine.supersteps_run} supersteps, "
+        f"{engine.tokens_overdecoded} tokens over-decoded), "
+        f"steady-state ≈ {rate:.0f} tok/s "
         f"(device={device}, kv_heads={config.kv_heads}, "
         f"pool={engine.ctrl.n_pages} pages, "
         f"pages in use after drain: {engine.ctrl.used_pages})"

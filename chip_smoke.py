@@ -35,6 +35,17 @@ Phases, each of which fails the run loudly:
    through the plain version, at 8 rows and at 2 (where K1 splits each
    row's pages), in float32 and in bfloat16, the bf16 limit being the
    step's own bf16 precision floor measured in the same run;
+4b. the request lifecycle at the same width (``lifecycle_phase``), short
+   requests in 16-step chunks at the defaults and with ``superstep_k=4,
+   pipelined=True``: a fault at each engine seam with its replays (bf16
+   and float32: the kept prefix equal to the fault-free drain's, and in
+   float32 the whole stream, or a first divergence on a near-tie), retry
+   exhaustion, cancel and withdraw with a superstep in flight, a queued
+   and a running request past their deadlines, a health pause, a retune
+   walk k 4 -> 1 -> 2 -> 4 (bit-identical streams, one graph capture)
+   and close; every scenario with 0 pages left, K1 n_layers a decode
+   step dispatched, and its wall time, quarantines, tokens replayed and
+   recovery times printed;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -104,8 +115,13 @@ TRAIN_F32_GRAD_SHARE = 1e-3
 FULL = dict(
     d_model=2048, n_heads=16, n_layers=8, d_ff=8192, vocab_size=32768,
     page_size=64, decode_prompt=32, decode_lens=(64, 512), slots=8,
-    train_batch=8, train_seq=2048,
+    train_batch=8, train_seq=2048, lifecycle_new=(64, 192, 128), lifecycle_requests=12,
+    lifecycle_chunk=16,
 )
+# The lifecycle phase's scheduled faults: the crossing of each engine seam
+# that fires, mid-drain in both of its modes.
+LIFECYCLE_FAULTS = {"prefill_dispatch": [2], "prefill_readback": [3],
+                    "decode_dispatch": [3], "decode_readback": [4]}
 
 
 def fail(msg: str) -> None:
@@ -229,7 +245,7 @@ def check_kernel_cases(torch, pa):
             # One split, the host's choice, and more splits than any row
             # has live pages (the last shares are empty).
             picked = pa.choose_splits(len(shape["lengths"]), shape["kv_heads"],
-                                      tables.shape[1], sm_count)
+                                      tables.shape[1], sm_count, dtype)
             errs = {}
             for splits in (1, picked, tables.shape[1] + 3):
                 runs = [pa.paged_attention(q, k, v, tables, lens, layer=layer,
@@ -443,6 +459,265 @@ def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, split
                                          lens.long(), config, attention_fn=plain)
         torch.cuda.synchronize()
     return got, want
+
+
+def lifecycle_phase(torch, params, config, f, counters, device="cuda") -> int:
+    """Phase 4b: the request lifecycle at the serving path's width, with
+    short requests (prompt ``decode_prompt``, ``max_new_tokens`` cycling
+    ``lifecycle_new``) and 16-step chunks (so a request outlives a
+    superstep), at the defaults and with ``superstep_k=4, pipelined``,
+    each scenario on a fresh engine: a fault at each engine
+    seam (bf16 and float32), retry exhaustion, cancel and withdraw with a
+    superstep in flight, deadlines, the health bridge, a retune walk
+    (superstep mode) and close.  Gates: statuses, pages, K1's count
+    (n_layers x decode steps dispatched, dropped supersteps included),
+    one graph capture an engine, streams against the fault-free drain.
+    ``device="cpu"`` rehearses the scheduling and the gates on the plain
+    route.  Returns K1's launches over the phase."""
+    import queue
+    import statistics
+    from dataclasses import replace
+
+    import numpy as np
+    from tpu_device_plugin.api.constants import HEALTHY, UNHEALTHY
+    from tpu_device_plugin.device import HealthEvent
+    from workloads_torch.faults import FaultInjector
+    from workloads_torch.model import cast_params, forward
+    from workloads_torch.serve import ServeEngine
+
+    cuda = device == "cuda"
+    rng = np.random.default_rng(1)
+    news = [f["lifecycle_new"][i % len(f["lifecycle_new"])]
+            for i in range(f["lifecycle_requests"])]
+    requests = [(rng.integers(0, config.vocab_size, f["decode_prompt"]).tolist(), n)
+                for n in news]
+    weights = {torch.bfloat16: params, torch.float32: cast_params(params, torch.float32)}
+    configs = {dt: replace(config, dtype=dt) for dt in weights}
+    base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["lifecycle_chunk"],
+                device=device)
+    L = config.n_layers
+    reset_counts(counters)
+
+    def serve(label, dtype, kw, reqs=requests, script=None, deadlines=None, **engine_kw):
+        """Drain ``reqs`` on a new engine, taking ``script[step]`` actions
+        before that step; record the tokens each request kept at its
+        first requeue.  Gates what every scenario shares and prints the
+        scenario's line."""
+        engine = ServeEngine(weights[dtype], configs[dtype], **base, **kw, **engine_kw)
+        kept: dict[str, int] = {}
+        requeue = engine._requeue_or_fail
+
+        def recording_requeue(req, exc, **kwa):
+            kept.setdefault(req.rid, len(req.tokens))
+            return requeue(req, exc, **kwa)
+
+        engine._requeue_or_fail = recording_requeue
+        rids = [engine.submit(p, n, deadline_s=(deadlines or {}).get(i))
+                for i, (p, n) in enumerate(reqs)]
+        before = counters["paged_attention"].launches
+        served, step = {}, 0
+        t0 = time.perf_counter()
+        while not engine.idle:
+            for action in (script or {}).get(step, ()):
+                action(engine, rids, served)
+            for req in engine.step():
+                served[req.rid] = req.tokens
+            if engine.paused:
+                time.sleep(0.001)
+            step += 1
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters["paged_attention"].launches - before
+        rec = sorted(engine.fault_recovery_s)
+        recovery = (f"median {statistics.median(rec) * 1e3:.3f} ms max {rec[-1] * 1e3:.3f} ms"
+                    if rec else "none")
+        captures = engine._graph.captures if engine._graph is not None else 0
+        print(f"  lifecycle {label} [{mode}, {str(dtype).split('.')[1]}]: wall {wall:.3f} s, "
+              f"{engine.generated_tokens} tokens, {engine.chunks_run * engine.chunk} decode "
+              f"steps, quarantined {engine.steps_quarantined}, retried "
+              f"{engine.requests_retried}, tokens_replayed {engine.tokens_replayed}, "
+              f"fault_recovery_s {recovery}, K1 launches {launches}, graph captures "
+              f"{captures}", flush=True)
+        if engine.ctrl.used_pages or engine._committed_pages:
+            fail(f"lifecycle {label} [{mode}]: {engine.ctrl.used_pages} pages in use, "
+                 f"{engine._committed_pages} committed after the drain")
+        if cuda and launches != L * engine.chunks_run * engine.chunk:
+            fail(f"lifecycle {label} [{mode}]: K1 launched {launches} times, n_layers x "
+                 f"decode steps dispatched is {L * engine.chunks_run * engine.chunk}")
+        if cuda and captures != min(1, engine.chunks_run):
+            fail(f"lifecycle {label} [{mode}]: {captures} graph captures after "
+                 f"{engine.chunks_run} chunks")
+        statuses = {r.rid: r for r in engine.completed}
+        return {"engine": engine, "rids": rids, "streams": [served.get(r) for r in rids],
+                "reqs": [statuses.get(r) for r in rids], "kept": kept, "wall": wall}
+
+    def all_ok(label, run):
+        for rid, req, (_, n) in zip(run["rids"], run["reqs"], requests):
+            if req is None or req.status != "ok" or len(req.tokens) != n:
+                fail(f"lifecycle {label} [{mode}] {rid}: "
+                     f"{None if req is None else (req.status, req.error, len(req.tokens))}")
+
+    def replay_gate(label, dtype, run, ref):
+        """Each replayed request keeps the fault-free prefix it emitted
+        before its requeue.  float32: its whole stream equals the
+        fault-free one, or its first diverging token sits on a near-tie
+        of the fault-free logits (top-2 gap within STEP_F32_RTOL of the
+        largest |logit|).  bf16: the rest is printed."""
+        kept_ok, after = 0, []
+        for rid, got, want, (prompt, _) in zip(run["rids"], run["streams"], ref["streams"],
+                                               requests):
+            if rid not in run["kept"]:
+                if got != want and dtype == torch.float32:
+                    fail(f"lifecycle {label} [{mode}] {rid}: never requeued, yet its float32 "
+                         f"stream differs from the fault-free drain")
+                continue
+            k = run["kept"][rid]
+            if got[:k] != want[:k]:
+                fail(f"lifecycle {label} [{mode}] {rid}: the {k} tokens kept before the "
+                     f"requeue differ from the fault-free stream")
+            kept_ok += 1
+            same = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), len(got))
+            after.append(same - k)
+            if dtype == torch.float32 and same < len(got):
+                with torch.inference_mode():
+                    logits = forward(weights[dtype], torch.tensor([prompt + want[:same]],
+                                                                  device=device),
+                                     configs[dtype])[0, -1].float()
+                top = torch.topk(logits, 2).values
+                gap, tol = (top[0] - top[1]).item(), STEP_F32_RTOL * logits.abs().max().item()
+                print(f"  lifecycle {label} [{mode}] {rid}: float32 replay diverges at token "
+                      f"{same} (kept {k}); the fault-free top-2 logit gap there {gap:.3e}, "
+                      f"limit {tol:.3e}", flush=True)
+                if not gap <= tol:
+                    fail(f"lifecycle {label} [{mode}] {rid}: float32 replay diverges off a "
+                         f"near-tie")
+        print(f"  lifecycle {label} [{mode}, {str(dtype).split('.')[1]}]: {kept_ok} replayed "
+              f"requests kept their fault-free prefix; tokens equal to the fault-free stream "
+              f"past it: {after}", flush=True)
+
+    def health(state):
+        def act(engine, rids, served):
+            engine._health_events.put(HealthEvent(chip_id="chip-0", health=state, code=2))
+        return act
+
+    modes = {"defaults": {}, "superstep_k=4 pipelined": dict(superstep_k=4, pipelined=True)}
+    for mode, kw in modes.items():
+        ref = {dt: serve("fault-free", dt, kw) for dt in weights}
+        for dt in weights:
+            all_ok("fault-free", ref[dt])
+
+        # Faults: each engine seam fires once mid-drain.
+        for dt in weights:
+            injector = FaultInjector(LIFECYCLE_FAULTS)
+            # A quarantine charges every request in flight one retry.
+            run = serve("faults", dt, kw, fault_injector=injector,
+                        max_retries=len(LIFECYCLE_FAULTS))
+            all_ok("faults", run)
+            fired = sorted(r.seam for r in injector.fired)
+            e = run["engine"]
+            if fired != sorted(LIFECYCLE_FAULTS) or e.steps_quarantined != len(LIFECYCLE_FAULTS):
+                fail(f"lifecycle faults [{mode}]: fired {fired}, {e.steps_quarantined} "
+                     f"quarantined steps, wanted one of each of {sorted(LIFECYCLE_FAULTS)}")
+            if not e.fault_recovery_s:
+                fail(f"lifecycle faults [{mode}]: no recovery time recorded")
+            replay_gate("faults", dt, run, ref[dt])
+            del run, e
+
+        # Retry exhaustion: decode_dispatch fires at every crossing.
+        run = serve("retry exhaustion", torch.bfloat16, kw, reqs=requests[:1],
+                    fault_injector=FaultInjector({"decode_dispatch": range(1, 1000)}))
+        req = run["reqs"][0]
+        e = run["engine"]
+        if not (req.status == "failed" and "InjectedFault" in req.error
+                and req.retries == e.max_retries + 1):
+            fail(f"lifecycle retry exhaustion [{mode}]: {req.status}, {req.error}, "
+                 f"retries {req.retries}")
+
+        # Cancel a running and a queued request and withdraw a queued one
+        # at step 2, with a superstep in flight in the superstep mode.
+        taken = {}
+
+        def cancel_withdraw(engine, rids, served):
+            if kw and not engine._pending_super:
+                fail(f"lifecycle cancel [{mode}]: no superstep in flight at step 2")
+            if not (engine.cancel(rids[1]) and engine.cancel(rids[10])):
+                fail(f"lifecycle cancel [{mode}]: a live request could not be cancelled")
+            taken["withdrawn"] = engine.withdraw(rids[11])
+
+        run = serve("cancel and withdraw", torch.bfloat16, kw, script={2: [cancel_withdraw]})
+        want = ref[torch.bfloat16]["streams"]
+        for i, (req, stream) in enumerate(zip(run["reqs"], want)):
+            status = "withdrawn" if i == 11 else req.status
+            expected = {1: "cancelled", 10: "cancelled", 11: "withdrawn"}.get(i, "ok")
+            got = taken["withdrawn"].tokens if i == 11 else req.tokens
+            if status != expected or got != stream[: len(got)] or (
+                    expected == "ok" and got != stream):
+                fail(f"lifecycle cancel and withdraw [{mode}] request {i}: {status} with "
+                     f"{len(got)} tokens, wanted {expected} and the fault-free stream")
+        if not 0 < len(run["reqs"][1].tokens) < requests[1][1]:
+            fail(f"lifecycle cancel [{mode}]: the running request was not cut mid-stream")
+
+        # Deadlines: one request expires queued, one while running.
+        run = serve("deadlines", torch.bfloat16, kw, deadlines={1: 0.05, 9: 0.02})
+        for i, req in enumerate(run["reqs"]):
+            stream = want[i]
+            if i == 9:
+                good = req.status == "expired" and req.tokens == [] and req.t_admit is None
+            elif i == 1:
+                good = (req.status == "expired" and 0 < len(req.tokens) < requests[1][1]
+                        and req.tokens == stream[: len(req.tokens)])
+            else:
+                good = req.status == "ok" and req.tokens == stream
+            if not good:
+                fail(f"lifecycle deadlines [{mode}] request {i}: {req.status}, "
+                     f"{len(req.tokens)} tokens")
+
+        # The health bridge: unhealthy at step 2, held at 3, healthy at 4.
+        def held(engine, rids, served):
+            if not engine.paused or engine._occupied.any() or not engine.pending:
+                fail(f"lifecycle health [{mode}]: not paused with the work requeued")
+            if any(r.retries for r in engine.pending):
+                fail(f"lifecycle health [{mode}]: a health requeue charged a retry")
+
+        run = serve("health pause", torch.bfloat16, kw, health_events=queue.Queue(),
+                    script={2: [health(UNHEALTHY)], 3: [held], 4: [health(HEALTHY)]})
+        all_ok("health pause", run)
+        if not run["kept"] or any(r.retries for r in run["reqs"]):
+            fail(f"lifecycle health [{mode}]: nothing requeued, or a retry charged")
+        replay_gate("health pause", torch.bfloat16, run, ref[torch.bfloat16])
+
+        # retune walks k 4 -> 1 -> 2 -> 4 mid-drain: no replay, one capture.
+        if kw:
+            walk = {2: 1, 4: 2, 6: 4}
+            script = {s: [lambda engine, rids, served, k=k: engine.retune(superstep_k=k)]
+                      for s, k in walk.items()}
+            run = serve("retune 4-1-2-4", torch.bfloat16, kw, script=script)
+            all_ok("retune", run)
+            if run["engine"].retunes != len(walk) or run["streams"] != want:
+                fail(f"lifecycle retune [{mode}]: {run['engine'].retunes} retunes; streams "
+                     f"{'equal' if run['streams'] == want else 'DIFFER from'} the fault-free "
+                     f"drain")
+
+        # close with a superstep in flight.
+        engine = ServeEngine(weights[torch.bfloat16], configs[torch.bfloat16], **base, **kw)
+        for p, n in requests:
+            engine.submit(p, n)
+        engine.step()
+        engine.step()
+        in_flight = bool(engine._pending_super) if kw else bool(engine._occupied.any())
+        engine.close()
+        statuses = {r.status for r in engine.completed}
+        print(f"  lifecycle close [{mode}]: work in flight at close {in_flight}; statuses "
+              f"{statuses}; idle {engine.idle}; pages in use {engine.ctrl.used_pages}",
+              flush=True)
+        if not (in_flight and statuses == {"failed"} and engine.idle
+                and engine.ctrl.used_pages == 0 and len(engine.completed) == len(requests)):
+            fail(f"lifecycle close [{mode}]: not every request failed and reclaimed")
+        del engine, run, ref
+        if cuda:
+            torch.cuda.empty_cache()
+    return read_counts(counters)["paged_attention"]
 
 
 def kernel_counters(pa, fa) -> dict:
@@ -1002,6 +1277,13 @@ def main() -> int:
                  f"more than bf16 differs from float32 ({rows} rows, "
                  f"{splits_here[torch.bfloat16]} splits)")
 
+    # 4b. the request lifecycle at the same width
+    phase("serving path: request lifecycle at full width")
+    t0 = time.perf_counter()
+    lifecycle_launches = lifecycle_phase(torch, params, config, f, counters)
+    print(f"  lifecycle phase: {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{lifecycle_launches}", flush=True)
+
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
     phase("numbers")
@@ -1105,7 +1387,8 @@ def main() -> int:
         "route": "cuda",
         "source": "workloads_torch/ops/csrc/paged_attention.cu",
         "replaces": "workloads/ops/paged_attention.py:56",
-        "launches": launches,
+        "launches": launches + lifecycle_launches,
+        "lifecycle_launches": lifecycle_launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

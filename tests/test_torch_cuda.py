@@ -3,9 +3,11 @@ flash attention K2-K4) against their plain PyTorch versions, their
 launch counts and refusals, the engine on the card against generate()
 and against the CPU engine in its scheduling modes, the decode step's
 CUDA graph against the eager loop, the engine's uploads against its
-host mirrors, K1's split route in a bf16 decode step, and the training
-step's kernel launches.  They skip without a CUDA
-device.
+host mirrors, K1's split route in a bf16 decode step, the training
+step's kernel launches, and the request lifecycle on the card (a
+quarantine mid-superstep, uploads after a quarantine or a cancel,
+dropped readbacks, a fault inside the graph's capture, retune).  They
+skip without a CUDA device.
 On a machine with a card (and without jax, which tests/conftest.py
 imports):
 
@@ -522,3 +524,188 @@ def test_bf16_decode_step_at_two_rows_keeps_one_split_within_its_floor(cuda):
     err, floor = (got16 - want16).abs(), (want16 - want32).abs()
     assert err.max() <= floor.max()
     assert err.square().mean().sqrt() <= floor.square().mean().sqrt()
+
+
+# ---- the request lifecycle on the card -----------------------------------
+
+_LIFE_REQUESTS = [([3, 1, 4, 1, 5], 30), ([2, 7], 40), ([9] * 11, 25), ([6, 6], 30)]
+
+
+def _life_model():
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
+    return config, init_params(config, torch.Generator("cuda").manual_seed(0))
+
+
+def _life_engine(params, config, **kw):
+    return ServeEngine(params, config, slots=2, page_size=4, prompt_bucket=8, chunk=4, **kw)
+
+
+def _life_streams(engine, requests=_LIFE_REQUESTS):
+    rids = [engine.submit(p, n) for p, n in requests]
+    served = engine.run()
+    assert engine.ctrl.used_pages == 0 and engine._committed_pages == 0
+    return [served[r] for r in rids]
+
+
+def test_quarantine_mid_superstep_replays_into_the_dropped_supersteps_pages(cuda):
+    """A readback fault while the next superstep still runs (each graph
+    run queued behind a 10 ms sleep): the quarantine drops it unread and
+    releases its rows' pages, the replay's prefill writes some of those
+    pages, queued on the same stream behind the dropped superstep, and
+    the streams are those of the fault-free run.  K1's count includes the
+    dropped superstep's steps.  (A prefill on a stream of its own would
+    race the dropped superstep's writes.)"""
+    from workloads_torch.faults import FaultInjector
+
+    config, params = _life_model()
+    kw = dict(superstep_k=4, pipelined=True)
+    clean = _life_streams(_life_engine(params, config, **kw))
+    engine = _life_engine(params, config, fault_injector=FaultInjector({"decode_readback": [2]}),
+                          **kw)
+    graph_run = engine._graph.run
+
+    def slow_run(*args):
+        torch.cuda._sleep(20_000_000)
+        return graph_run(*args)
+
+    engine._graph.run = slow_run
+    quarantine, allocate = engine._quarantine_step, engine.ctrl.allocate
+    seen, reused = {}, set()
+
+    def watching(exc, extra=None, **kwargs):
+        seen["in_flight"] = [not read.event.query() for read, _ in engine._pending_super]
+        seen["pages"] = {p for slot, req in engine._slot_req.items()
+                         for p in engine.ctrl.tables[engine._seq_id(slot, req)]}
+        return quarantine(exc, extra, **kwargs)
+
+    def recording_allocate(seq, n_tokens):
+        pages = allocate(seq, n_tokens)
+        if seen:
+            reused.update(set(pages) & seen["pages"])
+        return pages
+
+    engine._quarantine_step = watching
+    engine.ctrl.allocate = recording_allocate
+    before = pa.paged_attention.launches
+    assert _life_streams(engine) == clean
+    assert engine.steps_quarantined == 1
+    assert any(seen["in_flight"]), "no superstep was in flight at the quarantine"
+    assert reused, "the replay reused none of the dropped rows' pages"
+    assert pa.paged_attention.launches - before == (
+        config.n_layers * engine.chunks_run * engine.chunk)
+
+
+@pytest.mark.parametrize("mode", [{"pipelined": True}, {"superstep_k": 2, "pipelined": True}],
+                         ids=["k1-pipelined", "k2-pipelined"])
+def test_dispatches_after_a_quarantine_or_a_cancel_upload_every_row(cuda, mode):
+    """After a quarantine, and after cancelling one row while the other
+    stays chained, the next dispatch takes every row from the host
+    mirrors: garbage written into the graph's carry buffers (tok, pos,
+    live, budget) right then changes no token."""
+    from workloads_torch.faults import FaultInjector
+
+    config, params = _life_model()
+    clean = _life_streams(_life_engine(params, config, **mode))
+
+    def poison(engine):
+        with torch.inference_mode():  # the graph's buffers are inference tensors
+            for buf, value in ((engine._graph.tok, 7), (engine._graph.pos, 3),
+                               (engine._graph.live, True), (engine._graph.budget, 1000)):
+                buf.fill_(value)
+
+    engine = _life_engine(params, config, fault_injector=FaultInjector({"decode_readback": [2]}),
+                          **mode)
+    quarantine = engine._quarantine_step
+
+    def poisoning(exc, extra=None, **kwargs):
+        out = quarantine(exc, extra, **kwargs)
+        poison(engine)
+        return out
+
+    engine._quarantine_step = poisoning
+    assert _life_streams(engine) == clean and engine.steps_quarantined == 1
+
+    engine = _life_engine(params, config, **mode)
+    rids = [engine.submit(p, n) for p, n in _LIFE_REQUESTS[:2]]
+    for _ in range(3):
+        engine.step()
+    chained = engine._super_chained if mode.get("superstep_k") else engine._chained_tok
+    assert chained is not None
+    assert engine.cancel(rids[0])
+    poison(engine)
+    served = engine.run()
+    assert served[rids[1]] == clean[1]
+    assert served[rids[0]] == clean[0][: len(served[rids[0]])]
+    assert engine.ctrl.used_pages == 0
+
+
+def test_a_dropped_readback_block_is_not_handed_out_before_its_copy_lands(cuda):
+    """A readback dropped before its event fires (a quarantine drops the
+    ones in flight): the caching host allocator hands its pinned block
+    to no new allocation, which an upload would fill on the host, until
+    the copy into it has landed."""
+    from workloads_torch.serve import _Readback
+
+    toks = torch.arange(64, device="cuda").reshape(8, 8)
+    torch.cuda._sleep(200_000_000)  # the copy queues behind ~0.1 s of sleep
+    read = _Readback(toks)
+    ptr, event = read.host.data_ptr(), read.event
+    del read
+    assert not event.query()
+    fresh = [torch.empty((8, 8), dtype=toks.dtype, pin_memory=True) for _ in range(8)]
+    assert ptr not in {t.data_ptr() for t in fresh}
+    for t in fresh:
+        t.fill_(-1)
+    torch.cuda.synchronize()
+    assert all(bool((t == -1).all()) for t in fresh)
+
+
+def test_a_fault_inside_the_graphs_first_run_leaves_it_uncaptured(cuda):
+    """The capture raises: the step quarantines, the graph stays
+    uncaptured with K1's count as it was, and the replay captures afresh
+    (once) and serves the fault-free streams."""
+    config, params = _life_model()
+    clean = _life_streams(_life_engine(params, config))
+    engine = _life_engine(params, config)
+    step, failed = engine._graph._step, []
+
+    def failing_step():
+        if torch.cuda.is_current_stream_capturing() and not failed:
+            failed.append(True)
+            raise RuntimeError("fault inside the capture")
+        step()
+
+    engine._graph._step = failing_step
+    before = pa.paged_attention.launches
+    rids = [engine.submit(p, n) for p, n in _LIFE_REQUESTS]
+    engine.step()
+    assert failed and engine.steps_quarantined == 1
+    assert engine._graph.graph is None and engine._graph.captures == 0
+    assert pa.paged_attention.launches == before
+    served = engine.run()
+    assert [served[r] for r in rids] == clean
+    assert engine._graph.captures == 1
+    assert pa.paged_attention.launches - before == (
+        config.n_layers * engine.chunks_run * engine.chunk)
+
+
+def test_retune_walk_replays_one_capture(cuda):
+    """superstep_k 4 -> 1 -> 2 -> 4 mid-drain on the card: the graph is
+    captured once, K1 launches n_layers a decode step, and the streams
+    are the fault-free ones bit for bit."""
+    config, params = _life_model()
+    clean = _life_streams(_life_engine(params, config, superstep_k=4, pipelined=True))
+    engine = _life_engine(params, config, superstep_k=4, pipelined=True)
+    rids = [engine.submit(p, n) for p, n in _LIFE_REQUESTS]
+    before = pa.paged_attention.launches
+    served = {}
+    for k in (1, 2, 4):
+        for _ in range(2):
+            for req in engine.step():
+                served[req.rid] = req.tokens
+        assert engine.retune(superstep_k=k)
+    served.update(engine.run())
+    assert [served[r] for r in rids] == clean
+    assert engine.retunes == 3 and engine._graph.captures == 1
+    assert pa.paged_attention.launches - before == (
+        config.n_layers * engine.chunks_run * engine.chunk)

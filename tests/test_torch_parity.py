@@ -9,11 +9,12 @@ live in tests/test_torch_golden.py, which holds the port against the
 frozen outputs of this file in the fast tier, and so do
 tests/test_torch_superstep.py (the decode superstep) and
 tests/test_torch_schedule.py (the engine's scheduling modes) against
-tests/test_torch_superstep_golden.npz;
+tests/test_torch_superstep_golden.npz, and tests/test_torch_lifecycle.py
+(the request lifecycle) against tests/test_torch_lifecycle_golden.npz;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates both fixtures from the JAX package.
+regenerates the three fixtures from the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +53,11 @@ from tests.test_torch_golden import (  # noqa: E402
     make_inputs,
     tiny_config,
     torch_outputs,
+)
+from tests.test_torch_lifecycle import (  # noqa: E402
+    LIFECYCLE_GOLDEN,
+    golden_runs,
+    run_scenario,
 )
 from tests.test_torch_schedule import (  # noqa: E402
     ENGINE_KW,
@@ -358,6 +364,50 @@ def test_engine_schedule_matches_jax_live(trees, mode):
     np.testing.assert_array_equal(runs[1], runs[0])
 
 
+def jax_lifecycle_run(tree_bf16: dict, mode, scenario: str):
+    """One lifecycle scenario on the JAX engine (tests/test_torch_lifecycle.py
+    ``run_scenario``)."""
+    config = jax_config(SCHEDULE_CASE)
+    params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
+    return run_scenario(lambda **kw: jserve.ServeEngine(params, config, **kw), mode, scenario)
+
+
+_LIFECYCLE_RUNS = golden_runs()
+
+
+@pytest.mark.parametrize("key, mode, scenario", _LIFECYCLE_RUNS,
+                         ids=[r[0] for r in _LIFECYCLE_RUNS])
+def test_lifecycle_matches_jax_live(trees, key, mode, scenario):
+    """The port's streams, terminal statuses and per-step lifecycle
+    counters against the JAX engine's in the same mode and scenario, and
+    the same seams fired."""
+    want = jax_lifecycle_run(trees[SCHEDULE_CASE[1]], mode, scenario)
+    params = convert.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a).astype(np.float32), trees[SCHEDULE_CASE[1]]),
+        device="cpu",
+    )
+    config = tiny_config(SCHEDULE_CASE)
+    got = run_scenario(lambda **kw: tserve.ServeEngine(params, config, device="cpu", **kw),
+                       mode, scenario)
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w, err_msg=key)
+    assert [(r.seam, r.crossing) for r in got[3]] == [(r.seam, r.crossing) for r in want[3]]
+
+
+def write_lifecycle_goldens(path: str = LIFECYCLE_GOLDEN) -> None:
+    """Freeze the JAX engine's lifecycle scenarios for
+    tests/test_torch_lifecycle.py: streams, statuses and per-step
+    counters."""
+    tree = jax_params_bf16(SCHEDULE_CASE[1])
+    arrays = {}
+    for key, mode, scenario in golden_runs():
+        tokens, counters, statuses, _ = jax_lifecycle_run(tree, mode, scenario)
+        arrays.update({f"{key}/tokens": tokens, f"{key}/counters": counters,
+                       f"{key}/statuses": statuses})
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_superstep_goldens(path: str = SUPERSTEP_GOLDEN) -> None:
     """Freeze the JAX package's superstep outputs and its engine's
     per-step scheduling telemetry for tests/test_torch_superstep.py and
@@ -405,3 +455,4 @@ if __name__ == "__main__":
         sys.exit("usage: python tests/test_torch_parity.py --write-goldens")
     write_goldens()
     write_superstep_goldens()
+    write_lifecycle_goldens()

@@ -2,7 +2,7 @@
 Hopper (sm_90a).
 
 Mirrors ``workloads/`` module for module (``model``, ``generate``,
-``paged``, ``serve``, ``train``, ``checkpoint``, ``errors``,
+``paged``, ``serve``, ``train``, ``checkpoint``, ``errors``, ``faults``,
 ``ops.paged_attention``, ``ops.attention``, ``ops.kernel_select``) and
 imports nothing of it: the JAX package stays the reference, and this package
 runs on a host with no JAX installed.  ``decode_graph`` has no JAX

@@ -61,6 +61,7 @@ class DecodeGraph:
             self.out = torch.zeros((slots, max_steps), dtype=torch.long, device=device)
             self.col = torch.zeros(1, dtype=torch.long, device=device)
         self.graph = None
+        self.captures = 0  # completed captures: 1 for the graph's life
         self.k1_per_step = 0  # paged_attention launches in one captured step
 
     def _step(self) -> None:
@@ -86,7 +87,8 @@ class DecodeGraph:
         The warm-up runs every row parked on the pools' trash page, and
         the generator's state and the launch count come back as they
         were: neither the pools' live pages, the draws nor the count see
-        it."""
+        it.  If anything raises, ``graph`` stays None (the next ``run``
+        captures afresh) and the count and the generator come back too."""
         trash = self.pools[0].shape[1] - 1
         self.tables.fill_(trash)
         self.live.fill_(False)
@@ -94,26 +96,29 @@ class DecodeGraph:
         self.col.zero_()
         launches = paged_attention.launches
         rng_state = self.generator.get_state() if self.generator is not None else None
-        side = torch.cuda.Stream(self.tok.device)
-        side.wait_stream(torch.cuda.current_stream(self.tok.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self.col.zero_()
+        try:
+            side = torch.cuda.Stream(self.tok.device)
+            side.wait_stream(torch.cuda.current_stream(self.tok.device))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self.col.zero_()
+                    self._step()
+            torch.cuda.current_stream(self.tok.device).wait_stream(side)
+            torch.cuda.synchronize(self.tok.device)
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                self.generator.set_state(rng_state)
+                graph.register_generator_state(self.generator)
+            before = paged_attention.launches
+            with torch.cuda.graph(graph, stream=side):
                 self._step()
-        torch.cuda.current_stream(self.tok.device).wait_stream(side)
-        torch.cuda.synchronize(self.tok.device)
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            self.generator.set_state(rng_state)
-            graph.register_generator_state(self.generator)
-        before = paged_attention.launches
-        with torch.cuda.graph(graph, stream=side):
-            self._step()
-        self.k1_per_step = paged_attention.launches - before
-        paged_attention.launches = launches
-        if self.generator is not None:
-            self.generator.set_state(rng_state)
+            self.k1_per_step = paged_attention.launches - before
+        finally:
+            paged_attention.launches = launches
+            if self.generator is not None:
+                self.generator.set_state(rng_state)
         self.graph = graph
+        self.captures += 1
 
     @torch.inference_mode()
     def run(self, tables, tok, pos, live, budget, eos, steps: int):

@@ -28,8 +28,18 @@ On the card every decode step is a replay of one captured CUDA graph
 buffers without a synchronise, and readbacks land in pinned buffers
 behind an event, so a dispatch returns while the device computes.  CPU
 engines run the eager ``paged_decode_chunk`` and
-``paged_decode_superstep``.  Prefix caching, fan-out, speculation,
-adapters, the lifecycle seams (cancel, deadlines, quarantine, health)
+``paged_decode_superstep``.
+
+The request lifecycle, as in the JAX engine: ``cancel``, ``withdraw``
+and ``preempt`` (no prefix park), ``submit(deadline_s=)``, fault seams
+at every prefill and decode dispatch and readback (``faults.py``) whose
+failures quarantine the step and replay its requests (prompt plus
+emitted tokens re-prefilled) under ``max_retries``, a health bridge
+that pauses on an unhealthy chip, ``retune(superstep_k=)`` and
+``close``/the context manager.  A quarantine drops the work in flight
+unread: a dropped superstep still runs on the stream, ahead of
+everything queued after it, and the next dispatch uploads every row
+from the host mirrors.  Prefix caching, fan-out, speculation, adapters
 and the fleet are not ported yet.
 
 Run on the card with ``python -m workloads_torch.serve``; pass
@@ -39,6 +49,7 @@ Run on the card with ``python -m workloads_torch.serve``; pass
 from __future__ import annotations
 
 import itertools
+import queue
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -60,6 +71,11 @@ from .paged import (
     paged_prefill_chunk,
 )
 
+# tpu_device_plugin.api.constants.UNHEALTHY, the health state a
+# HealthEvent carries for a failed chip; copied, so that the engine does
+# not import the daemon's package, whose ``api`` loads gRPC.
+UNHEALTHY = "Unhealthy"
+
 # The chunk path's budget on the graph route: larger than any request's,
 # so a live row stays live through the chunk (eos -1 matches no token).
 _UNBOUNDED = 2**30
@@ -73,10 +89,14 @@ class Request:
 
     ``t_submit``/``t_admit``/``t_first``/``t_done`` are host
     perf_counter stamps.  ``status`` is ``"queued"`` -> ``"running"`` ->
-    one terminal status: ``"ok"``, or ``"failed"`` when the engine closed
-    with the request in flight (``error`` says so).  A ``QueueFull``
-    rejection never enters the engine; its record, with status
-    ``"rejected"``, rides on the raised exception."""
+    exactly one terminal status: ``"ok"``, ``"cancelled"``
+    (``engine.cancel``), ``"expired"`` (``deadline_s`` passed) or
+    ``"failed"`` (retry budget spent after seam faults, or the engine
+    closed; ``error`` says which).  A ``QueueFull`` rejection never
+    enters the engine; its record, with status ``"rejected"``, rides on
+    the raised exception.  ``retries`` counts fault replays (each
+    re-prefills prompt + emitted tokens, so the greedy stream goes on
+    as if uninterrupted)."""
 
     rid: str
     prompt: list[int]
@@ -90,6 +110,9 @@ class Request:
     t_done: float | None = None
     status: str = "queued"
     error: str | None = None
+    retries: int = 0
+    deadline_s: float | None = None
+    t_deadline: float | None = None  # absolute perf_counter deadline
 
     @property
     def ttft_secs(self) -> float | None:
@@ -166,6 +189,10 @@ class ServeEngine:
         superstep_k: int = 1,
         batched_admission: bool = True,
         prefill_budget: int | None = None,
+        fault_injector=None,
+        max_retries: int = 2,
+        retry_backoff_s: float = 0.0,
+        health_events=None,
         device=None,
     ):
         if slots < 1:
@@ -174,6 +201,12 @@ class ServeEngine:
             raise ValueError(
                 f"max_pending must be >= 1 or None (unbounded), got "
                 f"{max_pending}"
+            )
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        if retry_backoff_s < 0:
+            raise ValueError(
+                f"retry_backoff_s must be >= 0, got {retry_backoff_s}"
             )
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError(
@@ -206,6 +239,11 @@ class ServeEngine:
             )
         self.pipelined = pipelined
         self.superstep_k = superstep_k
+        # retune() steps superstep_k down and back up to this ceiling,
+        # never above: the overshoot, max_pages, every commitment and the
+        # graph's max_steps are sized from it.
+        self._superstep_k_max = superstep_k
+        self.retunes = 0
         self.batched_admission = batched_admission
         # With a budget (tokens a step) each step dispatches at most
         # max(1, budget // prompt_bucket) prefill chunks; admissions
@@ -249,6 +287,24 @@ class ServeEngine:
         self._ids = itertools.count()
         self.max_pending = max_pending
         self._closed = False
+        # Fault tolerance: a failed dispatch or readback quarantines the
+        # step (work in flight dropped, slots and pages released) and
+        # requeues its requests for replay under ``max_retries``.
+        self.max_retries = max_retries
+        self.retry_backoff_s = float(retry_backoff_s)
+        self._faults = fault_injector
+        self._t_last_fault: float | None = None
+        self._consecutive_faults = 0
+        # Requests finished outside step()'s own return (cancel, retune's
+        # drain, deadline expiry) surface through the next step().
+        self._finished_buffer: list[Request] = []
+        # Health bridge: a queue of tpu_device_plugin HealthEvents polled
+        # each step; an unhealthy chip pauses admission and requeues the
+        # work in flight, recovery resumes.
+        self._health_events = health_events
+        self._health_fanout = None
+        self._unhealthy_chips: set[str] = set()
+        self._paused = False
         # Mid-prefill admissions (plan dicts with a chunk "cursor"): their
         # slots are reserved but not occupied until the first token lands.
         self._inflight_prefill: list[dict] = []
@@ -292,7 +348,17 @@ class ServeEngine:
         self.requests_admitted = 0
         self.requests_retired = 0
         self.requests_failed = 0
+        self.requests_cancelled = 0
+        self.requests_expired = 0
+        self.requests_retried = 0  # replay requeues after a quarantine
+        self.requests_preempted = 0  # statusless reclaims by preempt()
         self.queue_rejections = 0
+        self.steps_quarantined = 0
+        self.fault_recovery_s: list[float] = []  # quarantine -> next good readback
+        # prompt + emitted tokens requeued for re-prefill, and what a
+        # preempted request's resume recomputes
+        self.tokens_replayed = 0
+        self.preempt_recompute_tokens = 0
         # Finished requests in retirement order; bounded by
         # ``completed_limit`` or drained with ``drain_completed``.
         self.completed: deque[Request] = deque(maxlen=completed_limit)
@@ -306,6 +372,7 @@ class ServeEngine:
         *,
         eos_token: int | None = None,
         rid: str | None = None,
+        deadline_s: float | None = None,
     ) -> str:
         if self._closed:
             raise EngineClosed("engine is closed; submissions are refused")
@@ -334,6 +401,10 @@ class ServeEngine:
                 f"request needs up to {need} pages but the pool holds "
                 f"{self.ctrl.n_pages} — it could never be admitted"
             )
+        if deadline_s is not None and deadline_s <= 0:
+            raise InvalidRequest(
+                f"deadline_s must be > 0 (or None), got {deadline_s}"
+            )
         if self.max_pending is not None and len(self.pending) >= self.max_pending:
             self.queue_rejections += 1
             rejected = Request(
@@ -356,10 +427,12 @@ class ServeEngine:
         )
         if rid in in_flight:
             raise InvalidRequest(f"request id {rid!r} is already in flight")
-        self.pending.append(
-            Request(rid, prompt, max_new_tokens, eos_token,
-                    t_submit=time.perf_counter())
-        )
+        t_submit = time.perf_counter()
+        self.pending.append(Request(
+            rid, prompt, max_new_tokens, eos_token, t_submit=t_submit,
+            deadline_s=deadline_s,
+            t_deadline=t_submit + deadline_s if deadline_s is not None else None,
+        ))
         return rid
 
     # ---- engine internals ----------------------------------------------
@@ -376,8 +449,10 @@ class ServeEngine:
         )
 
     def _release_slot(self, slot: int) -> Request:
-        """Reclaim one occupied slot: pages released, commitment rolled
-        back, mirrors parked."""
+        """Reclaim one occupied slot without deciding the request's fate:
+        pages released, commitment rolled back, mirrors parked.  The
+        caller retires it, finishes it terminally (cancel, expiry,
+        close) or requeues it for replay (quarantine, health pause)."""
         req = self._slot_req.pop(slot)
         self.ctrl.release(self._seq_id(slot, req))
         self._committed_pages -= self._slot_commit.pop(slot)
@@ -396,13 +471,209 @@ class ServeEngine:
         self.completed.append(req)
         return req
 
-    def _fail(self, req: Request, error: str) -> Request:
-        req.status = "failed"
+    def _finish_terminal(
+        self, req: Request, status: str, error: str | None = None
+    ) -> Request:
+        """Move a request, already out of its slot or queue, to a non-ok
+        terminal status, counted under that status.  One terminal status
+        a rid: callers reach this only for requests not yet done."""
+        req.status = status
         req.error = error
         req.done = True
         req.t_done = time.perf_counter()
-        self.requests_failed += 1
+        counter = {
+            "cancelled": "requests_cancelled",
+            "expired": "requests_expired",
+            "failed": "requests_failed",
+        }[status]
+        setattr(self, counter, getattr(self, counter) + 1)
         self.completed.append(req)
+        return req
+
+    # ---- fault tolerance ------------------------------------------------
+
+    def _maybe_fault(self, seam: str) -> None:
+        """The injector's hook at each dispatch and readback seam (one
+        attribute test without an injector)."""
+        if self._faults is not None:
+            self._faults.check(seam)
+
+    def _note_recovery(self) -> None:
+        """After every good host readback: close the recovery window the
+        last quarantine opened and reset the backoff ladder."""
+        self._consecutive_faults = 0
+        if self._t_last_fault is not None:
+            self.fault_recovery_s.append(time.perf_counter() - self._t_last_fault)
+            self._t_last_fault = None
+
+    def _requeue_or_fail(
+        self, req: Request, exc: BaseException, *, count_retry: bool = True
+    ) -> Request | None:
+        """Requeue one quarantined request at the front of the queue for
+        replay (prompt + emitted tokens), or fail it once its retry budget
+        is spent.  Health pauses pass ``count_retry=False``: a sick chip
+        is not the request's fault.  Returns the request iff it failed."""
+        if count_retry:
+            req.retries += 1
+            if req.retries > self.max_retries:
+                return self._finish_terminal(
+                    req, "failed",
+                    error=f"{type(exc).__name__}: {exc} "
+                          f"(after {self.max_retries} retries)",
+                )
+        req.status = "queued"
+        self.requests_retried += 1
+        self.tokens_replayed += len(req.prompt) + len(req.tokens)
+        self.pending.appendleft(req)
+        return None
+
+    def _quarantine_step(
+        self, exc: BaseException, extra: list[Request] | None = None,
+        *, count_retry: bool = True,
+    ) -> list[Request]:
+        """Step-level recovery after a failed dispatch or readback (an
+        injected fault, a CUDA error).  Device-facing state cannot be
+        trusted, so it is dropped, not drained: the readbacks and
+        supersteps in flight, the device carries a chained dispatch would
+        take, every occupied slot and mid-prefill admission.  Their
+        requests, and ``extra`` (admissions that never took a slot),
+        requeue for replay under the retry budget; the next dispatch
+        uploads every row from the host mirrors.  A dropped superstep
+        still runs on the stream and may write pages released here;
+        whatever reuses them is queued behind it on the same stream.  A
+        dropped readback's pinned block goes back to the caching host
+        allocator, which hands it out again only after its copy's event.
+        Returns the requests that failed."""
+        self.steps_quarantined += 1
+        self._consecutive_faults += 1
+        self._pending_read = None
+        self._chained_tok = None
+        self._pending_super.clear()
+        self._super_chained = None
+        self._fresh_slots.clear()
+        victims = [self._release_slot(slot) for slot in sorted(self._slot_req)]
+        partials, self._inflight_prefill = self._inflight_prefill, []
+        victims += [self._abort_partial(p) for p in partials]
+        victims += extra or []
+        finished: list[Request] = []
+        # appendleft in reverse keeps the victims' order at the queue's
+        # front: replays go before newer submissions.
+        for req in reversed(victims):
+            failed = self._requeue_or_fail(req, exc, count_retry=count_retry)
+            if failed is not None:
+                finished.append(failed)
+        self._t_last_fault = time.perf_counter()
+        if self.retry_backoff_s and count_retry:
+            time.sleep(min(
+                self.retry_backoff_s * (2 ** (self._consecutive_faults - 1)),
+                30 * self.retry_backoff_s,
+            ))
+        return finished
+
+    def _quarantine_admissions(
+        self, plans: list[dict], exc: BaseException
+    ) -> list[Request]:
+        """Admission recovery: the prefill (or its first-token readback)
+        failed with ``plans`` in flight, their pages allocated and maybe
+        unwritten.  Roll each plan back and hand its request, with every
+        occupied slot, to the step quarantine."""
+        extra = []
+        for p in plans:
+            req = self._abort_partial(p)
+            if p["slot"] not in self._slot_req:
+                extra.append(req)
+        return self._quarantine_step(exc, extra)
+
+    # ---- cancel, withdraw, preempt --------------------------------------
+
+    def _find_slot(self, rid: str) -> int | None:
+        for slot, req in self._slot_req.items():
+            if req.rid == rid:
+                return slot
+        return None
+
+    def cancel(self, rid: str) -> bool:
+        """Cancel one request: a queued one leaves the queue unstarted; a
+        running one stops at the step boundary, after the work in flight
+        is drained (a superstep or pipelined chunk is read back first),
+        with the tokens it emitted kept.  Returns True iff the rid was
+        live; it surfaces through the next step() (and is on
+        ``completed`` at once)."""
+        if self._closed:
+            raise EngineClosed("engine is closed")
+        for req in self.pending:
+            if req.rid == rid:
+                self.pending.remove(req)
+                self._finished_buffer.append(self._finish_terminal(req, "cancelled"))
+                return True
+        for plan in self._inflight_prefill:
+            if plan["req"].rid == rid:
+                # Mid-prefill: no readback in flight, its pages release.
+                req = self._reclaim_partial(plan)
+                self._finished_buffer.append(self._finish_terminal(req, "cancelled"))
+                return True
+        target = self._find_slot(rid)
+        if target is None:
+            return False
+        # The drain may retire the request (nothing left to cancel) or,
+        # on a fault, quarantine it back into the queue (cancel it there).
+        self._finished_buffer.extend(self._drain_all_pending())
+        if target in self._slot_req and self._slot_req[target].rid == rid:
+            req = self._release_slot(target)
+            self._finished_buffer.append(self._finish_terminal(req, "cancelled"))
+            return True
+        for req in self.pending:
+            if req.rid == rid:
+                self.pending.remove(req)
+                self._finished_buffer.append(self._finish_terminal(req, "cancelled"))
+                return True
+        return False
+
+    def withdraw(self, rid: str) -> Request | None:
+        """Remove one queued request without a terminal status, for a
+        router that will dispatch it elsewhere.  Running and mid-prefill
+        requests return None (``cancel`` and ``preempt`` reach those)."""
+        if self._closed:
+            raise EngineClosed("engine is closed")
+        for req in self.pending:
+            if req.rid == rid:
+                self.pending.remove(req)
+                return req
+        return None
+
+    def preempt(self, rid: str) -> Request | None:
+        """Reclaim one queued, mid-prefill or running request without a
+        terminal status, for a scheduler that replays prompt + emitted
+        tokens later (greedy continuations are the same).  A running one
+        drains the work in flight first, so ``req.tokens`` is complete.
+        ``preempt_recompute_tokens`` counts what the resume recomputes:
+        without a prefix cache, every prefilled and emitted token.
+        Returns the request, or None when the rid is not live here."""
+        if self._closed:
+            raise EngineClosed("engine is closed")
+        got = self.withdraw(rid)
+        if got is not None:
+            self.requests_preempted += 1
+            return got
+        for plan in self._inflight_prefill:
+            if plan["req"].rid == rid:
+                self.preempt_recompute_tokens += min(
+                    plan["cursor"] * self.prompt_bucket, plan["n"]
+                )
+                self.requests_preempted += 1
+                return self._reclaim_partial(plan)
+        target = self._find_slot(rid)
+        if target is None:
+            return None
+        self._finished_buffer.extend(self._drain_all_pending())
+        if target not in self._slot_req or self._slot_req[target].rid != rid:
+            got = self.withdraw(rid)
+            if got is not None:
+                self.requests_preempted += 1
+            return got
+        req = self._release_slot(target)
+        self.preempt_recompute_tokens += len(req.prompt) + len(req.tokens)
+        self.requests_preempted += 1
         return req
 
     def _dev(self, mirror: np.ndarray) -> torch.Tensor:
@@ -445,11 +716,27 @@ class ServeEngine:
             if not plans:
                 return finished
             used.update(p["slot"] for p in plans)
-            emitted = self._sweep_prefill(plans)
-            batch_finished = self._finish_admissions(plans, emitted)
+            try:
+                emitted = self._sweep_prefill(plans)
+                batch_finished = self._finish_admissions(plans, emitted)
+            except Exception as exc:  # noqa: BLE001 — recovery seam
+                return finished + self._quarantine_admissions(plans, exc)
             finished += batch_finished
             if not batch_finished:
                 return finished
+
+    def _admission_tokens(self, req: Request) -> list[int]:
+        """The tokens an admission prefills: the prompt, and for a replay
+        every token already emitted, so the stream goes on where it
+        stopped."""
+        return req.prompt + req.tokens if req.tokens else req.prompt
+
+    def _admission_need(self, req: Request) -> int:
+        """Worst-case pages of an admission (a replay's remaining budget
+        is what it has not emitted yet)."""
+        return self._worst_case_pages(
+            len(self._admission_tokens(req)), req.max_new_tokens - len(req.tokens)
+        )
 
     def _take_head(self) -> Request:
         req = self.pending.popleft()
@@ -466,22 +753,29 @@ class ServeEngine:
         for slot in range(self.slots):
             if self._occupied[slot] or not self.pending:
                 continue
-            head = self.pending[0]
-            need = self._worst_case_pages(len(head.prompt), head.max_new_tokens)
+            need = self._admission_need(self.pending[0])
             if self._committed_pages + need > self.ctrl.n_pages:
                 break  # FIFO: no queue-jumping by smaller requests
             req = self._take_head()
             seq = self._seq_id(slot, req)
-            n = len(req.prompt)
-            table = np.full((1, self.max_pages), self.ctrl.trash, np.int32)
-            pages = self.ctrl.allocate(seq, n)
-            table[0, : len(pages)] = pages
-            logits = self._run_prefill(self._dev(table), req.prompt)
-            tok = int(sample_logits(
-                logits, self.generator if self.sampling else None,
-                self.temperature, self.top_k, self.top_p,
-            )[0])
+            prompt = self._admission_tokens(req)
+            n = len(prompt)
+            try:
+                self._maybe_fault("prefill_dispatch")
+                table = np.full((1, self.max_pages), self.ctrl.trash, np.int32)
+                pages = self.ctrl.allocate(seq, n)
+                table[0, : len(pages)] = pages
+                logits = self._run_prefill(self._dev(table), prompt)
+                self._maybe_fault("prefill_readback")
+                tok = int(sample_logits(
+                    logits, self.generator if self.sampling else None,
+                    self.temperature, self.top_k, self.top_p,
+                )[0])
+            except Exception as exc:  # noqa: BLE001 — recovery seam
+                plan = {"slot": slot, "req": req, "seq": seq, "need": 0}
+                return finished + self._quarantine_admissions([plan], exc)
             self.admission_readbacks += 1
+            self._note_recovery()
             if self._land_first_token(slot, req, seq, need, n, tok):
                 finished.append(req)
             else:
@@ -529,18 +823,18 @@ class ServeEngine:
         for slot in range(self.slots):
             if slot in used or self._occupied[slot] or not self.pending:
                 continue
-            head = self.pending[0]
-            need = self._worst_case_pages(len(head.prompt), head.max_new_tokens)
+            need = self._admission_need(self.pending[0])
             if self._committed_pages + need > self.ctrl.n_pages:
                 # FIFO: no queue-jumping by smaller requests.
                 break
             req = self._take_head()
             seq = self._seq_id(slot, req)
-            self.ctrl.allocate(seq, len(req.prompt))
+            prompt = self._admission_tokens(req)
+            self.ctrl.allocate(seq, len(prompt))
             self._committed_pages += need
             plans.append({
-                "slot": slot, "req": req, "seq": seq, "n": len(req.prompt),
-                "need": need,
+                "slot": slot, "req": req, "seq": seq, "n": len(prompt),
+                "prompt": prompt, "need": need,
             })
         return plans
 
@@ -570,7 +864,7 @@ class ServeEngine:
         for p in rows:
             width = min(B, p["n"] - start)
             if width > 0:
-                chunk[p["slot"], :width] = p["req"].prompt[start : start + width]
+                chunk[p["slot"], :width] = p["prompt"][start : start + width]
         logits, _ = paged_prefill_chunk(
             self.params, self.pools, tables_dev, self._dev(chunk), lengths_dev,
             self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=True,
@@ -583,6 +877,7 @@ class ServeEngine:
         """Stack the planned rows into one ragged [slots, bucket] batch and
         run the page-aligned chunks any row covers.  Returns the
         [slots, vocab] first-token logits."""
+        self._maybe_fault("prefill_dispatch")
         for p in plans:
             self.prefills_run += 1
             self.prefill_tokens += p["n"]
@@ -605,11 +900,13 @@ class ServeEngine:
         once, then apply emission and at-admission retirement (which
         rolls the plan's page commitment back).  Returns the requests
         finished at admission."""
+        self._maybe_fault("prefill_readback")
         toks = sample_logits(
             emitted, self.generator if self.sampling else None,
             self.temperature, self.top_k, self.top_p,
         ).cpu().numpy()
         self.admission_readbacks += 1
+        self._note_recovery()
         finished = []
         for p in plans:
             slot = p["slot"]
@@ -625,14 +922,16 @@ class ServeEngine:
         """Emit an admission's first token.  A request that ends there
         retires at once, its pages released; any other takes its slot,
         to decode from position ``n`` at the next dispatch.  Returns
-        whether it retired."""
+        whether it retired.  A replay keeps its first ``t_first``."""
         req.tokens.append(tok)
-        req.t_first = time.perf_counter()
+        now = time.perf_counter()
+        if req.t_first is None:
+            req.t_first = now
         self.generated_tokens += 1
         if len(req.tokens) >= req.max_new_tokens or tok == req.eos_token:
             req.done = True
             req.status = "ok"
-            req.t_done = req.t_first
+            req.t_done = now
             self.ctrl.release(seq)
             self.requests_retired += 1
             self.completed.append(req)
@@ -671,23 +970,28 @@ class ServeEngine:
         self._inflight_prefill.extend(new_plans)
         if not self._inflight_prefill:
             return finished
-        emitted = self._sweep_prefill_budgeted(budget)
-        if self.pipelined:
-            if self._pending_read is not None:
-                read, snapshot = self._pending_read
-                self._pending_read = None
-                finished += self._consume_chunk(read, snapshot)
-            if len(self._pending_super) > 1:
-                # The superstep loop admits with the newest superstep in
-                # flight; the previous one's readback overlaps the sweep.
-                read, snapshot = self._pending_super.popleft()
-                finished += self._consume_superstep(read, snapshot)
-        completed = [p for p in self._inflight_prefill if p["cursor"] > p["last_ci"]]
-        if completed:
-            finished += self._finish_admissions(completed, emitted)
-            self._inflight_prefill = [
-                p for p in self._inflight_prefill if p["cursor"] <= p["last_ci"]
-            ]
+        try:
+            emitted = self._sweep_prefill_budgeted(budget)
+            if self.pipelined:
+                if self._pending_read is not None:
+                    read, snapshot = self._pending_read
+                    self._pending_read = None
+                    finished += self._consume_chunk(read, snapshot)
+                if len(self._pending_super) > 1:
+                    # The superstep loop admits with the newest superstep
+                    # in flight; the previous one's readback overlaps the
+                    # sweep.
+                    read, snapshot = self._pending_super.popleft()
+                    finished += self._consume_superstep(read, snapshot)
+            completed = [p for p in self._inflight_prefill if p["cursor"] > p["last_ci"]]
+            if completed:
+                finished += self._finish_admissions(completed, emitted)
+                self._inflight_prefill = [
+                    p for p in self._inflight_prefill if p["cursor"] <= p["last_ci"]
+                ]
+        except Exception as exc:  # noqa: BLE001 — recovery seam
+            plans, self._inflight_prefill = self._inflight_prefill, []
+            return finished + self._quarantine_admissions(plans, exc)
         for p in self._inflight_prefill:
             self.prefill_deferred_tokens += max(
                 0, p["n"] - p["cursor"] * self.prompt_bucket
@@ -705,6 +1009,7 @@ class ServeEngine:
         )
         if not any(p["cursor"] <= p["last_ci"] for p in self._inflight_prefill):
             return emitted
+        self._maybe_fault("prefill_dispatch")
         self.prefill_sweeps += 1
         group_key, arrays = None, None
         for _ in range(max_chunks):
@@ -732,6 +1037,13 @@ class ServeEngine:
         self._committed_pages -= plan["need"]
         return plan["req"]
 
+    def _reclaim_partial(self, plan: dict) -> Request:
+        """Reclaim one mid-prefill admission for cancel, expiry or
+        preempt: its pages and commitment go back.  (The JAX engine's
+        fan-out branch, which requeues a group's siblings, comes with
+        fan-out.)"""
+        return self._abort_partial(plan)
+
     # ---- decode ---------------------------------------------------------
 
     @torch.inference_mode()
@@ -743,16 +1055,38 @@ class ServeEngine:
         With ``pipelined`` a chunk's tokens are read back only after the
         next chunk is dispatched on its device-side last tokens, so
         emission and retirement lag one chunk; tokens are the same.  With
-        ``superstep_k > 1`` the step runs ``_step_superstep``."""
+        ``superstep_k > 1`` the step runs ``_step_superstep``.  A failed
+        dispatch or readback quarantines the step."""
+        return self._step_impl()
+
+    def _step_impl(self) -> list[Request]:
         if self._closed:
             raise EngineClosed("engine is closed; no further steps")
+        # Requests finished outside step() (cancel, retune) surface here.
+        finished = list(self._finished_buffer)
+        self._finished_buffer.clear()
+        finished += self._poll_health()
+        finished += self._expire_deadlines()
+        if self._paused:
+            # Health hold: no admission, no dispatch; the work in flight
+            # was requeued when the chip went unhealthy.
+            return finished
+        # The decode paths accumulate into this alias, so retirements made
+        # before a later seam fault still surface in this step's return.
+        self._decode_finished: list[Request] = []
         if self.superstep_k > 1:
-            return self._step_superstep()
-        finished = self._admit()
-        return finished + self._step_decode()
+            try:
+                return finished + self._step_superstep()
+            except Exception as exc:  # noqa: BLE001 — recovery seam
+                return finished + self._decode_finished + self._quarantine_step(exc)
+        finished += self._admit()
+        try:
+            return finished + self._step_decode()
+        except Exception as exc:  # noqa: BLE001 — recovery seam
+            return finished + self._decode_finished + self._quarantine_step(exc)
 
     def _step_decode(self) -> list[Request]:
-        finished: list[Request] = []
+        finished = self._decode_finished
         if not self._occupied.any():
             if self._pending_read is not None:
                 read, snapshot = self._pending_read
@@ -768,6 +1102,7 @@ class ServeEngine:
             self._dev(self._tables), self._dev(self._positions),
             self._dev(self._occupied),
         )
+        self._maybe_fault("decode_dispatch")
         if self._graph is None:
             toks, _ = paged_decode_chunk(
                 self.params, self.pools, tables, tok_in, pos, occupied,
@@ -816,7 +1151,9 @@ class ServeEngine:
     def _consume_chunk(self, read: _Readback, snapshot: dict) -> list[Request]:
         """Read a chunk's tokens back (the host sync point) and apply
         emission and retirement for the slots as they were at dispatch."""
+        self._maybe_fault("decode_readback")
         toks = read.numpy()
+        self._note_recovery()
         finished = []
         for slot, req in snapshot.items():
             if req.done:
@@ -834,15 +1171,19 @@ class ServeEngine:
         """One double-buffered iteration: the superstep for the slots
         occupied NOW is dispatched first, admission (planning, prefill
         sweeps) runs while it computes, and its one readback comes last.
-        Requests admitted in that window join the next superstep.  Under
-        ``pipelined`` the newest superstep stays in flight, chained on
-        the device, while the previous one is consumed."""
-        finished: list[Request] = []
+        Requests admitted in that window join the next superstep, and a
+        second lifecycle poll there acts on health events and deadlines
+        while the device computes.  Under ``pipelined`` the newest
+        superstep stays in flight, chained on the device, while the
+        previous one is consumed."""
+        finished = self._decode_finished
         dispatched = False
         if self._occupied.any():
             self._dispatch_superstep()
             dispatched = True
         finished += self._admit()
+        finished += self._poll_health()
+        finished += self._expire_deadlines()
         keep = 1 if (self.pipelined and dispatched) else 0
         while len(self._pending_super) > keep:
             read, snapshot = self._pending_super.popleft()
@@ -890,6 +1231,7 @@ class ServeEngine:
             )
         self._fresh_slots.clear()
         tables, eos_in = self._dev(self._tables), self._dev(eos)
+        self._maybe_fault("decode_dispatch")
         if self._graph is None:
             toks, *carry, _ = paged_decode_superstep(
                 self.params, self.pools, tables, tok_in, pos_in, live_in,
@@ -911,7 +1253,9 @@ class ServeEngine:
         (``_emit``'s eos/max_new rule is the device's retirement mask, so
         the host mirrors advance as the device did), retire finished
         rows, and count the dead steps each retiring row sat frozen for."""
+        self._maybe_fault("decode_readback")
         toks = read.numpy()
+        self._note_recovery()
         span = toks.shape[1]
         finished = []
         for slot, req in snapshot.items():
@@ -938,11 +1282,160 @@ class ServeEngine:
         self.completed.clear()
         return out
 
+    def _drain_pending_plain(self) -> list[Request]:
+        """Consume the pipelined chunk in flight (the host mirrors catch
+        up) and drop the device-chained tokens: the next dispatch takes
+        every row from the mirrors."""
+        finished: list[Request] = []
+        if self._pending_read is not None:
+            read, snapshot = self._pending_read
+            self._pending_read = None
+            finished = self._consume_chunk(read, snapshot)
+        self._chained_tok = None
+        return finished
+
+    def _drain_pending_super(self) -> list[Request]:
+        """Consume every superstep in flight and drop the device carry:
+        the next dispatch takes every row from the mirrors."""
+        finished: list[Request] = []
+        while self._pending_super:
+            read, snapshot = self._pending_super.popleft()
+            finished += self._consume_superstep(read, snapshot)
+        self._super_chained = None
+        return finished
+
+    def _drain_all_pending(self) -> list[Request]:
+        """Consume whatever is in flight, so the host mirrors hold what
+        the device computed: what cancel, expiry, preempt and retune need
+        before they touch a slot or a knob.  A seam failure during the
+        drain quarantines the step."""
+        try:
+            return self._drain_pending_plain() + self._drain_pending_super()
+        except Exception as exc:  # noqa: BLE001 — recovery seam
+            return self._quarantine_step(exc)
+
+    def _expire_deadlines(self) -> list[Request]:
+        """Move queued, mid-prefill and running requests whose deadline
+        has passed to ``expired`` (a running one after the work in flight
+        is drained, as cancel does)."""
+        now = time.perf_counter()
+
+        def due(req: Request) -> bool:
+            return req.t_deadline is not None and now >= req.t_deadline
+
+        finished: list[Request] = []
+        for req in [r for r in self.pending if due(r)]:
+            self.pending.remove(req)
+            finished.append(self._finish_terminal(req, "expired"))
+        for plan in [p for p in self._inflight_prefill if due(p["req"])]:
+            finished.append(self._finish_terminal(self._reclaim_partial(plan), "expired"))
+        expired_slots = [slot for slot, r in self._slot_req.items() if due(r)]
+        if expired_slots:
+            finished += self._drain_all_pending()
+            for slot in expired_slots:
+                req = self._slot_req.get(slot)
+                if req is None or not due(req):
+                    continue  # the drain retired or replaced it
+                finished.append(self._finish_terminal(self._release_slot(slot), "expired"))
+        return finished
+
+    # ---- health bridge --------------------------------------------------
+
+    def bind_health(self, fanout) -> None:
+        """Subscribe to a tpu_device_plugin ``HealthFanout``: an unhealthy
+        chip pauses admission and requeues the work in flight (no retry
+        charge), the all-clear resumes.  close() unsubscribes."""
+        if self._health_fanout is not None:
+            raise RuntimeError("engine is already bound to a health fanout")
+        self._health_fanout = fanout
+        self._health_events = fanout.subscribe()
+
+    def unbind_health(self) -> None:
+        if self._health_fanout is not None:
+            self._health_fanout.unsubscribe(self._health_events)
+            self._health_fanout = None
+        self._health_events = None
+
+    def _poll_health(self) -> list[Request]:
+        """Drain the health queue without blocking and apply it: any
+        unhealthy chip pauses the engine and drops and requeues the work
+        in flight (the device's answers cannot be trusted, so this is the
+        quarantine, not a drain); every chip healthy again resumes.  An
+        event with ``chip_id`` "" speaks for every chip."""
+        q = self._health_events
+        if q is None:
+            return []
+        changed = False
+        while True:
+            try:
+                ev = q.get_nowait()
+            except queue.Empty:
+                break
+            if ev.health == UNHEALTHY:
+                self._unhealthy_chips.add(ev.chip_id or "*all*")
+            elif not ev.chip_id:
+                self._unhealthy_chips.clear()
+            else:
+                self._unhealthy_chips.discard(ev.chip_id)
+            changed = True
+        if not changed:
+            return []
+        if self._unhealthy_chips and not self._paused:
+            self._paused = True
+            return self._quarantine_step(
+                RuntimeError(f"chip(s) unhealthy: {sorted(self._unhealthy_chips)}"),
+                count_retry=False,
+            )
+        if not self._unhealthy_chips and self._paused:
+            self._paused = False
+        return []
+
+    @property
+    def paused(self) -> bool:
+        """True while the health bridge holds admission."""
+        return self._paused
+
+    # ---- online retune --------------------------------------------------
+
+    def retune(self, *, superstep_k: int | None = None) -> dict:
+        """Change ``superstep_k`` on a live engine, between dispatches:
+        down from its construction value and back up to it, never above.
+        Whatever is in flight drains first, so the next dispatch under the
+        new k starts from what the device computed: greedy streams are the
+        same across every change, and the card's decode graph (captured
+        for the construction k) is replayed, never captured again.
+        Requests the drain retires surface through the next step().
+        Returns ``{knob: (old, new)}`` for a real change, else ``{}``
+        (nothing drained or counted)."""
+        if self._closed:
+            raise EngineClosed("engine is closed; no retune")
+        if superstep_k is None:
+            return {}
+        if not 1 <= int(superstep_k) <= self._superstep_k_max:
+            raise ValueError(
+                f"superstep_k must be in [1, {self._superstep_k_max}] (the "
+                f"construction-time ceiling), got {superstep_k}"
+            )
+        if int(superstep_k) == self.superstep_k:
+            return {}
+        self._finished_buffer.extend(self._drain_all_pending())
+        change = {"superstep_k": (self.superstep_k, int(superstep_k))}
+        self.superstep_k = int(superstep_k)
+        self.retunes += 1
+        return change
+
+    # ---- shutdown -------------------------------------------------------
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
     def close(self) -> None:
         """Idempotent shutdown: pending, mid-prefill and running requests
         fail with ``EngineClosed`` recorded, their pages release, work in
-        flight is dropped unread; later submit and step raise
-        ``EngineClosed``."""
+        flight is dropped unread, the health subscription ends; later
+        submit and step raise ``EngineClosed``, and the closed engine
+        reads idle."""
         if self._closed:
             return
         self._closed = True
@@ -952,12 +1445,23 @@ class ServeEngine:
         self._super_chained = None
         self._fresh_slots.clear()
         err = "EngineClosed: engine closed with the request in flight"
+        # step() refuses to run after close, so these land on
+        # ``completed`` only, and the buffer clears.
         for slot in sorted(self._slot_req):
-            self._fail(self._release_slot(slot), err)
+            self._finish_terminal(self._release_slot(slot), "failed", error=err)
         for plan in list(self._inflight_prefill):
-            self._fail(self._abort_partial(plan), err)
+            self._finish_terminal(self._abort_partial(plan), "failed", error=err)
         while self.pending:
-            self._fail(self.pending.popleft(), err)
+            self._finish_terminal(self.pending.popleft(), "failed", error=err)
+        self._finished_buffer.clear()
+        self.unbind_health()
+
+    def __enter__(self) -> "ServeEngine":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.close()
+        return False
 
     @property
     def idle(self) -> bool:
@@ -967,15 +1471,20 @@ class ServeEngine:
             and not self._inflight_prefill
             and self._pending_read is None
             and not self._pending_super
+            and not self._finished_buffer
         )
 
     def run(self) -> dict[str, list[int]]:
-        """Drive step() until every submitted request has finished;
-        returns {rid: generated tokens}."""
+        """Drive step() until every submitted request has reached a
+        terminal status; returns {rid: generated tokens} (``completed``
+        holds the statuses).  While the health bridge holds admission the
+        loop sleeps briefly between polls."""
         out = {}
         while not self.idle:
             for req in self.step():
                 out[req.rid] = req.tokens
+            if self._paused:
+                time.sleep(0.001)
         return out
 
 
@@ -1010,10 +1519,39 @@ def main(argv=None) -> int:
                         "eos/max-token retirement on the device, admission "
                         "overlapping the device's work (same greedy tokens "
                         "for every K)")
+    parser.add_argument("--deadline-s", type=float, default=None,
+                        help="per-request deadline in seconds; requests "
+                        "still queued or running past it expire")
+    parser.add_argument("--max-retries", type=int, default=2,
+                        help="replay retries per request after a "
+                        "quarantined step before it fails")
+    parser.add_argument("--inject-fault", action="append", default=None,
+                        metavar="SEAM:N",
+                        help="raise at the engine seam's Nth crossing "
+                        "(repeatable; seams: prefill_dispatch, "
+                        "prefill_readback, decode_dispatch, "
+                        "decode_readback) to exercise quarantine and replay")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the "
                         "plain PyTorch path)")
     args = parser.parse_args(argv)
+    injector = None
+    if args.inject_fault:
+        from .faults import FaultInjector
+
+        seams = ("prefill_dispatch", "prefill_readback", "decode_dispatch",
+                 "decode_readback")
+        schedule: dict[str, list[int]] = {}
+        for spec in args.inject_fault:
+            seam, _, n = spec.partition(":")
+            if seam not in seams or not n.isdigit():
+                parser.error(f"--inject-fault wants SEAM:N with SEAM one of "
+                             f"{', '.join(seams)}; got {spec!r}")
+            schedule.setdefault(seam, []).append(int(n))
+        try:
+            injector = FaultInjector(schedule)
+        except ValueError as e:
+            parser.error(str(e))
     device = resolve_device(args.device)
 
     config = ModelConfig(
@@ -1037,14 +1575,16 @@ def main(argv=None) -> int:
         top_k=args.top_k, top_p=args.top_p,
         generator=torch.Generator(device).manual_seed(42),
         pipelined=args.pipelined, superstep_k=args.superstep_k,
-        prefill_budget=args.prefill_budget, device=device,
+        prefill_budget=args.prefill_budget, fault_injector=injector,
+        max_retries=args.max_retries, device=device,
     )
     rng = np.random.default_rng(7)
     for i in range(args.requests):
         plen = int(rng.integers(1, args.prompt_len + 1))
         prompt = rng.integers(0, config.vocab_size, plen)
         # Mixed lengths: the stream the engine's slot turnover exists for.
-        engine.submit(prompt, max(1, args.max_new_tokens // (1 + i % 3)))
+        engine.submit(prompt, max(1, args.max_new_tokens // (1 + i % 3)),
+                      deadline_s=args.deadline_s)
 
     engine.step()  # warm-up: first launches and kernel build
     tokens_before = engine.generated_tokens
@@ -1063,6 +1603,17 @@ def main(argv=None) -> int:
         f"pool={engine.ctrl.n_pages} pages, "
         f"pages in use after drain: {engine.ctrl.used_pages})"
     )
+    if engine.steps_quarantined or engine.requests_expired or engine.requests_failed:
+        from collections import Counter
+
+        statuses = Counter(r.status for r in engine.completed)
+        print(
+            f"lifecycle: statuses={dict(statuses)} "
+            f"quarantined_steps={engine.steps_quarantined} "
+            f"replays={engine.requests_retried} "
+            f"tokens_replayed={engine.tokens_replayed} "
+            f"recoveries_ms={[round(t * 1000, 1) for t in engine.fault_recovery_s]}"
+        )
     return 0
 
 

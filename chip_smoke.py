@@ -12,10 +12,11 @@ Phases, each of which fails the run loudly:
    kernel instance's registers and spills, and fail if the wgmma
    kernels (bf16 K2, K3 and K4 at head_dim 64 and 128) spill;
 3. hold each kernel against its plain PyTorch version on the card, in
-   bfloat16 and float32: K1 (paged attention) at the serving path's
-   shapes and variants, each with one split, with the split count the
-   host picks and with more splits than live pages, three launches in a
-   row bit-identical; K2-K4 (flash attention forward, dq, dk/dv) over
+   bfloat16 and float32: K1 (paged attention) at the serving paths'
+   shapes and variants (phase 4c's 8 rows to 896 positions over 17- and
+   24-column tables among them), each with one split, with the split
+   count the host picks and with more splits than live pages, three
+   launches in a row bit-identical; K2-K4 (flash attention forward, dq, dk/dv) over
    MHA and GQA, causal and full, windows within and across tiles,
    segment_ids, narrow heads (the mma.sync route), ragged sequence
    lengths around the 128-row tile and up to the training path's 2,047,
@@ -32,9 +33,10 @@ Phases, each of which fails the run loudly:
    chunk as many as the profiler's trace shows); one chunk through the
    graph and through the eager loop from the same state, bit-identical
    and timed; then one teacher-forced decode step through the kernel and
-   through the plain version, at 8 rows and at 2 (where K1 splits each
-   row's pages), in float32 and in bfloat16, the bf16 limit being the
-   step's own bf16 precision floor measured in the same run;
+   through the plain version, at 8 rows, at 2 (where K1 splits each
+   row's pages) and at 8 rows to phase 4c's depth, in float32 and in
+   bfloat16, the bf16 limit being the step's own bf16 precision floor
+   measured in the same run;
 4b. the request lifecycle at the same width (``lifecycle_phase``), short
    requests in 16-step chunks at the defaults and with ``superstep_k=4,
    pipelined=True``: a fault at each engine seam with its replays (bf16
@@ -46,6 +48,24 @@ Phases, each of which fails the run loudly:
    and close; every scenario with 0 pages left, K1 n_layers a decode
    step dispatched, and its wall time, quarantines, tokens replayed and
    recovery times printed;
+4c. the KV-cache hierarchy at the same width (``kv_phase``): 16
+   conversations behind a shared 512-token system prompt, three turns
+   each, through (a) no cache, (b) radix, (c) flat, (d) radix with the
+   host-RAM tier in a 64-page pool, (e) (d) with the disk tier, and (a)
+   and (e) with ``superstep_k=4, pipelined``: streams identical across
+   arms ((a) against (b) held to the bf16 step floor if they part), the
+   cache's saving, spills, reloads, demotions and disk reloads with no
+   degraded put or get, 0 pages beside the index after each drain and 0
+   after close, K1 n_layers a decode step dispatched, one capture an
+   engine, the pools never moved; (a) and (e) in float32 token for
+   token, (e) in a pool small enough to run every tier; fan-out (one
+   prefill, the solo stream), a KV handoff between two engines (the
+   decode engine forwards only the tails) and a preempt park (float32
+   continuation exact, bf16 keeps its prefix); wall, tokens/s, prompt
+   tokens, hits, spills, reloads, ms a page (a reload's copy split by
+   pinned and pageable blobs) and turn TTFT printed per arm; K1 is held against its plain version at this phase's depth and
+   table widths in phase 3, and a decode step at its depth gives the
+   bf16 floor it holds (a) against (b) to;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -118,6 +138,17 @@ FULL = dict(
     train_batch=8, train_seq=2048, lifecycle_new=(64, 192, 128), lifecycle_requests=12,
     lifecycle_chunk=16,
 )
+# Phase 4c, the KV-cache hierarchy: 16 conversations behind one 512-token
+# system prompt (8 pages), three turns of 64 user tokens and 64 generated
+# ones; hits come in 2-page steps (prompt_bucket 128).  (d) runs a 64-page
+# pool (256 MiB) with a 48-page host tier, (e) a 16-page host tier over
+# the disk tier.  The float32 (e) arm serves 4 conversations, which need
+# about 32 pages: a 20-page pool (160 MiB) over a 4-page host tier makes
+# it spill, reload, demote and reload from disk.
+KV = dict(max_seq_len=1024, page_size=64, prompt_bucket=128, slots=8, chunk=64, system=512,
+          user=64, new=64, conversations=16, turns=3, n_pages=64, host_pages=48,
+          disk_host_pages=16, f32_conversations=4, f32_n_pages=20, f32_host_pages=4,
+          fanout=4, handoff=4)
 # The lifecycle phase's scheduled faults: the crossing of each engine seam
 # that fires, mid-drain in both of its modes.
 LIFECYCLE_FAULTS = {"prefill_dispatch": [2], "prefill_readback": [3],
@@ -197,10 +228,11 @@ def graph_ms(fn, launches: int, replays: int = 20) -> float:
 
 
 def paged_inputs(torch, *, batch, heads, kv_heads, head_dim, page_size,
-                 lengths, layers, dtype, seed):
-    """Random q and pools, and a shuffled table covering each row."""
+                 lengths, layers, dtype, seed, width=None):
+    """Random q and pools, and a shuffled table covering each row
+    (``width`` columns, by default as many as the longest row needs)."""
     g = torch.Generator("cuda").manual_seed(seed)
-    max_pages = max(1, -(-max(lengths) // page_size))
+    max_pages = width or max(1, -(-max(lengths) // page_size))
     n_pages = batch * max_pages + 1
     shape = (layers, n_pages, kv_heads, page_size, head_dim)
     k = torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -215,7 +247,16 @@ def paged_inputs(torch, *, batch, heads, kv_heads, head_dim, page_size,
 def check_kernel_cases(torch, pa):
     """Phase 3: K1 against its plain version, every case and dtype."""
     ragged = [544, 0, 1, 63, 64, 65, 300, 511]
+    # Phase 4c decodes 8 rows to 896 positions (turn-3 prompts of 832
+    # tokens plus 64 new) over tables as wide as its engines' max_pages:
+    # 17 columns at the defaults, 24 with superstep_k=4 pipelined.
+    kv_ragged = [896, 0, 1, 64, 577, 704, 833, 895]
+    kv_widths = [-(-(KV["max_seq_len"] + KV["chunk"] * steps) // KV["page_size"])
+                 for steps in (1, 4 * 2)]
     cases = [
+        *((f"phase 4c, {w}-page tables", dict(heads=16, kv_heads=16, head_dim=128,
+                                              page_size=64, lengths=kv_ragged, layers=8,
+                                              width=w), None) for w in kv_widths),
         ("full MHA", dict(heads=16, kv_heads=16, head_dim=128, page_size=64,
                           lengths=ragged, layers=8), None),
         ("GQA G=4", dict(heads=16, kv_heads=4, head_dim=128, page_size=64,
@@ -417,11 +458,13 @@ def graph_against_eager_chunk(torch, paged_mod, engine, rng, f):
     return times["graph"], times["eager"]
 
 
-def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, splits=None):
+def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, splits=None,
+                        width=None):
     """Prefill rows of the given lengths, then run one decode step through
     the kernel (with the host's split count, or ``splits``) and, on a copy
-    of the pools, through the plain version.  Returns (kernel logits,
-    plain logits)."""
+    of the pools, through the plain version, over decode tables padded
+    with the trash page to ``width`` columns (by default one).  Returns
+    (kernel logits, plain logits)."""
     cover = -(-max(lengths) // ps)
     n_pages = len(lengths) * cover
     with torch.inference_mode():
@@ -438,9 +481,10 @@ def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, split
         )
         tok = torch.randint(0, config.vocab_size, (len(lengths),), generator=g,
                             device="cuda")
-        # One more column, the trash page, as the engine's tables carry.
+        # Padding columns on the trash page, as the engine's tables carry.
+        pad = (width or cover + 1) - cover
         tables_dec = torch.cat(
-            [tables, torch.full((len(lengths), 1), n_pages, dtype=torch.int32,
+            [tables, torch.full((len(lengths), pad), n_pages, dtype=torch.int32,
                                 device="cuda")], dim=1).contiguous()
         ref_pools = (pools[0].clone(), pools[1].clone())
 
@@ -717,6 +761,333 @@ def lifecycle_phase(torch, params, config, f, counters, device="cuda") -> int:
         del engine, run, ref
         if cuda:
             torch.cuda.empty_cache()
+    return read_counts(counters)["paged_attention"]
+
+
+def kv_phase(torch, params, config, kv, counters, bf16_floor, device="cuda") -> int:
+    """Phase 4c: the KV-cache hierarchy at the serving path's width.
+    ``kv["conversations"]`` conversations behind one shared system
+    prompt, ``kv["turns"]`` turns each (a turn's prompt is the last one
+    plus its reply and new user tokens, submitted after the last turn
+    drains), served by arms (a) no cache, (b) radix, (c) flat, (d) radix
+    with the host-RAM tier under a small pool, (e) (d) with the disk
+    tier under a smaller host budget, and (a) and (e) again with
+    ``superstep_k=4, pipelined``; then fan-out, a KV handoff between two
+    engines and a preempt park.  Gates: statuses, pages after each drain
+    and after close, streams across arms, the cache's saving, spills,
+    reloads, demotions and disk reloads without a degraded put or get,
+    K1 n_layers a decode step dispatched, one graph capture an engine and
+    the pools' addresses unchanged; a float32 (a) and (e), the latter in a
+    ``kv["f32_n_pages"]`` pool through every tier, token for token.
+    ``device="cpu"`` rehearses it at a tiny width.  Returns K1's launches
+    over the phase."""
+    import shutil
+    import statistics
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    from workloads_torch import serve as serve_mod
+    from workloads_torch.model import cast_params
+    from workloads_torch.serve import ServeEngine
+
+    cuda = device == "cuda"
+    # A reload's host time by blob: a pinned blob (from host RAM) goes up
+    # queued on the stream, a pageable one (read from disk) is copied
+    # before write_page returns, behind whatever the stream runs first.
+    # The engine's only write_page call is its reload's.
+    plain_write_page, writes = serve_mod.write_page, {}
+
+    def timed_write_page(pools, k, v, dst):
+        t0 = time.perf_counter()
+        out = plain_write_page(pools, k, v, dst)
+        n, s = writes.get(k.is_pinned(), (0, 0.0))
+        writes[k.is_pinned()] = (n + 1, s + time.perf_counter() - t0)
+        return out
+
+    serve_mod.write_page = timed_write_page
+    configs = {torch.bfloat16: replace(config, max_seq_len=kv["max_seq_len"])}
+    configs[torch.float32] = replace(configs[torch.bfloat16], dtype=torch.float32)
+    weights = {torch.bfloat16: params}
+    L, V, new = config.n_layers, config.vocab_size, kv["new"]
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, V, kv["system"]).tolist()
+    users = [[rng.integers(0, V, kv["user"]).tolist() for _ in range(kv["conversations"])]
+             for _ in range(kv["turns"])]
+    base = dict(slots=kv["slots"], page_size=kv["page_size"], prompt_bucket=kv["prompt_bucket"],
+                chunk=kv["chunk"], device=device)
+    offload = dict(prefix_cache=True, kv_offload=True, n_pages=kv["n_pages"],
+                   kv_host_pages=kv["host_pages"])
+    root = tempfile.mkdtemp(prefix="kv_phase_")
+    disk = dict(offload, kv_host_pages=kv["disk_host_pages"])
+    disk_f32 = dict(offload, n_pages=kv["f32_n_pages"], kv_host_pages=kv["f32_host_pages"],
+                    kv_disk_dir=os.path.join(root, "f32"))
+    reset_counts(counters)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def engine_for(dtype, kw):
+        if dtype not in weights:
+            weights[dtype] = cast_params(params, dtype)
+        e = ServeEngine(weights[dtype], configs[dtype], **base, **kw)
+        return e, [p.data_ptr() for p in e.pools], counters["paged_attention"].launches
+
+    def finish(label, e, ptrs, before):
+        """Gates every engine shares, then close: 0 pages in use."""
+        launches = counters["paged_attention"].launches - before
+        if cuda and launches != L * e.chunks_run * e.chunk:
+            fail(f"kv {label}: K1 launched {launches} times, n_layers x decode steps "
+                 f"dispatched is {L * e.chunks_run * e.chunk}")
+        captures = e._graph.captures if e._graph is not None else 0
+        if cuda and captures != min(1, e.chunks_run):
+            fail(f"kv {label}: {captures} graph captures after {e.chunks_run} chunks")
+        held = [[p.data_ptr() for p in e.pools]]
+        if e._graph is not None:
+            held.append([p.data_ptr() for p in e._graph.pools])
+        if any(h != ptrs for h in held):
+            fail(f"kv {label}: the pools moved (data_ptr changed)")
+        e.close()
+        if e.ctrl.used_pages:
+            fail(f"kv {label}: {e.ctrl.used_pages} pages in use after close()")
+
+    def drained(label, e, rids, served, want_new):
+        for rid in rids:
+            req = next((r for r in e.completed if r.rid == rid), None)
+            if req is None or req.status != "ok" or len(served.get(rid, ())) != want_new:
+                fail(f"kv {label} {rid}: {None if req is None else req.status}, "
+                     f"{len(served.get(rid, ()))} tokens, wanted {want_new}")
+        cached = e.prefix.cached_pages if e.prefix is not None else 0
+        if e.ctrl.used_pages != cached:
+            fail(f"kv {label}: {e.ctrl.used_pages} pages in use after the drain, the prefix "
+                 f"index holds {cached}")
+
+    def conversations(label, dtype, kw, n_conv):
+        e, ptrs, before = engine_for(dtype, kw)
+        writes.clear()
+        prompts = [system + users[0][c] for c in range(n_conv)]
+        out = {"prompts": [], "streams": [], "wall": 0.0, "ttft": []}
+        for turn in range(kv["turns"]):
+            rids = [e.submit(p, new) for p in prompts]
+            sync()
+            t0 = time.perf_counter()
+            served = e.run()
+            sync()
+            out["wall"] += time.perf_counter() - t0
+            drained(f"{label} turn {turn + 1}", e, rids, served, new)
+            reqs = {r.rid: r for r in e.completed}
+            out["ttft"].append(statistics.median(reqs[r].ttft_secs for r in rids))
+            out["prompts"].append(prompts)
+            out["streams"].append([served[r] for r in rids])
+            if turn + 1 < kv["turns"]:
+                prompts = [p + s + u for p, s, u in zip(prompts, out["streams"][-1],
+                                                        users[turn + 1])]
+        p = e.prefix
+        get = (lambda n: getattr(p, n, 0)) if p is not None else (lambda n: 0)
+        out.update(prefill_tokens=e.prefill_tokens, tokens=e.generated_tokens,
+                   spills=get("spills"), reloads=get("reloads"), demotions=get("demotions"),
+                   disk_reloads=get("disk_reloads"), hits=get("hits"), misses=get("misses"),
+                   spill_s=e.kv_spill_s, reload_s=e.kv_reload_s,
+                   put_s=e._kv_disk.put_s if e._kv_disk is not None else 0.0,
+                   get_s=e._kv_disk.get_s if e._kv_disk is not None else 0.0,
+                   degraded=(e._kv_disk.write_failures + e._kv_disk.read_corrupt)
+                   if e._kv_disk is not None else 0,
+                   pinned=writes.get(True, (0, 0.0)), pageable=writes.get(False, (0, 0.0)))
+        per = lambda s, n: f"{s / n * 1e3:.3f}" if n else "-"  # noqa: E731
+        print(f"  kv {label} [{str(dtype).split('.')[1]}, {n_conv} conversations x "
+              f"{kv['turns']} turns]: wall {out['wall']:.3f} s, decode tokens/s "
+              f"{out['tokens'] / out['wall']:.1f}, prompt tokens forwarded "
+              f"{out['prefill_tokens']}, hits {out['hits']} misses {out['misses']}, spills "
+              f"{out['spills']} reloads {out['reloads']} demotions {out['demotions']} disk "
+              f"reloads {out['disk_reloads']}, kv_spill_s {out['spill_s']:.4f} "
+              f"({per(out['spill_s'], out['spills'])} ms a page) kv_reload_s "
+              f"{out['reload_s']:.4f} (copies up: {out['pinned'][0]} pinned blobs "
+              f"{per(out['pinned'][1], out['pinned'][0])} ms a page, {out['pageable'][0]} "
+              f"pageable {per(out['pageable'][1], out['pageable'][0])} ms a page), "
+              f"disk writes {per(out['put_s'], out['demotions'])} and reads "
+              f"{per(out['get_s'], out['disk_reloads'])} ms a page, "
+              f"turn TTFT medians ms {[round(t * 1e3, 2) for t in out['ttft']]}", flush=True)
+        finish(label, e, ptrs, before)
+        return out
+
+    def first_divergence(x, y):
+        for turn, (sx, sy) in enumerate(zip(x["streams"], y["streams"])):
+            for c, (a, b) in enumerate(zip(sx, sy)):
+                if a != b:
+                    i = next(i for i, (p, q) in enumerate(zip(a, b)) if p != q)
+                    return turn, c, i
+        return None
+
+    def prefill_gap(tokens, warm):
+        """max |logit| difference of one prompt's prefill without a cache
+        and with the cached pages ``warm``'s admission wrote."""
+        logits = []
+        for kw in ({}, {"prefix_cache": True}):
+            e = ServeEngine(params, configs[torch.bfloat16], **base, **kw)
+            if kw:
+                e.submit(warm, 1)
+                e.run()
+            seq = ("probe",)
+            start = e._prefix_admit_pages(seq, tokens)
+            logits.append(e._run_prefill(e._table_dev(seq), tokens, start).float())
+            e.ctrl.release(seq)
+            e.close()
+        return (logits[0] - logits[1]).abs().max().item()
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    n = kv["conversations"]
+    runs = {
+        "a": conversations("(a) no cache", bf16, {}, n),
+        "b": conversations("(b) radix", bf16, {"prefix_cache": True}, n),
+        "c": conversations("(c) flat", bf16, {"prefix_cache": "flat"}, n),
+        "d": conversations("(d) radix + host RAM", bf16, offload, n),
+        "e": conversations("(e) radix + host RAM + disk", bf16,
+                           dict(disk, kv_disk_dir=os.path.join(root, "e")), n),
+    }
+    k4 = dict(superstep_k=4, pipelined=True)
+    runs["a k4"] = conversations("(a) no cache, superstep_k=4 pipelined", bf16, k4, n)
+    runs["e k4"] = conversations("(e) + disk, superstep_k=4 pipelined", bf16,
+                                 dict(disk, kv_disk_dir=os.path.join(root, "e4"), **k4), n)
+    for x, y in (("c", "b"), ("d", "b"), ("e", "b"), ("a k4", "a"), ("e k4", "e")):
+        if runs[x]["streams"] != runs[y]["streams"]:
+            fail(f"kv: the streams of arm {x} differ from arm {y}'s at (turn, conversation, "
+                 f"token) {first_divergence(runs[x], runs[y])}")
+    split = first_divergence(runs["a"], runs["b"])
+    if split is None:
+        print(f"  kv: the streams of (a) and (b), (c), (d), (e) are identical token for token, "
+              f"and (a) and (e) with superstep_k=4 pipelined equal them", flush=True)
+    else:
+        turn, c, i = split
+        tokens = runs["a"]["prompts"][turn][c] + runs["a"]["streams"][turn][c][:i]
+        warm = runs["a"]["prompts"][turn - 1][c] if turn else system + users[0][c]
+        gap = prefill_gap(tokens, warm)
+        print(f"  kv: (a) and (b) first diverge at turn {turn + 1}, conversation {c}, token "
+              f"{i}; teacher-forced max |dlogit| there {gap:.4e}, the bf16 step floor "
+              f"{bf16_floor:.4e}", flush=True)
+        if not gap <= bf16_floor:
+            fail("kv: the cached prefix moves the logits past the bf16 step floor")
+    a, b, d, e = runs["a"], runs["b"], runs["d"], runs["e"]
+    if not (b["prefill_tokens"] < a["prefill_tokens"] and b["hits"] > 0):
+        fail(f"kv: radix forwarded {b['prefill_tokens']} prompt tokens against "
+             f"{a['prefill_tokens']} uncached, {b['hits']} hits")
+    if not (d["spills"] > 0 and d["reloads"] > 0):
+        fail(f"kv (d): {d['spills']} spills, {d['reloads']} reloads")
+
+    def every_tier(label, r):
+        if not (r["spills"] > 0 and r["reloads"] > 0 and r["demotions"] > 0
+                and r["disk_reloads"] > 0) or r["degraded"]:
+            fail(f"kv {label}: {r['spills']} spills, {r['reloads']} reloads, {r['demotions']} "
+                 f"demotions, {r['disk_reloads']} disk reloads, {r['degraded']} degraded puts "
+                 f"or gets")
+
+    for key in ("e", "e k4"):
+        every_tier(f"({key})", runs[key])
+    print(f"  kv: prompt tokens forwarded, radix {b['prefill_tokens']} against "
+          f"{a['prefill_tokens']} uncached; turn-2 TTFT median {b['ttft'][1] * 1e3:.2f} ms "
+          f"radix, {a['ttft'][1] * 1e3:.2f} ms uncached; host seconds in spills "
+          f"{runs['e k4']['spill_s']:.4f} with superstep_k=4 pipelined, "
+          f"{e['spill_s']:.4f} at the defaults ((e) arms; turn-2 prompts of "
+          f"{len(b['prompts'][1][0])} tokens)", flush=True)
+
+    # float32: (a) and (e) on fewer conversations, token for token, (e)
+    # in a pool small enough that every tier runs.
+    fa_, fe = (conversations(label, f32, kw, kv["f32_conversations"]) for label, kw in
+               (("(a) no cache", {}), (f"(e) radix + host RAM + disk, {kv['f32_n_pages']}-page "
+                                       f"pool", disk_f32)))
+    every_tier("float32 (e)", fe)
+    if fa_["streams"] != fe["streams"]:
+        fail(f"kv float32: (e) differs from (a) at {first_divergence(fa_, fe)}")
+    print(f"  kv float32: (a) and (e) identical over {kv['f32_conversations']} conversations, "
+          f"(e) through every tier", flush=True)
+
+    # Fan-out: one prefill for the group, every member the solo stream.
+    e_, ptrs, before = engine_for(bf16, {})
+    prompt = system + users[0][0]
+    rids = e_.submit_fanout(prompt, new, n_samples=kv["fanout"])
+    served = e_.run()
+    drained("fan-out", e_, rids, served, new)
+    solo = a["streams"][0][0]
+    print(f"  kv fan-out: {kv['fanout']} members, {e_.prefills_run} prefill run, streams "
+          f"{'equal the solo stream' if all(served[r] == solo for r in rids) else 'DIFFER'}",
+          flush=True)
+    if e_.prefills_run != 1 or any(served[r] != solo for r in rids):
+        fail("kv fan-out: not one prefill, or a member's stream differs from the solo one")
+    finish("fan-out", e_, ptrs, before)
+
+    # Handoff: a prefill engine exports, a decode engine imports and serves.
+    prompts = [system + users[0][c] for c in range(kv["handoff"])]
+    src, src_ptrs, src_before = engine_for(bf16, dict(prefix_cache=True, kv_offload=True))
+    rids = [src.submit(p, 1) for p in prompts]
+    drained("handoff prefill", src, rids, src.run(), 1)
+    tickets = [src.export_kv(p) for p in prompts]
+    finish("handoff prefill", src, src_ptrs, src_before)
+    dst, ptrs, before = engine_for(bf16, dict(prefix_cache=True, kv_offload=True))
+    for p, t in zip(prompts, tickets):
+        dst.import_kv(p, t)
+    rids = [dst.submit(p, new) for p in prompts]
+    served = dst.run()
+    drained("handoff decode", dst, rids, served, new)
+    ps, bp = kv["page_size"], kv["prompt_bucket"] // kv["page_size"]
+    distinct = len({tuple(p[: (i + 1) * ps]) for p in prompts for i in range(len(p) // ps)})
+    starts = [min(len(p) // ps, (len(p) - 1) // ps // bp * bp) // bp * bp for p in prompts]
+    tail = sum(len(p) - s * ps for p, s in zip(prompts, starts))
+    # A page the first admission reloads is resident for the next.
+    reloads = len({tuple(p[: (i + 1) * ps]) for p, s in zip(prompts, starts) for i in range(s)})
+    out_s = src.kv_handoff_s + src.kv_spill_s
+    print(f"  kv handoff: {src.kv_handoff_pages_out} pages out in {len(tickets)} tickets "
+          f"({out_s / max(1, src.kv_handoff_pages_out) * 1e3:.3f} ms a page, spills included), "
+          f"{dst.kv_handoff_pages_in} distinct pages in ({dst.kv_handoff_s / max(1, dst.kv_handoff_pages_in) * 1e3:.3f} ms a page), "
+          f"{dst.prefix.reloads} reloaded ({dst.kv_reload_s / max(1, dst.prefix.reloads) * 1e3:.3f} "
+          f"ms a page); the decode engine forwarded {dst.prefill_tokens} prompt tokens "
+          f"(the tails past the grafted pages: {tail})", flush=True)
+    if not (dst.kv_handoff_pages_in == distinct and src.kv_handoff_pages_out == sum(
+            len(p) // ps for p in prompts)):
+        fail(f"kv handoff: {src.kv_handoff_pages_out} pages out, {dst.kv_handoff_pages_in} in, "
+             f"wanted every path's pages out and each of the {distinct} distinct pages in")
+    if [served[r] for r in rids] != b["streams"][0][: len(prompts)]:
+        fail("kv handoff: the decode engine's streams differ from a single engine's")
+    if dst.prefill_tokens != tail or dst.prefix.reloads != reloads:
+        fail(f"kv handoff: forwarded {dst.prefill_tokens} prompt tokens and reloaded "
+             f"{dst.prefix.reloads} pages, wanted {tail} and {reloads}")
+    finish("handoff decode", dst, ptrs, before)
+
+    # Park: preempt a running turn-2 request under arm (d), resubmit.
+    for dtype, prompt in ((bf16, d["prompts"][1][0]), (f32, fe["prompts"][1][0])):
+        budget = 2 * new
+        ref_e, ref_ptrs, ref_before = engine_for(dtype, offload)
+        ref_rid = ref_e.submit(prompt, budget)
+        ref_served = ref_e.run()
+        drained("park reference", ref_e, [ref_rid], ref_served, budget)
+        whole = ref_served[ref_rid]
+        finish("park reference", ref_e, ref_ptrs, ref_before)
+        e_, ptrs, before = engine_for(dtype, offload)
+        rid = e_.submit(prompt, budget)
+        e_.step()
+        got = e_.preempt(rid)
+        if got is None or not 0 < len(got.tokens) < budget:
+            fail(f"kv park: preempt returned {got}")
+        parked, kept = e_.pages_parked, list(got.tokens)
+        rest = e_.submit(prompt + kept, budget - len(kept))
+        served = e_.run()
+        drained("park resume", e_, [rest], served, budget - len(kept))
+        stream = kept + served[rest]
+        same = next((i for i, (x, y) in enumerate(zip(stream, whole)) if x != y), len(whole))
+        print(f"  kv park [{str(dtype).split('.')[1]}]: {parked} pages parked, "
+              f"{e_.prefix.reloads} reloaded at the resume, {len(kept)} tokens kept; the "
+              f"resumed stream equals the uninterrupted one for {same} of {len(whole)} tokens",
+              flush=True)
+        if parked == 0 or kept != whole[: len(kept)]:
+            fail("kv park: nothing parked, or the kept tokens differ from the uninterrupted "
+                 "stream")
+        if dtype == f32 and stream != whole:
+            fail("kv park: the float32 continuation differs from the uninterrupted stream")
+        finish("park", e_, ptrs, before)
+    weights.pop(f32, None)
+    serve_mod.write_page = plain_write_page
+    shutil.rmtree(root, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
     return read_counts(counters)["paged_attention"]
 
 
@@ -1224,14 +1595,22 @@ def main() -> int:
 
     # One teacher-forced decode step, kernel route against plain route, in
     # float32 and in the serving dtype (same weights, bf16-valued, and
-    # the same tokens): at 8 rows (K1 takes one split) and at 2 rows,
-    # where K1 cuts each row's pages into the host's split count.
+    # the same tokens): at 8 rows (K1 takes one split), at 2 rows, where
+    # K1 cuts each row's pages into the host's split count, and at 8 rows
+    # as deep as phase 4c decodes (to 896 positions) over its engines'
+    # 17-column tables; phase 4c holds its arms to that step's bf16 floor.
     from dataclasses import replace
 
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    step_rows = {8: [32, 100, 200, 300, 400, 500, 543, 1], 2: [543, 300]}
-    for rows, lengths in step_rows.items():
-        width = -(-max(lengths) // f["page_size"]) + 1
+    kv_width = -(-(KV["max_seq_len"] + KV["chunk"]) // KV["page_size"])
+    step_rows = {"8 rows": ([32, 100, 200, 300, 400, 500, 543, 1], None),
+                 "2 rows": ([543, 300], None),
+                 "8 rows at phase 4c's depth": ([896, 833, 770, 704, 640, 577, 895, 1],
+                                                kv_width)}
+    floors = {}
+    for label, (lengths, step_width) in step_rows.items():
+        rows = len(lengths)
+        width = step_width or -(-max(lengths) // f["page_size"]) + 1
         split_f32 = pa.choose_splits(rows, config.kv_heads, width, sm_count)
         splits_here = {dtype: pa.choose_splits(rows, config.kv_heads, width, sm_count, dtype)
                        for dtype in (torch.float32, torch.bfloat16)}
@@ -1240,7 +1619,7 @@ def main() -> int:
             step_params = params if dtype == config.dtype else cast_params(params, dtype)
             steps[dtype] = teacher_forced_step(torch, paged_mod, pa, step_params,
                                                replace(config, dtype=dtype), f["page_size"],
-                                               lengths)
+                                               lengths, width=step_width)
             del step_params
         got32, want32 = steps[torch.float32]
         got16, want16 = steps[torch.bfloat16]
@@ -1248,8 +1627,9 @@ def main() -> int:
             # Not a gate: the split route in bf16, which the host no longer
             # takes (ROADMAP Queue C), against the same floor.
             forced, _ = teacher_forced_step(torch, paged_mod, pa, params, config,
-                                            f["page_size"], lengths, splits=split_f32)
-            print(f"  bf16 decode step, {rows} rows, K1 forced to {split_f32} splits: kernel "
+                                            f["page_size"], lengths, splits=split_f32,
+                                            width=step_width)
+            print(f"  bf16 decode step, {label}, K1 forced to {split_f32} splits: kernel "
                   f"vs plain max {(forced - want16).abs().max().item():.4e} rms "
                   f"{(forced - want16).square().mean().sqrt().item():.4e} (floor max "
                   f"{(want16 - want32).abs().max().item():.4e} rms "
@@ -1261,7 +1641,7 @@ def main() -> int:
         bf16_floor = (want16 - want32).abs().max().item()
         bf16_rms = (got16 - want16).square().mean().sqrt().item()
         floor_rms = (want16 - want32).square().mean().sqrt().item()
-        print(f"  teacher-forced decode step, {rows} rows (K1 splits: float32 "
+        print(f"  teacher-forced decode step, {label} (K1 splits: float32 "
               f"{splits_here[torch.float32]}, bf16 {splits_here[torch.bfloat16]}), max "
               f"|logit| {scale:.4e}: float32 kernel vs plain {f32_err:.4e} (limit "
               f"{f32_tol:.4e} = {STEP_F32_RTOL} x max); bfloat16 kernel vs plain max "
@@ -1271,10 +1651,11 @@ def main() -> int:
             fail("the teacher-forced decode step gave non-finite logits")
         if not f32_err <= f32_tol:
             fail(f"float32 decode step through the kernel disagrees with the plain route "
-                 f"({rows} rows)")
+                 f"({label})")
+        floors[label] = bf16_floor
         if not (bf16_err <= bf16_floor and bf16_rms <= floor_rms):
             fail(f"bfloat16 decode step through the kernel differs from the plain route by "
-                 f"more than bf16 differs from float32 ({rows} rows, "
+                 f"more than bf16 differs from float32 ({label}, "
                  f"{splits_here[torch.bfloat16]} splits)")
 
     # 4b. the request lifecycle at the same width
@@ -1283,6 +1664,14 @@ def main() -> int:
     lifecycle_launches = lifecycle_phase(torch, params, config, f, counters)
     print(f"  lifecycle phase: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{lifecycle_launches}", flush=True)
+
+    # 4c. the KV-cache hierarchy at the same width
+    phase("serving path: KV-cache hierarchy at full width")
+    t0 = time.perf_counter()
+    kv_launches = kv_phase(torch, params, config, KV, counters,
+                           floors["8 rows at phase 4c's depth"])
+    print(f"  KV hierarchy phase: {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{kv_launches}", flush=True)
 
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
@@ -1387,8 +1776,9 @@ def main() -> int:
         "route": "cuda",
         "source": "workloads_torch/ops/csrc/paged_attention.cu",
         "replaces": "workloads/ops/paged_attention.py:56",
-        "launches": launches + lifecycle_launches,
+        "launches": launches + lifecycle_launches + kv_launches,
         "lifecycle_launches": lifecycle_launches,
+        "kv_launches": kv_launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

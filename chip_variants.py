@@ -3,6 +3,7 @@
 turns, in one process on one GPU.
 
     python3 chip_variants.py DIR [DIR ...]
+    python3 chip_variants.py --spill-anatomy
 
 Each DIR holds a ``flash_attention.cu`` and/or a ``paged_attention.cu``
 (a kernel whose source a DIR lacks is copied there from the checkout); ``.``
@@ -20,6 +21,9 @@ heads, head_dim 128, page_size 64, cycling 8 layers) as a CUDA graph of
 with the first directory's, so a variant that changes results says so.
 Nothing is checked against the plain versions here: ``chip_smoke.py``
 does that for the checkout's sources.
+
+``--spill-anatomy`` times instead what a KV spill's host time is made of
+on the idle card (``spill_anatomy``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,42 @@ from pathlib import Path
 import chip_smoke as cs
 
 
+def spill_anatomy(torch) -> None:
+    """What ``ServeEngine._spill_pages`` spends its host time on, at
+    phase 4c's page (a page's k or v: 8 layers x 16 kv heads x 64
+    positions x head_dim 128 in bf16, 2 MiB): 8 pinned allocations of
+    that size (a size class the caching host allocator has not seen,
+    then the same blocks again from its cache), and 8 copies of it to
+    pinned host memory behind one event."""
+    import time
+
+    f = cs.FULL
+    shape = (f["n_layers"], f["n_heads"], cs.KV["page_size"], f["d_model"] // f["n_heads"])
+    src = torch.zeros((8, *shape), dtype=torch.bfloat16, device="cuda")
+    nbytes = src[0].numel() * src.element_size()
+    alloc_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hosts = [torch.empty(src[0].numel() + 1, dtype=torch.bfloat16, pin_memory=True)
+                 for _ in range(8)]
+        alloc_ms.append((time.perf_counter() - t0) / 8 * 1e3)
+        del hosts
+    hosts = [torch.empty(shape, dtype=torch.bfloat16, pin_memory=True) for _ in range(8)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for h, s in zip(hosts, src):
+        h.copy_(s, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    copy_ms = (time.perf_counter() - t0) / 8 * 1e3
+    print(f"spill anatomy (a page's k or v is {nbytes / 2**20:.0f} MiB): pinned allocation "
+          f"{alloc_ms[0]:.3f} ms fresh, {alloc_ms[1]:.3f} ms from the cache; copy to the "
+          f"host {copy_ms:.3f} ms ({nbytes / copy_ms / 1e6:.1f} GB/s), 8 copies behind one "
+          f"event", flush=True)
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -38,15 +78,18 @@ def main(argv: list[str]) -> int:
         return 2
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this needs a GPU")
-    from workloads_torch.ops import _build
-    from workloads_torch.ops import attention as fa
-    from workloads_torch.ops import paged_attention as pa
-
     import subprocess
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    if argv == ["--spill-anatomy"]:
+        spill_anatomy(torch)
+        return 0
+    from workloads_torch.ops import _build
+    from workloads_torch.ops import attention as fa
+    from workloads_torch.ops import paged_attention as pa
+
     own = _build.CSRC
     dirs = [own if d == "." else Path(d).resolve() for d in argv]
 

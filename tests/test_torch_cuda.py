@@ -4,9 +4,12 @@ launch counts and refusals, the engine on the card against generate()
 and against the CPU engine in its scheduling modes, the decode step's
 CUDA graph against the eager loop, the engine's uploads against its
 host mirrors, K1's split route in a bf16 decode step, the training
-step's kernel launches, and the request lifecycle on the card (a
+step's kernel launches, the request lifecycle on the card (a
 quarantine mid-superstep, uploads after a quarantine or a cancel,
-dropped readbacks, a fault inside the graph's capture, retune).  They
+dropped readbacks, a fault inside the graph's capture, retune), and the
+KV-cache hierarchy on the card (bf16 spill and reload bit for bit, a
+reload behind a superstep in flight, a blob dropped after its reload,
+the pools' addresses, the scripted runs against the CPU engine).  They
 skip without a CUDA device.
 On a machine with a card (and without jax, which tests/conftest.py
 imports):
@@ -709,3 +712,171 @@ def test_retune_walk_replays_one_capture(cuda):
     assert engine.retunes == 3 and engine._graph.captures == 1
     assert pa.paged_attention.launches - before == (
         config.n_layers * engine.chunks_run * engine.chunk)
+
+
+# ---- the KV-cache hierarchy on the card ----------------------------------
+
+
+def _kv_engine(params, config, **kw):
+    kw = {"slots": 2, "page_size": 4, "prompt_bucket": 8, "chunk": 4, "prefix_cache": True,
+          "kv_offload": True, **kw}
+    return ServeEngine(params, config, **kw)
+
+
+def _random_pools(engine, seed=1):
+    g = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        for pool in engine.pools:
+            pool.copy_(torch.randn(pool.shape, generator=g, device="cuda").to(pool.dtype))
+
+
+def test_bf16_spill_and_reload_round_trip_bit_exactly(cuda):
+    """bf16 pages spill to pinned host tensors each blob owns, a 4-page
+    gathered spill equals 4 single spills bit for bit, and each page
+    reloads into a fresh pool page with the same bits."""
+    from workloads_torch.paged import read_page
+
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.bfloat16)
+    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+                                torch.bfloat16)
+    engine = _kv_engine(params, config)
+    _random_pools(engine)
+    pages = [5, 2, 9, 7]
+    gathered = engine._spill_pages(pages)
+    singles = [engine._spill_page(p) for p in pages]
+    for p, ((gk, gv), gd), ((sk, sv), sd) in zip(pages, gathered, singles):
+        assert gd is None and sd is None
+        for t in (gk, gv):
+            assert t.is_pinned() and t._base is None and t.dtype == torch.bfloat16
+        assert torch.equal(gk, sk) and torch.equal(gv, sv)
+        k, v = read_page(engine.pools, p)
+        assert torch.equal(gk, k.cpu()) and torch.equal(gv, v.cpu())
+    for (gk, gv), _ in gathered:
+        dst = engine._reload_page(((gk, gv), None))
+        k, v = read_page(engine.pools, dst)
+        assert torch.equal(k.cpu(), gk) and torch.equal(v.cpu(), gv)
+
+
+def test_a_blob_dropped_right_after_its_reload_leaves_the_page_intact(cuda):
+    """The reload's copy queues behind ~0.1 s of device work and the
+    node drops its pinned blob at once: the caching host allocator hands
+    the blob's block to no new allocation, which the host fills, until
+    the copy has landed, so the page holds the blob's bytes."""
+    from workloads_torch.paged import read_page
+
+    config, params = _life_model()
+    engine = _kv_engine(params, config)
+    shape = engine.pools[0][:, 0].shape
+    k = torch.randn(shape).pin_memory()
+    v = torch.randn(shape).pin_memory()
+    want = (k.clone(), v.clone())
+    ptrs = {k.data_ptr(), v.data_ptr()}
+    torch.cuda._sleep(200_000_000)
+    page = engine._reload_page(((k, v), None))
+    del k, v
+    fresh = [torch.empty(shape, pin_memory=True) for _ in range(8)]
+    assert not ptrs & {t.data_ptr() for t in fresh}
+    for t in fresh:
+        t.fill_(-1.0)
+    torch.cuda.synchronize()
+    got = read_page(engine.pools, page)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def _kv_turns(engine, rng_seed=71, conversations=4, turns=3, new=6):
+    """Conversations behind a shared 16-token system prompt, each turn
+    submitted after the last drains; returns the streams."""
+    g = torch.Generator().manual_seed(rng_seed)
+    system = torch.randint(0, 256, (16,), generator=g).tolist()
+    prompts = [system + torch.randint(0, 256, (5,), generator=g).tolist()
+               for _ in range(conversations)]
+    streams = []
+    for _ in range(turns):
+        rids = [engine.submit(p, new) for p in prompts]
+        served = engine.run()
+        streams.append([served[r] for r in rids])
+        prompts = [p + s + torch.randint(0, 256, (5,), generator=g).tolist()
+                   for p, s in zip(prompts, streams[-1])]
+    return streams
+
+
+def test_a_reload_queued_behind_a_superstep_in_flight_changes_no_token(cuda):
+    """Reloads during admission queue on the stream behind the pipelined
+    superstep still running (each graph run queued behind a sleep); the
+    streams are the CPU engine's, and some reload met a superstep in
+    flight."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
+    params = init_params(config, torch.Generator().manual_seed(0))
+    kw = dict(superstep_k=2, pipelined=True, n_pages=20)
+    want = _kv_turns(_kv_engine(params, config, device="cpu", **kw))
+    engine = _kv_engine(_on(params, "cuda"), config, **kw)
+    graph_run, reload = engine._graph.run, engine._reload_page
+    in_flight = []
+
+    def slow_run(*args):
+        torch.cuda._sleep(5_000_000)
+        return graph_run(*args)
+
+    def watching_reload(blob):
+        in_flight.append(any(not read.event.query() for read, _ in engine._pending_super))
+        return reload(blob)
+
+    engine._graph.run, engine._reload_page = slow_run, watching_reload
+    assert _kv_turns(engine) == want
+    assert engine.prefix.reloads > 0 and any(in_flight), in_flight
+
+
+def test_pools_hold_their_addresses_across_spill_reload_and_copy(cuda):
+    """Spills, reloads, disk demotions and reloads and fan-out tail
+    copies update the pools in place: the engine's and the graph's pools
+    keep their data_ptr, and the graph is captured once."""
+    from workloads_torch.paged import copy_page
+
+    config, params = _life_model()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        engine = _kv_engine(params, config, n_pages=20, kv_host_pages=2, kv_disk_dir=d)
+        ptrs = [p.data_ptr() for p in engine.pools]
+        _kv_turns(engine)
+        rids = engine.submit_fanout(list(range(2, 12)), 6, n_samples=2)
+        engine.run()
+        copy_page(engine.pools, 0, 1)
+        engine._reload_page(engine._spill_page(3))
+        assert engine.prefix.spills and engine.prefix.reloads and engine.prefix.demotions
+        assert [p.data_ptr() for p in engine.pools] == ptrs
+        assert [p.data_ptr() for p in engine._graph.pools] == ptrs
+        assert engine._graph.captures == 1 and rids
+
+
+_KV_CARD_RUNS = [("turns_hier", (1, False, None, True)), ("turns_hier", (2, True, None, True)),
+                 ("turns_hier", (4, True, 12, False)), ("turns_flat", (1, True, None, True)),
+                 ("fanout", (2, False, 12, True)), ("handoff", (2, True, None, True)),
+                 ("park", (1, False, None, True)), ("fault_kv_disk_read_corrupt",
+                                                     (2, True, None, True))]
+
+
+@pytest.mark.parametrize("scenario, mode", _KV_CARD_RUNS,
+                         ids=[f"{s}-{m[0]}-{m[1]}-{m[2]}-{m[3]}" for s, m in _KV_CARD_RUNS])
+def test_card_kv_runs_equal_the_cpu_engine(cuda, scenario, mode):
+    """float32: the scripted KV-hierarchy runs on the card give the CPU
+    engine's streams, statuses and every step's counters, K1 launching
+    n_layers a decode step (chunk 4)."""
+    from tests.test_torch_golden import tiny_config
+    from tests.test_torch_kv_hierarchy import KV_CASE, KV_COUNTERS, run_kv_scenario
+
+    config = tiny_config(KV_CASE)
+    params = init_params(config, torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        before = pa.paged_attention.launches
+        runs[device] = run_kv_scenario(
+            lambda **kw: ServeEngine(_on(params, device), config, device=device, **kw),
+            mode, scenario)
+    launches = pa.paged_attention.launches - before
+    for got, want in zip(runs["cuda"][:3], runs["cpu"][:3]):
+        assert got.shape == want.shape and (got == want).all()
+    # The handoff's prefill engine never decodes (max_new_tokens 1), so the
+    # last row's chunks are every scenario's.
+    chunks = int(runs["cuda"][1][-1, KV_COUNTERS.index("chunks_run")])
+    assert launches == config.n_layers * 4 * chunks

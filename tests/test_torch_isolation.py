@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of workloads_torch and not
-chip_smoke.py imports jax or anything of the JAX package (workloads),
-checked by importing everything with both blocked and by scanning the
-sources."""
+chip_smoke.py imports jax, anything of the JAX package (workloads) or
+ml_dtypes (which comes with jax; the port's disk tier reads bf16 pages
+without it), checked by importing everything with all three blocked and
+by scanning the sources."""
 
 import os
 import re
@@ -11,10 +12,10 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "workloads_torch")
 
-# An import statement naming jax or the JAX package (workloads_torch is
-# a different name and passes).
+# An import statement naming jax, the JAX package or ml_dtypes
+# (workloads_torch is a different name and passes).
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|workloads)(?![\w])", re.MULTILINE
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|workloads|ml_dtypes)(?![\w])", re.MULTILINE
 )
 
 
@@ -40,6 +41,7 @@ def test_scan_catches_forbidden_lines():
     flagged = [
         "im" + "port jax", "fr" + "om jax import numpy", "  im" + "port workloads.model",
         "fr" + "om workloads import serve", "fr" + "om workloads.ops import x",
+        "im" + "port ml_dtypes",
     ]
     allowed = ["fr" + "om workloads_torch import serve", "im" + "port workloads_torch.model",
                "x = 'import jax'"]
@@ -54,6 +56,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         "import importlib, pkgutil, sys",
         "sys.modules['jax'] = None",
         "sys.modules['workloads'] = None",
+        "sys.modules['ml_dtypes'] = None",
         f"sys.path.insert(0, {ROOT!r})",
         "pkg = importlib.import_module('workloads_torch')",
         "names = ['chip_smoke'] + [m.name for m in pkgutil.walk_packages("
@@ -61,6 +64,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         "for name in names:",
         "    importlib.import_module(name)",
         "assert sys.modules['jax'] is None and sys.modules['workloads'] is None",
+        "assert sys.modules['ml_dtypes'] is None",
         "print(len(names))",
     ])
     env = dict(os.environ)

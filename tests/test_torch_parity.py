@@ -10,17 +10,20 @@ frozen outputs of this file in the fast tier, and so do
 tests/test_torch_superstep.py (the decode superstep) and
 tests/test_torch_schedule.py (the engine's scheduling modes) against
 tests/test_torch_superstep_golden.npz, and tests/test_torch_lifecycle.py
-(the request lifecycle) against tests/test_torch_lifecycle_golden.npz;
+(the request lifecycle) against tests/test_torch_lifecycle_golden.npz,
+and tests/test_torch_kv_hierarchy.py (the KV-cache hierarchy) against
+tests/test_torch_kv_golden.npz;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the three fixtures from the JAX package.
+regenerates the four fixtures from the JAX package.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import tempfile
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,6 +57,15 @@ from tests.test_torch_golden import (  # noqa: E402
     tiny_config,
     torch_outputs,
 )
+from tests.test_torch_kv_hierarchy import (  # noqa: E402
+    DISK_DTYPES,
+    DISK_KEY,
+    DISK_SHAPE,
+    KV_CASE,
+    KV_GOLDEN,
+)
+from tests.test_torch_kv_hierarchy import golden_runs as kv_golden_runs  # noqa: E402
+from tests.test_torch_kv_hierarchy import run_kv_scenario  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
     LIFECYCLE_GOLDEN,
     golden_runs,
@@ -83,12 +95,15 @@ from tests.test_torch_superstep import (  # noqa: E402
     superstep_mismatches,
     written_slots,
 )
+from workloads import durable as jdurable  # noqa: E402
+from workloads import faults as jfaults  # noqa: E402
 from workloads import generate as jgen  # noqa: E402
 from workloads import model as jmodel  # noqa: E402
 from workloads import paged as jpaged  # noqa: E402
 from workloads import serve as jserve  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
 from workloads_torch import convert  # noqa: E402
+from workloads_torch import durable as tdurable  # noqa: E402
 from workloads_torch import model as tmodel  # noqa: E402
 from workloads_torch import serve as tserve  # noqa: E402
 
@@ -394,6 +409,88 @@ def test_lifecycle_matches_jax_live(trees, key, mode, scenario):
     assert [(r.seam, r.crossing) for r in got[3]] == [(r.seam, r.crossing) for r in want[3]]
 
 
+def jax_kv_run(tree_bf16: dict, mode, scenario: str):
+    """One KV-hierarchy scenario on the JAX engine
+    (tests/test_torch_kv_hierarchy.py ``run_kv_scenario``)."""
+    config = jax_config(KV_CASE)
+    params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
+    return run_kv_scenario(lambda **kw: jserve.ServeEngine(params, config, **kw), mode, scenario,
+                           injector_cls=jfaults.FaultInjector)
+
+
+_KV_RUNS = kv_golden_runs()
+
+
+@pytest.mark.parametrize("key, mode, scenario", _KV_RUNS, ids=[r[0] for r in _KV_RUNS])
+def test_kv_matches_jax_live(trees, key, mode, scenario):
+    """The port's streams, statuses and per-step KV counters against the
+    JAX engine's in the same mode and scenario, and the same seams
+    fired."""
+    want = jax_kv_run(trees[KV_CASE[1]], mode, scenario)
+    params = convert.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a).astype(np.float32), trees[KV_CASE[1]]),
+        device="cpu",
+    )
+    config = tiny_config(KV_CASE)
+    got = run_kv_scenario(lambda **kw: tserve.ServeEngine(params, config, device="cpu", **kw),
+                          mode, scenario)
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w, err_msg=key)
+    assert [(r.seam, r.crossing) for r in got[3]] == [(r.seam, r.crossing) for r in want[3]]
+
+
+_ML_DTYPES = {"bf16": ml_dtypes.bfloat16, "f32": np.float32}
+
+
+def jax_disk_pages() -> dict:
+    """One page in bf16 and in float32, written by the JAX package's
+    ``KVDiskTier``: the file's bytes and the k/v bits."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for name, (_, bits) in DISK_DTYPES.items():
+        k, v = (rng.standard_normal(DISK_SHAPE).astype(_ML_DTYPES[name]) for _ in range(2))
+        with tempfile.TemporaryDirectory() as d:
+            tier = jdurable.KVDiskTier(d)
+            assert tier.put(DISK_KEY, ((k, v), None))
+            with open(tier._path(DISK_KEY), "rb") as f:
+                out[f"disk/{name}/file"] = np.frombuffer(f.read(), np.uint8)
+        out[f"disk/{name}/k"], out[f"disk/{name}/v"] = k.view(bits), v.view(bits)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(DISK_DTYPES))
+def test_disk_pages_cross_between_the_tiers_live(tmp_path, name):
+    """A page the port's tier writes reads back through the JAX
+    package's tier with its dtype and bits, and the other way round."""
+    dtype, bits = DISK_DTYPES[name]
+    pages = jax_disk_pages()
+    k, v = (torch.from_numpy(pages[f"disk/{name}/{x}"].copy()).view(dtype) for x in "kv")
+    port = tdurable.KVDiskTier(str(tmp_path / "port"))
+    assert port.put(DISK_KEY, ((k, v), None))
+    (jk, jv), draft = jdurable.KVDiskTier(str(tmp_path / "port")).get(DISK_KEY)
+    assert draft is None and jk.dtype == np.dtype(_ML_DTYPES[name])
+    np.testing.assert_array_equal(jk.view(bits), pages[f"disk/{name}/k"])
+    np.testing.assert_array_equal(jv.view(bits), pages[f"disk/{name}/v"])
+    os.makedirs(tmp_path / "jax")
+    (tmp_path / "jax" / (DISK_KEY + ".kvpage")).write_bytes(pages[f"disk/{name}/file"].tobytes())
+    (tk, tv), _ = tdurable.KVDiskTier(str(tmp_path / "jax")).get(DISK_KEY)
+    assert tk.dtype == dtype and torch.equal(tk, k) and torch.equal(tv, v)
+
+
+def write_kv_goldens(path: str = KV_GOLDEN) -> None:
+    """Freeze the JAX engine's KV-hierarchy scenarios (streams, statuses
+    and per-step counters) and two pages its disk tier wrote for
+    tests/test_torch_kv_hierarchy.py."""
+    tree = jax_params_bf16(KV_CASE[1])
+    arrays = jax_disk_pages()
+    for key, mode, scenario in kv_golden_runs():
+        tokens, counters, statuses, _ = jax_kv_run(tree, mode, scenario)
+        arrays.update({f"{key}/tokens": tokens, f"{key}/counters": counters,
+                       f"{key}/statuses": statuses})
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_lifecycle_goldens(path: str = LIFECYCLE_GOLDEN) -> None:
     """Freeze the JAX engine's lifecycle scenarios for
     tests/test_torch_lifecycle.py: streams, statuses and per-step
@@ -456,3 +553,4 @@ if __name__ == "__main__":
     write_goldens()
     write_superstep_goldens()
     write_lifecycle_goldens()
+    write_kv_goldens()

@@ -15,6 +15,11 @@ same tensors.  Decode runs the paged-attention kernel
 dense view of the prompt's pages, runs ``generate.decode_block`` over it
 and scatters the pages back.
 
+The prefix indexes (``PrefixCache``, ``RadixKV`` and their
+``_chain_key``) are host control plane over ``PagePool``'s refcounts,
+copied from the JAX package; the engine moves their pages' bytes with
+``read_pages``/``write_page``.
+
 JAX clamps out-of-range gather indices; torch raises (CPU) or faults
 (CUDA).  Every index the JAX code relied on clamping is made explicitly
 in range here: the decode write column and the emitted-logits row.
@@ -22,6 +27,8 @@ in range here: the decode write column and the emitted-logits row.
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import torch
@@ -169,6 +176,762 @@ class PagePool:
         return self.n_pages - len(self.free)
 
 
+def _chain_key(prev: bytes, block: list[int]) -> bytes:
+    """One chain-hash step: the digest committing to ``block`` AND every
+    block before it (``prev`` is the previous digest, or the salt for
+    block 0).  Shared by the flat PrefixCache and the RadixKV tree so
+    their key spaces cannot drift."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(prev)
+    h.update(b",".join(str(t).encode() for t in block))
+    return h.digest()
+
+
+class PrefixCache:
+    """Cross-request prefix index over a PagePool: token blocks → the
+    physical pages already holding their k/v.  The FLAT baseline of the
+    KV-cache hierarchy — ``RadixKV`` below supersedes it as the
+    engine's default (``prefix_cache=True``); this stays as
+    ``prefix_cache="flat"``, the comparison arm.
+
+    Two independent requests with the same system prompt should not
+    re-prefill it, nor store its k/v twice.  Keys are CHAIN hashes of
+    page-sized token blocks (block i's key commits to every token before
+    it, so equal keys mean equal full prefixes); values are page indices
+    pinned through the pool's refcounts (``retain_page``), so a cached
+    page can never be freed or reallocated under an active reader.
+    Eviction is LRU over entries whose page no live sequence shares
+    (refcount == 1, index-only) — called by the engine exactly when an
+    allocation would otherwise exhaust the pool, so an idle cache can
+    hold every free page at zero cost.
+
+    Hit granularity is the caller's choice (ServeEngine caps hits to
+    prefill-bucket-aligned page counts so the partial prefill reuses the
+    chunked-prefill chunks' page-aligned shapes).
+
+    Mechanism per the vLLM-style automatic prefix caching design, on
+    this pool's refcounts.
+    """
+
+    def __init__(self, ctrl: PagePool):
+        self.ctrl = ctrl
+        self.page_size = ctrl.page_size
+        # chain key -> page, in insertion/use order (LRU via move_to_end).
+        self._index: "OrderedDict[bytes, int]" = OrderedDict()
+        self.hits = 0  # pages served from cache
+        self.misses = 0  # lookups that found nothing
+
+    def _keys(
+        self, tokens: list[int], n_pages: int, salt: str = ""
+    ) -> list[bytes]:
+        """Chain keys of the first ``n_pages`` full blocks.  ``salt``
+        partitions the key space — the engine passes the adapter id, so
+        cached pages (which hold ADAPTED k/v under multi-LoRA) are never
+        shared across adapters."""
+        ps = self.page_size
+        keys, prev = [], salt.encode()
+        for i in range(n_pages):
+            prev = _chain_key(prev, tokens[i * ps : (i + 1) * ps])
+            keys.append(prev)
+        return keys
+
+    def lookup(
+        self, tokens: list[int], max_pages: int, granularity: int = 1,
+        salt: str = "",
+    ) -> list[int]:
+        """Longest cached prefix of ``tokens``, as pages, capped at
+        ``max_pages`` and floored to a multiple of ``granularity`` (the
+        engine passes its bucket page count so partial prefill keeps its
+        static shapes).  Touches only the RETURNED entries' LRU position,
+        and counts only them as hits.  Chain keys hash INCREMENTALLY —
+        the walk stops at the first missing block, so a miss-heavy
+        stream never pays for hashing the whole prompt."""
+        ps = self.page_size
+        keys, pages, prev = [], [], salt.encode()
+        for i in range(min(max_pages, len(tokens) // ps)):
+            prev = _chain_key(prev, tokens[i * ps : (i + 1) * ps])
+            page = self._index.get(prev)
+            if page is None:
+                break
+            keys.append(prev)
+            pages.append(page)
+        keep = len(pages) // granularity * granularity
+        keys, pages = keys[:keep], pages[:keep]
+        for key in keys:
+            self._index.move_to_end(key)
+        if pages:
+            self.hits += len(pages)
+        else:
+            self.misses += 1
+        return pages
+
+    def insert(
+        self, tokens: list[int], table: list[int], salt: str = ""
+    ) -> None:
+        """Register the fully-written prompt pages of a just-prefilled
+        sequence (the first len(tokens)//page_size entries of its table).
+        New entries pin their page; known entries just refresh LRU."""
+        full = len(tokens) // self.page_size
+        for key, page in zip(self._keys(tokens, full, salt), table[:full]):
+            if key in self._index:
+                self._index.move_to_end(key)
+                continue
+            self.ctrl.retain_page(page)
+            self._index[key] = page
+
+    def evict(self, n_pages: int) -> int:
+        """Free up to ``n_pages`` pages by dropping LRU entries whose page
+        only the index holds (refcount 1); entries shared with live
+        sequences are skipped.  Returns the number actually freed."""
+        freed = 0
+        for key in list(self._index):
+            if freed >= n_pages:
+                break
+            page = self._index[key]
+            if self.ctrl.refcounts.get(page) == 1:
+                self.ctrl.release_page(page)
+                del self._index[key]
+                freed += 1
+        return freed
+
+    def clear(self) -> None:
+        for key, page in list(self._index.items()):
+            self.ctrl.release_page(page)
+            del self._index[key]
+
+    @property
+    def cached_pages(self) -> int:
+        return len(self._index)
+
+
+class RadixNode:
+    """One page-sized token block in the RadixKV tree.  Exactly one of
+    ``page`` (resident: a pool page pinned through the pool refcounts)
+    or ``host`` (offloaded: the page's k/v bytes in host RAM, engine-
+    provided blob) is set for a real node — or neither, when ``disk``
+    alone holds the page's chain-key hex and the bytes live in the disk
+    tier's file (``disk`` may also coexist with either as a record that
+    a durable copy exists); the per-salt root has none of the three.
+    ``key`` is the node's chain hash (``_chain_key`` from the root's
+    salt), computed once at creation — it names the disk file, so the
+    same prefix page written by any tree maps to the same file.
+    ``last_use`` is the tree's LRU clock at the node's last
+    hit/insert."""
+
+    __slots__ = (
+        "block", "parent", "children", "page", "host", "disk", "key",
+        "last_use",
+    )
+
+    def __init__(self, block, parent):
+        self.block = block
+        self.parent = parent
+        self.children: dict = {}
+        self.page: int | None = None
+        self.host = None
+        self.disk: str | None = None
+        self.key: bytes | None = None
+        self.last_use = 0
+
+
+class RadixKV:
+    """Radix-tree prefix index over a PagePool, with an optional
+    host-RAM offload tier and a disk tier below it: the KV-cache
+    hierarchy.
+
+    Same contract as the flat ``PrefixCache`` where they overlap
+    (lookup/insert/evict/clear, adapter-salted key space, pages pinned
+    through the pool refcounts, promissory inserts safe because a
+    sequence's own table holds every inserted page at refcount >= 2
+    until retirement), plus what the tree structure buys:
+
+      * **longest-prefix match** walks page-sized token blocks from the
+        per-salt root, so two prompts sharing ONLY a system prompt
+        still share those pages — and ``match_depth`` exposes the walk
+        read-only, the fleet router's affinity score;
+      * **structural eviction**: LRU victims are chosen leaf-first and
+        eviction walks UP the tree (dropping a leaf exposes its
+        parent) — an interior node with children is never dropped, so
+        a reachable suffix can never be orphaned behind a missing
+        block, the flat index's silent-garbage mode;
+      * **offload tier**: with a host-page budget, a victim's page
+        SPILLS to pinned host memory (the caller's ``spill`` callback
+        copies the bytes out) instead of dropping, and a later lookup
+        RELOADS it through the ``reload`` callback — thousands of idle
+        conversations hold state without holding HBM.  Spill/reload
+        round-trips are bit-exact (byte copies of the same dtype), so
+        streams are bit-identical offload on/off (pinned by
+        tests/test_torch_kv_hierarchy.py);
+      * **disk tier**: with a ``durable.KVDiskTier`` attached, a full host budget demotes its
+        coldest page to a chain-key-named, checksummed file instead of
+        forcing a leaf drop; lookups reload disk pages through the same
+        callback, files survive the process, and ``attach_disk`` /
+        ``flush_to_disk`` are the restart-rehydration and checkpoint
+        halves.  Same bit-exactness contract: a disk round trip is the
+        host round trip plus a verified file copy.
+
+    Control plane only, a copy of the JAX package's: the engine owns the
+    device copies (read_pages/write_page below).  Mechanism per the
+    SGLang RadixAttention design, on this pool's refcounts.
+    """
+
+    def __init__(
+        self, ctrl: PagePool, host_pages: int | None = 0, disk=None,
+    ):
+        self.ctrl = ctrl
+        self.page_size = ctrl.page_size
+        # host_pages: 0 disables the offload tier (evictions drop),
+        # None is an unbounded host budget, N caps offloaded pages.
+        if host_pages is not None and host_pages < 0:
+            raise ValueError(
+                f"host_pages must be >= 0 or None (unbounded), got "
+                f"{host_pages}"
+            )
+        self.host_pages = host_pages
+        # The tier below host RAM: a durable.KVDiskTier (or None).  When
+        # the host budget is exhausted, the COLDEST host-tier page
+        # demotes to its chain-key file instead of forcing a leaf drop;
+        # lookups reload disk pages through the same reload callback
+        # (file -> host blob -> write_page), and files survive the
+        # process — restart rehydration is ``attach_disk``.
+        self.disk = disk
+        self._roots: dict[str, RadixNode] = {}
+        self._clock = 0
+        # Pages matched by an IN-PROGRESS lookup: a reload mid-walk may
+        # recurse into evict (making room for the reloaded page), which
+        # must not victimize pages the walk already matched — they are
+        # pinned only by the index (refcount 1) until the caller adopts
+        # them.
+        self._locked: set[int] = set()
+        self.hits = 0  # pages served from the index (reloads included)
+        self.misses = 0  # lookups that matched nothing
+        self.reloads = 0  # pages brought back from the host tier
+        self.spills = 0  # pages pushed out to the host tier
+        self.grafts = 0  # pages adopted from another index's handoff
+        self.demotions = 0  # host-tier pages pushed down to disk
+        self.disk_reloads = 0  # pages brought back from the disk tier
+        self._resident = 0
+        self._offloaded = 0
+        self._disked = 0  # nodes whose ONLY copy is the disk tier
+
+    # ---- tree walks -----------------------------------------------------
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def _root(self, salt: str) -> RadixNode:
+        """The per-salt root, created on demand.  Its ``key`` is the
+        salt bytes — block 0's chain hash starts from it, matching
+        ``PrefixCache._keys`` so the two indexes (and every disk file)
+        share one key space."""
+        root = self._roots.get(salt)
+        if root is None:
+            root = RadixNode(None, None)
+            root.key = salt.encode()
+            self._roots[salt] = root
+        return root
+
+    def _child_of(self, node: RadixNode, block: tuple) -> RadixNode:
+        """Create (and key) a new child under ``node``."""
+        child = RadixNode(block, node)
+        child.key = _chain_key(node.key, list(block))
+        node.children[block] = child
+        return child
+
+    def match_depth(self, tokens: list[int], salt: str = "") -> int:
+        """Pages of ``tokens`` this index knows — resident OR offloaded
+        (an offloaded page is still a prefill the owner saved) — the
+        fleet router's per-replica affinity score.  Read-only: no LRU
+        touch, no hit/miss accounting."""
+        node = self._roots.get(salt)
+        if node is None:
+            return 0
+        ps, depth = self.page_size, 0
+        for i in range(len(tokens) // ps):
+            node = node.children.get(tuple(tokens[i * ps : (i + 1) * ps]))
+            if node is None:
+                break
+            depth += 1
+        return depth
+
+    def lookup(
+        self, tokens: list[int], max_pages: int, granularity: int = 1,
+        salt: str = "", reload=None,
+    ) -> list[int]:
+        """Longest known prefix of ``tokens``, as RESIDENT pages, capped
+        at ``max_pages`` and floored to a ``granularity`` multiple (the
+        engine's bucket page count — partial prefill keeps its static
+        shapes).  An OFFLOADED node on the path reloads through
+        ``reload(host_blob) -> page | None`` (the engine restores the
+        bytes into a freshly taken pool page); without a reload
+        callback, or when it cannot make room, the match stops there —
+        a shorter hit, never a failure.  The walk is stepwise against
+        the live tree, so an evict fired by a mid-walk reload can never
+        hand back a freed page.
+
+        The walk is bounded UP FRONT by the granularity-floored known
+        depth (match_depth, offloaded nodes included): reloading a page
+        the floor would then drop pays a full HBM <-> host round trip
+        for zero shared pages — and thrashes, because the unused
+        reloaded page is the next eviction's coldest victim.  A reload
+        also refreshes the node's LRU tick (bringing a page back IS a
+        use), so a reload that a mid-walk failure strands beyond the
+        floor cannot be immediately re-spilled."""
+        ps = self.page_size
+        node = self._roots.get(salt)
+        matched: list[RadixNode] = []
+        if node is not None:
+            bound = min(max_pages, len(tokens) // ps)
+            usable = (
+                min(self.match_depth(tokens, salt), bound)
+                // granularity * granularity
+            )
+            try:
+                for i in range(usable):
+                    child = node.children.get(
+                        tuple(tokens[i * ps : (i + 1) * ps])
+                    )
+                    if child is None:
+                        break
+                    if child.page is None:
+                        if reload is None:
+                            break
+                        blob, from_disk = child.host, False
+                        if blob is None:
+                            # Disk-only: pull the blob back through the
+                            # chain-key file.  A missing/corrupt file is
+                            # a shorter hit, never a failure — the walk
+                            # stops and prefill rebuilds the page.
+                            if self.disk is None or child.disk is None:
+                                break
+                            blob = self.disk.get(child.disk)
+                            if blob is None:
+                                break
+                            from_disk = True
+                        page = reload(blob)
+                        if page is None:
+                            break
+                        child.page = page
+                        child.host = None
+                        if from_disk:
+                            self._disked -= 1
+                            self.disk_reloads += 1
+                        else:
+                            self._offloaded -= 1
+                        self._resident += 1
+                        self.reloads += 1
+                        child.last_use = self._tick()
+                    matched.append(child)
+                    self._locked.add(child.page)
+                    node = child
+            finally:
+                self._locked.clear()
+        keep = len(matched) // granularity * granularity
+        pages = []
+        for n in matched[:keep]:
+            n.last_use = self._tick()
+            pages.append(n.page)
+        if pages:
+            self.hits += len(pages)
+        else:
+            self.misses += 1
+        return pages
+
+    def insert(
+        self, tokens: list[int], table: list[int], salt: str = ""
+    ) -> None:
+        """Register a just-prefilled sequence's full prompt pages (the
+        first len(tokens)//page_size entries of its table).  New nodes
+        pin their page; known resident nodes just refresh LRU; an
+        OFFLOADED node whose blocks this prefill re-wrote re-anchors to
+        the freshly written page (same bytes by construction) and drops
+        its host copy."""
+        ps = self.page_size
+        node = self._root(salt)
+        for i in range(len(tokens) // ps):
+            block = tuple(tokens[i * ps : (i + 1) * ps])
+            child = node.children.get(block)
+            if child is None:
+                child = self._child_of(node, block)
+            if child.page is None:
+                if child.host is not None:
+                    child.host = None
+                    self._offloaded -= 1
+                elif child.disk is not None:
+                    # Disk-only node re-anchors to the freshly written
+                    # page; the file stays (same bytes — it is still the
+                    # durable copy).
+                    self._disked -= 1
+                self.ctrl.retain_page(table[i])
+                child.page = table[i]
+                self._resident += 1
+            child.last_use = self._tick()
+            node = child
+
+    # ---- eviction / offload ---------------------------------------------
+
+    def _nodes(self):
+        for root in self._roots.values():
+            stack = list(root.children.values())
+            while stack:
+                n = stack.pop()
+                stack.extend(n.children.values())
+                yield n
+
+    def _droppable(self, node: RadixNode) -> bool:
+        """May this node leave the tree outright?  Leaves only: an
+        interior node anchors the chain its descendants are reachable
+        through (offloaded descendants included)."""
+        return not node.children
+
+    def _drop(self, node: RadixNode) -> None:
+        if node.page is not None:
+            self.ctrl.release_page(node.page)
+            self._resident -= 1
+        elif node.host is not None:
+            node.host = None
+            self._offloaded -= 1
+        elif node.disk is not None:
+            # The node leaves the tree; its FILE stays — the disk tier's
+            # budget owns file lifetime, and a restart's attach_disk can
+            # still find the page.
+            self._disked -= 1
+        del node.parent.children[node.block]
+
+    def _host_budget_left(self) -> bool:
+        return self.host_pages is None or self._offloaded < self.host_pages
+
+    def _demote_to_disk(self, n: int = 1) -> int:
+        """Push the coldest host-tier page(s) down to their chain-key
+        files — the host budget's relief valve, called when an eviction
+        wants to spill but host RAM is full.  A failed put (disk fault
+        seam, dead volume) leaves the blob in host RAM: durability
+        degrades, correctness does not."""
+        if self.disk is None:
+            return 0
+        demotable = sorted(
+            (nd for nd in self._nodes() if nd.host is not None),
+            key=lambda nd: nd.last_use,
+        )
+        moved = 0
+        for nd in demotable[:n]:
+            key = nd.key.hex()
+            if not self.disk.put(key, nd.host):
+                break
+            nd.host = None
+            nd.disk = key
+            self._offloaded -= 1
+            self._disked += 1
+            self.demotions += 1
+            moved += 1
+        return moved
+
+    def evict(self, n_pages: int, spill=None) -> int:
+        """Free up to ``n_pages`` POOL pages, coldest (LRU) first, from
+        nodes whose page only the index holds (pool refcount 1 — live
+        readers are never victims).  With a ``spill(page) -> blob``
+        callback and host budget left, a victim OFFLOADS (page freed,
+        node survives in the host tier); otherwise only LEAF nodes drop
+        outright, and dropping a leaf exposes its parent to the next
+        pass — eviction walks up the tree.  Returns pages freed."""
+        freed = 0
+        while freed < n_pages:
+            victims = sorted(
+                (
+                    n for n in self._nodes()
+                    if n.page is not None
+                    and n.page not in self._locked
+                    and self.ctrl.refcounts.get(n.page) == 1
+                ),
+                key=lambda n: n.last_use,
+            )
+            progress = False
+            for node in victims:
+                if freed >= n_pages:
+                    break
+                if spill is not None and not self._host_budget_left():
+                    # Host RAM is full: demote its coldest page to the
+                    # disk tier so this victim can still spill instead
+                    # of dropping — the hierarchy's third level.
+                    self._demote_to_disk(1)
+                if spill is not None and self._host_budget_left():
+                    blob = spill(node.page)
+                    if blob is not None:
+                        self.ctrl.release_page(node.page)
+                        node.page = None
+                        node.host = blob
+                        self._resident -= 1
+                        self._offloaded += 1
+                        self.spills += 1
+                        freed += 1
+                        progress = True
+                        continue
+                if self._droppable(node):
+                    self._drop(node)
+                    freed += 1
+                    progress = True
+            if not progress:
+                break
+        return freed
+
+    def park(
+        self, tokens: list[int], salt: str = "", spill=None,
+        spill_many=None,
+    ) -> int:
+        """Preemption-via-offload: push THIS path's resident pages out
+        to the host tier NOW (LRU coldness notwithstanding), so a
+        preempted stream's prefix stops holding HBM the moment its slot
+        is reclaimed.  Walks the ``tokens`` path under ``salt`` and
+        spills every resident page only the index holds (pool refcount
+        1 — a page another live sequence still reads stays put); already-offloaded nodes
+        are skipped, and without a spill callback or host budget
+        nothing moves (graceful degrade: the pages stay resident and
+        ordinary LRU pressure evicts them later).  Returns the pages
+        parked; resumption is just a lookup — the reload callback
+        brings them back bit-exactly.
+
+        ``spill_many(pages) -> blobs`` is the BATCHED spill seam: the
+        whole path's victims are collected first and copied out in one
+        gathered call (the engine pays one gathered copy and one
+        synchronise per park instead of one round trip per page); ``spill(page) -> blob``
+        remains as the per-page fallback.  Both produce identical blobs
+        (pinned), so which seam ran can never change a stream."""
+        if spill is None and spill_many is None:
+            return 0
+        node = self._roots.get(salt)
+        if node is None:
+            return 0
+        ps = self.page_size
+        victims: list[RadixNode] = []
+        for i in range(len(tokens) // ps):
+            node = node.children.get(tuple(tokens[i * ps : (i + 1) * ps]))
+            if node is None:
+                break
+            if node.page is None:
+                continue  # already in the host tier
+            if self.ctrl.refcounts.get(node.page) != 1:
+                continue  # a live reader still holds it
+            if self.host_pages is not None and (
+                self._offloaded + len(victims) >= self.host_pages
+            ):
+                break
+            victims.append(node)
+        if not victims:
+            return 0
+        if spill_many is not None:
+            blobs = list(spill_many([n.page for n in victims]))
+        else:
+            blobs = [spill(n.page) for n in victims]
+        parked = 0
+        for n, blob in zip(victims, blobs):
+            if blob is None:
+                break
+            self.ctrl.release_page(n.page)
+            n.page = None
+            n.host = blob
+            self._resident -= 1
+            self._offloaded += 1
+            self.spills += 1
+            parked += 1
+        return parked
+
+    # ---- cross-engine KV handoff ----------------------------------------
+
+    def export_path(self, tokens, salt: str = "", copy_many=None) -> list:
+        """The ``tokens`` path's page payloads, in path order — the KV
+        handoff EXPORT half.  Offloaded nodes contribute their host blob
+        by reference (blobs are immutable once written, so trees can
+        share them); resident nodes copy their bytes out through
+        ``copy_many(pages) -> blobs`` (the engine's gathered spill:
+        one gathered copy and one synchronise for the whole path) WITHOUT releasing or
+        moving anything: exporting never changes what this index
+        holds.  The payload is always a CONTIGUOUS prefix of the path
+        — it stops at the first unknown block, or at the first
+        resident node when no ``copy_many`` is given."""
+        node = self._roots.get(salt)
+        if node is None:
+            return []
+        ps = self.page_size
+        entries: list[tuple[str, object]] = []
+        for i in range(len(tokens) // ps):
+            node = node.children.get(tuple(tokens[i * ps : (i + 1) * ps]))
+            if node is None:
+                break
+            if node.host is not None:
+                entries.append(("host", node.host))
+            elif node.page is not None:
+                if copy_many is None:
+                    break  # cannot copy a resident page: stop before it
+                entries.append(("page", node.page))
+            else:
+                break  # defensive: a payload gap ends the contiguous run
+        pages = [p for kind, p in entries if kind == "page"]
+        copies = iter(copy_many(pages)) if pages else iter(())
+        return [
+            payload if kind == "host" else next(copies)
+            for kind, payload in entries
+        ]
+
+    def graft(self, tokens, blobs: list, salt: str = "") -> int:
+        """Adopt another index's exported payload as OFFLOADED nodes —
+        the KV handoff IMPORT half: ``blobs`` are ``export_path``'s
+        host blobs for the first ``len(blobs)`` page blocks of
+        ``tokens``.  Blocks this tree already knows (resident or
+        offloaded) just refresh LRU — their bytes are identical by
+        construction — and new nodes land in the host tier under the
+        ordinary ``host_pages`` budget (a partial graft is a shorter
+        future hit, never an error).  The next lookup reloads grafted
+        pages through the usual reload callback, riding the admission
+        sweep like any offloaded hit; the round trip is bit-exact, so
+        a grafted continuation streams identically to a re-prefilled
+        one (pinned by tests/test_torch_kv_hierarchy.py)."""
+        ps = self.page_size
+        if len(blobs) > len(tokens) // ps:
+            raise ValueError(
+                f"graft got {len(blobs)} page blobs but tokens cover "
+                f"only {len(tokens) // ps} full pages"
+            )
+        node = self._root(salt)
+        grafted = 0
+        for i, blob in enumerate(blobs):
+            block = tuple(tokens[i * ps : (i + 1) * ps])
+            child = node.children.get(block)
+            if child is None:
+                if blob is None or not self._host_budget_left():
+                    break
+                child = self._child_of(node, block)
+                child.host = blob
+                self._offloaded += 1
+                self.grafts += 1
+                grafted += 1
+            child.last_use = self._tick()
+            node = child
+        return grafted
+
+    def clear(self) -> None:
+        """Drop the whole index: resident pages release back to the
+        pool, host blobs free — the close/quarantine-flush path (an
+        offloaded page must not outlive the cache that owns it).  DISK
+        files deliberately stay: they are the durable tier, and pages
+        outliving this index (and this process) is their whole point —
+        ``attach_disk`` finds them again."""
+        for root in self._roots.values():
+            stack = list(root.children.values())
+            while stack:
+                n = stack.pop()
+                stack.extend(n.children.values())
+                if n.page is not None:
+                    self.ctrl.release_page(n.page)
+        self._roots.clear()
+        self._resident = 0
+        self._offloaded = 0
+        self._disked = 0
+
+    # ---- durable (disk) tier --------------------------------------------
+
+    def attach_disk(self, tokens: list[int], salt: str = "") -> int:
+        """Restart rehydration: walk ``tokens``' page blocks, recompute
+        their chain keys, and adopt every block whose file exists in
+        the disk tier as a disk-backed node — the durable counterpart
+        of ``graft`` (files instead of host blobs, contains() instead
+        of payloads, so attaching a long path costs stat calls, not
+        reads).  The walk stops at the first unknown block (a disk page
+        behind a gap would never be reachable as a prefix).  The next
+        lookup reloads attached pages through the ordinary reload
+        callback.  Returns the nodes attached."""
+        if self.disk is None:
+            return 0
+        ps = self.page_size
+        node = self._root(salt)
+        attached = 0
+        for i in range(len(tokens) // ps):
+            block = tuple(tokens[i * ps : (i + 1) * ps])
+            child = node.children.get(block)
+            if child is None:
+                key = _chain_key(node.key, list(block))
+                if not self.disk.contains(key.hex()):
+                    break
+                child = self._child_of(node, block)
+                child.disk = key.hex()
+                self._disked += 1
+                attached += 1
+            child.last_use = self._tick()
+            node = child
+        return attached
+
+    def flush_to_disk(
+        self, tokens: list[int], salt: str = "", copy_many=None,
+    ) -> int:
+        """Persist the ``tokens`` path's pages to the disk tier WITHOUT
+        changing what this index holds — the session checkpoint's
+        parked-page-manifest half: after a flush, a process restart can
+        rebuild this prefix from files alone.  Host-tier nodes write
+        their blob (a key already on disk is a dedup touch, not a
+        write); resident nodes copy their bytes out through
+        ``copy_many(pages) -> blobs`` (the engine's gathered spill,
+        same seam as ``export_path``).  Returns how many of the path's
+        pages have a durable copy afterwards."""
+        if self.disk is None:
+            return 0
+        node = self._roots.get(salt)
+        if node is None:
+            return 0
+        ps = self.page_size
+        path_nodes: list[RadixNode] = []
+        for i in range(len(tokens) // ps):
+            node = node.children.get(tuple(tokens[i * ps : (i + 1) * ps]))
+            if node is None:
+                break
+            path_nodes.append(node)
+        resident = [
+            n for n in path_nodes
+            if n.page is not None and n.host is None
+        ]
+        copies: dict[int, object] = {}
+        if resident and copy_many is not None:
+            for n, blob in zip(
+                resident, copy_many([n.page for n in resident])
+            ):
+                copies[id(n)] = blob
+        durable = 0
+        for n in path_nodes:
+            if n.disk is not None and self.disk.contains(n.disk):
+                durable += 1
+                continue
+            blob = n.host if n.host is not None else copies.get(id(n))
+            if blob is None:
+                continue
+            key = n.key.hex()
+            if self.disk.put(key, blob):
+                n.disk = key
+                durable += 1
+        return durable
+
+    # ---- accounting -----------------------------------------------------
+
+    @property
+    def cached_pages(self) -> int:
+        """POOL pages currently pinned by the index (a drained engine
+        holds exactly these) — offloaded entries hold none."""
+        return self._resident
+
+    @property
+    def offloaded_pages(self) -> int:
+        return self._offloaded
+
+    @property
+    def disked_pages(self) -> int:
+        """Nodes whose ONLY copy is the disk tier (tree-local view; the
+        tier's file count is ``self.disk.pages`` — larger, because
+        files are shared across trees and survive ``clear()``)."""
+        return self._disked
+
+    @property
+    def node_count(self) -> int:
+        return sum(1 for _ in self._nodes())
+
+
 def init_page_pools(
     config: ModelConfig, n_pages: int, page_size: int, device=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -202,9 +965,17 @@ def table_array(
 
 
 def _page_index(page, device) -> torch.Tensor:
-    """A page id (int or 0-d tensor) as a [1] int64 index on ``device``;
-    a device tensor stays on the device (no host read)."""
-    return torch.as_tensor(page, device=device).long().reshape(1)
+    """Page ids (an int, a list, or a tensor) as an int64 index on
+    ``device``; a device tensor stays on the device (no host read).  Host
+    ids go to the card through pinned memory without a synchronise, so
+    a page op queues behind the work in flight instead of waiting for
+    it."""
+    if isinstance(page, torch.Tensor):
+        return page.to(device).long().reshape(-1)
+    idx = torch.as_tensor(page, dtype=torch.long).reshape(-1)
+    if torch.device(device).type == "cuda":
+        return idx.pin_memory().to(device, non_blocking=True)
+    return idx
 
 
 def read_page(pools: tuple[torch.Tensor, torch.Tensor], src):
@@ -219,7 +990,7 @@ def read_pages(pools: tuple[torch.Tensor, torch.Tensor], srcs):
     """Copy N physical pages out of the pools in one gather per pool:
     (k [L, n, Hkv, ps, hd], v [L, n, Hkv, ps, hd]); column ``i`` holds
     exactly ``read_page(srcs[i])``'s bytes."""
-    idx = torch.as_tensor(srcs, device=pools[0].device).long().reshape(-1)
+    idx = _page_index(srcs, pools[0].device)
     return tuple(pool.index_select(1, idx) for pool in pools)
 
 
@@ -229,10 +1000,14 @@ def write_page(
     """Write one page's k/v ([L, Hkv, ps, hd] each) into the pools at
     physical page ``dst``, IN PLACE; returns the same pool tensors (a
     captured CUDA graph holds their addresses, so they are never
-    rebound).  ``read_page`` -> ``write_page`` round-trips bit-exactly."""
+    rebound).  ``read_page`` -> ``write_page`` round-trips bit-exactly.
+    A page in pinned host memory goes up without a synchronise, queued
+    on the stream (the caching host allocator keeps its block until the
+    copy has run); a pageable one is copied before this returns."""
     idx = _page_index(dst, pools[0].device)
     for pool, page in zip(pools, (k_page, v_page)):
-        pool.index_copy_(1, idx, page.to(pool.device, pool.dtype)[:, None])
+        page = page.to(pool.device, pool.dtype, non_blocking=page.is_pinned())
+        pool.index_copy_(1, idx, page[:, None])
     return pools
 
 
@@ -479,9 +1254,14 @@ def _scatter_view(
     start_col: int = 0,
 ) -> None:
     """Inverse of _gather_view, in place: write the view's pages from
-    table column ``start_col`` on back into the pool.  Duplicate t_cov
-    entries are trash padding only, whose bytes are garbage by
-    contract."""
+    table column ``start_col`` on back into the pool.  A page may appear
+    in ``t_cov`` more than once: trash padding, and prefix pages that
+    several rows share (a cache hit, a fan-out fork).  The index put
+    with duplicate indices lets an arbitrary writer land (CUDA picks
+    any), so callers send every shared page's column to the trash page
+    in all rows but its writer's (``paged_prefill_chunk``'s
+    ``row_start``): only the trash page, garbage by contract, is ever
+    written twice."""
     pv = view.reshape(
         view.shape[0], view.shape[1], t_cov.shape[1], page_size, *view.shape[3:]
     )

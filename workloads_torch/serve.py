@@ -31,7 +31,9 @@ engines run the eager ``paged_decode_chunk`` and
 ``paged_decode_superstep``.
 
 The request lifecycle, as in the JAX engine: ``cancel``, ``withdraw``
-and ``preempt`` (no prefix park), ``submit(deadline_s=)``, fault seams
+and ``preempt`` (a running request's prompt pages park in the prefix
+cache, and with the offload tier in host RAM), ``submit(deadline_s=)``,
+fault seams
 at every prefill and decode dispatch and readback (``faults.py``) whose
 failures quarantine the step and replay its requests (prompt plus
 emitted tokens re-prefilled) under ``max_retries``, a health bridge
@@ -39,8 +41,21 @@ that pauses on an unhealthy chip, ``retune(superstep_k=)`` and
 ``close``/the context manager.  A quarantine drops the work in flight
 unread: a dropped superstep still runs on the stream, ahead of
 everything queued after it, and the next dispatch uploads every row
-from the host mirrors.  Prefix caching, fan-out, speculation, adapters
-and the fleet are not ported yet.
+from the host mirrors.
+
+The KV-cache hierarchy, as in the JAX engine: ``prefix_cache`` (True or
+"radix", the ``RadixKV`` tree; "flat", the chain-hash ``PrefixCache``)
+serves a prompt's cached page-aligned prefix and prefills only the
+rest; ``kv_offload`` spills cold cached pages to pinned host RAM
+(``kv_host_pages`` bounds it) and ``kv_disk_dir`` demotes the coldest
+host pages to checksummed per-page files (``durable.KVDiskTier``), both
+reloaded on a later hit; ``submit_fanout`` prefills a prompt once for N
+samples; ``export_kv``/``import_kv`` hand a prompt's pages to another
+engine.  A spill is one gathered copy into pinned host tensors that the
+host waits for (so it waits for any superstep in flight); a reload is an
+in-place ``write_page`` queued on the engine's stream ahead of the
+prefill that reads it.  Speculation, adapters and the fleet are not
+ported yet.
 
 Run on the card with ``python -m workloads_torch.serve``; pass
 ``--device cpu`` for the plain PyTorch path on the CPU.
@@ -64,11 +79,16 @@ from .generate import sample_logits
 from .model import ModelConfig, cast_params, init_params
 from .paged import (
     PagePool,
+    PrefixCache,
+    RadixKV,
+    copy_page,
     init_page_pools,
     paged_decode_chunk,
     paged_decode_superstep,
     paged_prefill,
     paged_prefill_chunk,
+    read_pages,
+    write_page,
 )
 
 # tpu_device_plugin.api.constants.UNHEALTHY, the health state a
@@ -96,7 +116,8 @@ class Request:
     enters the engine; its record, with status ``"rejected"``, rides on
     the raised exception.  ``retries`` counts fault replays (each
     re-prefills prompt + emitted tokens, so the greedy stream goes on
-    as if uninterrupted)."""
+    as if uninterrupted).  ``group`` names the fan-out group of a
+    ``submit_fanout`` member until it admits (None for a solo request)."""
 
     rid: str
     prompt: list[int]
@@ -113,6 +134,7 @@ class Request:
     retries: int = 0
     deadline_s: float | None = None
     t_deadline: float | None = None  # absolute perf_counter deadline
+    group: str | None = None
 
     @property
     def ttft_secs(self) -> float | None:
@@ -189,6 +211,11 @@ class ServeEngine:
         superstep_k: int = 1,
         batched_admission: bool = True,
         prefill_budget: int | None = None,
+        prefix_cache: bool | str = False,
+        kv_offload: bool = False,
+        kv_host_pages: int | None = None,
+        kv_disk_dir: str | None = None,
+        kv_disk_pages: int | None = None,
         fault_injector=None,
         max_retries: int = 2,
         retry_backoff_s: float = 0.0,
@@ -215,6 +242,41 @@ class ServeEngine:
             )
         if superstep_k < 1:
             raise ValueError(f"superstep_k must be >= 1, got {superstep_k}")
+        if prefix_cache not in (False, True, "radix", "flat"):
+            raise ValueError(
+                f'prefix_cache must be False, True/"radix", or "flat", '
+                f"got {prefix_cache!r}"
+            )
+        if kv_offload and not prefix_cache:
+            raise ValueError(
+                "kv_offload is the prefix cache's host-RAM eviction tier; "
+                "it needs prefix_cache=True"
+            )
+        if kv_offload and prefix_cache == "flat":
+            raise ValueError(
+                'the host-RAM offload tier lives on the radix tree; use '
+                'prefix_cache=True (radix), not "flat", with kv_offload'
+            )
+        if kv_host_pages is not None and not kv_offload:
+            raise ValueError(
+                "kv_host_pages bounds the kv_offload host tier; it has "
+                "no effect without kv_offload=True"
+            )
+        if kv_host_pages is not None and kv_host_pages < 1:
+            raise ValueError(
+                f"kv_host_pages must be >= 1 or None (unbounded), got "
+                f"{kv_host_pages}"
+            )
+        if kv_disk_dir is not None and not kv_offload:
+            raise ValueError(
+                "kv_disk_dir is the tier below the host-RAM offload "
+                "tier; it needs kv_offload=True"
+            )
+        if kv_disk_pages is not None and kv_disk_dir is None:
+            raise ValueError(
+                "kv_disk_pages bounds the kv_disk_dir tier; it has no "
+                "effect without kv_disk_dir"
+            )
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -267,6 +329,31 @@ class ServeEngine:
         n_pages = n_pages if n_pages is not None else slots * self.max_pages
         self.ctrl = PagePool(n_pages=n_pages, page_size=page_size)
         self.pools = init_page_pools(config, n_pages, page_size, self.device)
+        # Cross-request prefix caching: cached pages hold the bytes the
+        # prefill would write, so streams are the same cache off, flat
+        # and radix; a drained engine keeps its cached pages pinned until
+        # an allocation evicts them or ``close`` clears the index.
+        self._kv_offload = bool(kv_offload)
+        self._kv_disk = None
+        if kv_disk_dir is not None:
+            from .durable import KVDiskTier
+
+            self._kv_disk = KVDiskTier(
+                kv_disk_dir, budget_pages=kv_disk_pages, injector=fault_injector,
+            )
+        if prefix_cache == "flat":
+            self.prefix = PrefixCache(self.ctrl)
+        elif prefix_cache:
+            self.prefix = RadixKV(
+                self.ctrl, host_pages=kv_host_pages if kv_offload else 0,
+                disk=self._kv_disk,
+            )
+        else:
+            self.prefix = None
+        # Host seconds moving pages between the pools and host RAM
+        # (``kv_spill_s``/``kv_reload_s`` add the disk tier's file time).
+        self._kv_spill_base_s = 0.0
+        self._kv_reload_base_s = 0.0
         self.slots = slots
         self.temperature = float(temperature)
         self.top_k, self.top_p = int(top_k), float(top_p)
@@ -283,6 +370,8 @@ class ServeEngine:
         self._slot_req: dict[int, Request] = {}
         self._slot_commit: dict[int, int] = {}
         self._committed_pages = 0
+        # Fan-out groups (submit_fanout): gid -> admission bookkeeping.
+        self._groups: dict[str, dict] = {}
         self.pending: deque[Request] = deque()
         self._ids = itertools.count()
         self.max_pending = max_pending
@@ -359,6 +448,12 @@ class ServeEngine:
         # preempted request's resume recomputes
         self.tokens_replayed = 0
         self.preempt_recompute_tokens = 0
+        self.pages_parked = 0  # prefix pages pushed to host RAM at preempt
+        # KV handoff: pages packaged by export_kv and adopted by
+        # import_kv, and the host seconds they took net of spills.
+        self.kv_handoff_pages_out = 0
+        self.kv_handoff_pages_in = 0
+        self.kv_handoff_s = 0.0
         # Finished requests in retirement order; bounded by
         # ``completed_limit`` or drained with ``drain_completed``.
         self.completed: deque[Request] = deque(maxlen=completed_limit)
@@ -435,6 +530,46 @@ class ServeEngine:
         ))
         return rid
 
+    def submit_fanout(
+        self,
+        prompt,
+        max_new_tokens: int | None = None,
+        n_samples: int = 2,
+        *,
+        eos_token: int | None = None,
+        deadline_s: float | None = None,
+    ) -> list[str]:
+        """``n_samples`` independent samples of one prompt sharing its
+        prompt pages and its prefill.  The first member to admit
+        allocates and prefills the group's pages; later members fork the
+        full pages read-only, copy the first member's partial tail page
+        (retained for the group's admission lifetime) and sample their
+        first token from the group's cached logits.  Greedy members emit
+        the same tokens.  Returns the member request ids."""
+        if n_samples < 1:
+            raise InvalidRequest(f"n_samples must be >= 1, got {n_samples}")
+        if self._closed:
+            raise EngineClosed("engine is closed; submissions are refused")
+        if self.max_pending is not None and len(self.pending) + n_samples > self.max_pending:
+            # All or nothing: a QueueFull halfway would strand members.
+            self.queue_rejections += 1
+            raise QueueFull(
+                f"pending queue cannot take {n_samples} fan-out members "
+                f"({len(self.pending)} queued, max_pending "
+                f"{self.max_pending}); resubmit after retirements drain it"
+            )
+        gid = f"grp-{next(self._ids)}"
+        # The rids are the engine's own and submit() validates on
+        # (prompt, max_new_tokens) alone, so if the first member passes,
+        # every member does: an error leaves nothing queued.
+        rids = []
+        for _ in range(n_samples):
+            rids.append(self.submit(prompt, max_new_tokens, eos_token=eos_token,
+                                    deadline_s=deadline_s))
+            self.pending[-1].group = gid
+        self._groups[gid] = {"members_left": n_samples, "allocated": False}
+        return rids
+
     # ---- engine internals ----------------------------------------------
 
     def _seq_id(self, slot: int, req: Request):
@@ -447,6 +582,129 @@ class ServeEngine:
         return self.ctrl.pages_needed(
             prompt_len + max_new_tokens - 1 + self._overshoot
         )
+
+    def _ensure_free(self, need: int) -> None:
+        """Evict index-only prefix-cache pages when the free list is short
+        of ``need``: the cache may hold every idle page, never one an
+        allocation within the commitment needs."""
+        if self.prefix is not None and len(self.ctrl.free) < need:
+            self._prefix_evict(need - len(self.ctrl.free))
+
+    def _prefix_evict(self, n: int) -> int:
+        """The one eviction call site: radix evictions spill to host RAM
+        when the offload tier is on; otherwise they drop."""
+        if self._kv_offload:
+            return self.prefix.evict(n, spill=self._spill_page)
+        return self.prefix.evict(n)
+
+    def _allocate_evicting(self, seq, n_tokens: int) -> list:
+        self._ensure_free(self.ctrl.pages_needed(n_tokens))
+        return self.ctrl.allocate(seq, n_tokens)
+
+    def _extend_evicting(self, seq, n_tokens: int) -> list:
+        self._ensure_free(self.ctrl.pages_needed(n_tokens) - len(self.ctrl.tables[seq]))
+        return self.ctrl.extend(seq, n_tokens)
+
+    # ---- KV-cache hierarchy: host-RAM and disk tiers ---------------------
+
+    @property
+    def kv_spill_s(self) -> float:
+        """Host seconds moving pages down the hierarchy: pool-to-host
+        spills (each to its synchronise) plus the disk tier's writes."""
+        disk = self._kv_disk.put_s if self._kv_disk is not None else 0.0
+        return self._kv_spill_base_s + disk
+
+    @property
+    def kv_reload_s(self) -> float:
+        """Host seconds moving pages up: the reloads' enqueue (a pinned
+        blob's copy runs on the stream) plus the disk tier's reads."""
+        disk = self._kv_disk.get_s if self._kv_disk is not None else 0.0
+        return self._kv_reload_base_s + disk
+
+    @property
+    def kv_disk_pages(self) -> int:
+        """Files in the disk tier now (0 without one)."""
+        return self._kv_disk.pages if self._kv_disk is not None else 0
+
+    def flush_kv_to_disk(self, tokens: list[int], adapter: str | None = None) -> int:
+        """Persist ``tokens``' prefix pages to the disk tier without
+        moving them (resident pages copy out through the gathered spill).
+        Returns the path's pages with a durable copy afterwards; 0
+        without a disk tier or a radix index."""
+        if self._kv_disk is None or not isinstance(self.prefix, RadixKV):
+            return 0
+        return self.prefix.flush_to_disk(
+            tokens, salt=self._handoff_salt(adapter), copy_many=self._spill_pages,
+        )
+
+    def attach_kv_disk(self, tokens: list[int], adapter: str | None = None) -> int:
+        """Adopt ``tokens``' chain-key files from the disk tier as
+        reloadable nodes (a restart's rehydration).  Returns the nodes
+        attached."""
+        if self._kv_disk is None or not isinstance(self.prefix, RadixKV):
+            return 0
+        return self.prefix.attach_disk(tokens, salt=self._handoff_salt(adapter))
+
+    def _spill_page(self, page: int):
+        """One cache-owned page's k/v in host RAM: the blob a radix node
+        keeps while offloaded (``_spill_pages``'s format)."""
+        return self._spill_pages([page])[0]
+
+    def _spill_pages(self, pages: list[int]) -> list:
+        """Copy ``pages`` out of the pools in one gather a pool, into host
+        tensors each blob owns (a page's k and v, ``[L, Hkv, ps, hd]``),
+        and wait for the copy: the disk tier, ``export_kv`` and
+        ``flush_kv_to_disk`` read a blob's bytes on the host.  On the card
+        the gathered pages go to pinned tensors from the caching host
+        allocator behind one event, so the wait covers whatever the
+        stream runs ahead of the gather (a superstep in flight).  Returns
+        ``((k, v), None)`` blobs in page order; the draft half stays None
+        (no draft model is ported)."""
+        if not pages:
+            return []
+        t0 = time.perf_counter()
+        gathered = read_pages(self.pools, list(pages))  # ([L, n, ...], [L, n, ...])
+        if self.device.type == "cpu":
+            blobs = [((gathered[0][:, i].clone(), gathered[1][:, i].clone()), None)
+                     for i in range(len(pages))]
+        else:
+            # Page-major on the device, so each page is one contiguous copy.
+            major = [g.transpose(0, 1).contiguous() for g in gathered]
+            blobs = []
+            for i in range(len(pages)):
+                host = tuple(
+                    torch.empty(m.shape[1:], dtype=m.dtype, pin_memory=True)
+                    for m in major
+                )
+                for h, m in zip(host, major):
+                    h.copy_(m[i], non_blocking=True)
+                blobs.append((host, None))
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        self._kv_spill_base_s += time.perf_counter() - t0
+        return blobs
+
+    def _reload_page(self, blob):
+        """Bring one offloaded page's bytes back into a freshly taken pool
+        page (evicting a colder index page if the free list is empty);
+        returns the page, or None when no page can be freed (the lookup
+        then ends its match there).  The write is in place and queued on
+        the engine's stream ahead of the prefill that reads the page; a
+        pinned blob's copy is asynchronous, and the caching host
+        allocator keeps its block until the copy has run, so the node may
+        drop the blob at once.  The timer starts after the eviction,
+        whose spill bills ``kv_spill_s``."""
+        if not self.ctrl.free:
+            self._prefix_evict(1)
+        if not self.ctrl.free:
+            return None
+        t0 = time.perf_counter()
+        page = self.ctrl.take_page()
+        (k, v), _ = blob
+        write_page(self.pools, k, v, page)
+        self._kv_reload_base_s += time.perf_counter() - t0
+        return page
 
     def _release_slot(self, slot: int) -> Request:
         """Reclaim one occupied slot without deciding the request's fate:
@@ -490,6 +748,25 @@ class ServeEngine:
         self.completed.append(req)
         return req
 
+    def _group_abandon(self, req: Request) -> None:
+        """A pending fan-out member leaves before admission (cancel,
+        deadline, withdraw): run the group countdown it will never run
+        at admission, so siblings that did admit still clean up."""
+        gid, req.group = req.group, None
+        if gid is not None and gid in self._groups:
+            self._group_member_done(self._groups[gid], gid)
+
+    def _dissolve_groups(self) -> None:
+        """Drop every fan-out group's bookkeeping (retained tail pages,
+        group tables, cached logits) and detach pending members, which
+        then admit solo (greedy members and solo requests emit the same
+        tokens): the quarantine and close path, where half-written group
+        state cannot be trusted."""
+        for gid in list(self._groups):
+            self._group_cleanup(gid)
+        for req in self.pending:
+            req.group = None
+
     # ---- fault tolerance ------------------------------------------------
 
     def _maybe_fault(self, seam: str) -> None:
@@ -512,7 +789,9 @@ class ServeEngine:
         """Requeue one quarantined request at the front of the queue for
         replay (prompt + emitted tokens), or fail it once its retry budget
         is spent.  Health pauses pass ``count_retry=False``: a sick chip
-        is not the request's fault.  Returns the request iff it failed."""
+        is not the request's fault.  Replays are solo.  Returns the
+        request iff it failed."""
+        req.group = None
         if count_retry:
             req.retries += 1
             if req.retries > self.max_retries:
@@ -552,8 +831,14 @@ class ServeEngine:
         self._super_chained = None
         self._fresh_slots.clear()
         victims = [self._release_slot(slot) for slot in sorted(self._slot_req)]
+        # Mid-prefill admissions drop too (their prefix-cache inserts are
+        # deferred, so no entry indexes their pages); a partial fan-out
+        # member poisons its group's shared state.
         partials, self._inflight_prefill = self._inflight_prefill, []
-        victims += [self._abort_partial(p) for p in partials]
+        partial_reqs = [self._abort_partial(p) for p in partials]
+        if any(r.group is not None for r in partial_reqs):
+            self._dissolve_groups()
+        victims += partial_reqs
         victims += extra or []
         finished: list[Request] = []
         # appendleft in reverse keeps the victims' order at the queue's
@@ -575,13 +860,19 @@ class ServeEngine:
     ) -> list[Request]:
         """Admission recovery: the prefill (or its first-token readback)
         failed with ``plans`` in flight, their pages allocated and maybe
-        unwritten.  Roll each plan back and hand its request, with every
-        occupied slot, to the step quarantine."""
+        unwritten.  Roll each plan back, dissolve fan-out groups (their
+        shared pages may be half-written), flush the prefix cache (its
+        promissory inserts may index unwritten pages, and a dropped
+        superstep still runs on the stream), and hand the requests, with
+        every occupied slot, to the step quarantine."""
         extra = []
         for p in plans:
             req = self._abort_partial(p)
             if p["slot"] not in self._slot_req:
                 extra.append(req)
+        self._dissolve_groups()
+        if self.prefix is not None:
+            self.prefix.clear()
         return self._quarantine_step(exc, extra)
 
     # ---- cancel, withdraw, preempt --------------------------------------
@@ -604,6 +895,7 @@ class ServeEngine:
         for req in self.pending:
             if req.rid == rid:
                 self.pending.remove(req)
+                self._group_abandon(req)
                 self._finished_buffer.append(self._finish_terminal(req, "cancelled"))
                 return True
         for plan in self._inflight_prefill:
@@ -632,12 +924,14 @@ class ServeEngine:
     def withdraw(self, rid: str) -> Request | None:
         """Remove one queued request without a terminal status, for a
         router that will dispatch it elsewhere.  Running and mid-prefill
-        requests return None (``cancel`` and ``preempt`` reach those)."""
+        requests return None (``cancel`` and ``preempt`` reach those).
+        Fan-out membership is abandoned as a cancel would."""
         if self._closed:
             raise EngineClosed("engine is closed")
         for req in self.pending:
             if req.rid == rid:
                 self.pending.remove(req)
+                self._group_abandon(req)
                 return req
         return None
 
@@ -645,10 +939,15 @@ class ServeEngine:
         """Reclaim one queued, mid-prefill or running request without a
         terminal status, for a scheduler that replays prompt + emitted
         tokens later (greedy continuations are the same).  A running one
-        drains the work in flight first, so ``req.tokens`` is complete.
-        ``preempt_recompute_tokens`` counts what the resume recomputes:
-        without a prefix cache, every prefilled and emitted token.
-        Returns the request, or None when the rid is not live here."""
+        drains the work in flight first, so ``req.tokens`` is complete,
+        and parks: its prompt pages re-register in the prefix index
+        before the slot releases, and with the offload tier they move to
+        host RAM at once (``RadixKV.park``), so the resume's lookup
+        serves them back.  ``preempt_recompute_tokens`` counts what the
+        resume recomputes: every token past the prompt's last full page
+        with a prefix cache, every token without.  Fan-out members are
+        not preemptible (None).  Returns the request, or None when the
+        rid is not live here."""
         if self._closed:
             raise EngineClosed("engine is closed")
         got = self.withdraw(rid)
@@ -657,13 +956,22 @@ class ServeEngine:
             return got
         for plan in self._inflight_prefill:
             if plan["req"].rid == rid:
-                self.preempt_recompute_tokens += min(
-                    plan["cursor"] * self.prompt_bucket, plan["n"]
+                if plan["req"].group is not None:
+                    return None
+                # Inserts are deferred to prefill finish, so the resume
+                # redoes every chunk swept; the cursor started at the
+                # prefix hit, which the resume's lookup serves again.
+                self.preempt_recompute_tokens += max(
+                    min(plan["cursor"] * self.prompt_bucket, plan["n"])
+                    - plan["start_page"] * self.page_size,
+                    0,
                 )
+                req = self._reclaim_partial(plan)
+                req.group = None
                 self.requests_preempted += 1
-                return self._reclaim_partial(plan)
+                return req
         target = self._find_slot(rid)
-        if target is None:
+        if target is None or self._slot_req[target].group is not None:
             return None
         self._finished_buffer.extend(self._drain_all_pending())
         if target not in self._slot_req or self._slot_req[target].rid != rid:
@@ -671,10 +979,105 @@ class ServeEngine:
             if got is not None:
                 self.requests_preempted += 1
             return got
+        req = self._slot_req[target]
+        if self.prefix is not None:
+            # Idempotent on a cache engine (admission inserted them);
+            # refreshes the path's LRU while the sequence owns its table.
+            self.prefix.insert(req.prompt, self.ctrl.tables[self._seq_id(target, req)])
         req = self._release_slot(target)
-        self.preempt_recompute_tokens += len(req.prompt) + len(req.tokens)
+        if self.prefix is not None and self._kv_offload:
+            self.pages_parked += self.prefix.park(req.prompt, spill_many=self._spill_pages)
+        covered = (
+            len(req.prompt) // self.page_size * self.page_size
+            if self.prefix is not None else 0
+        )
+        self.preempt_recompute_tokens += max(len(req.prompt) + len(req.tokens) - covered, 0)
+        req.group = None
         self.requests_preempted += 1
         return req
+
+    # ---- KV handoff between engines -------------------------------------
+
+    def _handoff_salt(self, adapter: str | None) -> str:
+        """The prefix key space of ``adapter``'s pages: the base salt,
+        since no adapter is ported (a ticket naming one is refused at
+        import)."""
+        return ""
+
+    def export_kv(self, prompt, adapter: str | None = None):
+        """Package one finished prompt's KV pages for another engine:
+        park the prompt's prefix pages to the host tier (one gathered
+        copy for the path; pages a live stream still reads are copied
+        without moving), then return the path's host blobs in page
+        order.  This engine keeps its host copies, so a later hit here
+        still pays.  Returns None without a radix index (the caller
+        re-prefills, which gives the same stream)."""
+        if self._closed:
+            raise EngineClosed("engine is closed")
+        prompt = [int(t) for t in prompt]
+        if not isinstance(self.prefix, RadixKV):
+            return None
+        salt = self._handoff_salt(adapter)
+        t0, spill0 = time.perf_counter(), self.kv_spill_s
+        if self._kv_offload:
+            self.pages_parked += self.prefix.park(
+                prompt, salt=salt, spill_many=self._spill_pages
+            )
+        blobs = self.prefix.export_path(prompt, salt=salt, copy_many=self._spill_pages)
+        self.kv_handoff_pages_out += len(blobs)
+        # Net of the spills, which kv_spill_s already holds.
+        self.kv_handoff_s += max(time.perf_counter() - t0 - (self.kv_spill_s - spill0), 0.0)
+        return blobs or None
+
+    def _blob_compatible(self, blob) -> bool:
+        """Would this engine's pools take the blob's bytes?  A blob from
+        an engine of another shape (page size, kv heads, layers) must
+        never graft: its reload would raise mid-admission, or fit and be
+        wrong."""
+        try:
+            main, draft = blob
+            k_pages = self.pools[0]
+            # pool [L, n_pages + 1, Hkv, ps, hd]; blob k [L, Hkv, ps, hd]
+            want = (k_pages.shape[0],) + tuple(k_pages.shape[2:])
+            return tuple(main[0].shape) == want and draft is None
+        except Exception:  # noqa: BLE001 — an unreadable blob is incompatible
+            return False
+
+    def import_kv(self, prompt, blobs: list, adapter: str | None = None) -> int:
+        """Adopt a handoff ticket's page blobs into the radix index as
+        offloaded nodes: the next admission's lookup reloads them through
+        ``write_page``, so the handed-off stream goes on without its
+        prefill.  Needs the radix index and the offload tier.  A ticket
+        naming an adapter (none is served here) or with blobs of another
+        shape is refused.  Returns the pages grafted; 0 means the caller's
+        re-prefill serves the request, with the same stream."""
+        if self._closed:
+            raise EngineClosed("engine is closed")
+        if not isinstance(self.prefix, RadixKV) or not self._kv_offload:
+            return 0
+        if adapter is not None:
+            return 0
+        if not blobs or not self._blob_compatible(blobs[0]):
+            return 0
+        t0 = time.perf_counter()
+        n = self.prefix.graft([int(t) for t in prompt], blobs,
+                              salt=self._handoff_salt(adapter))
+        self.kv_handoff_pages_in += n
+        self.kv_handoff_s += time.perf_counter() - t0
+        return n
+
+    def retained_pages(self, rid) -> float:
+        """The KV pages ``rid``'s sequences hold, each weighted by
+        1/refcount (a page shared with forks or the prefix index counts
+        fractionally): about what preempting it frees.  0.0 for a rid
+        holding no pages."""
+        total = 0.0
+        refcounts = self.ctrl.refcounts
+        for seq, table in self.ctrl.tables.items():
+            if isinstance(seq, tuple) and len(seq) == 3 and seq[0] == "slot" and seq[2] == rid:
+                for page in table:
+                    total += 1.0 / max(1, refcounts.get(page, 1))
+        return total
 
     def _dev(self, mirror: np.ndarray) -> torch.Tensor:
         """A host mirror as a fresh device tensor, copied first: the
@@ -746,9 +1149,10 @@ class ServeEngine:
         return req
 
     def _admit_serial(self) -> list[Request]:
-        """Serial admission: allocate the prompt's pages, prefill it (one
-        batch-1 call per admission), sample its first token with a
-        readback of its own."""
+        """Serial admission: allocate the prompt's pages (past any cached
+        prefix), prefill the rest (one batch-1 call per admission), and
+        sample its first token with a readback of its own.  A fan-out
+        member after the first reuses its group's prefill."""
         finished = []
         for slot in range(self.slots):
             if self._occupied[slot] or not self.pending:
@@ -762,10 +1166,11 @@ class ServeEngine:
             n = len(prompt)
             try:
                 self._maybe_fault("prefill_dispatch")
-                table = np.full((1, self.max_pages), self.ctrl.trash, np.int32)
-                pages = self.ctrl.allocate(seq, n)
-                table[0, : len(pages)] = pages
-                logits = self._run_prefill(self._dev(table), prompt)
+                if req.group is not None:
+                    logits = self._admit_group_member(req, seq, n)
+                else:
+                    start_page = self._prefix_admit_pages(seq, prompt)
+                    logits = self._run_prefill(self._table_dev(seq), prompt, start_page)
                 self._maybe_fault("prefill_readback")
                 tok = int(sample_logits(
                     logits, self.generator if self.sampling else None,
@@ -782,16 +1187,33 @@ class ServeEngine:
                 self._committed_pages += need
         return finished
 
-    def _run_prefill(self, table: torch.Tensor, prompt: list[int]) -> torch.Tensor:
+    def _table_dev(self, seq) -> torch.Tensor:
+        """One sequence's table as a [1, max_pages] device tensor, padded
+        with the trash page."""
+        table = np.full((1, self.max_pages), self.ctrl.trash, np.int32)
+        pages = self.ctrl.tables[seq]
+        table[0, : len(pages)] = pages
+        return self._dev(table)
+
+    def _run_prefill(
+        self, table: torch.Tensor, prompt: list[int], start_page: int = 0
+    ) -> torch.Tensor:
         """Prefill one admission: one bucket-wide ``paged_prefill`` for a
         prompt that fits, page-aligned ``paged_prefill_chunk`` calls for a
-        longer one.  Returns its [1, vocab] next-token logits."""
+        longer one.  ``start_page`` (a multiple of the bucket's pages)
+        skips the positions prefix-cache pages already hold.  Returns its
+        [1, vocab] next-token logits."""
         n, B = len(prompt), self.prompt_bucket
         bp = B // self.page_size
+        if start_page % bp:
+            raise ValueError(
+                f"prefill start_page {start_page} must be a multiple of "
+                f"bucket pages {bp}"
+            )
         self.prefills_run += 1
-        self.prefill_tokens += n
+        self.prefill_tokens += n - start_page * self.page_size
         lengths = self._dev(np.asarray([n], np.int32))
-        if n <= B:
+        if start_page == 0 and n <= B:
             self.prefill_dispatches += 1
             tokens = np.zeros((1, B), np.int64)
             tokens[0, :n] = prompt
@@ -801,7 +1223,7 @@ class ServeEngine:
             )
             return logits
         n_chunks = -(-n // B)
-        for ci in range(n_chunks):
+        for ci in range(start_page // bp, n_chunks):
             self.prefill_dispatches += 1
             tokens = np.zeros((1, B), np.int64)
             width = min(B, n - ci * B)
@@ -813,12 +1235,105 @@ class ServeEngine:
             )
         return logits
 
-    def _plan_admissions(self, used: set) -> list[dict]:
+    # ---- prefix cache and fan-out groups at admission -------------------
+
+    def _prefix_admit_pages(self, seq, tokens: list[int], insert: bool = True) -> int:
+        """Admission's page bookkeeping with the prefix cache (serial and
+        batched alike): look ``tokens`` up, adopt the hit pages and
+        extend past them (or allocate afresh), and register the full
+        pages in the index.  Hits are capped so that at least one token
+        is computed (its logits feed the first sample) and floored to
+        whole prompt buckets, so the rest prefills in the usual chunks.
+        With the offload tier, hit pages in host RAM or on disk reload
+        inside the lookup, queued ahead of this admission's prefill.  The
+        insert is promissory, before the prefill runs: nothing looks the
+        pages up before they are written (serial prefills run before the
+        next lookup; a batched sweep's chunk order writes a column before
+        a later row's chunk reads it).  The budgeted path passes
+        ``insert=False`` and inserts at admission finish, since its
+        sweeps span steps.  Returns the row's start page (0 on a miss)."""
+        n = len(tokens)
+        shared: list[int] = []
+        if self.prefix is not None:
+            bp = self.prompt_bucket // self.page_size
+            cap = (n - 1) // self.page_size // bp * bp
+            kw = {"reload": self._reload_page} if self._kv_offload else {}
+            shared = self.prefix.lookup(tokens, cap, granularity=bp, **kw)
+        if shared:
+            self.ctrl.adopt(seq, shared)
+            self._extend_evicting(seq, n)
+        else:
+            self._allocate_evicting(seq, n)
+        if self.prefix is not None and insert:
+            self.prefix.insert(tokens, self.ctrl.tables[seq])
+        return len(shared)
+
+    def _group_admit_pages(self, req: Request, seq, n: int):
+        """A fan-out member's pages at admission (serial and batched
+        alike): allocate the group's full prompt pages once, fork them
+        read-only into the member's table, cover its partial tail.
+        Returns (the group's dict, the shared token count)."""
+        g = self._groups[req.group]
+        shared = n // self.page_size * self.page_size
+        gseq = ("group", req.group)
+        if shared and not g["allocated"]:
+            self._allocate_evicting(gseq, shared)
+            g["allocated"] = True
+        if shared:
+            self.ctrl.fork(gseq, seq, shared)
+            if n > shared:
+                self._extend_evicting(seq, n)
+        else:  # shorter than a page: nothing to share
+            self._allocate_evicting(seq, n)
+        return g, shared
+
+    def _group_cleanup(self, gid: str) -> None:
+        """Drop a group's bookkeeping: the retained tail page and the
+        group's own table; the pages live on in the members' tables."""
+        g = self._groups.pop(gid)
+        if g.get("tail_page") is not None:
+            self.ctrl.release_page(g["tail_page"])
+        if g["allocated"]:
+            self.ctrl.release(("group", gid))
+
+    def _group_member_done(self, g: dict, gid: str) -> None:
+        """The group's countdown: after its last member admits (or
+        leaves), clean the group up."""
+        g["members_left"] -= 1
+        if g["members_left"] == 0:
+            self._group_cleanup(gid)
+
+    def _admit_group_member(self, req: Request, seq, n: int) -> torch.Tensor:
+        """Admit one fan-out member serially: the first prefills, and the
+        group keeps its logits and retains its partial tail page; a later
+        member copies that page and reuses the logits.  Returns the
+        member's [1, vocab] first-token logits."""
+        g, shared = self._group_admit_pages(req, seq, n)
+        if g.get("logits") is None:
+            logits = self._run_prefill(self._table_dev(seq), req.prompt)
+            g["logits"] = logits
+            if n > shared:
+                # The tail is private per member; pin the first member's
+                # as the copy source (it outlives that member's retirement).
+                tail = self.ctrl.tables[seq][-1]
+                self.ctrl.retain_page(tail)
+                g["tail_page"] = tail
+        else:
+            logits = g["logits"]
+            if n > shared:
+                copy_page(self.pools, g["tail_page"], self.ctrl.tables[seq][-1])
+        self._group_member_done(g, req.group)
+        return logits
+
+    def _plan_admissions(self, used: set, defer_prefix_insert: bool = False) -> list[dict]:
         """Scan the queue in the serial path's order (free slots
         ascending, FIFO, stop at the first request the page budget
-        defers), committing worst-case pages and allocating the prompt's
-        pages; no device work.  ``used`` excludes slots taken earlier in
-        this step and slots mid-prefill."""
+        defers), doing the host bookkeeping of each admission: worst-case
+        page commitment, prefix-cache lookup and adoption or fan-out
+        forks, the prompt's pages; no device work.  ``used`` excludes
+        slots taken earlier in this step and slots mid-prefill.  A plan's
+        ``start_page`` is its cached prefix; ``prefill`` is False for a
+        fan-out member that reuses its group's logits."""
         plans: list[dict] = []
         for slot in range(self.slots):
             if slot in used or self._occupied[slot] or not self.pending:
@@ -830,34 +1345,69 @@ class ServeEngine:
             req = self._take_head()
             seq = self._seq_id(slot, req)
             prompt = self._admission_tokens(req)
-            self.ctrl.allocate(seq, len(prompt))
+            n = len(prompt)
+            plan = {
+                "slot": slot, "req": req, "seq": seq, "n": n, "prompt": prompt,
+                "need": need, "start_page": 0, "prefill": True, "logits_from": None,
+                "tail_copy": None, "group_done": None, "prefix_insert": None,
+            }
+            if req.group is not None:
+                self._plan_group_member(req, seq, n, plan)
+            else:
+                plan["start_page"] = self._prefix_admit_pages(
+                    seq, prompt, insert=not defer_prefix_insert
+                )
+                if defer_prefix_insert and self.prefix is not None:
+                    plan["prefix_insert"] = prompt
             self._committed_pages += need
-            plans.append({
-                "slot": slot, "req": req, "seq": seq, "n": len(prompt),
-                "prompt": prompt, "need": need,
-            })
+            plans.append(plan)
         return plans
+
+    def _plan_group_member(self, req: Request, seq, n: int, plan: dict) -> None:
+        """A planned fan-out member: fork the group's pages; the first
+        member joins the prefill sweep, its row becomes the group's
+        logits and its partial tail page is retained; a later member
+        schedules a one-page copy and reuses the logits.  The last
+        member's cleanup waits for admission finish, after the copies."""
+        g, shared = self._group_admit_pages(req, seq, n)
+        if g.get("logits") is None and "logits_slot" not in g:
+            g["logits_slot"] = plan["slot"]
+            if n > shared:
+                tail = self.ctrl.tables[seq][-1]
+                self.ctrl.retain_page(tail)
+                g["tail_page"] = tail
+        else:
+            plan["prefill"] = False
+            plan["logits_from"] = g
+            if n > shared:
+                plan["tail_copy"] = (g["tail_page"], self.ctrl.tables[seq][-1])
+        g["members_left"] -= 1
+        if g["members_left"] == 0:
+            plan["group_done"] = req.group
 
     def _prefill_row_arrays(self, rows: list[dict]):
         """The prefill sweep's per-row inputs: host lengths, and device
-        tables and lengths (rows not in ``rows`` keep trash tables and
-        length 0, as parked decode rows do)."""
+        tables, lengths and start pages (rows not in ``rows`` keep trash
+        tables and length 0, as parked decode rows do)."""
         lengths = np.zeros(self.slots, np.int32)
+        starts = np.zeros(self.slots, np.int32)
         tables = np.full((self.slots, self.max_pages), self.ctrl.trash, np.int32)
         for p in rows:
             lengths[p["slot"]] = p["n"]
+            starts[p["slot"]] = p["start_page"]
             t = self.ctrl.tables[p["seq"]]
             tables[p["slot"], : len(t)] = t
-        return lengths, self._dev(tables), self._dev(lengths)
+        return lengths, self._dev(tables), self._dev(lengths), self._dev(starts)
 
     def _dispatch_prefill_ci(
         self, rows: list[dict], ci: int, lengths: np.ndarray, tables_dev,
-        lengths_dev, emitted: torch.Tensor,
+        lengths_dev, row_start, emitted: torch.Tensor,
     ) -> torch.Tensor:
         """ONE [slots, bucket] prefill chunk at chunk index ``ci`` for
         ``rows``; a row's logits land in ``emitted`` from the chunk where
-        its prompt ends.  The unbudgeted and the budgeted sweep both
-        dispatch through here."""
+        its prompt ends, and ``row_start`` sends the columns of its
+        cached prefix to the trash page.  The unbudgeted and the budgeted
+        sweep both dispatch through here."""
         B, bp = self.prompt_bucket, self.prompt_bucket // self.page_size
         start = ci * B
         chunk = np.zeros((self.slots, B), np.int64)
@@ -868,38 +1418,74 @@ class ServeEngine:
         logits, _ = paged_prefill_chunk(
             self.params, self.pools, tables_dev, self._dev(chunk), lengths_dev,
             self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=True,
+            row_start=row_start,
         )
         self.prefill_dispatches += 1
         emit_mask = (lengths > start) & (lengths <= start + B)
         return torch.where(self._dev(emit_mask)[:, None], logits, emitted)
 
-    def _sweep_prefill(self, plans: list[dict]) -> torch.Tensor:
-        """Stack the planned rows into one ragged [slots, bucket] batch and
-        run the page-aligned chunks any row covers.  Returns the
-        [slots, vocab] first-token logits."""
+    def _sweep_prefill(self, plans: list[dict]) -> torch.Tensor | None:
+        """Stack the planned rows that prefill into one ragged [slots,
+        bucket] batch and run the page-aligned chunks some row's uncached
+        span covers (a chunk only cached prefixes cover is skipped, so a
+        hit keeps its saving beside a miss; a row riding an active chunk
+        inside its cached span recomputes the same values and writes
+        them to the trash page).  Returns the [slots, vocab] first-token
+        logits, or None when no row prefills (only group reuse)."""
+        rows = [p for p in plans if p["prefill"]]
+        if not rows:
+            return None
         self._maybe_fault("prefill_dispatch")
-        for p in plans:
+        B, ps = self.prompt_bucket, self.page_size
+        bp = B // ps
+        for p in rows:
             self.prefills_run += 1
-            self.prefill_tokens += p["n"]
-        lengths, tables_dev, lengths_dev = self._prefill_row_arrays(plans)
+            self.prefill_tokens += p["n"] - p["start_page"] * ps
+        active = sorted({ci for p in rows for ci in range(p["start_page"] // bp, -(-p["n"] // B))})
+        arrays = self._prefill_row_arrays(rows)
         emitted = torch.zeros(
             (self.slots, self.config.vocab_size), dtype=torch.float32,
             device=self.device,
         )
         self.prefill_sweeps += 1
-        for ci in range(-(-int(lengths.max()) // self.prompt_bucket)):
-            emitted = self._dispatch_prefill_ci(
-                plans, ci, lengths, tables_dev, lengths_dev, emitted
-            )
+        for ci in active:
+            emitted = self._dispatch_prefill_ci(rows, ci, *arrays, emitted)
         return emitted
 
     def _finish_admissions(
-        self, plans: list[dict], emitted: torch.Tensor
+        self, plans: list[dict], emitted: torch.Tensor | None
     ) -> list[Request]:
-        """Sample every row's first token in one call, read the batch back
-        once, then apply emission and at-admission retirement (which
-        rolls the plan's page commitment back).  Returns the requests
-        finished at admission."""
+        """Register the budget-deferred prefix inserts (every page of the
+        row is written now), resolve fan-out groups (the first member's
+        row becomes the group's logits, later members' rows take them,
+        their tail pages copy, finished groups clean up), sample every
+        row's first token in one call, read the batch back once, then
+        apply emission and at-admission retirement (which rolls the
+        plan's page commitment back).  Returns the requests finished at
+        admission."""
+        if emitted is None:
+            emitted = torch.zeros(
+                (self.slots, self.config.vocab_size), dtype=torch.float32,
+                device=self.device,
+            )
+        for p in plans:
+            if p.get("prefix_insert") is not None and self.prefix is not None:
+                self.prefix.insert(p["prefix_insert"], self.ctrl.tables[p["seq"]])
+        for p in plans:
+            if p["prefill"] and p["req"].group is not None:
+                g = self._groups[p["req"].group]
+                if g.get("logits_slot") == p["slot"]:
+                    g["logits"] = emitted[p["slot"]][None].clone()
+                    del g["logits_slot"]
+        for p in plans:
+            if not p["prefill"]:
+                emitted[p["slot"]] = p["logits_from"]["logits"][0]
+        for p in plans:
+            if p["tail_copy"] is not None:
+                copy_page(self.pools, *p["tail_copy"])
+        for p in plans:
+            if p["group_done"] is not None:
+                self._group_cleanup(p["group_done"])
         self._maybe_fault("prefill_readback")
         toks = sample_logits(
             emitted, self.generator if self.sampling else None,
@@ -950,23 +1536,27 @@ class ServeEngine:
 
     def _admit_budgeted(self) -> list[Request]:
         """Resumable admission under ``prefill_budget``: plan new
-        admissions as the unbudgeted path does, dispatch at most
-        ``max(1, prefill_budget // prompt_bucket)`` chunks across every
-        mid-prefill row, finish the rows whose last chunk ran (one fused
-        readback) and carry the rest to the next step.  Under
+        admissions as the unbudgeted path does (prefix inserts deferred
+        to finish; a row's cursor starts past its cached prefix),
+        dispatch at most ``max(1, prefill_budget // prompt_bucket)``
+        chunks across every mid-prefill row, finish the rows whose last
+        chunk ran and the fan-out members whose group logits resolved
+        (one fused readback) and carry the rest to the next step.  Under
         ``pipelined`` the decode readback due is consumed between the
         sweep's dispatch and its readback, so it overlaps the prefill.
         No same-step re-plan after an at-admission retirement: the freed
         budget admits next step."""
         budget = max(1, self.prefill_budget // self.prompt_bucket)
+        bp = self.prompt_bucket // self.page_size
         finished: list[Request] = []
         used = {p["slot"] for p in self._inflight_prefill}
-        new_plans = self._plan_admissions(used)
+        new_plans = self._plan_admissions(used, defer_prefix_insert=True)
         for p in new_plans:
-            p["cursor"] = 0
+            p["cursor"] = p["start_page"] // bp
             p["last_ci"] = -(-p["n"] // self.prompt_bucket) - 1
-            self.prefills_run += 1
-            self.prefill_tokens += p["n"]
+            if p["prefill"]:
+                self.prefills_run += 1
+                self.prefill_tokens += p["n"] - p["start_page"] * self.page_size
         self._inflight_prefill.extend(new_plans)
         if not self._inflight_prefill:
             return finished
@@ -983,37 +1573,51 @@ class ServeEngine:
                     # sweep.
                     read, snapshot = self._pending_super.popleft()
                     finished += self._consume_superstep(read, snapshot)
-            completed = [p for p in self._inflight_prefill if p["cursor"] > p["last_ci"]]
+            done_slots = {p["slot"] for p in self._inflight_prefill
+                          if p["prefill"] and p["cursor"] > p["last_ci"]}
+            # A reuse row finishes when its group's logits resolve: cached
+            # in an earlier step, or its source row finished this step.
+            completed = [
+                p for p in self._inflight_prefill
+                if (p["prefill"] and p["cursor"] > p["last_ci"])
+                or (not p["prefill"] and (
+                    p["logits_from"].get("logits") is not None
+                    or p["logits_from"].get("logits_slot") in done_slots))
+            ]
             if completed:
                 finished += self._finish_admissions(completed, emitted)
-                self._inflight_prefill = [
-                    p for p in self._inflight_prefill if p["cursor"] <= p["last_ci"]
-                ]
+                done = {id(p) for p in completed}
+                self._inflight_prefill = [p for p in self._inflight_prefill
+                                          if id(p) not in done]
         except Exception as exc:  # noqa: BLE001 — recovery seam
             plans, self._inflight_prefill = self._inflight_prefill, []
             return finished + self._quarantine_admissions(plans, exc)
         for p in self._inflight_prefill:
-            self.prefill_deferred_tokens += max(
-                0, p["n"] - p["cursor"] * self.prompt_bucket
-            )
+            if p["prefill"]:
+                self.prefill_deferred_tokens += max(
+                    0, p["n"] - p["cursor"] * self.prompt_bucket
+                )
         return finished
 
     def _sweep_prefill_budgeted(self, max_chunks: int) -> torch.Tensor:
         """Dispatch up to ``max_chunks`` prompt-bucket chunks across the
-        mid-prefill rows, oldest admission first; every row whose cursor
-        sits at the same chunk index rides the same dispatch.  Returns the
-        [slots, vocab] logits of the rows whose last chunk ran."""
+        mid-prefill rows that prefill, oldest admission first; every row
+        whose cursor sits at the same chunk index rides the same
+        dispatch.  Returns the [slots, vocab] logits of the rows whose
+        last chunk ran."""
         emitted = torch.zeros(
             (self.slots, self.config.vocab_size), dtype=torch.float32,
             device=self.device,
         )
-        if not any(p["cursor"] <= p["last_ci"] for p in self._inflight_prefill):
+        if not any(p["prefill"] and p["cursor"] <= p["last_ci"]
+                   for p in self._inflight_prefill):
             return emitted
         self._maybe_fault("prefill_dispatch")
         self.prefill_sweeps += 1
         group_key, arrays = None, None
         for _ in range(max_chunks):
-            todo = [p for p in self._inflight_prefill if p["cursor"] <= p["last_ci"]]
+            todo = [p for p in self._inflight_prefill
+                    if p["prefill"] and p["cursor"] <= p["last_ci"]]
             if not todo:
                 break
             ci = todo[0]["cursor"]
@@ -1030,7 +1634,8 @@ class ServeEngine:
 
     def _abort_partial(self, plan: dict) -> Request:
         """Drop one mid-prefill admission: release its pages and roll back
-        its commitment.  The request's fate is the caller's."""
+        its commitment.  Group policy and the request's fate are the
+        caller's."""
         self._inflight_prefill = [q for q in self._inflight_prefill if q is not plan]
         if plan["seq"] in self.ctrl.tables:
             self.ctrl.release(plan["seq"])
@@ -1039,10 +1644,25 @@ class ServeEngine:
 
     def _reclaim_partial(self, plan: dict) -> Request:
         """Reclaim one mid-prefill admission for cancel, expiry or
-        preempt: its pages and commitment go back.  (The JAX engine's
-        fan-out branch, which requeues a group's siblings, comes with
-        fan-out.)"""
-        return self._abort_partial(plan)
+        preempt: its pages and commitment go back.  A fan-out group that
+        loses a mid-prefill member cannot be trusted to resolve (the
+        member may be its logits source), so the group's other in-flight
+        members abort and requeue solo at the queue's front (no retry
+        charge), pending members detach, and the group's bookkeeping
+        goes.  Members already decoding keep their pages."""
+        req = self._abort_partial(plan)
+        gid, req.group = req.group, None
+        if gid is not None and gid in self._groups:
+            for q in reversed([q for q in self._inflight_prefill if q["req"].group == gid]):
+                sib = self._abort_partial(q)
+                sib.group = None
+                sib.status = "queued"
+                self.pending.appendleft(sib)
+            for r in self.pending:
+                if r.group == gid:
+                    r.group = None
+            self._group_cleanup(gid)
+        return req
 
     # ---- decode ---------------------------------------------------------
 
@@ -1131,9 +1751,10 @@ class ServeEngine:
     def _cover_chunk(self) -> None:
         """Extend every occupied row's table one chunk past its position
         (which already counts chunks dispatched and not read), within the
-        admission-time commitment."""
+        admission-time commitment (evicting index-only cached pages when
+        the free list is short)."""
         for slot, req in self._slot_req.items():
-            table = self.ctrl.extend(
+            table = self._extend_evicting(
                 self._seq_id(slot, req), int(self._positions[slot]) + self.chunk
             )
             self._tables[slot, : len(table)] = table
@@ -1211,7 +1832,7 @@ class ServeEngine:
             # the ceiling holds while a superstep is in flight.
             ceiling = pos + (req.max_new_tokens - len(req.tokens)) + 1
             bound = pos + span * (2 if slot in in_flight else 1)
-            table = self.ctrl.extend(self._seq_id(slot, req), min(bound, ceiling))
+            table = self._extend_evicting(self._seq_id(slot, req), min(bound, ceiling))
             self._tables[slot, : len(table)] = table
             if req.eos_token is not None:
                 eos[slot] = req.eos_token
@@ -1324,11 +1945,23 @@ class ServeEngine:
             return req.t_deadline is not None and now >= req.t_deadline
 
         finished: list[Request] = []
-        for req in [r for r in self.pending if due(r)]:
-            self.pending.remove(req)
-            finished.append(self._finish_terminal(req, "expired"))
-        for plan in [p for p in self._inflight_prefill if due(p["req"])]:
+
+        def expire_queued() -> None:
+            for req in [r for r in self.pending if due(r)]:
+                self.pending.remove(req)
+                self._group_abandon(req)
+                finished.append(self._finish_terminal(req, "expired"))
+
+        expire_queued()
+        expired_p = [p for p in self._inflight_prefill if due(p["req"])]
+        for plan in expired_p:
+            if not any(q is plan for q in self._inflight_prefill):
+                continue  # a sibling's reclaim already dissolved it
             finished.append(self._finish_terminal(self._reclaim_partial(plan), "expired"))
+        if expired_p:
+            # A reclaim requeues a dissolved group's in-flight siblings;
+            # they usually share the deadline, so expire them now.
+            expire_queued()
         expired_slots = [slot for slot, r in self._slot_req.items() if due(r)]
         if expired_slots:
             finished += self._drain_all_pending()
@@ -1433,7 +2066,9 @@ class ServeEngine:
     def close(self) -> None:
         """Idempotent shutdown: pending, mid-prefill and running requests
         fail with ``EngineClosed`` recorded, their pages release, work in
-        flight is dropped unread, the health subscription ends; later
+        flight is dropped unread, fan-out groups dissolve, the prefix
+        index clears (host blobs free; disk files stay), the health
+        subscription ends; later
         submit and step raise ``EngineClosed``, and the closed engine
         reads idle."""
         if self._closed:
@@ -1450,10 +2085,17 @@ class ServeEngine:
         for slot in sorted(self._slot_req):
             self._finish_terminal(self._release_slot(slot), "failed", error=err)
         for plan in list(self._inflight_prefill):
-            self._finish_terminal(self._abort_partial(plan), "failed", error=err)
+            req = self._abort_partial(plan)
+            req.group = None
+            self._finish_terminal(req, "failed", error=err)
         while self.pending:
-            self._finish_terminal(self.pending.popleft(), "failed", error=err)
+            req = self.pending.popleft()
+            req.group = None
+            self._finish_terminal(req, "failed", error=err)
         self._finished_buffer.clear()
+        self._dissolve_groups()
+        if self.prefix is not None:
+            self.prefix.clear()
         self.unbind_health()
 
     def __enter__(self) -> "ServeEngine":
@@ -1531,10 +2173,46 @@ def main(argv=None) -> int:
                         "(repeatable; seams: prefill_dispatch, "
                         "prefill_readback, decode_dispatch, "
                         "decode_readback) to exercise quarantine and replay")
+    parser.add_argument("--prefix-cache", action="store_true",
+                        help="cross-request radix-tree prefix caching: "
+                        "prompts sharing any page-aligned prefix (system "
+                        "prompts, few-shot templates, multi-turn history) "
+                        "reuse its k/v pages and skip its prefill")
+    parser.add_argument("--kv-offload", action="store_true",
+                        help="the prefix cache's host-RAM tier (implies "
+                        "--prefix-cache): under pool pressure cold cached "
+                        "pages spill to pinned host memory instead of "
+                        "dropping and reload on a later hit; greedy "
+                        "streams are the same offload on or off")
+    parser.add_argument("--kv-host-pages", type=int, default=None, metavar="N",
+                        help="with --kv-offload: cap the host tier at N "
+                        "offloaded pages (default: unbounded)")
+    parser.add_argument("--kv-disk-dir", default=None, metavar="DIR",
+                        help="the disk tier below --kv-offload: when host RAM "
+                        "is full, the coldest offloaded page moves to a "
+                        "chain-key-named, checksummed file under DIR "
+                        "instead of dropping; files are shared by engines "
+                        "using DIR and outlive the process")
+    parser.add_argument("--kv-disk-pages", type=int, default=None, metavar="N",
+                        help="with --kv-disk-dir: cap the disk tier at N page "
+                        "files, coldest evicted first (default: unbounded)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the "
                         "plain PyTorch path)")
     args = parser.parse_args(argv)
+    if args.kv_offload:
+        args.prefix_cache = True  # the offload tier lives on the cache
+    if args.kv_host_pages is not None and not args.kv_offload:
+        parser.error("--kv-host-pages bounds the --kv-offload host tier")
+    if args.kv_host_pages is not None and args.kv_host_pages < 1:
+        parser.error("--kv-host-pages must be >= 1 pages")
+    if args.kv_disk_dir is not None and not args.kv_offload:
+        parser.error("--kv-disk-dir is the tier below --kv-offload; "
+                     "pass --kv-offload too")
+    if args.kv_disk_pages is not None and args.kv_disk_dir is None:
+        parser.error("--kv-disk-pages bounds the --kv-disk-dir tier")
+    if args.kv_disk_pages is not None and args.kv_disk_pages < 1:
+        parser.error("--kv-disk-pages must be >= 1 page files")
     injector = None
     if args.inject_fault:
         from .faults import FaultInjector
@@ -1575,8 +2253,10 @@ def main(argv=None) -> int:
         top_k=args.top_k, top_p=args.top_p,
         generator=torch.Generator(device).manual_seed(42),
         pipelined=args.pipelined, superstep_k=args.superstep_k,
-        prefill_budget=args.prefill_budget, fault_injector=injector,
-        max_retries=args.max_retries, device=device,
+        prefill_budget=args.prefill_budget, prefix_cache=args.prefix_cache,
+        kv_offload=args.kv_offload, kv_host_pages=args.kv_host_pages,
+        kv_disk_dir=args.kv_disk_dir, kv_disk_pages=args.kv_disk_pages,
+        fault_injector=injector, max_retries=args.max_retries, device=device,
     )
     rng = np.random.default_rng(7)
     for i in range(args.requests):
@@ -1603,12 +2283,32 @@ def main(argv=None) -> int:
         f"pool={engine.ctrl.n_pages} pages, "
         f"pages in use after drain: {engine.ctrl.used_pages})"
     )
-    if engine.steps_quarantined or engine.requests_expired or engine.requests_failed:
+    if args.prefix_cache:
+        print(
+            f"prefix cache: hits={engine.prefix.hits} misses={engine.prefix.misses} "
+            f"cached_pages={engine.prefix.cached_pages} "
+            f"prefill_tokens={engine.prefill_tokens}"
+        )
+    if (engine.steps_quarantined or engine.requests_expired or engine.requests_failed
+            or args.kv_offload):
         from collections import Counter
 
         statuses = Counter(r.status for r in engine.completed)
+        kv = ""
+        if args.kv_offload:
+            kv = (
+                f"kv_offloads={engine.prefix.spills} "
+                f"kv_reloads={engine.prefix.reloads} "
+                f"kv_host_pages_now={engine.prefix.offloaded_pages} "
+            )
+            if args.kv_disk_dir is not None:
+                kv += (
+                    f"kv_disk_demotions={engine.prefix.demotions} "
+                    f"kv_disk_reloads={engine.prefix.disk_reloads} "
+                    f"kv_disk_pages_now={engine.kv_disk_pages} "
+                )
         print(
-            f"lifecycle: statuses={dict(statuses)} "
+            f"lifecycle: statuses={dict(statuses)} {kv}"
             f"quarantined_steps={engine.steps_quarantined} "
             f"replays={engine.requests_retried} "
             f"tokens_replayed={engine.tokens_replayed} "

@@ -66,6 +66,20 @@ Phases, each of which fails the run loudly:
    pinned and pageable blobs) and turn TTFT printed per arm; K1 is held against its plain version at this phase's depth and
    table widths in phase 3, and a decode step at its depth gives the
    bf16 floor it holds (a) against (b) to;
+4d. speculative decoding at the same width (``spec_phase``): the int8
+   quantization of the same weights, made on the card, drafting at gamma
+   4 for (b) spec on, (c) ``spec_lookahead=4``, (d) ``spec_superstep_k=4,
+   pipelined``, (e) ``spec="auto"`` with its start-up calibration and (f)
+   sampling, against (a) phase 4's plain drain; (g) float32 plain, spec
+   on and ``spec_superstep_k=4``, whose streams must equal (a flip only
+   at a near-tie, with its top-2 gap printed); every request ok, no page
+   in use, K1 (gamma+1) x n_layers a round; one round through the
+   graph and eager bit-identical in bf16 and float32; the draft steps of
+   a teacher-forced round through K1 against plain; a profiled round
+   (K1 counted against the trace) split by the phase probes, the
+   dequantization's share of the draft phase; ``_spec_accept``'s
+   marginal on the card; tokens/s, rounds, drafts proposed and
+   accepted, peak memory and captures per cover printed per drain;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -1091,6 +1105,465 @@ def kv_phase(torch, params, config, kv, counters, bf16_floor, device="cuda") -> 
     return read_counts(counters)["paged_attention"]
 
 
+# Phase 4d, speculative decoding: the JAX CLI's --spec-int8-draft (the
+# model's own int8 quantization drafting for it) at gamma 4; lookahead
+# and chained supersteps at k 4; the float32 arm serves 8 requests of 64
+# and 128 new tokens.  A float32 stream may part from the plain stream
+# only where the target's top two logits lie within FLIP_GAP of the
+# largest logit (a reordering of a near-tie, not a wrong token).
+SPEC = dict(gamma=4, k=4, f32_requests=8, f32_new=(64, 128), temperature=0.8, top_k=50,
+            top_p=0.95)
+FLIP_GAP = 2.0**-20
+SPEC_F32_RTOL = 1e-5
+
+
+def profiled(torch, fn, name):
+    """Run ``fn`` under torch.profiler; returns (result, wall ms, device
+    kernel ms, {kernel name: [ms, ...]}) from its chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = os.path.join(ROOT, "build", "workloads_torch", f"{name}_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    busy_ms = sum(sum(v) for v in by_name.values())
+    return out, wall_ms, busy_ms, by_name
+
+
+def top2_gap(torch, params, config, prompt, tokens, pos):
+    """The target's top-two logit gap before generated token ``pos`` (a
+    dense forward over the prompt and the tokens before it), and the
+    largest |logit| there."""
+    from workloads_torch.model import forward
+
+    seq = torch.tensor([list(prompt) + list(tokens[:pos])], device=params["embed"].device)
+    with torch.inference_mode():
+        logits = forward(params, seq, config)[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return (top[0] - top[1]).item(), logits.abs().max().item()
+
+
+def spec_phase(torch, params, config, f, counters, requests, plain, bf16_floor,
+               device="cuda", spec=SPEC) -> int:
+    """Phase 4d: speculative decoding at full width.  The draft is
+    ``quant.quantize_params(params)``, made on the card (the JAX CLI's
+    --spec-int8-draft), gamma 4.  Drains of phase 4's 12 requests: (a)
+    plain (``plain``, phase 4's drain at the defaults), (b) spec on, (c)
+    ``spec_lookahead=4``, (d) ``spec_superstep_k=4, pipelined``, (e)
+    ``spec="auto"`` with the start-up calibration, (f) sampling
+    (temperature 0.8, top_k 50, top_p 0.95, spec on); (g) the same widths
+    in float32 on 8 requests, plain, spec on and ``spec_superstep_k=4``.
+    Gates: every request ``ok`` at full length and no page in use after
+    each drain; K1 launched n_layers a plain decode step and (gamma+1) x
+    draft layers a round; (g)'s spec streams equal its plain stream (a
+    flip only at a top-2 gap under FLIP_GAP of the largest logit); one
+    graphed round equal to the eager round from the same state, bit for
+    bit, in bf16 and float32; one teacher-forced round's draft steps
+    through K1 against the plain version (bf16 within ``bf16_floor``,
+    float32 within 1e-5 of the largest logit); K1's count over a profiled
+    round equal to the trace's; ``_spec_accept``'s marginal on the card.
+    ``device="cpu"`` rehearses the drains and gates on the plain route
+    (``spec`` may shrink (g)'s requests to a tiny model's context).
+    Returns K1's launches over the drains."""
+    from dataclasses import replace
+
+    import numpy as np
+    from workloads_torch import paged as paged_mod
+    from workloads_torch.model import cast_params
+    from workloads_torch.ops import paged_attention as pa
+    from workloads_torch.quant import dequantize, is_quantized, quantize_params, tree_bytes
+    from workloads_torch.serve import ServeEngine
+
+    cuda = device == "cuda"
+    g, k, L = spec["gamma"], spec["k"], config.n_layers
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    draft = quantize_params(params)
+    t_bytes, d_bytes = tree_bytes(params), tree_bytes(draft)
+    print(f"  int8 draft: tree_bytes {d_bytes / 1e9:.4f} GB against the bf16 target's "
+          f"{t_bytes / 1e9:.4f} GB ({d_bytes / t_bytes:.3f})", flush=True)
+    base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["page_size"], device=device)
+    total = 0
+
+    def spec_drain(label, engine, reqs, ref=None):
+        """Serve ``reqs`` after one warm-up request (captures, and the
+        calibration of spec="auto"); gate and print the drain."""
+        nonlocal total
+        engine.submit(reqs[0][0], 2)
+        engine.run()
+        names = ("chunks_run", "generated_tokens", "spec_rounds", "spec_drafts_proposed",
+                 "spec_tokens_rejected", "tokens_overdecoded", "spec_mode_steps",
+                 "plain_mode_steps")
+        before = {n: getattr(engine, n, 0) for n in names}
+        rids = [engine.submit(p, n) for p, n in reqs]
+        reset_counts(counters)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        served = engine.run()
+        sync()
+        wall = time.perf_counter() - t0
+        d = {n: getattr(engine, n, 0) - before[n] for n in names}
+        launches = read_counts(counters)["paged_attention"]
+        total += launches
+        plain_steps = d["chunks_run"] * engine.chunk
+        d_layers = engine.draft_config.n_layers if engine.draft_params is not None else 0
+        expected = L * plain_steps + d_layers * (g + 1) * d["spec_rounds"]
+        row_rounds = d["spec_drafts_proposed"] // g if g else 0
+        accepted = d["spec_drafts_proposed"] - d["spec_tokens_rejected"]
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        rate = d["generated_tokens"] / wall
+        out = {"streams": [served.get(r) for r in rids], "wall": wall, "tokens_per_s": rate,
+               "rounds": d["spec_rounds"], "proposed": d["spec_drafts_proposed"],
+               "accepted": accepted, "launches": launches, "peak_gib": peak,
+               "plain_steps": plain_steps}
+        covers = (dict(engine._spec_graph.captures_by_cover)
+                  if getattr(engine, "_spec_graph", None) is not None else {})
+        vs = f" ({rate / ref:.3f} of (a))" if ref else ""
+        print(f"  {label}: wall {wall:.3f} s, {d['generated_tokens']} tokens, tokens/s "
+              f"{rate:.1f}{vs}; rounds {d['spec_rounds']}, drafts proposed "
+              f"{d['spec_drafts_proposed']} accepted {accepted} "
+              f"({accepted / max(d['spec_drafts_proposed'], 1):.3f}), tokens a row-round "
+              f"{1 + accepted / max(row_rounds, 1):.3f}; plain decode steps {plain_steps}, "
+              f"over-decoded {d['tokens_overdecoded']}; K1 launches {launches}; peak memory "
+              f"{peak:.2f} GiB; spec graph captures by cover {covers}; pages in use after "
+              f"drain {engine.ctrl.used_pages}", flush=True)
+        statuses = {r.rid: r.status for r in engine.completed}
+        for rid, (_, n), toks in zip(rids, reqs, out["streams"]):
+            if statuses.get(rid) != "ok" or toks is None or len(toks) != n:
+                fail(f"{label} {rid}: status {statuses.get(rid)}, "
+                     f"{None if toks is None else len(toks)} tokens, wanted {n}")
+            if not all(0 <= t < engine.config.vocab_size for t in toks):
+                fail(f"{label} {rid}: token out of the vocabulary")
+        if engine.ctrl.used_pages or engine._committed_pages:
+            fail(f"{label}: {engine.ctrl.used_pages} pages in use (target and draft pools "
+                 f"share the allocator), {engine._committed_pages} committed after the drain")
+        if cuda and (launches == 0 or launches != expected):
+            fail(f"{label}: K1 launched {launches} times, expected n_layers x plain steps + "
+                 f"draft layers x (gamma+1) x rounds = {expected}")
+        engine.close()
+        return out
+
+    if plain is None:  # the CPU rehearsal runs its own (a)
+        plain = spec_drain("(a) plain", ServeEngine(params, config, **base), requests)
+    runs = {}
+    spec_kw = dict(draft_params=draft, draft_config=config, gamma=g)
+    for label, kw in (("(b) spec on", {}),
+                      ("(c) spec_lookahead=4", dict(spec_lookahead=k)),
+                      ("(d) spec_superstep_k=4 pipelined", dict(spec_superstep_k=k,
+                                                                pipelined=True)),
+                      ("(e) spec=auto, start-up calibration", dict(spec="auto")),
+                      ("(f) sampling, spec on", dict(
+                          temperature=spec["temperature"], top_k=spec["top_k"],
+                          top_p=spec["top_p"],
+                          generator=torch.Generator(device).manual_seed(7)))):
+        engine = ServeEngine(params, config, **base, **spec_kw, **kw)
+        runs[label] = spec_drain(label, engine, requests, plain["tokens_per_s"])
+        if label.startswith("(e)"):
+            c = engine.spec_calibration
+            print(f"  (e) calibrated threshold {c['threshold']:.0f} of {f['slots']} slots "
+                  f"({'always' if c['threshold'] else 'never'} speculate): plain dispatch "
+                  f"{c['plain_dispatch_ms']:.3f} ms for {c['plain_tokens_per_dispatch']:.0f} "
+                  f"tokens, spec dispatch {c['spec_dispatch_ms']:.3f} ms for "
+                  f"{c['spec_tokens_per_dispatch_assumed']:.2f} (assumed)", flush=True)
+        del engine
+        if cuda:
+            torch.cuda.empty_cache()
+    for label, run in runs.items():
+        if label.startswith("(f)"):
+            continue
+        same = sum(a == b for a, b in zip(run["streams"], plain["streams"]))
+        print(f"  {label}: {same} of {len(requests)} bf16 greedy streams equal (a)'s "
+              f"(reported, not gated)", flush=True)
+
+    # (g) float32: spec streams equal the plain stream token for token.
+    params32 = cast_params(params, torch.float32)
+    config32 = replace(config, dtype=torch.float32)
+    draft32 = quantize_params(params32)
+    rng = np.random.default_rng(11)
+    reqs32 = [(rng.integers(0, config.vocab_size, f["decode_prompt"]).tolist(),
+               spec["f32_new"][i % 2]) for i in range(spec["f32_requests"])]
+    runs32 = {"plain": spec_drain("(g) float32 plain", ServeEngine(params32, config32, **base),
+                                  reqs32)}
+    for label, kw in (("spec on", {}), ("spec_superstep_k=4", dict(spec_superstep_k=k))):
+        engine = ServeEngine(params32, config32, **base, draft_params=draft32,
+                             draft_config=config32, gamma=g, **kw)
+        runs32[label] = spec_drain(f"(g) float32 {label}", engine, reqs32,
+                                   runs32["plain"]["tokens_per_s"])
+        for i, (got, want) in enumerate(zip(runs32[label]["streams"],
+                                            runs32["plain"]["streams"])):
+            if got == want:
+                continue
+            pos = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            gap, scale = top2_gap(torch, params32, config32, reqs32[i][0], want, pos)
+            print(f"  (g) float32 {label}: request {i} parts from the plain stream at "
+                  f"token {pos}: target top-2 gap {gap:.4e}, {gap / scale:.3e} of the "
+                  f"largest logit {scale:.4e}", flush=True)
+            if not gap < FLIP_GAP * scale:
+                fail(f"(g) float32 {label}: request {i} differs from the plain stream at "
+                     f"token {pos} with a top-2 gap of {gap / scale:.3e} of the largest "
+                     f"logit (a reordering needs < {FLIP_GAP:.3e})")
+    print(f"  (g) float32: spec on and spec_superstep_k=4 streams equal the plain stream "
+          f"(up to near-tie flips printed above)", flush=True)
+    if not cuda:
+        return total
+
+    # One round from the same state, through the graph and eager, bf16
+    # and float32; then the teacher-forced draft steps, K1 vs plain.
+    for t_params, d_params, cfg in ((params, draft, config), (params32, draft32, config32)):
+        graph_against_eager_round(torch, paged_mod, t_params, d_params, cfg, f, base)
+    teacher_forced_round(torch, paged_mod, pa, draft, config, f, bf16_floor)
+    teacher_forced_round(torch, paged_mod, pa, draft32, config32, f, None)
+    del params32, draft32
+    torch.cuda.empty_cache()
+    profile_round(torch, paged_mod, pa, params, draft, config, f, base, dequantize,
+                  is_quantized)
+    spec_accept_on_card(torch, paged_mod)
+    return total
+
+
+def _round_state(torch, engine, f, rng):
+    """Admit a full batch of phase 4's prompts and cover one round: the
+    round's (tables, cur, pos, occupancy, cover) from the engine."""
+    for _ in range(f["slots"]):
+        engine.submit(rng.integers(0, engine.config.vocab_size, f["decode_prompt"]), 64)
+    engine._admit()
+    u = engine.gamma + 1
+    for slot, req in engine._slot_req.items():
+        table = engine._extend_evicting(engine._seq_id(slot, req),
+                                        int(engine._positions[slot]) + u)
+        engine._tables[slot, : len(table)] = table
+    cover = engine._spec_cover(int(engine._positions.max()) + u)
+    return (engine._dev(engine._tables), engine._dev(engine._tokens),
+            engine._dev(engine._positions), engine._dev(engine._occupied), cover)
+
+
+def graph_against_eager_round(torch, paged_mod, t_params, d_params, config, f, base):
+    """One spec round from the same state through the engine's captured
+    round and through ``paged.spec_chained_round`` eagerly: committed
+    tokens, n and both pool pairs bit-identical; each timed on the host's
+    clock to a synchronise, mean of 3."""
+    import numpy as np
+    from workloads_torch.serve import ServeEngine
+
+    engine = ServeEngine(t_params, config, **base, draft_params=d_params,
+                         draft_config=config, gamma=SPEC["gamma"])
+    tables, cur, pos, occ, cover = _round_state(torch, engine, f, np.random.default_rng(3))
+    pos = torch.where(occ, pos, 0)
+    pools = (*engine.pools, *engine.d_pools)
+    saved = [p.clone() for p in pools]
+    budget, eos = engine._unbounded
+
+    def restore():
+        for p, s in zip(pools, saved):
+            p.copy_(s)
+        torch.cuda.synchronize()
+
+    def graphed():
+        c, n, *_ = engine._spec_graph.run(tables, cur, pos, occ, budget, eos, 1, cover)
+        return c[0].clone(), n[0].clone()
+
+    def eager():
+        with torch.inference_mode():
+            c, n, *_ = paged_mod.spec_chained_round(
+                t_params, d_params, engine.pools, engine.d_pools, tables, cur, pos, occ,
+                budget, eos, config, config, SPEC["gamma"], cover)
+        return c, n
+
+    results, times = {}, {}
+    for name, fn in (("graph", graphed), ("eager", eager)):
+        restore()
+        fn()  # capture and first launches outside the timing
+        runs = []
+        for _ in range(3):
+            restore()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        results[name] = (*out, [p.clone() for p in pools])
+        times[name] = sum(runs) / len(runs)
+    restore()
+    engine.close()
+    same = (torch.equal(results["graph"][0], results["eager"][0])
+            and torch.equal(results["graph"][1], results["eager"][1]))
+    same_pools = all(torch.equal(a, b) for a, b in zip(results["graph"][2],
+                                                       results["eager"][2]))
+    dt = str(config.dtype).split(".")[1]
+    print(f"  one spec round ({f['slots']} rows, gamma {SPEC['gamma']}, cover {cover} pages) "
+          f"from the same state, {dt}: CUDA graph {times['graph']:.3f} ms, eager "
+          f"{times['eager']:.3f} ms (host clock to a synchronise, mean of 3); committed and "
+          f"n {'bit-identical' if same else 'DIFFER'}, target and draft pools "
+          f"{'bit-identical' if same_pools else 'DIFFER'}", flush=True)
+    if not (same and same_pools):
+        fail(f"the spec round through the CUDA graph differs from the eager round ({dt})")
+
+
+def teacher_forced_round(torch, paged_mod, pa, d_params, config, f, bf16_floor):
+    """A round's gamma + 1 draft decode steps, teacher-forced on the same
+    tokens from the same prefilled pools, through K1 and through the
+    plain ``paged_attention_reference``: bf16 logits within the phase-4
+    step's bf16 floor, float32 within SPEC_F32_RTOL of the largest."""
+    g, ps = SPEC["gamma"], f["page_size"]
+    lengths = [32, 100, 200, 300, 400, 500, 538, 1]
+    cover = -(-(max(lengths) + g + 1) // ps)
+    n_pages = len(lengths) * cover
+    gen = torch.Generator("cuda").manual_seed(9)
+    with torch.inference_mode():
+        pools = paged_mod.init_page_pools(config, n_pages, ps, "cuda")
+        tables = torch.arange(n_pages, dtype=torch.int32, device="cuda").reshape(
+            len(lengths), cover)
+        prompts = torch.randint(0, config.vocab_size, (len(lengths), cover * ps),
+                                generator=gen, device="cuda")
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        paged_mod.paged_prefill_chunk(d_params, pools, tables, prompts, lens, config,
+                                      start_page=0, cover_pages=cover, emit=False)
+        toks = torch.randint(0, config.vocab_size, (g + 1, len(lengths)), generator=gen,
+                             device="cuda")
+        ref_pools = (pools[0].clone(), pools[1].clone())
+
+        def kernel(q, kp, vp, t, ln, layer):
+            return pa.paged_attention(q, kp, vp, t, ln, layer=layer,
+                                      window=config.attention_window)
+
+        def plain(q, kp, vp, t, ln, layer):
+            return pa.paged_attention_reference(q, kp, vp, t, ln, layer=layer,
+                                                window=config.attention_window)
+
+        def steps(p, attention_fn):
+            return torch.stack([
+                paged_mod._decode_core(d_params, p, tables, toks[i], lens.long() + i, config,
+                                       attention_fn)[0] for i in range(g + 1)])
+
+        got, want = steps(pools, kernel), steps(ref_pools, plain)
+        torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    rms = (got - want).square().mean().sqrt().item()
+    dt = str(config.dtype).split(".")[1]
+    if not torch.isfinite(got).all():
+        fail(f"teacher-forced draft round ({dt}): non-finite logits")
+    if bf16_floor is None:
+        limit = SPEC_F32_RTOL * scale
+        print(f"  teacher-forced round, {g + 1} int8-draft steps through K1 vs plain, "
+              f"float32, rows to {max(lengths)} positions: max {err:.4e} (limit {limit:.4e} = "
+              f"{SPEC_F32_RTOL} x max |logit| {scale:.4e})", flush=True)
+        if not err <= limit:
+            fail("float32 draft steps through K1 disagree with the plain route")
+    else:
+        print(f"  teacher-forced round, {g + 1} int8-draft steps through K1 vs plain, "
+              f"bfloat16, rows to {max(lengths)} positions: max {err:.4e} rms {rms:.4e} "
+              f"(limit: phase 4's bf16 step floor max {bf16_floor:.4e})", flush=True)
+        if not err <= bf16_floor:
+            fail("bfloat16 draft steps through K1 differ from the plain route by more than "
+                 "the bf16 step floor")
+
+
+def profile_round(torch, paged_mod, pa, params, draft, config, f, base, dequantize,
+                  is_quantized):
+    """One graphed engine round under the profiler (K1 counted against
+    the trace's count), then the round's three phase probes (draft,
+    verify, commit) each profiled eagerly from the same state, device ms
+    and idle share; and the dequantization's share of the draft phase:
+    its device time with the int8 draft against the same draft with
+    every weight dequantized first."""
+    import numpy as np
+    from workloads_torch.serve import ServeEngine
+
+    g = SPEC["gamma"]
+    engine = ServeEngine(params, config, **base, draft_params=draft, draft_config=config,
+                         gamma=g)
+    rng = np.random.default_rng(4)
+    for _ in range(f["slots"]):
+        engine.submit(rng.integers(0, config.vocab_size, f["decode_prompt"]), 128)
+    engine.step()
+    engine.step()  # a first round replayed: captured outside the window
+    before = pa.paged_attention.launches
+    _, wall, busy, by_name = profiled(torch, engine.step, "spec_round")
+    counted = pa.paged_attention.launches - before
+    traced = sum(len(v) for n, v in by_name.items() if "paged_decode_kernel" in n)
+    want = (g + 1) * engine.draft_config.n_layers
+    print(f"  profiled spec round (CUDA graph replay, {f['slots']} rows): wall {wall:.3f} ms, "
+          f"device kernels {busy:.3f} ms, idle share {1 - busy / wall:.3f}; K1 counted "
+          f"{counted}, in the trace {traced}, (gamma+1) x draft layers {want}", flush=True)
+    if counted != traced or counted != want:
+        fail(f"K1 over the profiled round: counted {counted}, traced {traced}, wanted {want}")
+    # The probes start where the next round would: every row decoding.
+    for slot, req in engine._slot_req.items():
+        table = engine._extend_evicting(engine._seq_id(slot, req),
+                                        int(engine._positions[slot]) + g + 1)
+        engine._tables[slot, : len(table)] = table
+    tables, cur, pos = (engine._dev(engine._tables), engine._dev(engine._tokens),
+                        engine._dev(engine._positions))
+    cover = engine._spec_cover(int(engine._positions.max()) + g + 1)
+    deq = {"embed": draft["embed"], "unembed": dequantize(draft["unembed"], torch.float32),
+           "layers": [{n: (dequantize(w, config.dtype) if is_quantized(w) else w)
+                       for n, w in layer.items()} for layer in draft["layers"]]}
+    phases = {}
+    with torch.inference_mode():
+        (drafts, _, _), *times = profiled(torch, lambda: paged_mod.paged_spec_draft_phase(
+            draft, engine.d_pools, tables, cur, pos, config, g, cover), "spec_draft")
+        phases["draft"] = times
+        _, *deq_times = profiled(torch, lambda: paged_mod.paged_spec_draft_phase(
+            deq, engine.d_pools, tables, cur, pos, config, g, cover), "spec_draft_deq")
+        block = torch.cat([cur[:, None], drafts], dim=1)
+        (picks, _), *times = profiled(torch, lambda: paged_mod.paged_spec_verify_phase(
+            params, engine.pools, tables, block, pos, config, cover), "spec_verify")
+        phases["verify"] = times
+        _, *times = profiled(torch, lambda: paged_mod.spec_commit_phase(drafts, picks),
+                             "spec_commit")
+        phases["commit"] = times
+    engine.close()
+    for name, (wall, busy, _) in phases.items():
+        print(f"  phase probe {name} (eager, cover {cover}): wall {wall:.3f} ms, device "
+              f"kernels {busy:.3f} ms, idle share {1 - busy / wall:.3f}", flush=True)
+    d_busy, deq_busy = phases["draft"][1], deq_times[1]
+    print(f"  draft phase device time: int8 draft {d_busy:.3f} ms, dequantized-first draft "
+          f"{deq_busy:.3f} ms: the dequantization is {(d_busy - deq_busy) / d_busy:.3f} of "
+          f"the draft phase", flush=True)
+    top = sorted(phases["draft"][2].items(), key=lambda kv: -sum(kv[1]))[:8]
+    for name, durs in top:
+        print(f"    draft phase {sum(durs):9.3f} ms {len(durs):6d} launches  {name[:90]}",
+              flush=True)
+
+
+def spec_accept_on_card(torch, paged_mod):
+    """``_spec_accept`` with the card's generator passes the CPU
+    contract: 4000 draws, the first committed token's marginal within
+    0.06 total variation of p, every acceptance length seen."""
+    vocab, gamma, trials = 5, 2, 4000
+    q_dist = torch.tensor([0.70, 0.10, 0.10, 0.05, 0.05], device="cuda")
+    p_dist = torch.tensor([0.10, 0.40, 0.20, 0.20, 0.10], device="cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    drafts = torch.multinomial(q_dist.expand(trials * gamma, vocab), 1, replacement=True,
+                               generator=gen).reshape(trials, gamma)
+    committed, n = paged_mod._spec_accept(drafts, q_dist.expand(trials, gamma, vocab),
+                                          p_dist.expand(trials, gamma + 1, vocab), gen)
+    counts = torch.bincount(committed[:, 0], minlength=vocab).float().cpu() / trials
+    tv = (counts - p_dist.cpu()).abs().sum().item()
+    seen = sorted(set(n.cpu().tolist()))
+    print(f"  _spec_accept on the card: first-token marginal {counts.tolist()} against p "
+          f"{p_dist.cpu().tolist()}, total variation {tv:.4f} (limit 0.06), acceptance "
+          f"lengths seen {seen}", flush=True)
+    if not (tv < 0.06 and seen == [0, 1, 2]):
+        fail("_spec_accept's marginal on the card is not the target distribution")
+
+
 def kernel_counters(pa, fa) -> dict:
     """Every kernel wrapper of the port by its kernel's name; each counts
     its launches in ``.launches``."""
@@ -1673,6 +2146,14 @@ def main() -> int:
     print(f"  KV hierarchy phase: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{kv_launches}", flush=True)
 
+    # 4d. speculative decoding at the same width
+    phase("serving path: speculative decoding at full width")
+    t0 = time.perf_counter()
+    spec_launches = spec_phase(torch, params, config, f, counters, requests,
+                               drains["defaults"], floors["8 rows"])
+    print(f"  speculative decoding phase: {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{spec_launches}; card: {card}", flush=True)
+
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
     phase("numbers")
@@ -1776,9 +2257,10 @@ def main() -> int:
         "route": "cuda",
         "source": "workloads_torch/ops/csrc/paged_attention.cu",
         "replaces": "workloads/ops/paged_attention.py:56",
-        "launches": launches + lifecycle_launches + kv_launches,
+        "launches": launches + lifecycle_launches + kv_launches + spec_launches,
         "lifecycle_launches": lifecycle_launches,
         "kv_launches": kv_launches,
+        "spec_launches": spec_launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -880,3 +880,183 @@ def test_card_kv_runs_equal_the_cpu_engine(cuda, scenario, mode):
     # last row's chunks are every scenario's.
     chunks = int(runs["cuda"][1][-1, KV_COUNTERS.index("chunks_run")])
     assert launches == config.n_layers * 4 * chunks
+
+
+# ---- speculative decoding on the card -------------------------------------
+
+def _spec_engine(dtype, device="cuda", slots=3, **kw):
+    from workloads_torch.quant import quantize_params
+
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
+    params = tmodel.cast_params(init_params(config, torch.Generator().manual_seed(0)), dtype)
+    params = _on(params, device)
+    return ServeEngine(params, config, slots=slots, page_size=4, prompt_bucket=8, chunk=4,
+                       draft_params=quantize_params(params), draft_config=config, gamma=3,
+                       device=device, **kw)
+
+
+@pytest.mark.parametrize("sampling", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_spec_graph_round_equals_the_eager_round_at_two_covers(cuda, dtype, sampling):
+    """One spec round through its captured graph and through
+    ``paged.spec_chained_round`` eagerly from the same state (pools,
+    inputs, generator), at two cover buckets: committed tokens, n, the
+    carry and both pool pairs bit-identical (the trash page, which
+    duplicate writes share, aside); K1's count moves (gamma+1) x layers
+    a replay."""
+    from workloads_torch.paged import spec_chained_round
+
+    engine = _spec_engine(dtype, temperature=0.8 if sampling else 0.0,
+                          top_k=40 if sampling else 0,
+                          generator=torch.Generator("cuda").manual_seed(7))
+    for i, n in enumerate((3, 11, 6)):
+        engine.submit([(5 * i + j) % 256 for j in range(n)], 20)
+    engine._admit()
+    u = engine.gamma + 1
+    for slot, req in engine._slot_req.items():
+        table = engine._extend_evicting(engine._seq_id(slot, req),
+                                        int(engine._positions[slot]) + u)
+        engine._tables[slot, : len(table)] = table
+    narrow = engine._spec_cover(int(engine._positions.max()) + u)
+    covers = (narrow, min(engine.max_pages, narrow + 4))
+    assert covers[0] < covers[1]
+    tables, cur, pos, occ = (engine._dev(engine._tables), engine._dev(engine._tokens),
+                             engine._dev(engine._positions), engine._dev(engine._occupied))
+    budget = torch.full_like(pos, 50, dtype=torch.int32)
+    eos = torch.full_like(budget, -1)
+    pools = (*engine.pools, *engine.d_pools)
+    graph = engine._spec_graph
+    for cover in covers:
+        graph.capture(cover)  # its warm-up writes the trash page: before the state is kept
+        saved = [p.clone() for p in pools]
+        state = engine.generator.get_state()
+        before = pa.paged_attention.launches
+        got = [t.clone() for t in graph.run(tables, cur, pos, occ, budget, eos, 1, cover)]
+        torch.cuda.synchronize()
+        assert pa.paged_attention.launches - before == u * engine.draft_config.n_layers
+        got_pools = [p.clone() for p in pools]
+        for p, s in zip(pools, saved):
+            p.copy_(s)
+        engine.generator.set_state(state)
+        with torch.inference_mode():
+            want = spec_chained_round(
+                engine.params, engine.draft_params, engine.pools, engine.d_pools, tables, cur,
+                pos, occ, budget, eos, engine.config, engine.draft_config, engine.gamma,
+                cover, sampling=sampling, generator=engine.generator,
+                temperature=engine.temperature, top_k=engine.top_k, top_p=engine.top_p)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0][0], want[0]) and torch.equal(got[1][0], want[1])
+        for g_, w in zip(got[3:], want[2:]):
+            assert torch.equal(g_, w)
+        for a, b in zip(got_pools, pools):
+            assert torch.equal(a[:, :-1], b[:, :-1])
+    assert graph.captures == 2 and graph.captures_by_cover == {c: 1 for c in covers}
+
+
+def test_int8_weight_on_the_card_equals_the_cpu(cuda):
+    """Quantization and the int8 read path on the card give the CPU's
+    bits: q8, scale, and ``weight`` in bf16 and float32."""
+    from workloads_torch.model import weight
+    from workloads_torch.quant import quantize
+
+    w = (0.02 * torch.randn((64, 3, 4, 16), generator=torch.Generator().manual_seed(1)))
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = quantize(w.to(dtype), 0)
+        card = quantize(w.to(dtype).cuda(), 0)
+        assert torch.equal(card["q8"].cpu(), cpu["q8"])
+        assert torch.equal(card["scale"].cpu(), cpu["scale"])
+        for out in (torch.bfloat16, torch.float32):
+            assert torch.equal(weight(card, out).cpu(), weight(cpu, out))
+
+
+def test_draft_spill_and_reload_equal_single_spills(cuda):
+    """With a draft model a 4-page gathered spill equals 4 single spills
+    bit for bit, draft halves included, in pinned tensors each blob owns;
+    a reload writes both halves back."""
+    from workloads_torch.paged import read_page
+
+    engine = _spec_engine(torch.bfloat16, prefix_cache=True, kv_offload=True)
+    g = torch.Generator("cuda").manual_seed(2)
+    for pool in (*engine.pools, *engine.d_pools):
+        pool.copy_(torch.randn(pool.shape, generator=g, device="cuda").to(pool.dtype))
+    pages = [5, 2, 9, 7]
+    gathered = engine._spill_pages(pages)
+    for p, blob in zip(pages, gathered):
+        one = engine._spill_page(p)
+        assert blob[1] is not None
+        for a, b in zip((*blob[0], *blob[1]), (*one[0], *one[1])):
+            assert a.is_pinned() and a._base is None and torch.equal(a, b)
+        for pools, half in ((engine.pools, blob[0]), (engine.d_pools, blob[1])):
+            k, v = read_page(pools, p)
+            assert torch.equal(half[0], k.cpu()) and torch.equal(half[1], v.cpu())
+    for blob in gathered:
+        dst = engine._reload_page(blob)
+        for pools, half in ((engine.pools, blob[0]), (engine.d_pools, blob[1])):
+            k, v = read_page(pools, dst)
+            assert torch.equal(k.cpu(), half[0]) and torch.equal(v.cpu(), half[1])
+
+
+def test_pipelined_spec_carry_survives_the_next_replay(cuda):
+    """The pipelined spec superstep keeps its device carry for the next
+    dispatch; a replay overwrites the graph's buffers in place, so the
+    carry is a copy: another replay leaves it as it was."""
+    engine = _spec_engine(torch.float32, spec_superstep_k=2, pipelined=True)
+    for i in range(3):
+        engine.submit([7 + i, 3, 9], 30)
+    engine.step()
+    engine.step()
+    assert engine._pending_spec is not None and engine._spec_chained is not None
+    kept = [t.clone() for t in engine._spec_chained]
+    graph = engine._spec_graph
+    for buf in (graph.cur, graph.pos, graph.live, graph.budget):
+        assert all(t.data_ptr() != buf.data_ptr() for t in engine._spec_chained)
+    trash = torch.full_like(graph.tables, engine.ctrl.trash)
+    zeros = torch.zeros_like(graph.pos)
+    off = torch.zeros_like(graph.live)
+    graph.run(trash, zeros, zeros, off, graph.budget.clone(), graph.eos.clone(), 1,
+              next(iter(graph.graphs)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(engine._spec_chained, kept))
+    served = engine.run()
+    assert all(len(t) == 30 for t in served.values())
+    assert engine.ctrl.used_pages == 0
+
+
+@pytest.mark.parametrize("mode", [{}, {"pipelined": True}, {"spec_lookahead": 2, "pipelined": True},
+                                  {"spec_superstep_k": 3}, {"spec_superstep_k": 2, "pipelined": True},
+                                  {"spec": "auto", "spec_breakeven": 1.0}],
+                         ids=["on", "piped", "la2-piped", "ss3", "ss2-piped", "auto"])
+def test_card_spec_streams_equal_the_cpu_engine(cuda, mode):
+    """float32: the spec engine on the card (graph replays per cover,
+    pinned uploads and readbacks) emits the CPU engine's greedy streams
+    with the same rounds and rejections; K1 launched (gamma+1) x layers
+    a round and n_layers a plain decode step."""
+    requests = [([(3 * i + j) % 256 for j in range(n)], new)
+                for i, (n, new) in enumerate(((3, 17), (19, 9), (11, 24), (1, 5), (26, 12)))]
+    out = {}
+    for device in ("cpu", "cuda"):
+        engine = _spec_engine(torch.float32, device=device, slots=2, **mode)
+        rids = [engine.submit(p, n) for p, n in requests]
+        before = pa.paged_attention.launches
+        served = engine.run()
+        out[device] = ([served[r] for r in rids], engine.spec_rounds,
+                       engine.spec_tokens_rejected, engine.chunks_run)
+        assert engine.ctrl.used_pages == 0
+    assert out["cuda"] == out["cpu"]
+    rounds, chunks = out["cuda"][1], out["cuda"][3]
+    assert pa.paged_attention.launches - before == 2 * (4 * rounds + 4 * chunks)
+
+
+def test_auto_sampling_captures_both_graphs_on_one_generator(cuda):
+    """spec="auto" with sampling: the decode graph and the spec graph both
+    capture and draw from the engine's one generator; every request gets
+    its budget and the pool drains."""
+    engine = _spec_engine(torch.bfloat16, slots=2, spec="auto", spec_breakeven=1.0,
+                          temperature=0.8, top_k=40,
+                          generator=torch.Generator("cuda").manual_seed(3))
+    rids = [engine.submit([4 + i, 8, 15], 14 + 3 * i) for i in range(3)]
+    served = engine.run()
+    assert [len(served[r]) for r in rids] == [14, 17, 20]
+    assert engine._graph.captures == 1 and engine._spec_graph.captures >= 1
+    assert engine.spec_mode_steps > 0 and engine.plain_mode_steps > 0
+    assert engine.ctrl.used_pages == 0

@@ -36,6 +36,13 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert not offenders, offenders
 
 
+def test_speculation_modules_are_scanned():
+    """The scan reaches the speculation slice's modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", "quant.py"),
+            os.path.join("workloads_torch", "speculative.py")} <= scanned
+
+
 def test_scan_catches_forbidden_lines():
     """The scan itself: it flags the JAX package and jax, not the port."""
     flagged = [
@@ -65,6 +72,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         "    importlib.import_module(name)",
         "assert sys.modules['jax'] is None and sys.modules['workloads'] is None",
         "assert sys.modules['ml_dtypes'] is None",
+        "assert {'workloads_torch.quant', 'workloads_torch.speculative'} <= set(names)",
         "print(len(names))",
     ])
     env = dict(os.environ)
@@ -72,4 +80,4 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 14  # chip_smoke + every port module
+    assert int(proc.stdout.strip()) >= 16  # chip_smoke + every port module

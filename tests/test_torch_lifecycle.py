@@ -431,11 +431,12 @@ def test_retry_backoff_doubles_until_a_good_readback(params):
 
 def test_injector_seams_are_exactly_the_seams_the_port_crosses():
     """Every seam the port's serve.py crosses is an engine seam of the
-    copied injector, and every engine seam but speculation's is crossed."""
+    copied injector, and every engine seam is crossed (speculation's
+    since it was ported)."""
     src = open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "workloads_torch", "serve.py"), encoding="utf-8").read()
     crossed = set(re.findall(r'_maybe_fault\("([a-z_]+)"\)', src))
-    assert crossed == set(ENGINE_SEAMS) - {"spec_dispatch", "spec_readback"}
+    assert crossed == set(ENGINE_SEAMS)
 
 
 def test_injected_fault_carries_seam_and_crossing():
@@ -775,6 +776,6 @@ def test_cli_lifecycle_flags_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "pages in use after drain: 0" in out
     assert "statuses={'ok': 6} quarantined_steps=2" in out
-    for bad in ("spec_dispatch:1", "decode_dispatch", "replica_crash:1"):
+    for bad in ("spec_bogus:1", "decode_dispatch", "replica_crash:1"):
         with pytest.raises(SystemExit):
             main(["--device", "cpu", "--inject-fault", bad])

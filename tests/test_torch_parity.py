@@ -12,11 +12,13 @@ tests/test_torch_schedule.py (the engine's scheduling modes) against
 tests/test_torch_superstep_golden.npz, and tests/test_torch_lifecycle.py
 (the request lifecycle) against tests/test_torch_lifecycle_golden.npz,
 and tests/test_torch_kv_hierarchy.py (the KV-cache hierarchy) against
-tests/test_torch_kv_golden.npz;
+tests/test_torch_kv_golden.npz, and tests/test_torch_spec.py (speculative
+decoding) against tests/test_torch_spec_golden.npz;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the four fixtures from the JAX package.
+regenerates the five fixtures from the JAX package (``write_spec_goldens()``
+alone rewrites only the last).
 """
 
 from __future__ import annotations
@@ -80,6 +82,17 @@ from tests.test_torch_schedule import (  # noqa: E402
     schedule_requests,
     trace_engine,
 )
+from tests.test_torch_quant import QUANT_SHAPES, quant_inputs  # noqa: E402
+from tests.test_torch_spec import (  # noqa: E402
+    SPEC_CASE,
+    SPEC_GOLDEN,
+    UNIT_COVER,
+    UNIT_GAMMA,
+    port_engine_factory,
+    run_spec_scenario,
+    unit_inputs,
+)
+from tests.test_torch_spec import golden_runs as spec_golden_runs  # noqa: E402
 from tests.test_torch_superstep import (  # noqa: E402
     SS_CASES,
     SS_CASE_IDS,
@@ -100,7 +113,9 @@ from workloads import faults as jfaults  # noqa: E402
 from workloads import generate as jgen  # noqa: E402
 from workloads import model as jmodel  # noqa: E402
 from workloads import paged as jpaged  # noqa: E402
+from workloads import quant as jquant  # noqa: E402
 from workloads import serve as jserve  # noqa: E402
+from workloads import speculative as jspec  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
 from workloads_torch import convert  # noqa: E402
 from workloads_torch import durable as tdurable  # noqa: E402
@@ -477,6 +492,132 @@ def test_disk_pages_cross_between_the_tiers_live(tmp_path, name):
     assert tk.dtype == dtype and torch.equal(tk, k) and torch.equal(tv, v)
 
 
+def jax_spec_factory(tree_bf16: dict):
+    """``make_engine`` for the JAX engine at the spec case
+    (tests/test_torch_spec.py ``run_spec_scenario``)."""
+    from dataclasses import replace
+
+    config = jax_config(SPEC_CASE)
+    params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
+    both = jquant.quantize_params(params)
+    small = {"embed": params["embed"], "unembed": params["unembed"],
+             "layers": params["layers"][:1]}
+    trees = {"self8": (params, jquant.quantize_params(params), config),
+             "both8": (both, both, config),
+             "small": (params, small, replace(config, n_layers=1))}
+
+    def make(draft: str, **kw):
+        target, d_params, d_config = trees[draft]
+        return jserve.ServeEngine(target, config, draft_params=d_params,
+                                  draft_config=d_config, **kw)
+
+    return make
+
+
+def jax_spec_units(tree_bf16: dict, inp: dict) -> dict:
+    """The JAX package's rowwise block, spec round and batch-1
+    speculative decode on the unit inputs (tests/test_torch_spec.py
+    ``port_units``)."""
+    config = jax_config(SPEC_CASE)
+    params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
+    draft = jquant.quantize_params(params)
+
+    def pools(a, b):
+        return (jnp.asarray(inp[a]), jnp.asarray(inp[b]))
+
+    tables, pos = jnp.asarray(inp["tables"]), jnp.asarray(inp["positions"], jnp.int32)
+    out = {}
+    logits, (k, v) = jpaged._rowwise_block_core(
+        params, pools("pool0", "pool1"), tables[:, :UNIT_COVER],
+        jnp.asarray(inp["block"], jnp.int32), pos, config)
+    out["rowwise/logits"], out["rowwise/k"], out["rowwise/v"] = _np(logits), _np(k), _np(v)
+    committed, n, t_pools, d_pools = jpaged._spec_round_core(
+        params, draft, pools("pool0", "pool1"), pools("pool2", "pool3"), tables,
+        jnp.asarray(inp["cur"], jnp.int32), pos, t_config=config, d_config=config,
+        gamma=UNIT_GAMMA, cover_pages=UNIT_COVER)
+    out["round/committed"] = _np(committed).astype(np.int64)
+    out["round/n"] = _np(n).astype(np.int64)
+    for name, p in zip(("t_k", "t_v", "d_k", "d_v"), (*t_pools, *d_pools)):
+        out[f"round/{name}"] = _np(p)
+    toks, rounds = jspec.speculative_generate(
+        params, draft, jnp.asarray(inp["prompt"], jnp.int32), config, config, 12,
+        gamma=UNIT_GAMMA)
+    out["generate/tokens"] = _np(toks).astype(np.int64)
+    out["generate/rounds"] = np.asarray(rounds)
+    return {f"unit/{k}": v for k, v in out.items()}
+
+
+_SPEC_RUNS = spec_golden_runs()
+
+
+@pytest.mark.parametrize("key, mode, scenario", _SPEC_RUNS[::9],
+                         ids=[r[0] for r in _SPEC_RUNS[::9]])
+def test_spec_matches_jax_live(trees, key, mode, scenario):
+    """Every ninth frozen speculative run, live: the port's streams,
+    statuses, mode trace and per-step counters against the JAX
+    engine's."""
+    want = run_spec_scenario(jax_spec_factory(trees[SPEC_CASE[1]]), mode, scenario,
+                             injector_cls=jfaults.FaultInjector)
+    params = convert.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a).astype(np.float32), trees[SPEC_CASE[1]]),
+        device="cpu",
+    )
+    got = run_spec_scenario(port_engine_factory(params, tiny_config(SPEC_CASE)), mode,
+                            scenario)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, w, err_msg=key)
+
+
+def jax_quant_outputs(tree_bf16: dict) -> dict:
+    """The JAX package's quantize/dequantize bits on the quant inputs in
+    float32 and bf16, its int8 tree of the tiny GQA parameters, and
+    tree_bytes (tests/test_torch_quant.py ``port_quant``)."""
+    inp = quant_inputs()
+    out = {}
+
+    def bits(a):
+        a = np.asarray(a)
+        if a.dtype == np.int8:
+            return a
+        return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
+
+    for name, _, axis in QUANT_SHAPES:
+        for dt, jdt in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
+            entry = jquant.quantize(jnp.asarray(inp[name], jdt), axis)
+            out[f"quant/{name}/{dt}/q8"] = bits(entry["q8"])
+            out[f"quant/{name}/{dt}/scale"] = bits(entry["scale"])
+            out[f"quant/{name}/{dt}/deq"] = bits(jquant.dequantize(entry, jdt))
+    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), tree_bf16)
+    q = jquant.quantize_params(params)
+    out["quant/params/unembed/q8"] = bits(q["unembed"]["q8"])
+    out["quant/params/unembed/scale"] = bits(q["unembed"]["scale"])
+    for i, layer in enumerate(q["layers"]):
+        for k in jquant.CONTRACTION_AXES:
+            if k in layer:
+                out[f"quant/params/layers/{i}/{k}/q8"] = bits(layer[k]["q8"])
+                out[f"quant/params/layers/{i}/{k}/scale"] = bits(layer[k]["scale"])
+    out["quant/tree_bytes"] = np.asarray([jquant.tree_bytes(params), jquant.tree_bytes(q)],
+                                         np.int64)
+    return out
+
+
+def write_spec_goldens(path: str = SPEC_GOLDEN) -> None:
+    """Freeze the JAX engine's speculative scenarios (streams, statuses,
+    mode traces and per-step counters) and the unit outputs for
+    tests/test_torch_spec.py."""
+    tree = jax_params_bf16(SPEC_CASE[1])
+    arrays = jax_spec_units(tree, unit_inputs())
+    arrays.update(jax_quant_outputs(tree))
+    make = jax_spec_factory(tree)
+    for key, mode, scenario in spec_golden_runs():
+        tokens, counters, statuses, trace, _ = run_spec_scenario(
+            make, mode, scenario, injector_cls=jfaults.FaultInjector)
+        arrays.update({f"{key}/tokens": tokens, f"{key}/counters": counters,
+                       f"{key}/statuses": statuses, f"{key}/trace": trace})
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_kv_goldens(path: str = KV_GOLDEN) -> None:
     """Freeze the JAX engine's KV-hierarchy scenarios (streams, statuses
     and per-step counters) and two pages its disk tier wrote for
@@ -554,3 +695,4 @@ if __name__ == "__main__":
     write_superstep_goldens()
     write_lifecycle_goldens()
     write_kv_goldens()
+    write_spec_goldens()

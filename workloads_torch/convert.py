@@ -32,15 +32,25 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
+def _leaf(w, device):
+    """A tensor, or a quantized leaf (``{"q8": int8, "scale": float32}``,
+    ``quant.py``) as a dict of tensors, bit for bit."""
+    if isinstance(w, dict):
+        return {name: tensor_from_numpy(a, device) for name, a in w.items()}
+    return tensor_from_numpy(w, device)
+
+
 def params_from_jax(tree, device=None) -> dict:
     """The port's parameter dict from the JAX package's numpy tree, on
-    ``device`` (None means ``cuda``, ``resolve_device``)."""
+    ``device`` (None means ``cuda``, ``resolve_device``).  Quantized
+    leaves (the int8 tree of ``workloads.quant.quantize_params``), in a
+    layer or as ``unembed``, carry across as int8 and float32 tensors."""
     device = resolve_device(device)
     return {
         "embed": tensor_from_numpy(tree["embed"], device),
-        "unembed": tensor_from_numpy(tree["unembed"], device),
+        "unembed": _leaf(tree["unembed"], device),
         "layers": [
-            {name: tensor_from_numpy(w, device) for name, w in layer.items()}
+            {name: _leaf(w, device) for name, w in layer.items()}
             for layer in tree["layers"]
         ],
     }

@@ -23,6 +23,16 @@ under a graph is once, at capture; ``run`` adds what one captured step
 launched to ``paged_attention.launches`` at every replay instead, and
 the warm-up and capture leave the count as they found it.  CPU engines
 never build a ``DecodeGraph``: they run the eager functions.
+
+``SpecGraph`` does the same for speculative decoding: it captures ONE
+round of the chained-retirement superstep (``paged.spec_chained_round``:
+gamma + 1 draft decode steps through the paged-attention kernel, the
+target's rowwise verify block, and the greedy or sampling commit with
+the chained carry and the retirement masks) and replays it k times a
+dispatch, for the lookahead superstep (budget unbounded, no eos, so
+``live`` stays the occupancy) and the chained superstep alike.  The
+verify block's view is as wide as a static cover of table columns, so
+one graph is captured per cover on its first use.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from .ops.paged_attention import paged_attention
-from .paged import decode_superstep_step
+from .paged import decode_superstep_step, spec_chained_round
 
 
 class DecodeGraph:
@@ -140,3 +150,134 @@ class DecodeGraph:
             # The replay launched what one captured step launched.
             paged_attention.launches += self.k1_per_step
         return self.out[:, :steps], self.tok, self.pos, self.live, self.budget
+
+
+class SpecGraph:
+    """One speculative round over ``slots`` rows captured as a CUDA graph
+    per cover bucket and replayed up to ``max_rounds`` times a dispatch.
+    The graph holds the two parameter trees, both pool pairs (updated in
+    place, never rebound), ``generator`` (for ``sampling``) and its own
+    buffers: the inputs ``tables``, ``cur``, ``pos``, ``live``,
+    ``budget``, ``eos`` (overwritten with the carry at every replay) and
+    the outputs ``committed`` [max_rounds, slots, gamma+1], ``n`` and
+    ``round_live`` [max_rounds, slots], row ``i`` from round ``i``.  A
+    capture that raises leaves that cover's graph absent (the next
+    ``run`` captures afresh); ``captures`` counts completed captures, by
+    cover in ``captures_by_cover``."""
+
+    def __init__(
+        self, t_params: dict, d_params: dict, t_pools, d_pools, t_config, d_config, *,
+        gamma: int, slots: int, max_pages: int, max_rounds: int,
+        generator: torch.Generator | None, temperature: float, top_k: int, top_p: float,
+        sampling: bool,
+    ):
+        device = t_pools[0].device
+        self.t_params, self.d_params = t_params, d_params
+        self.t_pools, self.d_pools = t_pools, d_pools
+        self.t_config, self.d_config = t_config, d_config
+        self.gamma = gamma
+        self.generator = generator if sampling else None
+        self.sampling = sampling
+        self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
+        self.max_rounds = max_rounds
+        with torch.inference_mode():
+            self.tables = torch.empty((slots, max_pages), dtype=torch.int32, device=device)
+            self.cur = torch.zeros(slots, dtype=torch.long, device=device)
+            self.pos = torch.zeros(slots, dtype=torch.long, device=device)
+            self.live = torch.zeros(slots, dtype=torch.bool, device=device)
+            self.budget = torch.zeros(slots, dtype=torch.int32, device=device)
+            self.eos = torch.full((slots,), -1, dtype=torch.int32, device=device)
+            self.committed = torch.zeros((max_rounds, slots, gamma + 1), dtype=torch.long,
+                                         device=device)
+            self.n = torch.zeros((max_rounds, slots), dtype=torch.long, device=device)
+            self.round_live = torch.zeros((max_rounds, slots), dtype=torch.bool,
+                                          device=device)
+            self.row = torch.zeros(1, dtype=torch.long, device=device)
+        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.captures = 0
+        self.captures_by_cover: dict[int, int] = {}
+        self.k1_per_round = 0  # paged_attention launches in one captured round
+
+    def _round(self, cover: int) -> None:
+        """The captured round: one chained round from the buffers, its
+        outputs into row ``row`` of the output buffers, its carry back
+        into the input buffers."""
+        self.round_live.index_copy_(0, self.row, self.live[None])
+        committed, n, cur, pos, live, budget = spec_chained_round(
+            self.t_params, self.d_params, self.t_pools, self.d_pools, self.tables,
+            self.cur, self.pos, self.live, self.budget, self.eos, self.t_config,
+            self.d_config, self.gamma, cover, sampling=self.sampling,
+            generator=self.generator, temperature=self.temperature, top_k=self.top_k,
+            top_p=self.top_p,
+        )
+        self.committed.index_copy_(0, self.row, committed[None])
+        self.n.index_copy_(0, self.row, n[None])
+        self.row.add_(1)
+        self.cur.copy_(cur)
+        self.pos.copy_(pos)
+        self.live.copy_(live)
+        self.budget.copy_(budget)
+
+    @torch.inference_mode()
+    def capture(self, cover: int) -> None:
+        """Warm up on a side stream, then capture one round at ``cover``
+        on it.  The warm-up runs every row parked at position 0 on the
+        trash page; the generator's state and the launch count come back
+        as they were.  If anything raises, no graph is kept for
+        ``cover`` and the count and the generator come back too."""
+        device = self.cur.device
+        trash = self.t_pools[0].shape[1] - 1
+        self.tables.fill_(trash)
+        self.live.fill_(False)
+        self.pos.zero_()
+        launches = paged_attention.launches
+        rng_state = self.generator.get_state() if self.generator is not None else None
+        try:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self.row.zero_()
+                    self._round(cover)
+            torch.cuda.current_stream(device).wait_stream(side)
+            torch.cuda.synchronize(device)
+            self.row.zero_()
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                self.generator.set_state(rng_state)
+                graph.register_generator_state(self.generator)
+            before = paged_attention.launches
+            with torch.cuda.graph(graph, stream=side):
+                self._round(cover)
+            self.k1_per_round = paged_attention.launches - before
+        finally:
+            paged_attention.launches = launches
+            if self.generator is not None:
+                self.generator.set_state(rng_state)
+        self.graphs[cover] = graph
+        self.captures += 1
+        self.captures_by_cover[cover] = self.captures_by_cover.get(cover, 0) + 1
+
+    @torch.inference_mode()
+    def run(self, tables, cur, pos, live, budget, eos, rounds: int, cover: int):
+        """``rounds`` chained rounds from these inputs (device tensors),
+        as replays of the round captured at ``cover``.  Returns
+        (committed [rounds, slots, gamma+1], n [rounds, slots],
+        round_live [rounds, slots], cur, pos, live, budget): views of the
+        graph's buffers, which the next ``run`` overwrites; read or copy
+        them before it."""
+        if not 1 <= rounds <= self.max_rounds:
+            raise ValueError(f"rounds must be in [1, {self.max_rounds}], got {rounds}")
+        if cover not in self.graphs:
+            self.capture(cover)
+        graph = self.graphs[cover]
+        for buf, src in ((self.tables, tables), (self.cur, cur), (self.pos, pos),
+                         (self.live, live), (self.budget, budget), (self.eos, eos)):
+            buf.copy_(src)
+        self.row.zero_()
+        for _ in range(rounds):
+            graph.replay()
+            # The replay launched what one captured round launched.
+            paged_attention.launches += self.k1_per_round
+        return (self.committed[:rounds], self.n[:rounds], self.round_live[:rounds],
+                self.cur, self.pos, self.live, self.budget)

@@ -13,8 +13,8 @@ masked core that the serving engine's prefill runs, and ``flash``
 (``ops.attention.flash_attention``, the CUDA kernels K2-K4 on the
 card), which ``_attention`` takes for long sequences exactly where the
 JAX package does.  ``loss_fn`` is the training loss
-(``workloads_torch.train``).  The int8 weight representation comes
-with a later slice.
+(``workloads_torch.train``).  ``weight`` reads a leaf in either
+representation: a tensor, or the int8 serving dict of ``quant.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 import torch.utils.checkpoint
 
 from .ops import kernel_select
+from .quant import dequantize, is_quantized
 
 
 @dataclass(frozen=True)
@@ -163,17 +164,20 @@ def masked_attention(
     heads//kv_heads query heads reads one shared k/v head.  As in the JAX
     package the scale is sqrt(head_dim) in the input dtype, applied
     before the float32 softmax."""
-    scale = torch.tensor(float(head_dim) ** 0.5, dtype=q.dtype)
+    # Made on q's device by a fill (no host copy, so the speculative
+    # round's verify can be captured in a CUDA graph), and divided as a
+    # tensor: a true division, as the JAX package's.
+    scale = torch.full((), float(head_dim) ** 0.5, dtype=q.dtype, device=q.device)
     heads, kv_heads = q.shape[2], k.shape[2]
     if heads == kv_heads:
-        logits = torch.einsum("bshk,bthk->bhst", q, k) / scale.to(q.device)
+        logits = torch.einsum("bshk,bthk->bhst", q, k) / scale
         logits = torch.where(mask, logits.float(), -1e30)
         weights = torch.softmax(logits, dim=-1).to(q.dtype)
         return torch.einsum("bhst,bthk->bshk", weights, v)
     group = heads // kv_heads
     batch, s_q = q.shape[:2]
     qg = q.reshape(batch, s_q, kv_heads, group, head_dim)
-    logits = torch.einsum("bsngk,btnk->bngst", qg, k) / scale.to(q.device)
+    logits = torch.einsum("bsngk,btnk->bngst", qg, k) / scale
     if mask.ndim >= 4 and mask.shape[1] == heads:
         maskg = mask.reshape(mask.shape[0], kv_heads, group, *mask.shape[2:])
     else:
@@ -185,13 +189,11 @@ def masked_attention(
 
 
 def weight(entry, dtype: torch.dtype) -> torch.Tensor:
-    """A weight leaf in compute dtype.  bf16 and f32 leaves only: the
-    int8 serving representation is not ported yet."""
-    if not isinstance(entry, torch.Tensor):
-        raise TypeError(
-            f"weight leaves must be tensors (int8 quantized weights are "
-            f"not supported by the port yet), got {type(entry).__name__}"
-        )
+    """A weight leaf in compute dtype, dequantizing the int8 serving
+    representation (``quant.py``): ``q8.to(dtype) * scale.to(dtype)``,
+    a materialised copy at every read."""
+    if is_quantized(entry):
+        return dequantize(entry, dtype)
     return entry.to(dtype)
 
 

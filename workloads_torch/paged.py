@@ -34,11 +34,12 @@ from dataclasses import dataclass, field
 import torch
 
 from . import resolve_device
-from .generate import decode_block, sample_logits
+from .generate import decode_block, filter_logits, sample_logits
 from .model import (
     ModelConfig,
     _mlp,
     _rmsnorm,
+    masked_attention,
     project_qkv,
     rope_angles,
     weight,
@@ -1370,3 +1371,434 @@ def paged_prefill_chunk(
     _scatter_view(k_pages, view[:, 0], t_write, page_size, start_page)
     _scatter_view(v_pages, view[:, 1], t_write, page_size, start_page)
     return logits, pools
+
+
+# ---- speculative decoding over the paged caches --------------------------
+#
+# A round is three phases: DRAFT (gamma + 1 draft decode steps through
+# _decode_core, and so through the paged-attention kernel), VERIFY (one
+# rowwise block forward of the target over a gathered view, dense
+# masked attention) and COMMIT (each row's accepted prefix plus the
+# target's correction).  The JAX package runs rounds and supersteps as
+# jitted scans; here they are loops, and on the card the engine replays
+# one captured round (``decode_graph.SpecGraph``).
+
+
+def _rowwise_block_core(
+    params: dict,
+    pools: tuple[torch.Tensor, torch.Tensor],
+    tables: torch.Tensor,
+    block: torch.Tensor,
+    positions: torch.Tensor,
+    config: ModelConfig,
+):
+    """``s`` consecutive tokens PER ROW at per-row start positions through
+    the paged pools in one forward, the paged, batched counterpart of
+    ``generate.decode_block`` (speculative verification: rows at
+    different depths each score a block in one target forward).
+
+    block: [batch, s] at positions ``positions[b] .. +s-1``; returns
+    (logits [batch, s, vocab] float32, where logits[:, i] predicts the
+    token after position positions[b]+i, pools updated in place).  Each
+    row's table-mapped pages are gathered into a dense view, the layers
+    run with per-row rotary angles and per-row causal (and window)
+    masks, the block's k/v go into the view at per-row offsets in one
+    indexed write, and the view's real pages are scattered back (columns
+    past each row's post-block coverage go to the trash page).  The
+    offsets are clamped to keep the block inside the view, as JAX's
+    ``dynamic_update_slice`` clamps them.  Callers bound the table width
+    to the pages live (a cover), so the gather is O(cover)."""
+    k_pages, v_pages = pools
+    batch, s = block.shape
+    device = block.device
+    page_size = k_pages.shape[3]
+    trash = k_pages.shape[1] - 1
+    T = tables.shape[1] * page_size
+    positions = positions.long()
+    t_cov = _redirect_padding(tables, positions + s, page_size, trash)
+    view_k = _gather_view(k_pages, t_cov, page_size)  # [L, b, T, Hkv, hd]
+    view_v = _gather_view(v_pages, t_cov, page_size)
+
+    offs = torch.arange(s, device=device)
+    pos_grid = positions[:, None] + offs[None, :]  # [b, s]
+    angles = rope_angles(pos_grid.reshape(-1), config.head_dim).reshape(batch, s, -1)
+    k_pos = torch.arange(T, device=device)[None, None, :]
+    row_pos = pos_grid[:, :, None]
+    mask = k_pos <= row_pos
+    if config.attention_window is not None:
+        mask &= k_pos > row_pos - config.attention_window
+    mask = mask[:, None]  # [b, 1, s, T]
+    rows = torch.arange(batch, device=device)[:, None].expand(batch, s)
+    cols = positions.clamp(0, max(T - s, 0))[:, None] + offs[None, :]
+
+    x = params["embed"].to(config.dtype)[block.long()]  # [b, s, d]
+    for i, layer in enumerate(params["layers"]):
+        h = _rmsnorm(x, layer["ln1"])
+        q, k, v = project_qkv(h, layer)
+        q, k = _rope_rows(q, angles), _rope_rows(k, angles)
+        view_k[i, rows, cols] = k.to(view_k.dtype)
+        view_v[i, rows, cols] = v.to(view_v.dtype)
+        attn = masked_attention(q, view_k[i], view_v[i], mask, config.head_dim)
+        x = x + torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
+        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
+    logits = x.float() @ weight(params["unembed"], torch.float32)
+    _scatter_view(k_pages, view_k, t_cov, page_size)
+    _scatter_view(v_pages, view_v, t_cov, page_size)
+    return logits, pools
+
+
+def _spec_accept(
+    drafts: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+    generator: torch.Generator,
+):
+    """Batched speculative REJECTION SAMPLING, the lossless acceptance
+    rule: drafts [b, gamma] were drawn from the draft distributions
+    q [b, gamma, vocab]; p [b, gamma+1, vocab] are the target's at the
+    same positions and the bonus one.  Per row, draft i is accepted with
+    probability min(1, p_i(x_i)/q_i(x_i)); at the first rejection n a
+    correction is drawn from normalize(max(p_n - q_n, 0)); with all gamma
+    accepted, a bonus token from p_gamma.  The committed tokens are then
+    distributed exactly as sequential sampling from p, whatever q is.
+
+    Two draws from ``generator``, in this order: the uniforms, then the
+    correction.  Returns (committed [b, gamma+1], n [b]): row b's new
+    tokens are committed[b, :n[b]+1]."""
+    batch, gamma = drafts.shape
+    row = torch.arange(batch, device=drafts.device)
+    idx = drafts.long()[..., None]
+    p_x = torch.gather(p[:, :gamma], -1, idx)[..., 0]
+    q_x = torch.gather(q, -1, idx)[..., 0]
+    u = torch.rand((batch, gamma), generator=generator, device=drafts.device)
+    # u*q < p  <=>  u < p/q (q_x > 0: x was drawn from q); no divide.
+    accept = u * q_x < p_x
+    n = torch.argmin(
+        torch.cat([accept, torch.zeros((batch, 1), dtype=torch.bool, device=drafts.device)],
+                  dim=1).to(torch.uint8),
+        dim=1,
+    )
+    # The residual at each row's own n; at n == gamma (all accepted) q
+    # is taken as 0, so the residual is p_gamma itself.
+    q_pad = torch.cat([q, torch.zeros_like(q[:, :1])], dim=1)
+    p_n = p[row, n]
+    resid = torch.clamp_min(p_n - q_pad[row, n], 0.0)
+    norm = resid.sum(dim=-1, keepdim=True)
+    # A degenerate residual (p <= q everywhere, or float cancellation)
+    # falls back to p_n: under exact arithmetic it has probability 0.
+    dist = torch.where(norm > 1e-9, resid / torch.clamp_min(norm, 1e-9), p_n)
+    corr = torch.multinomial(dist, 1, generator=generator)[:, 0]
+    committed = torch.cat(
+        [drafts.long(), torch.zeros((batch, 1), dtype=torch.long, device=drafts.device)],
+        dim=1,
+    )
+    committed[row, n] = corr
+    return committed, n
+
+
+def _greedy_commit(drafts: torch.Tensor, picks: torch.Tensor):
+    """Greedy agreement: each row's longest prefix with
+    drafts[j] == picks[j], then the target's pick at that row's own n
+    (the correction, or the bonus token after a fully agreeing block).
+    Returns (committed [b, gamma+1], n [b])."""
+    batch = drafts.shape[0]
+    row = torch.arange(batch, device=drafts.device)
+    agree = drafts == picks[:, :-1]
+    n = torch.argmin(
+        torch.cat([agree, torch.zeros((batch, 1), dtype=torch.bool, device=drafts.device)],
+                  dim=1).to(torch.uint8),
+        dim=1,
+    )
+    committed = torch.cat(
+        [drafts.long(), torch.zeros((batch, 1), dtype=torch.long, device=drafts.device)],
+        dim=1,
+    )
+    committed[row, n] = picks[row, n].long()
+    return committed, n
+
+
+def _draft_steps(d_params, d_pools, tables, cur, positions, d_config, gamma,
+                 attention_fn=None, sampling=False, generator=None,
+                 temperature=0.0, top_k=0, top_p=1.0):
+    """The draft phase: gamma + 1 draft decode steps from ``cur`` at
+    per-row ``positions`` (step i at positions + i, so the kernel's page
+    walk sees each step's own length); the extra step writes the final
+    proposal's k/v, so a fully accepted round leaves no hole in the
+    draft cache.  Sampling proposes from the draft's filtered
+    distribution (the target's knobs) and keeps it for the rejection
+    rule.  Returns (drafts [b, gamma], last [b], q [b, gamma, vocab] or
+    None)."""
+    tok, proposals, qs = cur.long(), [], []
+    for i in range(gamma + 1):
+        logits, _ = _decode_core(d_params, d_pools, tables, tok, positions + i, d_config,
+                                 attention_fn)
+        if sampling:
+            f = filter_logits(logits, temperature, top_k, top_p)
+            probs = torch.softmax(f, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            qs.append(probs)
+        else:
+            tok = torch.argmax(logits, dim=-1)
+        proposals.append(tok)
+    drafts = torch.stack(proposals[:gamma], dim=1)
+    q = torch.stack(qs[:gamma], dim=1) if sampling else None
+    return drafts, proposals[-1], q
+
+
+def _spec_round_core(
+    t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
+    gamma, cover_pages=None, d_attention_fn=None, occupancy=None, sampling=False,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0, pin_parked=True,
+):
+    """One batched speculative round: the draft proposes ``gamma`` tokens
+    a row, the target scores every row's block [cur, d_1..d_gamma] in one
+    rowwise forward, and each row commits its own accepted prefix plus
+    the correction (greedy agreement, or ``_spec_accept`` under
+    ``sampling``, which draws from ``generator``: the draft's proposals,
+    then the uniforms, then the correction).  Both pool pairs update in
+    place.  ``cover_pages`` slices the tables to the columns live.
+
+    With ``occupancy`` it also returns the chained next-round state
+    (new_cur, new_pos): occupied rows advance by their own n + 1, the
+    rest pass through.  Parked rows' positions pin to 0, inside any
+    cover, unless ``pin_parked=False``: the chained-retirement superstep
+    keeps a frozen row at its real position, since position 0 would aim
+    its dead writes at first pages the prefix cache or a fan-out group
+    may share; its caller keeps every parked position inside the
+    cover-sliced table.  Returns (committed [b, gamma+1], n [b]) or
+    (committed, n, new_cur, new_pos)."""
+    if sampling and generator is None:
+        raise ValueError("sampling speculative round requires a torch.Generator")
+    batch = cur.shape[0]
+    if cover_pages is not None:
+        tables = tables[:, :cover_pages].contiguous()  # the kernel takes it contiguous
+    positions = positions.long()
+    if occupancy is not None and pin_parked:
+        positions = torch.where(occupancy, positions, 0)
+    drafts, _, q = _draft_steps(
+        d_params, d_pools, tables, cur, positions, d_config, gamma, d_attention_fn,
+        sampling, generator, temperature, top_k, top_p,
+    )
+    block = torch.cat([cur.long()[:, None], drafts], dim=1)
+    t_logits, _ = _rowwise_block_core(t_params, t_pools, tables, block, positions, t_config)
+    if sampling:
+        p = torch.softmax(filter_logits(t_logits, temperature, top_k, top_p), dim=-1)
+        committed, n = _spec_accept(drafts, q, p, generator)
+    else:
+        committed, n = _greedy_commit(drafts, torch.argmax(t_logits, dim=-1))
+    if occupancy is None:
+        return committed, n
+    row = torch.arange(batch, device=cur.device)
+    new_cur = torch.where(occupancy, committed[row, n], cur.long())
+    new_pos = torch.where(occupancy, positions + n + 1, positions)
+    return committed, n, new_cur, new_pos
+
+
+@torch.inference_mode()
+def paged_spec_round(
+    t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
+    gamma, cover_pages=None, sampling=False, generator=None, temperature=0.0, top_k=0,
+    top_p=1.0,
+):
+    """One batched speculative round over the paged caches.  cur: [batch]
+    the latest committed token a row, at positions[b]; tables must cover
+    positions + gamma + 1.  Returns (committed [batch, gamma+1], n
+    [batch], t_pools, d_pools), the pools updated in place: row b's new
+    tokens are committed[b, :n[b]+1] and its position advances by
+    n[b]+1.  Rejected drafts' k/v stay as stale slots: every mask admits
+    positions only up to each row's committed length, and later rounds
+    overwrite them first.  ``sampling`` switches greedy agreement for
+    lossless speculative sampling (``_spec_accept``) under
+    temperature/top_k/top_p, drawing from ``generator``."""
+    committed, n = _spec_round_core(
+        t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
+        gamma, cover_pages, sampling=sampling, generator=generator,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+    )
+    return committed, n, t_pools, d_pools
+
+
+@torch.inference_mode()
+def paged_spec_round_chained(
+    t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
+    d_config, gamma, cover_pages=None, sampling=False, generator=None, temperature=0.0,
+    top_k=0, top_p=1.0,
+):
+    """``paged_spec_round`` with the chained next-round state on the
+    device: returns (committed, n, new_cur, new_pos, t_pools, d_pools),
+    so the next round can start before this one's tokens reach the host.
+    Parked rows (occupancy False) are reset, not frozen: their position
+    pins to 0 and comes back 0, their token passes through; a caller
+    re-admitting a row injects its host-side (cur, pos)."""
+    out = _spec_round_core(
+        t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
+        gamma, cover_pages, occupancy=occupancy, sampling=sampling, generator=generator,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+    )
+    return (*out, t_pools, d_pools)
+
+
+def _spec_superstep_core(
+    t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
+    d_config, gamma, k, cover_pages=None, d_attention_fn=None, sampling=False,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0,
+):
+    """``k`` chained rounds (``paged_spec_round_chained``'s body in a
+    loop); returns (committed [k, b, gamma+1], n [k, b], new_cur,
+    new_pos)."""
+    if sampling and generator is None:
+        raise ValueError("sampling speculative superstep requires a torch.Generator")
+    committed, ns = [], []
+    cur, pos = cur.long(), positions.long()
+    for _ in range(k):
+        c, n, cur, pos = _spec_round_core(
+            t_params, d_params, t_pools, d_pools, tables, cur, pos, t_config, d_config,
+            gamma, cover_pages, d_attention_fn, occupancy=occupancy, sampling=sampling,
+            generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+        )
+        committed.append(c)
+        ns.append(n)
+    return torch.stack(committed), torch.stack(ns), cur, pos
+
+
+@torch.inference_mode()
+def paged_spec_superstep(
+    t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
+    d_config, gamma, k, cover_pages=None, sampling=False, generator=None,
+    temperature=0.0, top_k=0, top_p=1.0,
+):
+    """``k`` chained speculative rounds in one dispatch (lookahead): the
+    host leaves the loop for k rounds.  Tables must already cover
+    positions + k*(gamma+1) for occupied rows; rows that retire mid-way
+    compute dead rounds to the end (the consumer stops emitting at
+    eos/max_new).  Returns (committed [k, batch, gamma+1], n [k, batch],
+    new_cur, new_pos, t_pools, d_pools), per round in execution order
+    and the state after round k."""
+    out = _spec_superstep_core(
+        t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy,
+        t_config, d_config, gamma, k, cover_pages, sampling=sampling,
+        generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+    )
+    return (*out, t_pools, d_pools)
+
+
+def spec_retire(committed, n, live, budget, eos):
+    """The engine's emission rule (``ServeEngine._emit``) as device data,
+    after one round: a committed token is seen iff it sits at index
+    <= n and inside the remaining ``budget``, and a live row retires iff
+    a seen token is its ``eos`` or the round exhausted its budget.
+    Returns (new_live, new_budget)."""
+    idx = torch.arange(committed.shape[1], device=committed.device)[None, :]
+    seen = (idx <= n[:, None]) & (idx < budget[:, None])
+    hit_eos = (seen & (committed == eos[:, None])).any(dim=1)
+    new_budget = torch.where(live, budget - (n + 1).to(budget.dtype), budget)
+    new_live = live & ~hit_eos & (new_budget > 0)
+    return new_live, new_budget
+
+
+def spec_chained_round(
+    t_params, d_params, t_pools, d_pools, tables, cur, pos, live, budget, eos, t_config,
+    d_config, gamma, cover_pages=None, d_attention_fn=None, sampling=False,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0,
+):
+    """One round of the chained-retirement superstep (and the round
+    ``decode_graph.SpecGraph`` captures): the round with ``live`` as its
+    occupancy and frozen rows kept at their position, then the emission
+    rule.  Returns (committed, n, new_cur, new_pos, new_live,
+    new_budget)."""
+    committed, n, new_cur, new_pos = _spec_round_core(
+        t_params, d_params, t_pools, d_pools, tables, cur, pos, t_config, d_config, gamma,
+        cover_pages, d_attention_fn, occupancy=live, sampling=sampling,
+        generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+        pin_parked=False,
+    )
+    new_live, new_budget = spec_retire(committed, n, live, budget, eos)
+    return committed, n, new_cur, new_pos, new_live, new_budget
+
+
+def _spec_superstep_chained_core(
+    t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
+    budget, eos, t_config, d_config, gamma, k, cover_pages=None, d_attention_fn=None,
+    sampling=False, generator=None, temperature=0.0, top_k=0, top_p=1.0,
+):
+    """``paged_spec_superstep_chained``'s body.  Empty slots (occupancy
+    False: all-trash tables) pin to position 0 once at entry; rows that
+    freeze mid-way keep their real position (see ``_spec_round_core``'s
+    ``pin_parked``).  Entry positions of occupied rows are inside the
+    cover by the engine's pre-extension, and frozen positions never
+    grow."""
+    pos = torch.where(occupancy, positions.long(), 0)
+    live = live & occupancy
+    cur, budget = cur.long(), budget.clone()
+    committed, ns, lives = [], [], []
+    for _ in range(k):
+        lives.append(live)
+        c, n, cur, pos, live, budget = spec_chained_round(
+            t_params, d_params, t_pools, d_pools, tables, cur, pos, live, budget, eos,
+            t_config, d_config, gamma, cover_pages, d_attention_fn, sampling, generator,
+            temperature, top_k, top_p,
+        )
+        committed.append(c)
+        ns.append(n)
+    return (torch.stack(committed), torch.stack(ns), torch.stack(lives), cur, pos, live,
+            budget)
+
+
+@torch.inference_mode()
+def paged_spec_superstep_chained(
+    t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
+    budget, eos, t_config, d_config, gamma, k, cover_pages=None, sampling=False,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0,
+):
+    """``k`` chained draft -> verify -> commit rounds in one dispatch with
+    device-side acceptance masks and retirement: per round the engine's
+    emission rule (``spec_retire``) flips a row's ``live`` mask the round
+    its terminal token lands, freezing its token and position (its dead
+    rounds write only its own overwritable slots or trash, never
+    position 0, where shared pages live).  budget/eos: [batch] (eos -1 =
+    none); draws come from ``generator`` in the order k rounds take
+    them.  Tables must cover min(positions + k*(gamma+1), positions +
+    budget + gamma + 1) for live rows.  Returns (committed [k, batch,
+    gamma+1], n [k, batch], round_live [k, batch] (the mask at each
+    round's entry, the host's emission gate), new_cur, new_pos, new_live,
+    new_budget, t_pools, d_pools)."""
+    out = _spec_superstep_chained_core(
+        t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
+        budget, eos, t_config, d_config, gamma, k, cover_pages, sampling=sampling,
+        generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+    )
+    return (*out, t_pools, d_pools)
+
+
+# Per-phase probes: each phase of a round on its own, operation for
+# operation as the fused round runs it, so a round's device time can be
+# split into draft, verify and commit.
+
+
+@torch.inference_mode()
+def paged_spec_draft_phase(d_params, d_pools, tables, cur, positions, d_config, gamma,
+                           cover_pages=None):
+    """Only the draft phase: gamma + 1 draft decode steps from ``cur``.
+    Returns (drafts [batch, gamma], last [batch], d_pools)."""
+    if cover_pages is not None:
+        tables = tables[:, :cover_pages].contiguous()  # the kernel takes it contiguous
+    drafts, last, _ = _draft_steps(d_params, d_pools, tables, cur, positions.long(),
+                                   d_config, gamma)
+    return drafts, last, d_pools
+
+
+@torch.inference_mode()
+def paged_spec_verify_phase(t_params, t_pools, tables, block, positions, t_config,
+                            cover_pages=None):
+    """Only the verify phase: one rowwise block forward of ``block``
+    [batch, gamma+1] through the target.  Returns (picks [batch,
+    gamma+1], t_pools)."""
+    if cover_pages is not None:
+        tables = tables[:, :cover_pages].contiguous()  # the kernel takes it contiguous
+    t_logits, _ = _rowwise_block_core(t_params, t_pools, tables, block, positions, t_config)
+    return torch.argmax(t_logits, dim=-1), t_pools
+
+
+@torch.inference_mode()
+def spec_commit_phase(drafts, picks):
+    """Only the commit phase: greedy agreement, the fused round's ops.
+    Returns (committed [batch, gamma+1], n [batch])."""
+    return _greedy_commit(drafts, picks)

@@ -54,8 +54,22 @@ samples; ``export_kv``/``import_kv`` hand a prompt's pages to another
 engine.  A spill is one gathered copy into pinned host tensors that the
 host waits for (so it waits for any superstep in flight); a reload is an
 in-place ``write_page`` queued on the engine's stream ahead of the
-prefill that reads it.  Speculation, adapters and the fleet are not
-ported yet.
+prefill that reads it.
+
+Speculative decoding, as in the JAX engine: with ``draft_params`` and
+``draft_config`` (for example the model's own int8 quantization,
+``quant.quantize_params``) every decode dispatch drafts ``gamma`` tokens
+a row, verifies every row's block in one target forward and commits each
+row's accepted prefix (``paged.paged_spec_superstep``; greedy
+agreement, or lossless rejection sampling under ``temperature``);
+``spec_lookahead`` reads k rounds back at once, ``spec_superstep_k``
+runs k rounds a dispatch with acceptance and retirement on the device
+and turns the step around, and ``spec="auto"`` picks speculative or
+plain decode each step from the occupancy against ``spec_breakeven``.
+The draft has its own pools under the same page tables, so prefix hits,
+spills, reloads, fan-out and handoffs carry both models' pages.  On the
+card each round is a replay of ``decode_graph.SpecGraph``.  Adapters and
+the fleet are not ported yet.
 
 Run on the card with ``python -m workloads_torch.serve``; pass
 ``--device cpu`` for the plain PyTorch path on the CPU.
@@ -73,7 +87,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .decode_graph import DecodeGraph
+from .decode_graph import DecodeGraph, SpecGraph
 from .errors import EngineClosed, InvalidRequest, QueueFull, RequestTooLarge
 from .generate import sample_logits
 from .model import ModelConfig, cast_params, init_params
@@ -87,9 +101,12 @@ from .paged import (
     paged_decode_superstep,
     paged_prefill,
     paged_prefill_chunk,
+    paged_spec_superstep,
+    paged_spec_superstep_chained,
     read_pages,
     write_page,
 )
+from .quant import quantize_params
 
 # tpu_device_plugin.api.constants.UNHEALTHY, the health state a
 # HealthEvent carries for a failed chip; copied, so that the engine does
@@ -159,25 +176,33 @@ class Request:
 
 
 class _Readback:
-    """Decoded tokens on their way to the host.  From the card they are
-    copied into pinned memory behind an event as soon as they are
-    dispatched (before anything later can overwrite their buffer), so
-    the host blocks only when it reads them."""
+    """Decoded tensors on their way to the host.  From the card they are
+    copied into pinned memory behind one event as soon as they are
+    dispatched (before anything later, such as a graph replay, can
+    overwrite their buffers), so the host blocks only when it reads
+    them."""
 
-    def __init__(self, toks: torch.Tensor):
+    def __init__(self, *tensors: torch.Tensor):
         self.event = None
-        if toks.is_cuda:
-            self.host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-            self.host.copy_(toks, non_blocking=True)
+        if tensors[0].is_cuda:
+            self.hosts = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self.hosts.append(h)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.host = toks
+            self.hosts = list(tensors)
+        self.host = self.hosts[0]
 
-    def numpy(self) -> np.ndarray:
+    def arrays(self) -> tuple[np.ndarray, ...]:
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return tuple(h.numpy() for h in self.hosts)
+
+    def numpy(self) -> np.ndarray:
+        return self.arrays()[0]
 
 
 class ServeEngine:
@@ -211,6 +236,15 @@ class ServeEngine:
         superstep_k: int = 1,
         batched_admission: bool = True,
         prefill_budget: int | None = None,
+        mode_trace_limit: int | None = 256,
+        draft_params: dict | None = None,
+        draft_config: ModelConfig | None = None,
+        gamma: int = 4,
+        spec_lookahead: int = 1,
+        spec_superstep_k: int = 1,
+        spec: str = "on",
+        spec_breakeven: float | None = None,
+        spec_calibration: dict | None = None,
         prefix_cache: bool | str = False,
         kv_offload: bool = False,
         kv_host_pages: int | None = None,
@@ -240,8 +274,66 @@ class ServeEngine:
                 f"prefill_budget must be >= 1 token/step or None "
                 f"(unbudgeted), got {prefill_budget}"
             )
+        if mode_trace_limit is not None and mode_trace_limit < 1:
+            raise ValueError(
+                f"mode_trace_limit must be >= 1 or None (unbounded), got "
+                f"{mode_trace_limit}"
+            )
+        if (draft_params is None) != (draft_config is None):
+            raise ValueError(
+                "draft_params and draft_config come together (speculative "
+                "serving needs both)"
+            )
+        if draft_params is not None:
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError("target and draft must share a vocabulary")
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+        if spec_lookahead < 1:
+            raise ValueError(f"spec_lookahead must be >= 1, got {spec_lookahead}")
         if superstep_k < 1:
             raise ValueError(f"superstep_k must be >= 1, got {superstep_k}")
+        if spec_superstep_k < 1:
+            raise ValueError(f"spec_superstep_k must be >= 1, got {spec_superstep_k}")
+        if spec_lookahead > 1 and draft_params is None:
+            raise ValueError(
+                "spec_lookahead > 1 is a speculative-serving mode; pass "
+                "draft_params/draft_config"
+            )
+        if spec_superstep_k > 1 and draft_params is None:
+            raise ValueError(
+                "spec_superstep_k > 1 is a speculative-serving mode; pass "
+                "draft_params/draft_config"
+            )
+        if spec_superstep_k > 1 and spec_lookahead > 1:
+            raise ValueError(
+                "spec_superstep_k and spec_lookahead both chain rounds "
+                "per dispatch; spec_superstep_k (device-side retirement) "
+                "supersedes spec_lookahead — use one, not both"
+            )
+        if spec not in ("on", "auto"):
+            raise ValueError(f'spec must be "on" or "auto", got {spec!r}')
+        if spec == "auto" and draft_params is None:
+            raise ValueError(
+                'spec="auto" chooses between the plain and speculative '
+                "decode programs per step; pass draft_params/draft_config"
+            )
+        if spec_breakeven is not None and spec != "auto":
+            raise ValueError(
+                'spec_breakeven is the spec="auto" occupancy threshold; '
+                'it has no effect with spec="on"'
+            )
+        if spec_calibration is not None:
+            if spec != "auto":
+                raise ValueError(
+                    'spec_calibration injects the spec="auto" break-even '
+                    'calibration; it has no effect with spec="on"'
+                )
+            if "threshold" not in spec_calibration:
+                raise ValueError(
+                    "spec_calibration must carry the calibrated "
+                    '"threshold" (the _calibrate_breakeven dict shape)'
+                )
         if prefix_cache not in (False, True, "radix", "flat"):
             raise ValueError(
                 f'prefix_cache must be False, True/"radix", or "flat", '
@@ -283,7 +375,14 @@ class ServeEngine:
                 f"params live on {params['embed'].device}, the engine runs "
                 f"on {self.device}: move them first"
             )
+        if draft_params is not None and draft_params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"draft params live on {draft_params['embed'].device}, the "
+                f"engine runs on {self.device}: move them first"
+            )
         self.params, self.config = params, config
+        self.draft_params, self.draft_config = draft_params, draft_config
+        self.gamma = gamma
         self.page_size = page_size
         self.chunk = chunk or page_size
         self.prompt_bucket = prompt_bucket or min(
@@ -305,6 +404,30 @@ class ServeEngine:
         # never above: the overshoot, max_pages, every commitment and the
         # graph's max_steps are sized from it.
         self._superstep_k_max = superstep_k
+        # Speculation: ``spec_lookahead`` rounds a dispatch read back
+        # together, or ``spec_superstep_k`` rounds a dispatch with
+        # acceptance and retirement on the device and the step turned
+        # around as the plain superstep's.  ``spec="auto"`` keeps both
+        # decode programs and picks per step from the live occupancy
+        # against ``spec_breakeven`` (calibrated at the first decode step
+        # when None, or adopted from ``spec_calibration``).
+        self.spec_lookahead = spec_lookahead
+        self.spec_superstep_k = spec_superstep_k
+        self._spec_superstep_k_max = spec_superstep_k
+        self.spec = spec
+        self.spec_breakeven = spec_breakeven
+        self.spec_calibration: dict | None = None
+        self._injected_calibration = (
+            dict(spec_calibration) if spec_calibration is not None else None
+        )
+        self.calibration_reused = 0
+        # Auto-mode telemetry: decode dispatches by mode, switches, and a
+        # bounded (occupancy, mode) trace (``drain_mode_trace``).
+        self.spec_mode_steps = 0
+        self.plain_mode_steps = 0
+        self.mode_switches = 0
+        self._last_mode: str | None = None
+        self.decode_mode_trace: deque = deque(maxlen=mode_trace_limit)
         self.retunes = 0
         self.batched_admission = batched_admission
         # With a budget (tokens a step) each step dispatches at most
@@ -318,8 +441,13 @@ class ServeEngine:
         # k chunks, and pipelined stepping sees retirement one dispatch
         # later still, so tables and the position range cover that far
         # past it; chunked prefill also needs bucket-aligned page
-        # coverage.
-        self._overshoot = self.chunk * superstep_k * (2 if pipelined else 1)
+        # coverage.  A speculative dispatch commits up to gamma + 1 tokens
+        # a round.
+        self._overshoot = max(
+            self.chunk * superstep_k * (2 if pipelined else 1),
+            ((gamma + 1) * max(spec_lookahead, spec_superstep_k) * (2 if pipelined else 1))
+            if draft_params is not None else 0,
+        )
         bucket_pages = self.prompt_bucket // page_size
         prefill_cover = -(-config.max_seq_len // self.prompt_bucket) * bucket_pages
         self.max_pages = max(
@@ -329,6 +457,13 @@ class ServeEngine:
         n_pages = n_pages if n_pages is not None else slots * self.max_pages
         self.ctrl = PagePool(n_pages=n_pages, page_size=page_size)
         self.pools = init_page_pools(config, n_pages, page_size, self.device)
+        # The draft model's own pools under the same control plane: the
+        # same page indices and tables, so one allocator serves both
+        # caches, and a cached or spilled page holds both models' k/v.
+        self.d_pools = (
+            init_page_pools(draft_config, n_pages, page_size, self.device)
+            if draft_params is not None else None
+        )
         # Cross-request prefix caching: cached pages hold the bytes the
         # prefill would write, so streams are the same cache off, flat
         # and radix; a drained engine keeps its cached pages pinned until
@@ -408,6 +543,11 @@ class ServeEngine:
         # device-side (tok, pos, live, budget) carry the next one chains on.
         self._pending_super: deque = deque()
         self._super_chained: tuple | None = None
+        # Speculative dispatches not consumed (at most one) and the
+        # device-side carry a pipelined one chains on: (cur, pos), or
+        # (cur, pos, live, budget) for a chained superstep.
+        self._pending_spec = None
+        self._spec_chained: tuple | None = None
         # On the card: the decode step as a CUDA graph, replayed per step.
         self._graph = None
         if self.device.type == "cuda":
@@ -420,6 +560,17 @@ class ServeEngine:
             self._unbounded = (
                 torch.full((slots,), _UNBOUNDED, dtype=torch.int32, device=self.device),
                 torch.full((slots,), -1, dtype=torch.int32, device=self.device),
+            )
+        # The speculative round as a CUDA graph, captured per cover bucket
+        # on first use and replayed k times a dispatch.
+        self._spec_graph = None
+        if self.device.type == "cuda" and draft_params is not None:
+            self._spec_graph = SpecGraph(
+                params, draft_params, self.pools, self.d_pools, config, draft_config,
+                gamma=gamma, slots=slots, max_pages=self.max_pages,
+                max_rounds=max(spec_lookahead, spec_superstep_k),
+                generator=self.generator, temperature=self.temperature,
+                top_k=self.top_k, top_p=self.top_p, sampling=self.sampling,
             )
         # Telemetry.
         self.chunks_run = 0
@@ -434,6 +585,12 @@ class ServeEngine:
         self.prefill_dispatches = 0  # prefill program calls
         self.prefill_deferred_tokens = 0  # prompt tokens the budget parked
         self.admission_readbacks = 0  # first-token host reads
+        self.spec_rounds = 0
+        self.spec_supersteps_run = 0  # chained spec supersteps dispatched
+        # Drafts proposed to live rows (gamma a row-round) and those the
+        # verify pass rejected (gamma - accepted).
+        self.spec_drafts_proposed = 0
+        self.spec_tokens_rejected = 0
         self.requests_admitted = 0
         self.requests_retired = 0
         self.requests_failed = 0
@@ -652,36 +809,41 @@ class ServeEngine:
 
     def _spill_pages(self, pages: list[int]) -> list:
         """Copy ``pages`` out of the pools in one gather a pool, into host
-        tensors each blob owns (a page's k and v, ``[L, Hkv, ps, hd]``),
-        and wait for the copy: the disk tier, ``export_kv`` and
-        ``flush_kv_to_disk`` read a blob's bytes on the host.  On the card
-        the gathered pages go to pinned tensors from the caching host
-        allocator behind one event, so the wait covers whatever the
-        stream runs ahead of the gather (a superstep in flight).  Returns
-        ``((k, v), None)`` blobs in page order; the draft half stays None
-        (no draft model is ported)."""
+        tensors each blob owns (a page's k and v, ``[L, Hkv, ps, hd]``,
+        and with a draft model the draft pools' k and v), and wait for the
+        copy: the disk tier, ``export_kv`` and ``flush_kv_to_disk`` read a
+        blob's bytes on the host.  On the card the gathered pages go to
+        pinned tensors from the caching host allocator behind one event
+        for both halves, so the wait covers whatever the stream runs
+        ahead of the gather (a superstep in flight).  Returns
+        ``((k, v), draft)`` blobs in page order, ``draft`` a ``(k, v)``
+        pair or None without a draft model."""
         if not pages:
             return []
         t0 = time.perf_counter()
-        gathered = read_pages(self.pools, list(pages))  # ([L, n, ...], [L, n, ...])
+        halves = [read_pages(self.pools, list(pages))]  # ([L, n, ...], [L, n, ...])
+        if self.d_pools is not None:
+            halves.append(read_pages(self.d_pools, list(pages)))
         if self.device.type == "cpu":
-            blobs = [((gathered[0][:, i].clone(), gathered[1][:, i].clone()), None)
-                     for i in range(len(pages))]
+            per_page = [[(g[0][:, i].clone(), g[1][:, i].clone()) for g in halves]
+                        for i in range(len(pages))]
         else:
             # Page-major on the device, so each page is one contiguous copy.
-            major = [g.transpose(0, 1).contiguous() for g in gathered]
-            blobs = []
+            majors = [[g.transpose(0, 1).contiguous() for g in half] for half in halves]
+            per_page = []
             for i in range(len(pages)):
-                host = tuple(
-                    torch.empty(m.shape[1:], dtype=m.dtype, pin_memory=True)
-                    for m in major
-                )
-                for h, m in zip(host, major):
-                    h.copy_(m[i], non_blocking=True)
-                blobs.append((host, None))
+                page = []
+                for major in majors:
+                    host = tuple(torch.empty(m.shape[1:], dtype=m.dtype, pin_memory=True)
+                                 for m in major)
+                    for h, m in zip(host, major):
+                        h.copy_(m[i], non_blocking=True)
+                    page.append(host)
+                per_page.append(page)
             done = torch.cuda.Event()
             done.record()
             done.synchronize()
+        blobs = [(page[0], page[1] if len(page) > 1 else None) for page in per_page]
         self._kv_spill_base_s += time.perf_counter() - t0
         return blobs
 
@@ -701,8 +863,10 @@ class ServeEngine:
             return None
         t0 = time.perf_counter()
         page = self.ctrl.take_page()
-        (k, v), _ = blob
+        (k, v), draft = blob
         write_page(self.pools, k, v, page)
+        if self.d_pools is not None and draft is not None:
+            write_page(self.d_pools, draft[0], draft[1], page)
         self._kv_reload_base_s += time.perf_counter() - t0
         return page
 
@@ -829,6 +993,8 @@ class ServeEngine:
         self._chained_tok = None
         self._pending_super.clear()
         self._super_chained = None
+        self._pending_spec = None
+        self._spec_chained = None
         self._fresh_slots.clear()
         victims = [self._release_slot(slot) for slot in sorted(self._slot_req)]
         # Mid-prefill admissions drop too (their prefix-cache inserts are
@@ -1033,13 +1199,22 @@ class ServeEngine:
         """Would this engine's pools take the blob's bytes?  A blob from
         an engine of another shape (page size, kv heads, layers) must
         never graft: its reload would raise mid-admission, or fit and be
-        wrong."""
+        wrong.  The draft half must agree in presence too (a draft-less
+        blob in a speculating engine would leave stale draft bytes behind
+        the page) and in shape."""
         try:
             main, draft = blob
             k_pages = self.pools[0]
             # pool [L, n_pages + 1, Hkv, ps, hd]; blob k [L, Hkv, ps, hd]
             want = (k_pages.shape[0],) + tuple(k_pages.shape[2:])
-            return tuple(main[0].shape) == want and draft is None
+            if tuple(main[0].shape) != want:
+                return False
+            if (draft is None) != (self.d_pools is None):
+                return False
+            if draft is not None:
+                d_pages = self.d_pools[0]
+                return tuple(draft[0].shape) == (d_pages.shape[0],) + tuple(d_pages.shape[2:])
+            return True
         except Exception:  # noqa: BLE001 — an unreadable blob is incompatible
             return False
 
@@ -1201,8 +1376,25 @@ class ServeEngine:
         """Prefill one admission: one bucket-wide ``paged_prefill`` for a
         prompt that fits, page-aligned ``paged_prefill_chunk`` calls for a
         longer one.  ``start_page`` (a multiple of the bucket's pages)
-        skips the positions prefix-cache pages already hold.  Returns its
-        [1, vocab] next-token logits."""
+        skips the positions prefix-cache pages already hold.  With a
+        draft model its pools prefill the same remainder (same table,
+        its own pages; cached pages hold draft k/v from their first
+        prefill).  Returns the target's [1, vocab] next-token logits."""
+        self.prefills_run += 1
+        self.prefill_tokens += len(prompt) - start_page * self.page_size
+        logits = self._prefill_into(self.params, self.config, self.pools, table, prompt,
+                                    start_page, count=True)
+        if self.d_pools is not None:
+            self._prefill_into(self.draft_params, self.draft_config, self.d_pools, table,
+                               prompt, start_page)
+        return logits
+
+    def _prefill_into(
+        self, params, config, pools, table: torch.Tensor, prompt: list[int],
+        start_page: int = 0, count: bool = False,
+    ) -> torch.Tensor:
+        """``_run_prefill``'s dispatches into one model's pools; ``count``
+        counts them as the target's prefill dispatches."""
         n, B = len(prompt), self.prompt_bucket
         bp = B // self.page_size
         if start_page % bp:
@@ -1210,28 +1402,22 @@ class ServeEngine:
                 f"prefill start_page {start_page} must be a multiple of "
                 f"bucket pages {bp}"
             )
-        self.prefills_run += 1
-        self.prefill_tokens += n - start_page * self.page_size
         lengths = self._dev(np.asarray([n], np.int32))
         if start_page == 0 and n <= B:
-            self.prefill_dispatches += 1
+            self.prefill_dispatches += count
             tokens = np.zeros((1, B), np.int64)
             tokens[0, :n] = prompt
-            logits, _ = paged_prefill(
-                self.params, self.pools, table, self._dev(tokens), lengths,
-                self.config,
-            )
+            logits, _ = paged_prefill(params, pools, table, self._dev(tokens), lengths, config)
             return logits
         n_chunks = -(-n // B)
         for ci in range(start_page // bp, n_chunks):
-            self.prefill_dispatches += 1
+            self.prefill_dispatches += count
             tokens = np.zeros((1, B), np.int64)
             width = min(B, n - ci * B)
             tokens[0, :width] = prompt[ci * B : ci * B + width]
             logits, _ = paged_prefill_chunk(
-                self.params, self.pools, table, self._dev(tokens), lengths,
-                self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp,
-                emit=ci == n_chunks - 1,
+                params, pools, table, self._dev(tokens), lengths, config,
+                start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=ci == n_chunks - 1,
             )
         return logits
 
@@ -1287,6 +1473,13 @@ class ServeEngine:
             self._allocate_evicting(seq, n)
         return g, shared
 
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Duplicate one page in the target pools, and in the draft pools
+        with a draft model."""
+        copy_page(self.pools, src, dst)
+        if self.d_pools is not None:
+            copy_page(self.d_pools, src, dst)
+
     def _group_cleanup(self, gid: str) -> None:
         """Drop a group's bookkeeping: the retained tail page and the
         group's own table; the pages live on in the members' tables."""
@@ -1321,7 +1514,7 @@ class ServeEngine:
         else:
             logits = g["logits"]
             if n > shared:
-                copy_page(self.pools, g["tail_page"], self.ctrl.tables[seq][-1])
+                self._copy_page(g["tail_page"], self.ctrl.tables[seq][-1])
         self._group_member_done(g, req.group)
         return logits
 
@@ -1404,10 +1597,11 @@ class ServeEngine:
         lengths_dev, row_start, emitted: torch.Tensor,
     ) -> torch.Tensor:
         """ONE [slots, bucket] prefill chunk at chunk index ``ci`` for
-        ``rows``; a row's logits land in ``emitted`` from the chunk where
-        its prompt ends, and ``row_start`` sends the columns of its
-        cached prefix to the trash page.  The unbudgeted and the budgeted
-        sweep both dispatch through here."""
+        ``rows``, into the target pools and the draft pools; a row's
+        logits land in ``emitted`` from the chunk where its prompt ends,
+        and ``row_start`` sends the columns of its cached prefix to the
+        trash page.  The unbudgeted and the budgeted sweep both dispatch
+        through here."""
         B, bp = self.prompt_bucket, self.prompt_bucket // self.page_size
         start = ci * B
         chunk = np.zeros((self.slots, B), np.int64)
@@ -1415,14 +1609,23 @@ class ServeEngine:
             width = min(B, p["n"] - start)
             if width > 0:
                 chunk[p["slot"], :width] = p["prompt"][start : start + width]
+        chunk_dev = self._dev(chunk)
         logits, _ = paged_prefill_chunk(
-            self.params, self.pools, tables_dev, self._dev(chunk), lengths_dev,
+            self.params, self.pools, tables_dev, chunk_dev, lengths_dev,
             self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=True,
             row_start=row_start,
         )
         self.prefill_dispatches += 1
         emit_mask = (lengths > start) & (lengths <= start + B)
-        return torch.where(self._dev(emit_mask)[:, None], logits, emitted)
+        emitted = torch.where(self._dev(emit_mask)[:, None], logits, emitted)
+        if self.d_pools is not None:
+            # The draft pools run the same chunk (no logits).
+            paged_prefill_chunk(
+                self.draft_params, self.d_pools, tables_dev, chunk_dev, lengths_dev,
+                self.draft_config, start_page=ci * bp, cover_pages=(ci + 1) * bp,
+                emit=False, row_start=row_start,
+            )
+        return emitted
 
     def _sweep_prefill(self, plans: list[dict]) -> torch.Tensor | None:
         """Stack the planned rows that prefill into one ragged [slots,
@@ -1482,7 +1685,7 @@ class ServeEngine:
                 emitted[p["slot"]] = p["logits_from"]["logits"][0]
         for p in plans:
             if p["tail_copy"] is not None:
-                copy_page(self.pools, *p["tail_copy"])
+                self._copy_page(*p["tail_copy"])
         for p in plans:
             if p["group_done"] is not None:
                 self._group_cleanup(p["group_done"])
@@ -1567,6 +1770,13 @@ class ServeEngine:
                     read, snapshot = self._pending_read
                     self._pending_read = None
                     finished += self._consume_chunk(read, snapshot)
+                if self._pending_spec is not None and self.spec_superstep_k == 1:
+                    # A chained spec superstep (k > 1) in flight was
+                    # dispatched this step; reading it here would stall
+                    # the host behind it.
+                    read, snapshot = self._pending_spec
+                    self._pending_spec = None
+                    finished += self._consume_spec(read, snapshot)
                 if len(self._pending_super) > 1:
                     # The superstep loop admits with the newest superstep
                     # in flight; the previous one's readback overlaps the
@@ -1694,7 +1904,7 @@ class ServeEngine:
         # The decode paths accumulate into this alias, so retirements made
         # before a later seam fault still surface in this step's return.
         self._decode_finished: list[Request] = []
-        if self.superstep_k > 1:
+        if self.superstep_k > 1 or self.spec_superstep_k > 1:
             try:
                 return finished + self._step_superstep()
             except Exception as exc:  # noqa: BLE001 — recovery seam
@@ -1712,7 +1922,31 @@ class ServeEngine:
                 read, snapshot = self._pending_read
                 self._pending_read = None
                 finished += self._consume_chunk(read, snapshot)
+            if self._pending_spec is not None:
+                read, snapshot = self._pending_spec
+                self._pending_spec = None
+                finished += self._consume_spec(read, snapshot)
             return finished
+        use_spec = self._decide_spec()
+        if use_spec:
+            # Mode boundary (spec="auto"): a speculative dispatch starts
+            # from the host mirrors, so the plain chunk in flight is
+            # consumed first.
+            finished += self._drain_pending_plain()
+        else:
+            # And the other way; that drain can retire slots past the
+            # threshold, so decide again on the occupancy after it
+            # (drains only lower it: plain -> spec at most once).
+            finished += self._drain_pending_spec()
+            if self._occupied.any():
+                use_spec = self._decide_spec()
+                if use_spec:
+                    finished += self._drain_pending_plain()
+        if not self._occupied.any():
+            return finished  # the drains retired every slot
+        self._record_mode(use_spec)
+        if use_spec:
+            return finished + self._step_spec()
         self._cover_chunk()
         tok_in = self._dev(self._tokens)
         if self.pipelined and self._chained_tok is not None:
@@ -1796,19 +2030,63 @@ class ServeEngine:
         second lifecycle poll there acts on health events and deadlines
         while the device computes.  Under ``pipelined`` the newest
         superstep stays in flight, chained on the device, while the
-        previous one is consumed."""
+        previous one is consumed.
+
+        With a draft model the mode is decided on the boundary occupancy
+        (a switch drains the other mode's work in flight); a chained
+        spec superstep (``spec_superstep_k > 1``) is dispatched first
+        too, while with ``spec_superstep_k == 1`` the spec side admits
+        before its dispatch, as the step without supersteps does."""
         finished = self._decode_finished
-        dispatched = False
-        if self._occupied.any():
-            self._dispatch_superstep()
-            dispatched = True
+        dispatched: str | bool = False
+        if not self._occupied.any():
+            # Nothing to dispatch: consume what is still in flight.
+            if self._pending_read is not None:
+                read, snapshot = self._pending_read
+                self._pending_read = None
+                finished += self._consume_chunk(read, snapshot)
+            if self._pending_spec is not None:
+                read, snapshot = self._pending_spec
+                self._pending_spec = None
+                finished += self._consume_spec(read, snapshot)
+        else:
+            use_spec = self._decide_spec()
+            if use_spec:
+                finished += self._drain_pending_super()
+            else:
+                finished += self._drain_pending_spec()
+                if self._occupied.any():
+                    use_spec = self._decide_spec()
+                    if use_spec:
+                        finished += self._drain_pending_super()
+            if self._occupied.any():
+                self._record_mode(use_spec)
+                if use_spec:
+                    if self.spec_superstep_k > 1:
+                        finished += self._dispatch_spec_superstep()
+                        dispatched = "spec"
+                    else:
+                        finished += self._admit()
+                        if self._occupied.any():
+                            finished += self._step_spec()
+                        return finished
+                else:
+                    self._dispatch_superstep()
+                    dispatched = "plain"
         finished += self._admit()
         finished += self._poll_health()
         finished += self._expire_deadlines()
-        keep = 1 if (self.pipelined and dispatched) else 0
+        keep = 1 if (self.pipelined and dispatched == "plain") else 0
         while len(self._pending_super) > keep:
             read, snapshot = self._pending_super.popleft()
             finished += self._consume_superstep(read, snapshot)
+        # The spec superstep's readback: pipelined keeps the newest in
+        # flight (its predecessor was consumed at dispatch); a lifecycle
+        # poll above may have drained it already.
+        if not (self.pipelined and dispatched == "spec") and self._pending_spec is not None:
+            read, snapshot = self._pending_spec
+            self._pending_spec = None
+            finished += self._consume_spec(read, snapshot)
         return finished
 
     def _dispatch_superstep(self) -> None:
@@ -1895,6 +2173,370 @@ class ServeEngine:
                 finished.append(self._retire(slot))
         return finished
 
+    # ---- speculative decoding --------------------------------------------
+
+    def _decide_spec(self) -> bool:
+        """The decode mode at the current occupancy: ``spec="on"`` always
+        speculates; ``spec="auto"`` speculates while the live occupancy
+        is at or below the break-even threshold (below it a step is bound
+        by the weight stream, which a round's one verify saves; above it
+        the verify's compute, rows x (gamma+1), eats the saving).  Streams
+        are the same either way (both modes emit the target's tokens), so
+        the choice is economics only.  ``step`` records the mode it
+        dispatches (``_record_mode``)."""
+        if self.draft_params is None:
+            return False
+        if self.spec == "on":
+            return True
+        if self.spec_breakeven is None:
+            self.spec_breakeven = self._calibrate_breakeven()
+        return int(self._occupied.sum()) <= self.spec_breakeven
+
+    def _record_mode(self, use_spec: bool) -> None:
+        """Auto-mode telemetry for a decode dispatch that runs (steps the
+        drains emptied never get here)."""
+        if self.spec != "auto":
+            return
+        occ = int(self._occupied.sum())
+        mode = "spec" if use_spec else "plain"
+        if self._last_mode is not None and mode != self._last_mode:
+            self.mode_switches += 1
+        self._last_mode = mode
+        self.decode_mode_trace.append((occ, mode))
+        if use_spec:
+            self.spec_mode_steps += 1
+        else:
+            self.plain_mode_steps += 1
+
+    def drain_mode_trace(self) -> list[tuple[int, str]]:
+        """Hand back (and clear) the (occupancy, mode) decode trace."""
+        out = list(self.decode_mode_trace)
+        self.decode_mode_trace.clear()
+        return out
+
+    def _spec_cover(self, last_position: int) -> int:
+        """The verify view's static width for rows that reach
+        ``last_position``: its pages rounded up to a multiple of 4 (a
+        bounded set of covers, one captured graph each), capped at
+        ``max_pages``."""
+        need = -(-last_position // self.page_size)
+        return min(self.max_pages, -(-need // 4) * 4)
+
+    def _run_spec_lookahead(self, tables, cur, pos, occ, k: int, cover: int,
+                            generator=None):
+        """``k`` lookahead rounds (``paged_spec_superstep``) for the rows
+        ``occ`` marks; on the card as ``k`` replays of the captured round
+        (budget unbounded, no eos: ``live`` stays ``occ``).  Returns
+        (committed [k, slots, gamma+1], n [k, slots], new_cur, new_pos),
+        the carry copied out of the graph's buffers."""
+        if self._spec_graph is None:
+            committed, n, new_cur, new_pos, _, _ = paged_spec_superstep(
+                self.params, self.draft_params, self.pools, self.d_pools, tables, cur, pos,
+                occ, self.config, self.draft_config, self.gamma, k, cover,
+                sampling=self.sampling, generator=generator if generator is not None else self.generator,
+                temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
+            )
+            return committed, n, new_cur, new_pos
+        committed, n, _, new_cur, new_pos, _, _ = self._spec_graph.run(
+            tables, cur, torch.where(occ, pos, 0), occ, *self._unbounded, k, cover
+        )
+        return committed, n, new_cur.clone(), new_pos.clone()
+
+    def _run_spec_chained(self, tables, cur, pos, occ, live, budget, eos, k: int,
+                          cover: int, generator=None):
+        """``k`` chained-retirement rounds
+        (``paged_spec_superstep_chained``); on the card as ``k`` replays
+        of the captured round, empty slots pinned to position 0 at entry.
+        Returns (committed, n, round_live, new_cur, new_pos, new_live,
+        new_budget), the carry copied out of the graph's buffers."""
+        if self._spec_graph is None:
+            out = paged_spec_superstep_chained(
+                self.params, self.draft_params, self.pools, self.d_pools, tables, cur, pos,
+                occ, live, budget, eos, self.config, self.draft_config, self.gamma, k,
+                cover, sampling=self.sampling, generator=generator if generator is not None else self.generator,
+                temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
+            )
+            return out[:7]
+        committed, n, round_live, *carry = self._spec_graph.run(
+            tables, cur, torch.where(occ, pos, 0), live & occ, budget, eos, k, cover
+        )
+        return (committed, n, round_live, *(c.clone() for c in carry))
+
+    def _calibrate_breakeven(self) -> float:
+        """The start-up calibration of ``spec="auto"`` when no threshold
+        was given: time a few DEAD dispatches of each decode program
+        (every row parked on trash tables, so no request state moves; a
+        dead dispatch costs what a live one does) and compare tokens a
+        second at this engine's shape.  The verdict is binary: threshold
+        ``slots`` (always speculate) or 0 (never).  The spec side assumes
+        an acceptance of 0.75 of gamma, and its verify view is as wide as
+        a row at half ``max_seq_len`` needs.  Draws come from a private
+        generator, and the engine's generator, which the card's graphs
+        draw from, is restored after: the served stream never sees the
+        probe.  An injected calibration (``spec_calibration=``) is
+        adopted instead and counted in ``calibration_reused``.  On the
+        card each timed chain ends in a synchronise."""
+        if self._injected_calibration is not None:
+            self.spec_calibration = dict(self._injected_calibration)
+            self.calibration_reused += 1
+            return float(self.spec_calibration["threshold"])
+        import statistics
+
+        k = max(self.spec_lookahead, self.spec_superstep_k)
+        u = (self.gamma + 1) * k
+        cover = self._spec_cover(self.config.max_seq_len // 2 + u)
+        tables = torch.full((self.slots, self.max_pages), self.ctrl.trash, dtype=torch.int32,
+                            device=self.device)
+        occ = torch.zeros(self.slots, dtype=torch.bool, device=self.device)
+        zeros = torch.zeros(self.slots, dtype=torch.long, device=self.device)
+        zeros32 = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
+        private = torch.Generator(self.device).manual_seed(0)
+        saved = self.generator.get_state()
+
+        def plain_once(tok):
+            if self._graph is None:
+                toks, _ = paged_decode_chunk(
+                    self.params, self.pools, tables, tok, zeros, occ, private,
+                    self.temperature, self.top_k, self.top_p, self.config, self.chunk,
+                    self.sampling,
+                )
+                return toks[:, -1]
+            return self._graph.run(tables, tok, zeros, occ, *self._unbounded,
+                                   self.chunk)[1].clone()
+
+        def spec_once(cur):
+            if self.spec_superstep_k > 1:
+                return self._run_spec_chained(tables, cur, zeros, occ, occ, zeros32 + 1,
+                                              zeros32 - 1, k, cover, private)[3]
+            return self._run_spec_lookahead(tables, cur, zeros, occ, k, cover, private)[2]
+
+        def timed(once, n: int) -> float:
+            tok = zeros
+            t0 = time.perf_counter()
+            for _ in range(n):
+                tok = once(tok)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter() - t0
+
+        try:
+            with torch.inference_mode():
+                for once in (plain_once, spec_once):
+                    timed(once, 1)  # warm: builds and captures, untimed
+                # Two-length slopes, median of interleaved repeats: the
+                # constant dispatch and readback cost cancels in each pair.
+                n_lo, n_hi = 2, 6
+                plain_slopes, spec_slopes = [], []
+                for _ in range(3):
+                    plain_slopes.append(
+                        (timed(plain_once, n_hi) - timed(plain_once, n_lo)) / (n_hi - n_lo))
+                    spec_slopes.append(
+                        (timed(spec_once, n_hi) - timed(spec_once, n_lo)) / (n_hi - n_lo))
+        finally:
+            self.generator.set_state(saved)
+        per_plain = max(statistics.median(plain_slopes), 1e-9)
+        per_spec = max(statistics.median(spec_slopes), 1e-9)
+        tokens_plain = float(self.chunk)
+        tokens_spec = (1.0 + 0.75 * self.gamma) * k
+        spec_wins = tokens_spec / per_spec > tokens_plain / per_plain
+        threshold = float(self.slots) if spec_wins else 0.0
+        self.spec_calibration = {
+            "plain_dispatch_ms": per_plain * 1000,
+            "spec_dispatch_ms": per_spec * 1000,
+            "plain_tokens_per_dispatch": tokens_plain,
+            "spec_tokens_per_dispatch_assumed": tokens_spec,
+            "threshold": threshold,
+        }
+        return threshold
+
+    def _step_spec(self) -> list[Request]:
+        """One speculative dispatch of ``spec_lookahead`` rounds: every
+        occupied row drafts, verifies and commits its own accepted length
+        each round, with its table extended over all k rounds first, so
+        the host leaves the loop for k rounds (rows that finish mid-way
+        compute dead rounds; admission waits for the dispatch boundary).
+        With ``pipelined`` the rounds are read back only after the next
+        dispatch goes out, chained on the device's (cur, pos)."""
+        k = self.spec_lookahead
+        u = (self.gamma + 1) * k
+        in_flight = set(self._pending_spec[1]) if self._pending_spec else set()
+        ub = {slot: int(self._positions[slot]) + (u if slot in in_flight else 0)
+              for slot in self._slot_req}
+        for slot, req in self._slot_req.items():
+            table = self._extend_evicting(self._seq_id(slot, req), ub[slot] + u)
+            self._tables[slot, : len(table)] = table
+        cover = self._spec_cover(max(ub.values()) + u)
+        self._maybe_fault("spec_dispatch")
+        cur = self._dev(self._tokens)
+        pos = self._dev(self._positions)
+        if self.pipelined and self._spec_chained is not None:
+            fresh = self._fresh_mask()
+            c_cur, c_pos = self._spec_chained
+            cur = torch.where(fresh, cur, c_cur)
+            pos = torch.where(fresh, pos, c_pos)
+        self._fresh_slots.clear()
+        committed, n_acc, new_cur, new_pos = self._run_spec_lookahead(
+            self._dev(self._tables), cur, pos, self._dev(self._occupied), k, cover
+        )
+        self.spec_rounds += k
+        read = _Readback(committed, n_acc)
+        snapshot = dict(self._slot_req)
+        if not self.pipelined:
+            return self._consume_spec(read, snapshot)
+        self._spec_chained = (new_cur, new_pos)
+        prev, self._pending_spec = self._pending_spec, (read, snapshot)
+        if prev is not None:
+            return self._consume_spec(*prev)
+        return []
+
+    def _dispatch_spec_superstep(self) -> list[Request]:
+        """Dispatch one chained speculative superstep
+        (``spec_superstep_k`` rounds, acceptance and eos/budget retirement
+        on the device) for the occupied slots; ``_step_superstep``
+        overlaps the step's host work with it and consumes
+        ``_pending_spec`` last (pipelined: the previous superstep is
+        consumed here, the newest stays chained on the device carry).
+        Each live row's table extends up front over k rounds (twice that
+        for rows a superstep in flight still advances), capped at its
+        retirement ceiling, position + remaining budget + gamma + 1 (a
+        retiring round commits its whole block; dead writes past it land
+        on the mirror's trailing trash columns), so nothing is allocated
+        mid-superstep and no commitment is overrun."""
+        k = self.spec_superstep_k
+        u = (self.gamma + 1) * k
+        in_flight = set(self._pending_spec[1]) if self._pending_spec else set()
+        targets = {}
+        for slot, req in self._slot_req.items():
+            pos = int(self._positions[slot])
+            ceiling = pos + (req.max_new_tokens - len(req.tokens)) + self.gamma + 1
+            targets[slot] = min(pos + u * (2 if slot in in_flight else 1), ceiling)
+        for slot, req in self._slot_req.items():
+            table = self._extend_evicting(self._seq_id(slot, req), targets[slot])
+            self._tables[slot, : len(table)] = table
+        cover = self._spec_cover(max(targets.values()))
+        eos = np.full(self.slots, -1, np.int32)
+        budget = np.zeros(self.slots, np.int32)
+        for slot, req in self._slot_req.items():
+            if req.eos_token is not None:
+                eos[slot] = req.eos_token
+            budget[slot] = req.max_new_tokens - len(req.tokens)
+        self._maybe_fault("spec_dispatch")
+        cur = self._dev(self._tokens)
+        pos = self._dev(self._positions)
+        occ = self._dev(self._occupied)
+        live_in = occ
+        budget_in = self._dev(budget)
+        if self.pipelined and self._spec_chained is not None:
+            # Chain on the previous superstep's device carry; only fresh
+            # slots take their host state.
+            fresh = self._fresh_mask()
+            c_cur, c_pos, c_live, c_budget = self._spec_chained
+            cur = torch.where(fresh, cur, c_cur)
+            pos = torch.where(fresh, pos, c_pos)
+            live_in = torch.where(fresh, live_in, c_live)
+            budget_in = torch.where(fresh, budget_in, c_budget)
+        self._fresh_slots.clear()
+        committed, n_acc, round_live, *carry = self._run_spec_chained(
+            self._dev(self._tables), cur, pos, occ, live_in, budget_in, self._dev(eos), k,
+            cover,
+        )
+        self.spec_rounds += k
+        self.spec_supersteps_run += 1
+        snapshot = dict(self._slot_req)
+        prev, self._pending_spec = self._pending_spec, (
+            _Readback(committed, n_acc, round_live), snapshot)
+        if not self.pipelined:
+            return []
+        self._spec_chained = tuple(carry)
+        if prev is not None:
+            return self._consume_spec(*prev)
+        return []
+
+    def _consume_spec(self, read: _Readback, snapshot: dict) -> list[Request]:
+        """Read a speculative dispatch's (committed, n) back, one host
+        sync, and apply emission and retirement for the slots as they
+        were at dispatch: each round's committed prefix, stopping at eos
+        or max_new_tokens; the host mirrors advance by the device's
+        whole advance.  A chained superstep's readback also carries each
+        round's live mask (``_apply_spec_super``)."""
+        self._maybe_fault("spec_readback")
+        fetched = read.arrays()
+        self._note_recovery()
+        if len(fetched) == 3:
+            return self._apply_spec_super(fetched, snapshot)
+        committed, n_acc = fetched
+        finished = []
+        for slot, req in snapshot.items():
+            if req.done:
+                # Retired between dispatch and read (pipelined lag).
+                continue
+            advance = 0
+            for j in range(committed.shape[0]):
+                k = int(n_acc[j, slot]) + 1
+                if not req.done:
+                    self._emit(req, committed[j, slot, :k])
+                    # The draft proposed gamma, the verify kept k - 1.
+                    self.spec_drafts_proposed += self.gamma
+                    self.spec_tokens_rejected += self.gamma - (k - 1)
+                advance += k
+            self._positions[slot] += advance
+            self._tokens[slot] = committed[-1, slot, int(n_acc[-1, slot])]
+            if req.done:
+                finished.append(self._retire(slot))
+        return finished
+
+    def _apply_spec_super(self, fetched, snapshot: dict) -> list[Request]:
+        """Emission and retirement for one chained superstep's readback:
+        each live round's committed prefix (``round_live`` is the
+        device's round-entry mask, ``_emit``'s rule exactly, so the
+        mirrors advance as the device did), and the over-decode
+        reconciled: every frozen round's full block and the retiring
+        round's unemitted tail."""
+        committed, n_acc, round_live = fetched
+        gp1 = committed.shape[2]
+        finished = []
+        for slot, req in snapshot.items():
+            if req.done:
+                # Retired between dispatch and read: the chained live
+                # mask parked the row for the whole superstep.
+                self.tokens_overdecoded += committed.shape[0] * gp1
+                continue
+            advance = 0
+            emitted_before = len(req.tokens)
+            last_live = None
+            for j in range(committed.shape[0]):
+                if not round_live[j, slot]:
+                    self.tokens_overdecoded += gp1
+                    continue
+                k = int(n_acc[j, slot]) + 1
+                self._emit(req, committed[j, slot, :k])
+                self.spec_drafts_proposed += self.gamma
+                self.spec_tokens_rejected += self.gamma - (k - 1)
+                advance += k
+                last_live = j
+            if last_live is None:
+                continue  # cannot arise: the device mask mirrors _emit
+            self._positions[slot] += advance
+            self._tokens[slot] = committed[last_live, slot, int(n_acc[last_live, slot])]
+            if req.done:
+                self.tokens_overdecoded += advance - (len(req.tokens) - emitted_before)
+                finished.append(self._retire(slot))
+        return finished
+
+    def _drain_pending_spec(self) -> list[Request]:
+        """Consume the speculative dispatch in flight (the mirrors advance
+        by the device's committed lengths) and drop the chained carry:
+        the next dispatch takes every row from the mirrors."""
+        if self._pending_spec is None and self._spec_chained is None:
+            return []
+        finished: list[Request] = []
+        if self._pending_spec is not None:
+            read, snapshot = self._pending_spec
+            self._pending_spec = None
+            finished = self._consume_spec(read, snapshot)
+        self._spec_chained = None
+        return finished
+
     # ---- lifecycle ------------------------------------------------------
 
     def drain_completed(self) -> list[Request]:
@@ -1907,6 +2549,8 @@ class ServeEngine:
         """Consume the pipelined chunk in flight (the host mirrors catch
         up) and drop the device-chained tokens: the next dispatch takes
         every row from the mirrors."""
+        if self._pending_read is None and self._chained_tok is None:
+            return []
         finished: list[Request] = []
         if self._pending_read is not None:
             read, snapshot = self._pending_read
@@ -1918,6 +2562,8 @@ class ServeEngine:
     def _drain_pending_super(self) -> list[Request]:
         """Consume every superstep in flight and drop the device carry:
         the next dispatch takes every row from the mirrors."""
+        if not self._pending_super and self._super_chained is None:
+            return []
         finished: list[Request] = []
         while self._pending_super:
             read, snapshot = self._pending_super.popleft()
@@ -1931,7 +2577,8 @@ class ServeEngine:
         before they touch a slot or a knob.  A seam failure during the
         drain quarantines the step."""
         try:
-            return self._drain_pending_plain() + self._drain_pending_super()
+            return (self._drain_pending_plain() + self._drain_pending_spec()
+                    + self._drain_pending_super())
         except Exception as exc:  # noqa: BLE001 — recovery seam
             return self._quarantine_step(exc)
 
@@ -2030,32 +2677,66 @@ class ServeEngine:
 
     # ---- online retune --------------------------------------------------
 
-    def retune(self, *, superstep_k: int | None = None) -> dict:
-        """Change ``superstep_k`` on a live engine, between dispatches:
-        down from its construction value and back up to it, never above.
-        Whatever is in flight drains first, so the next dispatch under the
-        new k starts from what the device computed: greedy streams are the
-        same across every change, and the card's decode graph (captured
-        for the construction k) is replayed, never captured again.
+    def retune(
+        self,
+        *,
+        spec_breakeven: float | None = None,
+        superstep_k: int | None = None,
+        spec_superstep_k: int | None = None,
+    ) -> dict:
+        """Change knobs on a live engine, between dispatches: move
+        ``spec_breakeven`` (``spec="auto"`` only), and step
+        ``superstep_k`` / ``spec_superstep_k`` down from their
+        construction values and back up to them, never above (the
+        overshoot, max_pages, every commitment and the graphs' step and
+        round counts are sized from them).  Whatever is in flight drains
+        first, so the next dispatch under the new knobs starts from what
+        the device computed: greedy streams are the same across every
+        change, and the card's graphs are replayed, never captured again.
         Requests the drain retires surface through the next step().
-        Returns ``{knob: (old, new)}`` for a real change, else ``{}``
-        (nothing drained or counted)."""
+        Returns ``{knob: (old, new)}`` for the knobs that changed (``{}``:
+        nothing drained or counted)."""
         if self._closed:
             raise EngineClosed("engine is closed; no retune")
-        if superstep_k is None:
-            return {}
-        if not 1 <= int(superstep_k) <= self._superstep_k_max:
-            raise ValueError(
-                f"superstep_k must be in [1, {self._superstep_k_max}] (the "
-                f"construction-time ceiling), got {superstep_k}"
-            )
-        if int(superstep_k) == self.superstep_k:
-            return {}
+        changes: dict[str, tuple] = {}
+        if spec_breakeven is not None:
+            if self.spec != "auto" or self.draft_params is None:
+                raise ValueError(
+                    'spec_breakeven retune needs spec="auto" with a '
+                    "draft loaded — other modes never consult the "
+                    "threshold"
+                )
+            if spec_breakeven < 0:
+                raise ValueError(f"spec_breakeven must be >= 0, got {spec_breakeven}")
+            current = float(self.spec_breakeven) if self.spec_breakeven is not None else None
+            if float(spec_breakeven) != current:
+                changes["spec_breakeven"] = (self.spec_breakeven, float(spec_breakeven))
+        if superstep_k is not None:
+            if not 1 <= int(superstep_k) <= self._superstep_k_max:
+                raise ValueError(
+                    f"superstep_k must be in [1, {self._superstep_k_max}] (the "
+                    f"construction-time ceiling), got {superstep_k}"
+                )
+            if int(superstep_k) != self.superstep_k:
+                changes["superstep_k"] = (self.superstep_k, int(superstep_k))
+        if spec_superstep_k is not None:
+            if not 1 <= int(spec_superstep_k) <= self._spec_superstep_k_max:
+                raise ValueError(
+                    f"spec_superstep_k must be in "
+                    f"[1, {self._spec_superstep_k_max}] (the "
+                    f"construction-time ceiling), got {spec_superstep_k}"
+                )
+            if int(spec_superstep_k) != self.spec_superstep_k:
+                changes["spec_superstep_k"] = (self.spec_superstep_k, int(spec_superstep_k))
+        if not changes:
+            return changes
+        # The k knobs route the step and size dispatches, the breakeven
+        # flips the mode: none may meet work dispatched under the old ones.
         self._finished_buffer.extend(self._drain_all_pending())
-        change = {"superstep_k": (self.superstep_k, int(superstep_k))}
-        self.superstep_k = int(superstep_k)
+        for knob, (_, new) in changes.items():
+            setattr(self, knob, new)
         self.retunes += 1
-        return change
+        return changes
 
     # ---- shutdown -------------------------------------------------------
 
@@ -2078,6 +2759,8 @@ class ServeEngine:
         self._chained_tok = None
         self._pending_super.clear()
         self._super_chained = None
+        self._pending_spec = None
+        self._spec_chained = None
         self._fresh_slots.clear()
         err = "EngineClosed: engine closed with the request in flight"
         # step() refuses to run after close, so these land on
@@ -2112,6 +2795,7 @@ class ServeEngine:
             and not self._occupied.any()
             and not self._inflight_prefill
             and self._pending_read is None
+            and self._pending_spec is None
             and not self._pending_super
             and not self._finished_buffer
         )
@@ -2144,8 +2828,34 @@ def main(argv=None) -> int:
     parser.add_argument("--temperature", type=float, default=0.8)
     parser.add_argument("--top-k", type=int, default=50)
     parser.add_argument("--top-p", type=float, default=0.95)
+    parser.add_argument("--int8", action="store_true",
+                        help="serve int8 weight-only quantized weights")
     parser.add_argument("--kv-heads", type=int, default=None,
                         help="grouped-query kv heads (default: n_heads)")
+    parser.add_argument("--spec-int8-draft", action="store_true",
+                        help="speculative decoding with the int8-quantized model "
+                        "drafting for its own self (quantized self-speculation); "
+                        "composes with --temperature through lossless "
+                        "speculative sampling")
+    parser.add_argument("--gamma", type=int, default=4,
+                        help="draft tokens per speculative round")
+    parser.add_argument("--spec-lookahead", type=int, default=1,
+                        help="speculative rounds per dispatch: k > 1 extends page "
+                        "tables k rounds ahead and reads tokens back once per k "
+                        "rounds, at the cost of up to k rounds of emission lag")
+    parser.add_argument("--spec-superstep-k", type=int, default=1, metavar="K",
+                        help="speculative supersteps: K chained draft->verify->commit "
+                        "rounds a dispatch with acceptance and eos/max-token "
+                        "retirement on the device and one readback per K rounds "
+                        "(same greedy tokens for every K; supersedes "
+                        "--spec-lookahead, use one)")
+    parser.add_argument("--spec-auto", action="store_true",
+                        help="adaptive speculation: pick speculative or plain decode "
+                        "per step from the live occupancy against the break-even "
+                        "threshold (requires --spec-int8-draft)")
+    parser.add_argument("--spec-breakeven", type=float, default=None,
+                        help="occupancy threshold for --spec-auto; omit to "
+                        "calibrate at the first decode step")
     parser.add_argument("--prefill-budget", type=int, default=None,
                         metavar="TOKENS",
                         help="cap prefill work at TOKENS a step (at least one "
@@ -2172,7 +2882,8 @@ def main(argv=None) -> int:
                         help="raise at the engine seam's Nth crossing "
                         "(repeatable; seams: prefill_dispatch, "
                         "prefill_readback, decode_dispatch, "
-                        "decode_readback) to exercise quarantine and replay")
+                        "decode_readback, spec_dispatch, spec_readback) to "
+                        "exercise quarantine and replay")
     parser.add_argument("--prefix-cache", action="store_true",
                         help="cross-request radix-tree prefix caching: "
                         "prompts sharing any page-aligned prefix (system "
@@ -2200,6 +2911,18 @@ def main(argv=None) -> int:
                         help="torch device (default: cuda; 'cpu' runs the "
                         "plain PyTorch path)")
     args = parser.parse_args(argv)
+    if args.superstep_k < 1:
+        parser.error("--superstep-k must be >= 1 chained chunks")
+    if args.spec_superstep_k < 1:
+        parser.error("--spec-superstep-k must be >= 1 chained rounds")
+    if args.spec_superstep_k > 1 and not args.spec_int8_draft:
+        parser.error("--spec-superstep-k chains speculative rounds; it "
+                     "needs --spec-int8-draft (a draft model)")
+    if args.spec_superstep_k > 1 and args.spec_lookahead > 1:
+        parser.error("--spec-superstep-k supersedes --spec-lookahead; "
+                     "use one round-chaining knob, not both")
+    if args.spec_auto and not args.spec_int8_draft:
+        parser.error("--spec-auto needs --spec-int8-draft (a draft model)")
     if args.kv_offload:
         args.prefix_cache = True  # the offload tier lives on the cache
     if args.kv_host_pages is not None and not args.kv_offload:
@@ -2218,7 +2941,7 @@ def main(argv=None) -> int:
         from .faults import FaultInjector
 
         seams = ("prefill_dispatch", "prefill_readback", "decode_dispatch",
-                 "decode_readback")
+                 "decode_readback", "spec_dispatch", "spec_readback")
         schedule: dict[str, list[int]] = {}
         for spec in args.inject_fault:
             seam, _, n = spec.partition(":")
@@ -2240,6 +2963,20 @@ def main(argv=None) -> int:
     params = cast_params(
         init_params(config, torch.Generator(device).manual_seed(0)), config.dtype
     )
+    if args.int8:
+        params = quantize_params(params)
+    spec_kw = {}
+    if args.spec_int8_draft:
+        # The int8 self-draft: the same architecture at half the weight
+        # stream.  Under --int8 the target is quantized already, so the
+        # draft is the target itself.
+        spec_kw = dict(
+            draft_params=params if args.int8 else quantize_params(params),
+            draft_config=config, gamma=args.gamma, spec_lookahead=args.spec_lookahead,
+            spec_superstep_k=args.spec_superstep_k,
+        )
+        if args.spec_auto:
+            spec_kw.update(spec="auto", spec_breakeven=args.spec_breakeven)
     # Page-aligned bucket within the context window; longer prompts
     # admit via chunked prefill.
     page_size = 16 if config.max_seq_len >= 32 else 4
@@ -2257,6 +2994,7 @@ def main(argv=None) -> int:
         kv_offload=args.kv_offload, kv_host_pages=args.kv_host_pages,
         kv_disk_dir=args.kv_disk_dir, kv_disk_pages=args.kv_disk_pages,
         fault_injector=injector, max_retries=args.max_retries, device=device,
+        **spec_kw,
     )
     rng = np.random.default_rng(7)
     for i in range(args.requests):
@@ -2283,6 +3021,20 @@ def main(argv=None) -> int:
         f"pool={engine.ctrl.n_pages} pages, "
         f"pages in use after drain: {engine.ctrl.used_pages})"
     )
+    if args.spec_int8_draft:
+        calib = engine.spec_calibration
+        verdict = "" if calib is None else (
+            f" calibrated threshold={calib['threshold']:.0f} "
+            f"(plain {calib['plain_dispatch_ms']:.2f} ms/dispatch, spec "
+            f"{calib['spec_dispatch_ms']:.2f} ms/dispatch)"
+        )
+        print(
+            f"spec: gamma={engine.gamma} rounds={engine.spec_rounds} "
+            f"drafts_rejected={engine.spec_tokens_rejected} "
+            f"spec_supersteps={engine.spec_supersteps_run} spec={engine.spec} "
+            f"spec_steps={engine.spec_mode_steps} plain_steps={engine.plain_mode_steps}"
+            f"{verdict}"
+        )
     if args.prefix_cache:
         print(
             f"prefix cache: hits={engine.prefix.hits} misses={engine.prefix.misses} "

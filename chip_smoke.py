@@ -322,17 +322,19 @@ def check_kernel_cases(torch, pa):
                 fail(f"K1 disagrees with its plain version: {name} {dtype}")
 
 
-def profile_chunk(torch, engine, rng, f, pa):
+def profile_chunk(torch, engine, rng, f, pa, adapters=(None,)):
     """Where one decode chunk's time goes: torch.profiler over one engine
     step with every slot decoding, read from its chrome trace (device
     kernels by name, their summed time against the step's wall time).
     K1's launch count over the step must equal the profiler's count of
-    its kernel.  Returns (wall ms, device ms, K1 counted, K1 traced)."""
+    its kernel.  The slots' requests take ``adapters`` round-robin.
+    Returns (wall ms, device ms, K1 counted, K1 traced, {kernel name:
+    [ms, ...]})."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(f["slots"]):
+    for i in range(f["slots"]):
         engine.submit(rng.integers(0, engine.config.vocab_size, f["decode_prompt"]),
-                      3 * engine.chunk)
+                      3 * engine.chunk, adapter=adapters[i % len(adapters)])
     engine.step()  # admission and a first chunk, outside the window
     torch.cuda.synchronize()
     before = pa.paged_attention.launches
@@ -359,8 +361,9 @@ def profile_chunk(torch, engine, rng, f, pa):
     if busy_ms == 0:
         fail("profiled decode chunk: no kernel events in the trace (device time not "
              "measured, K1's count unchecked)")
-    print(f"  profiled decode chunk ({engine.chunk} steps, {f['slots']} rows, CUDA graph "
-          f"replays): wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms, device "
+    lora = " with adapters" if engine._stacked_adapters is not None else ""
+    print(f"  profiled decode chunk{lora} ({engine.chunk} steps, {f['slots']} rows, CUDA "
+          f"graph replays): wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms, device "
           f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
     for name, durs in top:
@@ -369,7 +372,7 @@ def profile_chunk(torch, engine, rng, f, pa):
     if counted != traced or counted != engine.config.n_layers * engine.chunk:
         fail(f"K1 counted {counted} launches over the profiled chunk, the trace shows "
              f"{traced}, n_layers x chunk is {engine.config.n_layers * engine.chunk}")
-    return wall_ms, busy_ms, counted, traced
+    return wall_ms, busy_ms, counted, traced, by_name
 
 
 def drain(torch, engine, requests, counters, label):
@@ -473,12 +476,13 @@ def graph_against_eager_chunk(torch, paged_mod, engine, rng, f):
 
 
 def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, splits=None,
-                        width=None):
+                        width=None, lora=None):
     """Prefill rows of the given lengths, then run one decode step through
     the kernel (with the host's split count, or ``splits``) and, on a copy
     of the pools, through the plain version, over decode tables padded
-    with the trash page to ``width`` columns (by default one).  Returns
-    (kernel logits, plain logits)."""
+    with the trash page to ``width`` columns (by default one); ``lora``
+    adapts the prefill and both steps per row.  Returns (kernel logits,
+    plain logits)."""
     cover = -(-max(lengths) // ps)
     n_pages = len(lengths) * cover
     with torch.inference_mode():
@@ -491,7 +495,7 @@ def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, split
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         paged_mod.paged_prefill_chunk(
             params, pools, tables, prompts, lens, config, start_page=0,
-            cover_pages=cover, emit=False,
+            cover_pages=cover, emit=False, lora=lora,
         )
         tok = torch.randint(0, config.vocab_size, (len(lengths),), generator=g,
                             device="cuda")
@@ -507,14 +511,14 @@ def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, split
                                       window=config.attention_window, splits=splits)
 
         got, _ = paged_mod._decode_core(params, pools, tables_dec, tok,
-                                        lens.long(), config, attention_fn=kernel)
+                                        lens.long(), config, attention_fn=kernel, lora=lora)
 
         def plain(q, kp, vp, t, ln, layer):
             return pa.paged_attention_reference(q, kp, vp, t, ln, layer=layer,
                                                 window=config.attention_window)
 
         want, _ = paged_mod._decode_core(params, ref_pools, tables_dec, tok,
-                                         lens.long(), config, attention_fn=plain)
+                                         lens.long(), config, attention_fn=plain, lora=lora)
         torch.cuda.synchronize()
     return got, want
 
@@ -1141,15 +1145,20 @@ def profiled(torch, fn, name):
     return out, wall_ms, busy_ms, by_name
 
 
+def dense_logits(torch, params, config, seq):
+    """The model's next-token logits after ``seq`` (a dense forward)."""
+    from workloads_torch.model import forward
+
+    tokens = torch.tensor([list(seq)], device=params["embed"].device)
+    with torch.inference_mode():
+        return forward(params, tokens, config)[0, -1].float()
+
+
 def top2_gap(torch, params, config, prompt, tokens, pos):
     """The target's top-two logit gap before generated token ``pos`` (a
     dense forward over the prompt and the tokens before it), and the
     largest |logit| there."""
-    from workloads_torch.model import forward
-
-    seq = torch.tensor([list(prompt) + list(tokens[:pos])], device=params["embed"].device)
-    with torch.inference_mode():
-        logits = forward(params, seq, config)[0, -1].float()
+    logits = dense_logits(torch, params, config, list(prompt) + list(tokens[:pos]))
     top = torch.topk(logits, 2).values
     return (top[0] - top[1]).item(), logits.abs().max().item()
 
@@ -1562,6 +1571,464 @@ def spec_accept_on_card(torch, paged_mod):
           f"lengths seen {seen}", flush=True)
     if not (tv < 0.06 and seen == [0, 1, 2]):
         fail("_spec_accept's marginal on the card is not the target distribution")
+
+
+# Phase 4e, multi-LoRA: four synthetic adapters at rank 8 on wqkv and wo
+# (the JAX CLI's --lora-adapters 4 --lora-rank 8, seed 99) over phase 4's
+# model, engine and 12 requests, round-robin over the base and the four
+# adapters; (f) shares phase 4c's 512-token system prompt between the
+# base and two adapters, four conversations each; (g) float32 on 8
+# requests.
+LORA = dict(n=4, rank=8, alpha=1.0, seed=99, gamma=4, k=4, budget=64, f32_requests=8,
+            f32_new=(64, 128), prefix_per_salt=4, prefix_salts=3)
+
+
+def adapted_logits(torch, params, config, stacked, aidx, alpha, seq):
+    """The adapted model's next-token logits after ``seq`` (a dense block
+    forward through ``generate.decode_block`` with ``lora=``)."""
+    from workloads_torch.generate import decode_block, init_kv_cache
+
+    device = params["embed"].device
+    tokens = torch.tensor([list(seq)], device=device)
+    with torch.inference_mode():
+        cache = init_kv_cache(config, 1, tokens.shape[1], device)
+        lora = (stacked, torch.tensor([aidx], dtype=torch.int32, device=device), alpha)
+        logits, _ = decode_block(params, cache, tokens, 0, config, lora=lora)
+    return logits[0, -1].float()
+
+
+def lora_phase(torch, params, config, f, counters, requests, plain, bf16_floor,
+               plain_chunk=None, device="cuda", lora=LORA) -> int:
+    """Phase 4e: multi-LoRA serving at full width.  Drains of phase 4's 12
+    requests round-robin over the base and the four adapters: (a) plain
+    (``plain``, phase 4's drain without adapters), (b) adapters at the
+    defaults, (c) ``superstep_k=4, pipelined``, (d) ``prefill_budget=64``,
+    (e) spec on with the int8 self-draft at gamma 4; (f) the radix prefix
+    cache at phase 4c's context, the base and two adapters behind one
+    512-token system prompt; (g) float32 on 8 requests: the adapter engine
+    plain, with ``superstep_k=4, pipelined``, with ``prefill_budget=64``
+    and with spec on, and a plain engine over each merged model.
+    Gates: every request ``ok`` at full length, no page in use after each
+    drain, K1 n_layers a decode step and (gamma+1) x draft layers a
+    round; (b)'s base requests bit-identical to (a)'s; one graph capture
+    through (b)'s adapter churn; (f)'s hits per salt as the radix model
+    predicts and no page shared across salts; (g)'s adapted streams equal
+    the merged models' (a flip only at a top-2 gap the two routes' own
+    logit difference covers, printed), its superstep and budget streams
+    its plain ones token for token, and its spec streams too (a flip only
+    at a near-tie, as phase 4d); the
+    teacher-forced adapted decode step through K1 against plain (bf16
+    within ``bf16_floor``, float32 within STEP_F32_RTOL); K1 counted =
+    traced over a profiled adapted chunk, its LoRA launches by name beside
+    (a)'s chunk (``plain_chunk``: phase 4's (wall ms, device ms, kernels
+    by name)).  ``device="cpu"`` rehearses the drains
+    and gates on the plain route.  Returns K1's launches over the
+    drains."""
+    from dataclasses import replace
+
+    import numpy as np
+    from workloads_torch import paged as paged_mod
+    from workloads_torch.lora import merge_lora
+    from workloads_torch.model import cast_params
+    from workloads_torch.multi_lora import stack_adapters, synthetic_adapters
+    from workloads_torch.ops import paged_attention as pa
+    from workloads_torch.quant import quantize_params
+    from workloads_torch.serve import ServeEngine
+
+    cuda = device == "cuda"
+    g, k, L = lora["gamma"], lora["k"], config.n_layers
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda and not (torch.backends.cuda.matmul.allow_tf32 is False
+                     and torch.get_float32_matmul_precision() == "highest"):
+        fail("TF32 is on for float32 matmuls: the LoRA factor products must not run in it")
+    adapters = synthetic_adapters(config, lora["n"], rank=lora["rank"], seed=lora["seed"],
+                                  device=device)
+    names = [None] + sorted(adapters)
+    per_layer = sum(ab["a"].numel() + ab["b"].numel() for ab in adapters[names[1]][0].values())
+    one = per_layer * L * 4
+    print(f"  {lora['n']} adapters at rank {lora['rank']} on "
+          f"{sorted(adapters[names[1]][0])}: {per_layer} float32 a layer, "
+          f"{one / 1e6:.2f} MB an adapter, {one * (lora['n'] + 1) / 1e6:.2f} MB stacked with "
+          f"the base entry", flush=True)
+    reqs = [(p, n, names[i % len(names)]) for i, (p, n) in enumerate(requests)]
+    base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["page_size"], device=device)
+    kw_lora = dict(adapters=adapters, lora_alpha=lora["alpha"])
+    total = 0
+
+    def lora_drain(label, engine, reqs, ref=None, warm=None, after_warm=None, ref_name="(a)"):
+        """Serve ``reqs`` (prompt, new, adapter) after one warm-up request
+        (``warm``, by default the first prompt under the last request's
+        adapter: the graphs' captures); gate and print the drain."""
+        nonlocal total
+        prompt, adapter = warm or (reqs[0][0], reqs[-1][2])
+        engine.submit(prompt, 2, adapter=adapter)
+        engine.run()
+        if after_warm is not None:
+            after_warm()
+        captures0 = engine._graph.captures if engine._graph is not None else 0
+        fields = ("chunks_run", "generated_tokens", "spec_rounds", "spec_drafts_proposed",
+                  "spec_tokens_rejected", "prefill_tokens")
+        before = {n: getattr(engine, n) for n in fields}
+        rids = [engine.submit(p, n, adapter=a) for p, n, a in reqs]
+        reset_counts(counters)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        served = engine.run()
+        sync()
+        wall = time.perf_counter() - t0
+        d = {n: getattr(engine, n) - before[n] for n in fields}
+        launches = read_counts(counters)["paged_attention"]
+        total += launches
+        plain_steps = d["chunks_run"] * engine.chunk
+        d_layers = engine.draft_config.n_layers if engine.draft_params is not None else 0
+        expected = L * plain_steps + d_layers * (g + 1) * d["spec_rounds"]
+        accepted = d["spec_drafts_proposed"] - d["spec_tokens_rejected"]
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        rate = d["generated_tokens"] / wall
+        captures = engine._graph.captures if engine._graph is not None else 0
+        out = {"streams": [served.get(r) for r in rids], "wall": wall, "tokens_per_s": rate,
+               "launches": launches, "peak_gib": peak, "captures": (captures0, captures),
+               "prefill_tokens": d["prefill_tokens"]}
+        vs = f" ({rate / ref:.3f} of {ref_name})" if ref else ""
+        spec = ""
+        if d["spec_rounds"]:
+            spec = (f"; rounds {d['spec_rounds']}, drafts proposed "
+                    f"{d['spec_drafts_proposed']} accepted {accepted} (acceptance "
+                    f"{accepted / max(d['spec_drafts_proposed'], 1):.3f})")
+        print(f"  {label}: wall {wall:.3f} s, {d['generated_tokens']} tokens, tokens/s "
+              f"{rate:.1f}{vs}; plain decode steps {plain_steps}{spec}; prompt tokens "
+              f"forwarded {d['prefill_tokens']}; K1 launches {launches}; peak memory "
+              f"{peak:.2f} GiB; decode graph captures {captures0} after the first "
+              f"dispatch, {captures} after the drain; pages in use after drain "
+              f"{engine.ctrl.used_pages - (engine.prefix.cached_pages if engine.prefix else 0)}"
+              f" beside the index", flush=True)
+        statuses = {r.rid: r.status for r in engine.completed}
+        for rid, (_, n, _), toks in zip(rids, reqs, out["streams"]):
+            if statuses.get(rid) != "ok" or toks is None or len(toks) != n:
+                fail(f"{label} {rid}: status {statuses.get(rid)}, "
+                     f"{None if toks is None else len(toks)} tokens, wanted {n}")
+            if not all(0 <= t < engine.config.vocab_size for t in toks):
+                fail(f"{label} {rid}: token out of the vocabulary")
+        pinned = engine.prefix.cached_pages if engine.prefix is not None else 0
+        if engine.ctrl.used_pages != pinned or engine._committed_pages:
+            fail(f"{label}: {engine.ctrl.used_pages} pages in use beside the index's "
+                 f"{pinned}, {engine._committed_pages} committed after the drain")
+        if cuda and (launches == 0 or launches != expected):
+            fail(f"{label}: K1 launched {launches} times, expected n_layers x plain steps + "
+                 f"draft layers x (gamma+1) x rounds = {expected}")
+        if captures != captures0:
+            fail(f"{label}: the adapter mix recaptured the decode graph ({captures0} -> "
+                 f"{captures})")
+        return out
+
+    if plain is None:  # the CPU rehearsal runs its own (a)
+        plain = lora_drain("(a) plain, no adapters", ServeEngine(params, config, **base),
+                           [(p, n, None) for p, n in requests])
+    runs = {}
+    draft = quantize_params(params)
+    for label, kw in (("(b) adapters, defaults", {}),
+                      ("(c) adapters, superstep_k=4 pipelined",
+                       dict(superstep_k=k, pipelined=True)),
+                      ("(d) adapters, prefill_budget=64", dict(prefill_budget=lora["budget"])),
+                      ("(e) adapters, spec on (int8 self-draft, gamma 4)",
+                       dict(draft_params=draft, draft_config=config, gamma=g))):
+        engine = ServeEngine(params, config, **base, **kw_lora, **kw)
+        runs[label] = lora_drain(label, engine, reqs, plain["tokens_per_s"])
+        engine.close()
+        del engine
+        if cuda:
+            torch.cuda.empty_cache()
+    del draft
+    b = runs["(b) adapters, defaults"]
+    base_rows = [i for i, (_, _, a) in enumerate(reqs) if a is None]
+    same_base = [b["streams"][i] == plain["streams"][i] for i in base_rows]
+    print(f"  (b): the base requests' bf16 streams equal (a)'s bit for bit in "
+          f"{sum(same_base)} of {len(base_rows)}", flush=True)
+    if not all(same_base):
+        fail("(b): a base request's stream under the adapter engine differs from the plain "
+             "drain's (zero deltas must be exact)")
+    for label, run in runs.items():
+        same = sum(x == y for x, y in zip(run["streams"], b["streams"]))
+        print(f"  {label}: {same} of {len(reqs)} bf16 streams equal (b)'s (reported; float32 "
+              f"is gated in (g))", flush=True)
+    print(f"  decode tokens/s: (a) {plain['tokens_per_s']:.1f}, " + ", ".join(
+        f"{label.split(')')[0]}) {run['tokens_per_s']:.1f}" for label, run in runs.items()),
+        flush=True)
+
+    # (f) the radix prefix cache: the base and two adapters behind one
+    # 512-token system prompt, four conversations each, all submitted at
+    # once.  Per salt the first admission misses and inserts the system
+    # pages; every later one hits them (8 pages, 4 prompt buckets).
+    kv = KV if cuda else lora["kv"]
+    config_f = replace(config, max_seq_len=kv["max_seq_len"])
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, config.vocab_size, kv["system"]).tolist()
+    salts_names = names[: lora["prefix_salts"]]
+    conv = [(system + rng.integers(0, config.vocab_size, kv["user"]).tolist(), kv["new"],
+             salts_names[i % len(salts_names)])
+            for i in range(lora["prefix_per_salt"] * len(salts_names))]
+    engine = ServeEngine(params, config_f, slots=kv["slots"], page_size=kv["page_size"],
+                         prompt_bucket=kv["prompt_bucket"], chunk=kv["chunk"], device=device,
+                         prefix_cache=True, **kw_lora)
+    per_salt: dict[str, list] = {}
+    lookup = engine.prefix.lookup
+
+    def counting_lookup(tokens, *args, salt="", **kw):
+        got = lookup(tokens, *args, salt=salt, **kw)
+        per_salt.setdefault(salt, []).append(len(got))
+        return got
+
+    engine.prefix.lookup = counting_lookup
+    # The warm-up prompt holds no full page, so the index stays empty.
+    run_f = lora_drain("(f) adapters, radix prefix cache, shared 512-token system prompt",
+                       engine, conv, warm=(conv[0][0][:kv["page_size"] - 1], None),
+                       after_warm=per_salt.clear)
+    sys_pages = kv["system"] // kv["page_size"]
+    bp = kv["prompt_bucket"] // kv["page_size"]
+    want_hit = (len(conv[0][0]) - 1) // kv["page_size"] // bp * bp
+    want_hit = min(want_hit, sys_pages // bp * bp)
+    predicted = {engine._handoff_salt(a): [0] + [want_hit] * (lora["prefix_per_salt"] - 1)
+                 for a in salts_names}
+    got = {s: sorted(v) for s, v in per_salt.items()}
+    print(f"  (f) pages hit per lookup, by salt: {got} (predicted "
+          f"{ {s: sorted(v) for s, v in predicted.items()} }); prompt tokens forwarded "
+          f"{run_f['prefill_tokens']}", flush=True)
+    if got != {s: sorted(v) for s, v in predicted.items()}:
+        fail(f"(f): hits per salt {got}, the radix model predicts {predicted}")
+    pages_by_salt = {}
+    for salt, root in engine.prefix._roots.items():
+        stack, pages = list(root.children.values()), set()
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if node.page is not None:
+                pages.add(node.page)
+        pages_by_salt[salt] = pages
+    shared = [(a, b) for a in pages_by_salt for b in pages_by_salt
+              if a < b and pages_by_salt[a] & pages_by_salt[b]]
+    print(f"  (f) resident index pages by salt: "
+          f"{ {s: len(p) for s, p in pages_by_salt.items()} }; shared across salts: "
+          f"{shared or 'none'}", flush=True)
+    if shared or len(pages_by_salt) != len(salts_names):
+        fail(f"(f): pages shared across salts {shared}, roots {sorted(pages_by_salt)}")
+    engine.close()
+    if engine.ctrl.used_pages:
+        fail(f"(f): {engine.ctrl.used_pages} pages in use after close")
+    del engine
+
+    # (g) float32: the adapted streams equal the merged models', and
+    # speculation is lossless per tenant.
+    params32 = cast_params(params, torch.float32)
+    config32 = replace(config, dtype=torch.float32)
+    stacked = stack_adapters([adapters[n] for n in names[1:]], config32)
+    rng = np.random.default_rng(12)
+    reqs32 = [(rng.integers(0, config.vocab_size, f["decode_prompt"]).tolist(),
+               lora["f32_new"][i % 2], names[i % len(names)])
+              for i in range(lora["f32_requests"])]
+    plain32 = lora_drain("(g) float32 adapters, plain",
+                         ServeEngine(params32, config32, **base, **kw_lora), reqs32)
+    for label, kw in (("superstep_k=4 pipelined", dict(superstep_k=k, pipelined=True)),
+                      ("prefill_budget=64", dict(prefill_budget=lora["budget"]))):
+        run = lora_drain(f"(g) float32 adapters, {label}",
+                         ServeEngine(params32, config32, **base, **kw_lora, **kw), reqs32,
+                         plain32["tokens_per_s"], ref_name="(g) plain")
+        if run["streams"] != plain32["streams"]:
+            fail(f"(g) float32 adapters, {label}: the greedy streams differ from the plain "
+                 f"drain's")
+    print("  (g) float32: the superstep and budget drains' adapted streams equal the plain "
+          "drain's token for token", flush=True)
+    spec32 = lora_drain("(g) float32 adapters, spec on",
+                        ServeEngine(params32, config32, **base, **kw_lora,
+                                    draft_params=quantize_params(params32),
+                                    draft_config=config32, gamma=g), reqs32,
+                        plain32["tokens_per_s"], ref_name="(g) plain")
+
+    def check_flip(label, i, got, want, logits_a, logits_b):
+        """A stream that parts from its merged model's: the merged model's
+        top-2 gap at the first difference must be inside what the two
+        routes (activation-side delta, ``logits_a``; merged weight,
+        ``logits_b``) differ by there, a reordering of a near-tie."""
+        pos = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+        seq = reqs32[i][0] + want[:pos]
+        ref = logits_b(seq)
+        top = torch.topk(ref, 2).values
+        gap = (top[0] - top[1]).item()
+        diff = (logits_a(seq) - ref).abs().max().item()
+        print(f"  {label}: request {i} parts at token {pos}: top-2 gap {gap:.4e}, the two "
+              f"routes' logits differ by {diff:.4e} there (largest logit "
+              f"{ref.abs().max().item():.4e})", flush=True)
+        if not gap <= 2 * diff:
+            fail(f"{label}: request {i} parts at token {pos} with a top-2 gap of {gap:.4e} "
+                 f"beyond the routes' logit difference {diff:.4e}")
+
+    for i, (got, want) in enumerate(zip(spec32["streams"], plain32["streams"])):
+        if got == want:
+            continue
+        # As phase 4d: speculation reorders only a near-tie of the target.
+        pos = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+        ref = adapted_logits(torch, params32, config32, stacked, names.index(reqs32[i][2]),
+                             lora["alpha"], reqs32[i][0] + want[:pos])
+        top = torch.topk(ref, 2).values
+        gap, scale = (top[0] - top[1]).item(), ref.abs().max().item()
+        print(f"  (g) spec on: request {i} parts from the plain adapted stream at token "
+              f"{pos}: top-2 gap {gap:.4e}, {gap / scale:.3e} of the largest logit", flush=True)
+        if not gap < FLIP_GAP * scale:
+            fail(f"(g) float32 spec on: request {i} differs from the plain adapted stream at "
+                 f"token {pos} with a top-2 gap of {gap / scale:.3e} of the largest logit")
+    for name in names:
+        rows = [i for i, r in enumerate(reqs32) if r[2] == name]
+        if not rows:
+            continue
+        merged = params32 if name is None else merge_lora(params32, adapters[name],
+                                                          lora["alpha"])
+        m = lora_drain(f"(g) float32 plain engine over merge_lora(params, {name})",
+                       ServeEngine(merged, config32, **base), [(reqs32[i][0], reqs32[i][1], None)
+                                                               for i in rows])
+        for i, want in zip(rows, m["streams"]):
+            got = plain32["streams"][i]
+            if got == want:
+                continue
+            aidx = names.index(name)
+            check_flip(f"(g) adapter {name} vs merged", i, got, want,
+                       lambda seq, a=aidx: adapted_logits(torch, params32, config32, stacked,
+                                                          a, lora["alpha"], seq),
+                       lambda seq, mp=merged: dense_logits(torch, mp, config32, seq))
+        del merged
+    print("  (g) float32: every adapter's stream equals its merged model's and the spec "
+          "streams the plain ones (up to the near-tie flips printed above)", flush=True)
+    if not cuda:
+        return total
+
+    # The teacher-forced adapted decode step, kernel against plain: 8 rows
+    # at phase 4's lengths under the base and the four adapters.
+    lengths = [32, 100, 200, 300, 400, 500, 543, 1]
+    for dtype in (torch.float32, torch.bfloat16):
+        p_ = params32 if dtype == torch.float32 else params
+        cfg = replace(config, dtype=dtype)
+        aidx = torch.tensor([i % len(names) for i in range(len(lengths))], dtype=torch.int32,
+                            device="cuda")
+        step_lora = (stack_adapters([adapters[n] for n in names[1:]], cfg), aidx,
+                     lora["alpha"])
+        got_, want_ = teacher_forced_step(torch, paged_mod, pa, p_, cfg, f["page_size"],
+                                          lengths, lora=step_lora)
+        err = (got_ - want_).abs().max().item()
+        scale = want_.abs().max().item()
+        limit = STEP_F32_RTOL * scale if dtype == torch.float32 else bf16_floor
+        print(f"  teacher-forced adapted decode step, 8 rows, {str(dtype)[6:]}: kernel vs "
+              f"plain max {err:.4e} (limit {limit:.4e}: "
+              f"{'STEP_F32_RTOL x max' if dtype == torch.float32 else 'phase 4 bf16 floor'})",
+              flush=True)
+        if not (torch.isfinite(got_).all() and err <= limit):
+            fail(f"the adapted decode step through K1 disagrees with the plain route "
+                 f"({dtype})")
+    del params32, stacked
+    torch.cuda.empty_cache()
+
+    # One profiled graphed chunk with adapters against (a)'s.
+    engine = ServeEngine(params, config, **base, **kw_lora)
+    wall, busy, _, _, kernels = profile_chunk(torch, engine, np.random.default_rng(5), f, pa,
+                                              adapters=names)
+    engine.close()
+    if plain_chunk is not None:
+        p_wall, p_busy, plain_kernels = plain_chunk
+        print(f"  the adapted chunk against (a)'s: wall {wall:.3f} against {p_wall:.3f} ms "
+              f"({wall / p_wall:.3f}x), device {busy:.3f} against {p_busy:.3f} ms "
+              f"({busy / p_busy:.3f}x), idle share {1 - busy / wall:.3f} against "
+              f"{1 - p_busy / p_wall:.3f}", flush=True)
+        plain_n = {n: len(v) for n, v in plain_kernels.items()}
+        extra = sorted(((len(v) - plain_n.get(n, 0), sum(v), n) for n, v in kernels.items()
+                        if len(v) != plain_n.get(n, 0)), reverse=True)
+        print(f"  LoRA launches in the profiled chunk against (a)'s, by kernel "
+              f"({sum(e[0] for e in extra)} more launches in all):", flush=True)
+        for n_extra, ms, name in extra[:12]:
+            print(f"    {n_extra:+6d} launches ({ms:8.3f} ms in all)  {name[:90]}",
+                  flush=True)
+    return total
+
+
+def lora_train_path(torch, model_mod, train_mod, counters, f, device="cuda",
+                    steps=4) -> dict:
+    """Phase 6e: the LoRA fine-tune (``lora.make_lora_train_step``) at
+    phase 6's shape, rank 8, AdamW at 1e-3 (the JAX CLI's optimizer),
+    ``steps`` steps on one fixed batch, then one step over the int8
+    base.  Gates: the loss falls, the base is bit-unchanged, only the
+    adapter leaves move, K2/K3/K4 launch n_layers times a step; the int8
+    step's loss is finite.  Returns the kernels' launches over the main
+    steps."""
+    from workloads_torch.lora import lora_init, make_lora_train_step
+    from workloads_torch.quant import quantize_params
+
+    cuda = device == "cuda"
+    config = model_mod.ModelConfig(
+        d_model=f["d_model"], n_heads=f["n_heads"], n_layers=f["n_layers"],
+        d_ff=f["d_ff"], vocab_size=f["vocab_size"], max_seq_len=f["train_seq"],
+        dtype=torch.bfloat16, attention_impl="flash",
+    )
+    B, L = f["train_batch"], config.n_layers
+    base = model_mod.init_params(config, torch.Generator(device).manual_seed(0))
+    kept = [t.clone() for t in train_mod.tree_leaves(base)]
+    adapters = lora_init(config, 8, torch.Generator(device).manual_seed(1))
+    start = [t.clone() for t in train_mod.tree_leaves(adapters)]
+    optimizer = train_mod.AdamW(lr=1e-3, mu_dtype=torch.float32)
+    state = optimizer.init(adapters)
+    step = make_lora_train_step(config, optimizer, base)
+    fixed = train_mod.synthetic_batch(config, B, seed=0, device=device)
+    n_factors = sum(t.numel() for t in start)
+    print(f"  LoRA rank 8 on {sorted(adapters[0])}, {n_factors} trained float32 values "
+          f"over a frozen float32 base; batch {B} x {config.max_seq_len} tokens, AdamW lr "
+          f"1e-3 (mu float32)", flush=True)
+    reset_counts(counters)
+    losses, times = [], []
+    for _ in range(steps):
+        if cuda:
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        adapters, state, loss = step(adapters, state, fixed)
+        if cuda:
+            ev1.record()
+            torch.cuda.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        losses.append(loss.item())
+    launches = read_counts(counters)
+    print(f"  losses over {steps} steps on one batch: {[round(x, 5) for x in losses]}",
+          flush=True)
+    print(f"  launches over {steps} steps: {launches}", flush=True)
+    if times:
+        ms = sum(times[1:]) / len(times[1:])
+        print(f"  LoRA step {ms:.1f} ms (CUDA events, mean of steps 2-{steps}), "
+              f"{B * (config.max_seq_len - 1) / ms * 1e3:.1f} tokens/s", flush=True)
+    if not all(x == x and abs(x) < 1e9 for x in losses):
+        fail("non-finite LoRA loss")
+    if not losses[-1] < losses[0]:
+        fail(f"the LoRA loss did not fall over {steps} steps on one batch: {losses}")
+    if not all(torch.equal(a, b) for a, b in zip(train_mod.tree_leaves(base), kept)):
+        fail("the LoRA step changed the frozen base")
+    moved = sum(not torch.equal(a, b) for a, b in zip(train_mod.tree_leaves(adapters), start))
+    print(f"  base bit-unchanged; {moved} of {len(start)} adapter leaves moved", flush=True)
+    if moved == 0:
+        fail("no adapter leaf moved")
+    if cuda:
+        want = {"paged_attention": 0, "flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+                "flash_bwd_dkv": L * steps}
+        if launches != want:
+            fail(f"LoRA launches {launches}, expected {want}")
+    del kept, state
+    qbase = quantize_params(base)
+    del base
+    if cuda:
+        torch.cuda.empty_cache()
+    q_step = make_lora_train_step(config, optimizer, qbase)
+    adapters, _, q_loss = q_step(adapters, optimizer.init(adapters), fixed)
+    print(f"  one step over the int8 base: loss {q_loss.item():.5f}", flush=True)
+    if not q_loss.item() == q_loss.item():
+        fail("non-finite LoRA loss over the int8 base")
+    return launches
 
 
 def kernel_counters(pa, fa) -> dict:
@@ -2049,7 +2516,7 @@ def main() -> int:
     drains = {"defaults": drain(torch, engine, requests, counters, "drain at the defaults")}
     launches = drains["defaults"]["launches"]
     tokens_per_s = drains["defaults"]["tokens_per_s"]
-    chunk_wall, chunk_busy, _, _ = profile_chunk(torch, engine, rng, f, pa)
+    chunk_wall, chunk_busy, _, _, chunk_kernels = profile_chunk(torch, engine, rng, f, pa)
     graph_chunk_ms, eager_chunk_ms = graph_against_eager_chunk(
         torch, paged_mod, ServeEngine(params, config, **base), rng, f)
     max_pages = engine.max_pages
@@ -2154,6 +2621,15 @@ def main() -> int:
     print(f"  speculative decoding phase: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{spec_launches}; card: {card}", flush=True)
 
+    # 4e. multi-LoRA serving at the same width
+    phase("serving path: multi-LoRA at full width")
+    t0 = time.perf_counter()
+    lora_launches = lora_phase(torch, params, config, f, counters, requests,
+                               drains["defaults"], floors["8 rows"],
+                               (chunk_wall, chunk_busy, chunk_kernels))
+    print(f"  multi-LoRA phase: {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{lora_launches}; card: {card}", flush=True)
+
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
     phase("numbers")
@@ -2257,10 +2733,12 @@ def main() -> int:
         "route": "cuda",
         "source": "workloads_torch/ops/csrc/paged_attention.cu",
         "replaces": "workloads/ops/paged_attention.py:56",
-        "launches": launches + lifecycle_launches + kv_launches + spec_launches,
+        "launches": launches + lifecycle_launches + kv_launches + spec_launches
+        + lora_launches,
         "lifecycle_launches": lifecycle_launches,
         "kv_launches": kv_launches,
         "spec_launches": spec_launches,
+        "lora_launches": lora_launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2288,8 +2766,16 @@ def main() -> int:
     # 6. the training path at full width
     phase("training path: workloads_torch.train at full width")
     train_launches = train_path(torch, model_mod, train_mod, fa, counters, f)
+    torch.cuda.empty_cache()
+
+    # 6e. the LoRA fine-tune at the same shape
+    phase("training path: LoRA fine-tune (workloads_torch.lora) at full width")
+    t0 = time.perf_counter()
+    lora_train_launches = lora_train_path(torch, model_mod, train_mod, counters, f)
+    print(f"  LoRA fine-tune phase: {time.perf_counter() - t0:.1f} s", flush=True)
     for rec in flash_records:
-        rec["launches"] = train_launches[rec["name"]]
+        rec["launches"] = train_launches[rec["name"]] + lora_train_launches[rec["name"]]
+        rec["lora_launches"] = lora_train_launches[rec["name"]]
     print(f"  card: {card}", flush=True)
     print(json.dumps({"kernels": [record, *flash_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {

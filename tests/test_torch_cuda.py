@@ -1060,3 +1060,208 @@ def test_auto_sampling_captures_both_graphs_on_one_generator(cuda):
     assert engine._graph.captures == 1 and engine._spec_graph.captures >= 1
     assert engine.spec_mode_steps > 0 and engine.plain_mode_steps > 0
     assert engine.ctrl.used_pages == 0
+
+
+# ---- multi-LoRA on the card ----------------------------------------------
+
+
+def _lora_adapters(config, device):
+    from workloads_torch.multi_lora import synthetic_adapters
+
+    return synthetic_adapters(config, 2, rank=4, scale=0.3, seed=3, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_lora_graph_chunk_equals_the_eager_chunk_with_mixed_adapters(cuda, dtype):
+    """One chunk through the adapter engine's graph and through the eager
+    loop with ``lora=`` from the same state, rows under the base and both
+    adapters: tokens and pools bit-identical; the graph holds one more
+    static buffer, the adapter index, and K1 moves n_layers a replay."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, dtype=dtype)
+    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+                                dtype)
+    adapters = _lora_adapters(config, "cuda")
+    engine = ServeEngine(params, config, slots=3, page_size=4, prompt_bucket=8, chunk=4,
+                         adapters=adapters)
+    for i, name in enumerate([None] + sorted(adapters)):
+        engine.submit([5 + i, 9, 13, 2, 40][: 1 + 2 * i], 12, adapter=name)
+    engine._admit()
+    engine._cover_chunk()
+    assert sorted(engine._adapter_idx.tolist()) == [0, 1, 2]
+    inputs = (engine._dev(engine._tables), engine._dev(engine._tokens),
+              engine._dev(engine._positions), engine._dev(engine._occupied))
+    aidx = engine._aidx_dev()
+    engine._graph.capture()
+    assert engine._graph.aidx is not None and engine._graph.aidx.dtype == torch.int32
+    saved = [p.clone() for p in engine.pools]
+    before = pa.paged_attention.launches
+    graph_toks = engine._graph.run(*inputs, *engine._unbounded, engine.chunk,
+                                   aidx=aidx)[0].clone()
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches - before == config.n_layers * engine.chunk
+    graph_pools = [p.clone() for p in engine.pools]
+    for pool, copy in zip(engine.pools, saved):
+        pool.copy_(copy)
+    with torch.inference_mode():
+        eager_toks, _ = paged_decode_chunk(
+            engine.params, engine.pools, *inputs, None, 0.0, 0, 1.0, config, engine.chunk,
+            False, lora=engine._lora(aidx))
+    torch.cuda.synchronize()
+    assert torch.equal(graph_toks, eager_toks)
+    for a, b in zip(graph_pools, engine.pools):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="aidx"):
+        engine._graph.run(*inputs, *engine._unbounded, engine.chunk)
+
+
+def test_a_graph_without_adapters_holds_no_index_buffer(cuda):
+    """An engine without adapters captures the graph it captured before:
+    no adapter buffer, and an index handed to it is refused."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
+    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+    engine = ServeEngine(params, config, slots=2, page_size=4, prompt_bucket=8, chunk=4)
+    assert engine._graph.aidx is None and engine._stacked_adapters is None
+    with pytest.raises(ValueError, match="aidx"):
+        engine._graph.run(*(torch.zeros(1, device="cuda"),) * 6, 1,
+                          aidx=torch.zeros(2, dtype=torch.int32, device="cuda"))
+
+
+_LORA_MODES = [{}, {"pipelined": True}, {"superstep_k": 2, "pipelined": True},
+               {"batched_admission": False}, {"prefill_budget": 8, "prefix_cache": True}]
+
+
+@pytest.mark.parametrize("mode", _LORA_MODES,
+                         ids=["defaults", "pipelined", "k2-pipelined", "serial", "budget-radix"])
+def test_card_lora_streams_equal_the_cpu_engine_with_one_capture(cuda, mode):
+    """float32: the adapter engine on the card emits the CPU engine's
+    greedy streams for a stream whose adapter mix changes at every
+    admission, and its graph is captured once: churn replays it."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
+    params = init_params(config, torch.Generator().manual_seed(0))
+    adapters = _lora_adapters(config, "cpu")
+    names = [None] + sorted(adapters)
+    requests = [([(7 * i + j) % 256 for j in range(n)], new, names[i % 3])
+                for i, (n, new) in enumerate(((3, 17), (19, 9), (11, 24), (1, 5), (26, 12),
+                                              (9, 14), (4, 20)))]
+    out = {}
+    for device in ("cpu", "cuda"):
+        ads = {k: [{t: {f: x.to(device) for f, x in ab.items()} for t, ab in e.items()}
+                   for e in v] for k, v in adapters.items()}
+        engine = ServeEngine(_on(params, device), config, slots=2, page_size=4,
+                             prompt_bucket=8, chunk=4, adapters=ads, device=device, **mode)
+        rids = [engine.submit(p, n, adapter=a) for p, n, a in requests]
+        served = engine.run()
+        out[device] = [served[r] for r in rids]
+        if device == "cuda":
+            assert engine._graph.captures == 1
+        engine.close()
+        assert engine.ctrl.used_pages == 0
+    assert out["cuda"] == out["cpu"]
+
+
+def test_card_lora_spec_streams_equal_the_cpu_engine_without_recapture(cuda):
+    """float32 speculation over adapters (the target's verify adapted,
+    the int8 self-draft not): the card's streams equal the CPU's, and
+    each cover's round graph is captured once through the churn."""
+    # One draw of the factors (on the CPU: a generator's numbers differ
+    # by device), moved to each engine's device.
+    adapters = _lora_adapters(ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2,
+                                          dtype=torch.float32), "cpu")
+    out = {}
+    for device in ("cpu", "cuda"):
+        ads = {k: [{t: {f: x.to(device) for f, x in ab.items()} for t, ab in e.items()}
+                   for e in v] for k, v in adapters.items()}
+        engine = _spec_engine(torch.float32, device=device, slots=3, adapters=ads,
+                              spec_superstep_k=2, pipelined=True)
+        names = [None] + sorted(engine._adapter_ids)
+        rids = [engine.submit([(5 * i + j) % 256 for j in range(3 + i)], 12 + i,
+                              adapter=names[i % 3]) for i in range(6)]
+        served = engine.run()
+        out[device] = ([served[r] for r in rids], engine.spec_rounds)
+        if device == "cuda":
+            assert set(engine._spec_graph.captures_by_cover.values()) == {1}
+            assert engine._spec_graph.aidx is not None
+        assert engine.ctrl.used_pages == 0
+    assert out["cuda"] == out["cpu"]
+
+
+def test_pipelined_adapter_index_is_snapshotted_at_dispatch(cuda):
+    """Under pipelined supersteps admission rewrites the adapter mirror
+    while a superstep is in flight.  The dispatch uploads its own pinned
+    copy: scribbling on the mirror after each upload, while the device
+    is still busy, changes no token of any row."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
+    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+    adapters = _lora_adapters(config, "cuda")
+    names = [None] + sorted(adapters)
+    requests = [([3, 1, 4, 1, 5], 17), ([2, 7], 9), ([9] * 11, 13), ([6, 6], 20),
+                ([8, 1], 11)]
+
+    def serve(racing: bool):
+        engine = ServeEngine(params, config, slots=2, page_size=4, prompt_bucket=8,
+                             superstep_k=2, pipelined=True, adapters=adapters)
+        if racing:
+            upload = engine._dev
+
+            def racing_dev(mirror):
+                torch.cuda._sleep(1_000_000)  # the upload queues behind this
+                out = upload(mirror)
+                if mirror is engine._adapter_idx:
+                    kept = mirror.copy()
+                    mirror[...] = 2
+                    torch.cuda.synchronize()
+                    mirror[...] = kept
+                return out
+
+            engine._dev = racing_dev
+        rids = [engine.submit(p, n, adapter=names[i % 3]) for i, (p, n) in enumerate(requests)]
+        served = engine.run()
+        assert engine.ctrl.used_pages == 0
+        return [served[r] for r in rids]
+
+    assert serve(racing=True) == serve(racing=False)
+
+
+def test_lora_products_do_not_run_in_tf32(cuda):
+    """The factor products are float32 einsums: with TF32 off (the
+    default this port keeps) a row's delta on the card matches a float64
+    reference to float32 accuracy; TF32 would miss by ~1e-3."""
+    from workloads_torch.multi_lora import _row_delta
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    g = torch.Generator("cuda").manual_seed(4)
+    x = torch.randn((4, 3, 512), generator=g, device="cuda")
+    ab = {"a": torch.randn((3, 512, 8), generator=g, device="cuda") / 512**0.5,
+          "b": torch.randn((3, 8, 1536), generator=g, device="cuda")}
+    idx = torch.tensor([0, 2, 1, 2], device="cuda")
+    got = _row_delta(x, ab, idx).double()
+    a, b = ab["a"][idx].double(), ab["b"][idx].double()
+    want = torch.einsum("bsr,brf->bsf", torch.einsum("bsd,bdr->bsr", x.double(), a), b)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_lora_train_step_launches_the_flash_kernels_and_keeps_the_base(cuda, monkeypatch):
+    """The LoRA fine-tune on the flash route: K2, K3, K4 once a layer a
+    step, the base bit-unchanged and the loss falling on a fixed batch."""
+    from workloads_torch.lora import lora_init, make_lora_train_step
+
+    monkeypatch.setattr(tmodel, "flash_min_seq", lambda: 1)
+    config = ModelConfig(max_seq_len=65, n_layers=2, n_heads=4, d_model=256,
+                         attention_impl="flash")
+    base = init_params(config, torch.Generator("cuda").manual_seed(0))
+    kept = [t.clone() for t in ttrain.tree_leaves(base)]
+    adapters = lora_init(config, 4, torch.Generator("cuda").manual_seed(1))
+    optimizer = ttrain.AdamW(lr=1e-2, mu_dtype=torch.float32)
+    state = optimizer.init(adapters)
+    step = make_lora_train_step(config, optimizer, base)
+    tokens = ttrain.synthetic_batch(config, 4, seed=0)
+    losses = []
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    for _ in range(3):
+        adapters, state, loss = step(adapters, state, tokens)
+        losses.append(loss.item())
+    now = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    assert [b - a for a, b in zip(counts, now)] == [3 * config.n_layers] * 3
+    assert losses[-1] < losses[0]
+    assert all(torch.equal(a, b) for a, b in zip(ttrain.tree_leaves(base), kept))

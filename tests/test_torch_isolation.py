@@ -43,6 +43,13 @@ def test_speculation_modules_are_scanned():
             os.path.join("workloads_torch", "speculative.py")} <= scanned
 
 
+def test_lora_modules_are_scanned():
+    """The scan reaches the LoRA slice's modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", "lora.py"),
+            os.path.join("workloads_torch", "multi_lora.py")} <= scanned
+
+
 def test_scan_catches_forbidden_lines():
     """The scan itself: it flags the JAX package and jax, not the port."""
     flagged = [
@@ -73,6 +80,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         "assert sys.modules['jax'] is None and sys.modules['workloads'] is None",
         "assert sys.modules['ml_dtypes'] is None",
         "assert {'workloads_torch.quant', 'workloads_torch.speculative'} <= set(names)",
+        "assert {'workloads_torch.lora', 'workloads_torch.multi_lora'} <= set(names)",
         "print(len(names))",
     ])
     env = dict(os.environ)
@@ -80,4 +88,4 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 16  # chip_smoke + every port module
+    assert int(proc.stdout.strip()) >= 18  # chip_smoke + every port module

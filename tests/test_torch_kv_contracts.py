@@ -627,6 +627,33 @@ def test_import_kv_refuses_incompatible_tickets(params):
         e.close()
 
 
+def test_import_kv_takes_a_served_adapters_ticket(params):
+    """Beside the ghost refusal above: a ticket for an adapter the engine
+    serves grafts under that adapter's salt, and the adapted request on
+    the importing engine takes the handed-off pages and its own stream."""
+    from workloads_torch.lora import merge_lora
+    from workloads_torch.multi_lora import synthetic_adapters
+
+    adapters = synthetic_adapters(CONFIG, 1, rank=2, seed=5, device="cpu")
+    src = _hand_engine(params, adapters=adapters)
+    prompt = [6] * 16
+    src.submit(prompt, 2, adapter="tenant-0")
+    src.run()
+    blobs = src.export_kv(prompt, adapter="tenant-0")
+    assert blobs
+    dst = _hand_engine(params, adapters=adapters)
+    assert dst.import_kv(prompt, blobs, adapter="ghost") == 0
+    assert dst.import_kv(prompt, blobs, adapter="tenant-0") == len(blobs)
+    assert dst.prefix.match_depth(prompt) == 0
+    assert dst.prefix.match_depth(prompt, salt="lora:1") == len(blobs)
+    rid = dst.submit(prompt, 5, adapter="tenant-0")
+    merged = merge_lora(params, adapters["tenant-0"], dtype=torch.float32)
+    assert dst.run()[rid] == _ref(merged, prompt, 5)
+    assert dst.prefix.reloads > 0
+    for e in (src, dst):
+        e.close()
+
+
 def test_graft_respects_host_budget(params):
     src = _hand_engine(params)
     prompt = [6] * 16

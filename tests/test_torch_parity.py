@@ -13,11 +13,13 @@ tests/test_torch_superstep_golden.npz, and tests/test_torch_lifecycle.py
 (the request lifecycle) against tests/test_torch_lifecycle_golden.npz,
 and tests/test_torch_kv_hierarchy.py (the KV-cache hierarchy) against
 tests/test_torch_kv_golden.npz, and tests/test_torch_spec.py (speculative
-decoding) against tests/test_torch_spec_golden.npz;
+decoding) against tests/test_torch_spec_golden.npz, and
+tests/test_torch_lora.py (multi-LoRA serving and the LoRA fine-tune step)
+against tests/test_torch_lora_golden.npz;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the five fixtures from the JAX package (``write_spec_goldens()``
+regenerates the six fixtures from the JAX package (``write_lora_goldens()``
 alone rewrites only the last).
 """
 
@@ -36,6 +38,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 import numpy as np  # noqa: E402
+import optax  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
@@ -68,6 +71,7 @@ from tests.test_torch_kv_hierarchy import (  # noqa: E402
 )
 from tests.test_torch_kv_hierarchy import golden_runs as kv_golden_runs  # noqa: E402
 from tests.test_torch_kv_hierarchy import run_kv_scenario  # noqa: E402
+from tests import test_torch_lora as tlora  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
     LIFECYCLE_GOLDEN,
     golden_runs,
@@ -111,11 +115,14 @@ from tests.test_torch_superstep import (  # noqa: E402
 from workloads import durable as jdurable  # noqa: E402
 from workloads import faults as jfaults  # noqa: E402
 from workloads import generate as jgen  # noqa: E402
+from workloads import lora as jlora  # noqa: E402
 from workloads import model as jmodel  # noqa: E402
+from workloads import multi_lora as jmulti  # noqa: E402
 from workloads import paged as jpaged  # noqa: E402
 from workloads import quant as jquant  # noqa: E402
 from workloads import serve as jserve  # noqa: E402
 from workloads import speculative as jspec  # noqa: E402
+from workloads import train as jtrain  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
 from workloads_torch import convert  # noqa: E402
 from workloads_torch import durable as tdurable  # noqa: E402
@@ -601,6 +608,138 @@ def jax_quant_outputs(tree_bf16: dict) -> dict:
     return out
 
 
+def jax_adapters(config) -> dict:
+    """tests/test_torch_lora.py's numpy adapters as jax arrays."""
+    return jax.tree.map(jnp.asarray, tlora.numpy_adapters(config))
+
+
+def jax_lora_factory(tree_bf16: dict):
+    """``make_engine`` for the JAX engine serving the two adapters
+    (tests/test_torch_lora.py ``run_lora_scenario``)."""
+    config = jax_config(tlora.LORA_CASE)
+    params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
+    adapters = jax_adapters(config)
+    draft = jquant.quantize_params(params)
+
+    def make(d, **kw):
+        extra = dict(draft_params=draft, draft_config=config) if d == "self8" else {}
+        return jserve.ServeEngine(params, config, adapters=adapters,
+                                  lora_alpha=tlora.ALPHA, **extra, **kw)
+
+    return make
+
+
+def jax_lora_units(tree_bf16: dict) -> dict:
+    """The JAX package's stack_adapters, apply_qkv, wo_row_delta and
+    merge_lora on tests/test_torch_lora.py's unit inputs (``port_units``),
+    op by op (no jit)."""
+    out = {}
+    idx = jnp.asarray(tlora.UNIT_IDX, jnp.int32)
+    for layout, kv in tlora.LAYOUTS.items():
+        config = jax_config(("f32", kv, None))
+        ads = jax_adapters(config)
+        stacked = jmulti.stack_adapters([ads[n] for n in sorted(ads)], config)
+        if layout == "mha":
+            for li, entry in enumerate(stacked):
+                for name, ab in entry.items():
+                    for f in ("a", "b"):
+                        out[f"stack/{li}/{name}/{f}"] = _np(ab[f])
+        inp = tlora.unit_inputs(layout)
+        for dt, jdt in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
+            x = {k: jnp.asarray(tlora.bf16_round(v), jdt) for k, v in inp.items()}
+            q, k, v = jmulti.apply_qkv(x["q"], x["k"], x["v"], x["h"], stacked[0], idx,
+                                       config, tlora.ALPHA, jdt)
+            for name, t in (("q", q), ("k", k), ("v", v)):
+                out[f"{layout}/{dt}/apply_qkv/{name}"] = _np(t)
+            out[f"{layout}/{dt}/wo_row_delta/3d"] = _np(
+                jmulti.wo_row_delta(x["attn"], stacked[1], idx, tlora.ALPHA))
+            out[f"{layout}/{dt}/wo_row_delta/2d"] = _np(
+                jmulti.wo_row_delta(x["attn"][:, 0], stacked[1], idx, tlora.ALPHA))
+    config = jax_config(tlora.LORA_CASE)
+    adapter = jax_adapters(config)["tenant-a"]
+    f32 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), tree_bf16)
+    bases = {"bf16": jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree_bf16),
+             "int8": jquant.quantize_params(f32)}
+    for base, dtypes in (("bf16", (None, jnp.float32)), ("int8", (None, jnp.bfloat16))):
+        for dtype in dtypes:
+            merged = jlora.merge_lora(bases[base], adapter, tlora.ALPHA, dtype=dtype)
+            tag = "default" if dtype is None else jnp.dtype(dtype).name
+            for li, layer in enumerate(merged["layers"]):
+                for name in adapter[li]:
+                    out[f"merge/{base}/{tag}/{li}/{name}"] = _np(layer[name])
+                    out[f"merge/{base}/{tag}/{li}/{name}/dtype_bits"] = np.asarray(
+                        jnp.finfo(layer[name].dtype).bits)
+    return {f"unit/{k}": v for k, v in out.items()}
+
+
+def jax_lora_train_step(dt: str) -> dict:
+    """One step of the JAX package's make_lora_train_step (optax.adamw
+    1e-3, a one-device mesh) on tests/test_torch_lora.py's inputs
+    (``port_train_step``); bf16 with jit disabled, so each operation
+    rounds where the source says."""
+    from tests import test_torch_train as tt
+    from dataclasses import replace
+
+    config = replace(jax_config(("f32", None, None)), max_seq_len=33,
+                     dtype=JAX_DTYPES[dt])
+    base = jax.tree.map(jnp.asarray, tt.numpy_params(config))
+    adapters = jax.tree.map(jnp.asarray, tlora.numpy_adapter(config, 31))
+    optimizer = optax.adamw(1e-3)
+    state = optimizer.init(adapters)
+    step = jlora.make_lora_train_step(config, jtrain.make_mesh(1, 1), optimizer, base,
+                                      tlora.ALPHA)
+    tokens = jnp.asarray(tt.numpy_tokens(config, 0))
+    if dt == "f32":
+        adapters, state, loss = step(adapters, state, tokens)
+    else:
+        with jax.disable_jit():
+            adapters, state, loss = step(adapters, state, tokens)
+    out = {"loss": np.asarray(float(loss), np.float32)}
+    for li, entry in enumerate(adapters):
+        for name, ab in entry.items():
+            for f in ("a", "b"):
+                out[f"{li}/{name}/{f}"] = _np(ab[f])
+    return {f"unit/train/{dt}/{k}": v for k, v in out.items()}
+
+
+_LORA_RUNS = tlora.golden_runs()
+
+
+@pytest.mark.parametrize("key, mode, scenario", _LORA_RUNS[::7],
+                         ids=[r[0] for r in _LORA_RUNS[::7]])
+def test_lora_matches_jax_live(trees, key, mode, scenario):
+    """Every seventh frozen adapter run, live: the port's streams,
+    statuses and per-step counters against the JAX engine's."""
+    want = tlora.run_lora_scenario(jax_lora_factory(trees[None]), mode, scenario,
+                                   injector_cls=jfaults.FaultInjector)
+    config = tiny_config(tlora.LORA_CASE)
+    params = convert.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a).astype(np.float32), trees[None]), device="cpu")
+    adapters = convert.adapters_from_jax(tlora.numpy_adapters(config), device="cpu")
+    got = tlora.run_lora_scenario(tlora.port_engine_factory(params, config, adapters), mode,
+                                  scenario)
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w, err_msg=key)
+
+
+def write_lora_goldens(path: str = tlora.LORA_GOLDEN) -> None:
+    """Freeze the JAX engine's adapter scenarios (streams, statuses and
+    per-step counters), the unit outputs and one LoRA fine-tune step a
+    dtype for tests/test_torch_lora.py."""
+    tree = jax_params_bf16(tlora.LORA_CASE[1])
+    arrays = jax_lora_units(tree)
+    for dt in ("f32", "bf16"):
+        arrays.update(jax_lora_train_step(dt))
+    make = jax_lora_factory(tree)
+    for key, mode, scenario in tlora.golden_runs():
+        tokens, counters, statuses, _ = tlora.run_lora_scenario(
+            make, mode, scenario, injector_cls=jfaults.FaultInjector)
+        arrays.update({f"{key}/tokens": tokens, f"{key}/counters": counters,
+                       f"{key}/statuses": statuses})
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_spec_goldens(path: str = SPEC_GOLDEN) -> None:
     """Freeze the JAX engine's speculative scenarios (streams, statuses,
     mode traces and per-step counters) and the unit outputs for
@@ -696,3 +835,4 @@ if __name__ == "__main__":
     write_lifecycle_goldens()
     write_kv_goldens()
     write_spec_goldens()
+    write_lora_goldens()

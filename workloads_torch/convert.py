@@ -54,3 +54,18 @@ def params_from_jax(tree, device=None) -> dict:
             for layer in tree["layers"]
         ],
     }
+
+
+def adapters_from_jax(adapters: dict, device=None) -> dict:
+    """The engine's ``adapters=`` from the JAX package's numpy adapter
+    trees, ``{name: [layer]{target: {"a": ..., "b": ...}}}``, bit for
+    bit, on ``device`` (None means ``cuda``)."""
+    device = resolve_device(device)
+    return {
+        name: [
+            {target: {k: tensor_from_numpy(a, device) for k, a in ab.items()}
+             for target, ab in layer.items()}
+            for layer in tree
+        ]
+        for name, tree in adapters.items()
+    }

@@ -33,6 +33,14 @@ dispatch, for the lookahead superstep (budget unbounded, no eos, so
 ``live`` stays the occupancy) and the chained superstep alike.  The
 verify block's view is as wide as a static cover of table columns, so
 one graph is captured per cover on its first use.
+
+With stacked LoRA adapters (``multi_lora.stack_adapters``) both graphs
+hold the stack by address and take one more static buffer, ``aidx``
+(int32 [slots]), each row's adapter index, filled in ``run`` as
+``tables`` and ``pos`` are: a change of the adapter mix between
+dispatches replays the same graph.  Without adapters the captured graph
+is the same as before: no extra buffer, no extra launch.  In a spec
+round only the target's verify reads ``aidx``; the draft is unadapted.
 """
 
 from __future__ import annotations
@@ -41,6 +49,16 @@ import torch
 
 from .ops.paged_attention import paged_attention
 from .paged import decode_superstep_step, spec_chained_round
+
+
+def _check_aidx(buf, aidx) -> None:
+    """A graph with adapters takes each run's adapter indices; one
+    without takes none."""
+    if (buf is None) != (aidx is None):
+        raise ValueError(
+            "adapter indices (aidx) go with an adapter graph and only with one: "
+            f"graph has adapters: {buf is not None}, aidx given: {aidx is not None}"
+        )
 
 
 class DecodeGraph:
@@ -53,10 +71,12 @@ class DecodeGraph:
         self, params: dict, pools: tuple[torch.Tensor, torch.Tensor], config,
         *, slots: int, max_pages: int, max_steps: int,
         generator: torch.Generator | None, temperature: float, top_k: int,
-        top_p: float, sampling: bool,
+        top_p: float, sampling: bool, lora_stacked: list | None = None,
+        lora_alpha: float = 1.0,
     ):
         device = pools[0].device
         self.params, self.pools, self.config = params, pools, config
+        self.lora_stacked, self.lora_alpha = lora_stacked, lora_alpha
         self.generator = generator if sampling else None
         self.sampling = sampling
         self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
@@ -70,6 +90,8 @@ class DecodeGraph:
             self.eos = torch.full((slots,), -1, dtype=torch.int32, device=device)
             self.out = torch.zeros((slots, max_steps), dtype=torch.long, device=device)
             self.col = torch.zeros(1, dtype=torch.long, device=device)
+            self.aidx = (torch.zeros(slots, dtype=torch.int32, device=device)
+                         if lora_stacked is not None else None)
         self.graph = None
         self.captures = 0  # completed captures: 1 for the graph's life
         self.k1_per_step = 0  # paged_attention launches in one captured step
@@ -78,10 +100,12 @@ class DecodeGraph:
         """The captured step: one decode step from the buffers, its
         emitted tokens into ``out[:, col]``, its carry back into the
         buffers."""
+        lora = (None if self.aidx is None
+                else (self.lora_stacked, self.aidx, self.lora_alpha))
         nxt, tok, pos, live, budget = decode_superstep_step(
             self.params, self.pools, self.tables, self.tok, self.pos, self.live,
             self.budget, self.eos, self.generator, self.temperature, self.top_k,
-            self.top_p, self.config, self.sampling,
+            self.top_p, self.config, self.sampling, lora=lora,
         )
         self.out.index_copy_(1, self.col, nxt[:, None])
         self.col.add_(1)
@@ -104,6 +128,8 @@ class DecodeGraph:
         self.live.fill_(False)
         self.pos.zero_()
         self.col.zero_()
+        if self.aidx is not None:
+            self.aidx.zero_()
         launches = paged_attention.launches
         rng_state = self.generator.get_state() if self.generator is not None else None
         try:
@@ -131,19 +157,23 @@ class DecodeGraph:
         self.captures += 1
 
     @torch.inference_mode()
-    def run(self, tables, tok, pos, live, budget, eos, steps: int):
+    def run(self, tables, tok, pos, live, budget, eos, steps: int, aidx=None):
         """``steps`` decode steps from these inputs (device tensors,
-        [slots] and [slots, max_pages]), as replays of the captured step.
-        Returns (emitted [slots, steps], tok, pos, live, budget): a view
-        of ``out`` and the carry buffers, which the next ``run``
-        overwrites; read or copy them before it."""
+        [slots] and [slots, max_pages]), as replays of the captured step;
+        ``aidx`` ([slots] adapter indices) is required with adapters and
+        refused without.  Returns (emitted [slots, steps], tok, pos,
+        live, budget): a view of ``out`` and the carry buffers, which the
+        next ``run`` overwrites; read or copy them before it."""
         if not 1 <= steps <= self.max_steps:
             raise ValueError(f"steps must be in [1, {self.max_steps}], got {steps}")
+        _check_aidx(self.aidx, aidx)
         if self.graph is None:
             self.capture()
         for buf, src in ((self.tables, tables), (self.tok, tok), (self.pos, pos),
                          (self.live, live), (self.budget, budget), (self.eos, eos)):
             buf.copy_(src)
+        if self.aidx is not None:
+            self.aidx.copy_(aidx)
         self.col.zero_()
         for _ in range(steps):
             self.graph.replay()
@@ -169,9 +199,10 @@ class SpecGraph:
         self, t_params: dict, d_params: dict, t_pools, d_pools, t_config, d_config, *,
         gamma: int, slots: int, max_pages: int, max_rounds: int,
         generator: torch.Generator | None, temperature: float, top_k: int, top_p: float,
-        sampling: bool,
+        sampling: bool, lora_stacked: list | None = None, lora_alpha: float = 1.0,
     ):
         device = t_pools[0].device
+        self.lora_stacked, self.lora_alpha = lora_stacked, lora_alpha
         self.t_params, self.d_params = t_params, d_params
         self.t_pools, self.d_pools = t_pools, d_pools
         self.t_config, self.d_config = t_config, d_config
@@ -193,6 +224,8 @@ class SpecGraph:
             self.round_live = torch.zeros((max_rounds, slots), dtype=torch.bool,
                                           device=device)
             self.row = torch.zeros(1, dtype=torch.long, device=device)
+            self.aidx = (torch.zeros(slots, dtype=torch.int32, device=device)
+                         if lora_stacked is not None else None)
         self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
         self.captures = 0
         self.captures_by_cover: dict[int, int] = {}
@@ -203,12 +236,14 @@ class SpecGraph:
         outputs into row ``row`` of the output buffers, its carry back
         into the input buffers."""
         self.round_live.index_copy_(0, self.row, self.live[None])
+        t_lora = (None if self.aidx is None
+                  else (self.lora_stacked, self.aidx, self.lora_alpha))
         committed, n, cur, pos, live, budget = spec_chained_round(
             self.t_params, self.d_params, self.t_pools, self.d_pools, self.tables,
             self.cur, self.pos, self.live, self.budget, self.eos, self.t_config,
             self.d_config, self.gamma, cover, sampling=self.sampling,
             generator=self.generator, temperature=self.temperature, top_k=self.top_k,
-            top_p=self.top_p,
+            top_p=self.top_p, t_lora=t_lora,
         )
         self.committed.index_copy_(0, self.row, committed[None])
         self.n.index_copy_(0, self.row, n[None])
@@ -230,6 +265,8 @@ class SpecGraph:
         self.tables.fill_(trash)
         self.live.fill_(False)
         self.pos.zero_()
+        if self.aidx is not None:
+            self.aidx.zero_()
         launches = paged_attention.launches
         rng_state = self.generator.get_state() if self.generator is not None else None
         try:
@@ -259,21 +296,25 @@ class SpecGraph:
         self.captures_by_cover[cover] = self.captures_by_cover.get(cover, 0) + 1
 
     @torch.inference_mode()
-    def run(self, tables, cur, pos, live, budget, eos, rounds: int, cover: int):
+    def run(self, tables, cur, pos, live, budget, eos, rounds: int, cover: int, aidx=None):
         """``rounds`` chained rounds from these inputs (device tensors),
-        as replays of the round captured at ``cover``.  Returns
+        as replays of the round captured at ``cover``; ``aidx`` as in
+        ``DecodeGraph.run``.  Returns
         (committed [rounds, slots, gamma+1], n [rounds, slots],
         round_live [rounds, slots], cur, pos, live, budget): views of the
         graph's buffers, which the next ``run`` overwrites; read or copy
         them before it."""
         if not 1 <= rounds <= self.max_rounds:
             raise ValueError(f"rounds must be in [1, {self.max_rounds}], got {rounds}")
+        _check_aidx(self.aidx, aidx)
         if cover not in self.graphs:
             self.capture(cover)
         graph = self.graphs[cover]
         for buf, src in ((self.tables, tables), (self.cur, cur), (self.pos, pos),
                          (self.live, live), (self.budget, budget), (self.eos, eos)):
             buf.copy_(src)
+        if self.aidx is not None:
+            self.aidx.copy_(aidx)
         self.row.zero_()
         for _ in range(rounds):
             graph.replay()

@@ -44,7 +44,7 @@ def init_kv_cache(
 
 def decode_block(
     params: dict, cache: torch.Tensor, tokens: torch.Tensor, pos: int,
-    config: ModelConfig, unembed: str = "all",
+    config: ModelConfig, unembed: str = "all", lora=None,
 ):
     """A block of ``s`` consecutive tokens through the cached model in
     one forward.  tokens: [batch, s] occupying positions
@@ -54,7 +54,11 @@ def decode_block(
 
     ``unembed``: "all" (every row), "last" ([batch, 1, vocab]), "hidden"
     (the final hidden states [batch, s, d_model]) or "none" (cache fill
-    only, logits is None)."""
+    only, logits is None).
+
+    ``lora=(stacked, idx, alpha)`` applies PER-ROW adapter deltas to the
+    q/k/v and output projections (``multi_lora.py``); None is the plain
+    model."""
     if unembed not in ("all", "last", "none", "hidden"):
         raise ValueError(
             f"unembed must be 'all', 'last', 'hidden' or 'none', got "
@@ -80,15 +84,24 @@ def decode_block(
     if config.attention_window is not None:
         mask &= k_pos[None, :] > row_pos[:, None] - config.attention_window
     mask = mask[None, None]  # [1, 1, s, max_len]
+    if lora is not None:
+        from .multi_lora import apply_qkv, apply_wo
+
+        stacked, aidx, alpha = lora
 
     for i, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["ln1"])
         q, k, v = project_qkv(h, layer)  # [b, s, H|Hkv, hd]
+        if lora is not None:
+            q, k, v = apply_qkv(q, k, v, h, stacked[i], aidx, config, alpha, config.dtype)
         q, k = apply_rope(q, angles), apply_rope(k, angles)
         cache[i, 0, :, pos : pos + s] = k
         cache[i, 1, :, pos : pos + s] = v
         attn = masked_attention(q, cache[i, 0], cache[i, 1], mask, config.head_dim)
-        x = x + torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
+        proj = torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
+        if lora is not None:
+            proj = apply_wo(proj, attn, stacked[i], aidx, alpha)
+        x = x + proj
         x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
 
     if unembed == "none":

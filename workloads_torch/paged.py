@@ -44,6 +44,7 @@ from .model import (
     rope_angles,
     weight,
 )
+from .multi_lora import apply_qkv, apply_wo
 from .ops.paged_attention import paged_attention
 
 
@@ -1056,14 +1057,18 @@ def _decode_core(
     positions: torch.Tensor,
     config: ModelConfig,
     attention_fn=None,
+    lora=None,
 ):
     """One token per row through the paged cache: write the new k/v into
     each row's current page slot, then run paged attention over the
     row's live pages.  positions: [batch], each row's own position.
     ``attention_fn(q, k_pages, v_pages, tables, lengths, layer)``
     replaces the attention op (as in the JAX package), e.g. to hold the
-    kernel against its plain version inside a whole step.  Returns
-    (logits [batch, vocab], pools updated in place)."""
+    kernel against its plain version inside a whole step.
+    ``lora=(stacked, idx, alpha)`` applies PER-ROW adapter deltas
+    (``multi_lora.py``): row b's q/k/v and output projections gain
+    ``alpha * (h @ a[idx[b]]) @ b[idx[b]]``.  Returns (logits [batch,
+    vocab], pools updated in place)."""
     k_pages, v_pages = pools
     batch = token.shape[0]
     page_size = k_pages.shape[3]
@@ -1075,11 +1080,15 @@ def _decode_core(
     slot = positions % page_size
     lengths = (positions + 1).to(torch.int32)
     angles = rope_angles(positions, config.head_dim)  # [batch, half]
+    if lora is not None:
+        stacked, aidx, alpha = lora
 
     x = params["embed"].to(config.dtype)[token.long()][:, None]  # [b, 1, d]
     for i, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["ln1"])
         q, k, v = project_qkv(h, layer)  # [b, 1, H|Hkv, hd]
+        if lora is not None:
+            q, k, v = apply_qkv(q, k, v, h, stacked[i], aidx, config, alpha, config.dtype)
         q, k = _rope_rows(q, angles), _rope_rows(k, angles)
         _write_slots(k_pages, i, page, slot, k[:, 0])
         _write_slots(v_pages, i, page, slot, v[:, 0])
@@ -1091,6 +1100,8 @@ def _decode_core(
         else:
             attn = attention_fn(q[:, 0].contiguous(), k_pages, v_pages, tables, lengths, i)
         proj = torch.einsum("bhk,hkd->bd", attn, weight(layer["wo"], x.dtype))
+        if lora is not None:
+            proj = apply_wo(proj, attn, stacked[i], aidx, alpha)
         x = x + proj[:, None]
         x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
     logits = x[:, 0].float() @ weight(params["unembed"], torch.float32)
@@ -1105,14 +1116,16 @@ def paged_decode_step(
     token: torch.Tensor,
     positions,
     config: ModelConfig,
+    lora=None,
 ):
     """One token through the paged cache.  tables: [batch, max_pages]
     int32; token: [batch]; positions: an int (lockstep) or [batch]
-    (each row at its own depth).  Returns (logits [batch, vocab],
-    pools) with the pools updated in place."""
+    (each row at its own depth).  ``lora``: per-row adapters (see
+    ``_decode_core``).  Returns (logits [batch, vocab], pools) with the
+    pools updated in place."""
     positions = torch.as_tensor(positions, device=token.device)
     positions = torch.broadcast_to(positions, token.shape)
-    return _decode_core(params, pools, tables, token, positions, config)
+    return _decode_core(params, pools, tables, token, positions, config, lora=lora)
 
 
 @torch.inference_mode()
@@ -1130,20 +1143,23 @@ def paged_decode_chunk(
     config: ModelConfig,
     chunk: int,
     sampling: bool,
+    lora=None,
 ):
     """``chunk`` decode steps (the JAX package's lax.scan, as a loop).
     token/positions: [batch], each row's current token and position.
     occupancy: [batch] bool; rows marked False are parked — their
     position and token freeze and their all-trash table swallows the
     dead write.  tables must cover positions + chunk for occupied rows.
-    Returns (tokens [batch, chunk], pools updated in place)."""
+    ``lora=(stacked, idx, alpha)``: per-row adapters (see
+    ``_decode_core``); idx is data.  Returns (tokens [batch, chunk],
+    pools updated in place)."""
     tok = token.long()
     pos = torch.broadcast_to(
         torch.as_tensor(positions, device=token.device), token.shape
     ).long()
     toks = []
     for _ in range(chunk):
-        logits, pools = _decode_core(params, pools, tables, tok, pos, config)
+        logits, pools = _decode_core(params, pools, tables, tok, pos, config, lora=lora)
         nxt = sample_logits(
             logits, generator if sampling else None, temperature, top_k, top_p
         )
@@ -1168,14 +1184,16 @@ def decode_superstep_step(
     top_p: float,
     config: ModelConfig,
     sampling: bool,
+    lora=None,
 ):
     """ONE decode step with device-side retirement, the body of
     ``paged_decode_superstep`` (and the step ``decode_graph`` captures):
     emit a token for every row, advance live rows, then retire a row on
     the step it emits ``eos`` or exhausts its ``budget``; retired and
     parked rows freeze their position and token.  Returns (emitted
-    [batch], tok, pos, live, budget); the pools update in place."""
-    logits, _ = _decode_core(params, pools, tables, tok, pos, config)
+    [batch], tok, pos, live, budget); the pools update in place.
+    ``lora``: per-row adapters (see ``_decode_core``)."""
+    logits, _ = _decode_core(params, pools, tables, tok, pos, config, lora=lora)
     nxt = sample_logits(
         logits, generator if sampling else None, temperature, top_k, top_p
     )
@@ -1205,6 +1223,7 @@ def paged_decode_superstep(
     chunk: int,
     k: int,
     sampling: bool,
+    lora=None,
 ):
     """``k`` chained decode chunks (``k * chunk`` steps) with device-side
     retirement, the JAX package's ``paged_decode_superstep`` as a loop.
@@ -1215,7 +1234,8 @@ def paged_decode_superstep(
     cover each live row up to its retirement ceiling: a retired row keeps
     writing its frozen position.  Returns (tokens [batch, k*chunk], tok,
     pos, live, budget, pools): the carry after the last step, on the
-    device, and the pools updated in place."""
+    device, and the pools updated in place.  ``lora``: per-row adapters
+    (see ``_decode_core``)."""
     tok = token.long()
     pos = torch.broadcast_to(
         torch.as_tensor(positions, device=token.device), token.shape
@@ -1224,7 +1244,7 @@ def paged_decode_superstep(
     for _ in range(k * chunk):
         nxt, tok, pos, live, budget = decode_superstep_step(
             params, pools, tables, tok, pos, live, budget, eos, generator,
-            temperature, top_k, top_p, config, sampling,
+            temperature, top_k, top_p, config, sampling, lora=lora,
         )
         toks.append(nxt)
     return torch.stack(toks, dim=1), tok, pos, live, budget, pools
@@ -1285,14 +1305,17 @@ def paged_prefill(
     prompts: torch.Tensor,
     lengths: torch.Tensor,
     config: ModelConfig,
+    lora=None,
 ):
     """Prefill a batch of fresh prompts into the paged pools in one block
     forward.  prompts: [batch, P] right-padded; lengths: [batch] true
     lengths (1..P).  Rows start at position 0; their tables must cover
     their own ceil(length / page_size) pages within the first
     ceil(P / page_size) columns, and padding columns are redirected to
-    the trash page.  Returns (next-token logits [batch, vocab] at each
-    row's last true position, pools updated in place)."""
+    the trash page.  ``lora``: per-row adapters (see ``_decode_core``;
+    the engine's batch-1 admissions pass idx=[adapter]).  Returns
+    (next-token logits [batch, vocab] at each row's last true position,
+    pools updated in place)."""
     k_pages, v_pages = pools
     P = prompts.shape[1]
     page_size = k_pages.shape[3]
@@ -1303,7 +1326,8 @@ def paged_prefill(
         [_gather_view(k_pages, t_pp, page_size), _gather_view(v_pages, t_pp, page_size)],
         dim=1,
     )
-    hidden, view = decode_block(params, view, prompts, 0, config, unembed="hidden")
+    hidden, view = decode_block(params, view, prompts, 0, config, unembed="hidden",
+                                lora=lora)
     logits = _last_hidden_logits(params, hidden, (lengths.long() - 1).clamp(0, P - 1))
     _scatter_view(k_pages, view[:, 0], t_pp, page_size)
     _scatter_view(v_pages, view[:, 1], t_pp, page_size)
@@ -1322,6 +1346,7 @@ def paged_prefill_chunk(
     cover_pages: int,
     emit: bool,
     row_start: torch.Tensor | None = None,
+    lora=None,
 ):
     """Chunked prefill: one page-aligned slice of the prompts through the
     paged pools.  chunk_tokens: [batch, C] at absolute positions
@@ -1335,7 +1360,8 @@ def paged_prefill_chunk(
     it falls inside this chunk (other rows get a clipped, meaningless
     row).  ``row_start`` ([batch] pages) marks columns before each row's
     own start as already written: reads see them, the scatter-back sends
-    them to the trash page.  Returns (logits | None, pools updated in
+    them to the trash page.  ``lora``: per-row adapters (see
+    ``_decode_core``).  Returns (logits | None, pools updated in
     place)."""
     k_pages, v_pages = pools
     C = chunk_tokens.shape[1]
@@ -1358,7 +1384,7 @@ def paged_prefill_chunk(
     )
     hidden, view = decode_block(
         params, view, chunk_tokens, start, config,
-        unembed="hidden" if emit else "none",
+        unembed="hidden" if emit else "none", lora=lora,
     )
     logits = None
     if emit:
@@ -1391,6 +1417,7 @@ def _rowwise_block_core(
     block: torch.Tensor,
     positions: torch.Tensor,
     config: ModelConfig,
+    lora=None,
 ):
     """``s`` consecutive tokens PER ROW at per-row start positions through
     the paged pools in one forward, the paged, batched counterpart of
@@ -1407,7 +1434,8 @@ def _rowwise_block_core(
     past each row's post-block coverage go to the trash page).  The
     offsets are clamped to keep the block inside the view, as JAX's
     ``dynamic_update_slice`` clamps them.  Callers bound the table width
-    to the pages live (a cover), so the gather is O(cover)."""
+    to the pages live (a cover), so the gather is O(cover).  ``lora``:
+    per-row adapters (see ``_decode_core``)."""
     k_pages, v_pages = pools
     batch, s = block.shape
     device = block.device
@@ -1430,16 +1458,23 @@ def _rowwise_block_core(
     mask = mask[:, None]  # [b, 1, s, T]
     rows = torch.arange(batch, device=device)[:, None].expand(batch, s)
     cols = positions.clamp(0, max(T - s, 0))[:, None] + offs[None, :]
+    if lora is not None:
+        stacked, aidx, alpha = lora
 
     x = params["embed"].to(config.dtype)[block.long()]  # [b, s, d]
     for i, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["ln1"])
         q, k, v = project_qkv(h, layer)
+        if lora is not None:
+            q, k, v = apply_qkv(q, k, v, h, stacked[i], aidx, config, alpha, config.dtype)
         q, k = _rope_rows(q, angles), _rope_rows(k, angles)
         view_k[i, rows, cols] = k.to(view_k.dtype)
         view_v[i, rows, cols] = v.to(view_v.dtype)
         attn = masked_attention(q, view_k[i], view_v[i], mask, config.head_dim)
-        x = x + torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
+        proj = torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
+        if lora is not None:
+            proj = apply_wo(proj, attn, stacked[i], aidx, alpha)
+        x = x + proj
         x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
     logits = x.float() @ weight(params["unembed"], torch.float32)
     _scatter_view(k_pages, view_k, t_cov, page_size)
@@ -1546,7 +1581,7 @@ def _draft_steps(d_params, d_pools, tables, cur, positions, d_config, gamma,
 def _spec_round_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
     gamma, cover_pages=None, d_attention_fn=None, occupancy=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0, pin_parked=True,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0, pin_parked=True, t_lora=None,
 ):
     """One batched speculative round: the draft proposes ``gamma`` tokens
     a row, the target scores every row's block [cur, d_1..d_gamma] in one
@@ -1563,8 +1598,11 @@ def _spec_round_core(
     keeps a frozen row at its real position, since position 0 would aim
     its dead writes at first pages the prefix cache or a fan-out group
     may share; its caller keeps every parked position inside the
-    cover-sliced table.  Returns (committed [b, gamma+1], n [b]) or
-    (committed, n, new_cur, new_pos)."""
+    cover-sliced table.  ``t_lora=(stacked, idx, alpha)`` adapts the
+    TARGET's verify per row; the draft stays unadapted, so the committed
+    tokens are the adapted model's and speculation stays lossless per
+    tenant (a worse guesser only lowers acceptance).  Returns (committed
+    [b, gamma+1], n [b]) or (committed, n, new_cur, new_pos)."""
     if sampling and generator is None:
         raise ValueError("sampling speculative round requires a torch.Generator")
     batch = cur.shape[0]
@@ -1578,7 +1616,8 @@ def _spec_round_core(
         sampling, generator, temperature, top_k, top_p,
     )
     block = torch.cat([cur.long()[:, None], drafts], dim=1)
-    t_logits, _ = _rowwise_block_core(t_params, t_pools, tables, block, positions, t_config)
+    t_logits, _ = _rowwise_block_core(t_params, t_pools, tables, block, positions, t_config,
+                                      lora=t_lora)
     if sampling:
         p = torch.softmax(filter_logits(t_logits, temperature, top_k, top_p), dim=-1)
         committed, n = _spec_accept(drafts, q, p, generator)
@@ -1596,7 +1635,7 @@ def _spec_round_core(
 def paged_spec_round(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
     gamma, cover_pages=None, sampling=False, generator=None, temperature=0.0, top_k=0,
-    top_p=1.0,
+    top_p=1.0, t_lora=None,
 ):
     """One batched speculative round over the paged caches.  cur: [batch]
     the latest committed token a row, at positions[b]; tables must cover
@@ -1607,11 +1646,12 @@ def paged_spec_round(
     positions only up to each row's committed length, and later rounds
     overwrite them first.  ``sampling`` switches greedy agreement for
     lossless speculative sampling (``_spec_accept``) under
-    temperature/top_k/top_p, drawing from ``generator``."""
+    temperature/top_k/top_p, drawing from ``generator``.  ``t_lora``
+    adapts the target's verify per row (see ``_spec_round_core``)."""
     committed, n = _spec_round_core(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
         gamma, cover_pages, sampling=sampling, generator=generator,
-        temperature=temperature, top_k=top_k, top_p=top_p,
+        temperature=temperature, top_k=top_k, top_p=top_p, t_lora=t_lora,
     )
     return committed, n, t_pools, d_pools
 
@@ -1620,7 +1660,7 @@ def paged_spec_round(
 def paged_spec_round_chained(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
     d_config, gamma, cover_pages=None, sampling=False, generator=None, temperature=0.0,
-    top_k=0, top_p=1.0,
+    top_k=0, top_p=1.0, t_lora=None,
 ):
     """``paged_spec_round`` with the chained next-round state on the
     device: returns (committed, n, new_cur, new_pos, t_pools, d_pools),
@@ -1631,7 +1671,7 @@ def paged_spec_round_chained(
     out = _spec_round_core(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
         gamma, cover_pages, occupancy=occupancy, sampling=sampling, generator=generator,
-        temperature=temperature, top_k=top_k, top_p=top_p,
+        temperature=temperature, top_k=top_k, top_p=top_p, t_lora=t_lora,
     )
     return (*out, t_pools, d_pools)
 
@@ -1639,7 +1679,7 @@ def paged_spec_round_chained(
 def _spec_superstep_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
     d_config, gamma, k, cover_pages=None, d_attention_fn=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
 ):
     """``k`` chained rounds (``paged_spec_round_chained``'s body in a
     loop); returns (committed [k, b, gamma+1], n [k, b], new_cur,
@@ -1653,6 +1693,7 @@ def _spec_superstep_core(
             t_params, d_params, t_pools, d_pools, tables, cur, pos, t_config, d_config,
             gamma, cover_pages, d_attention_fn, occupancy=occupancy, sampling=sampling,
             generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+            t_lora=t_lora,
         )
         committed.append(c)
         ns.append(n)
@@ -1663,7 +1704,7 @@ def _spec_superstep_core(
 def paged_spec_superstep(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
     d_config, gamma, k, cover_pages=None, sampling=False, generator=None,
-    temperature=0.0, top_k=0, top_p=1.0,
+    temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
 ):
     """``k`` chained speculative rounds in one dispatch (lookahead): the
     host leaves the loop for k rounds.  Tables must already cover
@@ -1676,6 +1717,7 @@ def paged_spec_superstep(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy,
         t_config, d_config, gamma, k, cover_pages, sampling=sampling,
         generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+        t_lora=t_lora,
     )
     return (*out, t_pools, d_pools)
 
@@ -1697,7 +1739,7 @@ def spec_retire(committed, n, live, budget, eos):
 def spec_chained_round(
     t_params, d_params, t_pools, d_pools, tables, cur, pos, live, budget, eos, t_config,
     d_config, gamma, cover_pages=None, d_attention_fn=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
 ):
     """One round of the chained-retirement superstep (and the round
     ``decode_graph.SpecGraph`` captures): the round with ``live`` as its
@@ -1708,7 +1750,7 @@ def spec_chained_round(
         t_params, d_params, t_pools, d_pools, tables, cur, pos, t_config, d_config, gamma,
         cover_pages, d_attention_fn, occupancy=live, sampling=sampling,
         generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
-        pin_parked=False,
+        pin_parked=False, t_lora=t_lora,
     )
     new_live, new_budget = spec_retire(committed, n, live, budget, eos)
     return committed, n, new_cur, new_pos, new_live, new_budget
@@ -1717,7 +1759,7 @@ def spec_chained_round(
 def _spec_superstep_chained_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
     budget, eos, t_config, d_config, gamma, k, cover_pages=None, d_attention_fn=None,
-    sampling=False, generator=None, temperature=0.0, top_k=0, top_p=1.0,
+    sampling=False, generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
 ):
     """``paged_spec_superstep_chained``'s body.  Empty slots (occupancy
     False: all-trash tables) pin to position 0 once at entry; rows that
@@ -1734,7 +1776,7 @@ def _spec_superstep_chained_core(
         c, n, cur, pos, live, budget = spec_chained_round(
             t_params, d_params, t_pools, d_pools, tables, cur, pos, live, budget, eos,
             t_config, d_config, gamma, cover_pages, d_attention_fn, sampling, generator,
-            temperature, top_k, top_p,
+            temperature, top_k, top_p, t_lora=t_lora,
         )
         committed.append(c)
         ns.append(n)
@@ -1746,7 +1788,7 @@ def _spec_superstep_chained_core(
 def paged_spec_superstep_chained(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
     budget, eos, t_config, d_config, gamma, k, cover_pages=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
 ):
     """``k`` chained draft -> verify -> commit rounds in one dispatch with
     device-side acceptance masks and retirement: per round the engine's
@@ -1759,11 +1801,13 @@ def paged_spec_superstep_chained(
     budget + gamma + 1) for live rows.  Returns (committed [k, batch,
     gamma+1], n [k, batch], round_live [k, batch] (the mask at each
     round's entry, the host's emission gate), new_cur, new_pos, new_live,
-    new_budget, t_pools, d_pools)."""
+    new_budget, t_pools, d_pools).  ``t_lora`` adapts the target's verify
+    per row (see ``_spec_round_core``)."""
     out = _spec_superstep_chained_core(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
         budget, eos, t_config, d_config, gamma, k, cover_pages, sampling=sampling,
         generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+        t_lora=t_lora,
     )
     return (*out, t_pools, d_pools)
 
@@ -1787,13 +1831,14 @@ def paged_spec_draft_phase(d_params, d_pools, tables, cur, positions, d_config, 
 
 @torch.inference_mode()
 def paged_spec_verify_phase(t_params, t_pools, tables, block, positions, t_config,
-                            cover_pages=None):
+                            cover_pages=None, t_lora=None):
     """Only the verify phase: one rowwise block forward of ``block``
-    [batch, gamma+1] through the target.  Returns (picks [batch,
-    gamma+1], t_pools)."""
+    [batch, gamma+1] through the target (adapted per row with
+    ``t_lora``).  Returns (picks [batch, gamma+1], t_pools)."""
     if cover_pages is not None:
         tables = tables[:, :cover_pages].contiguous()  # the kernel takes it contiguous
-    t_logits, _ = _rowwise_block_core(t_params, t_pools, tables, block, positions, t_config)
+    t_logits, _ = _rowwise_block_core(t_params, t_pools, tables, block, positions, t_config,
+                                      lora=t_lora)
     return torch.argmax(t_logits, dim=-1), t_pools
 
 

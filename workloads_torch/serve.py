@@ -68,8 +68,20 @@ and turns the step around, and ``spec="auto"`` picks speculative or
 plain decode each step from the occupancy against ``spec_breakeven``.
 The draft has its own pools under the same page tables, so prefix hits,
 spills, reloads, fan-out and handoffs carry both models' pages.  On the
-card each round is a replay of ``decode_graph.SpecGraph``.  Adapters and
-the fleet are not ported yet.
+card each round is a replay of ``decode_graph.SpecGraph``.
+
+Multi-LoRA serving, as in the JAX engine: ``adapters={name: adapter}``
+(``lora.lora_init`` trees) are stacked once behind a zero base entry at
+index 0 (``multi_lora.stack_adapters``), and every prefill, decode step
+and spec verify applies each row's own adapter delta on the activation
+side, its index a per-slot mirror (``_adapter_idx``) uploaded at each
+dispatch; ``submit(adapter=)`` picks one, None the base.  Prefix-cache
+keys, parks and KV handoffs are salted ``lora:{i}`` per adapter, so
+adapted pages are never served to another tenant.  The draft of a
+speculating engine stays unadapted (the target's adapted verify keeps
+speculation lossless per tenant).  On the card the adapter index is one
+more static buffer of the captured graphs, so a change of mix replays
+them.  The fleet is not ported yet.
 
 Run on the card with ``python -m workloads_torch.serve``; pass
 ``--device cpu`` for the plain PyTorch path on the CPU.
@@ -152,6 +164,7 @@ class Request:
     deadline_s: float | None = None
     t_deadline: float | None = None  # absolute perf_counter deadline
     group: str | None = None
+    adapter: str | None = None  # multi-LoRA: the adapter serving it (None: base)
 
     @property
     def ttft_secs(self) -> float | None:
@@ -254,6 +267,8 @@ class ServeEngine:
         max_retries: int = 2,
         retry_backoff_s: float = 0.0,
         health_events=None,
+        adapters: dict[str, list] | None = None,
+        lora_alpha: float = 1.0,
         device=None,
     ):
         if slots < 1:
@@ -284,6 +299,12 @@ class ServeEngine:
                 "draft_params and draft_config come together (speculative "
                 "serving needs both)"
             )
+        if adapters is not None:
+            if not adapters:
+                raise ValueError(
+                    "adapters must be a non-empty {name: adapter} dict "
+                    "(or None to serve the plain base)"
+                )
         if draft_params is not None:
             if draft_config.vocab_size != config.vocab_size:
                 raise ValueError("target and draft must share a vocabulary")
@@ -496,6 +517,24 @@ class ServeEngine:
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         self.generator = generator
+        # Multi-LoRA: adapters stacked once (index 0 is the zero BASE
+        # entry, so adapter-less requests share the code path); the
+        # per-slot indices are data, so the adapter mix never recaptures.
+        self.lora_alpha = float(lora_alpha)
+        if adapters is not None:
+            from .multi_lora import stack_adapters
+
+            names = sorted(adapters)
+            self._adapter_ids = {name: i + 1 for i, name in enumerate(names)}
+            stacked = stack_adapters([adapters[n] for n in names], config)
+            self._stacked_adapters = [
+                {t: {k: f.to(self.device) for k, f in ab.items()} for t, ab in entry.items()}
+                for entry in stacked
+            ]
+        else:
+            self._adapter_ids = {}
+            self._stacked_adapters = None
+        self._adapter_idx = np.zeros(slots, np.int32)
 
         trash = self.ctrl.trash
         self._tables = np.full((slots, self.max_pages), trash, np.int32)
@@ -556,6 +595,7 @@ class ServeEngine:
                 max_pages=self.max_pages, max_steps=self.chunk * superstep_k,
                 generator=self.generator, temperature=self.temperature,
                 top_k=self.top_k, top_p=self.top_p, sampling=self.sampling,
+                lora_stacked=self._stacked_adapters, lora_alpha=self.lora_alpha,
             )
             self._unbounded = (
                 torch.full((slots,), _UNBOUNDED, dtype=torch.int32, device=self.device),
@@ -571,6 +611,7 @@ class ServeEngine:
                 max_rounds=max(spec_lookahead, spec_superstep_k),
                 generator=self.generator, temperature=self.temperature,
                 top_k=self.top_k, top_p=self.top_p, sampling=self.sampling,
+                lora_stacked=self._stacked_adapters, lora_alpha=self.lora_alpha,
             )
         # Telemetry.
         self.chunks_run = 0
@@ -624,11 +665,17 @@ class ServeEngine:
         *,
         eos_token: int | None = None,
         rid: str | None = None,
+        adapter: str | None = None,
         deadline_s: float | None = None,
     ) -> str:
         if self._closed:
             raise EngineClosed("engine is closed; submissions are refused")
         prompt = [int(t) for t in prompt]
+        if adapter is not None and adapter not in self._adapter_ids:
+            raise InvalidRequest(
+                f"unknown adapter {adapter!r}: engine serves "
+                f"{sorted(self._adapter_ids) or '(base only)'}"
+            )
         limit = self.config.max_seq_len - 1
         if not 1 <= len(prompt) <= limit:
             raise RequestTooLarge(
@@ -662,7 +709,7 @@ class ServeEngine:
             rejected = Request(
                 rid if rid is not None else "(rejected)", prompt,
                 max_new_tokens, eos_token, t_submit=time.perf_counter(),
-                status="rejected", error="QueueFull",
+                status="rejected", error="QueueFull", adapter=adapter,
             )
             exc = QueueFull(
                 f"pending queue is full ({len(self.pending)} >= "
@@ -684,6 +731,7 @@ class ServeEngine:
             rid, prompt, max_new_tokens, eos_token, t_submit=t_submit,
             deadline_s=deadline_s,
             t_deadline=t_submit + deadline_s if deadline_s is not None else None,
+            adapter=adapter,
         ))
         return rid
 
@@ -694,6 +742,7 @@ class ServeEngine:
         n_samples: int = 2,
         *,
         eos_token: int | None = None,
+        adapter: str | None = None,
         deadline_s: float | None = None,
     ) -> list[str]:
         """``n_samples`` independent samples of one prompt sharing its
@@ -702,7 +751,8 @@ class ServeEngine:
         full pages read-only, copy the first member's partial tail page
         (retained for the group's admission lifetime) and sample their
         first token from the group's cached logits.  Greedy members emit
-        the same tokens.  Returns the member request ids."""
+        the same tokens.  Every member runs under ``adapter``.  Returns
+        the member request ids."""
         if n_samples < 1:
             raise InvalidRequest(f"n_samples must be >= 1, got {n_samples}")
         if self._closed:
@@ -722,7 +772,7 @@ class ServeEngine:
         rids = []
         for _ in range(n_samples):
             rids.append(self.submit(prompt, max_new_tokens, eos_token=eos_token,
-                                    deadline_s=deadline_s))
+                                    adapter=adapter, deadline_s=deadline_s))
             self.pending[-1].group = gid
         self._groups[gid] = {"members_left": n_samples, "allocated": False}
         return rids
@@ -882,6 +932,7 @@ class ServeEngine:
         self._tables[slot] = self.ctrl.trash
         self._positions[slot] = 0
         self._tokens[slot] = 0
+        self._adapter_idx[slot] = 0
         self._fresh_slots.discard(slot)
         return req
 
@@ -1146,13 +1197,16 @@ class ServeEngine:
                 self.requests_preempted += 1
             return got
         req = self._slot_req[target]
+        salt = self._handoff_salt(req.adapter)
         if self.prefix is not None:
             # Idempotent on a cache engine (admission inserted them);
             # refreshes the path's LRU while the sequence owns its table.
-            self.prefix.insert(req.prompt, self.ctrl.tables[self._seq_id(target, req)])
+            self.prefix.insert(req.prompt, self.ctrl.tables[self._seq_id(target, req)],
+                               salt=salt)
         req = self._release_slot(target)
         if self.prefix is not None and self._kv_offload:
-            self.pages_parked += self.prefix.park(req.prompt, spill_many=self._spill_pages)
+            self.pages_parked += self.prefix.park(req.prompt, salt=salt,
+                                                  spill_many=self._spill_pages)
         covered = (
             len(req.prompt) // self.page_size * self.page_size
             if self.prefix is not None else 0
@@ -1165,10 +1219,12 @@ class ServeEngine:
     # ---- KV handoff between engines -------------------------------------
 
     def _handoff_salt(self, adapter: str | None) -> str:
-        """The prefix key space of ``adapter``'s pages: the base salt,
-        since no adapter is ported (a ticket naming one is refused at
-        import)."""
-        return ""
+        """The prefix key space of ``adapter``'s pages: ``lora:{i}`` for
+        a served adapter, the base's ``""`` for None.  Cached pages hold
+        adapted k/v, so the same tokens under two adapters never share
+        pages."""
+        aidx = self._adapter_ids.get(adapter, 0)
+        return f"lora:{aidx}" if aidx else ""
 
     def export_kv(self, prompt, adapter: str | None = None):
         """Package one finished prompt's KV pages for another engine:
@@ -1223,14 +1279,15 @@ class ServeEngine:
         offloaded nodes: the next admission's lookup reloads them through
         ``write_page``, so the handed-off stream goes on without its
         prefill.  Needs the radix index and the offload tier.  A ticket
-        naming an adapter (none is served here) or with blobs of another
-        shape is refused.  Returns the pages grafted; 0 means the caller's
-        re-prefill serves the request, with the same stream."""
+        for an adapter this engine does not serve is refused (the base
+        salt would poison the base cache with adapted k/v), and so are
+        blobs of another shape.  Returns the pages grafted; 0 means the
+        caller's re-prefill serves the request, with the same stream."""
         if self._closed:
             raise EngineClosed("engine is closed")
         if not isinstance(self.prefix, RadixKV) or not self._kv_offload:
             return 0
-        if adapter is not None:
+        if adapter is not None and adapter not in self._adapter_ids:
             return 0
         if not blobs or not self._blob_compatible(blobs[0]):
             return 0
@@ -1264,6 +1321,23 @@ class ServeEngine:
         if self.device.type == "cpu":
             return host.clone()
         return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _aidx_dev(self, aidx: np.ndarray | None = None) -> torch.Tensor | None:
+        """The rows' adapter indices (``aidx``, or the per-slot mirror) as
+        a device tensor taken NOW through ``_dev``'s pinned copy: under
+        ``pipelined`` admission rewrites the mirror while a dispatch is
+        in flight, so a dispatch never reads it later.  None without
+        adapters."""
+        if self._stacked_adapters is None:
+            return None
+        return self._dev(self._adapter_idx if aidx is None else aidx)
+
+    def _lora(self, aidx_dev: torch.Tensor | None):
+        """The ``lora=(stacked, idx, alpha)`` argument for these device
+        indices (None without adapters)."""
+        if aidx_dev is None:
+            return None
+        return (self._stacked_adapters, aidx_dev, self.lora_alpha)
 
     def _fresh_mask(self) -> torch.Tensor:
         """[slots] bool device mask of the slots admitted since the last
@@ -1339,13 +1413,16 @@ class ServeEngine:
             seq = self._seq_id(slot, req)
             prompt = self._admission_tokens(req)
             n = len(prompt)
+            aidx = self._adapter_ids.get(req.adapter, 0)
             try:
                 self._maybe_fault("prefill_dispatch")
                 if req.group is not None:
                     logits = self._admit_group_member(req, seq, n)
                 else:
-                    start_page = self._prefix_admit_pages(seq, prompt)
-                    logits = self._run_prefill(self._table_dev(seq), prompt, start_page)
+                    start_page = self._prefix_admit_pages(
+                        seq, prompt, salt=self._handoff_salt(req.adapter))
+                    logits = self._run_prefill(self._table_dev(seq), prompt, start_page,
+                                               adapter_idx=aidx)
                 self._maybe_fault("prefill_readback")
                 tok = int(sample_logits(
                     logits, self.generator if self.sampling else None,
@@ -1356,7 +1433,7 @@ class ServeEngine:
                 return finished + self._quarantine_admissions([plan], exc)
             self.admission_readbacks += 1
             self._note_recovery()
-            if self._land_first_token(slot, req, seq, need, n, tok):
+            if self._land_first_token(slot, req, seq, need, n, tok, aidx):
                 finished.append(req)
             else:
                 self._committed_pages += need
@@ -1371,7 +1448,8 @@ class ServeEngine:
         return self._dev(table)
 
     def _run_prefill(
-        self, table: torch.Tensor, prompt: list[int], start_page: int = 0
+        self, table: torch.Tensor, prompt: list[int], start_page: int = 0,
+        adapter_idx: int = 0,
     ) -> torch.Tensor:
         """Prefill one admission: one bucket-wide ``paged_prefill`` for a
         prompt that fits, page-aligned ``paged_prefill_chunk`` calls for a
@@ -1379,11 +1457,14 @@ class ServeEngine:
         skips the positions prefix-cache pages already hold.  With a
         draft model its pools prefill the same remainder (same table,
         its own pages; cached pages hold draft k/v from their first
-        prefill).  Returns the target's [1, vocab] next-token logits."""
+        prefill; the draft is unadapted).  The target runs under adapter
+        ``adapter_idx`` (0: the base).  Returns the target's [1, vocab]
+        next-token logits."""
         self.prefills_run += 1
         self.prefill_tokens += len(prompt) - start_page * self.page_size
+        lora = self._lora(self._aidx_dev(np.asarray([adapter_idx], np.int32)))
         logits = self._prefill_into(self.params, self.config, self.pools, table, prompt,
-                                    start_page, count=True)
+                                    start_page, count=True, lora=lora)
         if self.d_pools is not None:
             self._prefill_into(self.draft_params, self.draft_config, self.d_pools, table,
                                prompt, start_page)
@@ -1391,10 +1472,11 @@ class ServeEngine:
 
     def _prefill_into(
         self, params, config, pools, table: torch.Tensor, prompt: list[int],
-        start_page: int = 0, count: bool = False,
+        start_page: int = 0, count: bool = False, lora=None,
     ) -> torch.Tensor:
         """``_run_prefill``'s dispatches into one model's pools; ``count``
-        counts them as the target's prefill dispatches."""
+        counts them as the target's prefill dispatches; ``lora`` adapts
+        them."""
         n, B = len(prompt), self.prompt_bucket
         bp = B // self.page_size
         if start_page % bp:
@@ -1407,7 +1489,8 @@ class ServeEngine:
             self.prefill_dispatches += count
             tokens = np.zeros((1, B), np.int64)
             tokens[0, :n] = prompt
-            logits, _ = paged_prefill(params, pools, table, self._dev(tokens), lengths, config)
+            logits, _ = paged_prefill(params, pools, table, self._dev(tokens), lengths, config,
+                                      lora=lora)
             return logits
         n_chunks = -(-n // B)
         for ci in range(start_page // bp, n_chunks):
@@ -1418,12 +1501,14 @@ class ServeEngine:
             logits, _ = paged_prefill_chunk(
                 params, pools, table, self._dev(tokens), lengths, config,
                 start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=ci == n_chunks - 1,
+                lora=lora,
             )
         return logits
 
     # ---- prefix cache and fan-out groups at admission -------------------
 
-    def _prefix_admit_pages(self, seq, tokens: list[int], insert: bool = True) -> int:
+    def _prefix_admit_pages(self, seq, tokens: list[int], insert: bool = True,
+                            salt: str = "") -> int:
         """Admission's page bookkeeping with the prefix cache (serial and
         batched alike): look ``tokens`` up, adopt the hit pages and
         extend past them (or allocate afresh), and register the full
@@ -1437,21 +1522,23 @@ class ServeEngine:
         next lookup; a batched sweep's chunk order writes a column before
         a later row's chunk reads it).  The budgeted path passes
         ``insert=False`` and inserts at admission finish, since its
-        sweeps span steps.  Returns the row's start page (0 on a miss)."""
+        sweeps span steps.  ``salt`` is the request's adapter key space
+        (``_handoff_salt``): cached pages hold adapted k/v.  Returns the
+        row's start page (0 on a miss)."""
         n = len(tokens)
         shared: list[int] = []
         if self.prefix is not None:
             bp = self.prompt_bucket // self.page_size
             cap = (n - 1) // self.page_size // bp * bp
             kw = {"reload": self._reload_page} if self._kv_offload else {}
-            shared = self.prefix.lookup(tokens, cap, granularity=bp, **kw)
+            shared = self.prefix.lookup(tokens, cap, granularity=bp, salt=salt, **kw)
         if shared:
             self.ctrl.adopt(seq, shared)
             self._extend_evicting(seq, n)
         else:
             self._allocate_evicting(seq, n)
         if self.prefix is not None and insert:
-            self.prefix.insert(tokens, self.ctrl.tables[seq])
+            self.prefix.insert(tokens, self.ctrl.tables[seq], salt=salt)
         return len(shared)
 
     def _group_admit_pages(self, req: Request, seq, n: int):
@@ -1503,7 +1590,8 @@ class ServeEngine:
         member's [1, vocab] first-token logits."""
         g, shared = self._group_admit_pages(req, seq, n)
         if g.get("logits") is None:
-            logits = self._run_prefill(self._table_dev(seq), req.prompt)
+            logits = self._run_prefill(self._table_dev(seq), req.prompt,
+                                       adapter_idx=self._adapter_ids.get(req.adapter, 0))
             g["logits"] = logits
             if n > shared:
                 # The tail is private per member; pin the first member's
@@ -1541,17 +1629,19 @@ class ServeEngine:
             n = len(prompt)
             plan = {
                 "slot": slot, "req": req, "seq": seq, "n": n, "prompt": prompt,
+                "aidx": self._adapter_ids.get(req.adapter, 0),
                 "need": need, "start_page": 0, "prefill": True, "logits_from": None,
                 "tail_copy": None, "group_done": None, "prefix_insert": None,
             }
             if req.group is not None:
                 self._plan_group_member(req, seq, n, plan)
             else:
+                salt = self._handoff_salt(req.adapter)
                 plan["start_page"] = self._prefix_admit_pages(
-                    seq, prompt, insert=not defer_prefix_insert
+                    seq, prompt, insert=not defer_prefix_insert, salt=salt
                 )
                 if defer_prefix_insert and self.prefix is not None:
-                    plan["prefix_insert"] = prompt
+                    plan["prefix_insert"] = (prompt, salt)
             self._committed_pages += need
             plans.append(plan)
         return plans
@@ -1580,27 +1670,32 @@ class ServeEngine:
 
     def _prefill_row_arrays(self, rows: list[dict]):
         """The prefill sweep's per-row inputs: host lengths, and device
-        tables, lengths and start pages (rows not in ``rows`` keep trash
-        tables and length 0, as parked decode rows do)."""
+        tables, lengths and start pages, and the rows' ``lora`` (rows not
+        in ``rows`` keep trash tables, length 0 and the base adapter, as
+        parked decode rows do)."""
         lengths = np.zeros(self.slots, np.int32)
         starts = np.zeros(self.slots, np.int32)
+        aidx = np.zeros(self.slots, np.int32)
         tables = np.full((self.slots, self.max_pages), self.ctrl.trash, np.int32)
         for p in rows:
             lengths[p["slot"]] = p["n"]
             starts[p["slot"]] = p["start_page"]
+            aidx[p["slot"]] = p["aidx"]
             t = self.ctrl.tables[p["seq"]]
             tables[p["slot"], : len(t)] = t
-        return lengths, self._dev(tables), self._dev(lengths), self._dev(starts)
+        return (lengths, self._dev(tables), self._dev(lengths), self._dev(starts),
+                self._lora(self._aidx_dev(aidx)))
 
     def _dispatch_prefill_ci(
         self, rows: list[dict], ci: int, lengths: np.ndarray, tables_dev,
-        lengths_dev, row_start, emitted: torch.Tensor,
+        lengths_dev, row_start, lora, emitted: torch.Tensor,
     ) -> torch.Tensor:
         """ONE [slots, bucket] prefill chunk at chunk index ``ci`` for
         ``rows``, into the target pools and the draft pools; a row's
         logits land in ``emitted`` from the chunk where its prompt ends,
         and ``row_start`` sends the columns of its cached prefix to the
-        trash page.  The unbudgeted and the budgeted sweep both dispatch
+        trash page; ``lora`` adapts the target's rows (the draft's stay
+        unadapted).  The unbudgeted and the budgeted sweep both dispatch
         through here."""
         B, bp = self.prompt_bucket, self.prompt_bucket // self.page_size
         start = ci * B
@@ -1613,7 +1708,7 @@ class ServeEngine:
         logits, _ = paged_prefill_chunk(
             self.params, self.pools, tables_dev, chunk_dev, lengths_dev,
             self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=True,
-            row_start=row_start,
+            row_start=row_start, lora=lora,
         )
         self.prefill_dispatches += 1
         emit_mask = (lengths > start) & (lengths <= start + B)
@@ -1673,7 +1768,8 @@ class ServeEngine:
             )
         for p in plans:
             if p.get("prefix_insert") is not None and self.prefix is not None:
-                self.prefix.insert(p["prefix_insert"], self.ctrl.tables[p["seq"]])
+                tokens, salt = p["prefix_insert"]
+                self.prefix.insert(tokens, self.ctrl.tables[p["seq"]], salt=salt)
         for p in plans:
             if p["prefill"] and p["req"].group is not None:
                 g = self._groups[p["req"].group]
@@ -1700,18 +1796,19 @@ class ServeEngine:
         for p in plans:
             slot = p["slot"]
             if self._land_first_token(slot, p["req"], p["seq"], p["need"], p["n"],
-                                      int(toks[slot])):
+                                      int(toks[slot]), p["aidx"]):
                 self._committed_pages -= p["need"]  # the plan's, rolled back
                 finished.append(p["req"])
         return finished
 
     def _land_first_token(
-        self, slot: int, req: Request, seq, need: int, n: int, tok: int
+        self, slot: int, req: Request, seq, need: int, n: int, tok: int, aidx: int = 0
     ) -> bool:
         """Emit an admission's first token.  A request that ends there
-        retires at once, its pages released; any other takes its slot,
-        to decode from position ``n`` at the next dispatch.  Returns
-        whether it retired.  A replay keeps its first ``t_first``."""
+        retires at once, its pages released; any other takes its slot
+        (with its adapter index ``aidx``), to decode from position ``n``
+        at the next dispatch.  Returns whether it retired.  A replay
+        keeps its first ``t_first``."""
         req.tokens.append(tok)
         now = time.perf_counter()
         if req.t_first is None:
@@ -1727,6 +1824,7 @@ class ServeEngine:
             return True
         self._slot_req[slot] = req
         self._occupied[slot] = True
+        self._adapter_idx[slot] = aidx
         self._fresh_slots.add(slot)
         self._slot_commit[slot] = need
         table = self.ctrl.tables[seq]
@@ -1956,17 +2054,18 @@ class ServeEngine:
             self._dev(self._tables), self._dev(self._positions),
             self._dev(self._occupied),
         )
+        aidx = self._aidx_dev()  # a parked row's index is 0, the base
         self._maybe_fault("decode_dispatch")
         if self._graph is None:
             toks, _ = paged_decode_chunk(
                 self.params, self.pools, tables, tok_in, pos, occupied,
                 self.generator, self.temperature, self.top_k, self.top_p,
-                self.config, self.chunk, self.sampling,
+                self.config, self.chunk, self.sampling, lora=self._lora(aidx),
             )
             last = toks[:, -1]
         else:
             toks, last, *_ = self._graph.run(
-                tables, tok_in, pos, occupied, *self._unbounded, self.chunk
+                tables, tok_in, pos, occupied, *self._unbounded, self.chunk, aidx
             )
         self.chunks_run += 1
         read = _Readback(toks)
@@ -2130,16 +2229,18 @@ class ServeEngine:
             )
         self._fresh_slots.clear()
         tables, eos_in = self._dev(self._tables), self._dev(eos)
+        aidx = self._aidx_dev()
         self._maybe_fault("decode_dispatch")
         if self._graph is None:
             toks, *carry, _ = paged_decode_superstep(
                 self.params, self.pools, tables, tok_in, pos_in, live_in,
                 budget_in, eos_in, self.generator, self.temperature, self.top_k,
                 self.top_p, self.config, self.chunk, self.superstep_k, self.sampling,
+                lora=self._lora(aidx),
             )
         else:
             toks, *carry = self._graph.run(
-                tables, tok_in, pos_in, live_in, budget_in, eos_in, span
+                tables, tok_in, pos_in, live_in, budget_in, eos_in, span, aidx
             )
         self.chunks_run += self.superstep_k
         self.supersteps_run += 1
@@ -2223,42 +2324,46 @@ class ServeEngine:
         return min(self.max_pages, -(-need // 4) * 4)
 
     def _run_spec_lookahead(self, tables, cur, pos, occ, k: int, cover: int,
-                            generator=None):
+                            generator=None, aidx=None):
         """``k`` lookahead rounds (``paged_spec_superstep``) for the rows
         ``occ`` marks; on the card as ``k`` replays of the captured round
-        (budget unbounded, no eos: ``live`` stays ``occ``).  Returns
-        (committed [k, slots, gamma+1], n [k, slots], new_cur, new_pos),
-        the carry copied out of the graph's buffers."""
+        (budget unbounded, no eos: ``live`` stays ``occ``); ``aidx``
+        adapts the target's verify.  Returns (committed [k, slots,
+        gamma+1], n [k, slots], new_cur, new_pos), the carry copied out
+        of the graph's buffers."""
         if self._spec_graph is None:
             committed, n, new_cur, new_pos, _, _ = paged_spec_superstep(
                 self.params, self.draft_params, self.pools, self.d_pools, tables, cur, pos,
                 occ, self.config, self.draft_config, self.gamma, k, cover,
                 sampling=self.sampling, generator=generator if generator is not None else self.generator,
                 temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
+                t_lora=self._lora(aidx),
             )
             return committed, n, new_cur, new_pos
         committed, n, _, new_cur, new_pos, _, _ = self._spec_graph.run(
-            tables, cur, torch.where(occ, pos, 0), occ, *self._unbounded, k, cover
+            tables, cur, torch.where(occ, pos, 0), occ, *self._unbounded, k, cover, aidx
         )
         return committed, n, new_cur.clone(), new_pos.clone()
 
     def _run_spec_chained(self, tables, cur, pos, occ, live, budget, eos, k: int,
-                          cover: int, generator=None):
+                          cover: int, generator=None, aidx=None):
         """``k`` chained-retirement rounds
         (``paged_spec_superstep_chained``); on the card as ``k`` replays
         of the captured round, empty slots pinned to position 0 at entry.
-        Returns (committed, n, round_live, new_cur, new_pos, new_live,
-        new_budget), the carry copied out of the graph's buffers."""
+        ``aidx`` adapts the target's verify.  Returns (committed, n,
+        round_live, new_cur, new_pos, new_live, new_budget), the carry
+        copied out of the graph's buffers."""
         if self._spec_graph is None:
             out = paged_spec_superstep_chained(
                 self.params, self.draft_params, self.pools, self.d_pools, tables, cur, pos,
                 occ, live, budget, eos, self.config, self.draft_config, self.gamma, k,
                 cover, sampling=self.sampling, generator=generator if generator is not None else self.generator,
                 temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
+                t_lora=self._lora(aidx),
             )
             return out[:7]
         committed, n, round_live, *carry = self._spec_graph.run(
-            tables, cur, torch.where(occ, pos, 0), live & occ, budget, eos, k, cover
+            tables, cur, torch.where(occ, pos, 0), live & occ, budget, eos, k, cover, aidx
         )
         return (committed, n, round_live, *(c.clone() for c in carry))
 
@@ -2292,23 +2397,25 @@ class ServeEngine:
         zeros32 = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
         private = torch.Generator(self.device).manual_seed(0)
         saved = self.generator.get_state()
+        aidx = self._aidx_dev(np.zeros(self.slots, np.int32))
 
         def plain_once(tok):
             if self._graph is None:
                 toks, _ = paged_decode_chunk(
                     self.params, self.pools, tables, tok, zeros, occ, private,
                     self.temperature, self.top_k, self.top_p, self.config, self.chunk,
-                    self.sampling,
+                    self.sampling, lora=self._lora(aidx),
                 )
                 return toks[:, -1]
             return self._graph.run(tables, tok, zeros, occ, *self._unbounded,
-                                   self.chunk)[1].clone()
+                                   self.chunk, aidx)[1].clone()
 
         def spec_once(cur):
             if self.spec_superstep_k > 1:
                 return self._run_spec_chained(tables, cur, zeros, occ, occ, zeros32 + 1,
-                                              zeros32 - 1, k, cover, private)[3]
-            return self._run_spec_lookahead(tables, cur, zeros, occ, k, cover, private)[2]
+                                              zeros32 - 1, k, cover, private, aidx)[3]
+            return self._run_spec_lookahead(tables, cur, zeros, occ, k, cover, private,
+                                            aidx)[2]
 
         def timed(once, n: int) -> float:
             tok = zeros
@@ -2376,7 +2483,8 @@ class ServeEngine:
             pos = torch.where(fresh, pos, c_pos)
         self._fresh_slots.clear()
         committed, n_acc, new_cur, new_pos = self._run_spec_lookahead(
-            self._dev(self._tables), cur, pos, self._dev(self._occupied), k, cover
+            self._dev(self._tables), cur, pos, self._dev(self._occupied), k, cover,
+            aidx=self._aidx_dev(),
         )
         self.spec_rounds += k
         read = _Readback(committed, n_acc)
@@ -2438,7 +2546,7 @@ class ServeEngine:
         self._fresh_slots.clear()
         committed, n_acc, round_live, *carry = self._run_spec_chained(
             self._dev(self._tables), cur, pos, occ, live_in, budget_in, self._dev(eos), k,
-            cover,
+            cover, aidx=self._aidx_dev(),
         )
         self.spec_rounds += k
         self.spec_supersteps_run += 1
@@ -2832,6 +2940,10 @@ def main(argv=None) -> int:
                         help="serve int8 weight-only quantized weights")
     parser.add_argument("--kv-heads", type=int, default=None,
                         help="grouped-query kv heads (default: n_heads)")
+    parser.add_argument("--lora-adapters", type=int, default=0,
+                        help="serve N synthetic LoRA adapters multi-tenant over the "
+                        "one base (requests round-robin over the base and them)")
+    parser.add_argument("--lora-rank", type=int, default=8)
     parser.add_argument("--spec-int8-draft", action="store_true",
                         help="speculative decoding with the int8-quantized model "
                         "drafting for its own self (quantized self-speculation); "
@@ -2965,6 +3077,14 @@ def main(argv=None) -> int:
     )
     if args.int8:
         params = quantize_params(params)
+    adapters = None
+    names: list = [None]
+    if args.lora_adapters > 0:
+        from .multi_lora import synthetic_adapters
+
+        adapters = synthetic_adapters(config, args.lora_adapters, rank=args.lora_rank,
+                                      seed=99, device=device)
+        names += sorted(adapters)
     spec_kw = {}
     if args.spec_int8_draft:
         # The int8 self-draft: the same architecture at half the weight
@@ -2993,8 +3113,8 @@ def main(argv=None) -> int:
         prefill_budget=args.prefill_budget, prefix_cache=args.prefix_cache,
         kv_offload=args.kv_offload, kv_host_pages=args.kv_host_pages,
         kv_disk_dir=args.kv_disk_dir, kv_disk_pages=args.kv_disk_pages,
-        fault_injector=injector, max_retries=args.max_retries, device=device,
-        **spec_kw,
+        fault_injector=injector, max_retries=args.max_retries, adapters=adapters,
+        device=device, **spec_kw,
     )
     rng = np.random.default_rng(7)
     for i in range(args.requests):
@@ -3002,7 +3122,7 @@ def main(argv=None) -> int:
         prompt = rng.integers(0, config.vocab_size, plen)
         # Mixed lengths: the stream the engine's slot turnover exists for.
         engine.submit(prompt, max(1, args.max_new_tokens // (1 + i % 3)),
-                      deadline_s=args.deadline_s)
+                      adapter=names[i % len(names)], deadline_s=args.deadline_s)
 
     engine.step()  # warm-up: first launches and kernel build
     tokens_before = engine.generated_tokens
@@ -3018,6 +3138,7 @@ def main(argv=None) -> int:
         f"{engine.tokens_overdecoded} tokens over-decoded), "
         f"steady-state ≈ {rate:.0f} tok/s "
         f"(device={device}, kv_heads={config.kv_heads}, "
+        f"adapters={args.lora_adapters}, "
         f"pool={engine.ctrl.n_pages} pages, "
         f"pages in use after drain: {engine.ctrl.used_pages})"
     )

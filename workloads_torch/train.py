@@ -35,23 +35,27 @@ from . import resolve_device
 from .model import ModelConfig, init_params, loss_fn
 
 
-def tree_leaves(tree: dict) -> list[torch.Tensor]:
-    """The leaves of a parameter-shaped tree in a fixed order: embed,
-    unembed, then each layer's leaves by name."""
-    leaves = [tree["embed"], tree["unembed"]]
-    for layer in tree["layers"]:
-        leaves += [layer[name] for name in sorted(layer)]
-    return leaves
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The leaves of a tree in a fixed order.  A parameter tree (a dict
+    with ``layers``): embed, unembed, then each layer's leaves by name;
+    a list (an adapter tree, ``[layer]{target: {a, b}}``): element by
+    element; any other dict: by sorted key."""
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    if not isinstance(tree, dict):
+        return [tree]
+    keys = ("embed", "unembed", "layers") if "layers" in tree else sorted(tree)
+    return [leaf for k in keys for leaf in tree_leaves(tree[k])]
 
 
-def tree_map(fn, tree: dict) -> dict:
-    """A tree of the same structure with ``fn`` applied to every leaf."""
-    return {
-        "embed": fn(tree["embed"]),
-        "unembed": fn(tree["unembed"]),
-        "layers": [{name: fn(w) for name, w in layer.items()}
-                   for layer in tree["layers"]],
-    }
+def tree_map(fn, tree):
+    """A tree of the same structure (dicts and lists) with ``fn`` applied
+    to every leaf."""
+    if isinstance(tree, list):
+        return [tree_map(fn, t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 @dataclass(frozen=True)

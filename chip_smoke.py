@@ -80,6 +80,23 @@ Phases, each of which fails the run loudly:
    dequantization's share of the draft phase; ``_spec_accept``'s
    marginal on the card; tokens/s, rounds, drafts proposed and
    accepted, peak memory and captures per cover printed per drain;
+4f. the fleet and its control plane at the same width (``fleet_phase``,
+   ``chip_smoke.FLEET``): two replicas over one copy of the weights
+   behind the router: (h) two requests over the HTTP/SSE front end while
+   the replicas capture their graphs, (a) ``make_fleet`` with observers
+   and ledgers and (a') without on a seeded open-loop TrafficGen stream,
+   (b) a replica crash with failover, (c) prefill/decode roles with the
+   KV handoff, (d) the supervisor's respawn and canary, (e) the
+   autoscaler 1 -> 2 -> 1, (f) the goodput controller's retune, (g) the
+   journal and a restore, (i) float32 (a)-(d) and (g) against one plain
+   engine; gates: one terminal status a request, no page left, K1
+   n_layers a decode step on every engine an arm built and counted =
+   traced on each replica, one capture a replica with and without
+   observers, SSE tokens equal to the record, every ledger reconciled,
+   the exposition and the merged trace well formed, event kinds in
+   order; tokens/s against phase 4's drain, TTFT, router ms a step, the
+   observers' overhead, failover, respawn and handoff times, replayed
+   tokens and peak memory printed;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -1952,6 +1969,621 @@ def lora_phase(torch, params, config, f, counters, requests, plain, bf16_floor,
     return total
 
 
+# Phase 4f, the fleet: phase 4's model and engine (slots 8, page_size 64,
+# chunk 64) behind the router, two replicas on one card over one copy of
+# the weights.  (a) and (a') serve the JAX --fleet CLI's kind of traffic:
+# a seeded TrafficGen stream of 32 requests, bursty arrivals, Pareto
+# prompt lengths of 16-512 tokens, 32-128 new tokens, open loop.  (b)-(h)
+# serve 16 requests with 8-16 new tokens, except where a fault or a close
+# must land mid-stream ((b), (d), (g): 64-128 new tokens, two chunks).
+# (i) runs (a), (b), (c), (d) and (g) in float32 on 8 requests and holds
+# every stream to one plain engine's.
+FLEET = dict(replicas=2, requests=32, prompt=(16, 512), new=(32, 128), rate_rps=50.0,
+             seed=7, short_requests=16, short_new=(8, 16), long_new=(64, 128),
+             max_seq_len=640, f32_requests=8, probe=([1, 2, 3], 4))
+FLEET_TERMINAL = ("ok", "cancelled", "expired", "failed")
+
+
+def parse_exposition(text: str) -> int:
+    """Check a Prometheus text exposition line by line (``# HELP`` and
+    ``# TYPE`` comments, ``name{labels} value`` samples whose value
+    parses as a float); returns the sample count."""
+    import re
+
+    comment = re.compile(r"# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* \S")
+    sample = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? (\S+)")
+    samples = 0
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("#"):
+            if not comment.match(line):
+                fail(f"metrics exposition: bad comment line {line!r}")
+            continue
+        m = sample.fullmatch(line)
+        if m is None:
+            fail(f"metrics exposition: bad sample line {line!r}")
+        try:
+            float(m.group(2))
+        except ValueError:
+            fail(f"metrics exposition: bad value in {line!r}")
+        samples += 1
+    return samples
+
+
+def in_order(kinds, wanted) -> bool:
+    """``wanted`` appears in ``kinds`` as a subsequence."""
+    it = iter(kinds)
+    return all(any(k == w for k in it) for w in wanted)
+
+
+def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cuda") -> int:
+    """Phase 4f: the fleet and its control plane at the serving path's
+    width.  Arms: (h) two requests over the HTTP/SSE front end while (a)'s
+    replicas capture their graphs; (a) ``make_fleet(n=2)`` with observers
+    and ledgers, (a') without, on one open-loop stream; (b) a replica
+    crash with failover; (c) prefill/decode roles with the KV handoff;
+    (d) the supervisor's crash, respawn, canary and rejoin; (e) the
+    autoscaler 1 -> 2 -> 1 under a burst; (f) the goodput controller
+    retuning ``superstep_k``; (g) the journal, close mid-stream, restore;
+    (i) float32 (a), (b), (c), (d) and (g) against one plain engine.
+    Gates: one terminal status a request, no page left on any replica, K1
+    n_layers a decode step on every engine an arm built (and counted =
+    traced on each replica of (a)), one graph capture a replica in (a)
+    and (a'), the SSE tokens equal to the record, every ledger
+    reconciled, the exposition and the merged trace well formed, the
+    controllers' event kinds in order, float32 streams equal to the
+    plain engine's (a flip only at a top-2 gap under FLIP_GAP of the
+    largest logit, as phases 4b and 4d).  ``device="cpu"`` rehearses the
+    arms and gates on the plain route.  Returns K1's launches."""
+    import statistics
+    import tempfile
+    import threading
+    import urllib.request
+    from dataclasses import replace
+
+    import numpy as np
+    from tpu_device_plugin.metrics import Registry
+    from workloads_torch.autoscaler import FleetAutoscaler
+    from workloads_torch.backoff import Backoff
+    from workloads_torch.control import GoodputController
+    from workloads_torch.faults import FaultInjector
+    from workloads_torch.fleet import (DEAD, FleetServer, TrafficGen, drive_open_loop,
+                                       make_fleet)
+    from workloads_torch.ledger import ChipTimeLedger, FleetLedger
+    from workloads_torch.model import cast_params
+    from workloads_torch.obs import EngineObserver, FleetObserver, export_fleet_trace
+    from workloads_torch.serve import ServeEngine
+    from workloads_torch.supervisor import FleetSupervisor, make_engine_factory
+
+    cuda = device == "cuda"
+    n = fl["replicas"]
+    L = config.n_layers
+    cfg16 = replace(config, max_seq_len=fl["max_seq_len"])
+    base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["page_size"])
+    chip_ids = [f"chip-{i}" for i in range(n)]
+    work = tempfile.mkdtemp(prefix="fleet_phase_")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t_phase = time.perf_counter()
+
+    def traffic(count, new, seed=fl["seed"]):
+        return TrafficGen(seed=seed, rate_rps=fl["rate_rps"], vocab=config.vocab_size,
+                          min_prompt=fl["prompt"][0], max_prompt=fl["prompt"][1],
+                          min_new=new[0], max_new=new[1]).schedule(count)
+
+    def instrument(fleet):
+        """Time every fleet step and every replica engine step (host
+        clock), and collect the rids each fleet step finishes."""
+        stats = {"fleet_s": 0.0, "replica_s": 0.0, "steps": 0, "finished": []}
+        fleet_step = fleet.step
+
+        def step():
+            t0 = time.perf_counter()
+            out = fleet_step()
+            stats["fleet_s"] += time.perf_counter() - t0
+            stats["steps"] += 1
+            stats["finished"] += [fr.rid for fr in out]
+            return out
+
+        fleet.step = step
+        for rep in fleet.replicas:
+            engine_step = rep.engine.step
+
+            def timed(engine_step=engine_step):
+                t0 = time.perf_counter()
+                out = engine_step()
+                stats["replica_s"] += time.perf_counter() - t0
+                return out
+
+            rep.engine.step = timed
+        return stats
+
+    def recording(factory, built):
+        def make(slot):
+            engine = factory(slot)
+            built.append(engine)
+            return engine
+        return make
+
+    def settle(label, fleet, stats, built):
+        """The gates every arm shares, over every request the fleet
+        accepted; returns K1's launches over the arm."""
+        finished = stats["finished"]
+        if len(finished) != len(set(finished)):
+            fail(f"fleet {label}: a request finished twice")
+        for rid, fr in fleet._reqs.items():
+            if not fr.done or fr.status not in FLEET_TERMINAL:
+                fail(f"fleet {label} {rid}: no terminal status ({fr.status})")
+            if rid not in finished:
+                fail(f"fleet {label} {rid}: {fr.status} but never returned by a step")
+            if fr.status != "ok" or len(fr.tokens) != fr.max_new_tokens:
+                fail(f"fleet {label} {rid}: status {fr.status}, {len(fr.tokens)} tokens, "
+                     f"wanted ok with {fr.max_new_tokens} ({fr.error})")
+            if not all(0 <= t < config.vocab_size for t in fr.tokens):
+                fail(f"fleet {label} {rid}: token out of the vocabulary")
+        for rep in fleet.replicas:
+            if rep.state == DEAD:
+                continue
+            e = rep.engine
+            pinned = e.prefix.cached_pages if e.prefix is not None else 0
+            if e._occupied.any() or e._committed_pages or rep.rids \
+                    or e.ctrl.used_pages != pinned:
+                fail(f"fleet {label}: replica {rep.index} leaks: {e.ctrl.used_pages} pages "
+                     f"in use beside {pinned} cached, {e._committed_pages} committed, "
+                     f"{len(rep.rids)} rids")
+        launches = counters["paged_attention"].launches
+        steps = sum(e.chunks_run for e in built) * base["chunk"]
+        if cuda and launches != L * steps:
+            fail(f"fleet {label}: K1 launched {launches} times, n_layers x decode steps "
+                 f"over the arm's {len(built)} engines is {L * steps}")
+        reset_counts(counters)
+        return launches
+
+    def submit_all(fleet, reqs):
+        return [fleet.submit(p, nw) for p, nw in reqs]
+
+    def close(fleet):
+        fleet.close()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    total = 0
+
+    # (h) and (a): the observed fleet; two SSE requests are its warm-up and
+    # stream while its replicas capture their graphs on the server's driver
+    # thread (handler threads touch host state only, under the fleet's lock).
+    sched = traffic(fl["requests"], fl["new"])
+    registry = Registry()
+    observers = [EngineObserver(name=str(i), replica=str(i)) for i in range(n)]
+    fobs = FleetObserver()
+    for o in observers:
+        o.bind_registry(registry)
+    fobs.bind_registry(registry)
+    fleet = make_fleet(params, cfg16, n, engine_kw=base, chip_ids=chip_ids,
+                       observers=observers, device=device, observer=fobs,
+                       ledger=FleetLedger(), hang_timeout_s=None)
+    ledgers = []
+    for i, rep in enumerate(fleet.replicas):
+        rep.engine.ledger = ChipTimeLedger(name=str(i))
+        ledgers.append(rep.engine.ledger)
+    built = [rep.engine for rep in fleet.replicas]
+    stats = instrument(fleet)
+    warm = [(list(sched[0][1]), 4), (list(sched[1][1]), 4)]
+    server = FleetServer(fleet, 0)
+    port = server.start()
+    got: dict[int, tuple] = {}
+
+    def client(i, prompt, new):
+        body = json.dumps({"prompt": prompt, "max_new_tokens": new}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        tokens, done = [], None
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            for line in resp:
+                if line.startswith(b"data: "):
+                    ev = json.loads(line[6:])
+                    tokens += ev.get("tokens", [])
+                    if ev.get("done"):
+                        done = ev
+        got[i] = (tokens, done)
+
+    threads = [threading.Thread(target=client, args=(i, p, nw)) for i, (p, nw) in
+               enumerate(warm)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    server.stop()
+    sse_s = time.perf_counter() - t0
+    for i in range(len(warm)):
+        if i not in got or got[i][1] is None:
+            fail(f"fleet (h): SSE stream {i} did not end")
+        tokens, done = got[i]
+        fr = fleet._reqs[done["rid"]]
+        if done["status"] != "ok" or tokens != fr.tokens or len(tokens) != warm[i][1]:
+            fail(f"fleet (h): SSE stream {i} ({done['status']}, {len(tokens)} tokens) "
+                 f"differs from the fleet's record ({fr.status}, {len(fr.tokens)})")
+    captures = [rep.engine._graph.captures if rep.engine._graph is not None else 0
+                for rep in fleet.replicas]
+    print(f"  fleet (h) SSE front end: 2 streams in {sse_s:.3f} s while the replicas "
+          f"captured ({captures} graphs), tokens equal to the fleet's record", flush=True)
+    warm_rids = [fr.rid for fr in fleet._reqs.values()]
+    tokens0 = fleet.generated_tokens
+    stats.update(fleet_s=0.0, replica_s=0.0, steps=0)
+    t0 = time.perf_counter()
+    drive_open_loop(fleet, sched)
+    if cuda:
+        torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    tps_a = (fleet.generated_tokens - tokens0) / wall_a
+    rids = [r for r in fleet._reqs if r not in warm_rids]
+    ttft = sorted(fleet._reqs[r].ttft_secs for r in rids)
+    router_ms = (stats["fleet_s"] - stats["replica_s"]) / max(stats["steps"], 1) * 1e3
+    captures_a = [rep.engine._graph.captures if rep.engine._graph is not None else 0
+                  for rep in fleet.replicas]
+    # K1 counted against traced on each replica: one profiled fleet step
+    # each, the other replica drained so that only this one decodes (the
+    # phase-4 check, per replica, through the fleet's own step).
+    k1_traced = []
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        rng = np.random.default_rng(3)
+        for rep in fleet.replicas:
+            others = [r.index for r in fleet.replicas if r is not rep]
+            for o in others:
+                fleet.drain(o)
+            for _ in range(f["slots"]):
+                fleet.submit(rng.integers(0, config.vocab_size, f["decode_prompt"]).tolist(),
+                             3 * base["chunk"])
+            fleet.step()  # dispatch, admission and a first chunk
+            torch.cuda.synchronize()
+            before = counters["paged_attention"].launches
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                fleet.step()
+                torch.cuda.synchronize()
+            counted = counters["paged_attention"].launches - before
+            trace = os.path.join(work, f"replica{rep.index}_chunk_trace.json")
+            prof.export_chrome_trace(trace)
+            with open(trace) as fh:
+                traced = sum(1 for e in json.load(fh)["traceEvents"]
+                             if e.get("cat") == "kernel"
+                             and "paged_decode_kernel" in e["name"])
+            k1_traced.append((counted, traced))
+            if counted != traced or counted != L * base["chunk"]:
+                fail(f"fleet (a) replica {rep.index}: K1 counted {counted} over a profiled "
+                     f"chunk, traced {traced}, n_layers x chunk {L * base['chunk']}")
+            fleet.run()
+            for o in others:
+                fleet.resume(o)
+    total += settle("(a)", fleet, stats, built)
+    for led in ledgers:
+        verdict = led.reconcile(expect_quiescent=True)
+        if not verdict["ok"]:
+            fail(f"fleet (a): ledger {led.name} does not reconcile: {verdict}")
+    fverdict = fleet.ledger.reconcile(expect_quiescent=True)
+    if not fverdict["ok"]:
+        fail(f"fleet (a): the fleet ledger does not reconcile: {fverdict}")
+    samples = parse_exposition(registry.render())
+    trace_path = os.path.join(work, "fleet_trace.json")
+    n_events, n_lanes = export_fleet_trace(trace_path, fobs, observers)
+    with open(trace_path) as fh:
+        trace = json.load(fh)
+    pids = {e.get("pid") for e in trace["traceEvents"]}
+    if n_lanes != n or len(pids) < n + 1:
+        fail(f"fleet (a): the merged trace covers {n_lanes} replica lanes in "
+             f"{len(pids)} processes, wanted {n} and the router")
+    if cuda and captures_a != [1] * n:
+        fail(f"fleet (a): graph captures a replica {captures_a}, wanted one each")
+    snap = fleet.ledger.snapshot()
+    print(f"  fleet (a) make_fleet(n={n}) observed, ledgers: {len(rids)} requests open "
+          f"loop in {wall_a:.3f} s, {tps_a:.1f} tokens/s ({tps_a / plain:.3f} of phase 4's "
+          f"plain drain {plain:.1f}), TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms p99 "
+          f"{ttft[min(len(ttft) - 1, int(0.99 * len(ttft)))] * 1e3:.1f} ms, router "
+          f"{router_ms:.3f} ms a fleet step over {stats['steps']} steps, captures "
+          f"{captures_a}, K1 counted/traced a replica {k1_traced}, ledgers reconciled "
+          f"(goodput {snap['goodput_tokens']}, busy {snap['busy_fraction']:.3f}), "
+          f"{samples} exposition samples, trace {n_events} events in {len(pids)} "
+          f"processes", flush=True)
+    close(fleet)
+    del fleet, observers, fobs, ledgers, registry
+
+    # (a'): the same fleet and stream without observers or ledgers.
+    fleet = make_fleet(params, cfg16, n, engine_kw=base, chip_ids=chip_ids, device=device,
+                       hang_timeout_s=None)
+    built = [rep.engine for rep in fleet.replicas]
+    stats = instrument(fleet)
+    submit_all(fleet, warm)
+    fleet.run()
+    warm_rids = list(fleet._reqs)
+    tokens0 = fleet.generated_tokens
+    stats.update(fleet_s=0.0, replica_s=0.0, steps=0)
+    t0 = time.perf_counter()
+    drive_open_loop(fleet, sched)
+    if cuda:
+        torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    tps_bare = (fleet.generated_tokens - tokens0) / wall_b
+    rids = [r for r in fleet._reqs if r not in warm_rids]
+    router_bare = (stats["fleet_s"] - stats["replica_s"]) / max(stats["steps"], 1) * 1e3
+    captures_b = [rep.engine._graph.captures if rep.engine._graph is not None else 0
+                  for rep in fleet.replicas]
+    if captures_b != captures_a:
+        fail(f"fleet (a'): graph captures {captures_b}, with observers {captures_a}")
+    total += settle("(a')", fleet, stats, built)
+    print(f"  fleet (a') the same without observers or ledgers: {wall_b:.3f} s, "
+          f"{tps_bare:.1f} tokens/s ({tps_bare / plain:.3f} of phase 4's plain drain), "
+          f"router {router_bare:.3f} ms a fleet step; observer and ledger overhead "
+          f"{(tps_bare / tps_a - 1) * 100:+.2f}% tokens/s, captures {captures_b}",
+          flush=True)
+    close(fleet)
+    del fleet
+    print(f"  card note: {n} replicas share one card and step one after another; the "
+          f"fleet adds routing, failover and control here, not throughput", flush=True)
+
+    long_reqs = [(list(p), nw) for _, p, nw in traffic(fl["short_requests"],
+                                                       fl["long_new"], seed=11)]
+    short_reqs = [(list(p), nw) for _, p, nw in traffic(fl["short_requests"],
+                                                        fl["short_new"], seed=13)]
+
+    def arm_b(weights, cfg, reqs, label):
+        fleet = make_fleet(weights, cfg, n, engine_kw=base, chip_ids=chip_ids,
+                           device=device, hang_timeout_s=None,
+                           fault_injector=FaultInjector({"replica_crash": 3}))
+        built = [rep.engine for rep in fleet.replicas]
+        stats = instrument(fleet)
+        rids = submit_all(fleet, reqs)
+        t0 = time.perf_counter()
+        fleet.run()
+        wall = time.perf_counter() - t0
+        if fleet.replica_crashes != 1 or not fleet.failover_recovery_s:
+            fail(f"fleet {label}: crashes {fleet.replica_crashes}, recoveries "
+                 f"{fleet.failover_recovery_s}")
+        launches = settle(label, fleet, stats, built)
+        out = [list(fleet._reqs[r].tokens) for r in rids]
+        print(f"  fleet {label} replica_crash on replica 0's second step: {wall:.3f} s, "
+              f"failover recovery {[round(s * 1e3, 2) for s in fleet.failover_recovery_s]} "
+              f"ms, requeues {fleet.failover_requeues}, tokens replayed "
+              f"{fleet.tokens_replayed}", flush=True)
+        close(fleet)
+        return out, launches
+
+    def arm_c(weights, cfg, reqs, label):
+        kw = dict(base, prefix_cache=True, kv_offload=True)
+        fleet = make_fleet(weights, cfg, n, engine_kw=kw, chip_ids=chip_ids, device=device,
+                           hang_timeout_s=None, roles=("prefill", "decode"))
+        built = [rep.engine for rep in fleet.replicas]
+        stats = instrument(fleet)
+        rids = submit_all(fleet, reqs)
+        tokens0 = fleet.generated_tokens
+        t0 = time.perf_counter()
+        fleet.run()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if fleet.kv_handoffs != len(reqs) or fleet.handoff_pages <= 0:
+            fail(f"fleet {label}: {fleet.kv_handoffs} handoffs of {len(reqs)} prompts, "
+                 f"{fleet.handoff_pages} pages")
+        launches = settle(label, fleet, stats, built)
+        # The engines' own handoff work (export_kv and import_kv, their
+        # spills included) a page moved; the fleet's handoff window runs
+        # from the ticket to the decode replica's adoption, queueing
+        # behind that replica's decode included.
+        host_s = sum(rep.engine.kv_handoff_s + rep.engine.kv_spill_s
+                     for rep in fleet.replicas)
+        per_page = host_s * 1e3 / fleet.handoff_pages
+        window = statistics.median(fleet.handoff_s) * 1e3
+        tps = (fleet.generated_tokens - tokens0) / wall
+        out = [list(fleet._reqs[r].tokens) for r in rids]
+        print(f"  fleet {label} roles prefill/decode, kv_offload: {wall:.3f} s, {tps:.1f} "
+              f"tokens/s, {fleet.kv_handoffs} handoffs, {fleet.handoff_pages} pages, "
+              f"export and import {per_page:.3f} ms a page, handoff window median "
+              f"{window:.1f} ms (ticket to adoption), decode pages in "
+              f"{fleet.replicas[1].engine.kv_handoff_pages_in}", flush=True)
+        close(fleet)
+        return out, launches, tps
+
+    def arm_d(weights, cfg, reqs, label, oracle_probe):
+        fleet = make_fleet(weights, cfg, n, engine_kw=base, chip_ids=chip_ids,
+                           device=device, hang_timeout_s=None,
+                           fault_injector=FaultInjector({"replica_crash": 3}))
+        built = [rep.engine for rep in fleet.replicas]
+        stats = instrument(fleet)
+        kw = dict(base, generator=torch.Generator(device).manual_seed(4242))
+        factory, oracle = make_engine_factory(
+            weights, cfg, engine_kw=kw, probe=fl["probe"] if oracle_probe else None,
+            device=device)
+        sup = FleetSupervisor(fleet, recording(factory, built),
+                              backoff=Backoff(base_s=0.05, max_s=0.5, seed=7),
+                              probe=fl["probe"], probe_oracle=oracle)
+        if oracle is None:
+            oracle = sup.calibrate_probe()
+        rids = submit_all(fleet, reqs)
+        t0 = time.perf_counter()
+        sup.run()
+        healed = sup.wait_healed(timeout_s=120.0)
+        wall = time.perf_counter() - t0
+        kinds = [e.kind for e in sup.events]
+        if not healed or sup.restarts_total != 1 or not in_order(
+                kinds, ["death", "backoff", "probe", "rejoin"]):
+            fail(f"fleet {label}: healed {healed}, restarts {sup.restarts_total}, events "
+                 f"{kinds}")
+        launches = settle(label, fleet, stats, built)
+        out = [list(fleet._reqs[r].tokens) for r in rids]
+        print(f"  fleet {label} supervisor: crash, respawn, canary against "
+              f"{'the dense generate oracle' if oracle_probe else 'calibrate_probe'} "
+              f"{oracle}, rejoin; {wall:.3f} s, respawn to rejoin {sup.restore_ms} ms, "
+              f"events {kinds}", flush=True)
+        close(fleet)
+        return out, launches
+
+    def arm_g(weights, cfg, reqs, label):
+        jdir = os.path.join(work, f"journal-{label}")
+        kw = dict(base, prefix_cache=True, kv_offload=True,
+                  kv_disk_dir=os.path.join(work, f"disk-{label}"))
+        fleet = make_fleet(weights, cfg, n, engine_kw=kw, chip_ids=chip_ids, device=device,
+                           hang_timeout_s=None, journal_dir=jdir, journal_every=4)
+        built = [rep.engine for rep in fleet.replicas]
+        rids = submit_all(fleet, reqs)
+        fleet.step()  # admission and one chunk: requests of two chunks stay live
+        live = sum(1 for r in rids if not fleet._reqs[r].done)
+        close(fleet)
+        fresh = make_fleet(weights, cfg, n, engine_kw=kw, chip_ids=chip_ids, device=device,
+                           hang_timeout_s=None, journal_dir=jdir)
+        built += [rep.engine for rep in fresh.replicas]
+        stats = instrument(fresh)
+        restored = fresh.restore()
+        t0 = time.perf_counter()
+        fresh.run()
+        wall = time.perf_counter() - t0
+        if live == 0 or restored != len(reqs) or fresh.tokens_replayed <= 0:
+            fail(f"fleet {label}: {live} live at close, {restored} restored, "
+                 f"{fresh.tokens_replayed} tokens replayed")
+        finished = set(stats["finished"])
+        stats["finished"] += [r for r in rids if fresh._reqs[r].done and r not in finished]
+        launches = settle(label, fresh, stats, built)
+        out = [list(fresh._reqs[r].tokens) for r in rids]
+        print(f"  fleet {label} journal every 4 steps: closed after 1 step with {live} "
+              f"live sessions, restored {restored}, replayed {fresh.tokens_replayed} "
+              f"tokens, finished in {wall:.3f} s", flush=True)
+        close(fresh)
+        return out, launches
+
+    _, launches = arm_b(params, cfg16, long_reqs, "(b)")
+    total += launches
+    _, launches, tps_c = arm_c(params, cfg16, short_reqs, "(c)")
+    total += launches
+    print(f"  fleet tokens/s against phase 4's plain drain {plain:.1f}: (a) {tps_a:.1f} "
+          f"({tps_a / plain:.3f}), (a') {tps_bare:.1f} ({tps_bare / plain:.3f}), (c) "
+          f"{tps_c:.1f} ({tps_c / plain:.3f})", flush=True)
+    _, launches = arm_d(params, cfg16, long_reqs, "(d)", oracle_probe=False)
+    total += launches
+
+    # (e) the autoscaler, 1 -> 2 replicas under a burst and back after idle.
+    fleet = make_fleet(params, cfg16, 1, engine_kw=base, chip_ids=["chip-0"], device=device,
+                       hang_timeout_s=None)
+    built = [rep.engine for rep in fleet.replicas]
+    stats = instrument(fleet)
+    factory, _ = make_engine_factory(
+        params, cfg16, engine_kw=dict(base, generator=torch.Generator(device).manual_seed(4242)),
+        device=device)
+    fast = Backoff(base_s=0.05, max_s=0.2, jitter=0.0)
+    asc = FleetAutoscaler(fleet, recording(factory, built), min_replicas=1, max_replicas=2,
+                          depth_high=1.0, window_s=0.5, down_consecutive=2, up_backoff=fast,
+                          down_backoff=fast, probe=fl["probe"])
+    asc.calibrate_probe()
+    # A burst of three waves of slots' worth, two chunks a request: the
+    # backlog beyond the replica's slots opens the breach at the first
+    # poll, and the drained fleet clears it.
+    burst = [(0.0, p, nw) for _, p, nw in traffic(3 * f["slots"], fl["long_new"], seed=19)]
+    t0 = time.perf_counter()
+    rejected = []
+    drive_open_loop(asc, burst, on_reject=lambda *a: rejected.append(a))
+    quiet = asc.wait_quiescent(timeout_s=60.0)
+    wall = time.perf_counter() - t0
+    kinds = [e.kind for e in asc.events]
+    if asc.scale_ups < 1 or asc.scale_downs < 1 or len(fleet.alive) != 1 or not in_order(
+            kinds, ["scale_up", "scale_down"]):
+        fail(f"fleet (e): ups {asc.scale_ups} downs {asc.scale_downs} alive "
+             f"{len(fleet.alive)} quiescent {quiet} events {kinds}")
+    total += settle("(e)", fleet, stats, built)
+    print(f"  fleet (e) autoscaler 1 -> 2 -> 1 under a burst of {len(burst)}: {wall:.3f} s, "
+          f"ups {asc.scale_ups} downs {asc.scale_downs}, rejected {len(rejected)}, "
+          f"recover {asc.recover_ms} ms, events {kinds}", flush=True)
+    close(fleet)
+
+    # (f) the goodput controller retunes superstep_k away from dead lanes.
+    fleet = make_fleet(params, cfg16, n, engine_kw=dict(base, superstep_k=4),
+                       chip_ids=chip_ids, device=device, hang_timeout_s=None,
+                       ledger=FleetLedger())
+    for i, rep in enumerate(fleet.replicas):
+        rep.engine.ledger = ChipTimeLedger(name=str(i))
+    built = [rep.engine for rep in fleet.replicas]
+    stats = instrument(fleet)
+    ctrl = GoodputController(fleet, min_sample_tokens=64,
+                             retune_backoff=Backoff(base_s=0.05, max_s=0.2, jitter=0.0))
+    tiny = [(list(p), 3) for _, p, _ in traffic(4 * f["slots"], fl["short_new"], seed=23)]
+    t0 = time.perf_counter()
+    drive_open_loop(ctrl, [(0.0, p, nw) for p, nw in tiny])
+    wall = time.perf_counter() - t0
+    ks = [rep.engine.superstep_k for rep in fleet.replicas]
+    if ctrl.retunes_applied < 1 or min(ks) >= 4:
+        fail(f"fleet (f): {ctrl.retunes_applied} retunes, superstep_k {ks}")
+    total += settle("(f)", fleet, stats, built)
+    caps = [rep.engine._graph.captures if rep.engine._graph is not None else 0
+            for rep in fleet.replicas]
+    print(f"  fleet (f) goodput controller: {ctrl.retunes_applied} retunes, superstep_k "
+          f"4 -> {ks}, graph captures {caps}, {wall:.3f} s, events "
+          f"{[e.kind for e in ctrl.events]}", flush=True)
+    close(fleet)
+
+    _, launches = arm_g(params, cfg16, long_reqs[:8], "(g)")
+    total += launches
+
+    # (i) float32: (a), (b), (c), (g) and (d) against one plain engine.
+    w32 = cast_params(params, torch.float32)
+    cfg32 = replace(cfg16, dtype=torch.float32)
+    reqs32 = [(list(p), nw) for _, p, nw in traffic(fl["f32_requests"], fl["new"], seed=17)]
+    plain_engine = ServeEngine(w32, cfg32, **base, device=device)
+    prid = submit_all(plain_engine, reqs32)
+    served = plain_engine.run()
+    want = [served[r] for r in prid]
+    total += counters["paged_attention"].launches
+    reset_counts(counters)
+    del plain_engine
+
+    def hold(label, streams):
+        """Each float32 stream equals the plain engine's; a flip only at
+        a top-2 gap under FLIP_GAP of the largest logit."""
+        for i, (got, ref) in enumerate(zip(streams, want)):
+            if got == ref:
+                continue
+            pos = next((j for j, (a, b) in enumerate(zip(got, ref)) if a != b),
+                       min(len(got), len(ref)))
+            gap, scale = top2_gap(torch, w32, cfg32, reqs32[i][0], ref, pos)
+            print(f"  fleet {label} float32 request {i}: first divergence at token {pos}, "
+                  f"top-2 gap {gap:.3e} of max |logit| {scale:.3e}", flush=True)
+            if len(got) != len(ref) or gap > FLIP_GAP * scale:
+                fail(f"fleet {label}: float32 stream {i} differs from the plain engine's")
+
+    fleet = make_fleet(w32, cfg32, n, engine_kw=base, chip_ids=chip_ids, device=device,
+                       observers=[EngineObserver(name=str(i)) for i in range(n)],
+                       hang_timeout_s=None, ledger=FleetLedger())
+    built = [rep.engine for rep in fleet.replicas]
+    stats = instrument(fleet)
+    rids = submit_all(fleet, reqs32)
+    fleet.run()
+    total += settle("(i a)", fleet, stats, built)
+    hold("(i a)", [list(fleet._reqs[r].tokens) for r in rids])
+    close(fleet)
+    for arm, label in ((arm_b, "(i b)"), (arm_g, "(i g)")):
+        streams, launches = arm(w32, cfg32, reqs32, label)
+        hold(label, streams)
+        total += launches
+    streams, launches, _ = arm_c(w32, cfg32, reqs32, "(i c)")
+    hold("(i c)", streams)
+    total += launches
+    streams, launches = arm_d(w32, cfg32, reqs32, "(i d)", oracle_probe=True)
+    hold("(i d)", streams)
+    total += launches
+    print(f"  fleet (i) float32: (a), (b), (c), (d) and (g) equal the plain engine's "
+          f"{len(want)} streams", flush=True)
+    del w32
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    print(f"  fleet phase: {time.perf_counter() - t_phase:.1f} s, K1 launches {total}, "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    return total
+
+
 def lora_train_path(torch, model_mod, train_mod, counters, f, device="cuda",
                     steps=4) -> dict:
     """Phase 6e: the LoRA fine-tune (``lora.make_lora_train_step``) at
@@ -2630,6 +3262,14 @@ def main() -> int:
     print(f"  multi-LoRA phase: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{lora_launches}; card: {card}", flush=True)
 
+    # 4f. the fleet and its control plane at the same width
+    phase("serving path: fleet and control plane at full width")
+    t0 = time.perf_counter()
+    fleet_launches = fleet_phase(torch, params, config, f, counters,
+                                 drains["defaults"]["tokens_per_s"])
+    print(f"  fleet phase: {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{fleet_launches}; card: {card}", flush=True)
+
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
     phase("numbers")
@@ -2734,11 +3374,12 @@ def main() -> int:
         "source": "workloads_torch/ops/csrc/paged_attention.cu",
         "replaces": "workloads/ops/paged_attention.py:56",
         "launches": launches + lifecycle_launches + kv_launches + spec_launches
-        + lora_launches,
+        + lora_launches + fleet_launches,
         "lifecycle_launches": lifecycle_launches,
         "kv_launches": kv_launches,
         "spec_launches": spec_launches,
         "lora_launches": lora_launches,
+        "fleet_launches": fleet_launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -101,3 +101,47 @@ def test_lora_phases_rehearse_on_the_cpu(capsys):
     assert "base requests' bf16 streams equal (a)'s bit for bit in 3 of 3" in out
     assert "'lora:1': [0, 8, 8, 8]" in out and "shared across salts: none" in out
     assert "base bit-unchanged" in out
+
+
+def test_fleet_phase_rehearses_on_the_cpu(capsys):
+    """Phase 4f on the plain route at a tiny width, every CPU gate
+    included: one terminal status a request and no page left in every
+    arm, the SSE tokens equal to the record, the ledgers reconciled, the
+    exposition and the merged trace well formed, the supervisor's and
+    autoscaler's events in order, a retune, a restore that replays, and
+    the float32 arms equal to one plain engine's streams."""
+    import torch
+
+    from workloads_torch.model import ModelConfig, cast_params, init_params
+    from workloads_torch.ops import attention as fa
+    from workloads_torch.ops import paged_attention as pa
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        config = ModelConfig(vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+                             max_seq_len=64, dtype=torch.bfloat16)
+        params = cast_params(init_params(config, torch.Generator().manual_seed(0)),
+                             config.dtype)
+        f = dict(chip_smoke.FULL, slots=2, page_size=4, decode_prompt=8)
+        fl = dict(chip_smoke.FLEET, prompt=(4, 24), new=(4, 12), long_new=(8, 16),
+                  short_new=(2, 4), max_seq_len=48, requests=8, short_requests=6,
+                  f32_requests=4)
+        chip_smoke.fleet_phase(torch, params, config, f, chip_smoke.kernel_counters(pa, fa),
+                               100.0, fl=fl, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "tokens equal to the fleet's record" in out
+    assert "events ['death', 'backoff', 'probe', 'rejoin']" in out
+    assert "ups 1 downs 1" in out
+    assert "(a), (b), (c), (d) and (g) equal the plain engine's 4 streams" in out
+
+
+def test_exposition_parser_and_event_order():
+    chip_smoke.parse_exposition('# HELP x_total a\n# TYPE x_total counter\nx_total{a="1"} 3\n'
+                                'y NaN\n')
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_exposition("x_total three\n")
+    assert chip_smoke.in_order(["death", "backoff", "probe", "rejoin"], ["death", "rejoin"])
+    assert not chip_smoke.in_order(["rejoin", "death"], ["death", "rejoin"])

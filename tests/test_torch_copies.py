@@ -1,0 +1,126 @@
+"""The port's copies of the JAX package's jax-free modules stay copies.
+
+For each copied module both files are parsed with ``ast``, every
+docstring is stripped, and each top-level function and class, and each
+method, must ``ast.unparse`` equal: comments, docstrings and line
+wrapping may differ, code may not.  Only the allowlist below may differ,
+each for a reason the port's module docstring gives.  The JAX files are
+read as text; nothing of the JAX package is imported, so this stays in
+the fast tier.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
+          "supervisor", "autoscaler", "control"]
+
+# (module, definition): the port builds its own engine on a device
+# (make_fleet, make_engine_factory), writes the device plugin's stats
+# document without the JAX package's durable (publish_stats), reads
+# HEALTHY from a copy instead of the gRPC-importing package
+# (note_health), and keeps the disk tier's page codec on tensors
+# (KVDiskTier itself is JAX's code and is held to it).  One fixes a
+# fault of the reference: JAX's journal_now leaves cancelled, expired
+# and failed sessions out, so restore() re-mints the rid of one that
+# ended just before the restart (tests/test_torch_fleet_contracts.py
+# test_restore_never_remints_a_rid_that_ended_before_the_restart).
+ALLOWED = {
+    ("fleet", "make_fleet"),
+    ("fleet", "Fleet.publish_stats"),
+    ("fleet", "Fleet.journal_now"),
+    ("supervisor", "FleetSupervisor.note_health"),
+    ("supervisor", "make_engine_factory"),
+    ("durable", "_np_dtype"),
+    ("durable", "_torch_dtype"),
+    ("durable", "_raw"),
+    ("durable", "_pack_blob"),
+    ("durable", "_unpack_blob"),
+}
+
+
+def _strip_docstrings(tree: ast.AST) -> ast.AST:
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:] or [ast.Pass()]
+    return tree
+
+
+def _definitions(path: str) -> dict[str, str]:
+    """{name: unparsed code} for every top-level function and class and
+    every method (``Class.method``); a class's own entry is its body
+    without its methods (fields, class attributes, decorators, bases)."""
+    with open(path, encoding="utf-8") as f:
+        tree = _strip_docstrings(ast.parse(f.read()))
+    out = {}
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef)
+    for node in tree.body:
+        if isinstance(node, funcs):
+            out[node.name] = ast.unparse(node)
+        elif isinstance(node, ast.ClassDef):
+            for item in node.body:
+                if isinstance(item, funcs):
+                    out[f"{node.name}.{item.name}"] = ast.unparse(item)
+            node.body = [i for i in node.body if not isinstance(i, funcs)] or [ast.Pass()]
+            out[node.name] = ast.unparse(node)
+    return out
+
+
+def _allowed(module: str, name: str) -> bool:
+    return any(m == module and (name == d or name.startswith(d + "."))
+               for m, d in ALLOWED)
+
+
+def _pair(module: str):
+    jax_defs = _definitions(os.path.join(ROOT, "workloads", f"{module}.py"))
+    port_defs = _definitions(os.path.join(ROOT, "workloads_torch", f"{module}.py"))
+    return jax_defs, port_defs
+
+
+@pytest.mark.parametrize("module", COPIED)
+def test_copy_defines_what_jax_defines(module):
+    jax_defs, port_defs = _pair(module)
+    missing = sorted(n for n in set(jax_defs) - set(port_defs) if not _allowed(module, n))
+    extra = sorted(n for n in set(port_defs) - set(jax_defs) if not _allowed(module, n))
+    assert not missing and not extra, (missing, extra)
+
+
+@pytest.mark.parametrize("module", COPIED)
+def test_copy_code_equals_jax(module):
+    jax_defs, port_defs = _pair(module)
+    drifted = sorted(
+        n for n in set(jax_defs) & set(port_defs)
+        if not _allowed(module, n) and jax_defs[n] != port_defs[n]
+    )
+    assert not drifted, drifted
+
+
+def test_allowlist_names_real_differences():
+    """Every allowlisted definition does differ (or exists on one side
+    only), so the allowlist cannot quietly outgrow the port's changes."""
+    for module, name in sorted(ALLOWED):
+        jax_defs, port_defs = _pair(module)
+        keys = {n for n in set(jax_defs) | set(port_defs)
+                if n == name or n.startswith(name + ".")}
+        assert keys, (module, name)
+        assert any(jax_defs.get(n) != port_defs.get(n) for n in keys), (module, name)
+
+
+def test_strip_and_compare_catch_a_change():
+    """The comparison itself: a docstring or a comment may change, a
+    constant in the code may not."""
+    a = _strip_docstrings(ast.parse('def f(x):\n    """doc"""\n    return x + 1\n'))
+    b = _strip_docstrings(ast.parse('def f(x):\n    """other"""\n    # note\n    return x + 1\n'))
+    c = _strip_docstrings(ast.parse('def f(x):\n    return x + 2\n'))
+    assert ast.unparse(a) == ast.unparse(b) != ast.unparse(c)

@@ -1265,3 +1265,182 @@ def test_lora_train_step_launches_the_flash_kernels_and_keeps_the_base(cuda, mon
     assert [b - a for a, b in zip(counts, now)] == [3 * config.n_layers] * 3
     assert losses[-1] < losses[0]
     assert all(torch.equal(a, b) for a, b in zip(ttrain.tree_leaves(base), kept))
+
+
+# ---- the fleet and its control plane on the card ----------------------------
+
+_FLEET_REQUESTS = [([3, 1, 4, 1, 5], 18), ([2, 7], 25), ([9] * 11, 14), ([6, 6], 22),
+                   ([8] * 17, 9), ([1, 2, 3, 4], 20)]
+
+
+def _fleet_engine_kw(**kw):
+    return dict(slots=2, page_size=4, prompt_bucket=8, chunk=4, **kw)
+
+
+def _plain_streams(params, config, requests=_FLEET_REQUESTS, device="cuda"):
+    engine = ServeEngine(params, config, device=device, **_fleet_engine_kw())
+    rids = [engine.submit(p, n) for p, n in requests]
+    served = engine.run()
+    return [served[r] for r in rids]
+
+
+def _fleet_leak_free(fleet):
+    from workloads_torch.fleet import DEAD
+
+    for rep in fleet.replicas:
+        if rep.state == DEAD:
+            continue
+        e = rep.engine
+        pinned = e.prefix.cached_pages if e.prefix is not None else 0
+        assert not e._occupied.any() and e._committed_pages == 0 and not rep.rids
+        assert e.ctrl.used_pages == pinned
+
+
+def test_two_replica_fleet_on_the_card_equals_the_plain_engine(cuda):
+    """float32: a two-replica fleet on the card, one capture a replica,
+    emits the plain engine's greedy streams, K1 n_layers a decode step."""
+    from workloads_torch.fleet import make_fleet
+
+    config, params = _life_model()
+    want = _plain_streams(params, config)
+    fleet = make_fleet(params, config, 2, engine_kw=_fleet_engine_kw(), device="cuda",
+                       hang_timeout_s=None)
+    before = pa.paged_attention.launches
+    rids = [fleet.submit(p, n) for p, n in _FLEET_REQUESTS]
+    served = fleet.run()
+    assert [served[r] for r in rids] == want
+    chunks = sum(rep.engine.chunks_run for rep in fleet.replicas)
+    assert pa.paged_attention.launches - before == config.n_layers * 4 * chunks
+    assert all(rep.engine.requests_admitted > 0 for rep in fleet.replicas)
+    assert [rep.engine._graph.captures for rep in fleet.replicas] == [1, 1]
+    _fleet_leak_free(fleet)
+    fleet.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_an_observed_engine_captures_and_streams_as_an_unobserved_one(cuda, dtype):
+    """The observer's and the ledger's brackets read host counters only:
+    the same decode and spec graph captures, bit-identical streams, in
+    the plain, superstep and speculative modes."""
+    from workloads_torch.ledger import ChipTimeLedger
+    from workloads_torch.obs import EngineObserver
+    from workloads_torch.quant import quantize_params
+
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
+    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+                                dtype)
+    spec = dict(draft_params=quantize_params(params), draft_config=config, gamma=2)
+    for mode in ({}, {"superstep_k": 2, "pipelined": True}, spec):
+        out = []
+        for observed in (False, True):
+            kw = dict(observer=EngineObserver(), ledger=ChipTimeLedger()) if observed else {}
+            engine = ServeEngine(params, config, device="cuda", **_fleet_engine_kw(**mode),
+                                 **kw)
+            rids = [engine.submit(p, n) for p, n in _FLEET_REQUESTS]
+            served = engine.run()
+            spec_caps = (dict(engine._spec_graph.captures_by_cover)
+                         if engine._spec_graph is not None else None)
+            out.append(([served[r] for r in rids], engine._graph.captures, spec_caps))
+            if observed:
+                assert engine.ledger.reconcile(expect_quiescent=True)["ok"]
+                assert len(engine._obs.steps) > 0
+        assert out[0] == out[1], sorted(mode)
+
+
+def test_host_sync_grows_on_every_consume_path_and_not_in_a_spill(cuda):
+    """``host_sync_s`` times the chunk, superstep and spec readbacks; a
+    spill's event wait is ``kv_spill_s``, not a host sync."""
+    from workloads_torch.quant import quantize_params
+
+    config, params = _life_model()
+    for kw in ({}, {"superstep_k": 2}, {"draft_params": quantize_params(params),
+                                        "draft_config": config, "gamma": 2}):
+        engine = ServeEngine(params, config, device="cuda", **_fleet_engine_kw(**kw))
+        engine.submit([1, 2, 3], 12)
+        engine.step()
+        synced = engine.host_sync_s
+        engine.run()
+        assert synced > 0 and engine.host_sync_s > synced, kw
+    engine = ServeEngine(params, config, device="cuda",
+                         **_fleet_engine_kw(prefix_cache=True, kv_offload=True))
+    engine.submit(list(range(1, 13)), 4)
+    engine.run()
+    synced, spilled = engine.host_sync_s, engine.kv_spill_s
+    pages = engine._prefix_evict(engine.prefix.cached_pages)
+    assert pages > 0 and engine.prefix.spills > 0 and engine.kv_spill_s > spilled
+    assert engine.host_sync_s == synced
+
+
+def test_a_roles_fleet_hands_off_on_the_card_without_leaks(cuda):
+    """float32 prefill/decode roles: every prompt's KV crosses through
+    export_kv/import_kv on the card, the streams are the plain engine's,
+    and neither pool leaks a page."""
+    from workloads_torch.fleet import make_fleet
+
+    config, params = _life_model()
+    requests = [([(5 * i + j) % 256 for j in range(9 + 3 * i)], 10 + i) for i in range(4)]
+    want = _plain_streams(params, config, requests)
+    fleet = make_fleet(params, config, 2, device="cuda", hang_timeout_s=None,
+                       engine_kw=_fleet_engine_kw(prefix_cache=True, kv_offload=True),
+                       roles=("prefill", "decode"))
+    rids = [fleet.submit(p, n) for p, n in requests]
+    served = fleet.run()
+    assert [served[r] for r in rids] == want
+    assert fleet.kv_handoffs == len(requests) and fleet.handoff_pages > 0
+    assert fleet.replicas[1].engine.kv_handoff_pages_in > 0
+    _fleet_leak_free(fleet)
+    fleet.close()
+
+
+def test_sse_over_a_cuda_fleet_while_it_captures(cuda):
+    """Two SSE clients stream from the front end while the driver thread
+    captures each replica's graph: handler threads touch host state only,
+    and the streamed tokens are the fleet's record and the plain
+    engine's."""
+    import json
+    import threading
+    import urllib.request
+
+    from workloads_torch.fleet import FleetServer, make_fleet
+
+    config, params = _life_model()
+    requests = _FLEET_REQUESTS[:2]
+    want = _plain_streams(params, config, requests)
+    fleet = make_fleet(params, config, 2, engine_kw=_fleet_engine_kw(), device="cuda",
+                       hang_timeout_s=None)
+    server = FleetServer(fleet, 0)
+    port = server.start()
+    got = {}
+
+    def client(i, prompt, new):
+        body = json.dumps({"prompt": prompt, "max_new_tokens": new}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        tokens, done = [], None
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            for line in resp:
+                if line.startswith(b"data: "):
+                    ev = json.loads(line[6:])
+                    tokens += ev.get("tokens", [])
+                    done = ev if ev.get("done") else done
+        got[i] = (tokens, done)
+
+    threads = [threading.Thread(target=client, args=(i, p, n))
+               for i, (p, n) in enumerate(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    server.stop()
+    for i, stream in enumerate(want):
+        tokens, done = got[i]
+        assert done["status"] == "ok" and tokens == stream
+        assert fleet._reqs[done["rid"]].tokens == tokens
+    # The router may send both requests to one replica (the first can
+    # finish before the second arrives): each replica that served one
+    # captured its graph once, under the streams.
+    served = [rep.engine.requests_admitted > 0 for rep in fleet.replicas]
+    assert any(served)
+    assert [rep.engine._graph.captures for rep in fleet.replicas] == [int(x) for x in served]
+    _fleet_leak_free(fleet)
+    fleet.close()

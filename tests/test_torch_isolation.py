@@ -50,6 +50,14 @@ def test_lora_modules_are_scanned():
             os.path.join("workloads_torch", "multi_lora.py")} <= scanned
 
 
+def test_fleet_modules_are_scanned():
+    """The scan reaches the fleet and control plane's modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", f"{m}.py") for m in (
+        "backoff", "obs", "ledger", "fleet", "supervisor", "autoscaler", "control",
+    )} <= scanned
+
+
 def test_scan_catches_forbidden_lines():
     """The scan itself: it flags the JAX package and jax, not the port."""
     flagged = [
@@ -81,6 +89,8 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         "assert sys.modules['ml_dtypes'] is None",
         "assert {'workloads_torch.quant', 'workloads_torch.speculative'} <= set(names)",
         "assert {'workloads_torch.lora', 'workloads_torch.multi_lora'} <= set(names)",
+        "assert {'workloads_torch.' + m for m in ('backoff', 'obs', 'ledger', 'fleet',"
+        " 'supervisor', 'autoscaler', 'control')} <= set(names)",
         "print(len(names))",
     ])
     env = dict(os.environ)
@@ -88,4 +98,82 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 18  # chip_smoke + every port module
+    assert int(proc.stdout.strip()) >= 25  # chip_smoke + every port module
+
+
+# Run time, not just import time: the control plane's lazy imports.  A
+# meta-path finder refuses jax, the JAX package and grpc (the card's
+# host has no gRPC; ``tpu_device_plugin.api`` imports it), then the
+# paths that hold lazy imports run: publish_stats, note_health with
+# duck-typed events (``tpu_device_plugin.device.HealthEvent`` would
+# load gRPC), the flight recorder's bundle write and the HTTP front end.
+_RUNTIME = """
+import importlib.abc, json, os, sys, tempfile, types, urllib.request
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "workloads", "grpc", "ml_dtypes"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in list(sys.modules):
+    if name.split(".")[0] in ("jax", "jaxlib", "workloads", "grpc"):
+        del sys.modules[name]
+sys.path.insert(0, ROOT)
+import torch
+from workloads_torch.fleet import Fleet, FleetServer
+from workloads_torch.ledger import ChipTimeLedger, FlightRecorder
+from workloads_torch.model import ModelConfig, init_params
+from workloads_torch.serve import ServeEngine
+from workloads_torch.supervisor import FleetSupervisor, make_engine_factory
+
+torch.set_num_threads(1)
+config = ModelConfig(max_seq_len=32, n_layers=1, dtype=torch.float32)
+params = init_params(config, torch.Generator().manual_seed(0))
+kw = dict(slots=2, page_size=4, prompt_bucket=8)
+engines = [ServeEngine(params, config, device="cpu", ledger=ChipTimeLedger(name=str(i)), **kw)
+           for i in range(2)]
+fleet = Fleet(engines, chip_ids=["chip-0", "chip-1"], hang_timeout_s=None)
+fleet.submit([1, 2, 3], 3)
+fleet.run()
+tmp = tempfile.mkdtemp()
+path = fleet.publish_stats(os.path.join(tmp, "fleet-stats.json"))
+doc = json.load(open(path))
+assert set(doc["chips"]) == {"chip-0", "chip-1"} and doc["epoch"] == 1, doc
+
+factory, oracle = make_engine_factory(params, config, engine_kw=kw, probe=([1, 2], 2),
+                                      device="cpu")
+sup = FleetSupervisor(fleet, factory, probe=([1, 2], 2), probe_oracle=oracle)
+Ev = lambda chip_id, health: types.SimpleNamespace(chip_id=chip_id, health=health)
+sup.note_health([Ev("chip-1", "Unhealthy")])
+assert sup._unhealthy == {"chip-1"}
+sup.note_health([Ev("chip-1", "Healthy")])
+assert not sup._unhealthy
+
+rec = FlightRecorder(out_dir=os.path.join(tmp, "pm"))
+rec.attach_engine("0", engines[0])
+rec.attach_fleet(fleet)
+rec.attach_supervisor(sup)
+rec.poll()
+bundle = rec.trigger("manual", "isolation check")
+assert bundle and os.path.exists(bundle), bundle
+
+server = FleetServer(fleet, 0, supervisor=sup)
+port = server.start()
+with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as resp:
+    assert resp.status == 200
+server.stop()
+fleet.close()
+assert not any(n.split(".")[0] in ("jax", "workloads", "grpc") for n in sys.modules)
+print("ok")
+"""
+
+
+def test_control_plane_runs_with_jax_workloads_and_grpc_blocked():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _RUNTIME],
+                          capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

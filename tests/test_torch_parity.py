@@ -15,11 +15,12 @@ and tests/test_torch_kv_hierarchy.py (the KV-cache hierarchy) against
 tests/test_torch_kv_golden.npz, and tests/test_torch_spec.py (speculative
 decoding) against tests/test_torch_spec_golden.npz, and
 tests/test_torch_lora.py (multi-LoRA serving and the LoRA fine-tune step)
-against tests/test_torch_lora_golden.npz;
+against tests/test_torch_lora_golden.npz, and tests/test_torch_fleet.py
+(the fleet and its control plane) against tests/test_torch_fleet_golden.npz;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the six fixtures from the JAX package (``write_lora_goldens()``
+regenerates the seven fixtures from the JAX package (``write_fleet_goldens()``
 alone rewrites only the last).
 """
 
@@ -72,6 +73,7 @@ from tests.test_torch_kv_hierarchy import (  # noqa: E402
 from tests.test_torch_kv_hierarchy import golden_runs as kv_golden_runs  # noqa: E402
 from tests.test_torch_kv_hierarchy import run_kv_scenario  # noqa: E402
 from tests import test_torch_lora as tlora  # noqa: E402
+from tests import test_torch_fleet as tfleet  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
     LIFECYCLE_GOLDEN,
     golden_runs,
@@ -722,6 +724,108 @@ def test_lora_matches_jax_live(trees, key, mode, scenario):
         np.testing.assert_array_equal(g, w, err_msg=key)
 
 
+def jax_fleet_package():
+    """The JAX package's control-plane modules under the names
+    ``tests/test_torch_fleet.run_fleet_scenario`` uses."""
+    import types
+
+    from workloads import (autoscaler, backoff, control, durable, errors, faults, fleet,
+                           ledger, obs, supervisor)
+
+    return types.SimpleNamespace(
+        autoscaler=autoscaler, backoff=backoff, control=control, durable=durable,
+        errors=errors, faults=faults, fleet=fleet, ledger=ledger, obs=obs,
+        supervisor=supervisor,
+    )
+
+
+def jax_fleet_factory(tree_bf16: dict):
+    config = jax_config(tfleet.FLEET_CASE)
+    params = jax.tree.map(lambda a: jnp.asarray(a, config.dtype), tree_bf16)
+
+    def make(**kw):
+        return jserve.ServeEngine(params, config, **{**tfleet.FLEET_KW, **kw})
+
+    return make
+
+
+def port_fleet_factory(tree_bf16: dict):
+    params = convert.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a).astype(np.float32), tree_bf16), device="cpu")
+    config = tiny_config(tfleet.FLEET_CASE)
+
+    def make(**kw):
+        return tserve.ServeEngine(params, config, device="cpu", **{**tfleet.FLEET_KW, **kw})
+
+    return make
+
+
+def port_journal_restores_in_jax(tree_bf16: dict, want_tokens: np.ndarray) -> None:
+    """The other direction of the cross-engine journal check: the port's
+    fleet closes mid-stream, and the JAX fleet restores its journal and
+    disk pages and continues every stream to the JAX fleet's tokens."""
+    import shutil
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tfleet.run_fleet_scenario(tfleet.port_package(), port_fleet_factory(tree_bf16),
+                                  "journal", workdir=tmp)
+        root = os.path.join(tmp, "restore")
+        shutil.copytree(os.path.join(tmp, "at-close"), root)
+        make = jax_fleet_factory(tree_bf16)
+        kw = dict(prefix_cache=True, kv_offload=True, kv_disk_dir=os.path.join(root, "disk"))
+        fl = jax_fleet_package().fleet.Fleet(
+            [make(**kw) for _ in range(2)], chip_ids=["chip-0", "chip-1"],
+            hang_timeout_s=None, journal_dir=os.path.join(root, "journal"))
+        assert fl.restore() == len(want_tokens)
+        fl.run()
+        for i in range(len(want_tokens)):
+            fr = fl._reqs[f"req-{i}"]
+            assert fr.status == "ok"
+            assert fr.tokens == [int(t) for t in want_tokens[i] if t >= 0], i
+        fl.close()
+
+
+@pytest.mark.parametrize("scenario", tfleet.FLEET_SCENARIOS)
+def test_fleet_matches_jax_live(trees, scenario):
+    """The port's fleet scenario against the JAX fleet's, live."""
+    tree = trees[tfleet.FLEET_CASE[1]]
+    want = tfleet.run_fleet_scenario(jax_fleet_package(), jax_fleet_factory(tree), scenario)
+    got = tfleet.run_fleet_scenario(tfleet.port_package(), port_fleet_factory(tree), scenario)
+    for name, value in got.items():
+        np.testing.assert_array_equal(value, want[name], err_msg=f"{scenario}/{name}")
+    if scenario == "journal":
+        port_journal_restores_in_jax(tree, want["tokens"])
+
+
+def write_fleet_goldens(path: str = tfleet.FLEET_GOLDEN) -> None:
+    """Freeze the JAX fleet's scripted runs for tests/test_torch_fleet.py
+    (streams, statuses, attempts, counters, event kinds, journal
+    digests, TrafficGen's schedules) and the journal directory it left
+    when it closed mid-stream; check that the port's journal restores
+    into the JAX fleet."""
+    tree = jax_params_bf16(tfleet.FLEET_CASE[1])
+    pkg = jax_fleet_package()
+    make = jax_fleet_factory(tree)
+    arrays = tfleet.traffic_arrays(pkg)
+    with tempfile.TemporaryDirectory() as tmp:
+        for scenario in tfleet.FLEET_SCENARIOS:
+            workdir = os.path.join(tmp, scenario)
+            os.makedirs(workdir)
+            out = tfleet.run_fleet_scenario(pkg, make, scenario, workdir=workdir)
+            arrays.update({f"{scenario}/{k}": v for k, v in out.items()})
+        root = os.path.join(tmp, "journal", "at-close")
+        for dirpath, _, files in os.walk(root):
+            for name in sorted(files):
+                full = os.path.join(dirpath, name)
+                with open(full, "rb") as f:
+                    data = np.frombuffer(f.read(), np.uint8)
+                arrays[f"cross/file/{os.path.relpath(full, root)}"] = data
+    arrays["cross/rids"] = np.asarray([f"req-{i}" for i in range(len(arrays["journal/tokens"]))])
+    port_journal_restores_in_jax(tree, arrays["journal/tokens"])
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_lora_goldens(path: str = tlora.LORA_GOLDEN) -> None:
     """Freeze the JAX engine's adapter scenarios (streams, statuses and
     per-step counters), the unit outputs and one LoRA fine-tune step a
@@ -836,3 +940,4 @@ if __name__ == "__main__":
     write_kv_goldens()
     write_spec_goldens()
     write_lora_goldens()
+    write_fleet_goldens()

@@ -1,7 +1,12 @@
-"""The KV disk tier below host RAM, ported from ``workloads/durable.py``.
+"""Durable state, ported from ``workloads/durable.py``: the atomic-write
+helpers, the KV disk tier below host RAM, and the fleet's session journal.
 
-The port's own copy of the JAX package's disk tier (the session journal
-comes with the fleet): per-page files named by the same ``_chain_key``
+``atomic_write_*`` and ``SessionJournal`` are copies of the JAX package's
+(tests/test_torch_copies.py holds them to it); the journal's file format
+is JAX's, so a journal either fleet wrote restores into the other.
+
+The disk tier keeps the JAX package's page format with its own codec on
+tensors: per-page files named by the same ``_chain_key``
 hex the radix tree uses, each ``magic + sha256(payload) + payload`` with
 the payload an ``.npz`` of the page's raw bytes beside a
 ``[dtype name, shape]`` sidecar.  The format is the JAX package's byte
@@ -61,6 +66,21 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
                 os.unlink(tmp)
             except OSError:
                 pass
+
+
+def atomic_write_text(path: str, text: str) -> None:
+    atomic_write_bytes(path, text.encode("utf-8"))
+
+
+def atomic_write_json(path: str, doc, *, indent: int | None = None) -> None:
+    """Atomic ``json.dump``: the compact separators match the existing
+    savers' wire format (indent is for human-read artifacts like the
+    FlightRecorder bundle)."""
+    if indent is None:
+        text = json.dumps(doc, separators=(",", ":"))
+    else:
+        text = json.dumps(doc, indent=indent)
+    atomic_write_text(path, text)
 
 
 # File format: magic + sha256(payload) + payload (an .npz archive of the
@@ -304,3 +324,126 @@ class KVDiskTier:
             except OSError:
                 pass
         return n
+
+
+# ---- session journal ----------------------------------------------------
+
+JOURNAL_FILENAME = "journal.json"
+_JOURNAL_VERSION = 1
+
+
+def _records_digest(records: list) -> str:
+    payload = json.dumps(records, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(payload.encode("utf-8")).hexdigest()
+
+
+class SessionJournal:
+    """The fleet's crash checkpoint: one bounded JSON document of
+    session records (rid, prompt, emitted tokens, sampling state, LoRA
+    salt, parked-page manifest — ``Fleet.journal_now`` builds them),
+    written atomically with a PREVIOUS generation kept beside it.
+
+    Epochs are monotonic across process restarts (the kvsched
+    claim-epoch discipline: the stamp is max(on-disk epoch + 1, own
+    counter)), so a restarted writer can never roll a reader back onto
+    older state.  The loader's taxonomy mirrors
+    ``kvsched.read_stats_snapshot``: ``"ok"`` (current generation),
+    ``"fallback"`` (current torn/corrupt, previous generation intact —
+    at most one checkpoint interval of progress lost), ``"absent"``,
+    ``"corrupt"`` (both generations damaged).  The
+    ``journal_torn_write`` seam writes a half-length current file
+    OUTSIDE the atomic path — exactly the crash-mid-write the previous
+    generation exists for."""
+
+    def __init__(self, directory: str, injector=None):
+        self.dir = os.path.abspath(directory)
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, JOURNAL_FILENAME)
+        self.prev_path = self.path + ".prev"
+        self._faults = injector
+        self.epoch = -1
+        self.writes = 0
+        self.torn_writes = 0
+
+    def _disk_epoch(self) -> int:
+        epoch = -1
+        for path in (self.path, self.prev_path):
+            try:
+                with open(path, encoding="utf-8") as f:
+                    epoch = max(epoch, int(json.load(f).get("epoch", -1)))
+            except (OSError, ValueError, TypeError, AttributeError):
+                continue
+        return epoch
+
+    def write(self, records: list[dict], meta: dict | None = None) -> int:
+        """Checkpoint ``records``; returns the stamped epoch.  The
+        current generation rotates to ``.prev`` FIRST, so even a torn
+        write (injected or real) leaves one intact generation."""
+        stamped = max(self._disk_epoch(), self.epoch) + 1
+        doc = {
+            "version": _JOURNAL_VERSION,
+            "epoch": stamped,
+            "written_at": time.time(),
+            "checksum": _records_digest(records),
+            "meta": dict(meta or {}),
+            "records": records,
+        }
+        body = json.dumps(doc, separators=(",", ":"))
+        if os.path.exists(self.path):
+            os.replace(self.path, self.prev_path)
+        torn = False
+        if self._faults is not None:
+            from .faults import InjectedFault
+
+            try:
+                self._faults.check("journal_torn_write")
+            except InjectedFault:
+                torn = True
+        if torn:
+            # A crash mid-write: the current generation is a prefix.
+            # Deliberately NOT the atomic path — this is the failure the
+            # atomic path exists to prevent, surfaced so the loader's
+            # fallback generation is a tested path, not a comment.
+            with open(self.path, "w", encoding="utf-8") as f:
+                f.write(body[: len(body) // 2])
+            self.torn_writes += 1
+        else:
+            atomic_write_text(self.path, body)
+            self.writes += 1
+        self.epoch = stamped
+        return stamped
+
+    @staticmethod
+    def _parse(path: str) -> list | None:
+        try:
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            return None
+        try:
+            if int(doc["version"]) != _JOURNAL_VERSION:
+                return None
+            records = doc["records"]
+            if not isinstance(records, list):
+                return None
+            if doc["checksum"] != _records_digest(records):
+                return None
+        except (KeyError, TypeError, ValueError):
+            return None
+        return records
+
+    def load(self) -> tuple[list | None, str]:
+        """(records, reason) — reason in ``"ok"`` / ``"fallback"`` /
+        ``"absent"`` / ``"corrupt"`` (the restore path's counter
+        labels)."""
+        current_exists = os.path.exists(self.path)
+        prev_exists = os.path.exists(self.prev_path)
+        if not current_exists and not prev_exists:
+            return None, "absent"
+        records = self._parse(self.path)
+        if records is not None:
+            return records, "ok"
+        records = self._parse(self.prev_path)
+        if records is not None:
+            return records, "fallback"
+        return None, "corrupt"

@@ -2,9 +2,10 @@
 
 The PyTorch port's own copy of ``workloads/faults.py`` (the port imports
 nothing of the JAX package); the two must stay identical in seams,
-schedules and messages.  ``workloads_torch/serve.py`` crosses the four
-prefill and decode engine seams; ``spec_dispatch``/``spec_readback``
-stay in ``ENGINE_SEAMS`` and are crossed once speculation is ported.
+schedules and messages.  ``workloads_torch/serve.py`` crosses all six
+engine seams (prefill, decode and spec, each at dispatch and readback);
+``fleet.py``, ``supervisor.py`` and ``autoscaler.py`` cross the replica
+seams, and ``durable.py`` the disk tier's and the journal's.
 
 The reference device plugin's robustness story is driven by INJECTED
 failure (its health loop is tested by synthesizing XID events, not by

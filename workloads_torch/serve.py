@@ -269,6 +269,8 @@ class ServeEngine:
         health_events=None,
         adapters: dict[str, list] | None = None,
         lora_alpha: float = 1.0,
+        observer=None,
+        ledger=None,
         device=None,
     ):
         if slots < 1:
@@ -619,6 +621,10 @@ class ServeEngine:
         # Decode steps computed past a row's retirement (a superstep's
         # dead tail), reconciled at each superstep readback.
         self.tokens_overdecoded = 0
+        # Wall seconds the scheduler spent blocked in host readbacks
+        # (``_host_sync``): StepRecord.host_sync_ms and the
+        # engine_host_sync_seconds histogram (obs.py).
+        self.host_sync_s = 0.0
         self.generated_tokens = 0
         self.prefills_run = 0
         self.prefill_tokens = 0  # prompt tokens forwarded
@@ -652,6 +658,16 @@ class ServeEngine:
         self.kv_handoff_pages_out = 0
         self.kv_handoff_pages_in = 0
         self.kv_handoff_s = 0.0
+        # Opt-in observability (obs.py) and the chip-time ledger
+        # (ledger.py): both read host counters between steps, never
+        # device state, so streams and graph captures are the same with
+        # them on or off.  ``ledger_phase`` "probe"/"warmup" charges a
+        # pass to that phase (ledger.py OFFBOOK_PHASES).
+        self._obs = observer
+        if observer is not None:
+            observer._bind(self)
+        self.ledger = ledger
+        self.ledger_phase = "serve"
         # Finished requests in retirement order; bounded by
         # ``completed_limit`` or drained with ``drain_completed``.
         self.completed: deque[Request] = deque(maxlen=completed_limit)
@@ -989,6 +1005,19 @@ class ServeEngine:
         attribute test without an injector)."""
         if self._faults is not None:
             self._faults.check(seam)
+
+    def _host_sync(self, fetch):
+        """Run one blocking device-to-host fetch, timing the wall it
+        stalls the scheduler for (``host_sync_s``: StepRecord.host_sync_ms
+        and the engine_host_sync_seconds histogram).  Every readback goes
+        through here, so the account cannot drift from the syncs made."""
+        t0 = time.perf_counter()
+        out = fetch()
+        dt = time.perf_counter() - t0
+        self.host_sync_s += dt
+        if self._obs is not None:
+            self._obs._note_readback(dt)
+        return out
 
     def _note_recovery(self) -> None:
         """After every good host readback: close the recovery window the
@@ -1786,10 +1815,11 @@ class ServeEngine:
             if p["group_done"] is not None:
                 self._group_cleanup(p["group_done"])
         self._maybe_fault("prefill_readback")
-        toks = sample_logits(
+        toks_dev = sample_logits(
             emitted, self.generator if self.sampling else None,
             self.temperature, self.top_k, self.top_p,
-        ).cpu().numpy()
+        )
+        toks = self._host_sync(lambda: toks_dev.cpu().numpy())
         self.admission_readbacks += 1
         self._note_recovery()
         finished = []
@@ -1984,8 +2014,24 @@ class ServeEngine:
         next chunk is dispatched on its device-side last tokens, so
         emission and retirement lag one chunk; tokens are the same.  With
         ``superstep_k > 1`` the step runs ``_step_superstep``.  A failed
-        dispatch or readback quarantines the step."""
-        return self._step_impl()
+        dispatch or readback quarantines the step.
+
+        An observer brackets the step with its begin/end hooks (one
+        StepRecord a call), and a chip-time ledger brackets the same
+        window; both read host counters only.  Without either this is a
+        passthrough."""
+        obs = self._obs
+        led = self.ledger
+        if obs is None and led is None:
+            return self._step_impl()
+        lsnap = led.step_begin(self) if led is not None else None
+        snap = obs._step_begin(self) if obs is not None else None
+        finished = self._step_impl()
+        if led is not None:
+            led.step_end(self, lsnap, finished)
+        if obs is not None:
+            obs._step_end(self, snap, finished)
+        return finished
 
     def _step_impl(self) -> list[Request]:
         if self._closed:
@@ -2106,7 +2152,7 @@ class ServeEngine:
         """Read a chunk's tokens back (the host sync point) and apply
         emission and retirement for the slots as they were at dispatch."""
         self._maybe_fault("decode_readback")
-        toks = read.numpy()
+        toks = self._host_sync(read.numpy)
         self._note_recovery()
         finished = []
         for slot, req in snapshot.items():
@@ -2254,7 +2300,7 @@ class ServeEngine:
         the host mirrors advance as the device did), retire finished
         rows, and count the dead steps each retiring row sat frozen for."""
         self._maybe_fault("decode_readback")
-        toks = read.numpy()
+        toks = self._host_sync(read.numpy)
         self._note_recovery()
         span = toks.shape[1]
         finished = []
@@ -2314,6 +2360,17 @@ class ServeEngine:
         out = list(self.decode_mode_trace)
         self.decode_mode_trace.clear()
         return out
+
+    def export_trace(self, path: str) -> int:
+        """Write the observer's timeline (request lifecycle spans and step
+        records) as chrome://tracing trace_event JSON; returns the event
+        count.  Needs ``observer=EngineObserver()`` at construction."""
+        if self._obs is None:
+            raise RuntimeError(
+                "export_trace needs an observer: construct the engine "
+                "with observer=workloads_torch.obs.EngineObserver()"
+            )
+        return self._obs.export_trace(path)
 
     def _spec_cover(self, last_position: int) -> int:
         """The verify view's static width for rows that reach
@@ -2568,7 +2625,7 @@ class ServeEngine:
         whole advance.  A chained superstep's readback also carries each
         round's live mask (``_apply_spec_super``)."""
         self._maybe_fault("spec_readback")
-        fetched = read.arrays()
+        fetched = self._host_sync(read.arrays)
         self._note_recovery()
         if len(fetched) == 3:
             return self._apply_spec_super(fetched, snapshot)
@@ -2873,20 +2930,29 @@ class ServeEngine:
         err = "EngineClosed: engine closed with the request in flight"
         # step() refuses to run after close, so these land on
         # ``completed`` only, and the buffer clears.
+        closed_now = []
         for slot in sorted(self._slot_req):
-            self._finish_terminal(self._release_slot(slot), "failed", error=err)
+            closed_now.append(
+                self._finish_terminal(self._release_slot(slot), "failed", error=err))
         for plan in list(self._inflight_prefill):
             req = self._abort_partial(plan)
             req.group = None
-            self._finish_terminal(req, "failed", error=err)
+            closed_now.append(self._finish_terminal(req, "failed", error=err))
         while self.pending:
             req = self.pending.popleft()
             req.group = None
-            self._finish_terminal(req, "failed", error=err)
+            closed_now.append(self._finish_terminal(req, "failed", error=err))
         self._finished_buffer.clear()
         self._dissolve_groups()
         if self.prefix is not None:
             self.prefix.clear()
+        if self.ledger is not None:
+            # The last counter deltas and the close-failed classification
+            # land before the observer's final registry push reads them.
+            self.ledger.engine_closed(self, closed_now)
+        if self._obs is not None:
+            self._obs._engine_closed(self, closed_now)
+            self._obs.unbind_registry()
         self.unbind_health()
 
     def __enter__(self) -> "ServeEngine":
@@ -2920,6 +2986,703 @@ class ServeEngine:
             if self._paused:
                 time.sleep(0.001)
         return out
+
+
+class _RecorderDriver:
+    """Duck-typed fleet-driver shim for the flight recorder: delegates
+    the Fleet loop API (submit/cancel/idle/... via __getattr__) and
+    polls the recorder after EVERY step — the sustained-SLO-burn
+    trigger needs consecutive polls to distinguish a spike from a
+    burn, and a quarantine bundle must capture the incident's ring
+    state before the bounded rings evict it, neither of which a
+    single end-of-run poll can do."""
+
+    def __init__(self, inner, recorder):
+        self._inner = inner
+        self._recorder = recorder
+
+    def step(self):
+        finished = self._inner.step()
+        self._recorder.poll()
+        return finished
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def _run_fleet_cli(
+    args, parser, params, config, page_size, bucket, adapters, spec_kw,
+    metrics_server, schedule, replica_schedules, device,
+) -> int:
+    """The ``--fleet N`` serve path: N replicas behind the router, a
+    seeded open-loop bursty traffic stream (optionally pushed through
+    the HTTP/SSE front end), replica fault injection (per-replica
+    targeting via ``SEAM@REPLICA:N``), optional self-healing
+    supervision (``--supervise``), and a lifecycle summary.  Every
+    engine, respawns and scale-ups included, runs on ``device``;
+    replica ``i`` samples from a generator seeded ``42 + i`` and every
+    respawn from one seeded 4242 (the canary's stream must repeat)."""
+    from .faults import ENGINE_SEAMS, FaultInjector, REPLICA_SEAMS
+    from .fleet import (
+        ROLES,
+        Fleet,
+        FleetServer,
+        TrafficGen,
+        drive_open_loop,
+    )
+
+    # Disaggregated prefill/decode pools (--roles) + SLO-class weighted
+    # fair queuing (--wfq): validated here so a typo fails before any
+    # engine builds.
+    roles = None
+    if args.roles is not None:
+        roles = [r.strip() for r in args.roles.split(",")]
+        if len(roles) != args.fleet:
+            parser.error(
+                f"--roles wants one role per replica ({args.fleet}), "
+                f"got {len(roles)}: {args.roles!r}"
+            )
+        bad = [r for r in roles if r not in ROLES]
+        if bad:
+            parser.error(
+                f"--roles values must be from {ROLES}, got {bad}"
+            )
+    wfq_weights = None
+    if args.wfq is not None:
+        import math
+
+        wfq_weights = {}
+        for part in args.wfq.split(","):
+            name, sep, weight = part.partition(":")
+            name = name.strip()
+            try:
+                w = float(weight) if sep else 1.0
+            except ValueError:
+                parser.error(
+                    f"--wfq wants CLASS[:WEIGHT] pairs, got {part!r}"
+                )
+            if not name or not math.isfinite(w) or w <= 0:
+                parser.error(
+                    f"--wfq wants a class name with a positive weight, "
+                    f"got {part!r}"
+                )
+            wfq_weights[name] = w
+    replica_schedules = dict(replica_schedules or {})
+    fleet_schedule = {
+        s: n for s, n in schedule.items() if s in REPLICA_SEAMS
+    }
+    engine_schedule = {
+        s: n for s, n in schedule.items() if s in ENGINE_SEAMS
+    }
+    if set(schedule) - set(fleet_schedule) - set(engine_schedule):
+        parser.error(
+            f"unknown seams in --inject-fault: "
+            f"{sorted(set(schedule) - set(fleet_schedule) - set(engine_schedule))}"
+        )
+    # The supervisor's resurrection seam and the autoscaler's scale-up
+    # spawn seam: consulted by their controllers, not by the fleet's
+    # step loop.
+    respawn_schedule = {
+        s: n for s, n in fleet_schedule.items() if s == "replica_respawn"
+    }
+    spawn_schedule = {
+        s: n for s, n in fleet_schedule.items() if s == "scale_spawn_fail"
+    }
+    fleet_schedule = {
+        s: n for s, n in fleet_schedule.items()
+        if s not in ("replica_respawn", "scale_spawn_fail")
+    }
+    if respawn_schedule and not args.supervise:
+        parser.error(
+            "--inject-fault replica_respawn:N schedules supervised "
+            "resurrection crashes; it needs --supervise"
+        )
+    if spawn_schedule and not args.autoscale:
+        parser.error(
+            "--inject-fault scale_spawn_fail:N kills autoscaler "
+            "scale-up spawns; it needs --autoscale MIN:MAX"
+        )
+    # SEAM@REPLICA:N targeting: engine seams only (replica seams are
+    # fleet-level, scheduled by crossing), and the target must exist.
+    for target, sched in replica_schedules.items():
+        if not 0 <= target < args.fleet:
+            parser.error(
+                f"--inject-fault targets replica {target}, but --fleet "
+                f"has replicas 0..{args.fleet - 1}"
+            )
+        for seam in sched:
+            if seam not in ENGINE_SEAMS:
+                parser.error(
+                    f"--inject-fault {seam}@{target}: only engine seams "
+                    f"({', '.join(ENGINE_SEAMS)}) can target a replica; "
+                    "replica seams are fleet-level crossings"
+                )
+    # Back-compat: untargeted engine seams land on replica 0.
+    if engine_schedule:
+        merged = replica_schedules.setdefault(0, {})
+        for seam, hits in engine_schedule.items():
+            merged.setdefault(seam, []).extend(hits)
+    observers = [None] * args.fleet
+    fleet_obs = None
+    sup_obs = None
+    if (
+        args.metrics_port is not None or args.trace_out
+        or args.postmortem_dir is not None
+    ):
+        # Any active sink (a metrics scrape, a trace file OR the flight
+        # recorder's postmortem bundles) gets the FULL observer set — a
+        # --trace-out --supervise run without --metrics-port must still
+        # see supervisor events on the very trace it asked for; only
+        # registry BINDING is port-gated.
+        from .obs import EngineObserver, FleetObserver
+
+        observers = [
+            EngineObserver(name=str(i), replica=str(i))
+            for i in range(args.fleet)
+        ]
+        fleet_obs = FleetObserver()
+        if args.supervise:
+            from .obs import SupervisorObserver
+
+            sup_obs = SupervisorObserver()
+        if args.metrics_port is not None:
+            from tpu_device_plugin.metrics import registry
+
+            for obs in observers:
+                obs.bind_registry(registry)
+            fleet_obs.bind_registry(registry)
+            if sup_obs is not None:
+                sup_obs.bind_registry(registry)
+    fleet_ledger = None
+    recorder = None
+    if args.ledger:
+        from .ledger import ChipTimeLedger, FleetLedger, FlightRecorder
+
+        fleet_ledger = FleetLedger()
+        if args.postmortem_dir is not None:
+            recorder = FlightRecorder(out_dir=args.postmortem_dir)
+    engines = []
+    for i in range(args.fleet):
+        engines.append(ServeEngine(
+            params, config, slots=args.slots, page_size=page_size,
+            prompt_bucket=bucket, temperature=args.temperature,
+            top_k=args.top_k, top_p=args.top_p,
+            generator=torch.Generator(device).manual_seed(42 + i),
+            pipelined=args.pipelined,
+            superstep_k=args.superstep_k,
+            prefill_budget=args.prefill_budget,
+            prefix_cache=args.prefix_cache, kv_offload=args.kv_offload,
+            kv_host_pages=args.kv_host_pages,
+            kv_disk_dir=args.kv_disk_dir,
+            kv_disk_pages=args.kv_disk_pages, adapters=adapters,
+            observer=observers[i],
+            ledger=(
+                ChipTimeLedger(name=str(i)) if args.ledger else None
+            ),
+            fault_injector=(
+                FaultInjector(replica_schedules[i])
+                if replica_schedules.get(i) else None
+            ),
+            max_retries=args.max_retries,
+            retry_backoff_s=args.retry_backoff_s, device=device, **spec_kw,
+        ))
+        if recorder is not None:
+            recorder.attach_engine(str(i), engines[-1])
+    fleet = Fleet(
+        engines,
+        chip_ids=[f"chip-{i}" for i in range(args.fleet)],
+        max_pending=args.max_pending, max_failovers=args.max_retries,
+        fault_injector=(
+            FaultInjector(fleet_schedule) if fleet_schedule else None
+        ),
+        # A kernel build or graph capture past each replica's exempt
+        # first step (decode graphs capture on the first decode) must
+        # not read as a hang.
+        hang_timeout_s=60.0,
+        observer=fleet_obs,
+        roles=roles, wfq_weights=wfq_weights,
+        ledger=fleet_ledger,
+        journal_dir=args.journal_dir, journal_every=args.journal_every,
+    )
+    if recorder is not None:
+        recorder.attach_fleet(fleet)
+    if args.journal_dir is not None:
+        # BEFORE any traffic (restore is a boot-time operation): a
+        # journal left by the previous process resurrects its sessions
+        # — interrupted streams continue exactly where they stopped.
+        restored = fleet.restore()
+        if restored:
+            print(
+                f"journal restored: {restored} session(s) from "
+                f"{args.journal_dir} ({len(fleet.queue)} continuing, "
+                f"{fleet.tokens_replayed} tokens replayed)"
+            )
+    if roles is not None:
+        print(f"disaggregated pools: roles={fleet.roles()}" + (
+            f", wfq={wfq_weights}" if wfq_weights else ""
+        ))
+    # Warm every replica (kernel build, graph capture) with one request each, off the clock
+    # (two tokens on a disagg fleet, so the warm prompts hand off and
+    # warm BOTH pools plus the transfer path itself).
+    for i in range(args.fleet):
+        fleet.submit([1 + i], 2 if roles is not None else 1,
+                     session=f"warm-{i}")
+    fleet.run()
+    supervisor = None
+    respawn_observers: list = []
+    if args.supervise:
+        from .backoff import Backoff
+        from .supervisor import FleetSupervisor
+
+        def respawn_factory(slot):
+            # Respawns share the fleet's weights and built kernels
+            # (warm restart) under a FIXED generator seed, so every
+            # respawn's canary stream is deterministic — the half-open
+            # probe's bit-identity check needs exactly that.
+            obs = None
+            if fleet_obs is not None and slot is not None:
+                # A resurrected replica keeps reporting: its engine gets
+                # its own observer (chip-slot-keyed replica label) so
+                # the merged trace covers the post-revival timeline too.
+                # Probe-calibration scratch engines (slot None) stay
+                # unobserved.
+                from .obs import EngineObserver
+
+                obs = EngineObserver(
+                    name=f"respawn-{slot.chip_id}-{slot.restarts}",
+                    replica=f"respawn-{slot.chip_id}",
+                )
+                if args.metrics_port is not None:
+                    from tpu_device_plugin.metrics import registry
+
+                    obs.bind_registry(registry)
+                respawn_observers.append(obs)
+            led = None
+            if args.ledger and slot is not None:
+                from .ledger import ChipTimeLedger
+
+                # The resurrected replica keeps its own books; the
+                # fleet ledger adopts them when it rejoins (probe
+                # tokens classify as probe_warmup pre-join).
+                led = ChipTimeLedger(
+                    name=f"respawn-{slot.chip_id}-{slot.restarts}"
+                )
+            eng = ServeEngine(
+                params, config, slots=args.slots, page_size=page_size,
+                prompt_bucket=bucket, temperature=args.temperature,
+                top_k=args.top_k, top_p=args.top_p,
+                generator=torch.Generator(device).manual_seed(4242),
+                pipelined=args.pipelined,
+                superstep_k=args.superstep_k,
+                prefill_budget=args.prefill_budget,
+                prefix_cache=args.prefix_cache,
+                kv_offload=args.kv_offload,
+                kv_host_pages=args.kv_host_pages,
+                kv_disk_dir=args.kv_disk_dir,
+                kv_disk_pages=args.kv_disk_pages, adapters=adapters,
+                max_retries=args.max_retries, observer=obs, ledger=led,
+                retry_backoff_s=args.retry_backoff_s, device=device,
+                **spec_kw,
+            )
+            if recorder is not None and slot is not None:
+                # The black box must watch the REPLACEMENT, not keep
+                # reading the dead predecessor's frozen counters — a
+                # quarantine on a resurrected replica is exactly what
+                # a postmortem is for.
+                recorder.attach_engine(
+                    f"respawn-{slot.chip_id}-{slot.restarts}", eng
+                )
+            return eng
+
+        supervisor = FleetSupervisor(
+            fleet, respawn_factory,
+            backoff=Backoff(
+                base_s=args.restart_backoff_s,
+                max_s=args.restart_backoff_max_s,
+                seed=7,
+            ),
+            max_restarts=args.max_restarts,
+            fault_injector=(
+                FaultInjector(respawn_schedule)
+                if respawn_schedule else None
+            ),
+            observer=sup_obs,
+        )
+        # Sampled engines have no dense greedy canary oracle: calibrate
+        # from a scratch respawn now, so the FIRST real resurrection is
+        # already held to bit-identity.
+        supervisor.calibrate_probe()
+        if recorder is not None:
+            recorder.attach_supervisor(supervisor)
+        print(
+            f"supervisor armed: backoff {args.restart_backoff_s}s base "
+            f"/ {args.restart_backoff_max_s}s cap, max_restarts="
+            f"{args.max_restarts}, capacity-aware admission bound="
+            f"{fleet.admission_bound}"
+        )
+    autoscaler = None
+    asc_obs = None
+    if args.autoscale is not None:
+        from .autoscaler import FleetAutoscaler
+
+        a_min, a_max = args.autoscale
+        if args.metrics_port is not None or args.trace_out:
+            from .obs import AutoscalerObserver
+
+            asc_obs = AutoscalerObserver()
+            if args.metrics_port is not None:
+                from tpu_device_plugin.metrics import registry
+
+                asc_obs.bind_registry(registry)
+
+        def scale_factory(slot):
+            # Scale-ups share the fleet's weights and built kernels
+            # under a FIXED generator seed — the canary probe's
+            # bit-identity check needs a deterministic stream.  A real
+            # slot handle (scale-ups; calibration scratch engines pass
+            # None) gets its own observer so the new replica's
+            # timeline lands on the merged trace/registry exactly like
+            # a founder's or a respawn's.
+            obs = None
+            if slot is not None and (
+                args.metrics_port is not None or args.trace_out
+            ):
+                from .obs import EngineObserver
+
+                obs = EngineObserver(
+                    name=f"scaleup-{slot.chip_id}",
+                    replica=f"scaleup-{slot.chip_id}",
+                )
+                if args.metrics_port is not None:
+                    from tpu_device_plugin.metrics import registry
+
+                    obs.bind_registry(registry)
+                respawn_observers.append(obs)
+            led = None
+            if args.ledger and slot is not None:
+                from .ledger import ChipTimeLedger
+
+                led = ChipTimeLedger(name=f"scaleup-{slot.chip_id}")
+            eng = ServeEngine(
+                params, config, slots=args.slots, page_size=page_size,
+                observer=obs, ledger=led,
+                prompt_bucket=bucket, temperature=args.temperature,
+                top_k=args.top_k, top_p=args.top_p,
+                generator=torch.Generator(device).manual_seed(4242),
+                pipelined=args.pipelined,
+                superstep_k=args.superstep_k,
+                prefill_budget=args.prefill_budget,
+                prefix_cache=args.prefix_cache,
+                kv_offload=args.kv_offload,
+                kv_host_pages=args.kv_host_pages,
+                kv_disk_dir=args.kv_disk_dir,
+                kv_disk_pages=args.kv_disk_pages, adapters=adapters,
+                max_retries=args.max_retries,
+                retry_backoff_s=args.retry_backoff_s, device=device,
+                **spec_kw,
+            )
+            if recorder is not None and slot is not None:
+                recorder.attach_engine(f"scaleup-{slot.chip_id}", eng)
+            return eng
+
+        autoscaler = FleetAutoscaler(
+            fleet,
+            respawn_factory if args.supervise else scale_factory,
+            min_replicas=a_min, max_replicas=a_max,
+            supervisor=supervisor,
+            # A CLI run lives seconds, not hours: a short signal
+            # window lets the loop demonstrate the full up -> clear ->
+            # down cycle before the exit summary prints.
+            window_s=3.0,
+            fault_injector=(
+                FaultInjector(spawn_schedule) if spawn_schedule else None
+            ),
+            observer=asc_obs,
+        )
+        autoscaler.calibrate_probe()
+        if recorder is not None:
+            recorder.attach_autoscaler(autoscaler)
+        print(
+            f"autoscaler armed: replicas in [{a_min}, {a_max}] "
+            f"(starting at {args.fleet}), brownout factor "
+            f"{autoscaler.brownout_factor:g}, preempt class "
+            f"{autoscaler.preempt_class!r}"
+        )
+    controller = None
+    ctrl_obs = None
+    if args.control:
+        from .control import GoodputController
+
+        if args.metrics_port is not None or args.trace_out:
+            from .obs import ControlObserver
+
+            ctrl_obs = ControlObserver()
+            if args.metrics_port is not None:
+                from tpu_device_plugin.metrics import registry
+
+                ctrl_obs.bind_registry(registry)
+        # The controller wraps whatever driver is already stacked
+        # (autoscaler > supervisor > fleet): heal and scale land
+        # before each control pass reads the ledger.
+        controller = GoodputController(
+            fleet, autoscaler=autoscaler,
+            driver=(autoscaler or supervisor or fleet),
+            observer=ctrl_obs,
+        )
+        print(
+            "controller armed: ledger-driven retune/WFQ/waste-budget/"
+            "preempt scoring (inert until the ledger accounts "
+            f"{controller.min_sample_tokens}+ tokens per poll)"
+        )
+    # SLO-classed traffic: --slo-mix tags every arrival with a class
+    # drawn from the weighted mix; attainment is scored by the fleet's
+    # default interactive/bulk targets and summarized at exit.
+    class_mix = None
+    if args.slo_mix:
+        from .fleet import DEFAULT_SLO_CLASSES
+
+        import math
+
+        known = {c.name for c in DEFAULT_SLO_CLASSES}
+        class_mix = []
+        for part in args.slo_mix.split(","):
+            name, _, weight = part.partition(":")
+            name = name.strip()
+            try:
+                w = float(weight) if weight else 1.0
+            except ValueError:
+                parser.error(
+                    f"--slo-mix wants CLASS[:WEIGHT] pairs, got {part!r}"
+                )
+            if name not in known or not math.isfinite(w) or w <= 0:
+                parser.error(
+                    f"--slo-mix class must be one of {sorted(known)} "
+                    f"with a positive weight, got {part!r}"
+                )
+            class_mix.append((name, w))
+    traffic = TrafficGen(
+        seed=7, vocab=config.vocab_size, max_prompt=args.prompt_len,
+        max_new=args.max_new_tokens,
+        min_new=max(1, args.max_new_tokens // 3),
+        **({"class_mix": tuple(class_mix)} if class_mix else {}),
+    )
+    sched = (
+        traffic.schedule_classed(args.requests) if class_mix
+        else traffic.schedule(args.requests)
+    )
+    tokens0 = fleet.generated_tokens
+    t0 = time.perf_counter()
+    if args.http_port is not None:
+        import json
+        import threading
+        import urllib.request
+
+        server = FleetServer(
+            fleet, args.http_port, supervisor=supervisor,
+            autoscaler=autoscaler,
+            controller=controller,
+        )
+        port = server.start()
+        print(f"fleet SSE front end: http://127.0.0.1:{port}/v1/generate")
+        statuses: dict[str, int] = {}
+        statuses_lock = threading.Lock()
+
+        # One client thread per request: reading an SSE stream to
+        # completion inline would serialize the open-loop schedule into
+        # a closed loop of depth 1 and never exercise the router.
+        def sse_client(prompt, new, slo_class=None):
+            payload = {"prompt": prompt, "max_new_tokens": new}
+            if slo_class is not None:
+                payload["slo_class"] = slo_class
+            body = json.dumps(payload).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/generate", data=body,
+                headers={"Content-Type": "application/json"},
+            )
+            with urllib.request.urlopen(req) as resp:
+                for line in resp:
+                    if line.startswith(b"data: "):
+                        ev = json.loads(line[6:])
+                        if ev.get("done"):
+                            with statuses_lock:
+                                statuses[ev["status"]] = (
+                                    statuses.get(ev["status"], 0) + 1
+                                )
+
+        clients = []
+        t_start = time.perf_counter()
+        for offset, prompt, new, *rest in sched:
+            time.sleep(max(0.0, offset - (time.perf_counter() - t_start)))
+            t = threading.Thread(
+                target=sse_client,
+                args=(prompt, new, rest[0] if rest else None),
+                daemon=True,
+            )
+            t.start()
+            clients.append(t)
+        for t in clients:
+            t.join()
+        server.stop()
+        print(f"SSE streams closed: statuses={statuses}")
+    else:
+        driver = fleet
+        if autoscaler is not None:
+            driver = autoscaler
+        elif supervisor is not None:
+            driver = supervisor
+        if controller is not None:
+            driver = controller  # built over the same stacked driver
+        if recorder is not None:
+            driver = _RecorderDriver(driver, recorder)
+        drive_open_loop(driver, sched)
+    if recorder is not None:
+        recorder.poll()
+    if supervisor is not None:
+        supervisor.wait_healed(timeout_s=30.0)
+    if autoscaler is not None:
+        # Let the loop scale back down after the stream drains, so the
+        # summary line reports the converged fleet (bounded: classed
+        # overload can legitimately hold the burn window longer).
+        autoscaler.wait_quiescent(timeout_s=20.0)
+    elapsed = time.perf_counter() - t0
+    generated = fleet.generated_tokens - tokens0
+    rate = generated / elapsed if elapsed > 0 and generated else 0.0
+    print(
+        f"fleet done: {args.requests} requests over "
+        f"{args.fleet} replicas, {generated} tokens, "
+        f"≈ {rate:.0f} tok/s aggregate "
+        f"(states={fleet.states()}, router dispatches="
+        f"{fleet.router.dispatches}, affinity hits="
+        f"{fleet.router.affinity_hits}, queue rejections="
+        f"{fleet.queue_rejections})"
+    )
+    if fleet.kv_handoffs or fleet.wfq_dispatches:
+        handoff_ms = [round(s * 1000, 2) for s in fleet.handoff_s[:8]]
+        print(
+            f"disagg: handoffs={fleet.kv_handoffs} "
+            f"pages_transferred={fleet.handoff_pages} "
+            f"handoff_ms={handoff_ms}"
+            f"{'…' if len(fleet.handoff_s) > 8 else ''} "
+            f"wfq_dispatches={dict(sorted(fleet.wfq_dispatches.items()))}"
+        )
+    if (
+        fleet.replica_crashes or fleet.replica_hangs
+        or fleet.failover_requeues or fleet.drain_requeues
+    ):
+        from collections import Counter
+
+        statuses = Counter(r.status for r in fleet.completed)
+        print(
+            f"failover: crashes={fleet.replica_crashes} "
+            f"hangs={fleet.replica_hangs} "
+            f"charged_requeues={fleet.failover_requeues} "
+            f"drain_requeues={fleet.drain_requeues} "
+            f"statuses={dict(statuses)} recovery_ms="
+            f"{[round(s * 1000, 1) for s in fleet.failover_recovery_s]}"
+        )
+    if supervisor is not None:
+        print(
+            f"selfheal: restarts={supervisor.restarts_total} "
+            f"restart_failures={supervisor.restart_failures} "
+            f"crash_loops={supervisor.crash_loops} "
+            f"quarantined={supervisor.quarantined} "
+            f"slots={supervisor.states()} "
+            f"restore_ms={supervisor.restore_ms}"
+        )
+    if autoscaler is not None:
+        print(
+            f"autoscale: ups={autoscaler.scale_ups} "
+            f"downs={autoscaler.scale_downs} "
+            f"spawn_failures={autoscaler.spawn_failures} "
+            f"brownouts={autoscaler.brownouts} "
+            f"preemptions={autoscaler.preemptions_total} "
+            f"ladder={autoscaler.ladder_level} "
+            f"replicas={len(fleet.alive)}/{autoscaler.target_replicas} "
+            f"[{autoscaler.min_replicas},{autoscaler.max_replicas}] "
+            f"recover_ms={autoscaler.recover_ms} "
+            f"overprovision_chip_s="
+            f"{round(autoscaler.overprovision_chip_s, 3)}"
+        )
+    if controller is not None:
+        gp = controller.goodput_fraction_ewma
+        print(
+            f"control: retunes={controller.retunes_applied} "
+            f"wfq_reweights={controller.wfq_reweights} "
+            f"decisions={dict(sorted(controller.decisions.items()))} "
+            f"goodput_ewma="
+            f"{'n/a' if gp is None else format(gp, '.3f')} "
+            f"poll_s={controller.poll_s:.3f}"
+        )
+    if fleet_ledger is not None:
+        if recorder is not None:
+            recorder.poll()  # final trigger sweep before the summary
+        fsnap = fleet_ledger.snapshot()
+        waste = {
+            k: v for k, v in sorted(fsnap["waste_tokens"].items()) if v
+        }
+        print(
+            f"ledger: goodput={fsnap['goodput_tokens']} "
+            f"waste={sum(fsnap['waste_tokens'].values())} {waste} "
+            f"goodput_fraction={fsnap['goodput_fraction']:.3f} "
+            f"busy_fraction={fsnap['busy_fraction']:.3f} "
+            f"per_class={fsnap['per_class']} "
+            f"reconcile_ok={fleet_ledger.reconcile()['ok']}"
+        )
+        if recorder is not None:
+            import os
+
+            print(
+                f"postmortem: {len(recorder.dumped)} bundle(s) "
+                f"{[os.path.basename(p) for p in recorder.dumped]} "
+                f"-> {args.postmortem_dir} "
+                f"(validate: python tools/postmortem.py --validate)"
+            )
+    attainment = fleet.slo_attainment()
+    if any(v is not None for v in attainment.values()):
+        burn = fleet.slo_burn_rates()
+        print("slo: " + " ".join(
+            f"{name}={fleet.slo_attained_counts[name]}"
+            f"/{fleet.slo_request_counts[name]} attained "
+            f"({ratio * 100:.1f}%, burn_rate={burn[name]:.2f})"
+            for name, ratio in sorted(attainment.items())
+            if ratio is not None
+        ))
+    if args.trace_out and fleet_obs is not None:
+        from .obs import export_fleet_trace
+
+        control_events = list(
+            supervisor.events if supervisor is not None else ()
+        )
+        if autoscaler is not None:
+            # Autoscaler decisions share the supervisor trace lane —
+            # one control-plane timeline, sorted so the merged lane
+            # reads in wall order.
+            control_events = sorted(
+                control_events + list(autoscaler.events),
+                key=lambda ev: ev.t,
+            )
+        if controller is not None:
+            # Controller actuations (retunes, WFQ re-weights) join the
+            # same control-plane lane.
+            control_events = sorted(
+                control_events + list(controller.events),
+                key=lambda ev: ev.t,
+            )
+        n_events, n_replicas = export_fleet_trace(
+            args.trace_out, fleet_obs, list(observers) + respawn_observers,
+            supervisor_events=control_events,
+        )
+        print(
+            f"fleet trace: {n_events} events covering {n_replicas} "
+            f"replica lanes + router + supervisor "
+            f"({len(fleet_obs.spans)} request spans, "
+            f"{len(supervisor.events) if supervisor is not None else 0} "
+            f"supervisor events) -> {args.trace_out}"
+        )
+    fleet.close()
+    if metrics_server is not None:
+        metrics_server.stop()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -2983,19 +3746,102 @@ def main(argv=None) -> int:
                         "eos/max-token retirement on the device, admission "
                         "overlapping the device's work (same greedy tokens "
                         "for every K)")
+    parser.add_argument("--max-pending", type=int, default=None,
+                        help="bounded admission: reject (typed QueueFull) "
+                        "instead of queueing more than N pending requests")
     parser.add_argument("--deadline-s", type=float, default=None,
                         help="per-request deadline in seconds; requests "
                         "still queued or running past it expire")
     parser.add_argument("--max-retries", type=int, default=2,
                         help="replay retries per request after a "
                         "quarantined step before it fails")
+    parser.add_argument("--retry-backoff-s", type=float, default=0.0,
+                        help="exponential host-side backoff between "
+                        "consecutive quarantines (0 = none)")
     parser.add_argument("--inject-fault", action="append", default=None,
-                        metavar="SEAM:N",
-                        help="raise at the engine seam's Nth crossing "
-                        "(repeatable; seams: prefill_dispatch, "
+                        metavar="SEAM[@REPLICA]:N",
+                        help="raise at the named seam's Nth crossing "
+                        "(repeatable; engine seams: prefill_dispatch, "
                         "prefill_readback, decode_dispatch, "
-                        "decode_readback, spec_dispatch, spec_readback) to "
-                        "exercise quarantine and replay")
+                        "decode_readback, spec_dispatch, spec_readback — "
+                        "quarantine and replay; with --fleet, replica "
+                        "seams replica_crash / replica_hang / replica_slow "
+                        "drive router failover, replica_respawn kills "
+                        "supervised resurrections (--supervise), "
+                        "scale_spawn_fail kills autoscaler scale-up spawns "
+                        "(--autoscale), and engine seams land on replica 0 "
+                        "unless targeted: SEAM@REPLICA:N, e.g. "
+                        "decode_dispatch@1:3)")
+    parser.add_argument("--metrics-port", type=int, default=None,
+                        help="expose the observer's Prometheus metrics "
+                        "(beside the plugin registry) on this port's "
+                        "/metrics; 0 binds an ephemeral port and prints it")
+    parser.add_argument("--trace-out", default=None, metavar="PATH",
+                        help="write the run's chrome://tracing timeline "
+                        "(request spans and step records) to PATH at exit; "
+                        "enables the observer")
+    parser.add_argument("--ledger", action="store_true",
+                        help="arm the chip-time ledger (ledger.py): each "
+                        "step's wall goes to a phase and each token to "
+                        "goodput or a named waste class; streams are the "
+                        "same on and off")
+    parser.add_argument("--postmortem-dir", default=None, metavar="DIR",
+                        help="arm the flight recorder (implies --ledger): "
+                        "quarantines, crash loops, canary divergence and "
+                        "sustained SLO burn dump a JSON postmortem bundle "
+                        "into DIR (tools/postmortem.py --validate)")
+    parser.add_argument("--fleet", type=int, default=None, metavar="N",
+                        help="serve a fleet of N engine replicas behind the "
+                        "least-loaded/affinity router (fleet.py): seeded "
+                        "open-loop bursty traffic, replica failover by "
+                        "replay")
+    parser.add_argument("--http-port", type=int, default=None,
+                        help="with --fleet: serve the HTTP/SSE front end on "
+                        "this port (0 = ephemeral) and push the request "
+                        "stream through it as real SSE clients")
+    parser.add_argument("--roles", default=None, metavar="R0,R1,...",
+                        help="with --fleet: per-replica roles from "
+                        "{prefill,decode,mixed}, one per replica; fresh "
+                        "prompts prefill on the prefill pool and hand "
+                        "their KV to the decode pool (pair with "
+                        "--kv-offload for the page transfer)")
+    parser.add_argument("--wfq", default=None, metavar="CLASS:W,...",
+                        help="with --fleet: SLO-class weighted fair queuing "
+                        "for fresh-prompt dispatch (e.g. "
+                        "interactive:3,bulk:1); default FIFO")
+    parser.add_argument("--slo-mix", default=None, metavar="CLASS[:WEIGHT],...",
+                        help="with --fleet: tag the traffic with SLO classes "
+                        "drawn from this weighted mix; per-class attainment "
+                        "and burn rates print at exit")
+    parser.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                        help="with --fleet: arm the FleetAutoscaler "
+                        "(autoscaler.py), resizing the fleet between MIN "
+                        "and MAX replicas from its own signals; --fleet N "
+                        "is the starting size and must sit in [MIN, MAX]")
+    parser.add_argument("--control", action="store_true",
+                        help="with --fleet and --ledger: arm the "
+                        "GoodputController (control.py), which retunes "
+                        "replicas and re-weights WFQ from the ledger")
+    parser.add_argument("--supervise", action="store_true",
+                        help="with --fleet: arm the FleetSupervisor "
+                        "(supervisor.py): dead replicas respawn under "
+                        "backoff and rejoin after a bit-identical canary")
+    parser.add_argument("--max-restarts", type=int, default=None, metavar="N",
+                        help="with --supervise: lifetime resurrection budget "
+                        "per chip slot (default: unbounded)")
+    parser.add_argument("--restart-backoff-s", type=float, default=0.5,
+                        help="with --supervise: base delay of the "
+                        "exponential restart backoff")
+    parser.add_argument("--restart-backoff-max-s", type=float, default=30.0,
+                        help="with --supervise: the restart backoff cap")
+    parser.add_argument("--journal-dir", default=None, metavar="DIR",
+                        help="with --fleet: checkpoint every session to an "
+                        "atomic epoch-stamped journal under DIR, restored "
+                        "before traffic on the next start")
+    parser.add_argument("--journal-every", type=int, default=None,
+                        metavar="STEPS",
+                        help="with --journal-dir: journal every STEPS fleet "
+                        "steps (default: only on close and on demand)")
     parser.add_argument("--prefix-cache", action="store_true",
                         help="cross-request radix-tree prefix caching: "
                         "prompts sharing any page-aligned prefix (system "
@@ -3023,6 +3869,10 @@ def main(argv=None) -> int:
                         help="torch device (default: cuda; 'cpu' runs the "
                         "plain PyTorch path)")
     args = parser.parse_args(argv)
+    if args.requests < 1 or args.slots < 1:
+        parser.error("--requests and --slots must be >= 1")
+    if args.metrics_port is not None and not 0 <= args.metrics_port <= 65535:
+        parser.error("--metrics-port must be in [0, 65535] (0 = ephemeral)")
     if args.superstep_k < 1:
         parser.error("--superstep-k must be >= 1 chained chunks")
     if args.spec_superstep_k < 1:
@@ -3035,6 +3885,8 @@ def main(argv=None) -> int:
                      "use one round-chaining knob, not both")
     if args.spec_auto and not args.spec_int8_draft:
         parser.error("--spec-auto needs --spec-int8-draft (a draft model)")
+    if args.postmortem_dir is not None:
+        args.ledger = True  # a bundle without its ledger is half a story
     if args.kv_offload:
         args.prefix_cache = True  # the offload tier lives on the cache
     if args.kv_host_pages is not None and not args.kv_offload:
@@ -3048,19 +3900,105 @@ def main(argv=None) -> int:
         parser.error("--kv-disk-pages bounds the --kv-disk-dir tier")
     if args.kv_disk_pages is not None and args.kv_disk_pages < 1:
         parser.error("--kv-disk-pages must be >= 1 page files")
-    injector = None
-    if args.inject_fault:
-        from .faults import FaultInjector
-
-        seams = ("prefill_dispatch", "prefill_readback", "decode_dispatch",
-                 "decode_readback", "spec_dispatch", "spec_readback")
-        schedule: dict[str, list[int]] = {}
-        for spec in args.inject_fault:
-            seam, _, n = spec.partition(":")
-            if seam not in seams or not n.isdigit():
-                parser.error(f"--inject-fault wants SEAM:N with SEAM one of "
-                             f"{', '.join(seams)}; got {spec!r}")
+    if args.journal_dir is not None and args.fleet is None:
+        parser.error("--journal-dir checkpoints fleet sessions; it "
+                     "needs --fleet N")
+    if args.journal_every is not None and args.journal_dir is None:
+        parser.error("--journal-every paces the --journal-dir "
+                     "checkpoint cadence")
+    if args.journal_every is not None and args.journal_every < 1:
+        parser.error("--journal-every must be >= 1 fleet steps")
+    if args.restart_backoff_s <= 0:
+        parser.error("--restart-backoff-s must be > 0 seconds")
+    if args.restart_backoff_max_s < args.restart_backoff_s:
+        parser.error("--restart-backoff-max-s must be >= "
+                     "--restart-backoff-s (the cap cannot undercut the "
+                     "base)")
+    if args.max_restarts is not None and args.max_restarts < 0:
+        parser.error("--max-restarts must be >= 0 (omit for unbounded)")
+    if args.slo_mix and args.fleet is None:
+        parser.error("--slo-mix tags fleet traffic; it needs --fleet N")
+    if args.autoscale is not None:
+        if args.fleet is None:
+            parser.error("--autoscale resizes a fleet; it needs "
+                         "--fleet N (the starting size)")
+        lo, sep, hi = args.autoscale.partition(":")
+        if not sep or not lo.isdigit() or not hi.isdigit():
+            parser.error("--autoscale wants MIN:MAX with integer "
+                         f"bounds, got {args.autoscale!r}")
+        args.autoscale = (int(lo), int(hi))
+        if args.autoscale[0] < 1 or args.autoscale[1] < args.autoscale[0]:
+            parser.error("--autoscale wants 1 <= MIN <= MAX, got "
+                         f"{args.autoscale[0]}:{args.autoscale[1]}")
+        if not args.autoscale[0] <= args.fleet <= args.autoscale[1]:
+            parser.error(f"--fleet {args.fleet} must sit inside "
+                         f"--autoscale [{args.autoscale[0]}, "
+                         f"{args.autoscale[1]}]")
+    if args.control:
+        if args.fleet is None:
+            parser.error("--control retunes a fleet; it needs --fleet N")
+        if not args.ledger:
+            parser.error("--control reads the chip-time ledger's "
+                         "goodput/waste burn; it needs --ledger")
+    schedule: dict[str, list[int]] = {}
+    replica_schedules: dict[int, dict[str, list[int]]] = {}
+    for spec_arg in args.inject_fault or ():
+        seam, _, n = spec_arg.partition(":")
+        target = None
+        if "@" in seam:
+            seam, _, rep_s = seam.partition("@")
+            if not rep_s.isdigit():
+                parser.error(
+                    f"--inject-fault wants SEAM[@REPLICA]:N with an "
+                    f"integer replica index, got {spec_arg!r}"
+                )
+            target = int(rep_s)
+        if not n.isdigit() or int(n) < 1:
+            parser.error(
+                f"--inject-fault wants SEAM[@REPLICA]:N with N >= 1, "
+                f"got {spec_arg!r}"
+            )
+        if target is None:
             schedule.setdefault(seam, []).append(int(n))
+        else:
+            replica_schedules.setdefault(target, {}).setdefault(
+                seam, []
+            ).append(int(n))
+    if args.fleet is not None and args.fleet < 1:
+        parser.error("--fleet must be >= 1 replicas")
+    if args.fleet is None:
+        if args.http_port is not None:
+            parser.error("--http-port needs --fleet (the SSE front end is "
+                         "the fleet's)")
+        if args.roles is not None:
+            parser.error("--roles splits a FLEET into prefill/decode "
+                         "pools; it needs --fleet")
+        if args.wfq is not None:
+            parser.error("--wfq orders the FLEET router's dispatch; it "
+                         "needs --fleet")
+        if args.supervise:
+            parser.error("--supervise needs --fleet (the supervisor heals "
+                         "fleet replicas)")
+        if replica_schedules:
+            parser.error("--inject-fault SEAM@REPLICA:N targets a fleet "
+                         "member; it needs --fleet")
+    injector = None
+    if schedule and args.fleet is None:
+        from .faults import ENGINE_SEAMS, REPLICA_SEAMS, FaultInjector
+
+        for seam in schedule:
+            if seam in REPLICA_SEAMS:
+                parser.error(
+                    f"seam {seam!r} is a fleet-level seam; it needs "
+                    "--fleet"
+                )
+            elif seam not in ENGINE_SEAMS:
+                parser.error(
+                    f"--inject-fault wants SEAM:N with a known SEAM: "
+                    f"unknown seam {seam!r} (engine seams: "
+                    f"{', '.join(ENGINE_SEAMS)}; replica seams — with "
+                    f"--fleet: {', '.join(REPLICA_SEAMS)})"
+                )
         try:
             injector = FaultInjector(schedule)
         except ValueError as e:
@@ -3104,6 +4042,39 @@ def main(argv=None) -> int:
         -(-args.prompt_len // page_size) * page_size,
         config.max_seq_len // page_size * page_size,
     )
+    # Opt-in observability: the observer records spans and step records
+    # for --trace-out, and --metrics-port serves its Prometheus bridge on
+    # the shared plugin registry.  A fleet builds one a replica.
+    observer = None
+    metrics_server = None
+    if args.fleet is None and (
+        args.metrics_port is not None or args.trace_out
+        or args.postmortem_dir is not None
+    ):
+        from .obs import EngineObserver
+
+        observer = EngineObserver()
+    if args.metrics_port is not None:
+        from tpu_device_plugin.metrics import MetricsServer, registry
+
+        if observer is not None:
+            observer.bind_registry(registry)
+        metrics_server = MetricsServer(args.metrics_port)
+        bound = metrics_server.start()
+        print(f"metrics: http://127.0.0.1:{bound}/metrics")
+    if args.fleet is not None:
+        return _run_fleet_cli(
+            args, parser, params, config, page_size, bucket, adapters,
+            spec_kw, metrics_server, schedule, replica_schedules, device,
+        )
+    ledger = None
+    recorder = None
+    if args.ledger:
+        from .ledger import ChipTimeLedger, FlightRecorder
+
+        ledger = ChipTimeLedger()
+        if args.postmortem_dir is not None:
+            recorder = FlightRecorder(out_dir=args.postmortem_dir)
     engine = ServeEngine(
         params, config, slots=args.slots, page_size=page_size,
         prompt_bucket=bucket, temperature=args.temperature,
@@ -3113,22 +4084,32 @@ def main(argv=None) -> int:
         prefill_budget=args.prefill_budget, prefix_cache=args.prefix_cache,
         kv_offload=args.kv_offload, kv_host_pages=args.kv_host_pages,
         kv_disk_dir=args.kv_disk_dir, kv_disk_pages=args.kv_disk_pages,
-        fault_injector=injector, max_retries=args.max_retries, adapters=adapters,
-        device=device, **spec_kw,
+        max_pending=args.max_pending, fault_injector=injector,
+        max_retries=args.max_retries, retry_backoff_s=args.retry_backoff_s,
+        adapters=adapters, observer=observer, ledger=ledger, device=device,
+        **spec_kw,
     )
+    if recorder is not None:
+        recorder.attach_engine("0", engine)
     rng = np.random.default_rng(7)
+    rejected = 0
     for i in range(args.requests):
         plen = int(rng.integers(1, args.prompt_len + 1))
         prompt = rng.integers(0, config.vocab_size, plen)
         # Mixed lengths: the stream the engine's slot turnover exists for.
-        engine.submit(prompt, max(1, args.max_new_tokens // (1 + i % 3)),
-                      adapter=names[i % len(names)], deadline_s=args.deadline_s)
+        try:
+            engine.submit(prompt, max(1, args.max_new_tokens // (1 + i % 3)),
+                          adapter=names[i % len(names)], deadline_s=args.deadline_s)
+        except QueueFull:
+            rejected += 1
 
     engine.step()  # warm-up: first launches and kernel build
     tokens_before = engine.generated_tokens
     t0 = time.perf_counter()
     while not engine.idle:
         engine.step()
+        if recorder is not None:
+            recorder.poll()
     elapsed = time.perf_counter() - t0
     generated = engine.generated_tokens - tokens_before
     rate = generated / elapsed if elapsed > 0 and generated else 0.0
@@ -3162,8 +4143,8 @@ def main(argv=None) -> int:
             f"cached_pages={engine.prefix.cached_pages} "
             f"prefill_tokens={engine.prefill_tokens}"
         )
-    if (engine.steps_quarantined or engine.requests_expired or engine.requests_failed
-            or args.kv_offload):
+    if (rejected or engine.steps_quarantined or engine.requests_expired
+            or engine.requests_failed or args.kv_offload):
         from collections import Counter
 
         statuses = Counter(r.status for r in engine.completed)
@@ -3182,11 +4163,42 @@ def main(argv=None) -> int:
                 )
         print(
             f"lifecycle: statuses={dict(statuses)} {kv}"
-            f"quarantined_steps={engine.steps_quarantined} "
+            + (f"rejected={rejected} " if rejected else "")
+            + f"quarantined_steps={engine.steps_quarantined} "
             f"replays={engine.requests_retried} "
             f"tokens_replayed={engine.tokens_replayed} "
+            f"host_sync_ms={round(engine.host_sync_s * 1000, 1)} "
             f"recoveries_ms={[round(t * 1000, 1) for t in engine.fault_recovery_s]}"
         )
+    if ledger is not None:
+        if recorder is not None:
+            recorder.poll()  # final trigger sweep before the summary
+        snap = ledger.snapshot()
+        waste = {k: v for k, v in sorted(snap.waste_tokens.items()) if v}
+        print(
+            f"ledger: goodput={snap.goodput_tokens} "
+            f"waste={sum(snap.waste_tokens.values())} {waste} "
+            f"goodput_fraction={snap.goodput_fraction:.3f} "
+            f"busy_fraction={snap.busy_fraction:.3f} "
+            f"reconcile_ok={ledger.reconcile()['ok']}"
+        )
+        if recorder is not None:
+            import os
+
+            print(
+                f"postmortem: {len(recorder.dumped)} bundle(s) "
+                f"{[os.path.basename(p) for p in recorder.dumped]} "
+                f"-> {args.postmortem_dir} "
+                f"(validate: python tools/postmortem.py --validate)"
+            )
+    if args.trace_out:
+        n_events = engine.export_trace(args.trace_out)
+        print(
+            f"trace: {n_events} events -> {args.trace_out} "
+            "(load in chrome://tracing or https://ui.perfetto.dev)"
+        )
+    if metrics_server is not None:
+        metrics_server.stop()
     return 0
 
 

@@ -97,6 +97,22 @@ Phases, each of which fails the run loudly:
    order; tokens/s against phase 4's drain, TTFT, router ms a step, the
    observers' overhead, failover, respawn and handoff times, replayed
    tokens and peak memory printed;
+4g. device-time profiling and fast start at the same width
+   (``profiling_phase``, ``chip_smoke.PROFILE``): (a) float32 drains
+   observed with a ``DeviceTimeTable`` and a live ``SentryFeed`` and
+   bare (streams equal, one capture each, K1 counted = traced in a
+   profiled chunk beside the observer's device time for that step);
+   (b) ``POST /profile?secs=2`` on a two-replica fleet behind
+   ``FleetServer`` while SSE requests stream and a replica crashes and
+   respawns (the trace within its byte budget names
+   ``paged_decode_kernel``, the respawn captures once, a capture past
+   the spent budget is refused with 409); (c) a snapshot of a warmed
+   spec="auto" engine primes a fresh one (``calibration_reused`` > 0,
+   float32 streams equal) and five respawns without it against five
+   with it, respawn to rejoin as median, min and max; (d) the
+   kernel-build cache: nvcc's build a miss in one process, found built
+   a hit in a second; (e) perfbench's ``measure_serve_latency`` at the
+   full scale, its keys on one line;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -2584,6 +2600,485 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
     return total
 
 
+# Phase 4g, device-time profiling and fast start at the serving path's
+# width.  (a) float32 drains of 8 requests (64-128 new tokens), observed
+# with a DeviceTimeTable and a SentryFeed and bare; (b) a two-replica
+# fleet behind FleetServer with a supervisor, a bounded capture through
+# POST /profile while 8 SSE requests (64-128 new tokens) stream and a
+# replica crashes and respawns; (c) fast start on spec="auto" engines
+# (the int8 self-draft of phase 4d, gamma 4): a float32 engine primed
+# from a snapshot against the engine it came from, then five respawns
+# without a snapshot and five with it, alternately, on one bf16 fleet;
+# (d) the kernel-build cache across two processes; (e) perfbench's
+# latency arm at the full scale.
+PROFILE = dict(requests=8, new=(64, 128), f32_max_seq_len=256, capture_secs=2.0,
+               capture_requests=8, capture_new=(64, 128), capture_max_bytes=512 * 2**20,
+               respawns=5, respawn_requests=2, gamma=4, scale="full")
+
+# The kernel-build cache's two processes: a small engine on the card whose
+# first decode loads K1 from the directory given (built there by nvcc in
+# the first process, found built in the second).
+CACHE_PROBE = """
+import json, sys
+import torch
+from workloads_torch.faststart import cache_stats
+from workloads_torch.model import ModelConfig, cast_params, init_params
+from workloads_torch.serve import ServeEngine
+cfg = ModelConfig(vocab_size=256, d_model=256, n_heads=2, n_layers=1, d_ff=512,
+                  max_seq_len=64)
+params = cast_params(init_params(cfg, torch.Generator("cuda").manual_seed(0)), cfg.dtype)
+engine = ServeEngine(params, cfg, slots=2, page_size=16, compile_cache_dir=sys.argv[1],
+                     device="cuda")
+rid = engine.submit([1, 2, 3], 8)
+tokens = engine.run()[rid]
+print(json.dumps({"hits": engine.compile_cache_hits, "misses": engine.compile_cache_misses,
+                  "process": cache_stats(), "tokens": len(tokens)}))
+"""
+
+
+def cache_process(cache_dir: str):
+    """Start one kernel-build-cache process (``CACHE_PROBE``) over
+    ``cache_dir``; the caller waits for it."""
+    return subprocess.Popen([sys.executable, "-c", CACHE_PROBE, cache_dir], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cache_result(proc, label: str) -> dict:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"kernel-build cache, {label}: exit {proc.returncode}\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def http_json(method: str, port: int, path: str):
+    """One request to the fleet's front end; returns (status, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def profiling_phase(torch, params, config, f, counters, pf=PROFILE, fl=FLEET,
+                    device="cuda") -> int:
+    """Phase 4g: device-time profiling and fast start at the serving
+    path's width.  (a) float32 drains observed (a ``DeviceTimeTable``, a
+    live ``SentryFeed``) and bare: streams equal, one graph capture an
+    engine, K1 n_layers a decode step, and one profiled chunk
+    (``profile_chunk``: K1 counted = traced) whose kernel time stands
+    beside the observer's ``device_ms`` for that step and its
+    ``device_busy_fraction``; (b) ``POST /profile?secs=2`` on a
+    two-replica fleet behind ``FleetServer`` while SSE requests stream
+    and a replica crashes and respawns (its graph captured under the
+    active profile): the trace exists, is within the byte budget and
+    names ``paged_decode_kernel``, ``GET /profile`` accounts it, and a
+    capture started once the budget is spent is refused with 409; (c) a
+    snapshot of a warmed spec="auto" engine primes a fresh one
+    (``calibration_reused`` > 0, float32 streams equal to the unprimed
+    engine's), then a supervisor respawns replicas of one fleet five
+    times without the snapshot and five times with it, alternately,
+    each respawn to rejoin timed; (d) ``enable_compile_cache`` on a
+    fresh directory counts nvcc's build as a miss in one process and
+    the library found built as a hit in a second; (e) perfbench's
+    ``measure_serve_latency``.  ``device="cpu"`` rehearses (b), (c) and
+    (e) on the plain route.  Returns K1's launches."""
+    import statistics
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from dataclasses import replace
+
+    import numpy as np
+    from tpu_device_plugin.metrics import Registry
+    from workloads_torch.backoff import Backoff
+    from workloads_torch.faststart import EngineSnapshot
+    from workloads_torch.faults import FaultInjector
+    from workloads_torch.fleet import FleetServer, TrafficGen, make_fleet
+    from workloads_torch.model import cast_params
+    from workloads_torch.obs import EngineObserver
+    from workloads_torch.ops import paged_attention as pa
+    from workloads_torch.perfbench import BenchScale, measure_serve_latency
+    from workloads_torch.profiler import (DeviceTimeTable, ProfileSession, RegressionSentry,
+                                          SentryFeed, device_report)
+    from workloads_torch.quant import quantize_params
+    from workloads_torch.serve import ServeEngine
+    from workloads_torch.supervisor import FleetSupervisor, make_engine_factory
+
+    cuda = device == "cuda"
+    L = config.n_layers
+    base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["page_size"], device=device)
+    chip_ids = ["chip-0", "chip-1"]
+    work = tempfile.mkdtemp(prefix="profiling_phase_")
+    t_phase = time.perf_counter()
+    total = 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def captures(engine):
+        return engine._graph.captures if engine._graph is not None else 0
+
+    # (d) starts first: its nvcc build runs while (a)-(c) use the card.
+    cache_dir = os.path.join(work, "kernel-cache")
+    first = cache_process(cache_dir) if cuda else None
+
+    # (a) profiling is inert: float32 drains observed and bare.
+    w32 = cast_params(params, torch.float32)
+    cfg32 = replace(config, dtype=torch.float32, max_seq_len=pf["f32_max_seq_len"])
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, config.vocab_size, f["decode_prompt"]).tolist(), int(n))
+            for n in rng.integers(pf["new"][0], pf["new"][1] + 1, pf["requests"])]
+    obs = EngineObserver(name="4g", device_table=DeviceTimeTable())
+    obs.bind_registry(Registry())
+    sentry = RegressionSentry()
+    for name, direction in (("tokens_per_sec", "down_bad"), ("host_sync_ms", "up_bad"),
+                            ("ttft_p99_ms", "up_bad"), ("device_busy_fraction", "down_bad")):
+        sentry.watch(name, None, 0.25, direction=direction)
+    feed = SentryFeed(sentry)
+
+    def serve(label, engine, poll=None):
+        engine.submit(reqs[0][0], 2)  # warm-up: the graph's capture
+        engine.run()
+        rids = [engine.submit(p, n) for p, n in reqs]
+        chunks0 = engine.chunks_run
+        reset_counts(counters)
+        sync()
+        t0 = time.perf_counter()
+        done = {}
+        while not engine.idle:
+            for req in engine.step():
+                done[req.rid] = req
+            if poll is not None:
+                poll()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = counters["paged_attention"].launches
+        steps = (engine.chunks_run - chunks0) * engine.chunk
+        for rid, (_, n) in zip(rids, reqs):
+            req = done.get(rid)
+            if req is None or req.status != "ok" or len(req.tokens) != n:
+                fail(f"profiling (a) {label} {rid}: "
+                     f"{None if req is None else (req.status, len(req.tokens))}, wanted ok "
+                     f"with {n} tokens")
+        if cuda and launches != L * steps:
+            fail(f"profiling (a) {label}: K1 launched {launches} times, n_layers x decode "
+                 f"steps is {L * steps}")
+        print(f"  profiling (a) {label}: {len(reqs)} float32 requests in {wall:.3f} s, "
+              f"{sum(n for _, n in reqs) / wall:.1f} tokens/s, K1 {launches}, captures "
+              f"{captures(engine)}", flush=True)
+        return [list(done[r].tokens) for r in rids], launches
+
+    observed = ServeEngine(w32, cfg32, **base, observer=obs)
+    feed.attach(observed, obs)
+    streams_on, launches = serve("observed, device table, sentry feed", observed, feed.poll)
+    total += launches
+    bare = ServeEngine(w32, cfg32, **base)
+    streams_off, launches = serve("bare", bare)
+    total += launches
+    if streams_on != streams_off:
+        fail("profiling (a): float32 streams differ with the profiling layer on and off")
+    if cuda and (captures(observed), captures(bare)) != (1, 1):
+        fail(f"profiling (a): graph captures {captures(observed)} observed, {captures(bare)} "
+             f"bare, wanted one each")
+    rep = device_report([obs])
+    line = (f"  profiling (a) streams equal on and off; observer over the drain: "
+            f"device_busy_fraction {obs.device_busy_fraction:.4f} (device {rep['device_ms']:.3f} "
+            f"of {rep['wall_ms']:.3f} ms wall), {len(obs.device_table)} table entries, sentry "
+            f"{sentry.state()['detectors']['tokens_per_sec']['samples']} windows, fired "
+            f"{sentry.fired}")
+    print(line, flush=True)
+    if cuda:
+        index = obs._step_index + 1  # profile_chunk's second step is profiled
+        wall_ms, busy_ms, counted, _, _ = profile_chunk(torch, observed, rng, f, pa)
+        total += counted
+        rec = next((r for r in obs.steps if r.index == index), None)
+        if rec is None:
+            fail("profiling (a): the profiled step has no StepRecord")
+        print(f"  profiling (a) the profiled chunk: profiler kernels {busy_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms wall (busy {busy_ms / wall_ms:.4f}); the observer's "
+              f"StepRecord: device_ms {rec.device_ms:.3f} of {rec.dur_secs * 1e3:.3f} ms wall "
+              f"(busy {rec.device_ms / max(rec.dur_secs * 1e3, 1e-9):.4f})", flush=True)
+    del observed, bare
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) a bounded capture through the fleet's front end, with a respawn.
+    cfg16 = replace(config, max_seq_len=fl["max_seq_len"])
+    injector = FaultInjector()
+    fleet = make_fleet(params, cfg16, 2, engine_kw=base, chip_ids=chip_ids, device=device,
+                       hang_timeout_s=None, fault_injector=injector)
+    built = [rep_.engine for rep_ in fleet.replicas]
+    respawned = []
+    factory, _ = make_engine_factory(
+        params, cfg16, engine_kw=dict(base, generator=torch.Generator(device).manual_seed(4242)),
+        device=device)
+
+    def recording(slot):
+        engine = factory(slot)
+        built.append(engine)
+        if slot is not None:  # not calibrate_probe's scratch engine
+            respawned.append(engine)
+        return engine
+
+    reset_counts(counters)
+    sup = FleetSupervisor(fleet, recording, backoff=Backoff(base_s=0.05, max_s=0.5, seed=7),
+                          probe=fl["probe"])
+    sup.calibrate_probe()
+    session = ProfileSession(os.path.join(work, "profiles"), max_secs=30.0,
+                             max_bytes=pf["capture_max_bytes"])
+    server = FleetServer(fleet, 0, supervisor=sup, profiler=session)
+    port = server.start()
+    statuses: dict[str, int] = {}
+    lock = threading.Lock()
+
+    def client(prompt, new):
+        body = json.dumps({"prompt": prompt, "max_new_tokens": new}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        status = None
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                for raw in resp:
+                    if raw.startswith(b"data: "):
+                        ev = json.loads(raw[6:])
+                        if ev.get("done"):
+                            status = ev["status"]
+        except urllib.error.HTTPError as e:
+            status = f"HTTP {e.code}: {e.read()[:200]!r}"
+        with lock:
+            statuses[status] = statuses.get(status, 0) + 1
+
+    def stream(reqs_):
+        threads = [threading.Thread(target=client, args=r) for r in reqs_]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            fail("profiling (b): an SSE stream did not end")
+
+    sched = TrafficGen(seed=fl["seed"], rate_rps=fl["rate_rps"], vocab=config.vocab_size,
+                       min_prompt=fl["prompt"][0], max_prompt=fl["prompt"][1],
+                       min_new=pf["capture_new"][0], max_new=pf["capture_new"][1]
+                       ).schedule(pf["capture_requests"])
+    stream([(list(p), 4) for _, p, _ in sched[:2]])  # warm-up: the founders capture
+    statuses.clear()
+    code, started = http_json("POST", port, f"/profile?secs={pf['capture_secs']}")
+    t_capture = time.perf_counter()
+    if code != 200:
+        fail(f"profiling (b): POST /profile answered {code}: {started}")
+    injector.reset()
+    injector.arm({"replica_crash": 3})
+    stream([(list(p), n) for _, p, n in sched])
+    deadline = time.monotonic() + 120.0
+    while not (sup.healed and not session.active and session.captures) \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    code, state = http_json("GET", port, "/profile")
+    events = [(e.kind, e.t - t_capture) for e in sup.events]
+    rejoin = next((t for k, t in events if k == "rejoin"), None)
+    session.max_bytes = session.bytes_spent  # the operator's budget is now spent
+    refused, body = http_json("POST", port, "/profile?secs=1")
+    server.stop()
+    if code != 200 or len(state["captures"]) != 1:
+        fail(f"profiling (b): GET /profile answered {code} with {state}")
+    capture = state["captures"][0]
+    trace = os.path.join(capture["dir"], "trace.json")
+    if not os.path.exists(trace):
+        fail(f"profiling (b): no trace at {trace}")
+    size = sum(os.path.getsize(os.path.join(r, n)) for r, _, ns in os.walk(capture["dir"])
+               for n in ns)
+    with open(trace) as fh:
+        trace_events = json.load(fh)["traceEvents"]
+    k1_traced = sum(1 for e in trace_events
+                    if e.get("cat") == "kernel" and "paged_decode_kernel" in e.get("name", ""))
+    kernels = sum(1 for e in trace_events if e.get("cat") == "kernel")
+    threads_seen = len({e.get("tid") for e in trace_events if e.get("cat") == "cpu_op"})
+    if statuses != {"ok": len(sched)} or sup.restarts_total != 1 or fleet.replica_crashes != 1:
+        fail(f"profiling (b): statuses {statuses}, restarts {sup.restarts_total}, crashes "
+             f"{fleet.replica_crashes}")
+    if not in_order([k for k, _ in events], ["death", "backoff", "probe", "rejoin"]):
+        fail(f"profiling (b): supervisor events {events}")
+    if capture["bytes"] != size or size <= 0 or size > pf["capture_max_bytes"]:
+        fail(f"profiling (b): the capture's {capture['bytes']} bytes, {size} on disk, budget "
+             f"{pf['capture_max_bytes']}")
+    if cuda and (k1_traced == 0 or [captures(e) for e in respawned] != [1]):
+        fail(f"profiling (b): {k1_traced} paged_decode_kernel events in the trace, respawned "
+             f"engines' captures {[captures(e) for e in respawned]}")
+    if refused != 409 or "budget" not in body.get("error", ""):
+        fail(f"profiling (b): a capture past the spent budget answered {refused}: {body}")
+    launches = counters["paged_attention"].launches
+    steps = sum(e.chunks_run for e in built) * base["chunk"]
+    if cuda and launches != L * steps:
+        fail(f"profiling (b): K1 launched {launches} times, n_layers x decode steps over the "
+             f"arm's {len(built)} engines is {L * steps}")
+    total += launches
+    print(f"  profiling (b) POST /profile?secs={pf['capture_secs']} on {len(chip_ids)} "
+          f"replicas while {len(sched)} SSE requests streamed and replica crash "
+          f"{fleet.replica_crashes} respawned (events after the capture's start, s: "
+          f"{[(k, round(t, 3)) for k, t in events]}; rejoin "
+          f"{'inside' if rejoin is not None and rejoin < capture['secs'] else 'after'} the "
+          f"capture): {capture['bytes']} bytes over {capture['secs']} s (budget "
+          f"{pf['capture_max_bytes']}), {kernels} kernel events, {k1_traced} of them "
+          f"paged_decode_kernel, operators on {threads_seen} threads, respawned captures "
+          f"{[captures(e) for e in respawned]}; past the spent budget: {refused} "
+          f"({body.get('error')})", flush=True)
+    fleet.close()
+    del fleet, built, respawned, trace_events
+    if cuda:
+        torch.cuda.empty_cache()
+
+    print(f"  profiling (a) and (b): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (c) fast start: a float32 snapshot primes a fresh engine, then
+    # respawns with and without a snapshot on one bf16 fleet.
+    t_arm = time.perf_counter()
+    d32 = quantize_params(w32)
+    kw32 = dict(base, draft_params=d32, draft_config=cfg32, gamma=pf["gamma"], spec="auto")
+    probe = fl["probe"]
+
+    def warmed(engine):
+        rid = engine.submit(*probe)
+        return list(engine.run()[rid])
+
+    def drain_reqs(engine):
+        rids = [engine.submit(p, n) for p, n in reqs]
+        served = engine.run()
+        return [list(served[r]) for r in rids]
+
+    reset_counts(counters)
+    cold = ServeEngine(w32, cfg32, **kw32)
+    oracle32 = warmed(cold)
+    snap32 = EngineSnapshot.capture(cold, probe=probe, probe_oracle=oracle32)
+    cold_streams = drain_reqs(cold)
+    primed = ServeEngine(w32, cfg32, **kw32)
+    if not snap32.prime(primed):
+        fail("fast start (c): a snapshot of the same engine shape did not prime")
+    if warmed(primed) != oracle32:
+        fail("fast start (c): the primed engine's canary differs from the snapshot's oracle")
+    primed_streams = drain_reqs(primed)
+    if primed.calibration_reused < 1 or cold.calibration_reused != 0:
+        fail(f"fast start (c): calibration_reused {primed.calibration_reused} primed, "
+             f"{cold.calibration_reused} cold")
+    if primed_streams != cold_streams:
+        fail("fast start (c): float32 streams differ with the snapshot and without it")
+    if cuda and (captures(cold), captures(primed)) != (1, 1):
+        fail(f"fast start (c): captures {captures(cold)} cold, {captures(primed)} primed")
+    total += counters["paged_attention"].launches
+    print(f"  fast start (c) float32 spec=\"auto\": the snapshot (threshold "
+          f"{snap32.spec_breakeven}) primed a fresh engine: calibration_reused "
+          f"{primed.calibration_reused}, {len(reqs)} streams equal to the unprimed engine's, "
+          f"one capture each; {time.perf_counter() - t_arm:.1f} s", flush=True)
+    t_arm = time.perf_counter()
+    del cold, primed, d32
+    if cuda:
+        torch.cuda.empty_cache()
+
+    draft = quantize_params(params)
+    spec_kw = dict(base, draft_params=draft, draft_config=cfg16, gamma=pf["gamma"],
+                   spec="auto")
+    injector = FaultInjector()
+    fleet = make_fleet(params, cfg16, 2, engine_kw=spec_kw, chip_ids=chip_ids, device=device,
+                       hang_timeout_s=None, fault_injector=injector)
+    for i in range(2):  # warm-up: each founder captures and calibrates
+        fleet.submit([1 + i], 2)
+    fleet.run()
+    factory, _ = make_engine_factory(
+        params, cfg16, engine_kw=dict(spec_kw, generator=torch.Generator(device).manual_seed(4242)),
+        device=device)
+    use_snapshot = [False]
+    spawned = []
+
+    def respawn(slot):
+        engine = factory(slot)
+        if use_snapshot[0] and slot is not None and not snap.prime(engine):
+            fail("fast start (c): the snapshot did not prime a respawn")
+        spawned.append(engine)
+        return engine
+
+    sup = FleetSupervisor(fleet, respawn, backoff=Backoff(base_s=0.05, max_s=0.5, seed=7),
+                          probe=probe, crash_loop_k=4 * pf["respawns"])
+    oracle = sup.calibrate_probe()
+    snap = EngineSnapshot.capture(fleet.replicas[0].engine, probe=probe, probe_oracle=oracle)
+    rreqs = [(list(p), n) for _, p, n in TrafficGen(
+        seed=11, rate_rps=fl["rate_rps"], vocab=config.vocab_size,
+        min_prompt=fl["prompt"][0], max_prompt=fl["prompt"][1], min_new=fl["long_new"][0],
+        max_new=fl["long_new"][1]).schedule(pf["respawn_requests"])]
+    times = {False: [], True: []}
+    reset_counts(counters)
+    for i in range(2 * pf["respawns"]):
+        use_snapshot[0] = bool(i % 2)
+        n_spawned = len(spawned)
+        injector.reset()
+        injector.arm({"replica_crash": 3})
+        rids = [fleet.submit(p, n) for p, n in rreqs]
+        sup.run()
+        healed = sup.wait_healed(timeout_s=120.0)
+        new = spawned[n_spawned:]
+        bad = [(r, fleet._reqs[r].status, len(fleet._reqs[r].tokens)) for r, (_, n) in
+               zip(rids, rreqs) if fleet._reqs[r].status != "ok" or
+               len(fleet._reqs[r].tokens) != n]
+        reused = [e.calibration_reused for e in new]
+        if not healed or len(sup.restore_s) != i + 1 or len(new) != 1 or bad \
+                or reused != [int(use_snapshot[0])]:
+            fail(f"fast start (c) respawn {i} (snapshot {use_snapshot[0]}): healed {healed}, "
+                 f"restores {len(sup.restore_s)}, engines built {len(new)}, not ok {bad}, "
+                 f"calibration_reused {reused}")
+        times[use_snapshot[0]].append(sup.restore_s[-1] * 1e3)
+    launches = counters["paged_attention"].launches
+    if cuda and launches == 0:
+        fail("fast start (c): the respawn fleet never launched K1")
+    total += launches
+    fleet.close()
+    for key, label in ((False, "without a snapshot"), (True, "with the snapshot")):
+        ms = times[key]
+        print(f"  fast start (c) respawn to rejoin {label} (spec=\"auto\", {cfg16.dtype}, "
+              f"{len(ms)} respawns): median {statistics.median(ms):.1f} ms, min "
+              f"{min(ms):.1f}, max {max(ms):.1f}; each {[round(t, 1) for t in ms]}",
+              flush=True)
+    print(f"  fast start (c) respawns: {time.perf_counter() - t_arm:.1f} s", flush=True)
+    del fleet, draft, spawned, w32
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (e) one perfbench arm.
+    reset_counts(counters)
+    scale = BenchScale.named(pf["scale"])
+    t0 = time.perf_counter()
+    latency = measure_serve_latency(scale, device=device)
+    launches = counters["paged_attention"].launches
+    if cuda and launches == 0:
+        fail("perfbench (e): measure_serve_latency never launched K1")
+    total += launches
+    print(f"  perfbench (e) measure_serve_latency at scale {pf['scale']!r} in "
+          f"{time.perf_counter() - t0:.1f} s, K1 {launches}:", flush=True)
+    print(json.dumps(latency), flush=True)
+    # (d) the kernel-build cache across processes: the first has built
+    # since the phase began; the second runs alone, after every timing.
+    if cuda:
+        miss = cache_result(first, "first process")
+        hit = cache_result(cache_process(cache_dir), "second process")
+        if (miss["misses"], hit["hits"], hit["misses"]) != (1, 1, 0):
+            fail(f"kernel-build cache: first process {miss}, second {hit}, wanted one miss "
+                 f"then one hit and no miss")
+        print(f"  kernel-build cache (d) in {cache_dir}: first process {miss}, second "
+              f"{hit}", flush=True)
+
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  profiling phase: {time.perf_counter() - t_phase:.1f} s, K1 launches {total}",
+          flush=True)
+    return total
+
+
 def lora_train_path(torch, model_mod, train_mod, counters, f, device="cuda",
                     steps=4) -> dict:
     """Phase 6e: the LoRA fine-tune (``lora.make_lora_train_step``) at
@@ -3270,6 +3765,13 @@ def main() -> int:
     print(f"  fleet phase: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{fleet_launches}; card: {card}", flush=True)
 
+    # 4g. device-time profiling and fast start at the same width
+    phase("serving path: device-time profiling and fast start at full width")
+    t0 = time.perf_counter()
+    profiling_launches = profiling_phase(torch, params, config, f, counters)
+    print(f"  profiling phase: {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{profiling_launches}; card: {card}", flush=True)
+
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
     phase("numbers")
@@ -3374,12 +3876,13 @@ def main() -> int:
         "source": "workloads_torch/ops/csrc/paged_attention.cu",
         "replaces": "workloads/ops/paged_attention.py:56",
         "launches": launches + lifecycle_launches + kv_launches + spec_launches
-        + lora_launches + fleet_launches,
+        + lora_launches + fleet_launches + profiling_launches,
         "lifecycle_launches": lifecycle_launches,
         "kv_launches": kv_launches,
         "spec_launches": spec_launches,
         "lora_launches": lora_launches,
         "fleet_launches": fleet_launches,
+        "profiling_launches": profiling_launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -145,3 +145,45 @@ def test_exposition_parser_and_event_order():
         chip_smoke.parse_exposition("x_total three\n")
     assert chip_smoke.in_order(["death", "backoff", "probe", "rejoin"], ["death", "rejoin"])
     assert not chip_smoke.in_order(["rejoin", "death"], ["death", "rejoin"])
+
+
+def test_profiling_phase_rehearses_on_the_cpu(capsys):
+    """Phase 4g on the plain route at a tiny width, every CPU gate
+    included: (a)'s streams equal with the profiling layer on and off,
+    (b)'s capture through POST /profile written, accounted and within
+    its budget while a replica respawns, the refusal past the spent
+    budget, (c)'s primed engine reusing the calibration with the
+    unprimed engine's float32 streams and the alternated respawns with
+    and without the snapshot, and (e)'s latency keys.  The model is
+    float32 here: a respawn without a snapshot times its own spec="auto"
+    calibration, and on a loaded CPU that verdict can flip, which in
+    bf16 can part its canary from the oracle; in float32 a speculative
+    and a plain step give the same greedy tokens."""
+    import torch
+
+    from workloads_torch.model import ModelConfig, cast_params, init_params
+    from workloads_torch.ops import attention as fa
+    from workloads_torch.ops import paged_attention as pa
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        config = ModelConfig(vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+                             max_seq_len=64, dtype=torch.float32)
+        params = cast_params(init_params(config, torch.Generator().manual_seed(0)),
+                             config.dtype)
+        f = dict(chip_smoke.FULL, slots=2, page_size=4, decode_prompt=8)
+        fl = dict(chip_smoke.FLEET, prompt=(4, 24), long_new=(8, 16), max_seq_len=48)
+        pf = dict(chip_smoke.PROFILE, requests=4, new=(4, 12), f32_max_seq_len=32,
+                  capture_secs=1.0, capture_requests=6, capture_new=(8, 16), respawns=2,
+                  respawn_requests=2, scale="tiny")
+        chip_smoke.profiling_phase(torch, params, config, f, chip_smoke.kernel_counters(pa, fa),
+                                   pf=pf, fl=fl, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "profiling (a) streams equal on and off" in out
+    assert "past the spent budget: 409" in out
+    assert "calibration_reused 1, 4 streams equal" in out
+    assert "respawn to rejoin with the snapshot" in out
+    assert '"serve_ttft_p99_ms"' in out

@@ -19,7 +19,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
-          "supervisor", "autoscaler", "control"]
+          "supervisor", "autoscaler", "control", "profiler", "faststart"]
 
 # (module, definition): the port builds its own engine on a device
 # (make_fleet, make_engine_factory), writes the device plugin's stats
@@ -31,6 +31,12 @@ COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
 # and failed sessions out, so restore() re-mints the rid of one that
 # ended just before the restart (tests/test_torch_fleet_contracts.py
 # test_restore_never_remints_a_rid_that_ended_before_the_restart).
+# The profiler captures with torch.profiler on an owner thread
+# (ProfileSession.start/stop) and reads the port's own bench artifact
+# (load_committed_artifact); fast start points the kernel-build cache,
+# not jax.config (enable_compile_cache, no jax.monitoring listener), and
+# fingerprints the torch version and the card's name (fingerprint_engine,
+# _device_name, EngineSnapshot.capture).
 ALLOWED = {
     ("fleet", "make_fleet"),
     ("fleet", "Fleet.publish_stats"),
@@ -42,6 +48,14 @@ ALLOWED = {
     ("durable", "_raw"),
     ("durable", "_pack_blob"),
     ("durable", "_unpack_blob"),
+    ("profiler", "ProfileSession.start"),
+    ("profiler", "ProfileSession.stop"),
+    ("profiler", "load_committed_artifact"),
+    ("faststart", "_on_event"),
+    ("faststart", "enable_compile_cache"),
+    ("faststart", "fingerprint_engine"),
+    ("faststart", "_device_name"),
+    ("faststart", "EngineSnapshot.capture"),
 }
 
 

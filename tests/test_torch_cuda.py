@@ -1444,3 +1444,124 @@ def test_sse_over_a_cuda_fleet_while_it_captures(cuda):
     assert [rep.engine._graph.captures for rep in fleet.replicas] == [int(x) for x in served]
     _fleet_leak_free(fleet)
     fleet.close()
+
+
+# ---- device-time profiling and fast start on the card -------------------------
+
+
+def _k1_in_trace(capture) -> int:
+    import json
+    import os
+
+    with open(os.path.join(capture["dir"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and "paged_decode_kernel" in e.get("name", ""))
+
+
+def test_a_capture_started_and_stopped_on_other_threads_holds_the_drivers_k1(cuda, tmp_path):
+    """The fleet's threads: a handler thread starts the capture, the
+    driver thread serves (each decode step a replay of the engine's
+    graph), another thread stops it.  The trace holds every K1 launch
+    the driver made, graph replays included."""
+    import threading
+
+    from workloads_torch.profiler import ProfileSession
+
+    config, params = _life_model()
+    engine = ServeEngine(params, config, device="cuda", **_fleet_engine_kw())
+    engine.submit([1, 2, 3], 2)
+    engine.run()  # the graph's capture, before the window
+    session = ProfileSession(str(tmp_path), max_secs=60.0)
+    starter = threading.Thread(target=session.start)
+    starter.start()
+    starter.join(timeout=60)
+    assert not starter.is_alive() and session.active
+    counted = {}
+
+    def drive():
+        before = pa.paged_attention.launches
+        for p, n in _FLEET_REQUESTS:
+            engine.submit(p, n)
+        engine.run()
+        torch.cuda.synchronize()
+        counted["k1"] = pa.paged_attention.launches - before
+
+    driver = threading.Thread(target=drive)
+    driver.start()
+    driver.join(timeout=120)
+    got = []
+    stopper = threading.Thread(target=lambda: got.append(session.stop()))
+    stopper.start()
+    stopper.join(timeout=120)
+    assert not driver.is_alive() and not stopper.is_alive() and not session.active
+    assert engine._graph.captures == 1
+    assert counted["k1"] > 0 and _k1_in_trace(got[0]) == counted["k1"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_an_engine_that_captures_under_an_active_profile_captures_once_and_streams(cuda, dtype,
+                                                                                  tmp_path):
+    """A respawn or scale-up during POST /profile: an engine built and
+    served while a capture is active (started on another thread)
+    captures its graph once and streams as one served with no capture,
+    and the trace holds its K1 launches."""
+    import threading
+
+    from workloads_torch.profiler import ProfileSession
+
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
+    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+                                dtype)
+    want = _plain_streams(params, config)
+    session = ProfileSession(str(tmp_path), max_secs=60.0)
+    starter = threading.Thread(target=session.start)
+    starter.start()
+    starter.join(timeout=60)
+    before = pa.paged_attention.launches
+    engine = ServeEngine(params, config, device="cuda", **_fleet_engine_kw())
+    rids = [engine.submit(p, n) for p, n in _FLEET_REQUESTS]
+    served = engine.run()
+    torch.cuda.synchronize()
+    counted = pa.paged_attention.launches - before
+    capture = session.stop()
+    assert engine._graph.captures == 1
+    assert [served[r] for r in rids] == want
+    # The warm-up and the capture launch nothing counted; every replay does.
+    assert _k1_in_trace(capture) >= counted > 0
+
+
+def test_a_primed_auto_engine_runs_no_calibration_dispatches(cuda):
+    """float32 spec="auto": the cold engine's first decode times dead
+    dispatches (K1 launches beyond its served steps and rounds); an
+    engine primed from its snapshot launches exactly what it serves,
+    counts the reuse and streams as the cold engine does."""
+    from workloads_torch.faststart import EngineSnapshot
+    from workloads_torch.quant import quantize_params
+
+    config, params = _life_model()
+    kw = dict(_fleet_engine_kw(), draft_params=quantize_params(params), draft_config=config,
+              gamma=2, spec="auto")
+
+    def serve(engine):
+        before = {n: getattr(engine, n) for n in ("chunks_run", "spec_rounds")}
+        k1 = pa.paged_attention.launches
+        rids = [engine.submit(p, n) for p, n in _FLEET_REQUESTS]
+        served = engine.run()
+        torch.cuda.synchronize()
+        launches = pa.paged_attention.launches - k1
+        served_k1 = (config.n_layers * engine.chunk * (engine.chunks_run - before["chunks_run"])
+                     + config.n_layers * 3 * (engine.spec_rounds - before["spec_rounds"]))
+        return [served[r] for r in rids], launches, served_k1
+
+    cold = ServeEngine(params, config, device="cuda", **kw)
+    cold_streams, cold_k1, cold_served = serve(cold)
+    snap = EngineSnapshot.capture(cold)
+    primed = ServeEngine(params, config, device="cuda", **kw)
+    assert snap.prime(primed)
+    primed_streams, primed_k1, primed_served = serve(primed)
+    assert cold.calibration_reused == 0 and primed.calibration_reused == 1
+    assert primed.spec_calibration == cold.spec_calibration
+    assert primed_streams == cold_streams
+    assert cold_k1 > cold_served and primed_k1 == primed_served
+    assert primed._graph.captures == 1

@@ -1881,11 +1881,17 @@ def _run_fleet_chaos_impl(seed: int, params, adapters, root: str) -> None:
             ),
             max_retries=2, **kw,
         ))
-    # Fast-start snapshots under chaos: the JAX sweep primes every
-    # engine with an EngineSnapshot on half the seeds.  The port has no
-    # faststart yet (ROADMAP item 14); the draw stays, so the seeds'
-    # later draws are the JAX sweep's.
-    rng.integers(2)
+    # Fast-start snapshots under chaos (workloads_torch/faststart.py): on
+    # half the seeds every engine is primed with a snapshot captured
+    # from replica 0 — heterogeneous per-replica configs mean some
+    # primes legitimately REJECT (fingerprint mismatch → cold path);
+    # either way the oracle pins below assert streams are unchanged.
+    if rng.integers(2):
+        from workloads_torch.faststart import EngineSnapshot
+
+        snap = EngineSnapshot.capture(engines[0])
+        for eng in engines:
+            snap.prime(eng)
     # Fleet-scope chip-time ledger under chaos (workloads/ledger.py):
     # per-replica ledgers + the fleet roll-up, randomized on — the
     # failover/cancel/handoff taxonomy must still balance fleet-wide
@@ -2187,10 +2193,13 @@ def _run_supervised_chaos_impl(seed: int, params, adapters, root) -> None:
     # resurrection with warmed state captured from replica 0 (same
     # engine_kw, so the fingerprint matches) and the supervisor carries
     # it — respawn streams must stay bit-identical snapshot on/off.
-    # The JAX sweep arms a fast-start snapshot on half the seeds; the
-    # port has none yet (ROADMAP item 14), and the draw stays.
     snapshot = None
-    rng.integers(2)
+    if rng.integers(2):
+        from workloads_torch.faststart import EngineSnapshot
+
+        snapshot = EngineSnapshot.capture(
+            engines[0], probe=([1, 2, 3], 4),
+        )
     factory, oracle = make_engine_factory(
         params, CONFIG, engine_kw=engine_kw, probe=([1, 2, 3], 4),
         snapshot=snapshot,

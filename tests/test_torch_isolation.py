@@ -58,6 +58,14 @@ def test_fleet_modules_are_scanned():
     )} <= scanned
 
 
+def test_profiling_and_bench_modules_are_scanned():
+    """The scan reaches the profiling, fast-start and perfbench modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", f"{m}.py") for m in (
+        "profiler", "faststart", "perfbench",
+    )} <= scanned
+
+
 def test_scan_catches_forbidden_lines():
     """The scan itself: it flags the JAX package and jax, not the port."""
     flagged = [

@@ -2880,7 +2880,7 @@ class FleetServer:
       * ``POST /profile?secs=N`` / ``POST /profile/stop`` /
         ``GET /profile`` — on-demand device-trace capture against the
         armed ``ProfileSession`` (workloads/profiler.py; the serve
-        CLI's ``--profile-dir``): start a bounded ``jax.profiler``
+        CLI's ``--profile-dir``): start a bounded ``torch.profiler``
         capture on the live fleet, stop it early, read session state.
         409 when no session is armed, a capture is already active, or
         the disk budget is spent.

@@ -32,9 +32,9 @@ counters only — so the metrics lint and trace tooling stay fast.
 
 The PyTorch port's own copy of ``workloads/obs.py`` (the port imports
 nothing of the JAX package); tests/test_torch_copies.py holds every
-definition to it.  ``device_table`` is accepted and duck-typed as in JAX;
-the port attaches none yet, so ``StepRecord.device_ms`` is the step's wall
-less its host-sync stall.
+definition to it.  ``device_table`` (profiler.py's ``DeviceTimeTable``)
+calibrates ``StepRecord.device_ms``, the step's wall less its host-sync
+stall, as in JAX.
 """
 
 from __future__ import annotations

@@ -8,10 +8,13 @@ interface (no PyTorch headers, so a build takes seconds), for
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
 
 Builds happen at first use, into ``build/workloads_torch/`` at the root
-of the checkout (listed in .gitignore).  The file name carries a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one is reused.  A failed build raises with nvcc's stderr; ptxas's
-register and shared-memory report is kept beside the library (``.log``).
+of the checkout (listed in .gitignore), or into the directory
+``set_build_dir`` names (``faststart.enable_compile_cache``).  The file
+name carries a hash of the source and the flags, so an edited source
+rebuilds and an unchanged one is reused; ``cache_counts`` counts both
+(``hits``: found built, ``misses``: a run of nvcc).  A failed build
+raises with nvcc's stderr; ptxas's register and shared-memory report is
+kept beside the library (``.log``).
 
 Nothing here runs when the module is imported: the CPU tests import it
 on hosts with no nvcc.
@@ -24,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -36,6 +40,22 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# Kernel libraries found built (hits) and built by nvcc (misses) in this
+# process; faststart.cache_stats() reads them.
+cache_counts = {"hits": 0, "misses": 0}
+_counts_lock = threading.Lock()
+
+
+def set_build_dir(path) -> None:
+    """Build and look up libraries under ``path`` from now on (libraries
+    this process loaded already stay loaded)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
+def _count(key: str) -> None:
+    with _counts_lock:
+        cache_counts[key] += 1
 
 
 def _nvcc() -> str:
@@ -64,7 +84,9 @@ def build(name: str) -> float:
     build seconds (0.0 when reused)."""
     out = library_path(name)
     if out.exists():
+        _count("hits")
         return 0.0
+    _count("misses")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()

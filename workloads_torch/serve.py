@@ -258,6 +258,7 @@ class ServeEngine:
         spec: str = "on",
         spec_breakeven: float | None = None,
         spec_calibration: dict | None = None,
+        compile_cache_dir: str | None = None,
         prefix_cache: bool | str = False,
         kv_offload: bool = False,
         kv_host_pages: int | None = None,
@@ -392,6 +393,16 @@ class ServeEngine:
                 "kv_disk_pages bounds the kv_disk_dir tier; it has no "
                 "effect without kv_disk_dir"
             )
+        # The kernel-build cache (faststart.py): kernel libraries this
+        # engine's first launches load are looked up in (or built into)
+        # ``compile_cache_dir``; inert for numerics.
+        if compile_cache_dir is not None:
+            from .faststart import enable_compile_cache
+
+            enable_compile_cache(compile_cache_dir)
+        from .faststart import cache_stats
+
+        self._cc_base = cache_stats()
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -2840,6 +2851,24 @@ class ServeEngine:
         """True while the health bridge holds admission."""
         return self._paused
 
+    # ---- fast start (faststart.py) ----------------------------------------
+
+    @property
+    def compile_cache_hits(self) -> int:
+        """Kernel libraries found built since THIS engine was built (a
+        delta over the process-wide faststart counters)."""
+        from .faststart import cache_stats
+
+        return cache_stats()["hits"] - self._cc_base["hits"]
+
+    @property
+    def compile_cache_misses(self) -> int:
+        """Kernel libraries nvcc built since this engine was built — the
+        cold-spawn signature."""
+        from .faststart import cache_stats
+
+        return cache_stats()["misses"] - self._cc_base["misses"]
+
     # ---- online retune --------------------------------------------------
 
     def retune(
@@ -2997,12 +3026,18 @@ class _RecorderDriver:
     state before the bounded rings evict it, neither of which a
     single end-of-run poll can do."""
 
-    def __init__(self, inner, recorder):
+    def __init__(self, inner, recorder, feed=None):
         self._inner = inner
         self._recorder = recorder
+        # Optional SentryFeed (profiler.py): windowed live signals into
+        # the regression sentry, polled at the recorder's cadence so a
+        # perf_regression fires while the rings still hold the incident.
+        self._feed = feed
 
     def step(self):
         finished = self._inner.step()
+        if self._feed is not None:
+            self._feed.poll()
         self._recorder.poll()
         return finished
 
@@ -3135,9 +3170,13 @@ def _run_fleet_cli(
         # see supervisor events on the very trace it asked for; only
         # registry BINDING is port-gated.
         from .obs import EngineObserver, FleetObserver
+        from .profiler import DeviceTimeTable
 
         observers = [
-            EngineObserver(name=str(i), replica=str(i))
+            EngineObserver(
+                name=str(i), replica=str(i),
+                device_table=DeviceTimeTable(),
+            )
             for i in range(args.fleet)
         ]
         fleet_obs = FleetObserver()
@@ -3161,6 +3200,36 @@ def _run_fleet_cli(
         fleet_ledger = FleetLedger()
         if args.postmortem_dir is not None:
             recorder = FlightRecorder(out_dir=args.postmortem_dir)
+    sentry_feed = None
+    if recorder is not None:
+        # The live regression sentry rides the flight recorder: the
+        # committed artifact (the port's own, measured on the card)
+        # contributes the RELATIVE noise band, each detector
+        # self-baselines from its first live windows, and a confirmed
+        # breach fires exactly one perf_regression bundle.
+        from .profiler import (
+            SentryFeed,
+            load_committed_artifact,
+            sentry_from_artifact,
+        )
+
+        artifact = load_committed_artifact()
+        if artifact:
+            sentry = sentry_from_artifact(
+                artifact, live=True, recorder=recorder
+            )
+            if sentry.signals:
+                sentry_feed = SentryFeed(sentry)
+                print(
+                    "sentry armed: watching "
+                    f"{', '.join(sentry.signals)} at the committed "
+                    "artifact's noise band"
+                )
+    profiler = None
+    if args.profile_dir is not None:
+        from .profiler import ProfileSession
+
+        profiler = ProfileSession(args.profile_dir)
     engines = []
     for i in range(args.fleet):
         engines.append(ServeEngine(
@@ -3188,6 +3257,8 @@ def _run_fleet_cli(
         ))
         if recorder is not None:
             recorder.attach_engine(str(i), engines[-1])
+        if sentry_feed is not None:
+            sentry_feed.attach(engines[-1], observers[i])
     fleet = Fleet(
         engines,
         chip_ids=[f"chip-{i}" for i in range(args.fleet)],
@@ -3479,11 +3550,16 @@ def _run_fleet_cli(
 
         server = FleetServer(
             fleet, args.http_port, supervisor=supervisor,
-            autoscaler=autoscaler,
+            autoscaler=autoscaler, profiler=profiler,
             controller=controller,
         )
         port = server.start()
         print(f"fleet SSE front end: http://127.0.0.1:{port}/v1/generate")
+        if profiler is not None:
+            print(
+                f"profiler armed: POST http://127.0.0.1:{port}"
+                f"/profile?secs=N (dumps -> {args.profile_dir})"
+            )
         statuses: dict[str, int] = {}
         statuses_lock = threading.Lock()
 
@@ -3533,8 +3609,21 @@ def _run_fleet_cli(
         if controller is not None:
             driver = controller  # built over the same stacked driver
         if recorder is not None:
-            driver = _RecorderDriver(driver, recorder)
+            driver = _RecorderDriver(driver, recorder, sentry_feed)
+        if profiler is not None:
+            # No HTTP operator to trigger captures: deep-profile the
+            # whole timed fleet loop (still duration/disk bounded).
+            profiler.start()
         drive_open_loop(driver, sched)
+        if profiler is not None:
+            capture = profiler.stop() or (
+                profiler.captures[-1] if profiler.captures else None
+            )
+            if capture is not None:
+                print(
+                    f"profile: {capture['bytes']} bytes over "
+                    f"{capture['secs']}s -> {capture['dir']}"
+                )
     if recorder is not None:
         recorder.poll()
     if supervisor is not None:
@@ -3637,6 +3726,28 @@ def _run_fleet_cli(
                 f"-> {args.postmortem_dir} "
                 f"(validate: python tools/postmortem.py --validate)"
             )
+    armed_observers = [
+        o for o in list(observers) + respawn_observers if o is not None
+    ]
+    if any(getattr(o, "_wall_ms", 0.0) > 0 for o in armed_observers):
+        from .profiler import device_report
+
+        rep = device_report(armed_observers)
+        per_phase = {
+            ph: d["device_busy_fraction"]
+            for ph, d in rep["phases"].items()
+        }
+        print(
+            f"device: busy_fraction={rep['device_busy_fraction']:.3f} "
+            f"host_stall_fraction={rep['host_stall_fraction']:.3f} "
+            f"per_phase={per_phase}"
+        )
+    if sentry_feed is not None:
+        st = sentry_feed.sentry.state()
+        print(
+            f"sentry: armed={st['armed']} fired={st['fired']} "
+            f"incidents={[i['signal'] for i in st['incidents']]}"
+        )
     attainment = fleet.slo_attainment()
     if any(v is not None for v in attainment.values()):
         burn = fleet.slo_burn_rates()
@@ -3865,6 +3976,22 @@ def main(argv=None) -> int:
     parser.add_argument("--kv-disk-pages", type=int, default=None, metavar="N",
                         help="with --kv-disk-dir: cap the disk tier at N page "
                         "files, coldest evicted first (default: unbounded)")
+    parser.add_argument("--profile-dir", default=None, metavar="DIR",
+                        help="arm on-demand deep profiling: a bounded "
+                        "torch.profiler ProfileSession (profiler.py) writes "
+                        "Chrome traces of the card's kernels and every "
+                        "thread's operators into DIR/profile-NNN/; a "
+                        "single-engine or non-HTTP fleet run captures its "
+                        "timed loop; with --fleet and --http-port the capture "
+                        "is operator-triggered via POST /profile?secs=N")
+    parser.add_argument("--compile-cache-dir", default=None, metavar="DIR",
+                        help="the kernel-build cache (faststart.py): each "
+                        "CUDA kernel library is looked up in DIR, built "
+                        "there by nvcc when missing, and reused by later "
+                        "engines and processes; hit/miss counters land on "
+                        "--metrics-port as engine_compile_cache_"
+                        "{hits,misses}_total; streams are the same on and "
+                        "off")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the "
                         "plain PyTorch path)")
@@ -4004,6 +4131,13 @@ def main(argv=None) -> int:
         except ValueError as e:
             parser.error(str(e))
     device = resolve_device(args.device)
+    if args.compile_cache_dir is not None:
+        # Process-global, set before any engine builds so every kernel
+        # library — founders, respawns, scale-ups — is looked up in (or
+        # built into) DIR.
+        from .faststart import enable_compile_cache
+
+        print(f"compile cache: {enable_compile_cache(args.compile_cache_dir)}")
 
     config = ModelConfig(
         d_model=512, n_heads=8, n_layers=4, d_ff=2048, vocab_size=8192,
@@ -4051,9 +4185,13 @@ def main(argv=None) -> int:
         args.metrics_port is not None or args.trace_out
         or args.postmortem_dir is not None
     ):
+        # The device-time table splits each step's wall into device-busy
+        # and host-stall (StepRecord.device_ms, the engine_device_seconds
+        # family and the trace's device lane).
         from .obs import EngineObserver
+        from .profiler import DeviceTimeTable
 
-        observer = EngineObserver()
+        observer = EngineObserver(device_table=DeviceTimeTable())
     if args.metrics_port is not None:
         from tpu_device_plugin.metrics import MetricsServer, registry
 
@@ -4104,6 +4242,14 @@ def main(argv=None) -> int:
             rejected += 1
 
     engine.step()  # warm-up: first launches and kernel build
+    profiler = None
+    if args.profile_dir is not None:
+        # Deep-profile the TIMED loop (warm-up excluded): the capture is
+        # duration- and disk-bounded by the session.
+        from .profiler import ProfileSession
+
+        profiler = ProfileSession(args.profile_dir)
+        profiler.start()
     tokens_before = engine.generated_tokens
     t0 = time.perf_counter()
     while not engine.idle:
@@ -4111,6 +4257,15 @@ def main(argv=None) -> int:
         if recorder is not None:
             recorder.poll()
     elapsed = time.perf_counter() - t0
+    if profiler is not None:
+        capture = profiler.stop() or (
+            profiler.captures[-1] if profiler.captures else None
+        )
+        if capture is not None:
+            print(
+                f"profile: {capture['bytes']} bytes over "
+                f"{capture['secs']}s -> {capture['dir']}"
+            )
     generated = engine.generated_tokens - tokens_before
     rate = generated / elapsed if elapsed > 0 and generated else 0.0
     print(
@@ -4169,6 +4324,16 @@ def main(argv=None) -> int:
             f"tokens_replayed={engine.tokens_replayed} "
             f"host_sync_ms={round(engine.host_sync_s * 1000, 1)} "
             f"recoveries_ms={[round(t * 1000, 1) for t in engine.fault_recovery_s]}"
+        )
+    if observer is not None and getattr(observer, "_wall_ms", 0.0) > 0:
+        from .profiler import device_report
+
+        rep = device_report([observer])
+        print(
+            f"device: busy_fraction={rep['device_busy_fraction']:.3f} "
+            f"host_stall_fraction={rep['host_stall_fraction']:.3f} "
+            f"device_ms={rep['device_ms']} wall_ms={rep['wall_ms']} "
+            f"table_entries={len(observer.device_table or ())}"
         )
     if ledger is not None:
         if recorder is not None:

@@ -818,9 +818,9 @@ def make_engine_factory(
     it may part from the paged engine's K1 stream at a near tie, so a
     bf16 fleet takes ``FleetSupervisor.calibrate_probe``'s oracle.
 
-    ``snapshot`` (an ``EngineSnapshot``, duck-typed: ``prime(engine)``
-    and ``probe_oracle``) arms fast start as in the JAX package; the
-    port builds none yet."""
+    ``snapshot`` (faststart.py's ``EngineSnapshot``, duck-typed:
+    ``prime(engine)`` and ``probe_oracle``) arms fast start as in the
+    JAX package."""
     from .serve import ServeEngine
 
     engine_kw = dict(engine_kw or {})

@@ -187,3 +187,38 @@ def test_profiling_phase_rehearses_on_the_cpu(capsys):
     assert "calibration_reused 1, 4 streams equal" in out
     assert "respawn to rejoin with the snapshot" in out
     assert '"serve_ttft_p99_ms"' in out
+
+
+def test_bench_phases_rehearse_on_the_cpu(capsys):
+    """Phases 6f and 4h at the tiny scale on the plain route, every CPU
+    gate included: the table round trip and the routing under it, the
+    engine arms' keys and serve_batch against generate."""
+    import torch
+
+    from workloads_torch import model as model_mod
+    from workloads_torch import perfbench as pb
+    from workloads_torch.ops import attention as fa
+    from workloads_torch.ops import kernel_select as ks
+    from workloads_torch.ops import paged_attention as pa
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        counters = chip_smoke.kernel_counters(pa, fa)
+        launches, train = chip_smoke.bench_kernel_phase(
+            torch, pb, ks, model_mod, fa, counters, phase6=(20.0, 0.1),
+            scale_name="tiny", device="cpu")
+        chip_smoke.bench_engine_phase(
+            torch, pb, counters, device="cpu",
+            arms=("measure_fault_recovery", "measure_multi_lora",
+                  "measure_prefix_serve", "measure_kv_hierarchy"))
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert train["mfu"] is None and train["device_name"] == "cpu"
+    assert ks.kernel_table() is None  # the phase put the table back
+    assert "model._pick_kernel under set_kernel_table" in out
+    assert "beside phase 6 (CUDA events, mean of 3): 20.0 ms" in out
+    assert "measure_kv_hierarchy (" in out and "kv_offload_reload_ms" in out
+    assert "serve_batch float32, 2 rows x 10 tokens: equal to generate True" in out
+    assert set(launches) == {"paged_attention", *chip_smoke.FLASH_KERNELS}

@@ -19,7 +19,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
-          "supervisor", "autoscaler", "control", "profiler", "faststart"]
+          "supervisor", "autoscaler", "control", "profiler", "faststart",
+          "ops/kernel_select"]
 
 # (module, definition): the port builds its own engine on a device
 # (make_fleet, make_engine_factory), writes the device plugin's stats
@@ -36,7 +37,9 @@ COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
 # (load_committed_artifact); fast start points the kernel-build cache,
 # not jax.config (enable_compile_cache, no jax.monitoring listener), and
 # fingerprints the torch version and the card's name (fingerprint_engine,
-# _device_name, EngineSnapshot.capture).
+# _device_name, EngineSnapshot.capture).  The kernel table reads the
+# CUDA card's name (device_kind, kernel_table) and takes the crossover
+# from its caller instead of importing the JAX model (kernel_for_seq).
 ALLOWED = {
     ("fleet", "make_fleet"),
     ("fleet", "Fleet.publish_stats"),
@@ -56,6 +59,9 @@ ALLOWED = {
     ("faststart", "fingerprint_engine"),
     ("faststart", "_device_name"),
     ("faststart", "EngineSnapshot.capture"),
+    ("ops/kernel_select", "device_kind"),
+    ("ops/kernel_select", "kernel_table"),
+    ("ops/kernel_select", "kernel_for_seq"),
 }
 
 

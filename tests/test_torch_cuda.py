@@ -9,8 +9,10 @@ quarantine mid-superstep, uploads after a quarantine or a cancel,
 dropped readbacks, a fault inside the graph's capture, retune), and the
 KV-cache hierarchy on the card (bf16 spill and reload bit for bit, a
 reload behind a superstep in flight, a blob dropped after its reload,
-the pools' addresses, the scripted runs against the CPU engine).  They
-skip without a CUDA device.
+the pools' addresses, the scripted runs against the CPU engine), and
+perfbench's chains (the graphed attention chain against the eager one,
+the graphed decode chunks against paged_decode_chunk, the peak table on
+the card).  They skip without a CUDA device.
 On a machine with a card (and without jax, which tests/conftest.py
 imports):
 
@@ -1565,3 +1567,55 @@ def test_a_primed_auto_engine_runs_no_calibration_dispatches(cuda):
     assert primed_streams == cold_streams
     assert cold_k1 > cold_served and primed_k1 == primed_served
     assert primed._graph.captures == 1
+
+
+# ==== perfbench's chains on the card
+
+
+@pytest.mark.parametrize("attn", ["flash", "dense"])
+def test_graphed_attention_chain_equals_the_eager_chain(cuda, attn):
+    """perfbench's attention chain replays one captured link (forward,
+    backward, q's update) n times: bit-identical to n eager links, and a
+    replay moves no wrapper's count (they count the warm-up and the
+    capture)."""
+    from workloads_torch.perfbench import _attention_chain, _dense_causal, _rand_qkv
+
+    fn = fa.flash_attention if attn == "flash" else _dense_causal
+    q, k, v = _rand_qkv(1024, 8, 128, device=cuda)
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [w.launches for w in wrappers]
+    graphed = _attention_chain(fn, q, k, v)
+    captured = [w.launches - b for w, b in zip(wrappers, before)]
+    got = graphed(5).clone()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == captured
+    assert captured == ([4, 4, 4] if attn == "flash" else [0, 0, 0])
+    want = _attention_chain(fn, q, k, v, graph=False)(5)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, q)
+    assert torch.equal(graphed(5), got)  # each run starts from q
+
+
+def test_device_peak_flops_resolves_on_the_card(cuda):
+    """On a card the peak table must know the card, or MFU silently
+    vanishes from the bench."""
+    from workloads_torch.perfbench import device_peak_flops
+
+    assert device_peak_flops(), (
+        f"{torch.cuda.get_device_name(0)!r} is missing from _PEAK_BF16_FLOPS")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_time_paged_chunks_graphed_tokens_equal_the_eager_chunks(cuda, dtype):
+    """The decode program perfbench times on the card (DecodeGraph
+    replays) emits paged_decode_chunk's tokens, chunk after chunk."""
+    from workloads_torch.model import cast_params
+    from workloads_torch.perfbench import _paged_chunk_runner
+
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
+    params = cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)), dtype)
+    kw = dict(batch=3, prompt_len=5, page_size=4, chunk=4, n_hi=3, device=cuda)
+    graphed = _paged_chunk_runner(params, config, **kw)(3)
+    eager = _paged_chunk_runner(params, config, **kw, graph=False)(3)
+    assert graphed.shape == (3, 12)
+    assert torch.equal(graphed, eager)

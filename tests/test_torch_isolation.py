@@ -66,6 +66,12 @@ def test_profiling_and_bench_modules_are_scanned():
     )} <= scanned
 
 
+def test_mfu_sweep_is_scanned():
+    """The scan reaches the MFU sweep beside perfbench."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert os.path.join("workloads_torch", "mfu_sweep.py") in scanned
+
+
 def test_scan_catches_forbidden_lines():
     """The scan itself: it flags the JAX package and jax, not the port."""
     flagged = [
@@ -99,6 +105,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         "assert {'workloads_torch.lora', 'workloads_torch.multi_lora'} <= set(names)",
         "assert {'workloads_torch.' + m for m in ('backoff', 'obs', 'ledger', 'fleet',"
         " 'supervisor', 'autoscaler', 'control')} <= set(names)",
+        "assert {'workloads_torch.perfbench', 'workloads_torch.mfu_sweep'} <= set(names)",
         "print(len(names))",
     ])
     env = dict(os.environ)

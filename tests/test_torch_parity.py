@@ -118,9 +118,11 @@ from workloads import durable as jdurable  # noqa: E402
 from workloads import faults as jfaults  # noqa: E402
 from workloads import generate as jgen  # noqa: E402
 from workloads import lora as jlora  # noqa: E402
+from workloads import mfu_sweep as jmfu  # noqa: E402
 from workloads import model as jmodel  # noqa: E402
 from workloads import multi_lora as jmulti  # noqa: E402
 from workloads import paged as jpaged  # noqa: E402
+from workloads import perfbench as jperf  # noqa: E402
 from workloads import quant as jquant  # noqa: E402
 from workloads import serve as jserve  # noqa: E402
 from workloads import speculative as jspec  # noqa: E402
@@ -128,7 +130,10 @@ from workloads import train as jtrain  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
 from workloads_torch import convert  # noqa: E402
 from workloads_torch import durable as tdurable  # noqa: E402
+from workloads_torch import mfu_sweep as tmfu  # noqa: E402
 from workloads_torch import model as tmodel  # noqa: E402
+from workloads_torch import paged as tpaged  # noqa: E402
+from workloads_torch import perfbench as tperf  # noqa: E402
 from workloads_torch import serve as tserve  # noqa: E402
 
 JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -795,6 +800,60 @@ def test_fleet_matches_jax_live(trees, scenario):
         np.testing.assert_array_equal(value, want[name], err_msg=f"{scenario}/{name}")
     if scenario == "journal":
         port_journal_restores_in_jax(tree, want["tokens"])
+
+
+# ==== perfbench's FLOP accounting and the lock-step serve_batch
+
+
+def _accounting(perf, sweep, config, batch):
+    return (perf.layer_matmul_params(config), perf.fwd_attn_flops(config, batch),
+            perf.train_step_flops(config, batch), sweep.hardware_flops(config, batch))
+
+
+@pytest.mark.parametrize("name", sorted(jmfu.POINTS))
+def test_flop_accounting_equals_jax_for_every_sweep_point(name):
+    """The port's points are JAX's, and every accounting function gives
+    JAX's value exactly (plain arithmetic, no tolerance)."""
+    jp, tp = jmfu.POINTS[name], tmfu.POINTS[name]
+    fields = ("name", "d_model", "n_heads", "n_layers", "d_ff", "vocab", "seq", "batch",
+              "remat")
+    assert [getattr(tp, f) for f in fields] == [getattr(jp, f) for f in fields]
+    assert tmfu.POINTS.keys() == jmfu.POINTS.keys()
+    assert (_accounting(tperf, tmfu, tp.config(), tp.batch)
+            == _accounting(jperf, jmfu, jp.config(), jp.batch))
+
+
+@pytest.mark.parametrize("scale", ["full", "tiny"])
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_flop_accounting_equals_jax_for_both_bench_scales(scale, kv_heads):
+    from dataclasses import replace
+
+    jc = replace(jperf._model_config(jperf.BenchScale.named(scale)), n_kv_heads=kv_heads)
+    tc = replace(tperf._model_config(tperf.BenchScale.named(scale)), n_kv_heads=kv_heads)
+    batch = jperf.BenchScale.named(scale).batch
+    assert (_accounting(tperf, tmfu, tc, batch)
+            == _accounting(jperf, jmfu, jc, batch))
+    assert (_accounting(tperf, tmfu, replace(tc, remat_layers=True), batch)
+            == _accounting(jperf, jmfu, replace(jc, remat_layers=True), batch))
+
+
+def test_serve_batch_matches_jax_float32_live():
+    """Float32 lock-step tokens on the tiny config equal JAX's
+    serve_batch token for token, and both pools give back every page."""
+    jconfig = jmodel.ModelConfig(max_seq_len=64, n_layers=2, dtype=jnp.float32)
+    tconfig = tmodel.ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
+    tree = jax.tree.map(np.asarray, jmodel.init_params(jconfig, jax.random.PRNGKey(0)))
+    prompts = np.random.default_rng(1).integers(0, jconfig.vocab_size, (2, 8))
+    jctrl = jpaged.PagePool(n_pages=32, page_size=4)
+    want, _ = jserve.serve_batch(
+        jax.tree.map(jnp.asarray, tree), jconfig, jnp.asarray(prompts, jnp.int32), 10,
+        jctrl, jpaged.init_page_pools(jconfig, 32, 4))
+    tctrl = tpaged.PagePool(n_pages=32, page_size=4)
+    got, _ = tserve.serve_batch(
+        convert.params_from_jax(tree, device="cpu"), tconfig, torch.as_tensor(prompts), 10,
+        tctrl, tpaged.init_page_pools(tconfig, 32, 4, device="cpu"))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert jctrl.used_pages == 0 and tctrl.used_pages == 0
 
 
 def write_fleet_goldens(path: str = tfleet.FLEET_GOLDEN) -> None:

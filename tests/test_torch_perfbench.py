@@ -5,8 +5,10 @@ break-even, ratio spread, BenchScale) and tests/test_serve_latency.py
 ``run("tiny")`` of the slice's arms.
 
 These check structure and arithmetic, not speed: a CPU timing is not a
-device number.  The training arms' cases (``device_peak_flops``,
-``train_step_flops``, ``mfu_sweep``) wait for the training arms.
+device number.  The training, kernel and engine arms' cases
+(``device_peak_flops``, ``train_step_flops``, ``mfu_sweep``, the kernel
+table, ``serve_batch`` and their own ``run("tiny")``) are in
+tests/test_torch_perfbench_kernels.py.
 """
 
 import time
@@ -219,9 +221,9 @@ def test_pipelined_emission_lag_is_in_ttft(params):
 
 @pytest.fixture(scope="module")
 def tiny_run():
-    """One run of the serving arms; measure_faststart points the
-    process-global kernel-build cache at a fresh directory, which is
-    put back after."""
+    """One run of every arm (the serving arms' keys are checked here);
+    measure_faststart points the process-global kernel-build cache at a
+    fresh directory, which is put back after."""
     import workloads_torch.faststart as faststart
     from workloads_torch.ops import _build
 

@@ -211,9 +211,12 @@ def project_qkv(x: torch.Tensor, layer: dict):
 # Routing thresholds for attention_impl="flash", as in the JAX package:
 # the dense core below the crossover sequence length, unless its
 # [batch, heads, seq, seq] float32 score matrix would pass the cap.  The
-# crossover is a hardware property to be measured per device kind; no
-# H100 row is measured yet, so every kind takes the default.
-_FLASH_MIN_SEQ_BY_KIND: tuple[tuple[str, int], ...] = ()
+# crossover is a hardware property measured per device kind: the
+# smallest swept length from which flash wins at every longer one.
+# NVIDIA H100 80GB HBM3 (SXM), 700 W: 1024, the shortest length
+# docs/bench-torch-latest.json sweeps (flash wins at 1024, 2048 and 4096;
+# ops/kernel_select.py's row).  Other kinds take the default.
+_FLASH_MIN_SEQ_BY_KIND: tuple[tuple[str, int], ...] = (("h100 80gb hbm3", 1024),)
 _FLASH_MIN_SEQ_DEFAULT = 2048
 _DENSE_SCORE_BYTES_CAP = 256 << 20
 

@@ -6,10 +6,13 @@ per-(sequence-bucket) dispatch table of measured winners, with three
 layers of precedence:
 
   1. an injected override (``set_kernel_table``, e.g. from
-     ``table_from_measurements`` over a fresh flash-vs-dense sweep);
+     ``table_from_measurements`` over a fresh flash-vs-dense sweep
+     (``perfbench.measure_flash_vs_xla``), or the committed artifact's
+     ``kernel_pick_seq*`` fields through ``table_from_artifact``);
   2. per-device-kind measured defaults (``_MEASURED_PICKS``, keyed by a
-     substring of ``torch.cuda.get_device_name``).  It starts empty: no
-     H100 sweep has been measured yet, and no TPU row carries over;
+     substring of the lower-cased ``torch.cuda.get_device_name``): the
+     H100 SXM's row, from the committed artifact; no TPU row carries
+     over, and a card not measured skips this layer rather than guess;
   3. the single-crossover fallback: the caller passes
      ``model.flash_min_seq()``'s value.
 
@@ -25,7 +28,16 @@ import torch
 IMPLS = ("flash", "xla")
 
 # Measured per-device-kind winners: (device-name marker, ((bucket, impl), ...)).
-_MEASURED_PICKS: tuple[tuple[str, tuple[tuple[int, str], ...]], ...] = ()
+# NVIDIA H100 80GB HBM3 (SXM) at a 700 W power limit: the kernel_pick_seq*
+# fields of docs/bench-torch-latest.json (perfbench.measure_flash_vs_xla,
+# fwd+bwd at batch 1, 8 heads, head_dim 128, bf16; flash K2-K4 against
+# the dense masked core, both as CUDA-graph chains), which flash wins at
+# every swept length.  Re-measure with
+# `python -m workloads_torch.perfbench --scale full` and read the table
+# back with table_from_artifact.
+_MEASURED_PICKS: tuple[tuple[str, tuple[tuple[int, str], ...]], ...] = (
+    ("h100 80gb hbm3", ((1024, "flash"), (2048, "flash"), (4096, "flash"))),
+)
 
 _override: tuple[tuple[int, str], ...] | None = None
 
@@ -93,3 +105,17 @@ def table_from_measurements(speedups: dict[int, float]) -> dict[int, str]:
         int(seq): ("flash" if ratio >= 1.0 else "xla")
         for seq, ratio in speedups.items()
     }
+
+
+def table_from_artifact(artifact: dict) -> dict[int, str] | None:
+    """Rebuild the dispatch table from a committed bench artifact's
+    ``kernel_pick_seq{N}`` fields (None when the artifact predates
+    them) — the 'measured once' injection path for serving hosts."""
+    picks = {}
+    for key, val in artifact.items():
+        if key.startswith("kernel_pick_seq") and val in IMPLS:
+            try:
+                picks[int(key[len("kernel_pick_seq"):])] = val
+            except ValueError:
+                continue
+    return picks or None

@@ -110,12 +110,14 @@ from .paged import (
     copy_page,
     init_page_pools,
     paged_decode_chunk,
+    paged_decode_step,
     paged_decode_superstep,
     paged_prefill,
     paged_prefill_chunk,
     paged_spec_superstep,
     paged_spec_superstep_chained,
     read_pages,
+    table_array,
     write_page,
 )
 from .quant import quantize_params
@@ -3015,6 +3017,67 @@ class ServeEngine:
             if self._paused:
                 time.sleep(0.001)
         return out
+
+
+@torch.inference_mode()
+def serve_batch(
+    params: dict,
+    config: ModelConfig,
+    prompts: torch.Tensor,
+    max_new_tokens: int,
+    ctrl: PagePool,
+    pools: tuple[torch.Tensor, torch.Tensor],
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    generator: torch.Generator | None = None,
+):
+    """LOCKSTEP baseline: one admission batch through the paged cache —
+    prefill as a single block forward, then per-token decode steps
+    (``paged_decode_step``, eager); pages are allocated on demand and
+    released when the whole batch retires, also when a step raises.
+    ``prompts`` [batch, P] lie on the pools' device; sampling draws from
+    ``generator`` (the JAX package's ``rng``).  Returns (tokens [batch,
+    max_new_tokens] int64, pools), the pools updated in place."""
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 requires a torch.Generator")
+    device = pools[0].device
+    sampler = generator if temperature > 0.0 else None
+    prompts = torch.as_tensor(prompts, device=device).long()
+    batch, prompt_len = prompts.shape
+    total = prompt_len + max_new_tokens
+    max_pages = ctrl.pages_needed(total)
+    for b in range(batch):
+        ctrl.allocate(("serve", b), prompt_len)
+    try:
+        tables = table_array(
+            [ctrl.tables[("serve", b)] for b in range(batch)], max_pages,
+            fill=ctrl.trash, device=device,
+        )
+        lengths = torch.full((batch,), prompt_len, dtype=torch.int32, device=device)
+        logits, pools = paged_prefill(
+            params, pools, tables, prompts, lengths, config
+        )
+        tok = sample_logits(logits, sampler, temperature, top_k, top_p)
+        out = [tok]
+        for step in range(1, max_new_tokens):
+            pos = prompt_len + step - 1
+            for b in range(batch):
+                ctrl.extend(("serve", b), pos + 1)
+            tables = table_array(
+                [ctrl.tables[("serve", b)] for b in range(batch)], max_pages,
+                fill=ctrl.trash, device=device,
+            )
+            logits, pools = paged_decode_step(
+                params, pools, tables, tok, pos, config
+            )
+            tok = sample_logits(logits, sampler, temperature, top_k, top_p)
+            out.append(tok)
+    finally:
+        for b in range(batch):
+            if ("serve", b) in ctrl.tables:
+                ctrl.release(("serve", b))
+    return torch.stack(out, dim=1), pools
 
 
 class _RecorderDriver:

@@ -96,7 +96,7 @@ Phases, each of which fails the run loudly:
    the exposition and the merged trace well formed, event kinds in
    order; tokens/s against phase 4's drain, TTFT, router ms a step, the
    observers' overhead, failover, respawn and handoff times, replayed
-   tokens and peak memory printed;
+   tokens and each arm's peak memory printed;
 4g. device-time profiling and fast start at the same width
    (``profiling_phase``, ``chip_smoke.PROFILE``): (a) float32 drains
    observed with a ``DeviceTimeTable`` and a live ``SentryFeed`` and
@@ -120,6 +120,15 @@ Phases, each of which fails the run loudly:
    streams it compares equal and publishing its keys, then
    ``serve.serve_batch``'s float32 lock-step tokens against
    ``generate`` (K1 n_layers a step, no page kept);
+4i. perfbench's seven fleet arms at the ``tiny`` scale
+   (``bench_fleet_phase``): fleet throughput, the router's tax and
+   failover, disaggregation, self-healing, autoscaling and preemption,
+   KV-page scheduling, durable sessions and goodput control, every
+   replica a ``ServeEngine`` on the one card; each arm's keys
+   (``BENCH_FLEET_KEYS``), JAX's value checks and every compared stream
+   whole (``tiny`` computes in float32; ``bench_fleet_gates``), K1
+   launched and no flash kernel, each arm's seconds and peak device
+   memory printed;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -2222,6 +2231,15 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
 
+    peaks = {}
+
+    def arm_peak(label):
+        """Print the arm's peak device memory and start the next arm's."""
+        if cuda:
+            peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+            print(f"  fleet {label}: peak device memory {peaks[label]:.2f} GiB", flush=True)
+            torch.cuda.reset_peak_memory_stats()
+
     total = 0
 
     # (h) and (a): the observed fleet; two SSE requests are its warm-up and
@@ -2375,6 +2393,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
           f"processes", flush=True)
     close(fleet)
     del fleet, observers, fobs, ledgers, registry
+    arm_peak("(h) and (a)")
 
     # (a'): the same fleet and stream without observers or ledgers.
     fleet = make_fleet(params, cfg16, n, engine_kw=base, chip_ids=chip_ids, device=device,
@@ -2406,6 +2425,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
           flush=True)
     close(fleet)
     del fleet
+    arm_peak("(a')")
     print(f"  card note: {n} replicas share one card and step one after another; the "
           f"fleet adds routing, failover and control here, not throughput", flush=True)
 
@@ -2434,6 +2454,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
               f"ms, requeues {fleet.failover_requeues}, tokens replayed "
               f"{fleet.tokens_replayed}", flush=True)
         close(fleet)
+        arm_peak(label)
         return out, launches
 
     def arm_c(weights, cfg, reqs, label):
@@ -2469,6 +2490,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
               f"{window:.1f} ms (ticket to adoption), decode pages in "
               f"{fleet.replicas[1].engine.kv_handoff_pages_in}", flush=True)
         close(fleet)
+        arm_peak(label)
         return out, launches, tps
 
     def arm_d(weights, cfg, reqs, label, oracle_probe):
@@ -2503,6 +2525,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
               f"{oracle}, rejoin; {wall:.3f} s, respawn to rejoin {sup.restore_ms} ms, "
               f"events {kinds}", flush=True)
         close(fleet)
+        arm_peak(label)
         return out, launches
 
     def arm_g(weights, cfg, reqs, label):
@@ -2535,6 +2558,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
               f"live sessions, restored {restored}, replayed {fresh.tokens_replayed} "
               f"tokens, finished in {wall:.3f} s", flush=True)
         close(fresh)
+        arm_peak(label)
         return out, launches
 
     _, launches = arm_b(params, cfg16, long_reqs, "(b)")
@@ -2579,6 +2603,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
           f"ups {asc.scale_ups} downs {asc.scale_downs}, rejected {len(rejected)}, "
           f"recover {asc.recover_ms} ms, events {kinds}", flush=True)
     close(fleet)
+    arm_peak("(e)")
 
     # (f) the goodput controller retunes superstep_k away from dead lanes.
     fleet = make_fleet(params, cfg16, n, engine_kw=dict(base, superstep_k=4),
@@ -2604,6 +2629,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
           f"4 -> {ks}, graph captures {caps}, {wall:.3f} s, events "
           f"{[e.kind for e in ctrl.events]}", flush=True)
     close(fleet)
+    arm_peak("(f)")
 
     _, launches = arm_g(params, cfg16, long_reqs[:8], "(g)")
     total += launches
@@ -2644,6 +2670,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
     total += settle("(i a)", fleet, stats, built)
     hold("(i a)", [list(fleet._reqs[r].tokens) for r in rids])
     close(fleet)
+    arm_peak("(i a)")
     for arm, label in ((arm_b, "(i b)"), (arm_g, "(i g)")):
         streams, launches = arm(w32, cfg32, reqs32, label)
         hold(label, streams)
@@ -2660,9 +2687,9 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
     import shutil
 
     shutil.rmtree(work, ignore_errors=True)
-    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    peak = max(peaks.values(), default=0.0)
     print(f"  fleet phase: {time.perf_counter() - t_phase:.1f} s, K1 launches {total}, "
-          f"peak memory {peak:.2f} GiB", flush=True)
+          f"peak memory {peak:.2f} GiB (the largest arm's)", flush=True)
     return total
 
 
@@ -3320,6 +3347,121 @@ def bench_engine_phase(torch, pb, counters, scale_name="tiny", device="cuda",
              f"{config.n_layers * 9}) and {launches['paged_attention']} over the phase")
     if any(launches[name] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
         fail(f"the engine arms launched a flash kernel: {launches}")
+    return launches
+
+
+# Phase 4i: perfbench's fleet arms and the keys each must publish: JAX's
+# tests/test_perfbench.py's (fleet, self-healing, KV-page scheduling), the
+# keys of the arms that test leaves out, and the port's counts of the
+# streams a replay kept whole.
+BENCH_FLEET_KEYS = {
+    "measure_fleet": (
+        "fleet_replicas", "fleet_tokens_per_sec", "fleet_ttft_p50_ms", "fleet_ttft_p99_ms",
+        "router_overhead_ms", "router_overhead_ms_min", "router_overhead_ms_max",
+        "failover_recovery_ms", "failover_recovery_ms_min", "failover_recovery_ms_max",
+        "failover_requeued", "failover_replay_streams_equal", "failover_replay_streams",
+        "fleet_trace_overhead_pct", "fleet_slo_attainment_interactive",
+        "fleet_slo_attainment_bulk"),
+    "measure_disagg": (
+        "disagg_handoffs", "disagg_handoff_pages", "disagg_handoff_ms",
+        "disagg_vs_mixed_tokens_per_sec", "disagg_vs_mixed_tokens_per_sec_min",
+        "disagg_vs_mixed_tokens_per_sec_max", "disagg_schedule_stats",
+        "disagg_streams_equal"),
+    "measure_selfheal": (
+        "selfheal_restore_ms", "selfheal_restore_ms_min", "selfheal_restore_ms_max",
+        "selfheal_capacity_recovered", "selfheal_goodput_retained", "selfheal_crash_loops",
+        "selfheal_replay_streams_equal", "selfheal_replay_streams",
+        "replica_restore_cold_ms", "replica_restore_warm_ms"),
+    "measure_autoscale": (
+        "autoscale_calm_rps", "autoscale_service_rps", "autoscale_scale_ups",
+        "autoscale_scale_downs", "autoscale_scaled_back", "autoscale_recover_slo_ms",
+        "autoscale_overprovision_chip_s", "autoscale_preempts",
+        "autoscale_preempt_resume_ms", "autoscale_preempt_streams_equal"),
+    "measure_kv_sched": (
+        "kvsched_vs_replica_tokens_per_sec", "kvsched_vs_replica_tokens_per_sec_min",
+        "kvsched_vs_replica_tokens_per_sec_max", "kvsched_busy_fraction",
+        "kvsched_goodput_fraction", "kvsched_page_waste_pct", "kvsched_page_dispatches",
+        "kvsched_offload_spills"),
+    "measure_durability": (
+        "durable_restore_ms", "durable_restore_ms_samples", "kv_disk_reload_ms",
+        "kv_disk_reload_ms_samples", "durable_sessions_per_hbm_page",
+        "durable_off_tokens_per_sec", "durable_replay_streams_equal"),
+    "measure_goodput_ctrl": (
+        "ctrl_vs_static_tokens_per_sec", "ctrl_vs_static_tokens_per_sec_samples",
+        "ctrl_goodput_fraction", "ctrl_static_goodput_fraction", "ctrl_retunes_applied",
+        "ctrl_overhead_pct", "ctrl_streams_equal"),
+}
+
+
+def bench_fleet_gates(got: dict) -> list[str]:
+    """JAX's value assertions over the fleet arms' keys (its
+    tests/test_perfbench.py), and the counts every arm that compares
+    streams must report whole at the tiny scale, which computes in
+    float32; returns the ones that fail."""
+    checks = {
+        "fleet_replicas == 4": got["fleet_replicas"] == 4,
+        "fleet_tokens_per_sec > 0": got["fleet_tokens_per_sec"] > 0,
+        "failover_recovery_ms > 0": got["failover_recovery_ms"] > 0,
+        "failover_requeued >= 1": got["failover_requeued"] >= 1,
+        "selfheal_restore_ms > 0": got["selfheal_restore_ms"] > 0,
+        "selfheal_capacity_recovered == 1.0": got["selfheal_capacity_recovered"] == 1.0,
+        "selfheal_goodput_retained == 1.0": got["selfheal_goodput_retained"] == 1.0,
+        "selfheal_crash_loops == 1": got["selfheal_crash_loops"] == 1,
+        "replica_restore_warm_ms > 0": got["replica_restore_warm_ms"] > 0,
+        "replica_restore_cold_ms > 0": got["replica_restore_cold_ms"] > 0,
+        "0 < kvsched_busy_fraction <= 1": 0.0 < got["kvsched_busy_fraction"] <= 1.0,
+        "0 < kvsched_goodput_fraction <= 1": 0.0 < got["kvsched_goodput_fraction"] <= 1.0,
+        "kvsched_page_dispatches > 0": got["kvsched_page_dispatches"] > 0,
+        "kvsched_offload_spills >= 1": got["kvsched_offload_spills"] >= 1,
+        "0 <= kvsched_page_waste_pct <= 100": 0.0 <= got["kvsched_page_waste_pct"] <= 100.0,
+        "disagg_handoffs >= 1": got["disagg_handoffs"] >= 1,
+        "autoscale_preempts >= 1": got["autoscale_preempts"] >= 1,
+    }
+    for equal, total in (("failover_replay_streams_equal", "failover_replay_streams"),
+                         ("disagg_streams_equal", "disagg_streams"),
+                         ("selfheal_replay_streams_equal", "selfheal_replay_streams"),
+                         ("autoscale_preempt_streams_equal", "autoscale_preempt_streams"),
+                         ("durable_replay_streams_equal", "durable_replay_streams"),
+                         ("ctrl_streams_equal", "ctrl_streams")):
+        checks[f"{equal} == {total}"] = got[equal] == got[total]
+    return [name for name, ok in checks.items() if not ok]
+
+
+def bench_fleet_phase(torch, pb, counters, scale_name="tiny", device="cuda",
+                      arms=tuple(BENCH_FLEET_KEYS)) -> dict:
+    """Phase 4i: perfbench's seven fleet arms at ``scale_name`` on
+    ``device``, each holding the streams it compares (``tiny`` computes
+    in float32, so every stream whole), each arm's seconds and peak
+    device memory printed.  Gates: every arm's keys, JAX's value
+    assertions (``bench_fleet_gates``), K1 launched and no flash kernel.
+    Returns the launch counts over the phase."""
+    cuda = device == "cuda"
+    scale = pb.BenchScale.named(scale_name)
+    reset_counts(counters)
+    out: dict = {}
+    for name in arms:
+        got, secs, peak = pb._timed_arm(getattr(pb, name), scale, torch.device(device))
+        missing = [key for key in BENCH_FLEET_KEYS[name] if key not in got]
+        if missing:
+            fail(f"perfbench {name} at the {scale_name} scale did not publish {missing}")
+        mem = f"{peak:.2f} GiB" if peak is not None else "not measured (no card)"
+        print(f"  {name} ({secs:.1f} s, peak device memory {mem}): "
+              + ", ".join(f"{key} {got[key]}" for key in BENCH_FLEET_KEYS[name]),
+              flush=True)
+        out.update(got)
+    if set(arms) == set(BENCH_FLEET_KEYS):
+        failed = bench_fleet_gates(out)
+        if failed:
+            fail(f"perfbench's fleet arms at the {scale_name} scale: {failed}")
+        print("  JAX's value assertions and the whole-stream counts hold", flush=True)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = read_counts(counters)
+    print(f"  launches over the phase: {launches}", flush=True)
+    if cuda and launches["paged_attention"] <= 0:
+        fail(f"the fleet arms launched no K1: {launches}")
+    if any(launches[name] for name in FLASH_KERNELS):
+        fail(f"the fleet arms launched a flash kernel: {launches}")
     return launches
 
 
@@ -4054,6 +4196,14 @@ def main() -> int:
     print(f"  perfbench engine arms: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{bench_engine_launches}; card: {card}", flush=True)
 
+    # 4i. perfbench's fleet arms, at the tiny scale
+    phase("serving path: perfbench's fleet, disaggregation, self-healing, autoscaling, "
+          "KV-page scheduling, durability and goodput-control arms (tiny)")
+    t0 = time.perf_counter()
+    bench_fleet_launches = bench_fleet_phase(torch, pb, counters)["paged_attention"]
+    print(f"  perfbench fleet arms: {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{bench_fleet_launches}; card: {card}", flush=True)
+
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
     phase("numbers")
@@ -4158,7 +4308,8 @@ def main() -> int:
         "source": "workloads_torch/ops/csrc/paged_attention.cu",
         "replaces": "workloads/ops/paged_attention.py:56",
         "launches": launches + lifecycle_launches + kv_launches + spec_launches
-        + lora_launches + fleet_launches + profiling_launches + bench_engine_launches,
+        + lora_launches + fleet_launches + profiling_launches + bench_engine_launches
+        + bench_fleet_launches,
         "lifecycle_launches": lifecycle_launches,
         "kv_launches": kv_launches,
         "spec_launches": spec_launches,
@@ -4166,6 +4317,7 @@ def main() -> int:
         "fleet_launches": fleet_launches,
         "profiling_launches": profiling_launches,
         "bench_engine_launches": bench_engine_launches,
+        "bench_fleet_launches": bench_fleet_launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -222,3 +222,51 @@ def test_bench_phases_rehearse_on_the_cpu(capsys):
     assert "measure_kv_hierarchy (" in out and "kv_offload_reload_ms" in out
     assert "serve_batch float32, 2 rows x 10 tokens: equal to generate True" in out
     assert set(launches) == {"paged_attention", *chip_smoke.FLASH_KERNELS}
+
+
+def test_bench_fleet_phase_rehearses_on_the_cpu(capsys):
+    """Phase 4i at the tiny scale on the plain route, every CPU gate
+    included: each fleet arm's keys, JAX's value assertions over them
+    and every compared stream whole (tiny computes in float32)."""
+    import torch
+
+    from workloads_torch import perfbench as pb
+    from workloads_torch.ops import attention as fa
+    from workloads_torch.ops import paged_attention as pa
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.bench_fleet_phase(
+            torch, pb, chip_smoke.kernel_counters(pa, fa), device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    for name in chip_smoke.BENCH_FLEET_KEYS:
+        assert f"  {name} (" in out, name
+    assert "peak device memory not measured (no card)" in out
+    assert "JAX's value assertions and the whole-stream counts hold" in out
+    assert set(launches) == {"paged_attention", *chip_smoke.FLASH_KERNELS}
+
+
+def test_bench_fleet_gates_name_what_fails():
+    good = {
+        "fleet_replicas": 4, "fleet_tokens_per_sec": 1.0, "failover_recovery_ms": 1.0,
+        "failover_requeued": 6, "selfheal_restore_ms": 1.0,
+        "selfheal_capacity_recovered": 1.0, "selfheal_goodput_retained": 1.0,
+        "selfheal_crash_loops": 1, "replica_restore_warm_ms": 1.0,
+        "replica_restore_cold_ms": 1.0, "kvsched_busy_fraction": 0.9,
+        "kvsched_goodput_fraction": 1.0, "kvsched_page_dispatches": 42,
+        "kvsched_offload_spills": 3, "kvsched_page_waste_pct": 42.35, "disagg_handoffs": 8,
+        "autoscale_preempts": 2, "failover_replay_streams_equal": 24,
+        "failover_replay_streams": 24, "disagg_streams_equal": 16, "disagg_streams": 16,
+        "selfheal_replay_streams_equal": 24,
+        "selfheal_replay_streams": 24, "autoscale_preempt_streams_equal": 8,
+        "autoscale_preempt_streams": 8, "durable_replay_streams_equal": 12,
+        "durable_replay_streams": 12, "ctrl_streams_equal": 24, "ctrl_streams": 24,
+    }
+    assert chip_smoke.bench_fleet_gates(good) == []
+    bad = dict(good, fleet_replicas=3, selfheal_crash_loops=0, ctrl_streams_equal=23)
+    assert chip_smoke.bench_fleet_gates(bad) == [
+        "fleet_replicas == 4", "selfheal_crash_loops == 1",
+        "ctrl_streams_equal == ctrl_streams"]

@@ -15,13 +15,15 @@ and tests/test_torch_kv_hierarchy.py (the KV-cache hierarchy) against
 tests/test_torch_kv_golden.npz, and tests/test_torch_spec.py (speculative
 decoding) against tests/test_torch_spec_golden.npz, and
 tests/test_torch_lora.py (multi-LoRA serving and the LoRA fine-tune step)
-against tests/test_torch_lora_golden.npz, and tests/test_torch_fleet.py
-(the fleet and its control plane) against tests/test_torch_fleet_golden.npz;
+against tests/test_torch_lora_golden.npz, tests/test_torch_fleet.py
+(the fleet and its control plane) against tests/test_torch_fleet_golden.npz,
+and tests/test_torch_perfbench_fleet.py (perfbench's fleet arms) against
+tests/test_torch_perfbench_fleet_golden.json;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the seven fixtures from the JAX package (``write_fleet_goldens()``
-alone rewrites only the last).
+regenerates the eight fixtures from the JAX package (``write_fleet_goldens()``
+or ``write_perfbench_fleet_goldens()`` alone rewrites only its own).
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ from tests.test_torch_kv_hierarchy import golden_runs as kv_golden_runs  # noqa:
 from tests.test_torch_kv_hierarchy import run_kv_scenario  # noqa: E402
 from tests import test_torch_lora as tlora  # noqa: E402
 from tests import test_torch_fleet as tfleet  # noqa: E402
+from tests import test_torch_perfbench_fleet as tpbf  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
     LIFECYCLE_GOLDEN,
     golden_runs,
@@ -856,6 +859,33 @@ def test_serve_batch_matches_jax_float32_live():
     assert jctrl.used_pages == 0 and tctrl.used_pages == 0
 
 
+def jax_perfbench_fleet_fields(name: str) -> dict:
+    """The fields of one of JAX's fleet arms at the tiny scale that its
+    schedule alone fixes (tests/test_torch_perfbench_fleet.py)."""
+    out = getattr(jperf, name)(jperf.BenchScale.named("tiny"))
+    return {k: out[k] for k in tpbf.GOLDEN_FIELDS[name]}
+
+
+@pytest.mark.parametrize("name", sorted(tpbf.GOLDEN_FIELDS))
+def test_perfbench_fleet_fields_match_jax_live(name):
+    """The port's fleet arm at the tiny scale against JAX's, live, on
+    the fields its schedule fixes."""
+    got = getattr(tperf, name)(tperf.BenchScale.named("tiny"), "cpu")
+    assert {k: got[k] for k in tpbf.GOLDEN_FIELDS[name]} == jax_perfbench_fleet_fields(name)
+
+
+def write_perfbench_fleet_goldens(path: str = tpbf.FLEET_GOLDEN) -> None:
+    """Freeze the schedule-fixed fields of JAX's fleet arms at the tiny
+    scale for tests/test_torch_perfbench_fleet.py."""
+    import json
+
+    fields = {name: jax_perfbench_fleet_fields(name) for name in sorted(tpbf.GOLDEN_FIELDS)}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(fields, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(fields)} arms")
+
+
 def write_fleet_goldens(path: str = tfleet.FLEET_GOLDEN) -> None:
     """Freeze the JAX fleet's scripted runs for tests/test_torch_fleet.py
     (streams, statuses, attempts, counters, event kinds, journal
@@ -1000,3 +1030,4 @@ if __name__ == "__main__":
     write_spec_goldens()
     write_lora_goldens()
     write_fleet_goldens()
+    write_perfbench_fleet_goldens()

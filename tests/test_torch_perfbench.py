@@ -1,14 +1,18 @@
 """The serving half of workloads_torch/perfbench.py on the CPU, ported
 from the JAX package's tests/test_perfbench.py (the harness: slope,
 break-even, ratio spread, BenchScale) and tests/test_serve_latency.py
-(the engine's latency stamps and the latency arm), plus one
-``run("tiny")`` of the slice's arms.
+(the engine's latency stamps and the latency arm), plus the one
+``run("tiny")`` of every arm that the bench's tests share: the serving
+keys, JAX's end-to-end keys and bounds, the kernel picks, the engine
+arms, the fleet keys JAX's test asserts at its values, and the pooled
+spreads.  The run is its own module so that ``--dist loadfile`` gives
+it a worker of its own.
 
 These check structure and arithmetic, not speed: a CPU timing is not a
-device number.  The training, kernel and engine arms' cases
+device number.  The training, kernel and engine arms' unit cases
 (``device_peak_flops``, ``train_step_flops``, ``mfu_sweep``, the kernel
-table, ``serve_batch`` and their own ``run("tiny")``) are in
-tests/test_torch_perfbench_kernels.py.
+table, ``serve_batch``) are in tests/test_torch_perfbench_kernels.py,
+the fleet arms one by one in tests/test_torch_perfbench_fleet.py.
 """
 
 import time
@@ -19,6 +23,7 @@ import torch
 from tests.test_torch_superstep import one_torch_thread  # noqa: F401
 from workloads_torch.generate import generate
 from workloads_torch.model import ModelConfig, init_params
+from workloads_torch.ops import kernel_select as ks
 from workloads_torch.perfbench import (
     BenchScale,
     _pctl,
@@ -219,6 +224,15 @@ def test_pipelined_emission_lag_is_in_ttft(params):
 # ==== one run("tiny") of the slice's arms
 
 
+# A prior artifact's persisted samples, which run() pools with its own.
+PRIOR = {
+    "superstep_tokens_per_sec_samples": [1.0, 2.0],
+    "durable_restore_ms_samples": [0.001, 1e6],
+    "kv_disk_reload_ms_samples": [0.002, 2e6],
+    "ctrl_vs_static_tokens_per_sec_samples": [0.003, 3e6],
+}
+
+
 @pytest.fixture(scope="module")
 def tiny_run():
     """One run of every arm (the serving arms' keys are checked here);
@@ -229,8 +243,7 @@ def tiny_run():
 
     build_dir, cache_dir = _build.BUILD_DIR, faststart._cache_dir
     try:
-        yield run("tiny", pool_with={"superstep_tokens_per_sec_samples": [1.0, 2.0]},
-                  device="cpu")
+        yield run("tiny", pool_with=PRIOR, device="cpu")
     finally:
         _build.set_build_dir(build_dir)
         faststart._cache_dir = cache_dir
@@ -278,3 +291,171 @@ def test_run_tiny_fast_start_skipped_calibration(tiny_run):
     assert tiny_run["ledger_quarantines"] >= 1
     assert tiny_run["admission_dispatches_per_request"] < (
         tiny_run["admission_dispatches_per_request_serial"])
+
+
+def test_run_tiny_pools_the_fleet_arms_samples(tiny_run):
+    """run() pools durable_restore_ms, kv_disk_reload_ms and
+    ctrl_vs_static_tokens_per_sec with the prior artifact's samples, as
+    JAX's does."""
+    for key in ("durable_restore_ms", "kv_disk_reload_ms", "ctrl_vs_static_tokens_per_sec"):
+        samples = tiny_run[f"{key}_samples"]
+        assert len(samples) == 3, key
+        assert tiny_run[f"{key}_spread_scope"] == "pooled-cross-run"
+        assert tiny_run[f"{key}_min"] == min(samples + PRIOR[f"{key}_samples"])
+        assert tiny_run[f"{key}_max"] == max(samples + PRIOR[f"{key}_samples"])
+
+
+def test_run_tiny_publishes_every_fleet_key_jax_asserts(tiny_run):
+    """The fleet, self-healing and KV-page scheduling keys of JAX's
+    tests/test_perfbench.py, at the values it asserts."""
+    want = {
+        "fleet_replicas", "fleet_tokens_per_sec", "fleet_ttft_p50_ms", "fleet_ttft_p99_ms",
+        "router_overhead_ms", "router_overhead_ms_min", "router_overhead_ms_max",
+        "failover_recovery_ms", "failover_recovery_ms_min", "failover_recovery_ms_max",
+        "selfheal_restore_ms", "selfheal_restore_ms_min", "selfheal_restore_ms_max",
+        "selfheal_capacity_recovered", "selfheal_goodput_retained", "selfheal_crash_loops",
+        "replica_restore_cold_ms", "replica_restore_warm_ms",
+        "kvsched_vs_replica_tokens_per_sec", "kvsched_vs_replica_tokens_per_sec_min",
+        "kvsched_vs_replica_tokens_per_sec_max", "kvsched_busy_fraction",
+        "kvsched_goodput_fraction", "kvsched_page_waste_pct", "kvsched_page_dispatches",
+        "kvsched_offload_spills",
+    }
+    assert want <= set(tiny_run), sorted(want - set(tiny_run))
+    assert 0.0 < tiny_run["kvsched_busy_fraction"] <= 1.0
+    assert 0.0 < tiny_run["kvsched_goodput_fraction"] <= 1.0
+    assert tiny_run["kvsched_page_dispatches"] > 0
+    assert tiny_run["kvsched_offload_spills"] >= 1
+    assert 0.0 <= tiny_run["kvsched_page_waste_pct"] <= 100.0
+    assert tiny_run["fleet_replicas"] == 4
+    assert tiny_run["fleet_tokens_per_sec"] > 0
+    assert tiny_run["failover_recovery_ms"] > 0
+    assert tiny_run["failover_requeued"] >= 1
+    assert tiny_run["selfheal_restore_ms"] > 0
+    assert tiny_run["selfheal_capacity_recovered"] == 1.0
+    assert tiny_run["selfheal_goodput_retained"] == 1.0
+    assert tiny_run["selfheal_crash_loops"] == 1
+    assert tiny_run["replica_restore_warm_ms"] > 0
+    assert tiny_run["replica_restore_cold_ms"] > 0
+
+
+# ==== the training, kernel and engine arms' keys on the same run
+# (tests/test_perfbench.py)
+
+
+def test_perfbench_tiny_end_to_end(tiny_run):
+    """Every key of JAX's end-to-end test that this slice publishes, and
+    its sanity bounds (values are CPU noise)."""
+    out = tiny_run
+    for key in (
+        "train_step_ms",
+        "train_tokens_per_sec",
+        "mfu",
+        "flash_vs_xla_speedup",
+        "flash_vs_xla_detail",
+        "decode_ms_per_token",
+        "decode_tokens_per_sec",
+        "paged_decode_tokens_per_sec",
+        "paged_vs_contiguous_decode",
+        "serve_tokens_per_sec",
+        "serve_requests_per_sec",
+        "serve_pool_peak_fraction",
+        "superstep_best_k",
+        "superstep_tokens_per_sec",
+        "superstep_tokens_per_sec_k1",
+        "superstep_tokens_per_sec_k8",
+        "superstep_speedup",
+        "superstep_overdecode_pct",
+        "decode_host_sync_ms",
+        "superstep_tokens_per_sec_samples",
+        "superstep_tokens_per_sec_min",
+        "superstep_tokens_per_sec_max",
+        "obs_overhead_pct",
+        "obs_on_tokens_per_sec",
+        "obs_off_tokens_per_sec",
+        "spec_breakeven_batch",
+        "spec_phase_dominant",
+        "spec_phase_tokens_per_round",
+        "spec_draft_ms_b1",
+        "spec_verify_ms_b1",
+        "spec_commit_ms_b1",
+        "spec_phase_ratio_b1",
+        "spec_engine_vs_plain_b1",
+        "spec_engine_vs_plain_b4",
+        "spec_engine_best_k",
+        "kv_multiturn_speedup",
+        "kv_radix_vs_flat_hit_ratio",
+        "kv_flat_hit_pages",
+        "kv_radix_hit_pages",
+        "kv_oversub_pool_pages",
+        "kv_oversub_live_pages",
+        "kv_offload_spills",
+        "kv_offload_reloads",
+        "kv_resident_pages_saved",
+        "paged_vs_contiguous_decode_samples",
+        "paged_vs_contiguous_decode_min",
+        "decode_int8_speedup_samples",
+        "flash_vs_xla_speedup_samples",
+        "flash_window_speedup_samples",
+    ):
+        assert key in out, key
+    assert 0.0 < out["serve_pool_peak_fraction"] <= 1.0
+    # KV hierarchy: the tiny trace oversubscribes its pool, the offload
+    # tier runs both directions (streams checked inside the arm), and
+    # the tree never hits fewer pages than the flat index.
+    assert out["kv_oversub_live_pages"] > out["kv_oversub_pool_pages"]
+    assert out["kv_offload_spills"] >= 1
+    assert out["kv_offload_reloads"] >= 1
+    assert out["kv_offload_reload_ms"] > 0
+    assert out["kv_radix_hit_pages"] >= out["kv_flat_hit_pages"]
+    assert out["spec_phase_dominant"] in ("draft", "verify", "commit")
+    assert out["spec_breakeven_batch"] >= 0.0
+    assert out["superstep_best_k"] in out["superstep_ks"]
+    assert out["superstep_tokens_per_sec"] > 0
+    assert out["decode_host_sync_ms"] >= 0
+    assert 0.0 <= out["superstep_overdecode_pct"] < 100.0
+    for b in out["spec_phase_batches"]:
+        assert f"spec_verify_ms_b{b}" in out
+    # No spread pooling source passed -> within-run scope.
+    assert out["paged_vs_contiguous_decode_spread_scope"] == "within-run"
+    assert (
+        out["paged_vs_contiguous_decode_min"] - 0.001
+        <= out["paged_vs_contiguous_decode"]
+        <= out["paged_vs_contiguous_decode_max"] + 0.001
+    )
+    assert out["mfu"] is None  # the CPU has no peak: omitted, not guessed
+    assert out["train_step_ms"] >= 0
+    assert set(out["flash_vs_xla_detail"]) == {"128"}
+    assert out["device_name"] == "cpu"
+
+
+def test_run_tiny_publishes_the_kernel_picks(tiny_run):
+    """One kernel_pick_seq a swept length, the table the speedup gives,
+    and table_from_artifact reads it back."""
+    speedup = tiny_run["flash_vs_xla_detail"]["128"]["speedup"]
+    assert tiny_run["kernel_pick_seq128"] == ("flash" if speedup >= 1.0 else "xla")
+    assert ks.table_from_artifact(tiny_run) == {128: tiny_run["kernel_pick_seq128"]}
+    assert tiny_run["flash_vs_xla_seq"] == 128
+    assert tiny_run["window_seq"] == 256 and tiny_run["window_size"] == 128
+
+
+def test_run_tiny_engine_arms(tiny_run):
+    """The fault, speculation, LoRA and prefix arms: their counts, and
+    every ratio inside its own spread."""
+    out = tiny_run
+    assert out["fault_recovery_ms"] > 0
+    assert out["fault_recovery_requeued"] >= 1
+    assert out["fault_requests"] == 4
+    assert out["spec_econ_draft"] == "int8-self"
+    assert 0.0 <= out["spec_acceptance_rate"] <= 1.0
+    assert 1.0 <= out["spec_tokens_per_round"] <= 5.0
+    assert out["spec_engine_best_k"] in BenchScale.named("tiny").spec_engine_ks
+    assert out["spec_superstep_best_k"] in out["spec_superstep_ks"]
+    assert out["spec_superstep_tokens_per_sec_spread_scope"] == "within-run"
+    assert out["multi_lora_adapters"] == 4 and out["multi_lora_rank"] == 16
+    assert 0.0 < out["prefix_prefill_tokens_saved_fraction"] < 1.0
+    assert out["kv_offload_reload_ms_spread_scope"] == "within-run"
+    for key in ("fault_injector_off_overhead_pct", "spec_pipelined_speedup",
+                "spec_lookahead_speedup", "spec_engine_vs_plain_b1",
+                "spec_engine_vs_plain_b4", "multi_lora_relative_throughput",
+                "prefix_serve_speedup", "kv_multiturn_speedup"):
+        assert out[f"{key}_min"] <= out[key] <= out[f"{key}_max"], key

@@ -1,14 +1,15 @@
 """The training, kernel and engine arms of workloads_torch/perfbench.py
 on the CPU, ported from the JAX package's tests/test_perfbench.py (the
-FLOP accounting, the peak table, mfu_sweep's hardware FLOPs and one
-end-to-end ``run("tiny")``), tests/test_workloads.py (the per-bucket
+FLOP accounting, the peak table and mfu_sweep's hardware FLOPs),
+tests/test_workloads.py (the per-bucket
 kernel table) and tests/test_serve.py (the lock-step ``serve_batch``),
 plus the port's own chains: the attention chain and the paged decode
-chunks the bench times.
+chunks the bench times.  The end-to-end ``run("tiny")`` cases are in
+tests/test_torch_perfbench.py, so that one run serves every test that
+reads it.
 
 These check structure and arithmetic, not speed: a CPU timing is not a
-device number.  The run is its own module so that ``--dist loadfile``
-gives it a worker of its own.
+device number.
 """
 
 import json
@@ -34,7 +35,6 @@ from workloads_torch.perfbench import (
     _paged_chunk_runner,
     _rand_qkv,
     device_peak_flops,
-    run,
     train_step_flops,
 )
 from workloads_torch.serve import serve_batch
@@ -313,140 +313,3 @@ def test_paged_chunks_are_the_greedy_stream():
     want = generate(p, prompts, config, max_new_tokens=13, device="cpu")
     assert torch.equal(got, want[:, 1:])
     assert torch.equal(run_chunks(1), want[:, 1:5])  # fresh tables each run
-
-
-# ==== one run("tiny") of the slice's arms (tests/test_perfbench.py)
-
-
-@pytest.fixture(scope="module")
-def tiny_run():
-    """One run of every arm; measure_faststart points the process-global
-    kernel-build cache at a fresh directory, which is put back after."""
-    import workloads_torch.faststart as faststart
-    from workloads_torch.ops import _build
-
-    build_dir, cache_dir = _build.BUILD_DIR, faststart._cache_dir
-    try:
-        yield run("tiny", device="cpu")
-    finally:
-        _build.set_build_dir(build_dir)
-        faststart._cache_dir = cache_dir
-
-
-def test_perfbench_tiny_end_to_end(tiny_run):
-    """Every key of JAX's end-to-end test that this slice publishes, and
-    its sanity bounds (values are CPU noise)."""
-    out = tiny_run
-    for key in (
-        "train_step_ms",
-        "train_tokens_per_sec",
-        "mfu",
-        "flash_vs_xla_speedup",
-        "flash_vs_xla_detail",
-        "decode_ms_per_token",
-        "decode_tokens_per_sec",
-        "paged_decode_tokens_per_sec",
-        "paged_vs_contiguous_decode",
-        "serve_tokens_per_sec",
-        "serve_requests_per_sec",
-        "serve_pool_peak_fraction",
-        "superstep_best_k",
-        "superstep_tokens_per_sec",
-        "superstep_tokens_per_sec_k1",
-        "superstep_tokens_per_sec_k8",
-        "superstep_speedup",
-        "superstep_overdecode_pct",
-        "decode_host_sync_ms",
-        "superstep_tokens_per_sec_samples",
-        "superstep_tokens_per_sec_min",
-        "superstep_tokens_per_sec_max",
-        "obs_overhead_pct",
-        "obs_on_tokens_per_sec",
-        "obs_off_tokens_per_sec",
-        "spec_breakeven_batch",
-        "spec_phase_dominant",
-        "spec_phase_tokens_per_round",
-        "spec_draft_ms_b1",
-        "spec_verify_ms_b1",
-        "spec_commit_ms_b1",
-        "spec_phase_ratio_b1",
-        "spec_engine_vs_plain_b1",
-        "spec_engine_vs_plain_b4",
-        "spec_engine_best_k",
-        "kv_multiturn_speedup",
-        "kv_radix_vs_flat_hit_ratio",
-        "kv_flat_hit_pages",
-        "kv_radix_hit_pages",
-        "kv_oversub_pool_pages",
-        "kv_oversub_live_pages",
-        "kv_offload_spills",
-        "kv_offload_reloads",
-        "kv_resident_pages_saved",
-        "paged_vs_contiguous_decode_samples",
-        "paged_vs_contiguous_decode_min",
-        "decode_int8_speedup_samples",
-        "flash_vs_xla_speedup_samples",
-        "flash_window_speedup_samples",
-    ):
-        assert key in out, key
-    assert 0.0 < out["serve_pool_peak_fraction"] <= 1.0
-    # KV hierarchy: the tiny trace oversubscribes its pool, the offload
-    # tier runs both directions (streams checked inside the arm), and
-    # the tree never hits fewer pages than the flat index.
-    assert out["kv_oversub_live_pages"] > out["kv_oversub_pool_pages"]
-    assert out["kv_offload_spills"] >= 1
-    assert out["kv_offload_reloads"] >= 1
-    assert out["kv_offload_reload_ms"] > 0
-    assert out["kv_radix_hit_pages"] >= out["kv_flat_hit_pages"]
-    assert out["spec_phase_dominant"] in ("draft", "verify", "commit")
-    assert out["spec_breakeven_batch"] >= 0.0
-    assert out["superstep_best_k"] in out["superstep_ks"]
-    assert out["superstep_tokens_per_sec"] > 0
-    assert out["decode_host_sync_ms"] >= 0
-    assert 0.0 <= out["superstep_overdecode_pct"] < 100.0
-    for b in out["spec_phase_batches"]:
-        assert f"spec_verify_ms_b{b}" in out
-    # No spread pooling source passed -> within-run scope.
-    assert out["paged_vs_contiguous_decode_spread_scope"] == "within-run"
-    assert (
-        out["paged_vs_contiguous_decode_min"] - 0.001
-        <= out["paged_vs_contiguous_decode"]
-        <= out["paged_vs_contiguous_decode_max"] + 0.001
-    )
-    assert out["mfu"] is None  # the CPU has no peak: omitted, not guessed
-    assert out["train_step_ms"] >= 0
-    assert set(out["flash_vs_xla_detail"]) == {"128"}
-    assert out["device_name"] == "cpu"
-
-
-def test_run_tiny_publishes_the_kernel_picks(tiny_run):
-    """One kernel_pick_seq a swept length, the table the speedup gives,
-    and table_from_artifact reads it back."""
-    speedup = tiny_run["flash_vs_xla_detail"]["128"]["speedup"]
-    assert tiny_run["kernel_pick_seq128"] == ("flash" if speedup >= 1.0 else "xla")
-    assert ks.table_from_artifact(tiny_run) == {128: tiny_run["kernel_pick_seq128"]}
-    assert tiny_run["flash_vs_xla_seq"] == 128
-    assert tiny_run["window_seq"] == 256 and tiny_run["window_size"] == 128
-
-
-def test_run_tiny_engine_arms(tiny_run):
-    """The fault, speculation, LoRA and prefix arms: their counts, and
-    every ratio inside its own spread."""
-    out = tiny_run
-    assert out["fault_recovery_ms"] > 0
-    assert out["fault_recovery_requeued"] >= 1
-    assert out["fault_requests"] == 4
-    assert out["spec_econ_draft"] == "int8-self"
-    assert 0.0 <= out["spec_acceptance_rate"] <= 1.0
-    assert 1.0 <= out["spec_tokens_per_round"] <= 5.0
-    assert out["spec_engine_best_k"] in BenchScale.named("tiny").spec_engine_ks
-    assert out["spec_superstep_best_k"] in out["spec_superstep_ks"]
-    assert out["spec_superstep_tokens_per_sec_spread_scope"] == "within-run"
-    assert out["multi_lora_adapters"] == 4 and out["multi_lora_rank"] == 16
-    assert 0.0 < out["prefix_prefill_tokens_saved_fraction"] < 1.0
-    assert out["kv_offload_reload_ms_spread_scope"] == "within-run"
-    for key in ("fault_injector_off_overhead_pct", "spec_pipelined_speedup",
-                "spec_lookahead_speedup", "spec_engine_vs_plain_b1",
-                "spec_engine_vs_plain_b4", "multi_lora_relative_throughput",
-                "prefix_serve_speedup", "kv_multiturn_speedup"):
-        assert out[f"{key}_min"] <= out[key] <= out[f"{key}_max"], key

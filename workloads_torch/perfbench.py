@@ -1,16 +1,19 @@
-"""The perf bench on the card: training, kernels and one engine.
+"""The perf bench on the card: training, kernels, one engine, the fleet.
 
-The PyTorch port of ``workloads/perfbench.py``'s harness and of its
-arms that drive the kernels and one engine, at
+The PyTorch port of ``workloads/perfbench.py``, every arm, at
 ``BenchScale.named("full")`` (d_model 2048, 16 heads, 8 layers, d_ff
 8192, vocab 32768, bf16): the training step and its MFU
 (``device_peak_flops``, an H100 table), flash attention (K2-K4) against
 the dense core it replaces and its window skip, contiguous and paged
-decode, and the continuous-batching engine timed end to end (serving,
+decode, the continuous-batching engine timed end to end (serving,
 latency, prefill budget, supersteps, overheads, fault recovery,
 admission, the prefix cache and the KV hierarchy, speculation,
-multi-LoRA, fast start), each engine decode step a replay of its CUDA
-graph through the paged-attention kernel (K1).
+multi-LoRA, fast start), and the fleet over it (throughput, the
+router's tax, failover, disaggregation, self-healing, autoscaling, KV
+page scheduling, durable sessions, goodput control), each engine decode
+step a replay of its CUDA graph through the paged-attention kernel (K1).
+All of a fleet's replicas share the one card and step one after
+another.
 
     python -m workloads_torch.perfbench --scale full [--pool-with PREV.json]
 
@@ -36,17 +39,24 @@ the engine's ``DecodeGraph``).  The contiguous ``generate`` and the
 speculation phase probes stay eager, as the port's functions are, so on
 the card they time the host's launches too.
 
-Not ported here: the arms that drive a ``Fleet`` (``measure_fleet``,
-``measure_disagg``, ``measure_selfheal``, ``measure_autoscale``,
-``measure_kv_sched``, ``measure_goodput_ctrl``, ``measure_durability``),
-the next slice.  Seeds: weights from ``torch.Generator`` seed 0 (JAX's ``PRNGKey(0)``),
-prompts from numpy seeds (JAX's ``PRNGKey(n)``), samplers from
-``generator=`` seed 3 (JAX's ``rng=``).  Entry points run on the card
-unless ``device="cpu"`` is passed.
+float32 streams are held whole everywhere.  In bf16, arms that replay a
+request (failover, self-healing, preemption, a restore) hold each stream
+to the tokens kept before the replay and its length (``_hold_replay``),
+and arms whose two runs take their greedy decisions from different
+programs (a KV handoff's re-prefill, a speculative verify) let a stream
+part only at a near-tie (``_hold_near_ties``): ROADMAP Queue C's known
+floors.
+
+Seeds: weights from ``torch.Generator`` seed 0 (JAX's ``PRNGKey(0)``),
+prompts from numpy seeds (JAX's ``PRNGKey(n)``; ``fold_in(key, i)``
+becomes the seed ``[n, i]``), samplers from ``generator=`` seed 3
+(JAX's ``rng=``), traffic from the port's ``TrafficGen`` at JAX's seeds.
+Entry points run on the card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass
 
@@ -728,6 +738,141 @@ def _pctl(samples: list[float], q: float) -> float:
     ordered = sorted(samples)
     rank = min(len(ordered) - 1, math.ceil(q * len(ordered)) - 1)
     return ordered[rank]
+
+
+def _hold_replay(streams: dict, ref: dict, kept: dict, dtype, label: str) -> int:
+    """Hold the streams of a run that replayed (a requeue, a park, a
+    restore) against the run without the fault; returns how many equal
+    it whole.  float32 holds every stream whole (replay is bit-identical
+    under greedy, JAX's check).  bf16 holds each replayed stream's
+    tokens kept at its requeue (``kept``: rid -> count) and every
+    stream's length: a bf16 replay re-prefills the emitted tokens in one
+    block product, whose rows round otherwise than the one-token decode
+    steps that first wrote them on the card, so its continuation may
+    part at a near-tie (ROADMAP Queue C, known floors)."""
+    if dtype == torch.float32 and streams != ref:
+        raise RuntimeError(
+            f"{label}: replayed streams diverged from the fault-free run — "
+            "replay is supposed to be bit-identical"
+        )
+    if (
+        {r: len(t) for r, t in streams.items()} != {r: len(t) for r, t in ref.items()}
+        or any(list(streams[r][:k]) != list(ref[r][:k]) for r, k in kept.items())
+    ):
+        raise RuntimeError(
+            f"{label}: a replayed stream lost tokens or changed the tokens "
+            "it kept at its requeue"
+        )
+    return sum(list(streams[r]) == list(ref[r]) for r in ref)
+
+
+def _top2_gap_and_floor(params, config: ModelConfig, seq) -> tuple[float, float]:
+    """Before the token that follows ``seq`` (a dense forward): the
+    model's top-two logit gap computed in float32 from the same weights,
+    and twice the bf16 floor there, the largest |bf16 logit - float32
+    logit|.  Two bf16 programs of the same function, each within the
+    floor of the float32 logits, can order the top two otherwise only
+    where the gap is under that."""
+    from dataclasses import replace
+
+    from .model import forward
+
+    tokens = torch.tensor([list(seq)], device=params["embed"].device)
+    with torch.inference_mode():
+        l16 = forward(params, tokens, config)[0, -1].float()
+        l32 = forward(params, tokens, replace(config, dtype=torch.float32))[0, -1]
+    top = torch.topk(l32, 2).values
+    return (top[0] - top[1]).item(), 2 * (l16 - l32).abs().max().item()
+
+
+def _hold_near_ties(params, config: ModelConfig, streams: dict, ref: dict,
+                    prompts: dict, label: str) -> tuple[int, list[list[float]]]:
+    """Hold two runs whose every stream saw the same greedy decisions
+    but whose bf16 logits came from different programs: a block
+    prefill or verify against one-token decode steps (a KV handoff
+    re-prefills the emitted token on the decode replica; speculation
+    verifies a block).  float32 holds every stream whole.  bf16 holds
+    every length, and a stream may part only at a near-tie: where the
+    float32 top-two gap before its first parting token is within twice
+    the bf16 floor (``_top2_gap_and_floor``; ROADMAP Queue C, known
+    floors).  Returns (streams equal whole, [gap, limit] a parting)."""
+    equal, partings = 0, []
+    for rid, want in ref.items():
+        got, want = list(streams[rid]), list(want)
+        if got == want:
+            equal += 1
+            continue
+        if config.dtype == torch.float32 or len(got) != len(want):
+            raise RuntimeError(
+                f"{label}: streams diverged — the two runs are supposed "
+                "to give every token alike"
+            )
+        pos = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        gap, limit = _top2_gap_and_floor(
+            params, config, list(prompts[rid]) + want[:pos]
+        )
+        if not gap <= limit:
+            raise RuntimeError(
+                f"{label}: a bf16 stream parted at token {pos} where the "
+                f"top-two gap {gap:.4e} exceeds twice the bf16 floor "
+                f"{limit:.4e} — not a near-tie"
+            )
+        partings.append([gap, limit])
+    return equal, partings
+
+
+def _parting_keys(prefix: str, partings: list[list[float]]) -> dict:
+    """The largest top-two gap at a parting and the smallest limit, when
+    a stream parted."""
+    if not partings:
+        return {}
+    return {
+        f"{prefix}_parting_gap_max": round(max(g for g, _ in partings), 6),
+        f"{prefix}_parting_limit_min": round(min(lim for _, lim in partings), 6),
+    }
+
+
+def _kept_at_requeue(fleet) -> dict:
+    """rid -> tokens a request had emitted when the fleet first requeued
+    it for failover replay (filled as ``fleet`` runs)."""
+    kept: dict = {}
+    requeue = fleet._requeue_victims
+
+    def recording(victims, **kw):
+        for fr in victims:
+            kept.setdefault(fr.rid, len(fr.tokens))
+        return requeue(victims, **kw)
+
+    fleet._requeue_victims = recording
+    return kept
+
+
+def _timed_arm(fn, scale, device, log=None) -> tuple[dict, float, float | None]:
+    """Run one arm; returns (its keys, seconds, peak device memory in
+    GiB since the arm began, None off the card), and prints the two to
+    ``log`` when given."""
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = fn(scale, device)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    if log is not None:
+        mem = f"{peak:.2f} GiB" if cuda else "not measured (no card)"
+        print(f"perfbench {fn.__name__}: {secs:.1f} s, peak device memory {mem}",
+              file=log, flush=True)
+    return got, secs, peak
+
+
+def _release(device) -> None:
+    """Give a closed fleet's pools and captured graphs back to the card
+    before the next build (an arm builds dozens of engines)."""
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def measure_serve_latency(scale: BenchScale, device=None) -> dict:
@@ -1418,21 +1563,9 @@ def measure_fault_recovery(scale: BenchScale, device=None) -> dict:
         _, streams, engine, kept = serve(
             injector, schedule={"decode_dispatch": [3]}
         )
-        if config.dtype == torch.float32 and streams != ref_streams:
-            raise RuntimeError(
-                "fault-recovery bench: replayed streams diverged from "
-                "the baseline — replay is supposed to be bit-identical"
-            )
-        if (
-            {r: len(t) for r, t in streams.items()}
-            != {r: len(t) for r, t in ref_streams.items()}
-            or any(streams[r][:k] != ref_streams[r][:k] for r, k in kept.items())
-        ):
-            raise RuntimeError(
-                "fault-recovery bench: a replayed stream lost tokens or "
-                "changed the tokens it kept at its requeue"
-            )
-        equal += sum(streams[r] == ref_streams[r] for r in ref_streams)
+        equal += _hold_replay(
+            streams, ref_streams, kept, config.dtype, "fault-recovery bench"
+        )
         if len(engine.fault_recovery_s) != 1 or engine.steps_quarantined != 1:
             raise RuntimeError(
                 f"fault-recovery bench expected exactly one quarantine/"
@@ -1457,6 +1590,1091 @@ def measure_fault_recovery(scale: BenchScale, device=None) -> dict:
         "fault_baseline_tokens_per_sec": round(statistics.median(off_s), 1),
         "fault_armed_tokens_per_sec": round(statistics.median(armed_s), 1),
         "fault_requests": n_req,
+    }
+
+
+def measure_fleet(scale: BenchScale, device=None) -> dict:
+    """Fleet serving economics, five questions measured on one composed
+    engine shape (int8 base, pipelined stepping, greedy so streams
+    compare), every replica's decode a replay of its own ``DecodeGraph``
+    through K1:
+
+      1. **Aggregate throughput + tail** — 4 replicas behind the
+         router under the seeded open-loop generator (bursty arrivals,
+         heavy-tailed prompts): ``fleet_tokens_per_sec`` and the pooled
+         ``fleet_ttft_p50/p99_ms`` a client of the fleet would see.  On
+         one card the replicas step one after another, so the fleet's
+         rate is about one engine's.
+      2. **Router tax** — the same closed-loop stream through a BARE
+         engine vs a Fleet of ONE replica (interleaved repeats):
+         ``router_overhead_ms`` a request (median per-pair with spread;
+         can read negative at the noise floor).
+      3. **Failover recovery** — one scheduled ``replica_crash`` at
+         crossing ``2 * n_rep + 1`` under the closed-loop stream: the
+         crash -> first-token-on-a-survivor window,
+         ``failover_recovery_ms`` (median over three repeats with
+         spread).  Every rid must reach one ``ok``; the crashed runs'
+         streams are held against a fault-free run by ``_hold_replay``
+         (whole in float32; in bf16 the tokens kept at the requeue and
+         every length), the whole-equal ones counted in
+         ``failover_replay_streams_equal``.
+      4. **Per-class SLO attainment** — the generator's per-class
+         arrival streams (``schedule_per_class``): attainment ratios,
+         class TTFT/TPOT tails and end-of-run burn rates.
+      5. **Fleet-trace overhead** — the closed-loop stream with the
+         full fleet observability treatment (per-replica engine
+         observers + fleet observer + SLO class tags, all pushing into
+         a live Registry) vs bare, interleaved repeats:
+         ``fleet_trace_overhead_pct``, every on/off pair's streams
+         asserted equal (tracing and class tags never move a token)."""
+    import statistics
+
+    from tpu_device_plugin.metrics import Registry
+
+    from .faults import FaultInjector
+    from .fleet import Fleet, TrafficGen, drive_open_loop
+    from .obs import EngineObserver, FleetObserver
+    from .quant import quantize_params
+    from .serve import ServeEngine
+
+    device = resolve_device(device)
+    batch, ps = scale.batch, scale.page_size
+    chunk = ps
+    hi = scale.serve_chunks[1]
+    prompt_len = scale.decode_prompt
+    config = _config(scale, prompt_len + 1 + hi * chunk)
+    params = quantize_params(_params(config, 0, device))
+    n_rep = 4
+    n_req = 4 * batch
+    gen = TrafficGen(
+        seed=9, rate_rps=100.0, min_prompt=1, max_prompt=prompt_len,
+        min_new=1 + chunk, max_new=1 + hi * chunk,
+        vocab=config.vocab_size,
+    )
+    sched = gen.schedule(n_req)
+    engine_kw = dict(
+        slots=batch, page_size=ps, chunk=chunk,
+        prompt_bucket=-(-prompt_len // ps) * ps, pipelined=True,
+        device=device,
+    )
+
+    def build_fleet(n, injector=None, observed=False):
+        observers = [None] * n
+        fleet_obs = None
+        if observed:
+            # The full treatment a scrape-plus-trace deployment pays:
+            # per-replica engine observers and the fleet observer, every
+            # bridge pushing into a live Registry.
+            reg = Registry()
+            observers = [
+                EngineObserver(name=str(i), replica=str(i))
+                for i in range(n)
+            ]
+            for o in observers:
+                o.bind_registry(reg)
+            fleet_obs = FleetObserver()
+            fleet_obs.bind_registry(reg)
+        engines = [
+            ServeEngine(params, config, observer=observers[i], **engine_kw)
+            for i in range(n)
+        ]
+        fleet = Fleet(
+            engines, chip_ids=[f"chip-{i}" for i in range(n)],
+            fault_injector=injector, observer=fleet_obs,
+            # Graph captures past the exempt first step must not read
+            # as hangs.
+            hang_timeout_s=60.0,
+        )
+        for i in range(n):  # warm every replica's capture, off the clock
+            fleet.submit([1 + i], 1 + chunk)
+        fleet.run()
+        fleet.drain_completed()
+        return fleet
+
+    def open_loop():
+        """One open-loop run; returns (rate, finished requests)."""
+        fleet = build_fleet(n_rep)
+        tokens0 = fleet.generated_tokens
+        t0 = time.perf_counter()
+        streams = drive_open_loop(fleet, sched, session_every=4)
+        secs = time.perf_counter() - t0
+        rate = (fleet.generated_tokens - tokens0) / secs
+        if len(streams) != n_req:
+            raise RuntimeError(
+                f"fleet bench served {len(streams)} of {n_req} requests"
+            )
+        done = fleet.drain_completed()
+        statuses = {fr.status for fr in done}
+        if statuses != {"ok"}:
+            raise RuntimeError(
+                f"fleet bench expected every request ok, saw {statuses}"
+            )
+        fleet.close()
+        return rate, done
+
+    rate, done = open_loop()
+    ttfts = [
+        fr.ttft_secs * 1000 for fr in done if fr.ttft_secs is not None
+    ]
+    _release(device)
+
+    # Router tax: bare engine vs a one-replica fleet, same closed-loop
+    # stream (closed-loop so both arms measure the dispatch machinery,
+    # not the arrival process).
+    prompts = [(p, n) for _, p, n in sched]
+
+    def bare() -> float:
+        engine = ServeEngine(params, config, **engine_kw)
+        engine.submit([1], 1 + chunk)
+        engine.run()
+        t0 = time.perf_counter()
+        for p, n in prompts:
+            engine.submit(p, n)
+        engine.run()
+        secs = time.perf_counter() - t0
+        engine.close()
+        del engine
+        _release(device)
+        return secs
+
+    def fleet1() -> float:
+        fleet = build_fleet(1)
+        t0 = time.perf_counter()
+        for p, n in prompts:
+            fleet.submit(p, n)
+        fleet.run()
+        secs = time.perf_counter() - t0
+        fleet.close()
+        del fleet
+        _release(device)
+        return secs
+
+    bare_s, fleet1_s = _interleaved_repeats(bare, fleet1)
+    overhead_ms = [
+        (f - b) / n_req * 1000 for b, f in zip(bare_s, fleet1_s)
+    ]
+
+    # Failover: a fault-free reference run, then crashed repeats held
+    # against it.  CLOSED-loop (the generator's prompts submitted up
+    # front) so the crash step finds in-flight work on the victim.
+    def closed_loop(injector=None, schedule=None):
+        """``schedule`` arms the injector only AFTER the warm run inside
+        build_fleet (reset + arm), so the scheduled crash lands at a
+        deterministic measured-stream step.  Returns (streams, kept at
+        the requeue, crashes, recovery windows, charged requeues)."""
+        fleet = build_fleet(n_rep, injector)
+        kept = _kept_at_requeue(fleet)
+        if injector is not None:
+            injector.reset()
+            if schedule:
+                injector.arm(schedule)
+        for i, (p, n) in enumerate(prompts):
+            fleet.submit(p, n, session=f"sess-{i % 4}")
+        streams = fleet.run()
+        done = fleet.drain_completed()
+        statuses = {fr.status for fr in done}
+        if len(done) != n_req or statuses != {"ok"}:
+            raise RuntimeError(
+                f"fleet failover bench: {len(done)} finished with "
+                f"statuses {statuses}, expected {n_req} ok"
+            )
+        out = (streams, kept, fleet.replica_crashes,
+               list(fleet.failover_recovery_s), fleet.failover_requeues)
+        fleet.close()
+        del fleet
+        _release(device)
+        return out
+
+    ref_streams = closed_loop()[0]
+    recoveries: list[float] = []
+    requeued = equal = 0
+    for _ in range(3):
+        # Crossing 2n+1 = fleet step 3, replica 0 — mid-stream, with
+        # every slot occupied by the up-front submissions.
+        streams, kept, crashes, windows, charged = closed_loop(
+            FaultInjector(),
+            schedule={"replica_crash": 2 * n_rep + 1},
+        )
+        equal += _hold_replay(
+            streams, ref_streams, kept, config.dtype, "fleet failover bench"
+        )
+        if crashes != 1:
+            raise RuntimeError(
+                f"fleet failover bench expected exactly one crash, saw "
+                f"{crashes}"
+            )
+        if len(windows) != 1:
+            raise RuntimeError(
+                f"fleet failover bench expected one recovery window, "
+                f"saw {len(windows)} (the crash found no in-flight work)"
+            )
+        recoveries.extend(windows)
+        requeued += charged
+    rec_ms = [r * 1000 for r in recoveries]
+
+    # Per-class SLO attainment: one independent seeded arrival process
+    # per class at its weight share of the rate.
+    classed = gen.schedule_per_class(n_req)
+    fleet_slo = build_fleet(n_rep)
+    streams = drive_open_loop(fleet_slo, classed, session_every=4)
+    if len(streams) != len(classed):
+        raise RuntimeError(
+            f"fleet SLO bench served {len(streams)} of "
+            f"{len(classed)} requests"
+        )
+    done = fleet_slo.drain_completed()
+    attainment = fleet_slo.slo_attainment()
+    burn = fleet_slo.slo_burn_rates()
+    fleet_slo.close()
+    del fleet_slo
+    _release(device)
+    by_class: dict[str, list] = {}
+    for fr in done:
+        if fr.slo_class is not None:
+            by_class.setdefault(fr.slo_class, []).append(fr)
+    slo_fields: dict = {}
+    for name in ("interactive", "bulk"):
+        spans = by_class.get(name, [])
+        ratio = attainment.get(name)
+        if ratio is not None:
+            slo_fields[f"fleet_slo_attainment_{name}"] = round(ratio, 3)
+            slo_fields[f"fleet_slo_burn_rate_{name}"] = round(
+                burn.get(name, 0.0), 3
+            )
+            # Scored requests only (cancelled are excluded from the
+            # attainment denominator).
+            slo_fields[f"fleet_slo_requests_{name}"] = sum(
+                1 for fr in spans if fr.slo_attained is not None
+            )
+        ttfts_c = [
+            fr.ttft_secs * 1000 for fr in spans
+            if fr.ttft_secs is not None
+        ]
+        tpots_c = [
+            fr.tpot_secs * 1000 for fr in spans
+            if fr.tpot_secs is not None
+        ]
+        if ttfts_c:
+            slo_fields[f"fleet_{name}_ttft_p99_ms"] = round(
+                _pctl(ttfts_c, 0.99), 2
+            )
+        if tpots_c:
+            slo_fields[f"fleet_{name}_tpot_p99_ms"] = round(
+                _pctl(tpots_c, 0.99), 2
+            )
+
+    # Fleet-trace overhead: the closed-loop stream bare vs under the
+    # full observability treatment + SLO tags, interleaved repeats with
+    # every pair's streams asserted equal.
+    trace_streams: dict[bool, list] = {False: [], True: []}
+
+    def traced_run(observed: bool) -> float:
+        fleet = build_fleet(n_rep, observed=observed)
+        tokens0 = fleet.generated_tokens
+        t0 = time.perf_counter()
+        for i, (p, n) in enumerate(prompts):
+            fleet.submit(
+                p, n, session=f"sess-{i % 4}",
+                slo_class=(
+                    ("interactive" if i % 4 else "bulk") if observed
+                    else None
+                ),
+            )
+        streams = fleet.run()
+        secs = time.perf_counter() - t0
+        rate = (fleet.generated_tokens - tokens0) / secs
+        trace_streams[observed].append(streams)
+        fleet.close()
+        del fleet
+        _release(device)
+        return rate
+
+    trace_off, trace_on = _interleaved_repeats(
+        lambda: traced_run(False), lambda: traced_run(True)
+    )
+    for off_streams, on_streams in zip(
+        trace_streams[False], trace_streams[True]
+    ):
+        if off_streams != on_streams:
+            raise RuntimeError(
+                "fleet-trace bench: streams diverged observer on vs "
+                "off — fleet tracing + SLO classes are supposed to be "
+                "inert"
+            )
+    trace_overheads = [
+        (off - on) / max(off, 1e-9) * 100.0
+        for off, on in zip(trace_off, trace_on)
+    ]
+    return {
+        "fleet_replicas": n_rep,
+        "fleet_requests": n_req,
+        **slo_fields,
+        "fleet_trace_overhead_pct": round(
+            statistics.median(trace_overheads), 2
+        ),
+        "fleet_trace_overhead_pct_min": round(min(trace_overheads), 2),
+        "fleet_trace_overhead_pct_max": round(max(trace_overheads), 2),
+        "fleet_trace_on_tokens_per_sec": round(
+            statistics.median(trace_on), 1
+        ),
+        "fleet_trace_off_tokens_per_sec": round(
+            statistics.median(trace_off), 1
+        ),
+        "fleet_tokens_per_sec": round(rate, 1),
+        "fleet_ttft_p50_ms": round(_pctl(ttfts, 0.50), 2),
+        "fleet_ttft_p99_ms": round(_pctl(ttfts, 0.99), 2),
+        "router_overhead_ms": round(statistics.median(overhead_ms), 3),
+        "router_overhead_ms_min": round(min(overhead_ms), 3),
+        "router_overhead_ms_max": round(max(overhead_ms), 3),
+        "failover_recovery_ms": round(statistics.median(rec_ms), 2),
+        "failover_recovery_ms_min": round(min(rec_ms), 2),
+        "failover_recovery_ms_max": round(max(rec_ms), 2),
+        "failover_requeued": requeued,
+        "failover_replay_streams_equal": equal,
+        "failover_replay_streams": 3 * n_req,
+    }
+
+
+def measure_disagg(scale: BenchScale, device=None) -> dict:
+    """Disaggregated prefill/decode pools vs a mixed fleet, measured as
+    INTERLEAVED repeats of the SAME seeded per-class open-loop stream
+    (``schedule_per_class``) through two 3-replica fleets — all-mixed vs
+    roles=[prefill, decode, decode] with SLO-class WFQ armed — with every
+    pair's token streams held by ``_hold_near_ties`` before any number is
+    published (the split moves WHERE work runs, never what a client
+    receives).  float32 holds them whole.  The decode replica re-prefills
+    the prompt's last page and the token the prefill replica emitted in
+    one block, where the mixed fleet wrote that token's k/v in a
+    one-token step, so in bf16 a stream may part at a near-tie
+    (``disagg_streams_equal`` counts the whole ones):
+
+      * ``disagg_handoff_ms`` — prefill-done -> first decode-pool token
+        per handed-off stream (park + one gathered copy to the host on
+        the prefill replica, graft + a page write on the decode
+        replica's admission), pooled across repeats with min/max.
+      * ``disagg_decode_dip_pct`` — the bulk class's TPOT tail stretch
+        (p99/p50 - 1) on the disagg arm; ``disagg_mixed_decode_dip_pct``
+        the same on the mixed arm.
+      * ``disagg_interactive_ttft_p99_ms`` — the interactive class's
+        TTFT tail on the disagg arm, beside the mixed arm's.
+      * per-class attainment deltas (disagg minus mixed) and the
+        throughput ratio ``disagg_vs_mixed_tokens_per_sec``.
+
+    Every handoff ships real pages: the arm asserts >= 1 handoff and
+    >= 1 ticket page grafted into a decode replica per disagg run.  On
+    one card the three replicas step one after another, so the split
+    moves no work off the card."""
+    import statistics
+
+    from .fleet import Fleet, TrafficGen, drive_open_loop
+    from .quant import quantize_params
+    from .serve import ServeEngine
+
+    device = resolve_device(device)
+    batch, ps = scale.batch, scale.page_size
+    chunk = ps
+    hi = scale.serve_chunks[1]
+    prompt_len = max(scale.decode_prompt, 2 * ps)
+    config = _config(scale, prompt_len + 1 + hi * chunk)
+    params = quantize_params(_params(config, 0, device))
+    n_rep = 3
+    roles = ["prefill", "decode", "decode"]
+    n_req = 4 * batch
+    gen = TrafficGen(
+        # min_prompt = one full page so every prompt has pages to hand
+        # off; the Pareto tail reaches prompt_len.
+        seed=13, rate_rps=100.0, min_prompt=ps, max_prompt=prompt_len,
+        min_new=1 + chunk, max_new=1 + hi * chunk,
+        vocab=config.vocab_size,
+    )
+    classed = gen.schedule_per_class(n_req)
+    sched_stats = TrafficGen.schedule_stats(classed)
+
+    def build_fleet(split: bool):
+        engines = [
+            ServeEngine(
+                params, config, slots=batch, page_size=ps, chunk=chunk,
+                # One-page buckets + a one-chunk budget: prompts run the
+                # budgeted sweep (page-granular prefix hits, so a grafted
+                # ticket always reloads).
+                prompt_bucket=ps, prefill_budget=ps, pipelined=True,
+                prefix_cache=True, kv_offload=True, device=device,
+            )
+            for _ in range(n_rep)
+        ]
+        fleet = Fleet(
+            engines, chip_ids=[f"chip-{i}" for i in range(n_rep)],
+            hang_timeout_s=60.0,
+            roles=roles if split else None,
+            wfq_weights=(
+                {"interactive": 3.0, "bulk": 1.0} if split else None
+            ),
+        )
+        # Warm every pool's capture AND the handoff path itself (one
+        # multi-page prompt covers the gathered-spill shapes), off the
+        # measured clock.
+        for i in range(n_rep):
+            fleet.submit([1 + i] * ps, 2, session=f"warm-{i}")
+        fleet.submit(list(range(2, 2 + prompt_len)), 1 + chunk)
+        fleet.run()
+        fleet.drain_completed()
+        return fleet
+
+    def run_arm(split: bool) -> dict:
+        fleet = build_fleet(split)
+        handoffs0 = fleet.kv_handoffs
+        pages0 = fleet.handoff_pages
+        windows0 = len(fleet.handoff_s)
+        tokens0 = fleet.generated_tokens
+        t0 = time.perf_counter()
+        streams = drive_open_loop(fleet, classed, session_every=4)
+        secs = time.perf_counter() - t0
+        if len(streams) != len(classed):
+            raise RuntimeError(
+                f"disagg bench served {len(streams)} of {len(classed)} "
+                "requests"
+            )
+        done = fleet.drain_completed()
+        statuses = {fr.status for fr in done}
+        if statuses != {"ok"}:
+            raise RuntimeError(
+                f"disagg bench expected every request ok, saw {statuses}"
+            )
+        out = {
+            "streams": streams,
+            "prompts": {fr.rid: fr.prompt for fr in done},
+            "rate": (fleet.generated_tokens - tokens0) / secs,
+            "handoffs": fleet.kv_handoffs - handoffs0,
+            "pages": fleet.handoff_pages - pages0,
+            "handoff_ms": [
+                s * 1000 for s in fleet.handoff_s[windows0:]
+            ],
+            "attainment": fleet.slo_attainment(),
+        }
+        for name in ("interactive", "bulk"):
+            frs = [fr for fr in done if fr.slo_class == name]
+            ttfts = [
+                fr.ttft_secs * 1000 for fr in frs
+                if fr.ttft_secs is not None
+            ]
+            tpots = [
+                fr.tpot_secs * 1000 for fr in frs
+                if fr.tpot_secs is not None
+            ]
+            out[f"{name}_ttft_p99_ms"] = (
+                _pctl(ttfts, 0.99) if ttfts else None
+            )
+            out[f"{name}_tpot_p50_ms"] = (
+                _pctl(tpots, 0.50) if tpots else None
+            )
+            out[f"{name}_tpot_p99_ms"] = (
+                _pctl(tpots, 0.99) if tpots else None
+            )
+        if split:
+            if out["handoffs"] < 1 or out["pages"] < 1:
+                raise RuntimeError(
+                    f"disagg bench moved no KV: {out['handoffs']} "
+                    f"handoffs, {out['pages']} ticket pages grafted — "
+                    "the split fleet is not actually handing off"
+                )
+        fleet.close()
+        del fleet
+        _release(device)
+        return out
+
+    mixed_runs, disagg_runs = _interleaved_repeats(
+        lambda: run_arm(False), lambda: run_arm(True), repeats=2,
+    )
+    equal, partings = 0, []
+    for m, d in zip(mixed_runs, disagg_runs):
+        whole, parted = _hold_near_ties(
+            params, config, d["streams"], m["streams"], m["prompts"],
+            "disagg bench: split fleet against the mixed fleet",
+        )
+        equal += whole
+        partings += parted
+
+    def dip(run: dict) -> float | None:
+        p50, p99 = run["bulk_tpot_p50_ms"], run["bulk_tpot_p99_ms"]
+        if not p50 or p99 is None:
+            return None
+        return (p99 / p50 - 1.0) * 100.0
+
+    handoff_ms = sorted(
+        ms for r in disagg_runs for ms in r["handoff_ms"]
+    )
+    dips_d = [v for v in (dip(r) for r in disagg_runs) if v is not None]
+    dips_m = [v for v in (dip(r) for r in mixed_runs) if v is not None]
+    ttfts_d = [
+        r["interactive_ttft_p99_ms"] for r in disagg_runs
+        if r["interactive_ttft_p99_ms"] is not None
+    ]
+    ttfts_m = [
+        r["interactive_ttft_p99_ms"] for r in mixed_runs
+        if r["interactive_ttft_p99_ms"] is not None
+    ]
+    ratios = [
+        d["rate"] / m["rate"]
+        for d, m in zip(disagg_runs, mixed_runs)
+    ]
+    out = {
+        "disagg_replicas": n_rep,
+        "disagg_roles": ",".join(roles),
+        "disagg_requests": len(classed),
+        "disagg_schedule_stats": sched_stats,
+        "disagg_handoffs": disagg_runs[-1]["handoffs"],
+        "disagg_handoff_pages": disagg_runs[-1]["pages"],
+        "disagg_handoff_ms": round(statistics.median(handoff_ms), 2),
+        "disagg_handoff_ms_min": round(handoff_ms[0], 2),
+        "disagg_handoff_ms_max": round(handoff_ms[-1], 2),
+        "disagg_vs_mixed_tokens_per_sec": round(
+            statistics.median(ratios), 3
+        ),
+        "disagg_vs_mixed_tokens_per_sec_min": round(min(ratios), 3),
+        "disagg_vs_mixed_tokens_per_sec_max": round(max(ratios), 3),
+        "disagg_streams_equal": equal,
+        "disagg_streams": len(disagg_runs) * len(classed),
+        **_parting_keys("disagg", partings),
+    }
+    if dips_d:
+        out["disagg_decode_dip_pct"] = round(statistics.median(dips_d), 2)
+        out["disagg_decode_dip_pct_min"] = round(min(dips_d), 2)
+        out["disagg_decode_dip_pct_max"] = round(max(dips_d), 2)
+    if dips_m:
+        out["disagg_mixed_decode_dip_pct"] = round(
+            statistics.median(dips_m), 2
+        )
+    if ttfts_d:
+        out["disagg_interactive_ttft_p99_ms"] = round(
+            statistics.median(ttfts_d), 2
+        )
+        out["disagg_interactive_ttft_p99_ms_min"] = round(min(ttfts_d), 2)
+        out["disagg_interactive_ttft_p99_ms_max"] = round(max(ttfts_d), 2)
+    if ttfts_m:
+        out["disagg_mixed_interactive_ttft_p99_ms"] = round(
+            statistics.median(ttfts_m), 2
+        )
+    for name in ("interactive", "bulk"):
+        att_d = disagg_runs[-1]["attainment"].get(name)
+        att_m = mixed_runs[-1]["attainment"].get(name)
+        if att_d is not None:
+            out[f"disagg_attainment_{name}"] = round(att_d, 3)
+        if att_d is not None and att_m is not None:
+            out[f"disagg_attainment_delta_{name}"] = round(
+                att_d - att_m, 3
+            )
+    return out
+
+
+def measure_selfheal(scale: BenchScale, device=None) -> dict:
+    """Self-healing fleet economics, on the measure_fleet engine shape
+    (int8 base, pipelined, greedy so streams compare):
+
+      1. **Restore latency** — a scheduled ``replica_crash`` mid-stream
+         with the ``FleetSupervisor`` armed: the death-detection ->
+         probed-replacement-rejoined window is ``selfheal_restore_ms``
+         (median over repeats with spread).  Each crashed run's streams
+         are held against a fault-free run by ``_hold_replay`` (whole
+         in float32; in bf16 the tokens kept at the requeue and every
+         length; ``selfheal_replay_streams_equal`` counts the whole
+         ones), while the robustness outcome publishes honestly: the
+         fraction of pre-fault alive replicas back without operator
+         intervention lands in ``selfheal_capacity_recovered``, and
+         ``selfheal_goodput_retained`` is the ok fraction under the
+         closed-loop load.
+      2. **Cold vs warm restore** — ``replica_restore_cold_ms`` times
+         the arm's FIRST engine build + canary probe, against
+         ``replica_restore_warm_ms`` (the same build + probe again).
+         JAX's cold number carries an XLA compile; here the kernels are
+         already built (``ops/_build.py``'s cache), so cold carries the
+         first cuBLAS calls at these shapes and the decode graph's
+         capture, which every build pays again.
+      3. **Crash-loop quarantine** — a scripted repeat-crash-on-restart
+         (``crash_loop_schedule`` at the ``replica_respawn`` seam): the
+         chip slot must QUARANTINE (``selfheal_crash_loops`` = 1), the
+         replica must NOT rejoin, and the degraded fleet still serves
+         every request ok on the survivors."""
+    import statistics
+
+    from .backoff import Backoff
+    from .faults import FaultInjector, crash_loop_schedule
+    from .fleet import Fleet, TrafficGen
+    from .quant import quantize_params
+    from .serve import ServeEngine
+    from .supervisor import FleetSupervisor
+
+    device = resolve_device(device)
+    batch, ps = scale.batch, scale.page_size
+    chunk = ps
+    hi = scale.serve_chunks[1]
+    prompt_len = scale.decode_prompt
+    config = _config(scale, prompt_len + 1 + hi * chunk)
+    params = quantize_params(_params(config, 0, device))
+    n_rep = 3
+    n_req = 3 * batch
+    engine_kw = dict(
+        slots=batch, page_size=ps, chunk=chunk,
+        prompt_bucket=-(-prompt_len // ps) * ps, pipelined=True,
+        device=device,
+    )
+    gen = TrafficGen(
+        seed=11, rate_rps=100.0, min_prompt=1, max_prompt=prompt_len,
+        min_new=1 + chunk, max_new=1 + hi * chunk,
+        vocab=config.vocab_size,
+    )
+    prompts = [(p, n) for _, p, n in gen.schedule(n_req)]
+    probe = ([1, 2, 3], 1 + chunk)
+
+    def factory(slot):
+        return ServeEngine(params, config, **engine_kw)
+
+    # Cold vs warm restore: build + canary-probe a scratch engine twice
+    # back to back.
+    def timed_build_probe(oracle):
+        t0 = time.perf_counter()
+        engine = factory(None)
+        # Inline canary, same contract as the supervisor's _probe.
+        rid = engine.submit(probe[0], probe[1])
+        tokens = None
+        while tokens is None and not engine.idle:
+            for req in engine.step():
+                if req.rid == rid:
+                    tokens = [int(t) for t in req.tokens]
+        secs = time.perf_counter() - t0
+        if tokens is None or (oracle is not None and tokens != oracle):
+            raise RuntimeError("selfheal bench: scratch probe diverged")
+        engine.close()
+        return secs, tokens
+
+    cold_s, oracle = timed_build_probe(None)
+    warm_s, _ = timed_build_probe(oracle)
+    _release(device)
+
+    def closed_loop(injector=None, schedule=None, respawn=None):
+        """Warm, then arm the scheduled crash relative to a known
+        crossing point (the measure_fleet discipline) and serve the
+        whole prompt set closed-loop under supervision.  Returns
+        (streams, kept at the requeue, fleet, supervisor, finished)."""
+        engines = [factory(None) for _ in range(n_rep)]
+        fleet = Fleet(
+            engines, chip_ids=[f"chip-{i}" for i in range(n_rep)],
+            fault_injector=injector, hang_timeout_s=60.0,
+        )
+        for i in range(n_rep):  # warm every replica, off the clock
+            fleet.submit([1 + i], 1 + chunk)
+        fleet.run()
+        fleet.drain_completed()
+        sup = FleetSupervisor(
+            fleet, factory,
+            backoff=Backoff(base_s=1e-3, max_s=5e-3, jitter=0.0),
+            probe=probe, probe_oracle=oracle,
+            crash_loop_k=3, crash_loop_window_s=60.0,
+            fault_injector=respawn,
+        )
+        kept = _kept_at_requeue(fleet)
+        if injector is not None:
+            injector.reset()
+            if schedule:
+                injector.arm(schedule)
+        for i, (p, n) in enumerate(prompts):
+            fleet.submit(p, n, session=f"sess-{i % 4}")
+        streams = sup.run()
+        done = fleet.drain_completed()
+        statuses = {fr.status for fr in done}
+        if len(done) != n_req or statuses != {"ok"}:
+            raise RuntimeError(
+                f"selfheal bench: {len(done)} finished with statuses "
+                f"{statuses}, expected {n_req} ok"
+            )
+        return streams, kept, fleet, sup, done
+
+    ref_streams, _, ref_fleet, _, _ = closed_loop()
+    ref_fleet.close()
+    del ref_fleet
+    _release(device)
+
+    restores: list[float] = []
+    capacity: list[float] = []
+    goodput: list[float] = []
+    equal = 0
+    for _ in range(3):
+        # Crossing 2n+1 = fleet step 3, replica 0 — mid-stream with
+        # every slot occupied by the up-front submissions.
+        streams, kept, fleet, sup, done = closed_loop(
+            FaultInjector(), schedule={"replica_crash": 2 * n_rep + 1},
+        )
+        equal += _hold_replay(
+            streams, ref_streams, kept, config.dtype, "selfheal bench"
+        )
+        if fleet.replica_crashes != 1:
+            raise RuntimeError(
+                f"selfheal bench expected exactly one crash, saw "
+                f"{fleet.replica_crashes}"
+            )
+        # Correctness lies hard-fail (streams/statuses above); degraded
+        # robustness publishes honestly instead, as capacity < 1.0.
+        healed = sup.wait_healed(timeout_s=30.0)
+        alive = sum(1 for r in fleet.replicas if r.state == "active")
+        capacity.append(alive / n_rep)
+        goodput.append(
+            sum(1 for fr in done if fr.status == "ok") / n_req
+        )
+        if healed:
+            if len(sup.restore_s) != 1:
+                raise RuntimeError(
+                    f"selfheal bench expected one restore window, saw "
+                    f"{len(sup.restore_s)}"
+                )
+            restores.extend(sup.restore_s)
+        fleet.close()
+        del fleet, sup
+        _release(device)
+
+    # Crash-loop: the resurrection itself dies twice on arrival (the
+    # replica_respawn seam) after the initial crash — 3 failures in the
+    # window trip quarantine, the slot stays out, survivors serve.
+    streams, kept, fleet, sup, _ = closed_loop(
+        FaultInjector(), schedule={"replica_crash": 2 * n_rep + 1},
+        respawn=FaultInjector(crash_loop_schedule(2)),
+    )
+    sup.wait_healed(timeout_s=5.0)  # heals the healable; slot 0 cannot
+    equal += _hold_replay(
+        streams, ref_streams, kept, config.dtype,
+        "selfheal bench (crash-loop arm)",
+    )
+    if sup.crash_loops != 1 or sup.states()["chip-0"] != "quarantined":
+        raise RuntimeError(
+            f"selfheal bench: scripted crash loop did not quarantine "
+            f"(crash_loops={sup.crash_loops}, states={sup.states()})"
+        )
+    alive_degraded = sum(
+        1 for r in fleet.replicas if r.state == "active"
+    )
+    if alive_degraded != n_rep - 1:
+        raise RuntimeError(
+            f"selfheal bench: quarantined slot rejoined anyway "
+            f"({alive_degraded} of {n_rep} active)"
+        )
+    crash_loops = sup.crash_loops
+    fleet.close()
+    del fleet, sup
+    _release(device)
+
+    if not restores:
+        # Zero healed repeats means there is no restore latency to
+        # publish at all — that is a broken supervisor, not a number.
+        raise RuntimeError(
+            f"selfheal bench: no crashed repeat healed "
+            f"(capacity fractions {capacity})"
+        )
+    rec_ms = [r * 1000 for r in restores]
+    return {
+        "selfheal_replicas": n_rep,
+        "selfheal_requests": n_req,
+        "selfheal_restore_ms": round(statistics.median(rec_ms), 2),
+        "selfheal_restore_ms_min": round(min(rec_ms), 2),
+        "selfheal_restore_ms_max": round(max(rec_ms), 2),
+        "selfheal_capacity_recovered": round(
+            statistics.median(capacity), 3
+        ),
+        "selfheal_goodput_retained": round(statistics.median(goodput), 3),
+        "selfheal_crash_loops": crash_loops,
+        "selfheal_replay_streams_equal": equal,
+        "selfheal_replay_streams": 4 * n_req,
+        "replica_restore_cold_ms": round(cold_s * 1000, 2),
+        "replica_restore_warm_ms": round(warm_s * 1000, 2),
+    }
+
+
+def measure_autoscale(scale: BenchScale, device=None) -> dict:
+    """Closed-loop autoscaling economics, on the measure_selfheal engine
+    shape (pipelined, radix prefix cache + host offload so preemption
+    can park pages, greedy so streams compare):
+
+      1. **Step-load recovery** — a seeded TrafficGen STEP schedule
+         (arrival rate x4 for a bounded window; the calm rate is
+         calibrated to ~70% of this host's measured one-replica service
+         rate) drives a fleet that starts at ONE replica with the
+         ``FleetAutoscaler`` armed (1..N replicas, fast seeded-jitter
+         cooldowns).  Every ok token stream is asserted equal to a
+         FIXED-size oracle fleet of N replicas serving the same
+         schedule; the robustness outcomes publish honestly:
+         ``autoscale_recover_slo_ms`` (signal breach -> signal clear),
+         ``autoscale_overprovision_chip_s`` (extra replica-seconds held
+         while the signal was already clear) and the up/down actuation
+         counts.  On one card every replica shares the card, so a
+         scale-up adds slots but no device, and the overprovision counts
+         each replica's seconds as a chip's.
+      2. **Preemption-via-offload** — a fleet PINNED at its
+         ``max_replicas`` serves one long bulk-class stream; an
+         interactive burst then drives the degradation ladder to step
+         2, which parks the bulk stream's prefix pages in the host tier
+         and requeues it uncharged.  The parked stream must resume:
+         held against an unpreempted run by ``_hold_replay`` (whole in
+         float32; in bf16 the tokens kept at the park and every length;
+         ``autoscale_preempt_streams_equal`` counts the whole ones),
+         publishing ``autoscale_preempt_resume_ms`` (park -> first
+         resumed token).  The ladder unparks the class when its signal
+         clears; where the burst misses its TTFT target, as on one card
+         at full width, that waits for the misses to leave the fleet's
+         SLO window, and the resume window carries the wait."""
+    import statistics
+
+    from .autoscaler import FleetAutoscaler
+    from .backoff import Backoff
+    from .fleet import Fleet, TrafficGen, drive_open_loop
+    from .serve import ServeEngine
+
+    device = resolve_device(device)
+    batch, ps = scale.batch, scale.page_size
+    chunk = ps
+    hi = scale.serve_chunks[1]
+    prompt_len = scale.decode_prompt
+    config = _config(scale, prompt_len + 1 + hi * chunk)
+    params = _params(config, 0, device)
+    n_max = 3
+    n_req = 8 * batch
+    engine_kw = dict(
+        slots=batch, page_size=ps, chunk=chunk,
+        prompt_bucket=-(-prompt_len // ps) * ps, pipelined=True,
+        prefix_cache=True, kv_offload=True, device=device,
+    )
+
+    def factory(slot):
+        return ServeEngine(params, config, **engine_kw)
+
+    fast = Backoff(base_s=2e-3, max_s=2e-2, jitter=0.1, seed=7)
+
+    def build_autoscaler(fleet, *, n_min, cap, **kw):
+        asc = FleetAutoscaler(
+            fleet, factory, min_replicas=n_min, max_replicas=cap,
+            queue_wait_p99_target_s=0.25, depth_high=1.5,
+            clear_fraction=0.4, window_s=1.0,
+            up_backoff=fast, down_backoff=fast, down_consecutive=2,
+            **kw,
+        )
+        asc.calibrate_probe()
+        return asc
+
+    # Calibrate the calm arrival rate to THIS host: one warm replica's
+    # closed-loop service rate over a burn-in batch (requests/s), so the
+    # x4 step overloads one replica on any machine.  The first pass pays
+    # the graph capture and first launches and is NOT timed.
+    cal = Fleet([factory(None)], hang_timeout_s=None)
+    gen0 = TrafficGen(
+        seed=13, rate_rps=1000.0, min_prompt=1, max_prompt=prompt_len,
+        min_new=1 + chunk, max_new=1 + hi * chunk,
+        vocab=config.vocab_size,
+    )
+    warm = [(p, nw) for _, p, nw in gen0.schedule(2 * batch)]
+    for p, nw in warm:
+        cal.submit(p, nw)
+    cal.run()  # capture and first launches land here, off the clock
+    for p, nw in warm:
+        cal.submit(p, nw)
+    t0 = time.perf_counter()
+    cal.run()
+    service_rps = len(warm) / max(time.perf_counter() - t0, 1e-9)
+    cal.close()
+    del cal
+    _release(device)
+    calm_rps = max(1.0, 0.7 * service_rps)
+
+    gen = TrafficGen(
+        seed=13, rate_rps=calm_rps, min_prompt=1, max_prompt=prompt_len,
+        min_new=1 + chunk, max_new=1 + hi * chunk,
+        vocab=config.vocab_size,
+    )
+    calm_span = n_req / calm_rps
+    profile = TrafficGen.step_profile(
+        0.25 * calm_span, 0.25 * calm_span, 4.0
+    )
+    sched = gen.schedule(n_req, profile)
+    stats = TrafficGen.schedule_stats(sched)
+
+    def serve_fixed(n_rep: int) -> dict:
+        fleet = Fleet(
+            [factory(None) for _ in range(n_rep)],
+            chip_ids=[f"chip-{i}" for i in range(n_rep)],
+            hang_timeout_s=None,
+        )
+        for i in range(n_rep):  # warm every replica, off the clock
+            fleet.submit([1 + i], 1 + chunk)
+        fleet.run()
+        fleet.drain_completed()
+        streams = drive_open_loop(fleet, sched)
+        done = fleet.drain_completed()
+        statuses = {fr.status for fr in done}
+        if len(done) != n_req or statuses != {"ok"}:
+            raise RuntimeError(
+                f"autoscale bench oracle: {len(done)} finished with "
+                f"statuses {statuses}, expected {n_req} ok"
+            )
+        fleet.close()
+        del fleet
+        _release(device)
+        return streams
+
+    oracle = serve_fixed(n_max)
+
+    fleet = Fleet([factory(None)], chip_ids=["chip-0"],
+                  hang_timeout_s=None)
+    fleet.submit([1], 1 + chunk)
+    fleet.run()
+    fleet.drain_completed()
+    asc = build_autoscaler(fleet, n_min=1, cap=n_max)
+    streams = drive_open_loop(asc, sched)
+    done = fleet.drain_completed()
+    statuses = {fr.status for fr in done}
+    if len(done) != n_req or statuses != {"ok"}:
+        raise RuntimeError(
+            f"autoscale bench: {len(done)} finished with statuses "
+            f"{statuses}, expected {n_req} ok"
+        )
+    # Positional compare: drive_open_loop fills its dict in schedule
+    # order, and the two runs' rid serials differ by their warm-up
+    # counts (1 vs n_max warm submissions).
+    if list(streams.values()) != list(oracle.values()):
+        raise RuntimeError(
+            "autoscale bench: autoscaled streams diverged from the "
+            "fixed-size oracle fleet — elasticity is supposed to be "
+            "invisible to tokens"
+        )
+    scaled_back = asc.wait_quiescent(timeout_s=30.0)
+    alive_end = len(fleet.alive)
+    recover = list(asc.recover_s)
+    overprov = asc.overprovision_chip_s
+    ups, downs = asc.scale_ups, asc.scale_downs
+    fleet.close()
+    del fleet, asc
+    _release(device)
+    if ups < 1:
+        raise RuntimeError(
+            "autoscale bench: the x4 step never triggered a scale-up "
+            f"(calm {calm_rps:.1f} rps vs service {service_rps:.1f} "
+            "rps) — the spike must overload one replica"
+        )
+    if not recover:
+        raise RuntimeError(
+            "autoscale bench: the breach window never closed — there "
+            "is no recovery latency to publish"
+        )
+
+    # ---- preemption-via-offload arm -------------------------------------
+    # Capacity pinned (min == max == 1): the ladder is the only lever.
+    long_new = 1 + hi * chunk
+    bulk_prompts = [
+        _prompt(77 + i, prompt_len, config.vocab_size)
+        for i in range(min(2, batch))
+    ]
+    burst = [(p, nw) for _, p, nw in gen0.schedule(3 * batch)]
+
+    def serve_preempt(autoscaled: bool):
+        fleet = Fleet([factory(None)], chip_ids=["chip-0"],
+                      hang_timeout_s=None)
+        fleet.submit([1], 1 + chunk)
+        fleet.run()
+        fleet.drain_completed()
+        kept: dict = {}
+        preempt = fleet.preempt
+
+        def recording_preempt(rid):
+            pulled = preempt(rid)
+            if pulled:
+                kept.setdefault(rid, len(fleet._reqs[rid].tokens))
+            return pulled
+
+        fleet.preempt = recording_preempt
+        asc = None
+        if autoscaled:
+            asc = build_autoscaler(
+                fleet, n_min=1, cap=1, severe_factor=1.2,
+                preempt_batch=batch,
+            )
+        for p in bulk_prompts:
+            fleet.submit(p, long_new, slo_class="bulk")
+        fleet.step()  # the bulk streams are mid-decode
+        for p, nw in burst:
+            fleet.submit(p, nw, slo_class="interactive")
+        if asc is not None:
+            # Two control polls against the live burst: rung 1
+            # (brownout), then rung 2 (preempt) — the ladder fires WHILE
+            # the bulk streams still hold slots, whatever this host's
+            # step speed.
+            asc.poll()
+            asc.poll()
+        driver = asc if asc is not None else fleet
+        steps = 0
+        while not fleet.idle:
+            steps += 1
+            if steps > 20000:
+                raise RuntimeError(
+                    "autoscale bench preempt arm failed to converge "
+                    f"(ladder {getattr(asc, 'ladder_level', None)}, "
+                    f"queue {fleet.queue_depth})"
+                )
+            driver.step()
+            if not any(r.rids for r in fleet.replicas):
+                # Only the parked class is queued.  The ladder unparks
+                # it when its signal clears, and a burst that missed its
+                # TTFT target holds the burn rate up until the misses
+                # leave the SLO window (``Fleet.slo_window_s``, 60 s):
+                # wait on the clock rather than spend the step budget
+                # on empty steps.
+                time.sleep(0.01)
+        done = {fr.rid: fr for fr in fleet.drain_completed()}
+        statuses = {fr.status for fr in done.values()}
+        if statuses != {"ok"}:
+            raise RuntimeError(
+                f"autoscale bench preempt arm: statuses {statuses}, "
+                "expected all ok"
+            )
+        out = (
+            {rid: list(fr.tokens) for rid, fr in done.items()},
+            fleet.preemptions,
+            list(fleet.preempt_resume_s),
+            kept,
+        )
+        fleet.close()
+        del fleet, asc, driver
+        _release(device)
+        return out
+
+    ref_streams, _, _, _ = serve_preempt(False)
+    got_streams, preempts, resume_s, kept = serve_preempt(True)
+    preempt_equal = _hold_replay(
+        got_streams, ref_streams, kept, config.dtype,
+        "autoscale bench preempt arm",
+    )
+    if preempts < 1 or not resume_s:
+        raise RuntimeError(
+            f"autoscale bench preempt arm: the ladder never preempted "
+            f"({preempts} preemptions, {len(resume_s)} resume windows)"
+        )
+
+    rec_ms = [s * 1000 for s in recover]
+    resume_ms = [s * 1000 for s in resume_s]
+    return {
+        "autoscale_replicas_min": 1,
+        "autoscale_replicas_max": n_max,
+        "autoscale_requests": n_req,
+        "autoscale_spike_factor": 4.0,
+        "autoscale_calm_rps": round(calm_rps, 2),
+        "autoscale_service_rps": round(service_rps, 2),
+        "autoscale_peak_rps": stats["peak_rps"],
+        "autoscale_scale_ups": ups,
+        "autoscale_scale_downs": downs,
+        "autoscale_scaled_back": bool(scaled_back and alive_end == 1),
+        "autoscale_recover_slo_ms": round(statistics.median(rec_ms), 2),
+        "autoscale_recover_slo_ms_min": round(min(rec_ms), 2),
+        "autoscale_recover_slo_ms_max": round(max(rec_ms), 2),
+        "autoscale_overprovision_chip_s": round(overprov, 3),
+        "autoscale_preempts": preempts,
+        "autoscale_preempt_resume_ms": round(
+            statistics.median(resume_ms), 2
+        ),
+        "autoscale_preempt_streams_equal": preempt_equal,
+        "autoscale_preempt_streams": len(ref_streams),
     }
 
 
@@ -2430,6 +3648,647 @@ def _publish_ratio_spread(
     )
 
 
+def measure_kv_sched(scale: BenchScale, device=None) -> dict:
+    """KV pages as the schedulable unit: the SAME seeded oversubscribed
+    multi-tenant stream — tenants sharing system prefixes, demand far
+    beyond the fleet's decode slots, page pools tight enough that cold
+    radix pages spill to the host tier — dispatched PAGE-scheduled
+    (``Fleet(page_scheduling=True)``: free pages + radix match depth +
+    ledger goodput rank the replicas, admission capped by aggregate free
+    pages) vs REPLICA-scheduled (the request-count router), as
+    interleaved repeats.  Every pair's greedy streams are asserted equal
+    (the schedule moves placement and interleaving, never a token):
+
+      * ``kvsched_vs_replica_tokens_per_sec`` — the headline ratio
+        (page-scheduled / replica-scheduled), median with min/max.
+      * ``kvsched_busy_fraction`` / ``kvsched_goodput_fraction`` — the
+        page arm's fleet-ledger verdict.  Its busy time is
+        ``StepRecord.device_ms``, JAX's derivation (a step's wall less
+        its host syncs), which reads a chunk on the card as less busy
+        than the profiler's kernels do.
+      * ``kvsched_page_waste_pct`` — mean fraction of the fleet's pages
+        sitting FREE per step while work was pending, under page
+        scheduling.
+    """
+    import statistics
+
+    from .fleet import Fleet
+    from .ledger import ChipTimeLedger, FleetLedger
+    from .serve import ServeEngine
+
+    device = resolve_device(device)
+    batch, ps = scale.batch, scale.page_size
+    chunk = ps
+    hi = scale.serve_chunks[1]
+    prefix_len = 2 * ps  # each tenant's shared system template
+    tail_max = ps
+    max_new = 1 + hi * chunk
+    longest = prefix_len + tail_max + max_new
+    config = _config(scale, longest + chunk)
+    params = _params(config, 0, device)
+    n_rep = 2
+    n_tenants = 3
+    n_req = 6 * batch  # far beyond n_rep * batch slots: oversubscribed
+    vocab = config.vocab_size
+    tenant_prefix = [_prompt([11, tid], prefix_len, vocab) for tid in range(n_tenants)]
+    reqs = []
+    for i in range(n_req):
+        tid = i % n_tenants
+        tail = _prompt([11, 100 + i], 1 + i % tail_max, vocab)
+        new = 1 + chunk + (i * chunk) % (max_new - chunk)
+        reqs.append((tid, tenant_prefix[tid] + tail, new))
+    # Tight pools: just enough pages to keep the decode slots fed, so
+    # tenant templates cached by the radix index MUST spill to the host
+    # tier under the oversubscribed stream.
+    pages_req = -(-longest // ps)
+    n_pages = pages_req * batch
+    host_pages = 8 * pages_req
+
+    def build_fleet(page_sched: bool):
+        engines = [
+            ServeEngine(
+                params, config, slots=batch, page_size=ps, chunk=chunk,
+                prompt_bucket=ps, pipelined=True, n_pages=n_pages,
+                prefix_cache=True, kv_offload=True,
+                kv_host_pages=host_pages, ledger=ChipTimeLedger(),
+                device=device,
+            )
+            for _ in range(n_rep)
+        ]
+        fleet = Fleet(
+            engines, chip_ids=[f"chip-{i}" for i in range(n_rep)],
+            hang_timeout_s=60.0, ledger=FleetLedger(),
+            page_scheduling=page_sched,
+        )
+        for i in range(n_rep):  # warm each replica's capture off-clock
+            fleet.submit([1 + i], 1 + chunk)
+        fleet.run()
+        fleet.drain_completed()
+        return fleet
+
+    streams_by_arm: dict[bool, list] = {False: [], True: []}
+    waste_by_arm: dict[bool, list] = {False: [], True: []}
+    ledger_snaps: list[dict] = []
+    spills = 0
+    page_dispatches = 0
+
+    def run_arm(page_sched: bool) -> float:
+        nonlocal spills, page_dispatches
+        fleet = build_fleet(page_sched)
+        rids = [
+            fleet.submit(p, n, session=f"tenant-{tid}")
+            for tid, p, n in reqs
+        ]
+        tokens0 = fleet.generated_tokens
+        waste_samples: list[float] = []
+        t0 = time.perf_counter()
+        while True:
+            with fleet._lock:
+                if fleet.idle:
+                    break
+                fleet.step()
+                if fleet.queue or any(r.rids for r in fleet.replicas):
+                    free = sum(
+                        r.free_pages() or 0 for r in fleet.replicas
+                    )
+                    total = sum(
+                        r.total_pages() or 0 for r in fleet.replicas
+                    )
+                    if total:
+                        waste_samples.append(free / total)
+        secs = time.perf_counter() - t0
+        rate = (fleet.generated_tokens - tokens0) / secs
+        done = {fr.rid: fr for fr in fleet.drain_completed()}
+        statuses = {fr.status for fr in done.values()}
+        if len(done) != n_req or statuses != {"ok"}:
+            raise RuntimeError(
+                f"kvsched bench: {len(done)} of {n_req} finished with "
+                f"statuses {statuses}, expected all ok"
+            )
+        streams_by_arm[page_sched].append(
+            [list(done[rid].tokens) for rid in rids]
+        )
+        waste_by_arm[page_sched].append(
+            statistics.mean(waste_samples) if waste_samples else 0.0
+        )
+        if page_sched:
+            ledger_snaps.append(fleet.ledger.snapshot())
+            page_dispatches += fleet.page_dispatches
+            spills += sum(
+                int(getattr(r.engine.prefix, "spills", 0) or 0)
+                for r in fleet.replicas
+            )
+        fleet.close()
+        del fleet
+        _release(device)
+        return rate
+
+    # Throwaway pass: the measured stream's shapes take their first
+    # launches, so the first interleaved pair prices scheduling.
+    run_arm(False)
+    streams_by_arm[False].clear()
+    waste_by_arm[False].clear()
+    paged_rates, plain_rates = _interleaved_repeats(
+        lambda: run_arm(True), lambda: run_arm(False)
+    )
+    for paged_streams, plain_streams in zip(
+        streams_by_arm[True], streams_by_arm[False]
+    ):
+        if paged_streams != plain_streams:
+            raise RuntimeError(
+                "kvsched bench: page-scheduled streams diverged from "
+                "replica-scheduled — scheduling is supposed to move "
+                "placement, never a token"
+            )
+    ratios = [p / r for p, r in zip(paged_rates, plain_rates)]
+    return {
+        "kvsched_replicas": n_rep,
+        "kvsched_requests": n_req,
+        "kvsched_tokens_per_sec": round(
+            statistics.median(paged_rates), 1
+        ),
+        "kvsched_replica_sched_tokens_per_sec": round(
+            statistics.median(plain_rates), 1
+        ),
+        "kvsched_vs_replica_tokens_per_sec": round(
+            statistics.median(ratios), 3
+        ),
+        "kvsched_vs_replica_tokens_per_sec_min": round(min(ratios), 3),
+        "kvsched_vs_replica_tokens_per_sec_max": round(max(ratios), 3),
+        "kvsched_busy_fraction": round(statistics.median(
+            [s["busy_fraction"] for s in ledger_snaps]
+        ), 3),
+        "kvsched_goodput_fraction": round(statistics.median(
+            [s["goodput_fraction"] for s in ledger_snaps]
+        ), 3),
+        "kvsched_page_waste_pct": round(
+            statistics.median(waste_by_arm[True]) * 100.0, 2
+        ),
+        "kvsched_replica_sched_page_waste_pct": round(
+            statistics.median(waste_by_arm[False]) * 100.0, 2
+        ),
+        "kvsched_page_dispatches": page_dispatches,
+        "kvsched_offload_spills": spills,
+    }
+
+
+def measure_goodput_ctrl(scale: BenchScale, device=None) -> dict:
+    """Goodput-optimal control plane: the SAME seeded oversubscribed
+    mixed-class stream run CONTROLLED (``GoodputController`` polling the
+    fleet ledger between steps, retuning speculation as measured waste
+    burn demands and re-weighting WFQ from per-class economics) vs
+    STATIC (the same fleet, knobs frozen at their construction values),
+    as interleaved repeats.  The fleet is built mis-calibrated on
+    purpose: auto-spec engines whose draft is an independent full-width
+    model (seed 99; acceptance ~ chance) and whose ``spec_breakeven``
+    starts at the slot count, so every dispatch speculates and the
+    ledger charges heavy ``spec_rejected`` waste.  The controller's
+    hill-climb walks ``spec_breakeven`` down until the engines stop
+    paying for speculation; the static arm burns the waste forever.
+
+    Every pair's greedy streams are compared by ``_hold_near_ties``: in
+    float32 they must be equal (greedy speculative decoding is exact,
+    and a retune drains in-flight state before a knob moves).  The
+    controlled arm stops speculating part of the way through while the
+    static arm verifies every token in a block, so in bf16 a stream may
+    part only at a near-tie of the target's top two logits, and keeps
+    its length and ``ok``; ``ctrl_streams_equal`` counts the whole ones
+    and ``ctrl_parting_gap_max`` / ``ctrl_parting_limit_min`` bound the
+    partings.
+
+      * ``ctrl_vs_static_tokens_per_sec`` — the headline ratio
+        (controlled / static delivered-token rate), median with
+        cross-run pooled min/max.
+      * ``ctrl_goodput_fraction`` vs ``ctrl_static_goodput_fraction``
+        — the fleet ledger's verdict on each arm (from
+        ``StepRecord.device_ms``, JAX's derivation).
+      * ``ctrl_retunes_applied`` — knob moves the hill-climb landed
+        (median per controlled run).
+      * ``ctrl_overhead_pct`` — the poll tax: a DEAD-BANDED controller
+        (thresholds it can never cross) runs the tripled stream with
+        its streams asserted equal to the bare fleet's, and the number
+        is its metered poll seconds as a share of the run's wall clock.
+    """
+    import statistics
+
+    from .backoff import Backoff
+    from .control import GoodputController
+    from .fleet import Fleet
+    from .ledger import ChipTimeLedger, FleetLedger
+    from .serve import ServeEngine
+
+    device = resolve_device(device)
+    batch, ps = scale.batch, scale.page_size
+    chunk = ps
+    gamma = 4
+    max_new_hi = 1 + 3 * chunk
+    prompt_max = 2 * ps
+    longest = prompt_max + max_new_hi + (gamma + 1) * 2
+    config = _config(scale, longest + 2 * chunk)
+    params = _params(config, 0, device)
+    # The mis-calibration: a draft that never trained with the target
+    # (independent init) drafts tokens the verifier rejects at ~chance.
+    bad_draft = _params(config, 99, device)
+    n_rep = 2
+    n_req = 4 * batch  # beyond n_rep * batch slots: oversubscribed
+    reqs = []
+    for i in range(n_req):
+        plen = 1 + ps + (i * 7) % prompt_max
+        prompt = _prompt([23, i], min(plen, prompt_max), config.vocab_size)
+        new = 1 + chunk + (i % 3) * chunk
+        cls = "interactive" if i % 3 else "bulk"
+        reqs.append((prompt, new, cls))
+    pages_req = -(-(longest + 2 * chunk) // ps)
+    n_pages = pages_req * batch
+
+    def build_fleet():
+        engines = [
+            ServeEngine(
+                params, config, slots=batch, page_size=ps, chunk=chunk,
+                prompt_bucket=ps, n_pages=n_pages,
+                draft_params=bad_draft, draft_config=config,
+                gamma=gamma, spec="auto",
+                spec_breakeven=float(batch),  # always speculate
+                ledger=ChipTimeLedger(), device=device,
+            )
+            for _ in range(n_rep)
+        ]
+        fleet = Fleet(
+            engines, chip_ids=[f"chip-{i}" for i in range(n_rep)],
+            hang_timeout_s=60.0, ledger=FleetLedger(),
+            wfq_weights={"interactive": 2.0, "bulk": 1.0},
+        )
+        for i in range(n_rep):  # warm each replica's captures off-clock
+            fleet.submit([1 + i], 1 + chunk)
+        fleet.run()
+        fleet.drain_completed()
+        return fleet
+
+    def build_controller(fleet, inert: bool) -> GoodputController:
+        fast = Backoff(base_s=1e-6, max_s=1e-6, jitter=0.0)
+        if inert:
+            # Dead-banded: thresholds no measured signal can cross, and
+            # a WFQ dead band no re-weight can clear — every poll reads
+            # the ledger and holds, at the default backoff cadences.
+            return GoodputController(
+                fleet, min_sample_tokens=16,
+                spec_reject_low=0.0, spec_reject_high=0.999,
+                overdecode_low=0.0, overdecode_high=0.999,
+                wfq_deadband=1e9,
+            )
+        return GoodputController(
+            fleet, min_sample_tokens=16,
+            spec_reject_low=0.01, spec_reject_high=0.2,
+            retune_backoff=fast, wfq_backoff=fast,
+        )
+
+    streams_by_mode: dict[str, list] = {}
+    goodput_by_mode: dict[str, list] = {}
+    retunes: list[int] = []
+    overhead_fracs: list[float] = []
+    wfq_reweights = 0
+
+    def run_arm(mode: str) -> float:
+        nonlocal wfq_reweights
+        fleet = build_fleet()
+        ctrl = (
+            None if mode in ("static", "bare")
+            else build_controller(fleet, inert=(mode == "inert"))
+        )
+        # The overhead pair ("inert" vs "bare") runs the stream three
+        # times over: the poll tax it prices sits near the noise floor.
+        arm_reqs = reqs * (3 if mode in ("inert", "bare") else 1)
+        rids = [
+            fleet.submit(p, n, slo_class=cls) for p, n, cls in arm_reqs
+        ]
+        tokens0 = fleet.generated_tokens
+        t0 = time.perf_counter()
+        if ctrl is None:
+            fleet.run()
+        else:
+            ctrl.run()
+        secs = time.perf_counter() - t0
+        rate = (fleet.generated_tokens - tokens0) / secs
+        done = {fr.rid: fr for fr in fleet.drain_completed()}
+        statuses = {fr.status for fr in done.values()}
+        if len(done) != len(arm_reqs) or statuses != {"ok"}:
+            raise RuntimeError(
+                f"goodput_ctrl bench: {len(done)} of {len(arm_reqs)} "
+                f"finished with statuses {statuses}, expected all ok"
+            )
+        streams_by_mode.setdefault(mode, []).append(
+            [list(done[rid].tokens) for rid in rids]
+        )
+        goodput_by_mode.setdefault(mode, []).append(
+            fleet.ledger.snapshot()["goodput_fraction"]
+        )
+        if mode == "controlled":
+            if ctrl.retunes_applied == 0:
+                raise RuntimeError(
+                    "goodput_ctrl bench: the controlled arm applied no "
+                    "retunes — the mis-calibrated spec stream is "
+                    "supposed to trip the spec_rejected threshold"
+                )
+            retunes.append(ctrl.retunes_applied)
+            wfq_reweights += ctrl.wfq_reweights
+        if mode == "inert":
+            if ctrl.retunes_applied:
+                raise RuntimeError(
+                    "goodput_ctrl bench: the dead-banded controller "
+                    "actuated — the overhead arm must price polling "
+                    "only"
+                )
+            # Polls are strictly additive to fleet.step(), so their
+            # metered share of the run's wall clock IS the tax.
+            overhead_fracs.append(ctrl.poll_s / secs * 100.0)
+        fleet.close()
+        del fleet, ctrl
+        _release(device)
+        return rate
+
+    # Throwaway passes: one run per arm shape takes the first launches
+    # of every path each arm dispatches (the static arm speculates all
+    # run; the controlled arm also reaches the plain chunks), so the
+    # first interleaved pair prices control.
+    run_arm("controlled")
+    run_arm("static")
+    for mode in ("controlled", "static"):
+        streams_by_mode[mode].clear()
+        goodput_by_mode[mode].clear()
+    retunes.clear()
+    wfq_reweights = 0
+    ctrl_rates, static_rates = _interleaved_repeats(
+        lambda: run_arm("controlled"), lambda: run_arm("static")
+    )
+    equal, partings = 0, []
+    prompts = dict(enumerate(p for p, _, _ in reqs))
+    for ctrl_streams, static_streams in zip(
+        streams_by_mode["controlled"], streams_by_mode["static"]
+    ):
+        whole, parted = _hold_near_ties(
+            params, config, dict(enumerate(ctrl_streams)),
+            dict(enumerate(static_streams)), prompts,
+            "goodput_ctrl bench: controlled against static",
+        )
+        equal += whole
+        partings += parted
+    # Overhead pair: dead-banded controller vs bare fleet on the tripled
+    # stream, streams asserted equal; the tax itself comes from the
+    # controller's own poll_s meter (see run_arm).
+    _interleaved_repeats(
+        lambda: run_arm("inert"), lambda: run_arm("bare"), repeats=2,
+    )
+    for inert_streams, bare_streams in zip(
+        streams_by_mode["inert"], streams_by_mode["bare"]
+    ):
+        if inert_streams != bare_streams:
+            raise RuntimeError(
+                "goodput_ctrl bench: controller-off streams diverged "
+                "from the no-controller oracle"
+            )
+    ratios = [c / s for c, s in zip(ctrl_rates, static_rates)]
+    return {
+        "ctrl_replicas": n_rep,
+        "ctrl_requests": n_req,
+        "ctrl_tokens_per_sec": round(statistics.median(ctrl_rates), 1),
+        "ctrl_static_tokens_per_sec": round(
+            statistics.median(static_rates), 1
+        ),
+        "ctrl_vs_static_tokens_per_sec": round(
+            statistics.median(ratios), 3
+        ),
+        "ctrl_vs_static_tokens_per_sec_samples": [
+            round(r, 3) for r in ratios
+        ],
+        "ctrl_goodput_fraction": round(
+            statistics.median(goodput_by_mode["controlled"]), 3
+        ),
+        "ctrl_static_goodput_fraction": round(
+            statistics.median(goodput_by_mode["static"]), 3
+        ),
+        "ctrl_retunes_applied": int(statistics.median(retunes)),
+        "ctrl_wfq_reweights": wfq_reweights,
+        "ctrl_overhead_pct": round(statistics.median(overhead_fracs), 2),
+        "ctrl_overhead_pct_min": round(min(overhead_fracs), 2),
+        "ctrl_overhead_pct_max": round(max(overhead_fracs), 2),
+        "ctrl_overhead_pct_samples": [
+            round(o, 2) for o in overhead_fracs
+        ],
+        "ctrl_streams_equal": equal,
+        "ctrl_streams": len(ctrl_rates) * n_req,
+        **_parting_keys("ctrl", partings),
+    }
+
+
+def measure_durability(scale: BenchScale, device=None) -> dict:
+    """Durable sessions: the SAME seeded greedy stream run two ways as
+    interleaved repeats — an ORACLE arm on the plain engine (no disk
+    tier, no journal) and a DURABLE arm (``kv_disk_dir`` +
+    ``Fleet(journal_dir=...)``) that is KILLED mid-stream via
+    ``close()`` after three steps and rebuilt in a fresh fleet from
+    nothing but the journal and the per-page disk files.
+
+    Every repeat holds the restored streams against the uninterrupted
+    oracle by ``_hold_replay`` (whole in float32; in bf16 the journaled
+    tokens and every length; ``durable_replay_streams_equal`` counts the
+    whole ones) and asserts the kill landed mid-stream (>= 1 session had
+    emitted tokens but not finished):
+
+      * ``durable_restore_ms`` — wall time for ``Fleet.restore()`` to
+        resurrect every journaled session into a cold fleet (median
+        with min/max; the crash-recovery RTO).
+      * ``kv_disk_reload_ms`` — per-page disk -> card reload latency
+        (checksum verify + the copy up) during the restored run; the
+        copy is from pageable memory.
+      * ``durable_sessions_per_hbm_page`` — journaled sessions carried
+        per pool page: the fan-out the disk tier buys over device
+        memory alone.
+      * ``durable_off_tokens_per_sec`` — the oracle arm's rate.
+    """
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    from .fleet import Fleet
+    from .serve import ServeEngine
+
+    device = resolve_device(device)
+    batch, ps = scale.batch, scale.page_size
+    chunk = ps
+    hi = scale.serve_chunks[1]
+    prefix_len = 2 * ps  # shared system template: the disk tier dedups it
+    tail_max = ps
+    max_new = 1 + hi * chunk
+    longest = prefix_len + tail_max + max_new
+    config = _config(scale, longest + chunk)
+    params = _params(config, 0, device)
+    n_rep = 2
+    n_req = 2 * batch
+    sys_prefix = _prompt([23, 0], prefix_len, config.vocab_size)
+    reqs = []
+    for i in range(n_req):
+        tail = _prompt([23, 100 + i], 1 + i % tail_max, config.vocab_size)
+        # Budgets long enough that a 3-step kill is mid-stream for most.
+        new = max_new - (i * chunk) % (2 * chunk)
+        reqs.append((sys_prefix + tail, new))
+    pages_req = -(-longest // ps)
+    n_pages = pages_req * batch
+    host_pages = 4 * pages_req
+    fleet_hbm_pages = n_rep * n_pages
+
+    def build_fleet(root: str | None, warm: bool):
+        durable = root is not None
+        engines = [
+            ServeEngine(
+                params, config, slots=batch, page_size=ps, chunk=chunk,
+                prompt_bucket=ps, pipelined=True, n_pages=n_pages,
+                prefix_cache=True,
+                kv_offload=durable,
+                kv_host_pages=host_pages if durable else None,
+                kv_disk_dir=os.path.join(root, "kv") if durable else None,
+                device=device,
+            )
+            for _ in range(n_rep)
+        ]
+        fleet = Fleet(
+            engines, chip_ids=[f"chip-{i}" for i in range(n_rep)],
+            hang_timeout_s=60.0,
+            journal_dir=os.path.join(root, "journal") if durable else None,
+        )
+        if warm:  # the captures and first launches, off-clock
+            for i in range(n_rep):
+                fleet.submit([1 + i], 1 + chunk)
+            fleet.run()
+            fleet.drain_completed()
+        return fleet
+
+    def run_oracle() -> tuple[float, list[list[int]]]:
+        fleet = build_fleet(None, warm=True)
+        rids = [fleet.submit(p, n) for p, n in reqs]
+        tokens0 = fleet.generated_tokens
+        t0 = time.perf_counter()
+        fleet.run()
+        secs = time.perf_counter() - t0
+        rate = (fleet.generated_tokens - tokens0) / secs
+        done = {fr.rid: fr for fr in fleet.drain_completed()}
+        statuses = {done[r].status for r in rids}
+        if statuses != {"ok"}:
+            raise RuntimeError(
+                f"durability bench oracle: statuses {statuses}, "
+                "expected all ok"
+            )
+        fleet.close()
+        del fleet
+        _release(device)
+        return rate, [list(done[r].tokens) for r in rids]
+
+    def run_durable(oracle_streams: list[list[int]]):
+        root = tempfile.mkdtemp(prefix="bench-durable-")
+        try:
+            fleet = build_fleet(root, warm=True)
+            rids = [fleet.submit(p, n) for p, n in reqs]
+            with fleet._lock:
+                for _ in range(3):  # mid-stream, then the process "dies"
+                    if not fleet.idle:
+                        fleet.step()
+            fleet.close()  # journals live sessions before going dark
+            del fleet
+            _release(device)
+            # A FRESH fleet — new engines, empty pools, empty radix —
+            # rebuilt from nothing but what survived on disk.  No warm
+            # pass: restore must work into a cold boot.
+            fleet2 = build_fleet(root, warm=False)
+            t0 = time.perf_counter()
+            restored = fleet2.restore(os.path.join(root, "journal"))
+            restore_s = time.perf_counter() - t0
+            kept = {fr.rid: len(fr.tokens) for fr in fleet2.queue}
+            mid = sum(1 for fr in fleet2.queue if fr.tokens)
+            if restored < n_req or mid < 1:
+                raise RuntimeError(
+                    f"durability bench: restored {restored} sessions "
+                    f"({mid} mid-stream) — the kill must land with "
+                    "every session journaled and >= 1 mid-stream"
+                )
+            fleet2.run()
+            done = {fr.rid: fr for fr in fleet2.drain_completed()}
+            equal = _hold_replay(
+                {r: list(done[r].tokens) for r in rids},
+                dict(zip(rids, oracle_streams)), kept, config.dtype,
+                "durability bench",
+            )
+            reads = sum(
+                r.engine._kv_disk.reads for r in fleet2.replicas
+            )
+            get_s = sum(
+                r.engine._kv_disk.get_s for r in fleet2.replicas
+            )
+            reload_ms = (get_s / reads) * 1000 if reads else 0.0
+            fleet2.close()
+            del fleet2
+            _release(device)
+            return restore_s * 1000, reload_ms, restored, equal
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    # Throwaway pass: the measured shapes' first launches (and the
+    # restore path's), so the first interleaved pair prices durability.
+    _, oracle_streams = run_oracle()
+    run_durable(oracle_streams)
+    restore_samples: list[float] = []
+    reload_samples: list[float] = []
+    restored_counts: list[float] = []
+    off_rates: list[float] = []
+    equal = 0
+
+    def durable_arm() -> float:
+        nonlocal equal
+        restore_ms, reload_ms, restored, whole = run_durable(oracle_streams)
+        restore_samples.append(restore_ms)
+        reload_samples.append(reload_ms)
+        restored_counts.append(restored)
+        equal += whole
+        return restore_ms
+
+    def oracle_arm() -> float:
+        rate, streams = run_oracle()
+        if streams != oracle_streams:
+            raise RuntimeError(
+                "durability bench: durability-off streams drifted "
+                "between repeats — the greedy oracle must be stable"
+            )
+        off_rates.append(rate)
+        return rate
+
+    _interleaved_repeats(durable_arm, oracle_arm)
+    return {
+        "durable_replicas": n_rep,
+        "durable_requests": n_req,
+        "durable_restore_ms": round(
+            statistics.median(restore_samples), 2
+        ),
+        "durable_restore_ms_min": round(min(restore_samples), 2),
+        "durable_restore_ms_max": round(max(restore_samples), 2),
+        "durable_restore_ms_samples": [
+            round(s, 2) for s in restore_samples
+        ],
+        "kv_disk_reload_ms": round(
+            statistics.median(reload_samples), 3
+        ),
+        "kv_disk_reload_ms_samples": [
+            round(s, 3) for s in reload_samples
+        ],
+        "durable_sessions_per_hbm_page": round(
+            statistics.median(restored_counts) / fleet_hbm_pages, 4
+        ),
+        "durable_off_tokens_per_sec": round(
+            statistics.median(off_rates), 1
+        ),
+        "durable_replay_streams_equal": equal,
+        "durable_replay_streams": len(restore_samples) * n_req,
+    }
+
+
 def measure_faststart(scale: BenchScale, device=None) -> dict:
     """Fast replica start economics (faststart.py), on a spec="auto"
     engine so the spawn path carries what fast start removes: the
@@ -2685,13 +4544,9 @@ def run(
     """The arms as one flat dict, in JAX's order.  ``pool_with`` is the
     previous artifact (when parseable): headline samples pool with its
     persisted ones so the published min–max spans >= 2 processes.  On
-    the card the dict carries the card's name and power limit.
-
-    The arms that drive a ``Fleet`` — ``measure_fleet``,
-    ``measure_disagg``, ``measure_selfheal`` and ``measure_autoscale``
-    (after the fault arm), ``measure_kv_sched`` and
-    ``measure_durability`` (after the KV hierarchy) and
-    ``measure_goodput_ctrl`` (after multi-LoRA) — are the next slice."""
+    the card the dict carries the card's name and power limit.  Each arm
+    that drives a ``Fleet`` prints its seconds and peak device memory to
+    stderr (``_timed_arm``)."""
     from .ops.kernel_select import table_from_measurements
 
     device = resolve_device(device)
@@ -2734,6 +4589,8 @@ def run(
     out.update(measure_obs_overhead(scale, device))
     out.update(measure_ledger(scale, device))
     out.update(measure_fault_recovery(scale, device))
+    for fn in (measure_fleet, measure_disagg, measure_selfheal, measure_autoscale):
+        out.update(_timed_arm(fn, scale, device, log=sys.stderr)[0])
     out.update(measure_admission(scale, device))
     out.update(measure_prefix_serve(scale, device))
     kvh = measure_kv_hierarchy(scale, device)
@@ -2743,6 +4600,11 @@ def run(
             out, "kv_offload_reload_ms",
             kvh["kv_offload_reload_ms_samples"], pool_with,
         )
+    out.update(_timed_arm(measure_kv_sched, scale, device, log=sys.stderr)[0])
+    dur = _timed_arm(measure_durability, scale, device, log=sys.stderr)[0]
+    out.update(dur)
+    for key in ("durable_restore_ms", "kv_disk_reload_ms"):
+        _publish_ratio_spread(out, key, dur[f"{key}_samples"], pool_with)
     out.update(measure_spec_serve(scale, device))
     out.update(measure_spec_economics(scale, device))
     phases = measure_spec_phases(scale, device)
@@ -2759,6 +4621,12 @@ def run(
         sps["spec_superstep_tokens_per_sec_samples"], pool_with,
     )
     out.update(measure_multi_lora(scale, device))
+    ctrl = _timed_arm(measure_goodput_ctrl, scale, device, log=sys.stderr)[0]
+    out.update(ctrl)
+    _publish_ratio_spread(
+        out, "ctrl_vs_static_tokens_per_sec",
+        ctrl["ctrl_vs_static_tokens_per_sec_samples"], pool_with,
+    )
     out.update(measure_profiler(scale, device))
     # LAST: measure_faststart points the process-global kernel-build
     # cache at a fresh directory.

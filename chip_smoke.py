@@ -129,6 +129,19 @@ Phases, each of which fails the run loudly:
    whole (``tiny`` computes in float32; ``bench_fleet_gates``), K1
    launched and no flash kernel, each arm's seconds and peak device
    memory printed;
+4j. tensor-parallel serving (``tp_phase``): phase 4's model and stream on
+   a (1, 2) mesh, two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device; gloo stages each all-reduce through host memory,
+   so the times say nothing of TP speed), each rank holding its cut of
+   the weights and its kv heads of the pools and running K1 on them,
+   every step eager (no CUDA graph under a mesh): float32 (a) plain, (b)
+   ``superstep_k=4, pipelined``, (c) the int8 self-draft at gamma 4,
+   (d) two adapters and the base, each rank's streams equal to the
+   one-device engine's token for token, K1 launched on every rank in
+   every arm, no page kept; one bf16 teacher-forced step within sqrt 2
+   of the step's bf16 floor (max and rms from one device's float32 step;
+   ``TP_BF16_FLOOR_FACTOR``) and the float32 step within ``STEP_F32_RTOL``; each rank's launches, peak
+   memory and seconds printed;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -3465,6 +3478,308 @@ def bench_fleet_phase(torch, pb, counters, scale_name="tiny", device="cuda",
     return launches
 
 
+# Phase 4j, tensor-parallel serving: phase 4's model and 12-request
+# stream on a ("data", "model") mesh of (1, 2), two ranks on the one card.
+# NCCL refuses two ranks on one device ("Duplicate GPU detected"), so the
+# world is gloo, which stages each all-reduce through host memory: its
+# times say nothing of TP speed.  Arms, float32, each against the
+# one-device engine token for token: (a) plain, (b) superstep_k=4
+# pipelined, (c) the int8 self-draft at gamma 4, (d) two rank-8 adapters
+# (seed 99) and the base round-robin; then one bf16 teacher-forced step.
+TP = dict(ranks=2, gamma=4, superstep_k=4, lora_n=2, lora_rank=8, lora_seed=99,
+          step_lengths=(32, 100, 200, 300, 400, 500, 543, 1), all_reduces=100,
+          timeout_s=900)
+# The bf16 step's limit: its max and rms distance from one device's float32
+# step within this factor of one device's bf16 step's (the bf16 floor).
+# A rank rounds its partial wo and w_down products to bf16 before the sum,
+# one more rounding of each row-parallel product than one device makes: at
+# most twice the rounding variance, so sqrt 2 of the floor.  (NVIDIA H100
+# 80GB HBM3, 700 W: the TP step sat at 1.11 x the floor's max and 1.04 x
+# its rms.)
+TP_BF16_FLOOR_FACTOR = 2.0**0.5
+TP_ARMS = ("(a) plain", "(b) superstep_k=4 pipelined", "(c) int8 self-draft gamma 4",
+           "(d) two adapters and the base")
+
+
+def tp_config(torch, f, dtype):
+    from workloads_torch.model import ModelConfig
+
+    return ModelConfig(d_model=f["d_model"], n_heads=f["n_heads"], n_layers=f["n_layers"],
+                       d_ff=f["d_ff"], vocab_size=f["vocab_size"],
+                       max_seq_len=f["decode_prompt"] + f["decode_lens"][1], dtype=dtype)
+
+
+def tp_serve_arms(torch, f, tp, requests, device, mesh=None) -> dict:
+    """Phase 4j's four float32 drains of ``requests`` ([(prompt, n)]) on
+    one device (``mesh`` None) or on this rank of ``mesh``: per arm the
+    streams, statuses, pages left in use, K1 launches and seconds."""
+    from workloads_torch.model import init_params
+    from workloads_torch.multi_lora import synthetic_adapters
+    from workloads_torch.ops import paged_attention as pa
+    from workloads_torch.quant import quantize_params
+    from workloads_torch.serve import ServeEngine
+
+    config = tp_config(torch, f, torch.float32)
+    params = init_params(config, torch.Generator(device).manual_seed(0))
+    adapters = synthetic_adapters(config, tp["lora_n"], rank=tp["lora_rank"],
+                                  seed=tp["lora_seed"], device=device)
+    tenants = [None] + sorted(adapters)
+    arms = {TP_ARMS[0]: {}, TP_ARMS[1]: dict(superstep_k=tp["superstep_k"], pipelined=True),
+            TP_ARMS[2]: dict(draft_params=quantize_params(params), draft_config=config,
+                             gamma=tp["gamma"]),
+            TP_ARMS[3]: dict(adapters=adapters)}
+    base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["page_size"],
+                device=device.type, mesh=mesh)
+    out = {}
+    for name, kw in arms.items():
+        engine = ServeEngine(params, config, **base, **kw)
+        lora = "adapters" in kw
+        pa.paged_attention.launches = 0
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [engine.submit(p, n, adapter=tenants[i % len(tenants)] if lora else None)
+                for i, (p, n) in enumerate(requests)]
+        served = engine.run()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        status = {r.rid: r.status for r in engine.completed}
+        out[name] = {"streams": [[int(t) for t in served.get(r, [])] for r in rids],
+                     "statuses": [status.get(r) for r in rids],
+                     "used_pages": engine.ctrl.used_pages, "k1": pa.paged_attention.launches,
+                     "seconds": time.perf_counter() - t0}
+        del engine
+    return out
+
+
+def tp_step(torch, f, tp, dtype, device, mesh=None):
+    """One teacher-forced decode step of phase 4's model in ``dtype`` at
+    ``tp["step_lengths"]``, through K1 on the card, on one device or on
+    this rank of ``mesh`` (its cut of the weights and pools, the
+    row-parallel all-reduce): the float32 logits, on the host."""
+    from workloads_torch import paged, tp_serve
+    from workloads_torch.model import cast_params, init_params
+
+    config = tp_config(torch, f, dtype)
+    params = cast_params(init_params(tp_config(torch, f, torch.float32),
+                                     torch.Generator(device).manual_seed(0)), dtype)
+    lengths, ps = list(tp["step_lengths"]), f["page_size"]
+    cover = -(-max(lengths) // ps)
+    n_pages = len(lengths) * cover
+    reduce = None
+    with torch.inference_mode():
+        if mesh is None:
+            pools = paged.init_page_pools(config, n_pages, ps, device)
+        else:
+            pools = tp_serve.init_shard_pools(config, n_pages, ps, mesh, device)
+            params = tp_serve.shard_params(params, config, mesh)
+            reduce = tp_serve.model_all_reduce(mesh)
+        tables = torch.arange(n_pages, dtype=torch.int32, device=device).reshape(
+            len(lengths), cover)
+        g = torch.Generator(device).manual_seed(5)
+        prompts = torch.randint(0, config.vocab_size, (len(lengths), cover * ps), generator=g,
+                                device=device)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        paged.paged_prefill_chunk(params, pools, tables, prompts, lens, config, 0, cover,
+                                  emit=False, reduce=reduce)
+        tok = torch.randint(0, config.vocab_size, (len(lengths),), generator=g, device=device)
+        tables_dec = torch.cat([tables, torch.full((len(lengths), 1), n_pages,
+                                                   dtype=torch.int32, device=device)], 1)
+        logits, _ = paged._decode_core(params, pools, tables_dec.contiguous(), tok,
+                                       lens.long(), config, reduce=reduce)
+    return logits.float().cpu()
+
+
+def tp_rank(rank, world, store, out_path, f, tp, requests, device_type):
+    """One rank of phase 4j: join the gloo world, build the (1, world)
+    mesh, run the arms and the bf16 and float32 steps on its cut, and
+    write what it saw to ``out_path``.  An exception ends the process
+    with a non-zero code, which fails the phase."""
+    import datetime
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from workloads_torch import tp_serve
+    from workloads_torch.ops import paged_attention as pa
+    from workloads_torch.train import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device_type == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    t0 = time.perf_counter()
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.FileStore(store, world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=tp["timeout_s"]))
+    mesh = make_mesh(world, model_parallel=world, device_type=device_type)
+    device = tp_serve.mesh_device(mesh)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    arms = tp_serve_arms(torch, f, tp, requests, device, mesh)
+    pa.paged_attention.launches = 0
+    steps = {str(dtype): tp_step(torch, f, tp, dtype, device, mesh)
+             for dtype in (torch.float32, torch.bfloat16)}
+    step_k1 = pa.paged_attention.launches
+    # One row-parallel all-reduce as a decode step makes it: [slots,
+    # d_model] float32 over the model group, host clock to a synchronise.
+    x = torch.ones((f["slots"], f["d_model"]), device=device)
+    reduce = tp_serve.model_all_reduce(mesh)
+    for _ in range(5):
+        reduce(x)
+    if cuda:
+        torch.cuda.synchronize(device)
+    t_ar = time.perf_counter()
+    for _ in range(tp["all_reduces"]):
+        reduce(x)
+    if cuda:
+        torch.cuda.synchronize(device)
+    all_reduce_ms = (time.perf_counter() - t_ar) / tp["all_reduces"] * 1e3
+    out = {"arms": arms, "steps": {k: v.numpy() for k, v in steps.items()},
+           "step_k1": step_k1, "all_reduce_ms": all_reduce_ms,
+           "backend": torch.distributed.get_backend(mesh.get_group("model")),
+           "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
+           "seconds": time.perf_counter() - t0}
+    torch.distributed.destroy_process_group()
+    with open(out_path, "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def _max_rms(d) -> tuple[float, float]:
+    import numpy as np
+
+    return float(np.abs(d).max()), float(np.sqrt((d.astype(np.float64) ** 2).mean()))
+
+
+def tp_gates(one: dict, ranks: list, f32_tol: float, card: bool = True) -> list[str]:
+    """Phase 4j's gates over the one-device arms and steps (``one``) and
+    each rank's results: each failure names its arm or step and rank.
+    ``card``: K1 must have launched (off the card its plain version runs
+    and counts nothing)."""
+    failed = []
+    for name in TP_ARMS:
+        want = one["arms"][name]
+        if any(s != "ok" for s in want["statuses"]):
+            failed.append(f"{name} on one device: statuses {want['statuses']}")
+        for r, got in enumerate(ranks):
+            arm = got["arms"][name]
+            bad = [i for i, (a, b) in enumerate(zip(arm["streams"], want["streams"])) if a != b]
+            if bad or len(arm["streams"]) != len(want["streams"]):
+                failed.append(f"{name} rank {r}: streams {bad} differ from one device's")
+            if arm["statuses"] != want["statuses"]:
+                failed.append(f"{name} rank {r}: statuses {arm['statuses']}")
+            if arm["used_pages"] != 0:
+                failed.append(f"{name} rank {r}: {arm['used_pages']} pages in use after drain")
+            if card and arm["k1"] <= 0:
+                failed.append(f"{name} rank {r}: K1 launched {arm['k1']} times")
+    s32 = one["steps"]["torch.float32"]
+    floor = _max_rms(one["steps"]["torch.bfloat16"] - s32)
+    for r, got in enumerate(ranks):
+        err32 = _max_rms(got["steps"]["torch.float32"] - s32)[0]
+        err16 = _max_rms(got["steps"]["torch.bfloat16"] - s32)
+        if not err32 <= f32_tol:
+            failed.append(f"float32 step rank {r}: {err32:.4e} from one device's "
+                          f"(limit {f32_tol:.4e})")
+        if not all(e <= TP_BF16_FLOOR_FACTOR * fl for e, fl in zip(err16, floor)):
+            failed.append(f"bf16 step rank {r}: max {err16[0]:.4e} rms {err16[1]:.4e} from "
+                          f"one device's float32 step (limits: sqrt 2 x the bf16 floor, "
+                          f"max {floor[0]:.4e} rms {floor[1]:.4e})")
+    return failed
+
+
+def tp_phase(torch, f, requests, tp=TP, device="cuda") -> int:
+    """Phase 4j: tensor-parallel serving on ``tp["ranks"]`` gloo ranks of
+    the one ``device``, each holding its cut of phase 4's weights and
+    pools.  One device's arms and steps first, in this process; then the
+    world, spawned, whose ranks must each exit 0 within the time limit
+    (a rank that fails ends the phase and the run).  Returns the K1
+    launches of every rank's arms."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    requests = [([int(t) for t in p], int(n)) for p, n in requests]
+    one = {"arms": tp_serve_arms(torch, f, tp, requests, dev),
+           "steps": {str(dt): tp_step(torch, f, tp, dt, dev).numpy()
+                     for dt in (torch.float32, torch.bfloat16)}}
+    s32, s16 = one["steps"]["torch.float32"], one["steps"]["torch.bfloat16"]
+    floor = _max_rms(s16 - s32)
+    f32_tol = STEP_F32_RTOL * float(abs(s32).max())
+    arm_s = ", ".join(f"{n} {a['seconds']:.2f} s" for n, a in one["arms"].items())
+    print(f"  one device: {arm_s}; the step's bf16 floor (one device's bf16 vs float32) "
+          f"max {floor[0]:.4e} rms {floor[1]:.4e}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(tp["ranks"])]
+    procs = [ctx.Process(target=tp_rank, args=(r, tp["ranks"], os.path.join(tmp, "store"),
+                                               outs[r], f, tp, requests, device))
+             for r in range(tp["ranks"])]
+    t_world = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                    if p.exitcode not in (None, 0)]
+            if dead:
+                fail(f"phase 4j: rank {dead[0][0]} exited with code {dead[0][1]}")
+            if time.perf_counter() - t_world > tp["timeout_s"]:
+                fail(f"phase 4j: the world did not finish in {tp['timeout_s']} s")
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f"phase 4j: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    ranks = []
+    for path in outs:
+        with open(path, "rb") as fh:
+            ranks.append(pickle.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    world_s = time.perf_counter() - t_world
+    for r, got in enumerate(ranks):
+        mem = f"{got['peak_gib']:.2f} GiB" if got["peak_gib"] is not None else \
+            "not measured (no card)"
+        print(f"  rank {r} ({got['backend']}): K1 launches "
+              + ", ".join(f"{n} {a['k1']}" for n, a in got["arms"].items())
+              + f", steps {got['step_k1']}; peak device memory {mem}; "
+              f"{got['seconds']:.1f} s in the rank; one all-reduce of [{f['slots']}, "
+              f"{f['d_model']}] float32 {got['all_reduce_ms']:.4f} ms (mean of "
+              f"{tp['all_reduces']})", flush=True)
+        print(f"  rank {r} arm seconds: "
+              + ", ".join(f"{n} {a['seconds']:.2f}" for n, a in got["arms"].items()),
+              flush=True)
+    lim = TP_BF16_FLOOR_FACTOR
+    for r, got in enumerate(ranks):
+        e32 = _max_rms(got["steps"]["torch.bfloat16"] - s32)
+        e16 = _max_rms(got["steps"]["torch.bfloat16"] - s16)
+        print(f"  rank {r} bf16 step vs one device's float32 step: max {e32[0]:.4e} rms "
+              f"{e32[1]:.4e} (limits {lim:.4f} x the floor: {lim * floor[0]:.4e}, "
+              f"{lim * floor[1]:.4e}); vs one device's bf16 step: max {e16[0]:.4e} rms "
+              f"{e16[1]:.4e}; float32 step max "
+              f"{_max_rms(got['steps']['torch.float32'] - s32)[0]:.4e} "
+              f"(limit {f32_tol:.4e})", flush=True)
+    failed = tp_gates(one, ranks, f32_tol, card=device == "cuda")
+    if failed:
+        fail(f"phase 4j: {failed}")
+    tokens = sum(len(s) for s in one["arms"][TP_ARMS[0]]["streams"])
+    print(f"  {tp['ranks']} ranks over gloo on one {device} device: every arm's float32 "
+          f"streams ({tokens} tokens an arm) equal one device's on every rank, the bf16 "
+          f"step within sqrt 2 of its floor; world {world_s:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s (gloo stages each all-reduce through host "
+          f"memory: these times say nothing of TP speed)", flush=True)
+    return sum(a["k1"] for got in ranks for a in got["arms"].values())
+
+
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -4204,6 +4519,14 @@ def main() -> int:
     print(f"  perfbench fleet arms: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{bench_fleet_launches}; card: {card}", flush=True)
 
+    # 4j. tensor-parallel serving, two ranks on the one card
+    phase("serving path: tensor-parallel serving, 2 ranks over gloo on one card, float32 "
+          "arms and a bf16 step")
+    t0 = time.perf_counter()
+    tp_launches = tp_phase(torch, f, requests)
+    print(f"  tensor-parallel phase: {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{tp_launches} over both ranks; card: {card}", flush=True)
+
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
     phase("numbers")
@@ -4309,7 +4632,7 @@ def main() -> int:
         "replaces": "workloads/ops/paged_attention.py:56",
         "launches": launches + lifecycle_launches + kv_launches + spec_launches
         + lora_launches + fleet_launches + profiling_launches + bench_engine_launches
-        + bench_fleet_launches,
+        + bench_fleet_launches + tp_launches,
         "lifecycle_launches": lifecycle_launches,
         "kv_launches": kv_launches,
         "spec_launches": spec_launches,
@@ -4318,6 +4641,7 @@ def main() -> int:
         "profiling_launches": profiling_launches,
         "bench_engine_launches": bench_engine_launches,
         "bench_fleet_launches": bench_fleet_launches,
+        "tp_launches": tp_launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -270,3 +270,69 @@ def test_bench_fleet_gates_name_what_fails():
     assert chip_smoke.bench_fleet_gates(bad) == [
         "fleet_replicas == 4", "selfheal_crash_loops == 1",
         "ctrl_streams_equal == ctrl_streams"]
+
+
+# Phase 4j at a tiny width: two gloo ranks on the CPU.
+TP_TINY = dict(d_model=64, n_heads=4, n_layers=2, d_ff=128, vocab_size=256, page_size=4,
+               decode_prompt=8, decode_lens=(8, 16), slots=2)
+
+
+def test_tp_phase_rehearses_on_the_cpu(capsys):
+    """Phase 4j on a 2-rank gloo CPU world at a tiny width, every CPU
+    gate included: each rank's float32 streams of the four arms equal
+    one device's, no page kept, the bf16 step within sqrt 2 of its floor
+    and the float32 step within STEP_F32_RTOL."""
+    import numpy as np
+    import torch
+
+    f = dict(chip_smoke.FULL, **TP_TINY)
+    rng = np.random.default_rng(0)
+    requests = [(rng.integers(0, 256, 8), n) for n in (8, 16, 12, 6, 16)]
+    tp = dict(chip_smoke.TP, step_lengths=(8, 13, 23, 1), timeout_s=300)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.tp_phase(torch, f, requests, tp=tp, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    for r in range(2):
+        assert f"rank {r} (gloo): K1 launches" in out
+        assert "] float32 " in out and f" ms (mean of {tp['all_reduces']})" in out
+        assert f"rank {r} bf16 step vs one device's float32 step" in out
+    assert "peak device memory not measured (no card)" in out
+    assert "equal one device's on every rank, the bf16 step within sqrt 2 of its floor" in out
+    assert launches == 0  # off the card K1's plain version runs, uncounted
+
+
+def _tp_results(streams, k1=5, pages=0, s32=0.0, s16=0.0):
+    import numpy as np
+
+    arms = {name: {"streams": [list(s) for s in streams],
+                   "statuses": ["ok"] * len(streams), "used_pages": pages, "k1": k1,
+                   "seconds": 1.0} for name in chip_smoke.TP_ARMS}
+    return {"arms": arms, "steps": {"torch.float32": np.full(4, s32),
+                                    "torch.bfloat16": np.full(4, s16)}}
+
+
+def test_tp_gates_name_what_fails():
+    streams = [[1, 2, 3], [4, 5]]
+    one = _tp_results(streams, s16=0.1)  # the bf16 floor: 0.1, max and rms
+    good = _tp_results(streams, s32=0.001, s16=0.14)
+    assert chip_smoke.tp_gates(one, [good, good], f32_tol=0.01) == []
+    bad = _tp_results(streams, s32=0.02, s16=0.15)
+    bad["arms"][chip_smoke.TP_ARMS[2]]["streams"][1] = [4, 6]
+    bad["arms"][chip_smoke.TP_ARMS[3]]["k1"] = 0
+    bad["arms"][chip_smoke.TP_ARMS[1]]["used_pages"] = 3
+    failed = chip_smoke.tp_gates(one, [good, bad], f32_tol=0.01)
+    assert failed == [
+        "(b) superstep_k=4 pipelined rank 1: 3 pages in use after drain",
+        "(c) int8 self-draft gamma 4 rank 1: streams [1] differ from one device's",
+        "(d) two adapters and the base rank 1: K1 launched 0 times",
+        "float32 step rank 1: 2.0000e-02 from one device's (limit 1.0000e-02)",
+        "bf16 step rank 1: max 1.5000e-01 rms 1.5000e-01 from one device's float32 step "
+        "(limits: sqrt 2 x the bf16 floor, max 1.0000e-01 rms 1.0000e-01)",
+    ]
+    # Off the card K1 counts nothing, and that is no failure.
+    assert chip_smoke.tp_gates(one, [good, _tp_results(streams, k1=0, s16=0.1)], 0.01,
+                               card=False) == []

@@ -20,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
           "supervisor", "autoscaler", "control", "profiler", "faststart",
-          "ops/kernel_select"]
+          "ops/kernel_select", "lease"]
 
 # (module, definition): the port builds its own engine on a device
 # (make_fleet, make_engine_factory), writes the device plugin's stats

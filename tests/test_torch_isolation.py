@@ -72,6 +72,14 @@ def test_mfu_sweep_is_scanned():
     assert os.path.join("workloads_torch", "mfu_sweep.py") in scanned
 
 
+def test_tensor_parallel_modules_are_scanned():
+    """The scan reaches the tensor-parallel slice's modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", f"{m}.py") for m in (
+        "tp_serve", "distributed", "lease",
+    )} <= scanned
+
+
 def test_scan_catches_forbidden_lines():
     """The scan itself: it flags the JAX package and jax, not the port."""
     flagged = [

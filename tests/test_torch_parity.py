@@ -22,17 +22,25 @@ tests/test_torch_perfbench_fleet_golden.json;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the eight fixtures from the JAX package (``write_fleet_goldens()``
-or ``write_perfbench_fleet_goldens()`` alone rewrites only its own).
+regenerates the nine fixtures from the JAX package (``write_fleet_goldens()``,
+``write_perfbench_fleet_goldens()`` or ``write_tp_goldens()`` alone
+rewrites only its own; the last holds tests/test_torch_tp_serve.py's
+frozen JAX tensor-parallel streams).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import tempfile
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# Eight CPU devices, as tests/conftest.py sets them, also when this file
+# runs as a script: the tensor-parallel goldens shard over up to four.
+_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (_flags + " --xla_force_host_platform_device_count=8").strip()
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
@@ -75,6 +83,8 @@ from tests.test_torch_kv_hierarchy import (  # noqa: E402
 from tests.test_torch_kv_hierarchy import golden_runs as kv_golden_runs  # noqa: E402
 from tests.test_torch_kv_hierarchy import run_kv_scenario  # noqa: E402
 from tests import test_torch_lora as tlora  # noqa: E402
+from tests import test_torch_tp_serve as ttp  # noqa: E402
+from tests import torch_tp_world as tw  # noqa: E402
 from tests import test_torch_fleet as tfleet  # noqa: E402
 from tests import test_torch_perfbench_fleet as tpbf  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
@@ -129,6 +139,7 @@ from workloads import perfbench as jperf  # noqa: E402
 from workloads import quant as jquant  # noqa: E402
 from workloads import serve as jserve  # noqa: E402
 from workloads import speculative as jspec  # noqa: E402
+from workloads import tp_serve as jtp  # noqa: E402
 from workloads import train as jtrain  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
 from workloads_torch import convert  # noqa: E402
@@ -874,6 +885,71 @@ def test_perfbench_fleet_fields_match_jax_live(name):
     assert {k: got[k] for k in tpbf.GOLDEN_FIELDS[name]} == jax_perfbench_fleet_fields(name)
 
 
+def _jax_tree(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def jax_tp_config(name: str) -> jmodel.ModelConfig:
+    return jmodel.ModelConfig(dtype=jnp.float32, **tw.CONFIGS[name])
+
+
+def jax_tp_case(name: str, mp: int) -> dict:
+    """One engine case of tests/torch_tp_world.py on the JAX package's TP
+    engine over a (1, mp) mesh of the CPU devices."""
+    case = tw.CASES[name]
+    kw = dict(case.kw)
+    if case.draft is not None:
+        kw.update(draft_params=_jax_tree(tw.numpy_params(case.draft)),
+                  draft_config=jax_tp_config(case.draft))
+    if case.adapters:
+        kw["adapters"] = _jax_tree(tw.numpy_adapters(case.config))
+    engine = jserve.ServeEngine(_jax_tree(tw.numpy_params(case.config)),
+                                jax_tp_config(case.config),
+                                mesh=jtrain.make_mesh(mp, model_parallel=mp), **kw)
+    return tw.drive(engine, case.script)
+
+
+def jax_tp_generate(name: str, shape: tuple, seed: int) -> list:
+    data, model = shape
+    prompts = np.random.default_rng(seed).integers(0, tw.VOCAB, (4, 8)).astype(np.int32)
+    mesh = jtrain.make_mesh(data * model, model_parallel=model)
+    got = jtp.make_tp_generate(jax_tp_config(name), mesh)(
+        _jax_tree(tw.numpy_params(name)), jnp.asarray(prompts), 12)
+    return np.asarray(got).tolist()
+
+
+def jax_tp_goldens() -> dict:
+    """The JAX TP engine's streams for every golden case and mesh, TP
+    generate's tokens per mesh, and param_specs as tuples."""
+    out = {"case": {}, "generate": {}, "param_specs": {}}
+    for name, case in tw.CASES.items():
+        if case.golden:
+            for mp in case.meshes:
+                out["case"][f"{name}/{mp}"] = jax_tp_case(name, mp)["streams"]
+    for name, shape, seed in (m for ms in tw.GENERATE_MESHES.values() for m in ms):
+        out["generate"][f"{name}{shape}"] = jax_tp_generate(name, shape, seed)
+    for name in ("mha", "gqa"):
+        specs = jmodel.param_specs(jax_tp_config(name))
+        out["param_specs"][name] = jax.tree.map(
+            tuple, specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    return out
+
+
+def test_tp_serve_matches_jax_live():
+    """The frozen JAX TP streams, generate tokens and param_specs
+    (tests/test_torch_tp_golden.npz) are what the JAX package computes
+    now."""
+    assert ttp.jsonable(jax_tp_goldens()) == ttp.load_tp_golden()
+
+
+def write_tp_goldens(path: str = ttp.TP_GOLDEN) -> None:
+    """Freeze the JAX package's tensor-parallel outputs for
+    tests/test_torch_tp_serve.py: one JSON document in the npz."""
+    doc = json.dumps(ttp.jsonable(jax_tp_goldens()), sort_keys=True)
+    np.savez_compressed(path, tp=np.array(doc))
+    print(f"wrote {path}: {os.path.getsize(path)} bytes")
+
+
 def write_perfbench_fleet_goldens(path: str = tpbf.FLEET_GOLDEN) -> None:
     """Freeze the schedule-fixed fields of JAX's fleet arms at the tiny
     scale for tests/test_torch_perfbench_fleet.py."""
@@ -1031,3 +1107,4 @@ if __name__ == "__main__":
     write_lora_goldens()
     write_fleet_goldens()
     write_perfbench_fleet_goldens()
+    write_tp_goldens()

@@ -44,7 +44,7 @@ def init_kv_cache(
 
 def decode_block(
     params: dict, cache: torch.Tensor, tokens: torch.Tensor, pos: int,
-    config: ModelConfig, unembed: str = "all", lora=None,
+    config: ModelConfig, unembed: str = "all", lora=None, reduce=None,
 ):
     """A block of ``s`` consecutive tokens through the cached model in
     one forward.  tokens: [batch, s] occupying positions
@@ -58,7 +58,9 @@ def decode_block(
 
     ``lora=(stacked, idx, alpha)`` applies PER-ROW adapter deltas to the
     q/k/v and output projections (``multi_lora.py``); None is the plain
-    model."""
+    model.  ``reduce`` (None: identity) takes the output of every ``wo``
+    and ``w_down`` product, after the adapter's delta: the row-parallel
+    all-reduce of a tensor-parallel rank (``tp_serve.py``)."""
     if unembed not in ("all", "last", "none", "hidden"):
         raise ValueError(
             f"unembed must be 'all', 'last', 'hidden' or 'none', got "
@@ -101,8 +103,10 @@ def decode_block(
         proj = torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
         if lora is not None:
             proj = apply_wo(proj, attn, stacked[i], aidx, alpha)
+        if reduce is not None:
+            proj = reduce(proj)
         x = x + proj
-        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
+        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce)
 
     if unembed == "none":
         return None, cache

@@ -15,6 +15,8 @@ card), which ``_attention`` takes for long sequences exactly where the
 JAX package does.  ``loss_fn`` is the training loss
 (``workloads_torch.train``).  ``weight`` reads a leaf in either
 representation: a tensor, or the int8 serving dict of ``quant.py``.
+``param_specs`` is the tensor-parallel cut of the tree and
+``shard_leaf`` takes one rank's slice of a leaf (``tp_serve.py``).
 """
 
 from __future__ import annotations
@@ -131,6 +133,66 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
     }
 
 
+def param_specs(config: ModelConfig) -> dict:
+    """The Megatron tensor-parallel cut of ``init_params``' tree over
+    the ``"model"`` mesh axis, the JAX package's ``PartitionSpec`` tree
+    with each spec a plain tuple (one entry per axis: a mesh axis name
+    or None; ``()`` is replicated).  Column-parallel: ``wqkv``/``wq``/
+    ``wkv`` over heads and ``w_up`` over d_ff; row-parallel: ``wo`` over
+    heads and ``w_down`` over d_ff, whose products each rank sums with
+    the others'."""
+    layer = {
+        "ln1": (),
+        "ln2": (),
+        "wo": ("model", None, None),
+        "w_up": (None, "model"),
+        "w_down": ("model", None),
+    }
+    if config.kv_heads == config.n_heads:
+        layer["wqkv"] = (None, None, "model", None)
+    else:
+        layer["wq"] = (None, "model", None)
+        layer["wkv"] = (None, None, "model", None)
+    return {
+        "embed": (),
+        "unembed": (),
+        "layers": [dict(layer) for _ in range(config.n_layers)],
+    }
+
+
+def _mesh_axis(mesh, name: str) -> tuple[int, int]:
+    """(size, this rank's index) of mesh axis ``name`` of a
+    ``torch.distributed.device_mesh.DeviceMesh``."""
+    dim = mesh.mesh_dim_names.index(name)
+    return mesh.size(dim), mesh.get_local_rank(dim)
+
+
+def shard_leaf(t, spec: tuple, mesh):
+    """This rank's slice of a full leaf ``t`` under ``spec`` (a
+    ``param_specs`` entry) on ``mesh``: every axis named there is cut
+    into the mesh axis' size equal blocks and the rank keeps its own, as
+    a new contiguous tensor.  An int8 leaf (``quant.py``) cuts its
+    ``q8`` so, and its per-channel ``scale`` along the same axes where
+    the scale is not reduced (size 1) there."""
+    if is_quantized(t):
+        q8 = shard_leaf(t["q8"], spec, mesh)
+        keep = tuple(a if t["scale"].shape[i] == t["q8"].shape[i] else None
+                     for i, a in enumerate(spec))
+        return {"q8": q8, "scale": shard_leaf(t["scale"], keep, mesh)}
+    out = t
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        size, index = _mesh_axis(mesh, axis)
+        if out.shape[dim] % size:
+            raise ValueError(
+                f"axis {dim} of size {out.shape[dim]} does not split over "
+                f"mesh axis {axis!r} of size {size}"
+            )
+        out = out.chunk(size, dim=dim)[index]
+    return out.contiguous() if out is not t else t
+
+
 def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x.float() * torch.rsqrt(var + 1e-6)).to(x.dtype) * gain.to(x.dtype)
@@ -238,7 +300,7 @@ def _pick_kernel(seq: int) -> str:
 
 
 def _attention(
-    x: torch.Tensor, layer: dict, config: ModelConfig, attention_fn=None
+    x: torch.Tensor, layer: dict, config: ModelConfig, attention_fn=None, reduce=None
 ) -> torch.Tensor:
     batch, seq, _ = x.shape
     q, k, v = project_qkv(x, layer)
@@ -265,7 +327,8 @@ def _attention(
         if config.attention_window is not None:
             mask &= ids[None, :] > ids[:, None] - config.attention_window
         out = masked_attention(q, k, v, mask[None, None], config.head_dim)
-    return torch.einsum("bshk,hkd->bsd", out, weight(layer["wo"], x.dtype))
+    out = torch.einsum("bshk,hkd->bsd", out, weight(layer["wo"], x.dtype))
+    return out if reduce is None else reduce(out)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -282,20 +345,28 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
-def _mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
+def _mlp(x: torch.Tensor, layer: dict, reduce=None) -> torch.Tensor:
+    """The feed-forward block; ``reduce`` (None: identity) takes the
+    ``w_down`` product's output, the row-parallel all-reduce of a
+    tensor-parallel rank (``tp_serve.py``)."""
     hidden = _gelu_tanh(x @ weight(layer["w_up"], x.dtype))
-    return hidden @ weight(layer["w_down"], x.dtype)
+    out = hidden @ weight(layer["w_down"], x.dtype)
+    return out if reduce is None else reduce(out)
 
 
 def forward(
-    params: dict, tokens: torch.Tensor, config: ModelConfig, attention_fn=None
+    params: dict, tokens: torch.Tensor, config: ModelConfig, attention_fn=None,
+    reduce=None,
 ) -> torch.Tensor:
-    """Logits for next-token prediction.  tokens: [batch, seq] integer."""
+    """Logits for next-token prediction.  tokens: [batch, seq] integer.
+    ``reduce`` (None: identity) takes the output of every ``wo`` and
+    ``w_down`` product: the row-parallel all-reduce of a rank holding a
+    ``param_specs`` cut of ``params``."""
     x = params["embed"].to(config.dtype)[tokens.long()]
 
     def layer_step(x, layer):
-        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, attention_fn)
-        return x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
+        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, attention_fn, reduce)
+        return x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce)
 
     for layer in params["layers"]:
         if config.remat_layers and torch.is_grad_enabled():

@@ -115,16 +115,18 @@ def qkv_row_deltas(h: torch.Tensor, entry: dict, idx: torch.Tensor,
     ``model.project_qkv``'s output shapes; None where the layer has no
     such target."""
     lead = h.shape[:-1]  # (b,) or (b, s)
-    H, Hkv, hd = config.n_heads, config.kv_heads, config.head_dim
+    # Heads by the factors' width: a tensor-parallel rank's factors carry
+    # its own heads only (``tp_serve.shard_adapters``).
+    hd = config.head_dim
     if "wqkv" in entry:
-        d = _row_delta(h, entry["wqkv"], idx).reshape(*lead, 3, H, hd)
+        d = _row_delta(h, entry["wqkv"], idx).reshape(*lead, 3, -1, hd)
         d = d.movedim(len(lead), 0)
         return d[0], d[1], d[2]
     dq = dk = dv = None
     if "wq" in entry:
-        dq = _row_delta(h, entry["wq"], idx).reshape(*lead, H, hd)
+        dq = _row_delta(h, entry["wq"], idx).reshape(*lead, -1, hd)
     if "wkv" in entry:
-        dkv = _row_delta(h, entry["wkv"], idx).reshape(*lead, 2, Hkv, hd)
+        dkv = _row_delta(h, entry["wkv"], idx).reshape(*lead, 2, -1, hd)
         dkv = dkv.movedim(len(lead), 0)
         dk, dv = dkv[0], dkv[1]
     return dq, dk, dv

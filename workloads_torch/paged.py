@@ -1058,6 +1058,7 @@ def _decode_core(
     config: ModelConfig,
     attention_fn=None,
     lora=None,
+    reduce=None,
 ):
     """One token per row through the paged cache: write the new k/v into
     each row's current page slot, then run paged attention over the
@@ -1067,8 +1068,12 @@ def _decode_core(
     kernel against its plain version inside a whole step.
     ``lora=(stacked, idx, alpha)`` applies PER-ROW adapter deltas
     (``multi_lora.py``): row b's q/k/v and output projections gain
-    ``alpha * (h @ a[idx[b]]) @ b[idx[b]]``.  Returns (logits [batch,
-    vocab], pools updated in place)."""
+    ``alpha * (h @ a[idx[b]]) @ b[idx[b]]``.  ``reduce`` (None:
+    identity) takes the output of every ``wo`` and ``w_down`` product,
+    after the adapter's delta: a tensor-parallel rank's row-parallel
+    all-reduce (``tp_serve.py``), where the params, the pools and the
+    adapters are the rank's own cut.  Returns (logits [batch, vocab],
+    pools updated in place)."""
     k_pages, v_pages = pools
     batch = token.shape[0]
     page_size = k_pages.shape[3]
@@ -1102,8 +1107,10 @@ def _decode_core(
         proj = torch.einsum("bhk,hkd->bd", attn, weight(layer["wo"], x.dtype))
         if lora is not None:
             proj = apply_wo(proj, attn, stacked[i], aidx, alpha)
+        if reduce is not None:
+            proj = reduce(proj)
         x = x + proj[:, None]
-        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
+        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce)
     logits = x[:, 0].float() @ weight(params["unembed"], torch.float32)
     return logits, (k_pages, v_pages)
 
@@ -1144,6 +1151,7 @@ def paged_decode_chunk(
     chunk: int,
     sampling: bool,
     lora=None,
+    reduce=None,
 ):
     """``chunk`` decode steps (the JAX package's lax.scan, as a loop).
     token/positions: [batch], each row's current token and position.
@@ -1159,7 +1167,8 @@ def paged_decode_chunk(
     ).long()
     toks = []
     for _ in range(chunk):
-        logits, pools = _decode_core(params, pools, tables, tok, pos, config, lora=lora)
+        logits, pools = _decode_core(params, pools, tables, tok, pos, config, lora=lora,
+                                     reduce=reduce)
         nxt = sample_logits(
             logits, generator if sampling else None, temperature, top_k, top_p
         )
@@ -1185,6 +1194,7 @@ def decode_superstep_step(
     config: ModelConfig,
     sampling: bool,
     lora=None,
+    reduce=None,
 ):
     """ONE decode step with device-side retirement, the body of
     ``paged_decode_superstep`` (and the step ``decode_graph`` captures):
@@ -1193,7 +1203,8 @@ def decode_superstep_step(
     parked rows freeze their position and token.  Returns (emitted
     [batch], tok, pos, live, budget); the pools update in place.
     ``lora``: per-row adapters (see ``_decode_core``)."""
-    logits, _ = _decode_core(params, pools, tables, tok, pos, config, lora=lora)
+    logits, _ = _decode_core(params, pools, tables, tok, pos, config, lora=lora,
+                             reduce=reduce)
     nxt = sample_logits(
         logits, generator if sampling else None, temperature, top_k, top_p
     )
@@ -1224,6 +1235,7 @@ def paged_decode_superstep(
     k: int,
     sampling: bool,
     lora=None,
+    reduce=None,
 ):
     """``k`` chained decode chunks (``k * chunk`` steps) with device-side
     retirement, the JAX package's ``paged_decode_superstep`` as a loop.
@@ -1244,7 +1256,7 @@ def paged_decode_superstep(
     for _ in range(k * chunk):
         nxt, tok, pos, live, budget = decode_superstep_step(
             params, pools, tables, tok, pos, live, budget, eos, generator,
-            temperature, top_k, top_p, config, sampling, lora=lora,
+            temperature, top_k, top_p, config, sampling, lora=lora, reduce=reduce,
         )
         toks.append(nxt)
     return torch.stack(toks, dim=1), tok, pos, live, budget, pools
@@ -1306,6 +1318,7 @@ def paged_prefill(
     lengths: torch.Tensor,
     config: ModelConfig,
     lora=None,
+    reduce=None,
 ):
     """Prefill a batch of fresh prompts into the paged pools in one block
     forward.  prompts: [batch, P] right-padded; lengths: [batch] true
@@ -1327,7 +1340,7 @@ def paged_prefill(
         dim=1,
     )
     hidden, view = decode_block(params, view, prompts, 0, config, unembed="hidden",
-                                lora=lora)
+                                lora=lora, reduce=reduce)
     logits = _last_hidden_logits(params, hidden, (lengths.long() - 1).clamp(0, P - 1))
     _scatter_view(k_pages, view[:, 0], t_pp, page_size)
     _scatter_view(v_pages, view[:, 1], t_pp, page_size)
@@ -1347,6 +1360,7 @@ def paged_prefill_chunk(
     emit: bool,
     row_start: torch.Tensor | None = None,
     lora=None,
+    reduce=None,
 ):
     """Chunked prefill: one page-aligned slice of the prompts through the
     paged pools.  chunk_tokens: [batch, C] at absolute positions
@@ -1384,7 +1398,7 @@ def paged_prefill_chunk(
     )
     hidden, view = decode_block(
         params, view, chunk_tokens, start, config,
-        unembed="hidden" if emit else "none", lora=lora,
+        unembed="hidden" if emit else "none", lora=lora, reduce=reduce,
     )
     logits = None
     if emit:
@@ -1418,6 +1432,7 @@ def _rowwise_block_core(
     positions: torch.Tensor,
     config: ModelConfig,
     lora=None,
+    reduce=None,
 ):
     """``s`` consecutive tokens PER ROW at per-row start positions through
     the paged pools in one forward, the paged, batched counterpart of
@@ -1435,7 +1450,8 @@ def _rowwise_block_core(
     offsets are clamped to keep the block inside the view, as JAX's
     ``dynamic_update_slice`` clamps them.  Callers bound the table width
     to the pages live (a cover), so the gather is O(cover).  ``lora``:
-    per-row adapters (see ``_decode_core``)."""
+    per-row adapters and ``reduce`` the row-parallel all-reduce (see
+    ``_decode_core``)."""
     k_pages, v_pages = pools
     batch, s = block.shape
     device = block.device
@@ -1474,8 +1490,10 @@ def _rowwise_block_core(
         proj = torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
         if lora is not None:
             proj = apply_wo(proj, attn, stacked[i], aidx, alpha)
+        if reduce is not None:
+            proj = reduce(proj)
         x = x + proj
-        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
+        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce)
     logits = x.float() @ weight(params["unembed"], torch.float32)
     _scatter_view(k_pages, view_k, t_cov, page_size)
     _scatter_view(v_pages, view_v, t_cov, page_size)
@@ -1552,7 +1570,7 @@ def _greedy_commit(drafts: torch.Tensor, picks: torch.Tensor):
 
 def _draft_steps(d_params, d_pools, tables, cur, positions, d_config, gamma,
                  attention_fn=None, sampling=False, generator=None,
-                 temperature=0.0, top_k=0, top_p=1.0):
+                 temperature=0.0, top_k=0, top_p=1.0, reduce=None):
     """The draft phase: gamma + 1 draft decode steps from ``cur`` at
     per-row ``positions`` (step i at positions + i, so the kernel's page
     walk sees each step's own length); the extra step writes the final
@@ -1564,7 +1582,7 @@ def _draft_steps(d_params, d_pools, tables, cur, positions, d_config, gamma,
     tok, proposals, qs = cur.long(), [], []
     for i in range(gamma + 1):
         logits, _ = _decode_core(d_params, d_pools, tables, tok, positions + i, d_config,
-                                 attention_fn)
+                                 attention_fn, reduce=reduce)
         if sampling:
             f = filter_logits(logits, temperature, top_k, top_p)
             probs = torch.softmax(f, dim=-1)
@@ -1582,6 +1600,7 @@ def _spec_round_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
     gamma, cover_pages=None, d_attention_fn=None, occupancy=None, sampling=False,
     generator=None, temperature=0.0, top_k=0, top_p=1.0, pin_parked=True, t_lora=None,
+    reduce=None,
 ):
     """One batched speculative round: the draft proposes ``gamma`` tokens
     a row, the target scores every row's block [cur, d_1..d_gamma] in one
@@ -1601,8 +1620,10 @@ def _spec_round_core(
     cover-sliced table.  ``t_lora=(stacked, idx, alpha)`` adapts the
     TARGET's verify per row; the draft stays unadapted, so the committed
     tokens are the adapted model's and speculation stays lossless per
-    tenant (a worse guesser only lowers acceptance).  Returns (committed
-    [b, gamma+1], n [b]) or (committed, n, new_cur, new_pos)."""
+    tenant (a worse guesser only lowers acceptance).  ``reduce`` is the
+    row-parallel all-reduce of both models on a tensor-parallel rank
+    (see ``_decode_core``).  Returns (committed [b, gamma+1], n [b]) or
+    (committed, n, new_cur, new_pos)."""
     if sampling and generator is None:
         raise ValueError("sampling speculative round requires a torch.Generator")
     batch = cur.shape[0]
@@ -1613,11 +1634,11 @@ def _spec_round_core(
         positions = torch.where(occupancy, positions, 0)
     drafts, _, q = _draft_steps(
         d_params, d_pools, tables, cur, positions, d_config, gamma, d_attention_fn,
-        sampling, generator, temperature, top_k, top_p,
+        sampling, generator, temperature, top_k, top_p, reduce=reduce,
     )
     block = torch.cat([cur.long()[:, None], drafts], dim=1)
     t_logits, _ = _rowwise_block_core(t_params, t_pools, tables, block, positions, t_config,
-                                      lora=t_lora)
+                                      lora=t_lora, reduce=reduce)
     if sampling:
         p = torch.softmax(filter_logits(t_logits, temperature, top_k, top_p), dim=-1)
         committed, n = _spec_accept(drafts, q, p, generator)
@@ -1679,7 +1700,7 @@ def paged_spec_round_chained(
 def _spec_superstep_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
     d_config, gamma, k, cover_pages=None, d_attention_fn=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
 ):
     """``k`` chained rounds (``paged_spec_round_chained``'s body in a
     loop); returns (committed [k, b, gamma+1], n [k, b], new_cur,
@@ -1693,7 +1714,7 @@ def _spec_superstep_core(
             t_params, d_params, t_pools, d_pools, tables, cur, pos, t_config, d_config,
             gamma, cover_pages, d_attention_fn, occupancy=occupancy, sampling=sampling,
             generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
-            t_lora=t_lora,
+            t_lora=t_lora, reduce=reduce,
         )
         committed.append(c)
         ns.append(n)
@@ -1704,7 +1725,7 @@ def _spec_superstep_core(
 def paged_spec_superstep(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
     d_config, gamma, k, cover_pages=None, sampling=False, generator=None,
-    temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
+    temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
 ):
     """``k`` chained speculative rounds in one dispatch (lookahead): the
     host leaves the loop for k rounds.  Tables must already cover
@@ -1717,7 +1738,7 @@ def paged_spec_superstep(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy,
         t_config, d_config, gamma, k, cover_pages, sampling=sampling,
         generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
-        t_lora=t_lora,
+        t_lora=t_lora, reduce=reduce,
     )
     return (*out, t_pools, d_pools)
 
@@ -1739,7 +1760,7 @@ def spec_retire(committed, n, live, budget, eos):
 def spec_chained_round(
     t_params, d_params, t_pools, d_pools, tables, cur, pos, live, budget, eos, t_config,
     d_config, gamma, cover_pages=None, d_attention_fn=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
 ):
     """One round of the chained-retirement superstep (and the round
     ``decode_graph.SpecGraph`` captures): the round with ``live`` as its
@@ -1750,7 +1771,7 @@ def spec_chained_round(
         t_params, d_params, t_pools, d_pools, tables, cur, pos, t_config, d_config, gamma,
         cover_pages, d_attention_fn, occupancy=live, sampling=sampling,
         generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
-        pin_parked=False, t_lora=t_lora,
+        pin_parked=False, t_lora=t_lora, reduce=reduce,
     )
     new_live, new_budget = spec_retire(committed, n, live, budget, eos)
     return committed, n, new_cur, new_pos, new_live, new_budget
@@ -1760,6 +1781,7 @@ def _spec_superstep_chained_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
     budget, eos, t_config, d_config, gamma, k, cover_pages=None, d_attention_fn=None,
     sampling=False, generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
+    reduce=None,
 ):
     """``paged_spec_superstep_chained``'s body.  Empty slots (occupancy
     False: all-trash tables) pin to position 0 once at entry; rows that
@@ -1776,7 +1798,7 @@ def _spec_superstep_chained_core(
         c, n, cur, pos, live, budget = spec_chained_round(
             t_params, d_params, t_pools, d_pools, tables, cur, pos, live, budget, eos,
             t_config, d_config, gamma, cover_pages, d_attention_fn, sampling, generator,
-            temperature, top_k, top_p, t_lora=t_lora,
+            temperature, top_k, top_p, t_lora=t_lora, reduce=reduce,
         )
         committed.append(c)
         ns.append(n)
@@ -1788,7 +1810,7 @@ def _spec_superstep_chained_core(
 def paged_spec_superstep_chained(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
     budget, eos, t_config, d_config, gamma, k, cover_pages=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
+    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
 ):
     """``k`` chained draft -> verify -> commit rounds in one dispatch with
     device-side acceptance masks and retirement: per round the engine's
@@ -1807,7 +1829,7 @@ def paged_spec_superstep_chained(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
         budget, eos, t_config, d_config, gamma, k, cover_pages, sampling=sampling,
         generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
-        t_lora=t_lora,
+        t_lora=t_lora, reduce=reduce,
     )
     return (*out, t_pools, d_pools)
 

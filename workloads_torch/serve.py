@@ -83,6 +83,11 @@ speculation lossless per tenant).  On the card the adapter index is one
 more static buffer of the captured graphs, so a change of mix replays
 them.  The fleet is not ported yet.
 
+Tensor parallelism, as in the JAX engine: ``mesh=`` serves across the
+``"model"`` axis of a ``DeviceMesh``, one engine a rank making the same
+calls (``tp_serve.py``), in every mode above but ``kv_offload``; its
+steps dispatch eagerly.
+
 Run on the card with ``python -m workloads_torch.serve``; pass
 ``--device cpu`` for the plain PyTorch path on the CPU.
 """
@@ -229,7 +234,22 @@ class ServeEngine:
     ``prefill_budget``) and a page pool, on ``device`` (default
     ``cuda``; pass ``"cpu"`` explicitly).  ``params`` must already live
     on that device, in ``config.dtype``.  ``pools`` keep their storage
-    for the engine's life: on the card a captured graph holds them."""
+    for the engine's life: on the card a captured graph holds them.
+
+    Pass ``mesh`` (a ``("data", "model")`` ``DeviceMesh`` of data degree
+    1, ``train.make_mesh``) to serve tensor-parallel: the engine is SPMD,
+    one per rank, and the caller makes the same calls (``submit``,
+    ``step``, ``run``, ...) in the same order on every rank of the mesh,
+    as under ``torchrun``.  ``params`` (and ``draft_params``, adapters)
+    are the FULL trees on the rank's device (the same seed on every
+    rank); each rank keeps its ``param_specs`` cut, pools of its kv heads
+    and its cut of the adapters (``tp_serve.py``), runs K1 on its own
+    heads and all-reduces the ``wo`` and ``w_down`` products over the
+    model group.  Scheduling, pages and the request API run the same on
+    every rank; what the clock decides (the ``spec="auto"``
+    calibration, deadlines) is the first rank's, broadcast.  Under a
+    mesh the decode steps dispatch eagerly (no CUDA graph: a gloo
+    collective cannot be captured), and ``kv_offload`` is refused."""
 
     def __init__(
         self,
@@ -245,6 +265,7 @@ class ServeEngine:
         top_k: int = 0,
         top_p: float = 1.0,
         generator: torch.Generator | None = None,
+        mesh=None,
         max_pending: int | None = None,
         completed_limit: int | None = None,
         pipelined: bool = False,
@@ -375,6 +396,18 @@ class ServeEngine:
                 'the host-RAM offload tier lives on the radix tree; use '
                 'prefix_cache=True (radix), not "flat", with kv_offload'
             )
+        if kv_offload and mesh is not None:
+            raise ValueError(
+                "kv_offload is not supported under tensor parallelism "
+                "yet (page spills/reloads would round-trip sharded pools)"
+            )
+        if mesh is not None:
+            from . import tp_serve
+
+            tp_serve._check_serving_mesh(mesh)
+            tp_serve._check_tp(config, mesh)
+            if draft_config is not None:
+                tp_serve._check_tp(draft_config, mesh)
         if kv_host_pages is not None and not kv_offload:
             raise ValueError(
                 "kv_host_pages bounds the kv_offload host tier; it has "
@@ -405,7 +438,15 @@ class ServeEngine:
         from .faststart import cache_stats
 
         self._cc_base = cache_stats()
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = tp_serve.mesh_device(mesh)
+            if device is not None and torch.device(device).type != self.device.type:
+                raise ValueError(
+                    f"the mesh's ranks run on {self.device.type}, not {device}"
+                )
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine runs "
@@ -416,6 +457,15 @@ class ServeEngine:
                 f"draft params live on {draft_params['embed'].device}, the "
                 f"engine runs on {self.device}: move them first"
             )
+        # Under a mesh each rank keeps its cut of the weights (and of the
+        # pools and adapters below), and ``_reduce`` sums the row-parallel
+        # products over the model group (``tp_serve.py``).
+        self._reduce = None
+        if mesh is not None:
+            params = tp_serve.shard_params(params, config, mesh)
+            if draft_params is not None:
+                draft_params = tp_serve.shard_params(draft_params, draft_config, mesh)
+            self._reduce = tp_serve.model_all_reduce(mesh)
         self.params, self.config = params, config
         self.draft_params, self.draft_config = draft_params, draft_config
         self.gamma = gamma
@@ -492,14 +542,17 @@ class ServeEngine:
         )
         n_pages = n_pages if n_pages is not None else slots * self.max_pages
         self.ctrl = PagePool(n_pages=n_pages, page_size=page_size)
-        self.pools = init_page_pools(config, n_pages, page_size, self.device)
+
+        def pools_for(cfg):
+            if mesh is None:
+                return init_page_pools(cfg, n_pages, page_size, self.device)
+            return tp_serve.init_shard_pools(cfg, n_pages, page_size, mesh, self.device)
+
+        self.pools = pools_for(config)
         # The draft model's own pools under the same control plane: the
         # same page indices and tables, so one allocator serves both
         # caches, and a cached or spilled page holds both models' k/v.
-        self.d_pools = (
-            init_page_pools(draft_config, n_pages, page_size, self.device)
-            if draft_params is not None else None
-        )
+        self.d_pools = pools_for(draft_config) if draft_params is not None else None
         # Cross-request prefix caching: cached pages hold the bytes the
         # prefill would write, so streams are the same cache off, flat
         # and radix; a drained engine keeps its cached pages pinned until
@@ -546,6 +599,9 @@ class ServeEngine:
                 {t: {k: f.to(self.device) for k, f in ab.items()} for t, ab in entry.items()}
                 for entry in stacked
             ]
+            if mesh is not None:
+                self._stacked_adapters = tp_serve.shard_adapters(
+                    self._stacked_adapters, config, mesh)
         else:
             self._adapter_ids = {}
             self._stacked_adapters = None
@@ -603,8 +659,10 @@ class ServeEngine:
         self._pending_spec = None
         self._spec_chained: tuple | None = None
         # On the card: the decode step as a CUDA graph, replayed per step.
+        # Under a mesh every step dispatches eagerly: a gloo collective
+        # cannot be captured in a graph.
         self._graph = None
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and mesh is None:
             self._graph = DecodeGraph(
                 params, self.pools, config, slots=slots,
                 max_pages=self.max_pages, max_steps=self.chunk * superstep_k,
@@ -619,7 +677,7 @@ class ServeEngine:
         # The speculative round as a CUDA graph, captured per cover bucket
         # on first use and replayed k times a dispatch.
         self._spec_graph = None
-        if self.device.type == "cuda" and draft_params is not None:
+        if self.device.type == "cuda" and draft_params is not None and mesh is None:
             self._spec_graph = SpecGraph(
                 params, draft_params, self.pools, self.d_pools, config, draft_config,
                 gamma=gamma, slots=slots, max_pages=self.max_pages,
@@ -1532,7 +1590,7 @@ class ServeEngine:
             tokens = np.zeros((1, B), np.int64)
             tokens[0, :n] = prompt
             logits, _ = paged_prefill(params, pools, table, self._dev(tokens), lengths, config,
-                                      lora=lora)
+                                      lora=lora, reduce=self._reduce)
             return logits
         n_chunks = -(-n // B)
         for ci in range(start_page // bp, n_chunks):
@@ -1543,7 +1601,7 @@ class ServeEngine:
             logits, _ = paged_prefill_chunk(
                 params, pools, table, self._dev(tokens), lengths, config,
                 start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=ci == n_chunks - 1,
-                lora=lora,
+                lora=lora, reduce=self._reduce,
             )
         return logits
 
@@ -1750,7 +1808,7 @@ class ServeEngine:
         logits, _ = paged_prefill_chunk(
             self.params, self.pools, tables_dev, chunk_dev, lengths_dev,
             self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=True,
-            row_start=row_start, lora=lora,
+            row_start=row_start, lora=lora, reduce=self._reduce,
         )
         self.prefill_dispatches += 1
         emit_mask = (lengths > start) & (lengths <= start + B)
@@ -1760,7 +1818,7 @@ class ServeEngine:
             paged_prefill_chunk(
                 self.draft_params, self.d_pools, tables_dev, chunk_dev, lengths_dev,
                 self.draft_config, start_page=ci * bp, cover_pages=(ci + 1) * bp,
-                emit=False, row_start=row_start,
+                emit=False, row_start=row_start, reduce=self._reduce,
             )
         return emitted
 
@@ -2120,6 +2178,7 @@ class ServeEngine:
                 self.params, self.pools, tables, tok_in, pos, occupied,
                 self.generator, self.temperature, self.top_k, self.top_p,
                 self.config, self.chunk, self.sampling, lora=self._lora(aidx),
+                reduce=self._reduce,
             )
             last = toks[:, -1]
         else:
@@ -2295,7 +2354,7 @@ class ServeEngine:
                 self.params, self.pools, tables, tok_in, pos_in, live_in,
                 budget_in, eos_in, self.generator, self.temperature, self.top_k,
                 self.top_p, self.config, self.chunk, self.superstep_k, self.sampling,
-                lora=self._lora(aidx),
+                lora=self._lora(aidx), reduce=self._reduce,
             )
         else:
             toks, *carry = self._graph.run(
@@ -2407,7 +2466,7 @@ class ServeEngine:
                 occ, self.config, self.draft_config, self.gamma, k, cover,
                 sampling=self.sampling, generator=generator if generator is not None else self.generator,
                 temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
-                t_lora=self._lora(aidx),
+                t_lora=self._lora(aidx), reduce=self._reduce,
             )
             return committed, n, new_cur, new_pos
         committed, n, _, new_cur, new_pos, _, _ = self._spec_graph.run(
@@ -2429,7 +2488,7 @@ class ServeEngine:
                 occ, live, budget, eos, self.config, self.draft_config, self.gamma, k,
                 cover, sampling=self.sampling, generator=generator if generator is not None else self.generator,
                 temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
-                t_lora=self._lora(aidx),
+                t_lora=self._lora(aidx), reduce=self._reduce,
             )
             return out[:7]
         committed, n, round_live, *carry = self._spec_graph.run(
@@ -2474,7 +2533,7 @@ class ServeEngine:
                 toks, _ = paged_decode_chunk(
                     self.params, self.pools, tables, tok, zeros, occ, private,
                     self.temperature, self.top_k, self.top_p, self.config, self.chunk,
-                    self.sampling, lora=self._lora(aidx),
+                    self.sampling, lora=self._lora(aidx), reduce=self._reduce,
                 )
                 return toks[:, -1]
             return self._graph.run(tables, tok, zeros, occ, *self._unbounded,
@@ -2517,14 +2576,28 @@ class ServeEngine:
         tokens_spec = (1.0 + 0.75 * self.gamma) * k
         spec_wins = tokens_spec / per_spec > tokens_plain / per_plain
         threshold = float(self.slots) if spec_wins else 0.0
-        self.spec_calibration = {
+        calibration = {
             "plain_dispatch_ms": per_plain * 1000,
             "spec_dispatch_ms": per_spec * 1000,
             "plain_tokens_per_dispatch": tokens_plain,
             "spec_tokens_per_dispatch_assumed": tokens_spec,
             "threshold": threshold,
         }
-        return threshold
+        if self._mesh is not None:
+            calibration = self._agree(calibration)
+        self.spec_calibration = calibration
+        return float(calibration["threshold"])
+
+    def _agree(self, obj):
+        """Under a mesh, the first rank of the model group's ``obj`` on
+        every rank: a choice made from the clock (the ``spec="auto"``
+        calibration, deadlines) must be one choice, since the ranks run
+        the same collectives in lockstep."""
+        group = self._mesh.get_group("model")
+        out = [obj]
+        torch.distributed.broadcast_object_list(
+            out, src=torch.distributed.get_global_rank(group, 0), group=group)
+        return out[0]
 
     def _step_spec(self) -> list[Request]:
         """One speculative dispatch of ``spec_lookahead`` rounds: every
@@ -2765,8 +2838,17 @@ class ServeEngine:
         has passed to ``expired`` (a running one after the work in flight
         is drained, as cancel does)."""
         now = time.perf_counter()
+        due_rids = None
+        if self._mesh is not None:
+            timed = [r for r in (*self.pending, *(p["req"] for p in self._inflight_prefill),
+                                 *self._slot_req.values()) if r.t_deadline is not None]
+            if not timed:
+                return []
+            due_rids = self._agree({r.rid for r in timed if now >= r.t_deadline})
 
         def due(req: Request) -> bool:
+            if due_rids is not None:
+                return req.rid in due_rids
             return req.t_deadline is not None and now >= req.t_deadline
 
         finished: list[Request] = []
@@ -4193,6 +4275,10 @@ def main(argv=None) -> int:
             injector = FaultInjector(schedule)
         except ValueError as e:
             parser.error(str(e))
+    from . import lease
+
+    lease.hold_claim_leases()  # mixed-strategy lifetime declaration
+
     device = resolve_device(args.device)
     if args.compile_cache_dir is not None:
         # Process-global, set before any engine builds so every kernel

@@ -16,8 +16,11 @@ is stored in bfloat16, the second in float32.  ``torch.optim.AdamW``
 cannot store a bf16 moment and applies the decay in another order, so it
 is not this optimizer.
 
-The mesh builders, the sequence-parallel step, claim leases and
-multi-host initialisation of the JAX module are not ported here.
+``make_mesh`` builds the ``("data", "model")`` device mesh over an
+initialised ``torch.distributed`` world (one rank per device), which the
+tensor-parallel serving engine takes (``tp_serve.py``).  The sharded
+training state and step, the sequence-parallel meshes and step, and the
+claim leases of the JAX training CLI are not ported here.
 
     python -m workloads_torch.train --steps 20 --checkpoint-dir /ckpt
     python -m workloads_torch.train --device cpu --steps 3
@@ -33,6 +36,48 @@ import torch
 
 from . import resolve_device
 from .model import ModelConfig, init_params, loss_fn
+
+
+def make_mesh(n_devices: int | None = None, model_parallel: int | None = None,
+              device_type: str | None = None):
+    """A ``("data", "model")`` ``DeviceMesh`` over the first ``n_devices``
+    ranks of the initialised world (all of them by default), one rank
+    per device.
+
+    ``model_parallel`` defaults to the largest of 4 and 2 that divides
+    the rank count (1 when neither does), as in the JAX package.
+    ``device_type`` None means ``cuda`` (``resolve_device``; the rank's
+    card is ``distributed.bind_local_device``'s); pass ``"cpu"``
+    explicitly for a CPU world.  Every rank of the world
+    calls this (it creates the axes' process groups)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from .distributed import bind_local_device
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh needs an initialised torch.distributed world "
+            "(init_process_group, or distributed.initialize_from_slice_env)"
+        )
+    device_type = resolve_device(device_type).type
+    world = dist.get_world_size()
+    n = world if n_devices is None else n_devices
+    if n > world:
+        raise ValueError(
+            f"requested a {n_devices}-device mesh but only {world} devices are visible"
+        )
+    if model_parallel is None:
+        model_parallel = 1
+        for candidate in (4, 2):
+            if n % candidate == 0:
+                model_parallel = candidate
+                break
+    if model_parallel < 1 or n % model_parallel != 0:
+        raise ValueError(f"{n} devices not divisible by model_parallel={model_parallel}")
+    bind_local_device(device_type)
+    grid = torch.arange(n).reshape(n // model_parallel, model_parallel)
+    return DeviceMesh(device_type, grid, mesh_dim_names=("data", "model"))
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:

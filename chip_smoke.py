@@ -170,7 +170,22 @@ Phases, each of which fails the run loudly:
    taken again, up to 5 times) and one graphed chain equal
    to the eager chain bit for bit; the sweep's kernel picks through
    ``table_from_artifact`` and ``model._pick_kernel``; the arm's step
-   time and MFU beside phase 6's.
+   time and MFU beside phase 6's;
+6g. the training layouts (``train_parallel_phase``, ``TRAIN_PAR``): the
+   same model on two gloo ranks of the one card, each arm three steps on
+   one global batch of 4 x 2049 tokens: (a) DP2 and (b) TP2
+   (``train.make_train_step(mesh=)``), (c) Ulysses and (d) ring over a
+   2-rank "seq" axis (``train.make_seq_parallel_train_step``); gates per
+   rank: the first float32 step's loss within 2^-16 of one device's,
+   each later step's drop from the first within 2^-10 of one device's
+   drop in float32 and 2^-8 in bf16 (they hold the gradient and the
+   update), a control (TP2 without the enter hook) outside both, the
+   bf16 per-token NLL through the arm's path within sqrt 2 of the bf16
+   floor (max and rms from one device's float32, as phase 4j), the bf16
+   loss falling, K2-K4 launched n_layers a step in (a)-(c) and not in
+   (d); each rank's peak memory, seconds, and the ms of one all-reduce,
+   all_to_all and ppermute beside the host round trip gloo makes of
+   their tensors.
 
 Every launch count held against a profiler trace (phases 4, 4d, 4e,
 4f, 4g, 6f) takes the trace again, up to ``TRACE_ATTEMPTS`` times, when
@@ -3893,6 +3908,385 @@ def bench_kernel_phase(torch, pb, ks, model_mod, fa, counters, phase6=None,
     return launches, train
 
 
+# Phase 6g, the training layouts: phase 6's model (perfbench's ``full``)
+# on two gloo ranks of the one card, three steps of each arm on one global
+# batch of TRAIN_PAR["batch"] x TRAIN_PAR["max_seq_len"] tokens: (a) DP2
+# on a (2, 1) mesh, (b) TP2 on (1, 2) with the model axis' enter/reduce
+# hooks, (c) Ulysses over a 2-rank "seq" axis (the local attention K2-K4
+# on 8 heads), (d) ring over the same axis (torch products, no kernel).
+# NCCL refuses two ranks on one device, so gloo carries every collective
+# through host memory: the times say nothing of parallel speed.  The
+# control is (b) with the model axis' enter hook left out: its gradients
+# upstream of every column-parallel product lack the other rank's part,
+# and the later steps' loss gates must catch it.
+TRAIN_PAR = dict(ranks=2, batch=4, max_seq_len=2049, steps=3, collective_iters=10,
+                 timeout_s=600)
+TRAIN_PAR_ARMS = {"(a) DP2": ("mesh", (2, 1)), "(b) TP2": ("mesh", (1, 2)),
+                  "(c) Ulysses sp2": ("sp", "ulysses"), "(d) ring sp2": ("sp", "ring")}
+TRAIN_PAR_CONTROL = {"(b0) TP2 without enter, control": ("no_enter", (1, 2))}
+# AdamW's learning rate for phase 6g.  At phase 6's TRAIN_LR (1e-4), three
+# steps on this batch rose and fell back (bf16: 15.03, 15.91, 15.13; NVIDIA
+# H100 80GB HBM3, 700 W); a smaller step falls from the first.
+TRAIN_PAR_LR = 3e-5
+# The first float32 step's loss on a rank against one device's, relative:
+# only the collectives' and products' summation order differs.
+TRAIN_PAR_F32_RTOL = 2.0**-16
+# The later steps hold the gradient and the update: each step's drop from
+# the first step's loss (loss_k - loss_1, k >= 2) against one device's
+# drop, relative, in float32 and in bf16.  The first AdamW update is about
+# lr x sign(g), which the summation order moves only where g is near 0.
+# Read before these limits were set: at the CPU rehearsal's width the
+# arms' drops within 5.0e-5 (float32) and 6.5e-4 (bf16) of one device's
+# and the control's 1.7e-2 to 2.7e-2 off in both; at full width the bf16
+# drops within 6.2e-4 (TP2, from losses printed to 5 decimals; NVIDIA H100
+# 80GB HBM3, 700 W).
+TRAIN_PAR_F32_DROP_RTOL = 2.0**-10
+TRAIN_PAR_BF16_DROP_RTOL = 2.0**-8
+# The bf16 per-token NLL's max and rms distance from one device's float32
+# NLL, within this factor of one device's bf16 distance (the floor), as
+# phase 4j's TP_BF16_FLOOR_FACTOR: a rank rounds its partial products once
+# more than one device does.
+TRAIN_PAR_FLOOR_FACTOR = 2.0**0.5
+
+
+def train_par_config(torch, f, tp, dtype):
+    from workloads_torch.model import ModelConfig
+
+    return ModelConfig(d_model=f["d_model"], n_heads=f["n_heads"], n_layers=f["n_layers"],
+                       d_ff=f["d_ff"], vocab_size=f["vocab_size"],
+                       max_seq_len=tp["max_seq_len"], dtype=dtype, attention_impl="flash")
+
+
+def token_nll(torch, params, tokens, config, attention_fn=None, reduce=None, enter=None):
+    """Every position's next-token NLL [rows, seq-1] in float32, on the
+    host: ``model.loss_fn`` before its mean."""
+    from workloads_torch.model import forward
+
+    with torch.no_grad():
+        logits = forward(params, tokens[:, :-1], config, attention_fn, reduce, enter)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, 1:].long()[..., None])[..., 0]
+    return nll.float().cpu().numpy()
+
+
+def train_par_one_device(torch, f, tp, device, lr):
+    """One device's reference on the global batch: the per-token NLL at the
+    initial weights in float32 and in bf16, and the losses of
+    ``tp["steps"]`` steps in each."""
+    from workloads_torch import train
+
+    c32, c16 = (train_par_config(torch, f, tp, dt) for dt in (torch.float32, torch.bfloat16))
+    tokens = train.synthetic_batch(c32, tp["batch"], seed=0, device=device)
+    out = {}
+    for label, config in (("f32", c32), ("bf16", c16)):
+        (params, state), opt = train.make_train_state(config, seed=0, device=device,
+                                                      optimizer=train.AdamW(lr=lr))
+        out[f"nll_{label}"] = token_nll(torch, params, tokens, config)
+        step = train.make_train_step(config, opt)
+        losses = []
+        for _ in range(tp["steps"]):
+            params, state, loss = step(params, state, tokens)
+            losses.append(loss.item())
+        out[f"losses_{label}"] = losses
+        del params, state, step
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _timed_ms(torch, fn, iters, cuda) -> float:
+    fn()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def train_par_rank(rank, world, store, out_path, f, tp, lr, device_type):
+    """One rank of phase 6g: join the gloo world, run each arm and the
+    control (the bf16 per-token NLL through the arm's path at the initial
+    weights, ``tp["steps"]`` float32 steps, as many bf16 steps with K2-K4
+    counted), time one
+    all-reduce, all_to_all and ppermute and the host copies gloo makes
+    of their tensors, and write what it saw to ``out_path``.  An
+    exception ends the process with a non-zero code."""
+    import datetime
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from workloads_torch import distributed, train
+    from workloads_torch.model import loss_fn
+    from workloads_torch.ops import attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device_type == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    t_rank = time.perf_counter()
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.FileStore(store, world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=tp["timeout_s"]))
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+                "flash_bwd_dkv": fa.flash_bwd_dkv}
+    cuda = device_type == "cuda"
+    arms = {}
+    for name, (kind, arg) in {**TRAIN_PAR_ARMS, **TRAIN_PAR_CONTROL}.items():
+        t0 = time.perf_counter()
+        if kind != "sp":
+            mesh = train.make_mesh(world, model_parallel=arg[1], device_type=device_type)
+        else:
+            mesh = train.make_sp_mesh(world, seq_parallel=world, device_type=device_type)
+        device = distributed.mesh_device(mesh)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        out = {}
+        for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            config = train_par_config(torch, f, tp, dtype)
+            tokens = train.synthetic_batch(config, tp["batch"], seed=0, device=device)
+            optimizer = train.AdamW(lr=lr)
+            (params, state), _ = train.make_train_state(config, seed=0, mesh=mesh,
+                                                        optimizer=optimizer)
+            enter, reduce = distributed.model_hooks(mesh)
+            attention_fn = None
+            if kind == "sp":
+                attention_fn = train.seq_parallel_attention(config, mesh, arg)
+                step = train.make_seq_parallel_train_step(config, mesh, optimizer, arg)
+            elif kind == "no_enter":
+                def no_enter(p, t, config=config, reduce=reduce):
+                    return loss_fn(p, t, config, None, reduce, None)
+
+                step = train.make_sharded_train_step(no_enter, mesh, optimizer)
+            else:
+                step = train.make_train_step(config, optimizer, mesh=mesh)
+            n = tokens.shape[0] // dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))["data"]
+            lo = mesh.get_coordinate()[mesh.mesh_dim_names.index("data")] * n
+            out["rows"] = (lo, lo + n)
+            rows = tokens[lo:lo + n]
+            if label == "bf16":
+                out["nll_bf16"] = token_nll(torch, params, rows, config, attention_fn,
+                                            reduce, enter)
+            reset_counts(counters)
+            losses = []
+            for _ in range(tp["steps"]):
+                params, state, loss = step(params, state, tokens)
+                losses.append(loss.item())
+            if cuda:
+                torch.cuda.synchronize(device)
+            out[f"losses_{label}"] = losses
+            if label == "bf16":
+                out["launches"] = read_counts(counters)
+            del params, state, step
+            if cuda:
+                torch.cuda.empty_cache()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None
+        out["seconds"] = time.perf_counter() - t0
+        arms[name] = out
+    # One collective of each kind at the arms' shapes, and the host round
+    # trip (to the host and back) of its tensor, which gloo makes.
+    mesh = train.make_sp_mesh(world, seq_parallel=world, device_type=device_type)
+    device = distributed.mesh_device(mesh)
+    seq = mesh.get_group("seq")
+    B, S, H, hd, d = tp["batch"], tp["max_seq_len"] - 1, f["n_heads"], \
+        f["d_model"] // f["n_heads"], f["d_model"]
+    act = torch.ones((B, S, d), dtype=torch.bfloat16, device=device)
+    span = torch.ones((B, S // world, H, hd), dtype=torch.bfloat16, device=device)
+    iters = tp["collective_iters"]
+    coll = {
+        "all_reduce_ms": _timed_ms(torch, lambda: torch.distributed.all_reduce(act, group=seq),
+                                iters, cuda),
+        "all_to_all": _timed_ms(torch, lambda: distributed.all_to_all(span, seq, 2, 1),
+                                iters, cuda),
+        "ppermute": _timed_ms(torch, lambda: distributed.ppermute(span, seq), iters, cuda),
+        "host_round_trip_act": _timed_ms(torch, lambda: act.cpu().to(device), iters, cuda),
+        "host_round_trip_span": _timed_ms(torch, lambda: span.cpu().to(device), iters, cuda),
+        "act_mib": act.numel() * act.element_size() / 2**20,
+        "span_mib": span.numel() * span.element_size() / 2**20,
+    }
+    result = {"arms": arms, "collectives": coll, "seconds": time.perf_counter() - t_rank,
+              "backend": torch.distributed.get_backend(seq)}
+    torch.distributed.destroy_process_group()
+    with open(out_path, "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def _drops(losses: list) -> list:
+    return [x - losses[0] for x in losses[1:]]
+
+
+def train_par_loss_gates(name: str, r: int, arm: dict, one: dict) -> dict:
+    """One rank's arm against one device's losses on the same batch, by
+    gate: ``"f32 first"`` (the first float32 step's loss, a forward at
+    the initial weights), ``"f32 drops"`` and ``"bf16 drops"`` (each later
+    step's drop from the first step's loss, which holds the gradient and
+    the update).  Returns the failed gates' messages."""
+    failed = {}
+    got, want = arm["losses_f32"][0], one["losses_f32"][0]
+    if not abs(got - want) <= TRAIN_PAR_F32_RTOL * abs(want):
+        failed["f32 first"] = (f"{name} rank {r}: float32 first-step loss {got!r} against "
+                               f"one device's {want!r}")
+    for label, rtol in (("f32", TRAIN_PAR_F32_DROP_RTOL), ("bf16", TRAIN_PAR_BF16_DROP_RTOL)):
+        got, want = (_drops(a[f"losses_{label}"]) for a in (arm, one))
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        if len(got) != len(want) or not all(x <= rtol for x in rel):
+            failed[f"{label} drops"] = (
+                f"{name} rank {r}: {label} losses {arm[f'losses_{label}']!r}, drops from the "
+                f"first step {', '.join(f'{x:.2e}' for x in rel)} off one device's "
+                f"{one[f'losses_{label}']!r} (limit {rtol:.2e})")
+    return failed
+
+
+def train_par_gates(one: dict, ranks: list, n_layers: int, steps: int,
+                    card: bool = True) -> list[str]:
+    """Phase 6g's gates over one device's reference (``one``) and each
+    rank's arms; each failure names its arm and rank.  ``card``: K2-K4
+    must have launched n_layers a bf16 step in (a)-(c) (off the card the
+    plain versions run and count nothing).  The control must fail both
+    drop gates (``train_par_loss_gates``): it shows that they see a
+    wrong gradient."""
+    import numpy as np
+
+    failed = []
+    for r, got in enumerate(ranks):
+        for name in TRAIN_PAR_CONTROL:
+            if name not in got["arms"]:
+                failed.append(f"{name} rank {r}: the control did not run")
+                continue
+            caught = train_par_loss_gates(name, r, got["arms"][name], one)
+            if not {"f32 drops", "bf16 drops"} <= set(caught):
+                failed.append(f"{name} rank {r}: the control passed a drop gate (caught: "
+                              f"{list(caught.values())})")
+        for name, arm in got["arms"].items():
+            if name in TRAIN_PAR_CONTROL:
+                continue
+            failed += train_par_loss_gates(name, r, arm, one).values()
+            lo, hi = arm["rows"]
+            floor = _max_rms(one["nll_bf16"][lo:hi] - one["nll_f32"][lo:hi])
+            err = _max_rms(arm["nll_bf16"] - one["nll_f32"][lo:hi])
+            if not all(e <= TRAIN_PAR_FLOOR_FACTOR * fl for e, fl in zip(err, floor)):
+                failed.append(f"{name} rank {r}: bf16 per-token NLL max {err[0]:.4e} rms "
+                              f"{err[1]:.4e} from one device's float32 (limits: sqrt 2 x the "
+                              f"floor, max {floor[0]:.4e} rms {floor[1]:.4e})")
+            if not np.all(np.isfinite(arm["losses_bf16"])) or \
+                    not arm["losses_bf16"][-1] < arm["losses_bf16"][0]:
+                failed.append(f"{name} rank {r}: bf16 losses {arm['losses_bf16']} did not fall")
+            want = n_layers * steps if card and "ring" not in name else 0
+            if any(v != want for v in arm["launches"].values()):
+                failed.append(f"{name} rank {r}: K2-K4 launches {arm['launches']}, expected "
+                              f"{want} each")
+    return failed
+
+
+def train_parallel_phase(torch, f, tp=TRAIN_PAR, lr=TRAIN_PAR_LR, device="cuda") -> dict:
+    """Phase 6g: the training layouts on ``tp["ranks"]`` gloo ranks of the
+    one ``device``.  One device's reference first, in this process; then
+    the world, spawned, whose ranks must each exit 0 within the time
+    limit.  Returns K2-K4's launches summed over every rank's arms."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    one = train_par_one_device(torch, f, tp, dev, lr)
+    floor = _max_rms(one["nll_bf16"] - one["nll_f32"])
+    print(f"  one device, batch {tp['batch']} x {tp['max_seq_len']} tokens: float32 losses "
+          f"{[round(x, 7) for x in one['losses_f32']]}, bf16 losses "
+          f"{[round(x, 5) for x in one['losses_bf16']]}; "
+          f"per-token NLL bf16 floor (bf16 vs float32) max {floor[0]:.4e} rms {floor[1]:.4e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_par_")
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(tp["ranks"])]
+    procs = [ctx.Process(target=train_par_rank,
+                         args=(r, tp["ranks"], os.path.join(tmp, "store"), outs[r], f, tp, lr,
+                               device))
+             for r in range(tp["ranks"])]
+    t_world = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                    if p.exitcode not in (None, 0)]
+            if dead:
+                fail(f"phase 6g: rank {dead[0][0]} exited with code {dead[0][1]}")
+            if time.perf_counter() - t_world > tp["timeout_s"]:
+                fail(f"phase 6g: the world did not finish in {tp['timeout_s']} s")
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f"phase 6g: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    ranks = []
+    for path in outs:
+        with open(path, "rb") as fh:
+            ranks.append(pickle.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    world_s = time.perf_counter() - t_world
+    lim = TRAIN_PAR_FLOOR_FACTOR
+    for r, got in enumerate(ranks):
+        for name, arm in got["arms"].items():
+            lo, hi = arm["rows"]
+            err = _max_rms(arm["nll_bf16"] - one["nll_f32"][lo:hi])
+            fl = _max_rms(one["nll_bf16"][lo:hi] - one["nll_f32"][lo:hi])
+            mem = f"{arm['peak_gib']:.2f} GiB" if arm["peak_gib"] is not None else \
+                "not measured (no card)"
+            rel = {label: ", ".join(f"{abs(g - w) / abs(w):.2e}" for g, w in
+                                    zip(*(_drops(a[f"losses_{label}"]) for a in (arm, one))))
+                   for label in ("f32", "bf16")}
+            first = abs(arm["losses_f32"][0] - one["losses_f32"][0]) / one["losses_f32"][0]
+            print(f"  rank {r} {name}: rows {lo}-{hi}, float32 losses "
+                  f"{[round(x, 7) for x in arm['losses_f32']]} (first {first:.2e} off one "
+                  f"device's, limit {TRAIN_PAR_F32_RTOL:.2e}; drops {rel['f32']} off, limit "
+                  f"{TRAIN_PAR_F32_DROP_RTOL:.2e}); bf16 losses "
+                  f"{[round(x, 5) for x in arm['losses_bf16']]} (drops {rel['bf16']} off, "
+                  f"limit {TRAIN_PAR_BF16_DROP_RTOL:.2e}); bf16 per-token NLL vs one "
+                  f"device's float32 max {err[0]:.4e} rms {err[1]:.4e} (limits {lim:.4f} x the "
+                  f"floor: {lim * fl[0]:.4e}, {lim * fl[1]:.4e}); launches over "
+                  f"{tp['steps']} bf16 steps {arm['launches']}; peak device memory {mem}; "
+                  f"{arm['seconds']:.1f} s", flush=True)
+        c = got["collectives"]
+        print(f"  rank {r} ({got['backend']}): one all-reduce of [{tp['batch']}, "
+              f"{tp['max_seq_len'] - 1}, {f['d_model']}] bf16 ({c['act_mib']:.0f} MiB) "
+              f"{c['all_reduce_ms']:.3f} ms beside its host round trip "
+              f"{c['host_round_trip_act']:.3f} ms; one all_to_all of a [{tp['batch']}, "
+              f"{(tp['max_seq_len'] - 1) // tp['ranks']}, {f['n_heads']}, "
+              f"{f['d_model'] // f['n_heads']}] bf16 span ({c['span_mib']:.0f} MiB) "
+              f"{c['all_to_all']:.3f} ms and one ppermute {c['ppermute']:.3f} ms, beside its "
+              f"host round trip {c['host_round_trip_span']:.3f} ms (gloo stages both through "
+              f"it); mean of {tp['collective_iters']}; {got['seconds']:.1f} s in the rank",
+              flush=True)
+    failed = train_par_gates(one, ranks, f["n_layers"], tp["steps"], card=device == "cuda")
+    if failed:
+        fail(f"phase 6g: {failed}")
+    launches = {k: sum(got["arms"][name]["launches"][k] for got in ranks
+                       for name in TRAIN_PAR_ARMS)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    print(f"  {tp['ranks']} ranks over gloo on one {device} device: every arm's first "
+          f"float32 loss within {TRAIN_PAR_F32_RTOL:.2e} of one device's, its float32 and "
+          f"bf16 drops within {TRAIN_PAR_F32_DROP_RTOL:.2e} and {TRAIN_PAR_BF16_DROP_RTOL:.2e}"
+          f", the control outside both; every arm's bf16 "
+          f"per-token NLL within sqrt 2 of the floor, its bf16 loss falling; K2-K4 over "
+          f"every rank's arms {launches}; world {world_s:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s (gloo stages every collective through host "
+          f"memory: these times say nothing of parallel speed)", flush=True)
+    return launches
+
+
 def kernel_counters(pa, fa) -> dict:
     """Every kernel wrapper of the port by its kernel's name; each counts
     its launches in ``.launches``."""
@@ -4689,11 +5083,21 @@ def main() -> int:
           flush=True)
     record["launches"] += bench_launches["paged_attention"]
     record["bench_kernel_launches"] = bench_launches["paged_attention"]
+    torch.cuda.empty_cache()
+
+    # 6g. the training layouts, two ranks on the one card
+    phase("training path: data-, tensor- and sequence-parallel steps, 2 gloo ranks on one "
+          "card, full width")
+    t0 = time.perf_counter()
+    train_par_launches = train_parallel_phase(torch, f)
+    print(f"  training layouts phase: {time.perf_counter() - t0:.1f} s; card: {card}",
+          flush=True)
     for rec in flash_records:
         rec["launches"] = (train_launches[rec["name"]] + lora_train_launches[rec["name"]]
-                           + bench_launches[rec["name"]])
+                           + bench_launches[rec["name"]] + train_par_launches[rec["name"]])
         rec["lora_launches"] = lora_train_launches[rec["name"]]
         rec["bench_launches"] = bench_launches[rec["name"]]
+        rec["train_parallel_launches"] = train_par_launches[rec["name"]]
     print(f"  card: {card}", flush=True)
     print(json.dumps({"kernels": [record, *flash_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -336,3 +336,84 @@ def test_tp_gates_name_what_fails():
     # Off the card K1 counts nothing, and that is no failure.
     assert chip_smoke.tp_gates(one, [good, _tp_results(streams, k1=0, s16=0.1)], 0.01,
                                card=False) == []
+
+
+# Phase 6g at a tiny width: 2 layers of d_model 64 and 4 heads at 33
+# tokens, so the 2-rank seq axis cuts 32 positions.
+TRAIN_PAR_TINY = dict(d_model=64, n_heads=4, n_layers=2, d_ff=128, vocab_size=256)
+
+
+def test_train_parallel_phase_rehearses_on_the_cpu(capsys):
+    """Phase 6g on a 2-rank gloo CPU world at a tiny width, every CPU
+    gate included: each arm's first float32 loss within 2^-16 of one
+    device's, its later steps' drops from it within 2^-10 (float32) and
+    2^-8 (bf16) of one device's, the control (TP2 without the enter hook)
+    outside both drop gates, its bf16 per-token NLL within sqrt 2
+    of the floor and its bf16 loss falling (AdamW at 1e-3 here, so three
+    steps move it)."""
+    import torch
+
+    f = dict(chip_smoke.FULL, **TRAIN_PAR_TINY)
+    tp = dict(chip_smoke.TRAIN_PAR, max_seq_len=33, timeout_s=300)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.train_parallel_phase(torch, f, tp=tp, lr=1e-3, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    for r in range(2):
+        for name in {**chip_smoke.TRAIN_PAR_ARMS, **chip_smoke.TRAIN_PAR_CONTROL}:
+            assert f"rank {r} {name}: rows " in out
+        assert f"rank {r} (gloo): one all-reduce of [4, 32, 64] bf16" in out
+    assert "peak device memory not measured (no card)" in out
+    assert "per-token NLL within sqrt 2 of the floor, its bf16 loss falling" in out
+    # Off the card the flash wrappers run their plain versions, uncounted.
+    assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def _par_rank(loss32=(5.0, 4.9, 4.8), nll16=0.1, losses=(3.0, 2.9, 2.8), launches=6):
+    import numpy as np
+
+    arms = {name: {"rows": (0, 2), "losses_f32": list(loss32), "losses_bf16": list(losses),
+                   "nll_bf16": np.full((2, 4), nll16),
+                   "launches": dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                                             0 if "ring" in name else launches)}
+            for name in {**chip_smoke.TRAIN_PAR_ARMS, **chip_smoke.TRAIN_PAR_CONTROL}}
+    # The control's later steps stray from one device's, as a wrong
+    # gradient makes them.
+    control = arms[next(iter(chip_smoke.TRAIN_PAR_CONTROL))]
+    control["losses_f32"] = [loss32[0]] + [x + 0.1 for x in loss32[1:]]
+    control["losses_bf16"] = [losses[0]] + [x + 0.1 for x in losses[1:]]
+    return {"arms": arms}
+
+
+def test_train_parallel_gates_name_what_fails():
+    import numpy as np
+
+    one = {"losses_f32": [5.0, 4.9, 4.8], "losses_bf16": [3.0, 2.9, 2.8],
+           "nll_f32": np.zeros((2, 4)), "nll_bf16": np.full((2, 4), 0.1)}
+    good = _par_rank(nll16=0.14)
+    assert chip_smoke.train_par_gates(one, [good, good], n_layers=2, steps=3) == []
+    bad = _par_rank(loss32=(5.001, 4.9, 4.8), nll16=0.15)
+    bad["arms"]["(b) TP2"]["losses_bf16"] = [3.0, 3.1, 3.2]
+    bad["arms"]["(c) Ulysses sp2"]["launches"]["flash_bwd_dq"] = 0
+    control = next(iter(chip_smoke.TRAIN_PAR_CONTROL))
+    bad["arms"][control]["losses_bf16"] = [3.0, 2.9, 2.8]
+    failed = chip_smoke.train_par_gates(one, [good, bad], n_layers=2, steps=3)
+    assert failed[0].startswith(f"{control} rank 1: the control passed a drop gate")
+    assert failed[1] == "(a) DP2 rank 1: float32 first-step loss 5.001 against one device's 5.0"
+    assert failed[2].startswith("(a) DP2 rank 1: f32 losses [5.001, 4.9, 4.8], drops from the "
+                                "first step 1.00e-02, 5.00e-03 off one device's [5.0, 4.9, 4.8] "
+                                "(limit 9.77e-04)")
+    assert "(a) DP2 rank 1: bf16 per-token NLL max 1.5000e-01 rms 1.5000e-01" in failed[3]
+    assert any(m.startswith("(b) TP2 rank 1: bf16 losses [3.0, 3.1, 3.2], drops from the "
+                            "first step 2.00e+00, 2.00e+00 off") for m in failed)
+    assert "(b) TP2 rank 1: bf16 losses [3.0, 3.1, 3.2] did not fall" in failed
+    assert any(m.startswith("(c) Ulysses sp2 rank 1: K2-K4 launches") for m in failed)
+    del bad["arms"][control]
+    assert f"{control} rank 1: the control did not run" in \
+        chip_smoke.train_par_gates(one, [good, bad], n_layers=2, steps=3)
+    # Off the card the kernels count nothing, and that is no failure.
+    off = _par_rank(nll16=0.14, launches=0)
+    assert chip_smoke.train_par_gates(one, [off, off], 2, 3, card=False) == []

@@ -201,3 +201,41 @@ def test_collectives_over_the_mesh_axes(worlds, world):
         assert got["data"] == [float(sum(data))] * 2
         assert got["shape"] == (world // 2, 2)
         assert got["coords"] == [rank // 2, rank % 2]
+
+
+def test_a_dead_rank_is_named_with_its_signal_and_log(tmp_path):
+    """The world harness (tests/torch_tp_world.py): a rank killed by a
+    signal leaves a negative exit code and its log, and a test that
+    reads its missing result fails with both, not with a KeyError."""
+    world = tw.run_world(2, ["meshes", "last_rank_dies"], str(tmp_path), timeout=120)
+    assert world.exitcodes == [0, -9] and not world.timed_out
+    assert tw.result_of(world, "last_rank_dies", 0) == "alive"
+    assert tw.result_of(world, "meshes", 1)["default"] == {"data": 1, "model": 2}
+    with pytest.raises(pytest.fail.Exception) as failed:
+        tw.result_of(world, "last_rank_dies", 1)
+    message = str(failed.value)
+    assert "exit codes [0, -9]" in message
+    assert "--- rank 1 log tail ---" in message and "rank 1 about to die" in message
+
+
+def test_run_worlds_makes_its_directories_before_its_threads():
+    """Two first mktemps at once race on pytest's base directory, so
+    run_worlds makes every world's directory on the calling thread."""
+    import threading
+
+    calls = []
+
+    class Factory:
+        def mktemp(self, name):
+            calls.append((name, threading.current_thread() is threading.main_thread()))
+            return f"/nonexistent/{name}"
+
+    def fake_run_world(world, names, tmp, timeout, module):
+        return tw.World({"names": names, "tmp": tmp})
+
+    import unittest.mock
+
+    with unittest.mock.patch.object(tw, "run_world", fake_run_world):
+        out = tw.run_worlds(Factory(), (2, 4), lambda w: [f"s{w}"])
+    assert calls == [("world2", True), ("world4", True)]
+    assert out[4]["tmp"] == "/nonexistent/world4" and out[2]["names"] == ["s2"]

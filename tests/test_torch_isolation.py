@@ -200,3 +200,11 @@ def test_control_plane_runs_with_jax_workloads_and_grpc_blocked():
                           capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_sequence_parallel_modules_are_scanned():
+    """The scan reaches the training layouts' attention modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", "ops", f"{m}.py") for m in (
+        "ring", "ulysses", "usp",
+    )} <= scanned

@@ -22,10 +22,13 @@ tests/test_torch_perfbench_fleet_golden.json;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the nine fixtures from the JAX package (``write_fleet_goldens()``,
-``write_perfbench_fleet_goldens()`` or ``write_tp_goldens()`` alone
-rewrites only its own; the last holds tests/test_torch_tp_serve.py's
-frozen JAX tensor-parallel streams).
+regenerates the ten fixtures from the JAX package (``write_fleet_goldens()``,
+``write_perfbench_fleet_goldens()``, ``write_tp_goldens()`` or
+``write_train_parallel_goldens()`` alone rewrites only its own;
+``write_tp_goldens`` holds tests/test_torch_tp_serve.py's frozen JAX
+tensor-parallel streams, ``write_train_parallel_goldens`` the meshed
+training steps, sequence-parallel steps and ring/Ulysses/USP attention
+of tests/test_torch_train_parallel.py and tests/test_torch_seq_parallel.py).
 """
 
 from __future__ import annotations
@@ -85,6 +88,7 @@ from tests.test_torch_kv_hierarchy import run_kv_scenario  # noqa: E402
 from tests import test_torch_lora as tlora  # noqa: E402
 from tests import test_torch_tp_serve as ttp  # noqa: E402
 from tests import torch_tp_world as tw  # noqa: E402
+from tests import torch_train_world as trw  # noqa: E402
 from tests import test_torch_fleet as tfleet  # noqa: E402
 from tests import test_torch_perfbench_fleet as tpbf  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
@@ -950,6 +954,95 @@ def write_tp_goldens(path: str = ttp.TP_GOLDEN) -> None:
     print(f"wrote {path}: {os.path.getsize(path)} bytes")
 
 
+def jax_train_parallel_config(**kw) -> jmodel.ModelConfig:
+    return jmodel.ModelConfig(dtype=jnp.float32, **dict(trw.CONFIG, **kw))
+
+
+def _jax_meshed_losses(mesh, step_of) -> np.ndarray:
+    """``trw.STEPS`` steps of the JAX step ``step_of(config, optimizer)``
+    on ``mesh`` from the numpy weights (placed by ``param_specs`` through
+    ``make_sharded_train_state``, optax.adamw(1e-3, mu_dtype=bf16))."""
+    config = jax_train_parallel_config()
+    (params, opt), optimizer = jtrain.make_sharded_train_state(
+        mesh, lambda: _jax_tree(trw.numpy_params()), jmodel.param_specs(config))
+    step = step_of(config, optimizer)
+    losses = []
+    for s in range(trw.STEPS):
+        params, opt, loss = step(params, opt, jnp.asarray(trw.numpy_tokens(s)))
+        losses.append(float(loss))
+    return np.asarray(losses, np.float32)
+
+
+def _jax_op(mode: str, kw: dict, causal: bool) -> dict:
+    from jax.sharding import Mesh
+
+    from workloads.ops.ring import ring_attention
+    from workloads.ops.ulysses import ulysses_attention
+    from workloads.ops.usp import usp_attention
+
+    q, k, v = (jnp.asarray(x) for x in trw.numpy_qkv())
+    if mode == "usp":
+        n = kw["ring"] * kw["ulysses"]
+        mesh = Mesh(np.array(jax.devices()[:n]).reshape(kw["ring"], kw["ulysses"]),
+                    ("seq_r", "seq_u"))
+
+        def fn(q, k, v):
+            return usp_attention(q, k, v, mesh, causal=causal)
+    else:
+        mesh = Mesh(np.array(jax.devices()[:kw["seq_parallel"]]), ("seq",))
+        core = ring_attention if mode == "ring" else ulysses_attention
+
+        def fn(q, k, v):
+            return core(q, k, v, mesh, causal=causal)
+
+    out = fn(q, k, v)
+    grads = jax.grad(lambda q, k, v: jnp.sum(fn(q, k, v) ** 2), argnums=(0, 1, 2))(q, k, v)
+    return {"out": np.asarray(out), **{f"d{n}": np.asarray(g) for n, g in zip("qkv", grads)}}
+
+
+def jax_train_parallel_goldens() -> dict:
+    """The JAX package's meshed training steps' per-step losses for every
+    layout of tests/torch_train_world.py, its sequence-parallel steps'
+    losses, and ring, Ulysses and USP attention's outputs and gradients
+    (causal and full), on the CPU devices."""
+    out = {}
+    for name, (_, (data, model)) in trw.LAYOUTS.items():
+        mesh = jtrain.make_mesh(data * model, model_parallel=model)
+        out[f"steps/{name}"] = _jax_meshed_losses(
+            mesh, lambda c, o, mesh=mesh: jtrain.make_train_step(c, mesh, o))
+    for name, (world, attention, builder, kw) in trw.SP_LAYOUTS.items():
+        make = jtrain.make_usp_mesh if builder == "usp" else jtrain.make_sp_mesh
+        mesh = make(world, **kw)
+        out[f"sp/{name}"] = _jax_meshed_losses(
+            mesh, lambda c, o, mesh=mesh, a=attention: jtrain.make_seq_parallel_train_step(
+                c, mesh, o, attention=a))
+    for name, (_, mode, kw) in trw.OPS.items():
+        for causal in (True, False):
+            for key, value in _jax_op(mode, kw, causal).items():
+                out[f"op/{name}/{'causal' if causal else 'full'}/{key}"] = value
+    return out
+
+
+def test_train_parallel_matches_jax_live():
+    """The frozen JAX training layouts (tests/test_torch_train_parallel_golden.npz)
+    are what the JAX package computes now, within the fast tier's
+    tolerances (XLA's CPU reductions may reorder between versions)."""
+    live = jax_train_parallel_goldens()
+    with np.load(trw.GOLDEN) as f:
+        frozen = {k: f[k] for k in f.files}
+    assert set(live) == set(frozen)
+    for key, value in live.items():
+        np.testing.assert_allclose(value, frozen[key], rtol=2.0**-20, atol=1e-6, err_msg=key)
+
+
+def write_train_parallel_goldens(path: str = trw.GOLDEN) -> None:
+    """Freeze the JAX training layouts for tests/test_torch_train_parallel.py
+    and tests/test_torch_seq_parallel.py."""
+    arrays = jax_train_parallel_goldens()
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_perfbench_fleet_goldens(path: str = tpbf.FLEET_GOLDEN) -> None:
     """Freeze the schedule-fixed fields of JAX's fleet arms at the tiny
     scale for tests/test_torch_perfbench_fleet.py."""
@@ -1108,3 +1201,4 @@ if __name__ == "__main__":
     write_fleet_goldens()
     write_perfbench_fleet_goldens()
     write_tp_goldens()
+    write_train_parallel_goldens()

@@ -62,23 +62,9 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """Both worlds' results, {world: {scenario: per-rank results}}.  The
-    worlds run side by side; this process computes nothing meanwhile."""
-    import threading
-
-    out = {}
-
-    def run(world):
-        out[world] = tw.run_world(world, tw.world_scenarios(world),
-                                  str(tmp_path_factory.mktemp(f"world{world}")),
-                                  timeout=300)
-
-    threads = [threading.Thread(target=run, args=(w,)) for w in WORLDS]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    return out
+    """Both worlds' results, {world: {scenario: per-rank results}}, run
+    side by side."""
+    return tw.run_worlds(tmp_path_factory, WORLDS, tw.world_scenarios, timeout=300)
 
 
 @pytest.fixture(scope="module")

@@ -14,16 +14,23 @@ the JAX package's TP engine all serve the same model.
 ``run_world`` spawns ``world`` processes (start method ``spawn``) that
 join one gloo process group through a ``FileStore``; each runs the named
 scenarios in order (``SCENARIOS``) and writes each result, or the error
-that ended it, to a pickle file; a rank that fails stops, and the world
-is killed when ``timeout`` passes, so a hang fails instead of stalling.
+that ended it, to a pickle file (written under a temporary name and
+renamed into place, so a killed rank leaves no half-written result); a
+rank that fails stops, and the world is killed when ``timeout`` passes,
+so a hang fails instead of stalling.  Each rank's stdout and stderr go
+to ``<tmp>/rank<r>.log`` (with ``faulthandler``'s traceback on a fatal
+signal), and ``run_world`` keeps every rank's exit code, so a failure
+message names how each rank ended and the tail of its log.
 Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import os
 import pickle
+import sys
 import time
 import traceback
 from dataclasses import dataclass
@@ -571,10 +578,22 @@ def s_meshes(ctx: Ctx) -> dict:
     return out
 
 
+def s_last_rank_dies(ctx) -> str:
+    """The harness's own check: the last rank prints a line and kills
+    itself with SIGKILL; the others return."""
+    import signal
+
+    if ctx.rank == ctx.world - 1:
+        print(f"rank {ctx.rank} about to die", flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)
+    return "alive"
+
+
 SCENARIOS = {f"case:{name}": _engine_scenario(name) for name in CASES}
 SCENARIOS.update({"validations": s_validations, "param_specs": s_param_specs,
                   "generate": s_generate, "programs": s_programs, "bf16_step": s_bf16_step,
-                  "collectives": s_collectives, "meshes": s_meshes})
+                  "collectives": s_collectives, "meshes": s_meshes,
+                  "last_rank_dies": s_last_rank_dies})
 
 
 def world_scenarios(world: int) -> list[str]:
@@ -584,12 +603,29 @@ def world_scenarios(world: int) -> list[str]:
     return names + (["programs"] if world == 2 else [])
 
 
+def _dump(path: str, obj) -> None:
+    """Pickle ``obj`` to ``path`` atomically: a temporary name, then
+    ``os.replace``."""
+    part = f"{path}.part"
+    with open(part, "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(part, path)
+
+
 def rank_main(rank: int, world: int, store: str, out_dir: str, names: list,
               module: str = __name__) -> None:
-    """One rank: join the gloo world, run ``names`` from ``module``'s
-    SCENARIOS, write each result as ``<out_dir>/<index>.<rank>.pkl``."""
+    """One rank: send stdout and stderr to ``<out_dir>/rank<rank>.log``,
+    join the gloo world, run ``names`` from ``module``'s SCENARIOS, write
+    each result as ``<out_dir>/<index>.<rank>.pkl``."""
     import importlib
 
+    log = open(os.path.join(out_dir, f"rank{rank}.log"), "w", buffering=1)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    faulthandler.enable(file=log, all_threads=True)
+    print(f"rank {rank}/{world} pid {os.getpid()}: {len(names)} scenarios", flush=True)
     torch.set_num_threads(1)
     scenarios = importlib.import_module(module).SCENARIOS
     torch.distributed.init_process_group(
@@ -603,23 +639,66 @@ def rank_main(rank: int, world: int, store: str, out_dir: str, names: list,
                 result = ("ok", scenarios[name](ctx))
             except Exception:  # noqa: BLE001 — written for the test to report
                 result = ("error", traceback.format_exc())
-            with open(os.path.join(out_dir, f"{i}.{rank}.pkl"), "wb") as f:
-                pickle.dump((name, time.perf_counter() - t0, result), f)
+            secs = time.perf_counter() - t0
+            print(f"{time.strftime('%H:%M:%S')} {name}: {result[0]} in {secs:.1f} s",
+                  flush=True)
+            _dump(os.path.join(out_dir, f"{i}.{rank}.pkl"), (name, secs, result))
             if result[0] == "error":
+                print(result[1], flush=True)
                 os._exit(1)  # the other ranks' collectives time out
     finally:
         torch.distributed.destroy_process_group()
 
 
+class World(dict):
+    """``run_world``'s results, {name: per-rank results}, with how the
+    world ended: ``exitcodes`` per rank (negative: the signal that ended
+    it; None: still running when killed at the timeout), ``timed_out``,
+    the tail of each rank's log, and ``error``, the traceback of an
+    exception that stopped the world's runner itself."""
+
+    def __init__(self, results=(), exitcodes=(), timed_out=False, logs=None, error=None):
+        super().__init__(results)
+        self.exitcodes = list(exitcodes)
+        self.timed_out = timed_out
+        self.logs = logs or {}
+        self.error = error
+
+    def report(self) -> str:
+        if self.error is not None:
+            return f"the world's runner raised:\n{self.error}"
+        lines = [f"exit codes {self.exitcodes}"
+                 + (" (killed at the world's timeout)" if self.timed_out else "")]
+        for rank, tail in sorted(self.logs.items()):
+            lines.append(f"--- rank {rank} log tail ---\n{tail}")
+        return "\n".join(lines)
+
+
+def _tail(path: str, n: int = 4000) -> str:
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(f.tell() - n, 0))
+            return f.read().decode(errors="replace")
+    except OSError as exc:
+        return f"(no log: {exc})"
+
+
 def run_world(world: int, names: list, tmp: str, timeout: float = 600.0,
-              module: str = __name__) -> dict:
-    """Run ``names`` on a ``world``-rank gloo CPU world; returns {name:
-    [per-rank (seconds, ("ok", value) or ("error", text))]}, a name
-    missing where its world died first.  Every rank is stopped by the
-    time this returns."""
+              module: str = __name__) -> World:
+    """Run ``names`` on a ``world``-rank gloo CPU world; returns a
+    ``World`` of {name: [per-rank (seconds, ("ok", value) or ("error",
+    text))]}, a name missing where its world died first, and a result
+    file that cannot be read reported as that rank's error.  Every rank
+    is stopped by the time this returns."""
     import torch.multiprocessing as mp
 
     os.makedirs(tmp, exist_ok=True)
+    # A directory run before holds its store and results: neither may
+    # leak into this world.
+    for name in os.listdir(tmp):
+        if name == "store" or name.endswith((".pkl", ".part", ".log")):
+            os.remove(os.path.join(tmp, name))
     ctx = mp.get_context("spawn")
     store = os.path.join(tmp, "store")
     procs = [ctx.Process(target=rank_main, args=(r, world, store, tmp, list(names), module))
@@ -627,33 +706,75 @@ def run_world(world: int, names: list, tmp: str, timeout: float = 600.0,
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
+    killed = [False] * world
     try:
         for p in procs:
             p.join(max(deadline - time.monotonic(), 0.1))
     finally:
-        for p in procs:
+        for r, p in enumerate(procs):
             if p.is_alive():
+                killed[r] = True
                 p.kill()
                 p.join(10)
-    out: dict = {}
+    exitcodes = [None if k else p.exitcode for k, p in zip(killed, procs)]
+    timed_out = any(killed)
+    out = World(exitcodes=exitcodes, timed_out=timed_out,
+                logs={r: _tail(os.path.join(tmp, f"rank{r}.log")) for r in range(world)})
     for i, name in enumerate(names):
         for r in range(world):
             path = os.path.join(tmp, f"{i}.{r}.pkl")
-            if os.path.exists(path):
+            if not os.path.exists(path):
+                continue
+            try:
                 with open(path, "rb") as f:
                     _, secs, result = pickle.load(f)
-                out.setdefault(name, [None] * world)[r] = (secs, result)
+            except Exception as exc:  # noqa: BLE001 — reported as the rank's failure
+                secs, result = 0.0, ("error", f"unreadable result file {path}: {exc!r}")
+            out.setdefault(name, [None] * world)[r] = (secs, result)
     return out
 
 
-def result_of(results: dict, name: str, rank: int = 0):
-    """A scenario's value on ``rank``, or a failure naming what happened."""
+def run_worlds(tmp_path_factory, worlds, scenarios, timeout: float = 300.0,
+               module: str = __name__) -> dict:
+    """``run_world`` for each size in ``worlds``, side by side in threads
+    (this process computes nothing meanwhile): {world: World}, with
+    ``scenarios(world)`` the names a world runs.  The temporary
+    directories are made first, one after the other: the first mktemp
+    creates pytest's base directory, and two threads doing so at once
+    race on it.  An exception in a thread becomes that world's
+    ``World.error``, which every test of the world reports."""
+    import threading
+
+    tmps = {w: str(tmp_path_factory.mktemp(f"world{w}")) for w in worlds}
+    out = {}
+
+    def run(world):
+        try:
+            out[world] = run_world(world, scenarios(world), tmps[world], timeout, module)
+        except Exception:  # noqa: BLE001 — every test of the world reports it
+            out[world] = World(error=traceback.format_exc())
+
+    threads = [threading.Thread(target=run, args=(w,)) for w in worlds]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def result_of(results: World, name: str, rank: int = 0):
+    """A scenario's value on ``rank``, or a failure naming what happened:
+    the scenario's traceback, else how each rank of the world ended and
+    the tail of its log."""
     import pytest
 
+    if getattr(results, "error", None) is not None:
+        pytest.fail(results.report())
     runs = results.get(name)
     if runs is None or runs[rank] is None:
-        pytest.fail(f"scenario {name} has no result on rank {rank}: its world ended first")
+        pytest.fail(f"scenario {name} has no result on rank {rank}: its world ended first; "
+                    f"{results.report()}")
     _, (kind, value) = runs[rank]
     if kind == "error":
-        pytest.fail(f"scenario {name} raised on rank {rank}:\n{value}")
+        pytest.fail(f"scenario {name} raised on rank {rank}:\n{value}\n{results.report()}")
     return value

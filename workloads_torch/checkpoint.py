@@ -4,7 +4,9 @@
   * ``save(step, (params, opt_state))`` writes one versioned file and
     keeps the newest ``max_to_keep``;
   * ``restore_latest(like)`` returns the newest state, each tensor on the
-    device and in the dtype of the matching leaf of ``like``.
+    device and in the dtype of the matching leaf of ``like``;
+    ``restore(step, like, device)`` a given step, where ``meta`` leaves
+    (an abstract target) land on ``device``.
 
 A checkpoint is one ``torch.save`` file, ``step_<step>.pt``, written to
 a temporary name, flushed to disk and renamed into place, so a crash
@@ -22,24 +24,31 @@ import torch
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
 
-def _restore_like(saved, like):
+def _restore_like(saved, like, device=None):
     """``saved`` with every tensor moved to the device and dtype of the
-    leaf at the same place in ``like``; raises on a structure mismatch."""
+    leaf at the same place in ``like`` (to ``device`` where that leaf is a
+    ``meta`` tensor, an abstract target); raises on a structure
+    mismatch."""
     if isinstance(like, torch.Tensor):
         if not isinstance(saved, torch.Tensor) or saved.shape != like.shape:
             raise ValueError(
                 f"checkpoint leaf {getattr(saved, 'shape', type(saved))} does "
                 f"not match {tuple(like.shape)}"
             )
-        return saved.to(device=like.device, dtype=like.dtype)
+        target = like.device
+        if target.type == "meta":
+            if device is None:
+                raise ValueError("an abstract (meta) restore target needs a device")
+            target = device
+        return saved.to(device=target, dtype=like.dtype)
     if isinstance(like, dict):
         if not isinstance(saved, dict) or set(saved) != set(like):
             raise ValueError("checkpoint tree does not match the target's keys")
-        return {k: _restore_like(saved[k], like[k]) for k in like}
+        return {k: _restore_like(saved[k], like[k], device) for k in like}
     if isinstance(like, (list, tuple)):
         if not isinstance(saved, (list, tuple)) or len(saved) != len(like):
             raise ValueError("checkpoint tree does not match the target's length")
-        return type(like)(_restore_like(s, l) for s, l in zip(saved, like))
+        return type(like)(_restore_like(s, l, device) for s, l in zip(saved, like))
     return saved
 
 
@@ -94,8 +103,13 @@ class TrainCheckpointer:
         step = self.latest_step
         if step is None:
             return None
+        return self.restore(step, like)
+
+    def restore(self, step: int, like, device=None):
+        """Checkpoint ``step`` shaped like ``like``: a live state tree, or
+        an abstract one of ``meta`` tensors, restored onto ``device``."""
         saved = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        return _restore_like(saved, like)
+        return _restore_like(saved, like, device)
 
     def close(self) -> None:
         self._closed = True

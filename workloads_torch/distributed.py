@@ -78,6 +78,28 @@ def bind_local_device(device_type: str) -> None:
         torch.cuda.set_device(local % torch.cuda.device_count())
 
 
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's tensors live on: the CPU for a ``"cpu"``
+    mesh, else the current CUDA device (``make_mesh`` binds it)."""
+    if mesh.device_type == "cpu":
+        return torch.device("cpu")
+    resolve_device(mesh.device_type)  # raises without a card
+    return torch.device(mesh.device_type, torch.cuda.current_device())
+
+
+def world_mesh(device=None) -> tuple:
+    """(mesh, device) for a training entry point: ``train.make_mesh()``
+    over the initialised world and this rank's device when a world of
+    more than one rank is up, else (None, ``resolve_device(device)``)."""
+    device = resolve_device(device)
+    if not (torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1):
+        return None, device
+    from .train import make_mesh
+
+    mesh = make_mesh(device_type=device.type)
+    return mesh, mesh_device(mesh)
+
+
 def initialize_from_slice_env(
     coordinator_address: str | None = None, environ=None, backend: str | None = None,
     device=None,
@@ -148,3 +170,196 @@ def global_mesh(
     bind_local_device(device_type)
     grid = torch.arange(n).reshape(data, model)
     return DeviceMesh(device_type, grid, mesh_dim_names=tuple(axis_names))
+
+
+# ---- differentiable collectives ------------------------------------------
+#
+# The training layouts run one process per device, so the collectives that
+# XLA inserts from the JAX package's shardings are written out here, each
+# a ``torch.autograd.Function`` with its gradient.  ``group`` is a mesh
+# axis' process group (``DeviceMesh.get_group``); a rank's index along the
+# axis is its rank in that group.
+#
+# On a gloo group, a CUDA tensor's point-to-point, all-to-all and
+# all-gather exchanges are staged through host memory by an explicit copy
+# (``_to_wire``): gloo has no CUDA path for ``send``/``recv``, and the
+# others take the same route.  Gloo's all-reduce takes CUDA tensors and
+# stages them itself.  NCCL takes CUDA tensors for all of them; nothing
+# falls back from one backend to the other.
+
+
+def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it goes over ``group``: a host copy of a CUDA tensor on a
+    gloo group, else ``x``."""
+    staged = x.is_cuda and torch.distributed.get_backend(group) == "gloo"
+    return x.cpu() if staged else x
+
+
+def _group_size_index(group) -> tuple[int, int]:
+    return torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    torch.distributed.all_reduce(out, group=group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n, _ = _group_size_index(group)
+    send = _to_wire(x.contiguous(), group)
+    parts = [torch.empty_like(send) for _ in range(n)]
+    torch.distributed.all_gather(parts, send, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _span(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n, i = _group_size_index(group)
+    return x.chunk(n, dim=dim)[i].contiguous()
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's ``g``: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def model_hooks(mesh):
+    """(enter, reduce): the ``"model"`` axis' pair of hooks for a rank of
+    ``mesh`` holding a ``param_specs`` cut of the weights under autograd.
+    ``enter`` (the input of every column-parallel product) is the
+    identity forward and sums the input's gradient over the model group
+    backward; ``reduce`` (the output of every row-parallel product) sums
+    the partial products forward and passes the gradient through
+    backward.  (None, None) for a model degree of 1."""
+    dim = mesh.mesh_dim_names.index("model")
+    if mesh.size(dim) == 1:
+        return None, None
+    group = mesh.get_group("model")
+    return (lambda x: _Enter.apply(x, group)), (lambda x: _Reduce.apply(x, group))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(grad, ctx.group, concat_dim, split_dim), None, None, None
+
+
+def _all_to_all(x, group, split_dim, concat_dim):
+    n, _ = _group_size_index(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of size {x.shape[split_dim]} does not split "
+                         f"over {n} ranks")
+    send = _to_wire(torch.stack(x.chunk(n, dim=split_dim)).contiguous(), group)
+    recv = torch.empty_like(send)
+    torch.distributed.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.to(x.device).unbind(0), dim=concat_dim)
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``
+    over ``group``: ``x`` cut into the group's size blocks along
+    ``split_dim``, block j sent to rank j, and the blocks received
+    concatenated along ``concat_dim`` in rank order.  Its gradient is
+    the inverse exchange."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """Send ``x`` to the rank ``step`` ahead in ``group`` (cyclically) and
+    return what the rank ``step`` behind sent."""
+    n, i = _group_size_index(group)
+    if n == 1:
+        return x
+    to = torch.distributed.get_global_rank(group, (i + step) % n)
+    frm = torch.distributed.get_global_rank(group, (i - step) % n)
+    send = _to_wire(x.contiguous(), group)
+    recv = torch.empty_like(send)
+    ops = [torch.distributed.P2POp(torch.distributed.isend, send, to, group),
+           torch.distributed.P2POp(torch.distributed.irecv, recv, frm, group)]
+    for work in torch.distributed.batch_isend_irecv(ops):
+        work.wait()
+    return recv.to(x.device)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -1), None
+
+
+def ppermute(x: torch.Tensor, group) -> torch.Tensor:
+    """The ring step of ``jax.lax.ppermute`` with ``perm = [(i, (i + 1) %
+    N)]``: send ``x`` to the next rank of ``group`` and receive the
+    previous rank's.  Its gradient runs the reverse ring."""
+    return _Ppermute.apply(x, group)
+
+
+class _SeqSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _span(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, ctx.group, ctx.dim), None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _span(grad, ctx.group, ctx.dim), None, None
+
+
+def seq_slice(x: torch.Tensor, group, dim: int = 1, axis: str = "seq") -> torch.Tensor:
+    """This rank's span of ``x`` along ``dim``, where every rank of
+    ``group`` (mesh axis ``axis``) holds the same ``x``: the forward takes
+    the span, the backward gathers every rank's gradient span, so the
+    gradient of the whole ``x`` is on every rank.  Raises the JAX
+    package's ``ValueError`` when the axis does not divide ``dim``."""
+    n, _ = _group_size_index(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"seq {x.shape[dim]} not divisible by mesh axis {axis!r} size {n}")
+    return _SeqSlice.apply(x, group, dim)
+
+
+def seq_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Every rank's span of ``group`` concatenated along ``dim`` in rank
+    order; the backward keeps this rank's span of the gradient."""
+    return _SeqGather.apply(x, group, dim)

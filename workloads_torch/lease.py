@@ -8,8 +8,8 @@ plugin mounts into every shared pod), runs a burst of steps, releases,
 repeats.  The kernel guarantees fairness by queueing and releases the
 lease when a pod dies mid-burst (flocks drop with the fd).  Under the
 mixed strategy ``hold_claim_leases`` declares the workload's lifetime
-to the daemon; the serve CLI takes those leases before it builds an
-engine.
+to the daemon; the serve and training CLIs and the MFU sweep take those
+leases before they touch the device.
 
 Usage inside a pod (env vars are injected by the plugin's Allocate):
 

@@ -13,8 +13,10 @@ from ``jax.random`` (threefry), so one seed gives other numbers on the
 two sides.  Parity with the JAX package goes through factors carried
 across (``convert.adapters_from_jax``), never through seeds.
 
-The mesh half of the JAX step (``make_sharded_train_step``'s shardings)
-is not ported here: ``make_lora_train_step`` runs on one device.
+Under a mesh (``mesh=``, as the JAX step's) the step goes through
+``train.make_sharded_train_step`` with the base as its ``frozen``
+argument: the adapters and the base are replicated, the global batch is
+split over ``"data"`` and the adapters' gradients averaged over it.
 
     python -m workloads_torch.lora --steps 30 --rank 8
     python -m workloads_torch.lora --device cpu --steps 3 --int8-base
@@ -24,7 +26,6 @@ from __future__ import annotations
 
 import torch
 
-from . import resolve_device
 from .model import ModelConfig, loss_fn, weight
 
 # Which layer weights get adapters; their (fan_in, fan_out) split comes
@@ -124,31 +125,27 @@ def merge_lora(params: dict, adapters: list, alpha: float = 1.0, dtype=None) -> 
 
 
 def make_lora_train_step(config: ModelConfig, optimizer, base_params: dict,
-                         alpha: float = 1.0):
+                         alpha: float = 1.0, mesh=None):
     """The fine-tune step: (adapters, opt_state, tokens) -> (adapters,
     opt_state, loss), with the factors and moments updated in place and
     ``loss`` a detached float32 scalar.  The loss is ``loss_fn(merge_lora(
     base, adapters, alpha, dtype=config.dtype), tokens, config)``; the
     frozen base is an argument of the merge, never a leaf of autograd.
     ``optimizer`` is a ``train.AdamW`` (the JAX package's
-    ``optax.adamw(1e-3)`` is ``AdamW(lr=1e-3, mu_dtype=torch.float32)``)."""
-    from .train import adamw, tree_leaves
+    ``optax.adamw(1e-3)`` is ``AdamW(lr=1e-3, mu_dtype=torch.float32)``).
 
-    def step(adapters, opt_state, tokens):
-        leaves = tree_leaves(adapters)
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            merged = merge_lora(base_params, adapters, alpha, dtype=config.dtype)
-            loss = loss_fn(merged, tokens, config)
-            grads = torch.autograd.grad(loss, leaves)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        opt_state = adamw(adapters, list(grads), opt_state, optimizer)
-        return adapters, opt_state, loss.detach()
+    The step is ``train.make_sharded_train_step(..., frozen=base_params)``
+    on ``mesh``.  With a mesh (``train.make_mesh``; the adapters
+    replicated, e.g. by ``make_sharded_train_state`` with ``()`` specs),
+    each rank takes its rows of the global tokens, and the gradients and
+    the loss are averaged over ``"data"``; ``mesh=None`` is one device."""
+    from .train import make_sharded_train_step
 
-    return step
+    def adapter_loss(adapters, base, tokens):
+        merged = merge_lora(base, adapters, alpha, dtype=config.dtype)
+        return loss_fn(merged, tokens, config)
+
+    return make_sharded_train_step(adapter_loss, mesh, optimizer, frozen=base_params)
 
 
 def main(argv=None) -> int:
@@ -169,21 +166,32 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.steps < 1:
         parser.error("--steps must be >= 1")
-    device = resolve_device(args.device)
 
+    from .distributed import world_mesh
     from .model import init_params
-    from .train import AdamW, synthetic_batch
+    from .train import AdamW, make_sharded_train_state, synthetic_batch, tree_map
 
     config = ModelConfig(max_seq_len=args.seq_len)
+    # As the JAX CLI: a mesh over the world when one is up (the adapters
+    # replicated, the batch split over "data"), else one device.
+    mesh, device = world_mesh(args.device)
     base = init_params(config, torch.Generator(device).manual_seed(0))
     if args.int8_base:
         from .quant import quantize_params
 
         base = quantize_params(base)
     optimizer = AdamW(lr=1e-3, mu_dtype=torch.float32)
-    adapters = lora_init(config, args.rank, torch.Generator(device).manual_seed(1))
-    opt_state = optimizer.init(adapters)
-    step = make_lora_train_step(config, optimizer, base)
+
+    def init():
+        return lora_init(config, args.rank, torch.Generator(device).manual_seed(1))
+
+    if mesh is None:
+        adapters = init()
+        opt_state = optimizer.init(adapters)
+    else:
+        (adapters, opt_state), _ = make_sharded_train_state(
+            mesh, init, tree_map(lambda _: (), init()), optimizer)
+    step = make_lora_train_step(config, optimizer, base, mesh=mesh)
     first = last = None
     for s in range(1, args.steps + 1):
         tokens = synthetic_batch(config, args.batch_size, seed=s, device=device)

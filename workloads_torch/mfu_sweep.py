@@ -1,7 +1,9 @@
 """MFU experiment sweep on the card: where does the non-MFU fraction go?
 
 Port of ``workloads/mfu_sweep.py``.  Times the full training step
-(``perfbench.time_train_step``: forward, backward, AdamW on one device)
+(``perfbench.time_train_step``: forward, backward, AdamW; on
+``make_mesh()`` when a ``torch.distributed`` world is up, else on one
+device)
 across model shape, batch, sequence length and remat variants, and
 reports per point MFU (useful model FLOPs / time / peak) and HFU
 (hardware FLOPs including the flash backward's recompute and layer-remat
@@ -17,9 +19,9 @@ memory, say) prints its error and the sweep goes on: the failed point's
 state is dropped and the allocator's cache emptied first, so the next
 point starts from an empty card.
 
-The JAX CLI declares its claim leases (``lease.hold_claim_leases``)
-before sweeping; the port has no ``lease.py`` until ROADMAP item 16, so
-this CLI holds none.
+As the JAX CLI, it declares its claim leases
+(``lease.hold_claim_leases``; a no-op without their env) before
+sweeping.
 """
 
 from __future__ import annotations
@@ -130,6 +132,10 @@ def main(argv=None) -> int:
         help="torch device (default: cuda; 'cpu' runs the plain PyTorch path)",
     )
     args = parser.parse_args(argv)
+
+    from . import lease
+
+    lease.hold_claim_leases()  # mixed-strategy lifetime declaration
 
     names = [n for n in args.points.split(",") if n]
     unknown = [n for n in names if n not in POINTS]

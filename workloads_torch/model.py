@@ -15,8 +15,9 @@ card), which ``_attention`` takes for long sequences exactly where the
 JAX package does.  ``loss_fn`` is the training loss
 (``workloads_torch.train``).  ``weight`` reads a leaf in either
 representation: a tensor, or the int8 serving dict of ``quant.py``.
-``param_specs`` is the tensor-parallel cut of the tree and
-``shard_leaf`` takes one rank's slice of a leaf (``tp_serve.py``).
+``param_specs`` is the tensor-parallel cut of the tree, ``shard_leaf``
+takes one rank's slice of a leaf and ``shard_tree`` of a whole tree
+(``tp_serve.py``, ``train.py``).
 """
 
 from __future__ import annotations
@@ -193,6 +194,17 @@ def shard_leaf(t, spec: tuple, mesh):
     return out.contiguous() if out is not t else t
 
 
+def shard_tree(tree, specs, mesh):
+    """``tree`` (dicts and lists of leaves, an int8 leaf's dict counting as
+    one leaf) with every leaf cut to this rank's slice by the matching
+    spec of ``specs``, a tree of the same structure (``shard_leaf``)."""
+    if isinstance(tree, list):
+        return [shard_tree(t, s, mesh) for t, s in zip(tree, specs, strict=True)]
+    if isinstance(tree, dict) and not is_quantized(tree):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return shard_leaf(tree, specs, mesh)
+
+
 def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x.float() * torch.rsqrt(var + 1e-6)).to(x.dtype) * gain.to(x.dtype)
@@ -300,10 +312,11 @@ def _pick_kernel(seq: int) -> str:
 
 
 def _attention(
-    x: torch.Tensor, layer: dict, config: ModelConfig, attention_fn=None, reduce=None
+    x: torch.Tensor, layer: dict, config: ModelConfig, attention_fn=None, reduce=None,
+    enter=None,
 ) -> torch.Tensor:
     batch, seq, _ = x.shape
-    q, k, v = project_qkv(x, layer)
+    q, k, v = project_qkv(x if enter is None else enter(x), layer)
     angles = rope_angles(torch.arange(seq, device=x.device), config.head_dim)
     q, k = apply_rope(q, angles), apply_rope(k, angles)
     if attention_fn is not None:
@@ -345,10 +358,14 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
-def _mlp(x: torch.Tensor, layer: dict, reduce=None) -> torch.Tensor:
+def _mlp(x: torch.Tensor, layer: dict, reduce=None, enter=None) -> torch.Tensor:
     """The feed-forward block; ``reduce`` (None: identity) takes the
     ``w_down`` product's output, the row-parallel all-reduce of a
-    tensor-parallel rank (``tp_serve.py``)."""
+    tensor-parallel rank (``tp_serve.py``), and ``enter`` (None:
+    identity) the ``w_up`` product's input, whose gradient a training
+    rank sums over its model group (``distributed.model_hooks``)."""
+    if enter is not None:
+        x = enter(x)
     hidden = _gelu_tanh(x @ weight(layer["w_up"], x.dtype))
     out = hidden @ weight(layer["w_down"], x.dtype)
     return out if reduce is None else reduce(out)
@@ -356,17 +373,21 @@ def _mlp(x: torch.Tensor, layer: dict, reduce=None) -> torch.Tensor:
 
 def forward(
     params: dict, tokens: torch.Tensor, config: ModelConfig, attention_fn=None,
-    reduce=None,
+    reduce=None, enter=None,
 ) -> torch.Tensor:
     """Logits for next-token prediction.  tokens: [batch, seq] integer.
     ``reduce`` (None: identity) takes the output of every ``wo`` and
     ``w_down`` product: the row-parallel all-reduce of a rank holding a
-    ``param_specs`` cut of ``params``."""
+    ``param_specs`` cut of ``params``.  ``enter`` (None: identity) takes
+    the input of every column-parallel product (``wqkv``/``wq``/``wkv``
+    and ``w_up``): under autograd, the hook that sums that input's
+    gradient over the model group (``distributed.model_hooks``)."""
     x = params["embed"].to(config.dtype)[tokens.long()]
 
     def layer_step(x, layer):
-        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, attention_fn, reduce)
-        return x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce)
+        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, attention_fn, reduce,
+                           enter)
+        return x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce, enter)
 
     for layer in params["layers"]:
         if config.remat_layers and torch.is_grad_enabled():
@@ -387,8 +408,10 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(
-    params: dict, tokens: torch.Tensor, config: ModelConfig, attention_fn=None
+    params: dict, tokens: torch.Tensor, config: ModelConfig, attention_fn=None,
+    reduce=None, enter=None,
 ) -> torch.Tensor:
-    """Causal LM cross-entropy: predict tokens[:, 1:] from tokens[:, :-1]."""
-    logits = forward(params, tokens[:, :-1], config, attention_fn)
+    """Causal LM cross-entropy: predict tokens[:, 1:] from tokens[:, :-1].
+    ``reduce`` and ``enter`` are ``forward``'s tensor-parallel hooks."""
+    logits = forward(params, tokens[:, :-1], config, attention_fn, reduce, enter)
     return cross_entropy(logits, tokens[:, 1:])

@@ -291,14 +291,17 @@ def time_train_step(config: ModelConfig, batch: int, device=None) -> float:
     updates the parameters the next reads) and end in one readback of
     the loss; the two-point slope cancels the readback.
 
-    JAX builds a mesh here and steps through ``make_sharded_train_step``;
-    the port steps on one device (``train.make_train_step``) until its
-    parallel layouts land (ROADMAP item 16)."""
+    As JAX's, it steps through ``make_sharded_train_step`` on
+    ``make_mesh()`` when a ``torch.distributed`` world of more than one
+    rank is up (each rank its ``param_specs`` cut, the batch split over
+    ``"data"``; the mesh's device, ``device`` ignored); otherwise through
+    the one-device step."""
+    from .distributed import world_mesh
     from .train import make_train_state, make_train_step, synthetic_batch
 
-    device = resolve_device(device)
-    (params, opt_state), optimizer = make_train_state(config, device=device)
-    step = make_train_step(config, optimizer)
+    mesh, device = world_mesh(device)
+    (params, opt_state), optimizer = make_train_state(config, device=device, mesh=mesh)
+    step = make_train_step(config, optimizer, mesh=mesh)
     tokens = synthetic_batch(config, batch, device=device)
     state = [params, opt_state]
 

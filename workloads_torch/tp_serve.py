@@ -44,9 +44,9 @@ from __future__ import annotations
 
 import torch
 
-from . import resolve_device
+from .distributed import mesh_device
 from .generate import decode_block
-from .model import ModelConfig, _mesh_axis, param_specs, shard_leaf
+from .model import ModelConfig, _mesh_axis, param_specs, shard_leaf, shard_tree
 from .ops.paged_attention import paged_attention
 from .paged import (
     _spec_round_core,
@@ -85,15 +85,6 @@ def _check_serving_mesh(mesh) -> None:
         )
 
 
-def mesh_device(mesh) -> torch.device:
-    """The device this rank's tensors live on: the CPU for a ``"cpu"``
-    mesh, else the current CUDA device (``make_mesh`` binds it)."""
-    if mesh.device_type == "cpu":
-        return torch.device("cpu")
-    resolve_device(mesh.device_type)  # raises without a card
-    return torch.device(mesh.device_type, torch.cuda.current_device())
-
-
 def model_all_reduce(mesh):
     """The row-parallel hook (the cores' ``reduce``): sum a rank's
     partial product with the other ranks' of its model group, in place,
@@ -113,15 +104,7 @@ def model_all_reduce(mesh):
 def shard_params(params: dict, config: ModelConfig, mesh) -> dict:
     """This rank's cut of a full parameter tree (float or int8 leaves),
     by ``param_specs``."""
-    specs = param_specs(config)
-    return {
-        "embed": shard_leaf(params["embed"], specs["embed"], mesh),
-        "unembed": shard_leaf(params["unembed"], specs["unembed"], mesh),
-        "layers": [
-            {name: shard_leaf(w, spec[name], mesh) for name, w in layer.items()}
-            for layer, spec in zip(params["layers"], specs["layers"])
-        ],
-    }
+    return shard_tree(params, param_specs(config), mesh)
 
 
 def init_shard_pools(config: ModelConfig, n_pages: int, page_size: int, mesh,

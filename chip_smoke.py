@@ -185,7 +185,22 @@ Phases, each of which fails the run loudly:
    loss falling, K2-K4 launched n_layers a step in (a)-(c) and not in
    (d); each rank's peak memory, seconds, and the ms of one all-reduce,
    all_to_all and ppermute beside the host round trip gloo makes of
-   their tensors.
+   their tensors;
+6h. the pipeline and expert layouts (``pp_ep_phase``, ``PP_EP``): the
+   same model on two gloo ranks of the one card, each arm three float32
+   and three bf16 steps on one global batch of 4 x 2049 tokens at 6g's
+   learning rate: (e) PP2 (``pipeline.make_pipeline_train_step``, 4
+   layers a stage, 4 microbatches of one row) against the sequential
+   model on the same weights, (f) EP2 (``moe.make_moe_train_step``, 4
+   experts, capacity factor 2.0, 2 experts a rank) against the whole MoE
+   tree on one device; gates per rank: 6g's first float32 loss and drop
+   gates, the bf16 loss falling, the replicated leaves (embed, unembed,
+   and the MoE model's routers, norms and attention) bit-identical
+   across the ranks, K2-K4 launched (M + S - 1) x L/S a step on a stage
+   and n_layers a step on an expert rank; two controls (PP2 with the
+   hand-off's backward cut, EP2 without the expert axis' f) each outside
+   a drop gate; each rank's launches, peak memory, seconds, one
+   hand-off's ms and one all-reduce of the combine's output.
 
 Every launch count held against a profiler trace (phases 4, 4d, 4e,
 4f, 4g, 6f) takes the trace again, up to ``TRACE_ATTEMPTS`` times, when
@@ -3711,12 +3726,6 @@ def tp_phase(torch, f, requests, tp=TP, device="cuda") -> int:
     world, spawned, whose ranks must each exit 0 within the time limit
     (a rank that fails ends the phase and the run).  Returns the K1
     launches of every rank's arms."""
-    import pickle
-    import shutil
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     t0 = time.perf_counter()
     dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
     requests = [([int(t) for t in p], int(n)) for p, n in requests]
@@ -3729,37 +3738,8 @@ def tp_phase(torch, f, requests, tp=TP, device="cuda") -> int:
     arm_s = ", ".join(f"{n} {a['seconds']:.2f} s" for n, a in one["arms"].items())
     print(f"  one device: {arm_s}; the step's bf16 floor (one device's bf16 vs float32) "
           f"max {floor[0]:.4e} rms {floor[1]:.4e}", flush=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    ctx = mp.get_context("spawn")
-    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(tp["ranks"])]
-    procs = [ctx.Process(target=tp_rank, args=(r, tp["ranks"], os.path.join(tmp, "store"),
-                                               outs[r], f, tp, requests, device))
-             for r in range(tp["ranks"])]
     t_world = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        while any(p.is_alive() for p in procs):
-            dead = [(r, p.exitcode) for r, p in enumerate(procs)
-                    if p.exitcode not in (None, 0)]
-            if dead:
-                fail(f"phase 4j: rank {dead[0][0]} exited with code {dead[0][1]}")
-            if time.perf_counter() - t_world > tp["timeout_s"]:
-                fail(f"phase 4j: the world did not finish in {tp['timeout_s']} s")
-            time.sleep(0.2)
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            fail(f"phase 4j: rank exit codes {codes}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join(10)
-    ranks = []
-    for path in outs:
-        with open(path, "rb") as fh:
-            ranks.append(pickle.load(fh))
-    shutil.rmtree(tmp, ignore_errors=True)
+    ranks = spawn_world(tp_rank, tp, (f, tp, requests, device), "4j")
     world_s = time.perf_counter() - t_world
     for r, got in enumerate(ranks):
         mem = f"{got['peak_gib']:.2f} GiB" if got["peak_gib"] is not None else \
@@ -4182,17 +4162,57 @@ def train_par_gates(one: dict, ranks: list, n_layers: int, steps: int,
     return failed
 
 
-def train_parallel_phase(torch, f, tp=TRAIN_PAR, lr=TRAIN_PAR_LR, device="cuda") -> dict:
-    """Phase 6g: the training layouts on ``tp["ranks"]`` gloo ranks of the
-    one ``device``.  One device's reference first, in this process; then
-    the world, spawned, whose ranks must each exit 0 within the time
-    limit.  Returns K2-K4's launches summed over every rank's arms."""
+def spawn_world(target, tp, args, label: str) -> list:
+    """Run ``target(rank, world, store, out_path, *args)`` on
+    ``tp["ranks"]`` spawned processes; each must exit 0 within
+    ``tp["timeout_s"]`` (a rank that fails, or a world past its time,
+    fails phase ``label`` and is killed).  Returns each rank's pickled
+    result, in rank order."""
     import pickle
     import shutil
     import tempfile
 
     import torch.multiprocessing as mp
 
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(tp["ranks"])]
+    procs = [ctx.Process(target=target,
+                         args=(r, tp["ranks"], os.path.join(tmp, "store"), outs[r], *args))
+             for r in range(tp["ranks"])]
+    t_world = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                    if p.exitcode not in (None, 0)]
+            if dead:
+                fail(f"phase {label}: rank {dead[0][0]} exited with code {dead[0][1]}")
+            if time.perf_counter() - t_world > tp["timeout_s"]:
+                fail(f"phase {label}: the world did not finish in {tp['timeout_s']} s")
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f"phase {label}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    ranks = []
+    for path in outs:
+        with open(path, "rb") as fh:
+            ranks.append(pickle.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return ranks
+
+
+def train_parallel_phase(torch, f, tp=TRAIN_PAR, lr=TRAIN_PAR_LR, device="cuda") -> dict:
+    """Phase 6g: the training layouts on ``tp["ranks"]`` gloo ranks of the
+    one ``device``.  One device's reference first, in this process; then
+    the world, spawned, whose ranks must each exit 0 within the time
+    limit.  Returns K2-K4's launches summed over every rank's arms."""
     t0 = time.perf_counter()
     dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
     one = train_par_one_device(torch, f, tp, dev, lr)
@@ -4204,38 +4224,8 @@ def train_parallel_phase(torch, f, tp=TRAIN_PAR, lr=TRAIN_PAR_LR, device="cuda")
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if device == "cuda":
         torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_par_")
-    ctx = mp.get_context("spawn")
-    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(tp["ranks"])]
-    procs = [ctx.Process(target=train_par_rank,
-                         args=(r, tp["ranks"], os.path.join(tmp, "store"), outs[r], f, tp, lr,
-                               device))
-             for r in range(tp["ranks"])]
     t_world = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        while any(p.is_alive() for p in procs):
-            dead = [(r, p.exitcode) for r, p in enumerate(procs)
-                    if p.exitcode not in (None, 0)]
-            if dead:
-                fail(f"phase 6g: rank {dead[0][0]} exited with code {dead[0][1]}")
-            if time.perf_counter() - t_world > tp["timeout_s"]:
-                fail(f"phase 6g: the world did not finish in {tp['timeout_s']} s")
-            time.sleep(0.2)
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            fail(f"phase 6g: rank exit codes {codes}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join(10)
-    ranks = []
-    for path in outs:
-        with open(path, "rb") as fh:
-            ranks.append(pickle.load(fh))
-    shutil.rmtree(tmp, ignore_errors=True)
+    ranks = spawn_world(train_par_rank, tp, (f, tp, lr, device), "6g")
     world_s = time.perf_counter() - t_world
     lim = TRAIN_PAR_FLOOR_FACTOR
     for r, got in enumerate(ranks):
@@ -4284,6 +4274,302 @@ def train_parallel_phase(torch, f, tp=TRAIN_PAR, lr=TRAIN_PAR_LR, device="cuda")
           f"every rank's arms {launches}; world {world_s:.1f} s, phase "
           f"{time.perf_counter() - t0:.1f} s (gloo stages every collective through host "
           f"memory: these times say nothing of parallel speed)", flush=True)
+    return launches
+
+
+# Phase 6h, the pipeline and expert layouts: phase 6's model on two gloo
+# ranks of the one card, as 6g, three float32 and three bf16 steps of each
+# arm on one global batch of PP_EP["batch"] x PP_EP["max_seq_len"] tokens
+# at TRAIN_PAR_LR: (e) PP2, the GPipe schedule over a ("data", "pipe")
+# mesh, 4 layers a stage, M = 4 microbatches of one row (K2-K4 on each
+# stage's layers at every one of the M + S - 1 schedule steps); (f) EP2,
+# the MoE model (MoEConfig(): 4 experts, capacity factor 2.0, so C =
+# 1,024 at 2,048 positions) over a ("data", "expert", "model") mesh, 2
+# experts a rank, attention whole on each rank (K2-K4 n_layers a step).
+# The references run on one device in this process: the sequential
+# model on the unstacked weights for (e), moe_loss_fn on the whole tree
+# for (f).  Each control must fail a drop gate: (e0) PP2 with the
+# hand-off's backward cut (activations handed on detached: the first
+# stage gets no gradient), (f0) EP2 without the expert axis' f (each
+# rank's dispatch-input and gate gradients hold its own experts' part).
+PP_EP = dict(ranks=2, batch=4, max_seq_len=2049, steps=3, microbatches=4, handoff_iters=10,
+             timeout_s=600)
+PP_EP_ARMS = {"(e) PP2": "pp", "(f) EP2": "ep"}
+PP_EP_CONTROLS = {"(e0) PP2 with the hand-off's backward cut, control": "pp",
+                  "(f0) EP2 without f on the dispatch input, control": "ep"}
+
+
+def pp_ep_init(torch, config, arm: str, device):
+    """The arm's full tree from seed 0 on ``device`` (a ``torch.Generator``
+    there): the model's (``pp``, the pipeline's stages stack these draws)
+    or the MoE model's (``ep``)."""
+    from workloads_torch.model import init_params
+    from workloads_torch.moe import MoEConfig, init_moe_model_params
+
+    gen = torch.Generator(device).manual_seed(0)
+    if arm == "pp":
+        return init_params(config, gen)
+    return init_moe_model_params(config, MoEConfig(), gen)
+
+
+def pp_ep_one_device(torch, f, tp, device, lr) -> dict:
+    """One device's losses on the global batch, ``tp["steps"]`` float32 and
+    as many bf16 steps: the sequential model (``pp``) and the whole MoE
+    tree (``ep``)."""
+    from workloads_torch import train
+    from workloads_torch.moe import MoEConfig, make_moe_train_step
+
+    out = {}
+    for arm in ("pp", "ep"):
+        ref = {}
+        for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            config = train_par_config(torch, f, tp, dtype)
+            tokens = train.synthetic_batch(config, tp["batch"], seed=0, device=device)
+            optimizer = train.AdamW(lr=lr)
+            params = pp_ep_init(torch, config, arm, device)
+            state = optimizer.init(params)
+            step = train.make_train_step(config, optimizer) if arm == "pp" else \
+                make_moe_train_step(config, MoEConfig(), None, optimizer)
+            losses = []
+            for _ in range(tp["steps"]):
+                params, state, loss = step(params, state, tokens)
+                losses.append(loss.item())
+            ref[f"losses_{label}"] = losses
+            del params, state, step
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        out[arm] = ref
+    return out
+
+
+def _replicated_digests(torch, params, arm: str) -> dict:
+    """sha256 of every leaf a rank holds whole (embed, unembed, and for the
+    MoE model every layer's router, norms and attention)."""
+    import hashlib
+
+    named = {"embed": params["embed"], "unembed": params["unembed"]}
+    if arm == "ep":
+        for i, layer in enumerate(params["layers"]):
+            named.update({f"layers/{i}/{k}": v for k, v in layer.items() if k != "moe"})
+            named[f"layers/{i}/router"] = layer["moe"]["router"]
+    return {name: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+            for name, t in named.items()}
+
+
+def pp_ep_rank(rank, world, store, out_path, f, tp, lr, device_type):
+    """One rank of phase 6h: join the gloo world, run each arm and control
+    (``tp["steps"]`` float32 steps, then as many bf16 steps with K2-K4
+    counted), digest the replicated leaves after each, time one hand-off
+    of a microbatch's activations and one all-reduce of the combine's
+    output, and write what it saw to ``out_path``.  An exception ends the
+    process with a non-zero code."""
+    import datetime
+    import pickle
+    from dataclasses import replace
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from workloads_torch import distributed, moe, pipeline, train
+    from workloads_torch.ops import attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device_type == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    t_rank = time.perf_counter()
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.FileStore(store, world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=tp["timeout_s"]))
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+                "flash_bwd_dkv": fa.flash_bwd_dkv}
+    cuda = device_type == "cuda"
+    m = tp["microbatches"]
+    meshes = {"pp": pipeline.make_pp_mesh(world, pipe_parallel=world, device_type=device_type),
+              "ep": moe.make_moe_mesh(world, expert_parallel=world, device_type=device_type)}
+    moe_config = moe.MoEConfig()
+    arms = {}
+    for name, arm in {**PP_EP_ARMS, **PP_EP_CONTROLS}.items():
+        control = name in PP_EP_CONTROLS
+        mesh = meshes[arm]
+        device = distributed.mesh_device(mesh)
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        out = {}
+        for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            config = train_par_config(torch, f, tp, dtype)
+            tokens = train.synthetic_batch(config, tp["batch"], seed=0, device=device)
+            optimizer = train.AdamW(lr=lr)
+            if arm == "pp":
+                (params, state), _ = pipeline.make_pipeline_train_state(
+                    config, mesh, seed=0, optimizer=optimizer)
+                if control:
+                    def detached(x, group):
+                        return distributed.handoff(x.detach(), group)
+
+                    def cut(p, t, config=config, mesh=mesh):
+                        return pipeline.pipeline_loss_fn(p, t, config, mesh, m, detached)
+
+                    step = train.make_sharded_train_step(cut, mesh, optimizer)
+                else:
+                    step = pipeline.make_pipeline_train_step(config, mesh, optimizer, m)
+            else:
+                (params, state), _ = moe.make_moe_train_state(
+                    config, moe_config, mesh, seed=0, optimizer=optimizer)
+                if control:
+                    hooks = replace(moe.expert_hooks(mesh), enter=None)
+
+                    def no_enter(p, t, config=config, mesh=mesh, hooks=hooks):
+                        return moe.moe_loss_fn(p, t, config, moe_config, mesh, hooks)
+
+                    step = train.make_sharded_train_step(no_enter, mesh, optimizer)
+                else:
+                    step = moe.make_moe_train_step(config, moe_config, mesh, optimizer)
+            reset_counts(counters)
+            losses = []
+            for _ in range(tp["steps"]):
+                params, state, loss = step(params, state, tokens)
+                losses.append(loss.item())
+            if cuda:
+                torch.cuda.synchronize(device)
+            out[f"losses_{label}"] = losses
+            out[f"digests_{label}"] = _replicated_digests(torch, params, arm)
+            if label == "bf16":
+                out["launches"] = read_counts(counters)
+            del params, state, step
+            if cuda:
+                torch.cuda.empty_cache()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None
+        out["seconds"] = time.perf_counter() - t0
+        arms[name] = out
+    # One hand-off of a microbatch's bf16 activations down the pipe, and
+    # one all-reduce of the combine's bf16 output over the expert group.
+    S, d = tp["max_seq_len"] - 1, f["d_model"]
+    device = distributed.mesh_device(meshes["pp"])
+    mb = torch.ones((tp["batch"] // m, S, d), dtype=torch.bfloat16, device=device)
+    y = torch.ones((tp["batch"], S, d), dtype=torch.bfloat16, device=device)
+    _, reduce = distributed.axis_hooks(meshes["ep"], "expert")
+    pipe = meshes["pp"].get_group("pipe")
+    iters = tp["handoff_iters"]
+    coll = {"handoff_ms": _timed_ms(torch, lambda: distributed.handoff(mb, pipe), iters, cuda),
+            "combine_ms": _timed_ms(torch, lambda: reduce(y), iters, cuda),
+            "handoff_mib": mb.numel() * mb.element_size() / 2**20,
+            "combine_mib": y.numel() * y.element_size() / 2**20}
+    result = {"arms": arms, "collectives": coll, "seconds": time.perf_counter() - t_rank,
+              "backend": torch.distributed.get_backend(pipe)}
+    torch.distributed.destroy_process_group()
+    with open(out_path, "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def pp_ep_launches(arm: str, f, tp) -> int:
+    """K2 (and K3, K4) a rank launches over ``tp["steps"]`` steps: the
+    pipeline's stage runs its L/S layers at every one of the M + S - 1
+    schedule steps, forward and backward; an expert rank all L layers'
+    attention."""
+    if arm == "pp":
+        stages = tp["ranks"]
+        return (tp["microbatches"] + stages - 1) * (f["n_layers"] // stages) * tp["steps"]
+    return f["n_layers"] * tp["steps"]
+
+
+def pp_ep_gates(one: dict, ranks: list, f, tp, card: bool = True) -> list[str]:
+    """Phase 6h's gates over one device's references (``one[arm]``) and
+    each rank's arms; each failure names its arm and rank.  Every arm:
+    6g's first float32 loss and drop gates (``train_par_loss_gates``),
+    the bf16 loss falling, the replicated leaves bit-identical across the
+    ranks after the float32 and the bf16 steps, and (``card``) K2-K4
+    launched ``pp_ep_launches`` times (off the card the plain versions
+    run and count nothing).  Each control must fail a drop gate."""
+    import numpy as np
+
+    failed = []
+    for r, got in enumerate(ranks):
+        for name, arm in PP_EP_CONTROLS.items():
+            if name not in got["arms"]:
+                failed.append(f"{name} rank {r}: the control did not run")
+                continue
+            caught = train_par_loss_gates(name, r, got["arms"][name], one[arm])
+            if not {"f32 drops", "bf16 drops"} & set(caught):
+                failed.append(f"{name} rank {r}: the control passed both drop gates")
+        for name, arm in PP_EP_ARMS.items():
+            got_arm = got["arms"][name]
+            failed += train_par_loss_gates(name, r, got_arm, one[arm]).values()
+            losses = got_arm["losses_bf16"]
+            if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                failed.append(f"{name} rank {r}: bf16 losses {losses} did not fall")
+            for label in ("f32", "bf16"):
+                differ = [k for k, v in got_arm[f"digests_{label}"].items()
+                          if v != ranks[0]["arms"][name][f"digests_{label}"][k]]
+                if differ:
+                    failed.append(f"{name} rank {r}: replicated leaves {differ} differ from "
+                                  f"rank 0's after the {label} steps")
+            want = pp_ep_launches(arm, f, tp) if card else 0
+            if any(v != want for v in got_arm["launches"].values()):
+                failed.append(f"{name} rank {r}: K2-K4 launches {got_arm['launches']}, "
+                              f"expected {want} each")
+    return failed
+
+
+def pp_ep_phase(torch, f, tp=PP_EP, lr=TRAIN_PAR_LR, device="cuda") -> dict:
+    """Phase 6h: the pipeline and expert layouts on ``tp["ranks"]`` gloo
+    ranks of the one ``device``.  One device's references first, in this
+    process; then the world, spawned.  Returns K2-K4's launches summed
+    over every rank's arms."""
+    t0 = time.perf_counter()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    one = pp_ep_one_device(torch, f, tp, dev, lr)
+    print(f"  one device, batch {tp['batch']} x {tp['max_seq_len']} tokens: sequential model "
+          f"float32 losses {[round(x, 7) for x in one['pp']['losses_f32']]}, bf16 "
+          f"{[round(x, 5) for x in one['pp']['losses_bf16']]}; MoE model float32 "
+          f"{[round(x, 7) for x in one['ep']['losses_f32']]}, bf16 "
+          f"{[round(x, 5) for x in one['ep']['losses_bf16']]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_world = time.perf_counter()
+    ranks = spawn_world(pp_ep_rank, tp, (f, tp, lr, device), "6h")
+    world_s = time.perf_counter() - t_world
+    for r, got in enumerate(ranks):
+        for name, arm_name in {**PP_EP_ARMS, **PP_EP_CONTROLS}.items():
+            arm, ref = got["arms"][name], one[arm_name]
+            mem = f"{arm['peak_gib']:.2f} GiB" if arm["peak_gib"] is not None else \
+                "not measured (no card)"
+            rel = {label: ", ".join(f"{abs(g - w) / abs(w):.2e}" for g, w in
+                                    zip(*(_drops(a[f"losses_{label}"]) for a in (arm, ref))))
+                   for label in ("f32", "bf16")}
+            first = abs(arm["losses_f32"][0] - ref["losses_f32"][0]) / ref["losses_f32"][0]
+            print(f"  rank {r} {name}: float32 losses "
+                  f"{[round(x, 7) for x in arm['losses_f32']]} (first {first:.2e} off one "
+                  f"device's, limit {TRAIN_PAR_F32_RTOL:.2e}; drops {rel['f32']} off, limit "
+                  f"{TRAIN_PAR_F32_DROP_RTOL:.2e}); bf16 losses "
+                  f"{[round(x, 5) for x in arm['losses_bf16']]} (drops {rel['bf16']} off, "
+                  f"limit {TRAIN_PAR_BF16_DROP_RTOL:.2e}); launches over {tp['steps']} bf16 "
+                  f"steps {arm['launches']}; peak device memory {mem}; "
+                  f"{arm['seconds']:.1f} s", flush=True)
+        c = got["collectives"]
+        mb = tp["batch"] // tp["microbatches"]
+        print(f"  rank {r} ({got['backend']}): one hand-off of a [{mb}, "
+              f"{tp['max_seq_len'] - 1}, {f['d_model']}] bf16 microbatch "
+              f"({c['handoff_mib']:.0f} MiB) {c['handoff_ms']:.3f} ms; one all-reduce of the "
+              f"combine's [{tp['batch']}, {tp['max_seq_len'] - 1}, {f['d_model']}] bf16 output "
+              f"({c['combine_mib']:.0f} MiB) {c['combine_ms']:.3f} ms; mean of "
+              f"{tp['handoff_iters']}; {got['seconds']:.1f} s in the rank", flush=True)
+    failed = pp_ep_gates(one, ranks, f, tp, card=device == "cuda")
+    if failed:
+        fail(f"phase 6h: {failed}")
+    launches = {k: sum(got["arms"][name]["launches"][k] for got in ranks
+                       for name in PP_EP_ARMS)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    print(f"  {tp['ranks']} ranks over gloo on one {device} device: each arm's first float32 "
+          f"loss within {TRAIN_PAR_F32_RTOL:.2e} of one device's, its float32 and bf16 drops "
+          f"within {TRAIN_PAR_F32_DROP_RTOL:.2e} and {TRAIN_PAR_BF16_DROP_RTOL:.2e}, its bf16 "
+          f"loss falling, its replicated leaves bit-identical across the ranks; each control "
+          f"outside a drop gate; K2-K4 over every rank's arms {launches}; world "
+          f"{world_s:.1f} s, phase {time.perf_counter() - t0:.1f} s (gloo stages every "
+          f"collective through host memory: these times say nothing of parallel speed)",
+          flush=True)
     return launches
 
 
@@ -5092,12 +5378,22 @@ def main() -> int:
     train_par_launches = train_parallel_phase(torch, f)
     print(f"  training layouts phase: {time.perf_counter() - t0:.1f} s; card: {card}",
           flush=True)
+
+    # 6h. the pipeline and expert layouts, two ranks on the one card
+    phase("training path: pipeline- and expert-parallel steps, 2 gloo ranks on one card, "
+          "full width")
+    t0 = time.perf_counter()
+    pp_ep_launches_ = pp_ep_phase(torch, f)
+    print(f"  pipeline and expert layouts phase: {time.perf_counter() - t0:.1f} s; card: "
+          f"{card}", flush=True)
     for rec in flash_records:
         rec["launches"] = (train_launches[rec["name"]] + lora_train_launches[rec["name"]]
-                           + bench_launches[rec["name"]] + train_par_launches[rec["name"]])
+                           + bench_launches[rec["name"]] + train_par_launches[rec["name"]]
+                           + pp_ep_launches_[rec["name"]])
         rec["lora_launches"] = lora_train_launches[rec["name"]]
         rec["bench_launches"] = bench_launches[rec["name"]]
         rec["train_parallel_launches"] = train_par_launches[rec["name"]]
+        rec["pipeline_expert_launches"] = pp_ep_launches_[rec["name"]]
     print(f"  card: {card}", flush=True)
     print(json.dumps({"kernels": [record, *flash_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {

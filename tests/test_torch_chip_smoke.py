@@ -417,3 +417,72 @@ def test_train_parallel_gates_name_what_fails():
     # Off the card the kernels count nothing, and that is no failure.
     off = _par_rank(nll16=0.14, launches=0)
     assert chip_smoke.train_par_gates(one, [off, off], 2, 3, card=False) == []
+
+
+def test_pp_ep_phase_rehearses_on_the_cpu(capsys):
+    """Phase 6h on a 2-rank gloo CPU world at a tiny width, every CPU gate
+    included: each arm's first float32 loss within 2^-16 of one device's,
+    its later steps' drops within 2^-10 (float32) and 2^-8 (bf16) of one
+    device's, its bf16 loss falling, its replicated leaves bit-identical
+    across the ranks, and each control outside a drop gate (AdamW at 1e-3
+    here, so three steps move it)."""
+    import torch
+
+    f = dict(chip_smoke.FULL, **TRAIN_PAR_TINY)
+    tp = dict(chip_smoke.PP_EP, max_seq_len=33, timeout_s=300)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.pp_ep_phase(torch, f, tp=tp, lr=1e-3, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    for r in range(2):
+        for name in {**chip_smoke.PP_EP_ARMS, **chip_smoke.PP_EP_CONTROLS}:
+            assert f"rank {r} {name}: float32 losses " in out
+        assert f"rank {r} (gloo): one hand-off of a [1, 32, 64] bf16 microbatch" in out
+    assert "peak device memory not measured (no card)" in out
+    assert "its replicated leaves bit-identical across the ranks; each control" in out
+    # Off the card the flash wrappers run their plain versions, uncounted.
+    assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def _pp_ep_rank(loss32=(5.0, 4.9, 4.8), losses=(3.0, 2.9, 2.8), launches=None, digest="a"):
+    f = dict(chip_smoke.FULL, **TRAIN_PAR_TINY)
+    arms = {}
+    for name, arm in {**chip_smoke.PP_EP_ARMS, **chip_smoke.PP_EP_CONTROLS}.items():
+        n = chip_smoke.pp_ep_launches(arm, f, chip_smoke.PP_EP) if launches is None else launches
+        arms[name] = {"losses_f32": list(loss32), "losses_bf16": list(losses),
+                      "digests_f32": {"embed": digest}, "digests_bf16": {"embed": digest},
+                      "launches": dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                                                n)}
+        if name in chip_smoke.PP_EP_CONTROLS:
+            # A wrong gradient moves the later steps away from one device's.
+            arms[name]["losses_f32"] = [loss32[0]] + [x + 0.1 for x in loss32[1:]]
+    return {"arms": arms}
+
+
+def test_pp_ep_gates_name_what_fails():
+    f = dict(chip_smoke.FULL, **TRAIN_PAR_TINY)
+    ref = {"losses_f32": [5.0, 4.9, 4.8], "losses_bf16": [3.0, 2.9, 2.8]}
+    one = {"pp": ref, "ep": ref}
+    tp = chip_smoke.PP_EP
+    assert chip_smoke.pp_ep_launches("pp", f, tp) == (4 + 2 - 1) * 1 * 3
+    assert chip_smoke.pp_ep_launches("ep", f, tp) == 2 * 3
+    good = _pp_ep_rank()
+    assert chip_smoke.pp_ep_gates(one, [good, good], f, tp) == []
+    bad = _pp_ep_rank(digest="b")
+    bad["arms"]["(e) PP2"]["losses_bf16"] = [3.0, 3.1, 3.2]
+    bad["arms"]["(f) EP2"]["launches"]["flash_bwd_dkv"] = 0
+    control = "(f0) EP2 without f on the dispatch input, control"
+    bad["arms"][control]["losses_f32"] = [5.0, 4.9, 4.8]
+    failed = chip_smoke.pp_ep_gates(one, [good, bad], f, tp)
+    assert failed[0] == f"{control} rank 1: the control passed both drop gates"
+    assert any(m.startswith("(e) PP2 rank 1: bf16 losses [3.0, 3.1, 3.2], drops") for m in failed)
+    assert "(e) PP2 rank 1: bf16 losses [3.0, 3.1, 3.2] did not fall" in failed
+    assert "(e) PP2 rank 1: replicated leaves ['embed'] differ from rank 0's after the f32 " \
+           "steps" in failed
+    assert any(m.startswith("(f) EP2 rank 1: K2-K4 launches") for m in failed)
+    # Off the card the kernels count nothing, and that is no failure.
+    off = _pp_ep_rank(launches=0)
+    assert chip_smoke.pp_ep_gates(one, [off, off], f, tp, card=False) == []

@@ -114,6 +114,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         "assert {'workloads_torch.' + m for m in ('backoff', 'obs', 'ledger', 'fleet',"
         " 'supervisor', 'autoscaler', 'control')} <= set(names)",
         "assert {'workloads_torch.perfbench', 'workloads_torch.mfu_sweep'} <= set(names)",
+        "assert {'workloads_torch.' + m for m in ('pipeline', 'moe', 'vision')} <= set(names)",
         "print(len(names))",
     ])
     env = dict(os.environ)
@@ -207,4 +208,12 @@ def test_sequence_parallel_modules_are_scanned():
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {os.path.join("workloads_torch", "ops", f"{m}.py") for m in (
         "ring", "ulysses", "usp",
+    )} <= scanned
+
+
+def test_pipeline_moe_and_vision_modules_are_scanned():
+    """The scan reaches the pipeline, expert-parallel and vision modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", f"{m}.py") for m in (
+        "pipeline", "moe", "vision",
     )} <= scanned

@@ -22,9 +22,12 @@ tests/test_torch_perfbench_fleet_golden.json;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the ten fixtures from the JAX package (``write_fleet_goldens()``,
-``write_perfbench_fleet_goldens()``, ``write_tp_goldens()`` or
-``write_train_parallel_goldens()`` alone rewrites only its own;
+regenerates the thirteen fixtures from the JAX package (``write_fleet_goldens()``,
+``write_perfbench_fleet_goldens()``, ``write_tp_goldens()``,
+``write_train_parallel_goldens()``, ``write_pipeline_goldens()``,
+``write_moe_goldens()`` or ``write_vision_goldens()`` alone rewrites only
+its own; the last three freeze tests/test_torch_pipeline.py's,
+tests/test_torch_moe.py's and tests/test_torch_vision.py's JAX runs;
 ``write_tp_goldens`` holds tests/test_torch_tp_serve.py's frozen JAX
 tensor-parallel streams, ``write_train_parallel_goldens`` the meshed
 training steps, sequence-parallel steps and ring/Ulysses/USP attention
@@ -89,6 +92,7 @@ from tests import test_torch_lora as tlora  # noqa: E402
 from tests import test_torch_tp_serve as ttp  # noqa: E402
 from tests import torch_tp_world as tw  # noqa: E402
 from tests import torch_train_world as trw  # noqa: E402
+from tests import torch_model_world as mw  # noqa: E402
 from tests import test_torch_fleet as tfleet  # noqa: E402
 from tests import test_torch_perfbench_fleet as tpbf  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
@@ -137,14 +141,17 @@ from workloads import generate as jgen  # noqa: E402
 from workloads import lora as jlora  # noqa: E402
 from workloads import mfu_sweep as jmfu  # noqa: E402
 from workloads import model as jmodel  # noqa: E402
+from workloads import moe as jmoe  # noqa: E402
 from workloads import multi_lora as jmulti  # noqa: E402
 from workloads import paged as jpaged  # noqa: E402
 from workloads import perfbench as jperf  # noqa: E402
+from workloads import pipeline as jpipe  # noqa: E402
 from workloads import quant as jquant  # noqa: E402
 from workloads import serve as jserve  # noqa: E402
 from workloads import speculative as jspec  # noqa: E402
 from workloads import tp_serve as jtp  # noqa: E402
 from workloads import train as jtrain  # noqa: E402
+from workloads import vision as jvision  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
 from workloads_torch import convert  # noqa: E402
 from workloads_torch import durable as tdurable  # noqa: E402
@@ -1043,6 +1050,171 @@ def write_train_parallel_goldens(path: str = trw.GOLDEN) -> None:
     print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
 
 
+def _flat_np(tree, prefix: str) -> dict:
+    """A JAX tree as flat ``prefix/a/b`` -> numpy arrays."""
+    if isinstance(tree, (list, tuple)):
+        tree = dict(enumerate(tree))
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_np(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _jax_steps(step, params, opt, batch_of) -> np.ndarray:
+    losses = []
+    for s in range(mw.STEPS):
+        params, opt, loss = step(params, opt, *batch_of(s))
+        losses.append(float(loss))
+    return np.asarray(losses, np.float32)
+
+
+def jax_pipeline_goldens() -> dict:
+    """The JAX pipeline on tests/torch_model_world.py's numpy weights:
+    ``pipeline_loss_fn`` on the pp-only meshes and its gradients (the
+    stage tree) on the first, and three steps of ``make_pipeline_train_step`` on every
+    layout's mesh, each on the batch of step 0."""
+    config = jmodel.ModelConfig(dtype=jnp.float32, **mw.PP_CONFIG)
+    layers = mw.pp_numpy_layers()
+    tokens = jnp.asarray(mw.pp_tokens(0))
+    out = {}
+    for name in mw.PP_GRADS:
+        world, (_, pipe) = mw.PP_LAYOUTS[name]
+        mesh = jpipe.make_pp_mesh(world, pipe_parallel=pipe)
+        tree = _jax_tree(mw.stack_stages(layers, pipe))
+        loss, grads = jax.value_and_grad(lambda p, mesh=mesh: jpipe.pipeline_loss_fn(
+            p, tokens, config, mesh, mw.PP_MICRO))(tree)
+        out[f"grads/{name}/loss"] = np.float32(loss)
+        if name == mw.PP_GRADS[0]:  # one layout's gradients keep the file under 1 MB
+            out.update(_flat_np(grads, f"grads/{name}"))
+    for name, (world, (_, pipe)) in mw.PP_LAYOUTS.items():
+        mesh = jpipe.make_pp_mesh(world, pipe_parallel=pipe)
+        (params, opt), optimizer = jtrain.make_sharded_train_state(
+            mesh, lambda pipe=pipe: _jax_tree(mw.stack_stages(layers, pipe)),
+            jpipe.pipeline_param_specs(config))
+        step = jpipe.make_pipeline_train_step(config, mesh, optimizer, mw.PP_MICRO)
+        out[f"steps/{name}"] = _jax_steps(step, params, opt, lambda s: (tokens,))
+    return out
+
+
+def jax_moe_goldens() -> dict:
+    """The JAX MoE on tests/torch_model_world.py's numpy weights:
+    ``moe_ffn`` alone (y, aux, and the gradients of sum(y**2) + aux),
+    ``moe_loss_fn`` on the model tree, and three steps of
+    ``make_moe_train_step`` on every layout's mesh, each on the batch of
+    step 0."""
+    ffn, x = mw.ffn_numpy()
+    moe = jmoe.MoEConfig(n_experts=mw.FFN_DIMS[2], capacity_factor=mw.FFN_CAPACITY)
+    ffn, x = _jax_tree(ffn), jnp.asarray(x)
+    y, aux = jmoe.moe_ffn(ffn, x, moe)
+    out = {"ffn/y": np.asarray(y), "ffn/aux": np.float32(aux)}
+
+    def ffn_loss(p):
+        y, aux = jmoe.moe_ffn(p, x, moe)
+        return jnp.sum(y**2) + aux
+
+    out.update(_flat_np(jax.grad(ffn_loss)(ffn), "ffn/grads"))
+    config = jax_train_parallel_config()
+    moe = jmoe.MoEConfig()
+    tree = mw.moe_numpy_params()
+    tokens = jnp.asarray(trw.numpy_tokens(0))
+    out["loss"] = np.float32(jmoe.moe_loss_fn(_jax_tree(tree), tokens, config, moe))
+    for name, (world, (_, expert, model)) in mw.MOE_LAYOUTS.items():
+        mesh = jmoe.make_moe_mesh(world, expert_parallel=expert, model_parallel=model)
+        (params, opt), optimizer = jtrain.make_sharded_train_state(
+            mesh, lambda: _jax_tree(tree), jmoe.moe_param_specs(config))
+        step = jmoe.make_moe_train_step(config, moe, mesh, optimizer)
+        out[f"steps/{name}"] = _jax_steps(step, params, opt, lambda s: (tokens,))
+    return out
+
+
+def jax_vision_goldens() -> dict:
+    """The JAX CNN on tests/torch_model_world.py's numpy weights and
+    images: float32 and bf16 logits and the float32 loss on the batch of
+    step 0, and three float32 steps of ``make_train_step`` on a 2-device
+    ("data",) mesh at optax.adamw(1e-3), on the batches of steps 0-2."""
+    from jax.sharding import Mesh
+
+    tree = _jax_tree(mw.vision_numpy_params())
+    images, labels = (jnp.asarray(a) for a in mw.vision_numpy_batch(0))
+    f32 = jvision.VisionConfig(dtype=jnp.float32)
+    out = {"logits/f32": np.asarray(jvision.forward(tree, images, f32)),
+           "logits/bf16": np.asarray(jvision.forward(tree, images, jvision.VisionConfig())),
+           "loss/f32": np.float32(jvision.loss_fn(tree, images, labels, f32))}
+    mesh = Mesh(np.array(jax.devices()[:2]), ("data",))
+    (params, opt), optimizer = jtrain.make_sharded_train_state(
+        mesh, lambda: _jax_tree(mw.vision_numpy_params()), jvision.param_specs(),
+        optimizer=optax.adamw(1e-3))
+    step = jvision.make_train_step(f32, mesh, optimizer)
+    out["steps/dp2"] = _jax_steps(step, params, opt, lambda s: tuple(
+        jnp.asarray(a) for a in mw.vision_numpy_batch(s)))
+    return out
+
+
+_MODEL_GOLDENS = {mw.PIPELINE_GOLDEN: jax_pipeline_goldens, mw.MOE_GOLDEN: jax_moe_goldens,
+                  mw.VISION_GOLDEN: jax_vision_goldens}
+
+
+@pytest.mark.parametrize("path", sorted(_MODEL_GOLDENS), ids=os.path.basename)
+def test_pipeline_moe_vision_match_jax_live(path):
+    """The frozen JAX pipeline, MoE and vision outputs are what the JAX
+    package computes now, within the fast tier's tolerances (XLA's CPU
+    reductions may reorder between versions)."""
+    live = _MODEL_GOLDENS[path]()
+    with np.load(path) as f:
+        frozen = {k: f[k] for k in f.files}
+    assert set(live) == set(frozen)
+    for key, value in live.items():
+        np.testing.assert_allclose(value, frozen[key], rtol=2.0**-20, atol=1e-6, err_msg=key)
+
+
+def test_pipeline_and_moe_ports_match_jax_live():
+    """The port's one-device pipeline (a 1 x 1 view of the mesh) and MoE
+    loss on the numpy weights against the JAX package's, computed live."""
+    from tests.test_torch_pipeline import RankView
+    from workloads_torch import moe as tmoe
+    from workloads_torch import pipeline as tpipe
+
+    want = jax_pipeline_goldens()
+    tree = mw.pp_port_params(1)
+    got = tpipe.pipeline_loss_fn(tree, torch.as_tensor(mw.pp_tokens(0)), mw.pp_config(),
+                                 RankView(("data", "pipe")), mw.PP_MICRO)
+    np.testing.assert_allclose(float(got), want["grads/pp2/loss"], rtol=1e-5)
+    want = jax_moe_goldens()
+    got = tmoe.moe_loss_fn(mw.moe_port_params(), torch.as_tensor(trw.numpy_tokens(0)),
+                           trw.port_config(), tmoe.MoEConfig())
+    np.testing.assert_allclose(float(got), want["loss"], rtol=2.0**-20)
+
+
+def write_model_goldens() -> None:
+    """``write_pipeline_goldens``, ``write_moe_goldens`` and
+    ``write_vision_goldens``."""
+    write_pipeline_goldens()
+    write_moe_goldens()
+    write_vision_goldens()
+
+
+def _write(path: str, arrays: dict) -> None:
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
+def write_pipeline_goldens(path: str = mw.PIPELINE_GOLDEN) -> None:
+    """Freeze the JAX pipeline for tests/test_torch_pipeline.py."""
+    _write(path, jax_pipeline_goldens())
+
+
+def write_moe_goldens(path: str = mw.MOE_GOLDEN) -> None:
+    """Freeze the JAX MoE for tests/test_torch_moe.py."""
+    _write(path, jax_moe_goldens())
+
+
+def write_vision_goldens(path: str = mw.VISION_GOLDEN) -> None:
+    """Freeze the JAX CNN for tests/test_torch_vision.py."""
+    _write(path, jax_vision_goldens())
+
+
 def write_perfbench_fleet_goldens(path: str = tpbf.FLEET_GOLDEN) -> None:
     """Freeze the schedule-fixed fields of JAX's fleet arms at the tiny
     scale for tests/test_torch_perfbench_fleet.py."""
@@ -1202,3 +1374,4 @@ if __name__ == "__main__":
     write_perfbench_fleet_goldens()
     write_tp_goldens()
     write_train_parallel_goldens()
+    write_model_goldens()

@@ -427,6 +427,19 @@ def test_checkpoint_keeps_max_to_keep_and_refuses_a_wrong_tree(tmp_path):
         ckpt.restore_latest(like={"w": torch.zeros(4)})
 
 
+def test_make_forward_fn_equals_forward():
+    """``make_forward_fn(config)`` is ``forward`` with ``config`` bound:
+    the same logits bit for bit, MHA and GQA."""
+    for config in (ModelConfig(dtype=torch.float32),
+                   ModelConfig(n_kv_heads=2, dtype=torch.float32)):
+        params = tmodel.init_params(config, torch.Generator().manual_seed(3))
+        tokens = torch.randint(0, config.vocab_size, (2, 9), generator=torch.Generator()
+                               .manual_seed(4))
+        fn = tmodel.make_forward_fn(config)
+        assert fn.keywords == {"config": config}
+        assert torch.equal(fn(params, tokens), tmodel.forward(params, tokens, config))
+
+
 def test_synthetic_batch_is_seeded_and_in_vocab():
     config = ModelConfig(vocab_size=50, max_seq_len=12)
     a = ttrain.synthetic_batch(config, 3, seed=1, device="cpu")

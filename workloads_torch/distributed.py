@@ -243,19 +243,52 @@ class _Reduce(torch.autograd.Function):
         return grad, None
 
 
-def model_hooks(mesh):
-    """(enter, reduce): the ``"model"`` axis' pair of hooks for a rank of
-    ``mesh`` holding a ``param_specs`` cut of the weights under autograd.
-    ``enter`` (the input of every column-parallel product) is the
-    identity forward and sums the input's gradient over the model group
-    backward; ``reduce`` (the output of every row-parallel product) sums
-    the partial products forward and passes the gradient through
-    backward.  (None, None) for a model degree of 1."""
-    dim = mesh.mesh_dim_names.index("model")
+def axis_hooks(mesh, axis: str):
+    """(enter, reduce): Megatron's ``f`` and ``g`` over mesh axis
+    ``axis`` for a rank whose products each hold a part of a sum over
+    that axis.  ``enter`` (the input of a product that reads only the
+    rank's part) is the identity forward and sums the input's gradient
+    over the axis' group backward; ``reduce`` (a partial sum) sums the
+    ranks' parts forward and passes the gradient through backward.
+    (None, None) for an axis of size 1."""
+    dim = mesh.mesh_dim_names.index(axis)
     if mesh.size(dim) == 1:
         return None, None
-    group = mesh.get_group("model")
+    group = mesh.get_group(axis)
     return (lambda x: _Enter.apply(x, group)), (lambda x: _Reduce.apply(x, group))
+
+
+def model_hooks(mesh):
+    """(enter, reduce): the ``"model"`` axis' pair of hooks for a rank of
+    ``mesh`` holding a ``param_specs`` cut of the weights under autograd
+    (``axis_hooks``): ``enter`` takes the input of every column-parallel
+    product, ``reduce`` the output of every row-parallel product.
+    (None, None) for a model degree of 1."""
+    return axis_hooks(mesh, "model")
+
+
+class _Mean(torch.autograd.Function):
+    """The mean over ``group`` forward, and the mean of the gradient over
+    ``group`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group) / torch.distributed.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group) / torch.distributed.get_world_size(ctx.group), None
+
+
+def group_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group``, on every rank, for
+    a statistic whose every rank's loss reads the whole group's value
+    (MoE's load-balancing means over a data-parallel batch).  Its
+    gradient is the group's mean of each rank's gradient: the adjoint
+    under a train step that then averages the ranks' gradients over the
+    same group (``train.make_sharded_train_step``)."""
+    return _Mean.apply(x, group)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -290,39 +323,59 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch
     return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
-def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
-    """Send ``x`` to the rank ``step`` ahead in ``group`` (cyclically) and
-    return what the rank ``step`` behind sent."""
+def _shift(x: torch.Tensor, group, step: int, ring: bool) -> torch.Tensor:
+    """Send ``x`` to the rank ``step`` ahead in ``group`` and return what
+    the rank ``step`` behind sent: cyclically on a ``ring``, else along
+    an open chain, where a rank with none ahead sends nothing and one
+    with none behind receives zeros."""
     n, i = _group_size_index(group)
-    if n == 1:
+    if n == 1 and ring:
         return x
-    to = torch.distributed.get_global_rank(group, (i + step) % n)
-    frm = torch.distributed.get_global_rank(group, (i - step) % n)
+    to, frm = i + step, i - step
+    if ring:
+        to, frm = to % n, frm % n
     send = _to_wire(x.contiguous(), group)
-    recv = torch.empty_like(send)
-    ops = [torch.distributed.P2POp(torch.distributed.isend, send, to, group),
-           torch.distributed.P2POp(torch.distributed.irecv, recv, frm, group)]
-    for work in torch.distributed.batch_isend_irecv(ops):
-        work.wait()
+    recv = torch.zeros_like(send)
+    ops = []
+    if 0 <= to < n:
+        ops.append(torch.distributed.P2POp(
+            torch.distributed.isend, send, torch.distributed.get_global_rank(group, to), group))
+    if 0 <= frm < n:
+        ops.append(torch.distributed.P2POp(
+            torch.distributed.irecv, recv, torch.distributed.get_global_rank(group, frm), group))
+    if ops:
+        for work in torch.distributed.batch_isend_irecv(ops):
+            work.wait()
     return recv.to(x.device)
 
 
-class _Ppermute(torch.autograd.Function):
+class _Shift(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _shift(x, group, 1)
+    def forward(ctx, x, group, ring):
+        ctx.group, ctx.ring = group, ring
+        return _shift(x, group, 1, ring)
 
     @staticmethod
     def backward(ctx, grad):
-        return _shift(grad, ctx.group, -1), None
+        return _shift(grad, ctx.group, -1, ctx.ring), None, None
 
 
 def ppermute(x: torch.Tensor, group) -> torch.Tensor:
     """The ring step of ``jax.lax.ppermute`` with ``perm = [(i, (i + 1) %
     N)]``: send ``x`` to the next rank of ``group`` and receive the
     previous rank's.  Its gradient runs the reverse ring."""
-    return _Ppermute.apply(x, group)
+    return _Shift.apply(x, group, True)
+
+
+def handoff(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.ppermute`` with the open chain ``perm = [(i, i + 1) for i
+    in range(N - 1)]``: send ``x`` to the next rank of ``group`` (the
+    last rank sends nothing) and receive the previous rank's (the first
+    rank receives zeros).  Its gradient is the reverse hand-off: each
+    rank's gradient goes back to the rank it came from, and the last
+    rank's ``x`` gets zeros.  Every rank of the group calls it with the
+    same shape."""
+    return _Shift.apply(x, group, False)
 
 
 class _SeqSlice(torch.autograd.Function):

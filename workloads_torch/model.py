@@ -23,6 +23,7 @@ takes one rank's slice of a leaf and ``shard_tree`` of a whole tree
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.utils.checkpoint
@@ -415,3 +416,9 @@ def loss_fn(
     ``reduce`` and ``enter`` are ``forward``'s tensor-parallel hooks."""
     logits = forward(params, tokens[:, :-1], config, attention_fn, reduce, enter)
     return cross_entropy(logits, tokens[:, 1:])
+
+
+def make_forward_fn(config: ModelConfig):
+    """A (params, tokens) -> logits closure: ``forward`` with ``config``
+    bound (``functools.partial``)."""
+    return partial(forward, config=config)

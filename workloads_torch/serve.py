@@ -81,7 +81,7 @@ adapted pages are never served to another tenant.  The draft of a
 speculating engine stays unadapted (the target's adapted verify keeps
 speculation lossless per tenant).  On the card the adapter index is one
 more static buffer of the captured graphs, so a change of mix replays
-them.  The fleet is not ported yet.
+them.
 
 Tensor parallelism, as in the JAX engine: ``mesh=`` serves across the
 ``"model"`` axis of a ``DeviceMesh``, one engine a rank making the same

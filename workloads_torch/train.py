@@ -28,9 +28,11 @@ ones; ``make_sharded_train_step`` takes the global batch, keeps the
 rank's rows and averages the gradients and the loss over ``"data"``;
 ``make_train_step(config, mesh=...)`` adds the model axis' hooks and
 ``make_seq_parallel_train_step`` ring, Ulysses or USP attention.
-``make_sharded_train_step``'s ``aot_compile`` (JAX's ahead-of-time
-compile) has no eager counterpart yet: its one caller, ``busy_probe.py``,
-is not ported.
+``pipeline.py`` (GPipe over ``"pipe"``), ``moe.py`` (experts over
+``"expert"``) and ``vision.py`` (a CNN over ``"data"``) build their steps
+on ``make_sharded_train_step`` too.  ``make_sharded_train_step``'s
+``aot_compile`` (JAX's ahead-of-time compile) has no eager counterpart
+yet: its one caller, ``busy_probe.py``, is not ported.
 
     python -m workloads_torch.train --steps 20 --checkpoint-dir /ckpt
     python -m workloads_torch.train --device cpu --steps 3
@@ -99,10 +101,13 @@ def make_mesh(n_devices: int | None = None, model_parallel: int | None = None,
 
 
 def _data_led_mesh(n_devices: int | None, trailing: dict[str, int],
-                   device_type: str | None = None):
+                   device_type: str | None = None, divisor: str | None = None):
     """A mesh with a leading ``"data"`` axis absorbing whatever the named
     trailing axes don't, over the first ``n_devices`` ranks of the world;
-    shared by the sp/usp mesh builders.  ``device_type`` as ``make_mesh``."""
+    shared by the sp/usp, pipeline, expert and data-only mesh builders.
+    ``device_type`` as ``make_mesh``; ``divisor`` names the trailing
+    axes' product in the indivisible refusal (default: the axes' names
+    joined by ``*``)."""
     import math
 
     import torch.distributed as dist
@@ -112,7 +117,7 @@ def _data_led_mesh(n_devices: int | None, trailing: dict[str, int],
 
     if not dist.is_initialized():
         raise RuntimeError(
-            "the sequence-parallel meshes need an initialised torch.distributed world "
+            "a mesh needs an initialised torch.distributed world "
             "(init_process_group, or distributed.initialize_from_slice_env)"
         )
     device_type = resolve_device(device_type).type
@@ -128,7 +133,7 @@ def _data_led_mesh(n_devices: int | None, trailing: dict[str, int],
         )
     denom = math.prod(trailing.values())
     if n_devices % denom:
-        axes = "*".join(trailing)
+        axes = "*".join(trailing) if divisor is None else divisor
         raise ValueError(f"{n_devices} devices not divisible by {axes}={denom}")
     bind_local_device(device_type)
     grid = torch.arange(n_devices).reshape((n_devices // denom, *trailing.values()))

@@ -200,7 +200,26 @@ Phases, each of which fails the run loudly:
    and n_layers a step on an expert rank; two controls (PP2 with the
    hand-off's backward cut, EP2 without the expert axis' f) each outside
    a drop gate; each rank's launches, peak memory, seconds, one
-   hand-off's ms and one all-reduce of the combine's output.
+   hand-off's ms and one all-reduce of the combine's output;
+7. the sharing path (``busy_phase``, ``BUSY``), once the card is
+   otherwise idle: ``workloads_torch.busy_probe`` pods time-slicing the
+   one card under the cooperative chip lease, one chip, 6 s windows:
+   (a) four matmul pods at replicas 4 (1024 x 1024 bf16), (b) four
+   train pods at replicas 4 (BASELINE config #3), (c) two serving pods
+   at replicas 2, whose decode runs K1; ``oversubscribe.run_pods`` under
+   the Allocate environments the daemon gives that layout
+   (``held_pod_envs``, held equal to the daemon's by a CPU test); the
+   card's compute mode read first (an ``Exclusive_Process`` card fails
+   the phase); gates: every pod exits 0, pods and chips as asked,
+   aggregate busy fraction >= 0.90 (the JAX harness's pass condition),
+   tokens in (b) and (c), K1 launched in every serving pod; each arm's
+   busy fraction, tokens/s, each pod's bursts, K1 launches and peak
+   memory, and seconds printed; then one burst of each workload built
+   in this process after the pods, profiled, its host wall against its
+   kernels' device time (``busy`` counts lease-held host time, as JAX's
+   does: a launch-bound burst can be busy while the device idles); K1's
+   record carries the serve burst's launches as ``busy_launches`` and
+   the serving pods' as ``busy_pod_launches``.
 
 Every launch count held against a profiler trace (phases 4, 4d, 4e,
 4f, 4g, 6f) takes the trace again, up to ``TRACE_ATTEMPTS`` times, when
@@ -401,6 +420,10 @@ def check_kernel_cases(torch, pa):
         ("tiny hd=16 G=2 window 5", dict(heads=4, kv_heads=2, head_dim=16,
                                          page_size=4, lengths=[12, 0, 1, 7],
                                          layers=2), 5),
+        # Phase 7's serving pods: busy_probe's engine, 2 slots of a
+        # 16-token prompt and 32 new tokens over 9-page tables.
+        ("phase 7 serve hd=64 ps=8", dict(heads=4, kv_heads=4, head_dim=64, page_size=8,
+                                          lengths=[47, 16], layers=2, width=9), None),
     ]
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     for name, shape, window in cases:
@@ -4573,6 +4596,163 @@ def pp_ep_phase(torch, f, tp=PP_EP, lr=TRAIN_PAR_LR, device="cuda") -> dict:
     return launches
 
 
+# Phase 7, the sharing path: pods (``workloads_torch.busy_probe``
+# subprocesses) time-slicing the one card under the cooperative chip
+# lease, the JAX bench's single-chip layouts (bench.py:242, :302, :342):
+# one chip, one chip a tray, 6 s windows; (a) occupancy matmuls at 1024,
+# (b) BASELINE config #3, four train pods at replicas 4, (c) two serving
+# pods at replicas 2.  The pass condition is the JAX harness's own,
+# ``oversubscribe.BASELINE_BUSY_FRACTION``.
+BUSY = dict(n_chips=1, chips_per_tray=1, duration=6.0, in_process_burst_secs=0.25, arms={
+    "(a) matmul": dict(workload="matmul", replicas=4, pods=4, matrix_dim=1024),
+    "(b) train": dict(workload="train", replicas=4, pods=4, matrix_dim=1024),
+    "(c) serve": dict(workload="serve", replicas=2, pods=2, matrix_dim=1024),
+})
+
+
+def held_pod_envs(n_pods: int, lease_dir: str) -> list[dict]:
+    """The Allocate environments the daemon gives ``n_pods`` pods
+    time-sliced on one chip (``tpu-0``) with its leases under
+    ``lease_dir``; tests/test_torch_oversubscribe.py holds them equal to
+    what ``oversubscribe._start_stack`` and ``_admit_pods`` return."""
+    return [{"TPU_ALLOW_MULTIPLE_LIBTPU_LOAD": "1", "TPU_CHIPS_PER_PROCESS_BOUNDS": "1,1,1",
+             "TPU_DEVICE_PLUGIN_SHARED": "1", "TPU_PROCESS_BOUNDS": "1,1,1",
+             "TPU_SHARED_LEASE_DIR": lease_dir, "TPU_VISIBLE_CHIPS": "tpu-0",
+             "TPU_VISIBLE_DEVICES": "0"} for _ in range(n_pods)]
+
+
+def busy_gates(name: str, arm: dict, agg: dict, n_chips: int, threshold: float,
+               card: bool) -> list[str]:
+    """Phase 7's gates on one arm's aggregate (every pod's exit 0 is
+    ``run_pods``'s own: it raises otherwise); on the card each serving
+    pod must have launched K1."""
+    failed = []
+    if agg.get("pods") != arm["pods"] or agg.get("chips") != n_chips:
+        failed.append(f"{name}: {agg.get('pods')} pods on {agg.get('chips')} chips, asked "
+                      f"{arm['pods']} on {n_chips}")
+    if not agg.get("aggregate_busy_fraction", 0.0) >= threshold:
+        failed.append(f"{name}: aggregate busy fraction {agg.get('aggregate_busy_fraction')} "
+                      f"under {threshold}")
+    if arm["workload"] in ("train", "serve") and not agg.get("tokens", 0) > 0:
+        failed.append(f"{name}: no tokens")
+    if card and arm["workload"] == "serve":
+        for i, pod in enumerate(agg.get("per_pod", [])):
+            if not (pod.get("k1_launches") or 0) > 0:
+                failed.append(f"{name}: pod {i} launched no K1 ({pod.get('k1_launches')})")
+    return failed
+
+
+def burst_device_share(torch, burst, card: bool, name: str) -> str:
+    """One profiled burst's host-clock wall against the device time of
+    the kernels it launched, from the same trace: the device share inside
+    a "busy" burst (the profiler's host cost is in the wall)."""
+    if not card:
+        t0 = time.perf_counter()
+        burst()
+        return f"wall {(time.perf_counter() - t0) * 1e3:.1f} ms; device time not measured " \
+               "(no card)"
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        burst()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = os.path.join(ROOT, "build", "workloads_torch", f"busy_{name}_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as fh:
+        kernels = [e["dur"] / 1e3 for e in json.load(fh)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    os.remove(trace)
+    kernel_ms = sum(kernels)
+    return (f"profiled wall {wall_ms:.1f} ms, its {len(kernels)} kernels' device time "
+            f"{kernel_ms:.1f} ms: device share {kernel_ms / wall_ms:.3f} of the wall")
+
+
+def busy_phase(torch, counters, busy=BUSY, device="cuda") -> tuple[int, int]:
+    """Phase 7: each arm's pods through ``oversubscribe.run_pods`` under
+    the Allocate environments the daemon gives one chip (``held_pod_envs``;
+    tests/test_torch_oversubscribe.py holds them equal to the daemon's),
+    then one burst of each workload built in this process after the pods
+    have exited, its wall against its device time.  Returns K1's launches
+    in this process's serve burst and in the serving pods."""
+    import shutil
+    import tempfile
+
+    from workloads_torch import busy_probe
+    from workloads_torch import oversubscribe as ov
+
+    t_phase = time.perf_counter()
+    card = device == "cuda"
+    if busy["n_chips"] != 1:
+        fail("phase 7: the held environments are one chip's")
+    if card:
+        torch.cuda.empty_cache()
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        mode = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
+            else f"unread (nvidia-smi exit {smi.returncode}: {smi.stderr.strip()})"
+        print(f"  compute mode: {mode}", flush=True)
+        if mode != "Default":
+            fail(f"phase 7: the card's compute mode is {mode!r}: time-sliced pods need "
+                 f"'Default' (Exclusive_Process refuses a second context)")
+    failed = []
+    pod_launches = 0
+    for name, arm in busy["arms"].items():
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-busy-")
+        try:
+            agg = ov.run_pods(held_pod_envs(arm["pods"], os.path.join(tmp, "leases")),
+                              tmp, busy["duration"], arm["matrix_dim"], device,
+                              arm["workload"])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        seconds = time.perf_counter() - t0
+        pods = "; ".join(
+            f"pod {i}: {p['bursts']} bursts, busy {p['busy_fraction']:.4f}, K1 launches "
+            f"{p['k1_launches']}, peak device memory "
+            + (f"{p['peak_memory_bytes'] / 2**30:.2f} GiB" if p["peak_memory_bytes"] is not None
+               else "not measured (no card)")
+            for i, p in enumerate(agg["per_pod"]))
+        tokens = (f"{agg['tokens']} tokens, {agg['aggregate_tokens_per_sec']} tokens/s"
+                  if "tokens" in agg else "no tokens (occupancy burst)")
+        print(f"  {name}: {arm['pods']} {arm['workload']} pods at replicas {arm['replicas']} "
+              f"on {busy['n_chips']} chip, {busy['duration']} s windows: aggregate busy "
+              f"fraction {agg['aggregate_busy_fraction']:.4f} (pass at "
+              f"{ov.BASELINE_BUSY_FRACTION}), {tokens}; {pods}; {seconds:.1f} s", flush=True)
+        failed += busy_gates(name, arm, agg, busy["n_chips"], ov.BASELINE_BUSY_FRACTION, card)
+        if arm["workload"] == "serve":
+            pod_launches += sum(p["k1_launches"] or 0 for p in agg["per_pod"])
+    if failed:
+        fail(f"phase 7: {failed}")
+    # The pods have exited: this process's own bursts, one at a time,
+    # sized to a quarter of the pods' second (a profiled second of the
+    # matmul burst would trace ~200k launches).
+    launches = 0
+    target = busy["in_process_burst_secs"]
+    builders = {"matmul": lambda: busy_probe.make_burst_fn(1024, target, device=device),
+                "train": lambda: busy_probe.make_train_burst_fn(target, device=device)[0],
+                "serve": lambda: busy_probe.make_serve_burst_fn(target, device=device)[0]}
+    for workload, build in builders.items():
+        reset_counts(counters)
+        burst = build()
+        share_text = burst_device_share(torch, burst, card, workload)
+        k1 = read_counts(counters)["paged_attention"]
+        print(f"  in-process {workload} burst: {share_text}; K1 launches {k1} (building, "
+              f"calibrating and the bursts)", flush=True)
+        if workload == "serve":
+            launches = k1
+            if card and k1 == 0:
+                fail("phase 7: the serve burst launched no K1")
+        del burst
+    if card:
+        torch.cuda.empty_cache()
+    print(f"  sharing phase: {time.perf_counter() - t_phase:.1f} s; busy counts lease-held "
+          f"host time, as the JAX probe's does", flush=True)
+    return launches, pod_launches
+
+
 def kernel_counters(pa, fa) -> dict:
     """Every kernel wrapper of the port by its kernel's name; each counts
     its launches in ``.launches``."""
@@ -5386,6 +5566,14 @@ def main() -> int:
     pp_ep_launches_ = pp_ep_phase(torch, f)
     print(f"  pipeline and expert layouts phase: {time.perf_counter() - t0:.1f} s; card: "
           f"{card}", flush=True)
+
+    # 7. the sharing path, once the card is otherwise idle
+    phase("sharing path: oversubscribed pods time-slicing the card under the chip lease")
+    busy_launches, busy_pod_launches = busy_phase(torch, counters)
+    record["launches"] += busy_launches
+    record["busy_launches"] = busy_launches
+    record["busy_pod_launches"] = busy_pod_launches
+    print(f"  card: {card}", flush=True)
     for rec in flash_records:
         rec["launches"] = (train_launches[rec["name"]] + lora_train_launches[rec["name"]]
                            + bench_launches[rec["name"]] + train_par_launches[rec["name"]]

@@ -486,3 +486,63 @@ def test_pp_ep_gates_name_what_fails():
     # Off the card the kernels count nothing, and that is no failure.
     off = _pp_ep_rank(launches=0)
     assert chip_smoke.pp_ep_gates(one, [off, off], f, tp, card=False) == []
+
+
+BUSY_TINY = dict(chip_smoke.BUSY, duration=2.0, in_process_burst_secs=0.1,
+                 arms={name: dict(arm, pods=2, replicas=2, matrix_dim=64)
+                       for name, arm in chip_smoke.BUSY["arms"].items()})
+
+
+def _busy_rehearsal(monkeypatch, busy):
+    import torch
+
+    from workloads_torch.ops import attention as fa
+    from workloads_torch.ops import paged_attention as pa
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the pods' torch threads
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return chip_smoke.busy_phase(torch, chip_smoke.kernel_counters(pa, fa), busy,
+                                     device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_busy_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 7 on the CPU with two pods an arm and 2 s windows, every
+    gate included, the pods under the held Allocate environments."""
+    # Off the card K1 counts nothing, in this process or in the pods.
+    assert _busy_rehearsal(monkeypatch, BUSY_TINY) == (0, 0)
+    out = capsys.readouterr().out
+    for name, arm in BUSY_TINY["arms"].items():
+        assert f"  {name}: 2 {arm['workload']} pods at replicas 2 on 1 chip, 2.0 s windows: " \
+               "aggregate busy fraction " in out
+    assert "pod 1: " in out and "K1 launches 0, peak device memory not measured (no card)" in out
+    for workload in ("matmul", "train", "serve"):
+        assert f"  in-process {workload} burst: wall " in out
+    assert "device time not measured (no card)" in out
+    assert "  sharing phase: " in out
+
+
+def test_busy_gates_name_what_fails():
+    arm = chip_smoke.BUSY["arms"]["(b) train"]
+    good = {"pods": 4, "chips": 1, "aggregate_busy_fraction": 0.95, "tokens": 10}
+    assert chip_smoke.busy_gates("(b)", arm, good, 1, 0.9, True) == []
+    bad = {"pods": 3, "chips": 2, "aggregate_busy_fraction": 0.85}
+    assert chip_smoke.busy_gates("(b)", arm, bad, 1, 0.9, True) == [
+        "(b): 3 pods on 2 chips, asked 4 on 1",
+        "(b): aggregate busy fraction 0.85 under 0.9",
+        "(b): no tokens",
+    ]
+    matmul = chip_smoke.BUSY["arms"]["(a) matmul"]
+    assert chip_smoke.busy_gates("(a)", matmul, dict(good, tokens=0), 1, 0.9, True) == []
+    # On the card every serving pod must have launched K1; off it none can.
+    serve = chip_smoke.BUSY["arms"]["(c) serve"]
+    pods = dict(good, pods=2, per_pod=[{"k1_launches": 96}, {"k1_launches": 0}])
+    assert chip_smoke.busy_gates("(c)", serve, pods, 1, 0.9, True) == [
+        "(c): pod 1 launched no K1 (0)"]
+    assert chip_smoke.busy_gates("(c)", serve, pods, 1, 0.9, False) == []
+    unread = dict(pods, per_pod=[{"k1_launches": 96}, {"k1_launches": None}])
+    assert chip_smoke.busy_gates("(c)", serve, unread, 1, 0.9, True) == [
+        "(c): pod 1 launched no K1 (None)"]

@@ -20,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
           "supervisor", "autoscaler", "control", "profiler", "faststart",
-          "ops/kernel_select", "lease"]
+          "ops/kernel_select", "lease", "busy_probe", "oversubscribe"]
 
 # (module, definition): the port builds its own engine on a device
 # (make_fleet, make_engine_factory), writes the device plugin's stats
@@ -40,7 +40,26 @@ COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
 # _device_name, EngineSnapshot.capture).  The kernel table reads the
 # CUDA card's name (device_kind, kernel_table) and takes the crossover
 # from its caller instead of importing the JAX model (kernel_for_seq).
+# The lease client keeps its own copy of the daemon's lease-file names
+# (lease_path, claim_lease_path; held to tpu_device_plugin/sharing.py
+# below), since the daemon's module loads gRPC.  The busy probe's bursts
+# build on a torch device (make_burst_fn, make_train_burst_fn,
+# make_serve_burst_fn, run_probe, main: --device, no JAX_PLATFORMS);
+# the harness's pods run the port's probe on a torch device type
+# (run_pods, the pod half of run; main's --device), and its gRPC loads
+# on first use (_LazyModule) so that the pod half runs without it.
 ALLOWED = {
+    ("lease", "lease_path"),
+    ("lease", "claim_lease_path"),
+    ("busy_probe", "make_burst_fn"),
+    ("busy_probe", "make_train_burst_fn"),
+    ("busy_probe", "make_serve_burst_fn"),
+    ("busy_probe", "run_probe"),
+    ("busy_probe", "main"),
+    ("oversubscribe", "_LazyModule"),
+    ("oversubscribe", "run_pods"),
+    ("oversubscribe", "run"),
+    ("oversubscribe", "main"),
     ("fleet", "make_fleet"),
     ("fleet", "Fleet.publish_stats"),
     ("fleet", "Fleet.journal_now"),
@@ -144,3 +163,25 @@ def test_strip_and_compare_catch_a_change():
     b = _strip_docstrings(ast.parse('def f(x):\n    """other"""\n    # note\n    return x + 1\n'))
     c = _strip_docstrings(ast.parse('def f(x):\n    return x + 2\n'))
     assert ast.unparse(a) == ast.unparse(b) != ast.unparse(c)
+
+
+def test_lease_names_equal_the_daemons():
+    """The lease client's copy of the daemon's lease-file naming contract
+    (tpu_device_plugin/sharing.py, imported here: the tier-1 host has
+    gRPC): each constant, each path, and the two functions' code."""
+    from tpu_device_plugin import sharing
+
+    from workloads_torch import lease
+
+    for name in ("DEFAULT_LEASE_DIR", "LEASE_DIR_ENV", "CLAIM_LEASE_DIR_ENV",
+                 "CLAIM_EPOCH_ENV"):
+        assert getattr(lease, name) == getattr(sharing, name), name
+    for chip in ("tpu-0", "tpu-13", "a/b", "tray/0/chip/1"):
+        assert lease.lease_path("/d", chip) == sharing.lease_path("/d", chip)
+        for epoch in (None, "", "18f3a2b4c5d6e7f8"):
+            assert lease.claim_lease_path("/d", chip, epoch) == \
+                sharing.claim_lease_path("/d", chip, epoch)
+    daemon = _definitions(os.path.join(ROOT, "tpu_device_plugin", "sharing.py"))
+    port = _definitions(os.path.join(ROOT, "workloads_torch", "lease.py"))
+    for name in ("lease_path", "claim_lease_path"):
+        assert port[name] == daemon[name], name

@@ -1619,3 +1619,53 @@ def test_time_paged_chunks_graphed_tokens_equal_the_eager_chunks(cuda, dtype):
     eager = _paged_chunk_runner(params, config, **kw, graph=False)(3)
     assert graphed.shape == (3, 12)
     assert torch.equal(graphed, eager)
+
+
+# ---- the busy probe's bursts and the step's aot_compile -----------------
+
+
+def test_aot_compile_on_the_card_launches_nothing_and_keeps_the_state(cuda, monkeypatch):
+    """aot_compile touches no device: the profiler sees no device event,
+    no wrapper counts a launch, and the state stays bit for bit; its run
+    then takes the step through K2-K4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(tmodel, "flash_min_seq", lambda: 1)
+    config = ModelConfig(max_seq_len=65, n_layers=2, attention_impl="flash")
+    (params, state), opt = ttrain.make_train_state(config, device="cuda")
+    step = ttrain.make_train_step(config, opt)
+    tokens = ttrain.synthetic_batch(config, 2, device="cuda")
+    def leaves():
+        return [t for t in ttrain.tree_leaves(params) + ttrain.tree_leaves(state)
+                if isinstance(t, torch.Tensor)]
+
+    before = [t.clone() for t in leaves()]
+    counts = [fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+              pa.paged_attention.launches]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        run = step.aot_compile(params, state, tokens)
+        torch.cuda.synchronize()
+    assert sum(e.self_device_time_total for e in prof.key_averages()) == 0
+    assert [fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+            pa.paged_attention.launches] == counts
+    assert all(torch.equal(a, b) for a, b in zip(leaves(), before))
+    assert state["count"] == 0
+    _, _, loss = run(params, state, tokens)
+    assert torch.isfinite(loss)
+    assert fa.flash_fwd.launches == counts[0] + config.n_layers
+
+
+def test_serve_burst_on_the_card_launches_k1(cuda):
+    """The busy probe's serving burst runs the engine's decode through
+    K1: building it (the warm request and the calibration) and each
+    burst launch the kernel, n_layers a decode step."""
+    from workloads_torch import busy_probe
+
+    before = pa.paged_attention.launches
+    burst, tokens = busy_probe.make_serve_burst_fn(0.1, device="cuda")
+    built = pa.paged_attention.launches
+    assert built > before
+    burst()
+    assert pa.paged_attention.launches > built
+    assert tokens > 0 and tokens % 32 == 0

@@ -115,6 +115,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         " 'supervisor', 'autoscaler', 'control')} <= set(names)",
         "assert {'workloads_torch.perfbench', 'workloads_torch.mfu_sweep'} <= set(names)",
         "assert {'workloads_torch.' + m for m in ('pipeline', 'moe', 'vision')} <= set(names)",
+        "assert {'workloads_torch.busy_probe', 'workloads_torch.oversubscribe'} <= set(names)",
         "print(len(names))",
     ])
     env = dict(os.environ)
@@ -122,7 +123,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 25  # chip_smoke + every port module
+    assert int(proc.stdout.strip()) >= 43  # chip_smoke + every port module
 
 
 # Run time, not just import time: the control plane's lazy imports.  A
@@ -217,3 +218,59 @@ def test_pipeline_moe_and_vision_modules_are_scanned():
     assert {os.path.join("workloads_torch", f"{m}.py") for m in (
         "pipeline", "moe", "vision",
     )} <= scanned
+
+
+def test_busy_probe_and_oversubscribe_are_scanned():
+    """The scan reaches the sharing slice's modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", f"{m}.py") for m in (
+        "busy_probe", "oversubscribe",
+    )} <= scanned
+
+
+# A pod, or the card's host, may have no gRPC: the lease client and the
+# busy probe import without it (and without protobuf, jax and the JAX
+# package), a chip lease and the claim leases are taken, and the
+# harness's pod half imports with gRPC left unloaded.
+_LEASE_RUNTIME = """
+import importlib.abc, os, sys, tempfile
+
+BLOCKED = ("jax", "jaxlib", "workloads", "grpc", "ml_dtypes")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED or name == "google.protobuf" \\
+                or name.startswith("google.protobuf."):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, ROOT)
+from workloads_torch import lease
+import workloads_torch.busy_probe
+from workloads_torch.oversubscribe import run_pods
+
+tmp = tempfile.mkdtemp()
+leases = os.path.join(tmp, "leases")
+with lease.chip_lease(["tpu-0", "a/b"], leases):
+    assert lease.try_chip_lease(["tpu-0"], leases) is None
+release = lease.try_chip_lease(["tpu-0"], leases)
+assert release is not None
+release()
+os.environ["TPU_VISIBLE_CHIPS"] = "tpu-0"
+os.environ["TPU_CLAIM_EPOCH"] = "e1"
+assert lease.hold_claim_leases(lease_dir=leases) == 1
+assert sorted(os.listdir(leases)) == ["chip-a_b.lock", "chip-tpu-0.lock", "claim-tpu-0.e1.lock"]
+loaded = [n for n in sys.modules if n.split(".")[0] in BLOCKED or n.startswith("google.protobuf")]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_lease_and_busy_probe_run_with_grpc_protobuf_jax_and_workloads_blocked():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _LEASE_RUNTIME],
+                          capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

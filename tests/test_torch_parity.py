@@ -18,12 +18,14 @@ tests/test_torch_lora.py (multi-LoRA serving and the LoRA fine-tune step)
 against tests/test_torch_lora_golden.npz, tests/test_torch_fleet.py
 (the fleet and its control plane) against tests/test_torch_fleet_golden.npz,
 and tests/test_torch_perfbench_fleet.py (perfbench's fleet arms) against
-tests/test_torch_perfbench_fleet_golden.json;
+tests/test_torch_perfbench_fleet_golden.json, and
+tests/test_torch_busy_probe.py (the busy probe's ``aggregate``) against
+tests/test_torch_busy_golden.json;
 
     python tests/test_torch_parity.py --write-goldens
 
-regenerates the thirteen fixtures from the JAX package (``write_fleet_goldens()``,
-``write_perfbench_fleet_goldens()``, ``write_tp_goldens()``,
+regenerates the fourteen fixtures from the JAX package (``write_fleet_goldens()``,
+``write_perfbench_fleet_goldens()``, ``write_busy_goldens()``, ``write_tp_goldens()``,
 ``write_train_parallel_goldens()``, ``write_pipeline_goldens()``,
 ``write_moe_goldens()`` or ``write_vision_goldens()`` alone rewrites only
 its own; the last three freeze tests/test_torch_pipeline.py's,
@@ -95,6 +97,7 @@ from tests import torch_train_world as trw  # noqa: E402
 from tests import torch_model_world as mw  # noqa: E402
 from tests import test_torch_fleet as tfleet  # noqa: E402
 from tests import test_torch_perfbench_fleet as tpbf  # noqa: E402
+from tests import test_torch_busy_probe as tbusy  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
     LIFECYCLE_GOLDEN,
     golden_runs,
@@ -135,6 +138,7 @@ from tests.test_torch_superstep import (  # noqa: E402
     superstep_mismatches,
     written_slots,
 )
+from workloads import busy_probe as jbusy  # noqa: E402
 from workloads import durable as jdurable  # noqa: E402
 from workloads import faults as jfaults  # noqa: E402
 from workloads import generate as jgen  # noqa: E402
@@ -153,6 +157,7 @@ from workloads import tp_serve as jtp  # noqa: E402
 from workloads import train as jtrain  # noqa: E402
 from workloads import vision as jvision  # noqa: E402
 from workloads.ops import paged_attention as jpa  # noqa: E402
+from workloads_torch import busy_probe as tbusy_probe  # noqa: E402
 from workloads_torch import convert  # noqa: E402
 from workloads_torch import durable as tdurable  # noqa: E402
 from workloads_torch import mfu_sweep as tmfu  # noqa: E402
@@ -1215,6 +1220,33 @@ def write_vision_goldens(path: str = mw.VISION_GOLDEN) -> None:
     _write(path, jax_vision_goldens())
 
 
+def jax_busy_aggregates(tmp: str) -> dict:
+    """The JAX probe's ``aggregate`` over tests/test_torch_busy_probe.py's
+    seeded reports."""
+    os.makedirs(tmp, exist_ok=True)
+    return {name: tbusy.aggregate_rows(jbusy.aggregate, rows, os.path.join(tmp, f"{name}.jsonl"))
+            for name, rows in tbusy.busy_reports().items()}
+
+
+def test_busy_aggregate_matches_jax_live(tmp_path):
+    """The two packages' ``aggregate`` over the same seeded reports."""
+    want = jax_busy_aggregates(str(tmp_path / "jax"))
+    for name, rows in tbusy.busy_reports().items():
+        got = tbusy.aggregate_rows(tbusy_probe.aggregate, rows, str(tmp_path / f"{name}.jsonl"))
+        assert got == want[name], name
+
+
+def write_busy_goldens(path: str = tbusy.BUSY_GOLDEN) -> None:
+    """Freeze the JAX probe's ``aggregate`` over the seeded reports for
+    tests/test_torch_busy_probe.py."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = jax_busy_aggregates(tmp)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(out)} reports")
+
+
 def write_perfbench_fleet_goldens(path: str = tpbf.FLEET_GOLDEN) -> None:
     """Freeze the schedule-fixed fields of JAX's fleet arms at the tiny
     scale for tests/test_torch_perfbench_fleet.py."""
@@ -1372,6 +1404,7 @@ if __name__ == "__main__":
     write_lora_goldens()
     write_fleet_goldens()
     write_perfbench_fleet_goldens()
+    write_busy_goldens()
     write_tp_goldens()
     write_train_parallel_goldens()
     write_model_goldens()

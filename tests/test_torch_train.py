@@ -448,6 +448,57 @@ def test_synthetic_batch_is_seeded_and_in_vocab():
     assert not torch.equal(a, ttrain.synthetic_batch(config, 3, seed=2, device="cpu"))
 
 
+def _state_tensors(params, opt_state):
+    return [t for t in ttrain.tree_leaves(params) + ttrain.tree_leaves(opt_state)
+            if isinstance(t, torch.Tensor)]
+
+
+def _aot_case(seed=0):
+    config = ModelConfig(d_model=32, n_heads=2, n_layers=2, d_ff=64, vocab_size=64,
+                         max_seq_len=17)
+    (params, opt_state), optimizer = ttrain.make_train_state(config, seed=seed, device="cpu")
+    step = ttrain.make_train_step(config, optimizer)
+    tokens = ttrain.synthetic_batch(config, 2, seed=seed, device="cpu")
+    return params, opt_state, step, tokens
+
+
+def test_aot_compile_leaves_the_state_bit_identical():
+    """The eager aot_compile takes no step: parameters, both moments and
+    the count are as they were, bit for bit."""
+    params, opt_state, step, tokens = _aot_case()
+    before = [t.clone() for t in _state_tensors(params, opt_state)]
+    run = step.aot_compile(params, opt_state, tokens)
+    assert callable(run) and opt_state["count"] == 0
+    after = _state_tensors(params, opt_state)
+    assert len(after) == len(before) and all(
+        torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(after, before))
+
+
+def test_aot_compiled_run_equals_the_step_bit_for_bit():
+    """Two steps through aot_compile's run equal two steps of the step
+    itself on a copy of the same state: losses, parameters and moments."""
+    params, opt_state, step, tokens = _aot_case()
+    params_b, opt_b, step_b, tokens_b = _aot_case()
+    run = step.aot_compile(params, opt_state, tokens)
+    losses, losses_b = [], []
+    for _ in range(2):
+        params, opt_state, loss = run(params, opt_state, tokens)
+        params_b, opt_b, loss_b = step_b(params_b, opt_b, tokens_b)
+        losses.append(loss)
+        losses_b.append(loss_b)
+    assert all(torch.equal(a, b) for a, b in zip(losses, losses_b))
+    assert opt_state["count"] == opt_b["count"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(_state_tensors(params, opt_state),
+                                                 _state_tensors(params_b, opt_b)))
+
+
+def test_aot_compile_checks_the_batch_arity_with_the_jax_text():
+    params, opt_state, step, tokens = _aot_case()
+    with pytest.raises(ValueError, match=r"^expected 1 batch arguments \(one per "
+                                         r"batch_specs entry\), got 2$"):
+        step.aot_compile(params, opt_state, tokens, tokens)
+
+
 def test_train_cli_runs_on_cpu_and_resumes(tmp_path):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)

@@ -1,6 +1,7 @@
 """Cooperative per-chip lease client for time-sliced pods, copied from
 ``workloads/lease.py`` (it imports no JAX: ``fcntl`` locks over the
-device plugin's lease files, ``tpu_device_plugin.sharing``).
+device plugin's lease files), with its own copy of the lease-file names
+of ``tpu_device_plugin/sharing.py``.
 
 Pods oversubscribed onto a chip cooperate: each takes the chip lease
 (an flock on a per-chip file in the host-shared lease directory the
@@ -8,8 +9,8 @@ plugin mounts into every shared pod), runs a burst of steps, releases,
 repeats.  The kernel guarantees fairness by queueing and releases the
 lease when a pod dies mid-burst (flocks drop with the fd).  Under the
 mixed strategy ``hold_claim_leases`` declares the workload's lifetime
-to the daemon; the serve and training CLIs and the MFU sweep take those
-leases before they touch the device.
+to the daemon; the serve, training, vision and busy-probe CLIs and the
+MFU sweep take those leases before they touch the device.
 
 Usage inside a pod (env vars are injected by the plugin's Allocate):
 
@@ -26,14 +27,33 @@ import os
 import time
 from contextlib import contextmanager
 
-from tpu_device_plugin.sharing import (  # noqa: F401  (lease_path re-exported)
-    CLAIM_EPOCH_ENV,
-    CLAIM_LEASE_DIR_ENV,
-    DEFAULT_LEASE_DIR,
-    LEASE_DIR_ENV,
-    claim_lease_path,
-    lease_path,
-)
+# The lease-file naming contract with the device-plugin daemon, copied
+# from ``tpu_device_plugin/sharing.py``: importing that module loads
+# ``tpu_device_plugin.api`` and with it gRPC and protobuf, which a pod
+# (and the card's host) need not have.  tests/test_torch_copies.py holds
+# the copies equal to the daemon's.
+DEFAULT_LEASE_DIR = "/var/run/tpu-device-plugin/leases"
+LEASE_DIR_ENV = "TPU_SHARED_LEASE_DIR"
+CLAIM_LEASE_DIR_ENV = "TPU_CLAIM_LEASE_DIR"
+CLAIM_EPOCH_ENV = "TPU_CLAIM_EPOCH"
+
+
+def lease_path(lease_dir: str, chip_id: str) -> str:
+    """Host path of a chip's lease file."""
+    return os.path.join(lease_dir, f"chip-{chip_id.replace('/', '_')}.lock")
+
+
+def claim_lease_path(
+    lease_dir: str, chip_id: str, epoch: str | None = None
+) -> str:
+    """Host path of a chip's lifetime claim lease (distinct from the
+    cooperative time-slice lease: this one is held from workload start to
+    exit, not per burst).  With ``epoch`` the file is scoped to one
+    allocation: ``claim-<chip>.<epoch>.lock``."""
+    base = f"claim-{chip_id.replace('/', '_')}"
+    if epoch:
+        return os.path.join(lease_dir, f"{base}.{epoch}.lock")
+    return os.path.join(lease_dir, f"{base}.lock")
 
 
 def chip_ids_from_env() -> list[str]:

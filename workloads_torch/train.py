@@ -30,9 +30,10 @@ rank's rows and averages the gradients and the loss over ``"data"``;
 ``make_seq_parallel_train_step`` ring, Ulysses or USP attention.
 ``pipeline.py`` (GPipe over ``"pipe"``), ``moe.py`` (experts over
 ``"expert"``) and ``vision.py`` (a CNN over ``"data"``) build their steps
-on ``make_sharded_train_step`` too.  ``make_sharded_train_step``'s
-``aot_compile`` (JAX's ahead-of-time compile) has no eager counterpart
-yet: its one caller, ``busy_probe.py``, is not ported.
+on ``make_sharded_train_step`` too.  Its ``step.aot_compile`` stands for
+JAX's ahead-of-time compile: eager PyTorch compiles nothing, so it
+checks the batch's arity, runs no kernel and returns the step, for
+``busy_probe.py``'s bursts to call before they take the chip lease.
 
     python -m workloads_torch.train --steps 20 --checkpoint-dir /ckpt
     python -m workloads_torch.train --device cpu --steps 3
@@ -294,7 +295,15 @@ def make_sharded_train_step(loss_fn, mesh, optimizer, batch_specs=None, frozen=N
     is passed as ``loss_fn(params, frozen, *batch)`` and never enters
     autograd.  ``optimizer`` is an ``AdamW``.
 
-    ``mesh=None`` is the one-device step: the whole batch, no exchange."""
+    ``mesh=None`` is the one-device step: the whole batch, no exchange.
+
+    ``step.aot_compile(params, opt_state, *batch)`` stands for JAX's
+    ahead-of-time compile: it checks the batch's arity and returns
+    ``run(params, opt_state, *batch)``, the step itself.  It runs no
+    kernel and leaves ``params`` and ``opt_state`` as they are: a warm-up
+    step would update them in place, and a CUDA graph capture would
+    launch warm-up kernels, which is what a caller preparing the step
+    before it takes its chip lease must not do."""
     if batch_specs is None:
         batch_specs = (("data", None),)
     batch_specs = tuple(batch_specs)
@@ -302,12 +311,15 @@ def make_sharded_train_step(loss_fn, mesh, optimizer, batch_specs=None, frozen=N
     n_data = _mesh_axis(mesh, "data")[0] if data is not None else 1
     has_frozen = frozen is not None
 
-    def step(params, opt_state, *batch):
+    def check_arity(batch):
         if len(batch) != len(batch_specs):
             raise ValueError(
                 f"expected {len(batch_specs)} batch arguments "
                 f"(one per batch_specs entry), got {len(batch)}"
             )
+
+    def step(params, opt_state, *batch):
+        check_arity(batch)
         local = batch if mesh is None else tuple(
             shard_leaf(b, spec, mesh) for b, spec in zip(batch, batch_specs))
         args = (frozen, *local) if has_frozen else local
@@ -331,6 +343,11 @@ def make_sharded_train_step(loss_fn, mesh, optimizer, batch_specs=None, frozen=N
         opt_state = adamw(params, grads, opt_state, optimizer)
         return params, opt_state, loss
 
+    def aot_compile(params, opt_state, *batch):
+        check_arity(batch)
+        return step
+
+    step.aot_compile = aot_compile
     return step
 
 

@@ -16,7 +16,8 @@ Phases, each of which fails the run loudly:
    shapes and variants (phase 4c's 8 rows to 896 positions over 17- and
    24-column tables among them), each with one split, with the split
    count the host picks and with more splits than live pages, three
-   launches in a row bit-identical; K2-K4 (flash attention forward, dq, dk/dv) over
+   launches in a row bit-identical, and in bf16 each split count within
+   one bf16 ulp of one split in every element; K2-K4 (flash attention forward, dq, dk/dv) over
    MHA and GQA, causal and full, windows within and across tiles,
    segment_ids, narrow heads (the mma.sync route), ragged sequence
    lengths around the 128-row tile and up to the training path's 2,047,
@@ -34,7 +35,7 @@ Phases, each of which fails the run loudly:
    graph and through the eager loop from the same state, bit-identical
    and timed; then one teacher-forced decode step through the kernel and
    through the plain version, at 8 rows, at 2 (where K1 splits each
-   row's pages) and at 8 rows to phase 4c's depth, in float32 and in
+   row's pages, in bf16 too) and at 8 rows to phase 4c's depth, in float32 and in
    bfloat16, the bf16 limit being the step's own bf16 precision floor
    measured in the same run;
 4b. the request lifecycle at the same width (``lifecycle_phase``), short
@@ -147,7 +148,8 @@ Phases, each of which fails the run loudly:
    call as CUDA graphs: they are shorter than a launch through Python),
    beside the bound the card's memory rate and peak arithmetic rate set
    (the bf16 peak from ``perfbench.device_peak_flops``);
-   one more K1 line, batch 1 at the longest row the engine's table holds;
+   two more K1 lines, batch 1 and 2 at the longest row the engine's
+   table holds, with the host's split count and with one;
 6. the training path, ``workloads_torch.train`` at the same model's full
    width (batch 8, seq 2048, flash attention, bf16 compute over float32
    master weights, AdamW with a bf16 first moment): steps on one fixed
@@ -323,11 +325,12 @@ def ptxas_report(log: str) -> list[tuple[str, str, int]]:
     rows, kernel, spills, stores = [], "?", "", 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(?<=\d)((?:flash|paged)_\w+?_kernel)I((?:Li\d+E|13__nv_bfloat16|f)+)E",
-                          line)
+            m = re.search(r"(?<=\d)((?:flash|paged)_\w+?_kernel)I"
+                          r"((?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+)E", line)
             if m:
-                args = [n or ("bf16" if bf else "float")
-                        for n, bf, _ in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2))]
+                args = [n or {"0": "false", "1": "true"}.get(b) or ("bf16" if bf else "float")
+                        for n, b, bf, _ in re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)|(f)",
+                                                      m.group(2))]
                 kernel = f"{m.group(1)}<{', '.join(args)}>"
             else:
                 kernel = line.split("'")[1]
@@ -440,14 +443,14 @@ def check_kernel_cases(torch, pa):
             # One split, the host's choice, and more splits than any row
             # has live pages (the last shares are empty).
             picked = pa.choose_splits(len(shape["lengths"]), shape["kv_heads"],
-                                      tables.shape[1], sm_count, dtype)
-            errs = {}
+                                      tables.shape[1], sm_count)
+            errs, outs = {}, {}
             for splits in (1, picked, tables.shape[1] + 3):
                 runs = [pa.paged_attention(q, k, v, tables, lens, layer=layer,
                                            window=window, splits=splits)
                         for _ in range(3)]
                 torch.cuda.synchronize()
-                got = runs[0]
+                got = outs[splits] = runs[0]
                 errs[splits] = (got.float() - want.float()).abs().max().item()
                 if not all(bool((got[i] == 0).all()) for i in zero_rows):
                     fail(f"K1 length-0 rows are not zero: {name} {dtype} splits {splits}")
@@ -460,6 +463,27 @@ def check_kernel_cases(torch, pa):
                   flush=True)
             if not max(errs.values()) <= tol:
                 fail(f"K1 disagrees with its plain version: {name} {dtype}")
+            if dtype == torch.bfloat16:
+                # Every share rounds p against the row's running max, so a
+                # split differs from one split only by the order of float32
+                # sums: at most one bf16 ulp in any element.
+                counts = []
+                for splits in sorted(set(outs) - {1}):
+                    diff = (outs[splits].float() - outs[1].float()).abs()
+                    over = int((diff > bf16_ulp(torch, outs[splits], outs[1])).sum())
+                    counts.append(f"{splits} splits {int((diff > 0).sum())} differ, {over} by "
+                                  f"more than one ulp")
+                    if over:
+                        fail(f"K1 bf16 at {splits} splits differs from one split by more than "
+                             f"one bf16 ulp in {over} elements: {name}")
+                print(f"  K1 {name:24s} bf16 against 1 split, of {outs[1].numel()} elements: "
+                      + "; ".join(counts), flush=True)
+
+
+def bf16_ulp(torch, a, b):
+    """One bf16 ulp at the larger of |a| and |b|, elementwise."""
+    larger = torch.maximum(a.float().abs(), b.float().abs())
+    return torch.ldexp(torch.ones_like(larger), torch.frexp(larger).exponent - 8)
 
 
 def profile_chunk(torch, engine, rng, f, pa, adapters=(None,)):
@@ -630,10 +654,10 @@ def graph_against_eager_chunk(torch, paged_mod, engine, rng, f):
     return times["graph"], times["eager"]
 
 
-def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, splits=None,
-                        width=None, lora=None):
+def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, width=None,
+                        lora=None):
     """Prefill rows of the given lengths, then run one decode step through
-    the kernel (with the host's split count, or ``splits``) and, on a copy
+    the kernel (with the host's split count) and, on a copy
     of the pools, through the plain version, over decode tables padded
     with the trash page to ``width`` columns (by default one); ``lora``
     adapts the prefill and both steps per row.  Returns (kernel logits,
@@ -663,7 +687,7 @@ def teacher_forced_step(torch, paged_mod, pa, params, config, ps, lengths, split
 
         def kernel(q, kp, vp, t, ln, layer):
             return pa.paged_attention(q, kp, vp, t, ln, layer=layer,
-                                      window=config.attention_window, splits=splits)
+                                      window=config.attention_window)
 
         got, _ = paged_mod._decode_core(params, pools, tables_dec, tok,
                                         lens.long(), config, attention_fn=kernel, lora=lora)
@@ -5255,8 +5279,8 @@ def main() -> int:
     # One teacher-forced decode step, kernel route against plain route, in
     # float32 and in the serving dtype (same weights, bf16-valued, and
     # the same tokens): at 8 rows (K1 takes one split), at 2 rows, where
-    # K1 cuts each row's pages into the host's split count, and at 8 rows
-    # as deep as phase 4c decodes (to 896 positions) over its engines'
+    # K1 cuts each row's pages into the host's split count in both dtypes,
+    # and at 8 rows as deep as phase 4c decodes (to 896 positions) over its engines'
     # 17-column tables; phase 4c holds its arms to that step's bf16 floor.
     from dataclasses import replace
 
@@ -5270,9 +5294,10 @@ def main() -> int:
     for label, (lengths, step_width) in step_rows.items():
         rows = len(lengths)
         width = step_width or -(-max(lengths) // f["page_size"]) + 1
-        split_f32 = pa.choose_splits(rows, config.kv_heads, width, sm_count)
-        splits_here = {dtype: pa.choose_splits(rows, config.kv_heads, width, sm_count, dtype)
-                       for dtype in (torch.float32, torch.bfloat16)}
+        splits_here = pa.choose_splits(rows, config.kv_heads, width, sm_count)
+        if label == "2 rows" and splits_here < 2:
+            fail(f"the host keeps one K1 split for the 2-row step ({splits_here}): the split "
+                 f"route in bf16 goes ungated")
         steps = {}
         for dtype in (torch.float32, torch.bfloat16):
             step_params = params if dtype == config.dtype else cast_params(params, dtype)
@@ -5282,17 +5307,6 @@ def main() -> int:
             del step_params
         got32, want32 = steps[torch.float32]
         got16, want16 = steps[torch.bfloat16]
-        if split_f32 > 1:
-            # Not a gate: the split route in bf16, which the host no longer
-            # takes (ROADMAP Queue C), against the same floor.
-            forced, _ = teacher_forced_step(torch, paged_mod, pa, params, config,
-                                            f["page_size"], lengths, splits=split_f32,
-                                            width=step_width)
-            print(f"  bf16 decode step, {label}, K1 forced to {split_f32} splits: kernel "
-                  f"vs plain max {(forced - want16).abs().max().item():.4e} rms "
-                  f"{(forced - want16).square().mean().sqrt().item():.4e} (floor max "
-                  f"{(want16 - want32).abs().max().item():.4e} rms "
-                  f"{(want16 - want32).square().mean().sqrt().item():.4e})", flush=True)
         scale = want32.abs().max().item()
         f32_err = (got32 - want32).abs().max().item()
         f32_tol = STEP_F32_RTOL * scale
@@ -5300,9 +5314,8 @@ def main() -> int:
         bf16_floor = (want16 - want32).abs().max().item()
         bf16_rms = (got16 - want16).square().mean().sqrt().item()
         floor_rms = (want16 - want32).square().mean().sqrt().item()
-        print(f"  teacher-forced decode step, {label} (K1 splits: float32 "
-              f"{splits_here[torch.float32]}, bf16 {splits_here[torch.bfloat16]}), max "
-              f"|logit| {scale:.4e}: float32 kernel vs plain {f32_err:.4e} (limit "
+        print(f"  teacher-forced decode step, {label} (K1 splits {splits_here} in both dtypes), "
+              f"max |logit| {scale:.4e}: float32 kernel vs plain {f32_err:.4e} (limit "
               f"{f32_tol:.4e} = {STEP_F32_RTOL} x max); bfloat16 kernel vs plain max "
               f"{bf16_err:.4e} rms {bf16_rms:.4e} (limits: the bf16 floor, plain bf16 vs "
               f"plain float32, max {bf16_floor:.4e} rms {floor_rms:.4e})", flush=True)
@@ -5312,10 +5325,15 @@ def main() -> int:
             fail(f"float32 decode step through the kernel disagrees with the plain route "
                  f"({label})")
         floors[label] = bf16_floor
+        if label == "2 rows":
+            # The split route's reading while each share started from -1e30
+            # (rows 543 and 300, this width), beside this one.
+            print(f"  2-row bf16 step at {splits_here} splits, rms {bf16_rms:.4e} against the "
+                  f"floor's {floor_rms:.4e} (each share from -1e30 read rms 2.98e-02 against "
+                  f"2.93e-02, outside)", flush=True)
         if not (bf16_err <= bf16_floor and bf16_rms <= floor_rms):
             fail(f"bfloat16 decode step through the kernel differs from the plain route by "
-                 f"more than bf16 differs from float32 ({label}, "
-                 f"{splits_here[torch.bfloat16]} splits)")
+                 f"more than bf16 differs from float32 ({label}, {splits_here} splits)")
 
     # 4b. the request lifecycle at the same width
     phase("serving path: request lifecycle at full width")
@@ -5410,9 +5428,7 @@ def main() -> int:
     # K1 now takes less time than a launch through Python does, so it and
     # the library call are timed as CUDA graphs of 8 x L launches.
     n_graph = 8 * L
-    splits = pa.choose_splits(B, config.kv_heads, max_pages,
-                              torch.cuda.get_device_properties(0).multi_processor_count,
-                              torch.bfloat16)
+    splits = pa.choose_splits(B, config.kv_heads, max_pages, sm_count)
     launches_before = pa.paged_attention.launches
     kernel_ms = graph_ms(
         lambda i: pa.paged_attention(q, k, v, tables, lens, layer=i % L), n_graph)
@@ -5459,31 +5475,34 @@ def main() -> int:
           f"({bytes_moved / 1e6:.2f} MB), {bytes_moved / kernel_ms / 1e6:.1f} "
           f"GB/s achieved, {bound_ms / kernel_ms:.3f} of the bound; kernel and sdpa timed "
           f"as CUDA graphs of {n_graph} launches", flush=True)
-    # Not a gate: one row as long as the engine's table holds, where only
-    # the split fills the card: the split count its shapes give (float32
-    # pools take it; bf16 pools keep one split, ROADMAP Queue C) against 1.
+    # Not gates: 1 and 2 rows as long as the engine's table holds (640
+    # positions), where only the split fills the card: the host's split
+    # count against 1, each a CUDA graph of n_graph launches.
     long_len = max_pages * ps
-    q1, k1, v1, t1, l1 = paged_inputs(
-        torch, batch=1, heads=H, kv_heads=config.kv_heads, head_dim=hd, page_size=ps,
-        lengths=[long_len], layers=L, dtype=torch.bfloat16, seed=6,
-    )
-    long_splits = pa.choose_splits(1, config.kv_heads, max_pages,
-                                   torch.cuda.get_device_properties(0).multi_processor_count)
-    long_err = (pa.paged_attention(q1, k1, v1, t1, l1, layer=0, splits=long_splits).float()
-                - pa.paged_attention_reference(q1, k1, v1, t1, l1, layer=0,
-                                               window=None).float()).abs().max().item()
-    long_ms = graph_ms(lambda i: pa.paged_attention(q1, k1, v1, t1, l1, layer=i % L,
-                                                    splits=long_splits), n_graph)
-    long_one_ms = graph_ms(
-        lambda i: pa.paged_attention(q1, k1, v1, t1, l1, layer=i % L, splits=1), n_graph)
+    split_ms = []
+    for rows in (1, 2):
+        q1, k1, v1, t1, l1 = paged_inputs(
+            torch, batch=rows, heads=H, kv_heads=config.kv_heads, head_dim=hd, page_size=ps,
+            lengths=[long_len] * rows, layers=L, dtype=torch.bfloat16, seed=6,
+        )
+        long_splits = pa.choose_splits(rows, config.kv_heads, max_pages, sm_count)
+        long_err = (pa.paged_attention(q1, k1, v1, t1, l1, layer=0).float()
+                    - pa.paged_attention_reference(q1, k1, v1, t1, l1, layer=0,
+                                                   window=None).float()).abs().max().item()
+        long_ms = graph_ms(lambda i: pa.paged_attention(q1, k1, v1, t1, l1, layer=i % L),
+                           n_graph)
+        long_one_ms = graph_ms(
+            lambda i: pa.paged_attention(q1, k1, v1, t1, l1, layer=i % L, splits=1), n_graph)
+        long_bytes = 2 * rows * long_len * config.kv_heads * hd * elt
+        print(f"  K1 bf16 at B={rows}, rows of {long_len} positions: {long_ms * 1e3:.2f} us with "
+              f"the host's {long_splits} splits, {long_one_ms * 1e3:.2f} us with 1 "
+              f"({long_bytes / 1e6:.2f} MB of pages: {long_bytes / long_ms / 1e6:.1f} and "
+              f"{long_bytes / long_one_ms / 1e6:.1f} GB/s), max_abs_err {long_err:.2e}; CUDA "
+              f"graphs of {n_graph} launches", flush=True)
+        split_ms.append({"rows": rows, "positions": long_len, "splits": long_splits,
+                         "ms": long_ms, "one_split_ms": long_one_ms, "max_abs_err": long_err})
+        del q1, k1, v1
     pa.paged_attention.launches = launches_before
-    long_bytes = 2 * long_len * config.kv_heads * hd * elt
-    print(f"  K1 at B=1, one row of {long_len} positions: {long_ms * 1e3:.2f} us with the "
-          f"shapes' {long_splits} splits, {long_one_ms * 1e3:.2f} us with 1 "
-          f"({long_bytes / 1e6:.2f} MB of pages: {long_bytes / long_ms / 1e6:.1f} and "
-          f"{long_bytes / long_one_ms / 1e6:.1f} GB/s), max_abs_err {long_err:.2e}",
-          flush=True)
-    del q1, k1, v1
     print(f"  card: {card}", flush=True)
     record = {
         "name": "paged_attention",
@@ -5509,6 +5528,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": library_ms,
         "splits": splits,
+        "bf16_split_ms": split_ms,
         "decode_tokens_per_s": tokens_per_s,
         "drains": {name: {key: run[key] for key in
                           ("tokens_per_s", "decode_steps", "launches", "overdecoded")}

@@ -36,6 +36,10 @@ def _log(*entries):
         ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelIfLi16ELi8EEEv"
          "NS_6ParamsE", "paged_decode_kernel<float, 16, 8>"),
         ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelI13__nv_bfloat16"
+         "Li128ELi1ELb0EEEvNS_6ParamsE", "paged_decode_kernel<bf16, 128, 1, false>"),
+        ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelIfLi16ELi8ELb1EEEv"
+         "NS_6ParamsE", "paged_decode_kernel<float, 16, 8, true>"),
+        ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelI13__nv_bfloat16"
          "Li128EEEvPKT_", "paged_decode_kernel<bf16, 128>"),
         ("_ZN46_GLOBAL__N__1_18_paged_attention_cu_219paged_decode_kernelIfLi64EEEvPKT_",
          "paged_decode_kernel<float, 64>"),
@@ -239,6 +243,10 @@ def test_bench_fleet_phase_rehearses_on_the_cpu(capsys):
     try:
         launches = chip_smoke.bench_fleet_phase(
             torch, pb, chip_smoke.kernel_counters(pa, fa), device="cpu")
+    except SystemExit:
+        # chip_smoke.fail names the failing gates on stderr: make them the
+        # failure's own message.
+        pytest.fail(capsys.readouterr().err.strip())
     finally:
         torch.set_num_threads(threads)
     out = capsys.readouterr().out

@@ -1,7 +1,9 @@
 """The paged-decode kernel's split over pages, on the CPU: its plain
-specification (per-share float32 (m, l, acc), merged in split order)
-against the sequential plain version, and the host's choice of the split
-count.  torch and numpy only."""
+specification (per-share float32 (m, l, acc), each share starting from
+the max of the scores before it, merged in split order) against the
+sequential plain version, with the arithmetic before that start (each
+share from -1e30) as the control that must miss the bounds, and the
+host's choice of the split count.  torch and numpy only."""
 
 import numpy as np
 import pytest
@@ -15,19 +17,74 @@ PAGE = 4
 LENGTHS = [0, 1, 3, 4, 5, 17, 22, 9]
 
 
-def _inputs(dtype, heads, kv_heads, hd=16, seed=0):
+def _inputs(dtype, heads, kv_heads, hd=16, seed=0, lengths=LENGTHS, page=PAGE, q_dtype=None):
     rng = np.random.default_rng(seed)
-    batch = len(LENGTHS)
-    max_pages = -(-max(LENGTHS) // PAGE) + 1  # one padding column, the trash page
+    batch = len(lengths)
+    max_pages = -(-max(lengths) // page) + 1  # one padding column, the trash page
     n_pages = batch * max_pages + 1
-    shape = (2, n_pages, kv_heads, PAGE, hd)
+    shape = (2, n_pages, kv_heads, page, hd)
     k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
     v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
-    q = torch.from_numpy(rng.standard_normal((batch, heads, hd)).astype(np.float32)).to(dtype)
+    q = torch.from_numpy(rng.standard_normal((batch, heads, hd)).astype(np.float32))
     tables = rng.permutation(n_pages - 1)[: batch * max_pages].reshape(batch, max_pages)
     tables[:, -1] = n_pages - 1
-    return (q, k, v, torch.from_numpy(tables.astype(np.int32)),
-            torch.tensor(LENGTHS, dtype=torch.int32))
+    return (q.to(q_dtype or dtype), k, v, torch.from_numpy(tables.astype(np.int32)),
+            torch.tensor(lengths, dtype=torch.int32))
+
+
+def _per_share_max_split(q, k_pages, v_pages, tables, lengths, *, layer, window, splits):
+    """The control: the split arithmetic before each share started from
+    the max of the scores before it.  Every share starts from -1e30, so a
+    later share rounds its p against the max of its own pages only."""
+    batch, heads, head_dim = q.shape
+    kv_heads, page_size = k_pages.shape[2], k_pages.shape[3]
+    group = heads // kv_heads
+    out = torch.zeros((batch, heads, head_dim))
+    offsets = torch.arange(page_size)
+    for b in range(batch):
+        length = int(lengths[b])
+        first = max(length - window, 0) // page_size if window else 0
+        last = min((length - 1) // page_size, tables.shape[1] - 1) if length > 0 else -1
+        qg = q[b].reshape(kv_heads, group, head_dim).float()
+        parts = []
+        for share in pa.split_shares(first, last, splits):
+            m = torch.full((kv_heads, group, 1), pa.NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((kv_heads, group, head_dim))
+            for j in share:
+                page = int(tables[b, j])
+                ids = j * page_size + offsets
+                mask = ids < length
+                if window is not None:
+                    mask &= ids >= length - window
+                s = torch.einsum("ngk,ntk->ngt", qg, k_pages[layer, page].float())
+                s = torch.where(mask, s / head_dim**0.5, pa.NEG_INF)
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(mask, torch.exp(s - m_new), 0.0)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + torch.einsum(
+                    "ngt,ntk->ngk", p.to(v_pages.dtype).float(), v_pages[layer, page].float())
+                m = m_new
+            parts.append((m, l, acc))
+        m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        l_all, acc_all = torch.zeros_like(m_all), torch.zeros_like(parts[0][2])
+        for m, l, acc in parts:
+            w = torch.exp(m - m_all)
+            l_all, acc_all = l_all + l * w, acc_all + acc * w
+        out[b] = (acc_all / torch.where(l_all > 0, l_all, 1.0)).reshape(heads, head_dim)
+    return out.to(q.dtype)
+
+
+def _bf16_ulp(a, b):
+    """One bf16 ulp at the larger of |a| and |b|, elementwise."""
+    larger = torch.maximum(a.float().abs(), b.float().abs())
+    return torch.ldexp(torch.ones_like(larger), torch.frexp(larger).exponent - 8)
+
+
+# The file's rows at page 4 (head_dim 16), and two long rows at page 16
+# (head_dim 64), where a later share's own max often sits below the row's.
+SPLIT_ROWS = {"short": dict(hd=16), "431-250": dict(hd=64, lengths=[431, 250], page=16)}
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 8])
@@ -49,7 +106,8 @@ def test_split_specification_matches_sequential_walk(dtype, window, heads, kv_he
         # Only the order of float32 sums differs.
         assert err <= 1e-6 * want.abs().max().item()
     else:
-        # Each share rounds p against its own running max.
+        # p rounds as in the sequential walk; the float32 sums' order can
+        # still flip the output's bf16 rounding.
         assert err <= KERNEL_ATOL[dtype]
 
 
@@ -96,14 +154,45 @@ def test_choose_splits_is_a_function_of_shapes(batch, kv_heads, max_pages, sm_co
     assert pa.choose_splits(batch, kv_heads, max_pages, sm_count) == want
 
 
+@pytest.mark.parametrize("splits", [2, 3, 8])
+@pytest.mark.parametrize("rows", list(SPLIT_ROWS))
+def test_split_keeps_float32_precision_over_bf16_pools(rows, splits):
+    """float32 queries over bf16 pools, so the output keeps float32
+    precision: every p rounds to bf16 against the sequential walk's running
+    max, and the split spec is within 2^-18 of the largest |output| of the
+    one-split version.  Starting each share from -1e30 misses that bound."""
+    q, k, v, tables, lens = _inputs(torch.bfloat16, 8, 2, seed=1, q_dtype=torch.float32,
+                                    **SPLIT_ROWS[rows])
+    want = pa.paged_attention_reference(q, k, v, tables, lens, layer=1, window=None)
+    got = pa.paged_attention_split_reference(q, k, v, tables, lens, layer=1, window=None,
+                                             splits=splits)
+    control = _per_share_max_split(q, k, v, tables, lens, layer=1, window=None, splits=splits)
+    assert got.dtype == torch.float32
+    bound = 2.0**-18 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bound
+    assert (control - want).abs().max().item() > bound
+
+
+@pytest.mark.parametrize("splits", [2, 3, 8])
+@pytest.mark.parametrize("rows", list(SPLIT_ROWS))
+def test_split_is_within_one_bf16_ulp_of_one_split(rows, splits):
+    """All bf16: every output element of the split spec within one bf16
+    ulp of the one-split version; the control breaks that bound."""
+    q, k, v, tables, lens = _inputs(torch.bfloat16, 8, 2, seed=1, **SPLIT_ROWS[rows])
+    want = pa.paged_attention_reference(q, k, v, tables, lens, layer=1, window=None)
+    got = pa.paged_attention_split_reference(q, k, v, tables, lens, layer=1, window=None,
+                                             splits=splits)
+    control = _per_share_max_split(q, k, v, tables, lens, layer=1, window=None, splits=splits)
+    assert got.dtype == torch.bfloat16
+    assert torch.all((got.float() - want.float()).abs() <= _bf16_ulp(got, want))
+    assert torch.any((control.float() - want.float()).abs() > _bf16_ulp(control, want))
+
+
 @pytest.mark.parametrize("batch, kv_heads", [(2, 16), (1, 16), (4, 2)])
-def test_bf16_pools_keep_one_split(batch, kv_heads):
-    """bf16 split shares round p against their own max, which puts a bf16
-    decode step outside its floor on the card: bf16 keeps one split where
-    float32 takes several."""
+def test_bf16_pools_split_as_float32_pools(batch, kv_heads):
+    """One rule for both dtypes: where the shapes leave SMs idle, bf16 pools
+    split as float32 pools do."""
     assert pa.choose_splits(batch, kv_heads, 10, 132) > 1
-    assert pa.choose_splits(batch, kv_heads, 10, 132, torch.bfloat16) == 1
-    assert pa.choose_splits(batch, kv_heads, 10, 132, torch.float32) > 1
 
 
 def test_cpu_wrapper_ignores_the_split_count():

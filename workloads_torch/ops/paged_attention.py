@@ -15,12 +15,15 @@ raises ``ValueError``; it never goes to the plain version.
 
 The kernel cuts each row's live pages into ``splits`` contiguous shares,
 one CTA each, and merges the shares' float32 ``(m, l, acc)`` in split
-order inside the same launch.  ``choose_splits`` picks the count on the
-host from shapes and dtype alone (no device value is read; bf16 pools
-keep one split), and
-``paged_attention_split_reference`` is that arithmetic in plain PyTorch:
-the tests hold it to ``paged_attention_reference``; nothing on the
-serving path calls it.
+order inside the same launch.  Each share starts its walk from the max
+of the scores of the live pages before it (a first pass over its K
+tiles and a look-back at the shares before it), so every ``p`` rounds
+against the row's running max, as the Pallas kernel's one sequential
+walk does: splitting changes only the order of float32 sums, in both
+dtypes.  ``choose_splits`` picks the count on the host from shapes alone
+(no device value is read), and ``paged_attention_split_reference`` is
+that arithmetic in plain PyTorch: the tests hold it to
+``paged_attention_reference``; nothing on the serving path calls it.
 """
 
 from __future__ import annotations
@@ -98,23 +101,14 @@ def paged_attention_reference(
     return out.reshape(batch, heads, head_dim).to(q.dtype)
 
 
-def choose_splits(
-    batch: int, kv_heads: int, max_pages: int, sm_count: int,
-    dtype: torch.dtype = torch.float32,
-) -> int:
+def choose_splits(batch: int, kv_heads: int, max_pages: int, sm_count: int) -> int:
     """How many CTAs share one (row, kv head)'s page walk: as many as give
     every SM one CTA, at most one a table column, and 1 once batch x
     kv_heads CTAs pass half the SMs.  (On an H100 a second CTA an SM read
     slower than one at the serving shapes: the partials' round trip
     through the workspace costs more than the fuller card gains.)  A pure
-    function of shapes and dtype: ``lengths`` stays on the device.
-
-    bf16 pools keep one split: each later share rounds its ``p`` to bf16
-    against its own running max, not the row's as the Pallas kernel does,
-    and a whole bf16 decode step through the split kernel lands outside
-    the step's bf16 floor (ROADMAP Queue C)."""
-    if dtype == torch.bfloat16:
-        return 1
+    function of shapes, the same for both dtypes: ``lengths`` stays on
+    the device."""
     ctas = max(batch * kv_heads, 1)
     return max(1, min(sm_count // ctas, max_pages))
 
@@ -133,12 +127,15 @@ def paged_attention_split_reference(
     splits: int,
 ) -> torch.Tensor:
     """The split kernel's specification in plain PyTorch: each share of a
-    row's live pages keeps its own float32 ``(m, l, acc)``, walked page by
-    page as ``paged_attention_reference`` walks them (``p`` rounded to the
-    value dtype before ``p.v``, ``l`` unrounded; a share with nothing
-    visible is ``(-1e30, 0, 0)``), and the shares merge in split order,
-    each weighed by ``exp(m - max m)``.  Row by row on the host: it reads
-    ``lengths``, so it is for tests only."""
+    row's live pages keeps its own float32 ``(m, l, acc)``, with ``m``
+    starting from the max of the scores of the live pages before the
+    share (``-1e30`` for the first), and walks its pages as
+    ``paged_attention_reference`` walks them (``p`` rounded to the value
+    dtype before ``p.v`` against ``max(that start, the share's pages so
+    far)``, the sequential walk's running max; ``l`` unrounded; a share
+    with nothing visible is ``(start, 0, 0)``).  The shares merge in split
+    order, each weighed by ``exp(m - max m)``.  Row by row on the host: it
+    reads ``lengths``, so it is for tests only."""
     batch, heads, head_dim = q.shape
     kv_heads, page_size = k_pages.shape[2], k_pages.shape[3]
     group = heads // kv_heads
@@ -151,25 +148,30 @@ def paged_attention_split_reference(
         first = max(length - window, 0) // page_size if window else 0
         last = min((length - 1) // page_size, max_pages - 1) if length > 0 else -1
         qg = q[b].reshape(kv_heads, group, head_dim).float()
+        scores = {}  # live page -> its masked scores [kv_heads, group, page_size]
+        for j in range(first, last + 1):
+            ids = j * page_size + offsets
+            mask = ids < length
+            if window is not None:
+                mask &= ids >= length - window
+            s = torch.einsum("ngk,ntk->ngt", qg,
+                             k_pages[layer, int(tables[b, j])].float()) * sm_scale
+            scores[j] = torch.where(mask, s, NEG_INF)
         parts = []
         for share in split_shares(first, last, splits):
             m = torch.full((kv_heads, group, 1), NEG_INF, device=q.device)
+            for j in range(first, min(share.start, last + 1)):
+                m = torch.maximum(m, scores[j].amax(dim=-1, keepdim=True))
             l = torch.zeros_like(m)
             acc = torch.zeros((kv_heads, group, head_dim), device=q.device)
             for j in share:
-                page = int(tables[b, j])
-                ids = j * page_size + offsets
-                mask = ids < length
-                if window is not None:
-                    mask &= ids >= length - window
-                s = torch.einsum("ngk,ntk->ngt", qg, k_pages[layer, page].float()) * sm_scale
-                s = torch.where(mask, s, NEG_INF)
+                s = scores[j]
                 m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
                 alpha = torch.exp(m - m_new)
-                p = torch.where(mask, torch.exp(s - m_new), 0.0)
+                p = torch.where(s != NEG_INF, torch.exp(s - m_new), 0.0)
                 l = l * alpha + p.sum(dim=-1, keepdim=True)
                 pv = torch.einsum("ngt,ntk->ngk", p.to(v_pages.dtype).float(),
-                                  v_pages[layer, page].float())
+                                  v_pages[layer, int(tables[b, j])].float())
                 acc = acc * alpha + pv
                 m = m_new
             parts.append((m, l, acc))
@@ -190,7 +192,7 @@ def _kernel_library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_fwd.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,            # q, k, v, tables, lengths, out
-            ptr, ptr,                                # workspace, tickets
+            ptr, ptr,                                # workspace, sync
             i32, i32, i32, i32, i32, i32, i32, i32,  # dtype, B, H, Hkv, hd, ps, P, maxp
             i32, i32, i32, i32,                      # layer, window, splits, stages
             ctypes.c_float, ptr,                     # scale, stream
@@ -244,6 +246,7 @@ def _check_kernel_inputs(q, k_pages, v_pages, tables, lengths) -> None:
 
 _sm_counts: dict[int, int] = {}
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
+_outgrown: list[torch.Tensor] = []
 
 
 def _sm_count(device: torch.device) -> int:
@@ -254,14 +257,19 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """int32 zeros, one per (row, kv head), kept per device and stream:
-    the kernel counts a row's finished splits in them and sets each back
-    to 0, so launches on one stream share them and a CUDA graph replays
-    over them.  From torch's caching allocator, like the workspace."""
+    """int32 zeros kept per device and stream, ``splits + 2`` a (row, kv
+    head): the ticket that counts the row's finished shares, the counter
+    that hands out share indices, and one ready flag a share.  The
+    merging CTA sets them back to 0, so launches on one stream share them
+    and a CUDA graph replays over them.  From torch's caching allocator,
+    like the workspace; a buffer outgrown is kept, not freed, since a
+    graph captured over it still holds its address."""
     key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        if buf is not None:
+            _outgrown.append(buf)
+        buf = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
         _tickets[key] = buf
     return buf
 
@@ -285,7 +293,7 @@ def _launch(q, k_pages, v_pages, tables, lengths, layer, window, splits=None):
             f"{smem} bytes of shared memory; one block holds {_MAX_SMEM_BYTES}"
         )
     if splits is None:
-        splits = choose_splits(batch, kv_heads, max_pages, _sm_count(q.device), q.dtype)
+        splits = choose_splits(batch, kv_heads, max_pages, _sm_count(q.device))
     if splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
     out = torch.empty_like(q)
@@ -293,16 +301,17 @@ def _launch(q, k_pages, v_pages, tables, lengths, layer, window, splits=None):
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        workspace = tickets = None
+        workspace = sync = None
         if splits > 1:
-            workspace = torch.empty((batch, heads, splits, head_dim + 2),
+            # Each share's (acc, m, l) and its pass-1 max.
+            workspace = torch.empty((batch, heads, splits, head_dim + 3),
                                     dtype=torch.float32, device=q.device)
-            tickets = _ticket_buffer(q.device, stream, batch * kv_heads)
+            sync = _ticket_buffer(q.device, stream, batch * kv_heads * (splits + 2))
         err = lib.paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             None if workspace is None else workspace.data_ptr(),
-            None if tickets is None else tickets.data_ptr(),
+            None if sync is None else sync.data_ptr(),
             code, batch, heads, kv_heads, head_dim, page_size, n_pages,
             max_pages, layer, window or 0, splits, stages,
             ctypes.c_float(1.0 / head_dim**0.5), stream,

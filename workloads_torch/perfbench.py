@@ -2473,11 +2473,17 @@ def measure_autoscale(scale: BenchScale, device=None) -> dict:
     for p, nw in warm:
         cal.submit(p, nw)
     cal.run()  # capture and first launches land here, off the clock
-    for p, nw in warm:
-        cal.submit(p, nw)
-    t0 = time.perf_counter()
-    cal.run()
-    service_rps = len(warm) / max(time.perf_counter() - t0, 1e-9)
+    # The fastest of several timed passes: on a CPU host shared with other
+    # work, one pass slowed to a fifth of an idle pass's rate set a calm
+    # rate whose x4 step never overloaded the replica.
+    passes = []
+    for _ in range(5):
+        for p, nw in warm:
+            cal.submit(p, nw)
+        t0 = time.perf_counter()
+        cal.run()
+        passes.append(time.perf_counter() - t0)
+    service_rps = len(warm) / max(min(passes), 1e-9)
     cal.close()
     del cal
     _release(device)

@@ -130,7 +130,8 @@ Phases, each of which fails the run loudly:
    whole (``tiny`` computes in float32; ``bench_fleet_gates``), K1
    launched and no flash kernel, each arm's seconds and peak device
    memory printed;
-4j. tensor-parallel serving (``tp_phase``): phase 4's model and stream on
+4j. tensor-parallel serving (``tp_phase``): phase 4's model, at 4 of
+   its 8 layers (``WORLD_PHASE_LAYERS``, widths unchanged), and stream on
    a (1, 2) mesh, two ranks on the one card over gloo (NCCL refuses two
    ranks on one device; gloo stages each all-reduce through host memory,
    so the times say nothing of TP speed), each rank holding its cut of
@@ -143,6 +144,18 @@ Phases, each of which fails the run loudly:
    of the step's bf16 floor (max and rms from one device's float32 step;
    ``TP_BF16_FLOOR_FACTOR``) and the float32 step within ``STEP_F32_RTOL``; each rank's launches, peak
    memory and seconds printed;
+4k. JAX's threefry keys (``prng_phase``, ``PRNG``): the threefry kernel
+   against its plain version bit for bit in its three modes at (1,),
+   (7,), (3, 5, 7), (8, 32768) and (2048, 32768) under PRNGKey(0),
+   PRNGKey(42) and a split and a fold_in descendant of each; layer 0's
+   w_up from PRNGKey(0) on the card within 4 ulp of the CPU's plain
+   draw; phase 4's 12 requests in float32 at the serve CLI's sampling
+   knobs under rng=PRNGKey(42): the graphed drain equal to the eager one
+   and, on one request a slot, ``superstep_k=4, pipelined`` equal to k=1,
+   token for token, K1 n_layers a decode step and threefry at least once;
+   a sampled chunk from one state graphed and eager, bit-identical, both
+   timed; the kernel's time at the sampled step's [8, 32768] beside its
+   plain version's and its bound;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -174,9 +187,9 @@ Phases, each of which fails the run loudly:
    ``table_from_artifact`` and ``model._pick_kernel``; the arm's step
    time and MFU beside phase 6's;
 6g. the training layouts (``train_parallel_phase``, ``TRAIN_PAR``): the
-   same model on two gloo ranks of the one card, each arm three steps on
-   one global batch of 4 x 2049 tokens: (a) DP2 and (b) TP2
-   (``train.make_train_step(mesh=)``), (c) Ulysses and (d) ring over a
+   same model at 4 of its 8 layers (``WORLD_PHASE_LAYERS``) on two gloo
+   ranks of the one card, each arm three steps on one global batch of
+   4 x 2049 tokens: (a) DP2 and (b) TP2 (``train.make_train_step(mesh=)``), (c) Ulysses and (d) ring over a
    2-rank "seq" axis (``train.make_seq_parallel_train_step``); gates per
    rank: the first float32 step's loss within 2^-16 of one device's,
    each later step's drop from the first within 2^-10 of one device's
@@ -189,9 +202,10 @@ Phases, each of which fails the run loudly:
    all_to_all and ppermute beside the host round trip gloo makes of
    their tensors;
 6h. the pipeline and expert layouts (``pp_ep_phase``, ``PP_EP``): the
-   same model on two gloo ranks of the one card, each arm three float32
+   same model at 4 of its 8 layers (``WORLD_PHASE_LAYERS``) on two gloo
+   ranks of the one card, each arm three float32
    and three bf16 steps on one global batch of 4 x 2049 tokens at 6g's
-   learning rate: (e) PP2 (``pipeline.make_pipeline_train_step``, 4
+   learning rate: (e) PP2 (``pipeline.make_pipeline_train_step``, 2
    layers a stage, 4 microbatches of one row) against the sequential
    model on the same weights, (f) EP2 (``moe.make_moe_train_step``, 4
    experts, capacity factor 2.0, 2 experts a rank) against the whole MoE
@@ -227,6 +241,8 @@ Every launch count held against a profiler trace (phases 4, 4d, 4e,
 4f, 4g, 6f) takes the trace again, up to ``TRACE_ATTEMPTS`` times, when
 it comes up short: a trace can drop kernel records and never adds any,
 so one complete trace proves the count and a trace over it fails.
+Every phase's wall seconds are printed on a line of their own
+(``-- phase seconds``), and the whole run's before the last two lines.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -274,15 +290,22 @@ FLASH_SHARE = {"bfloat16": 2.0**-7, "float32": 1e-5}
 TRAIN_F32_LOSS_RTOL = 1e-5
 # AdamW's learning rate for the training path.  The JAX package's default,
 # 1e-3 with no warm-up, drove the full-width loss up on one fixed batch
-# (14.99, 24.37, 45.45, 35.53, 100.77 over 5 steps on the H100); at 1e-4
-# the same steps show the model learning.
-TRAIN_LR = 1e-4
+# (14.99, 24.37, 45.45, 35.53, 100.77 over 5 steps on the H100).  1e-4
+# made the torch.Generator-drawn weights learn, but drove JAX's
+# PRNGKey(0) weights up too (15.09, 15.68, 16.31, 16.74, 16.04; NVIDIA
+# H100 80GB HBM3, 700 W), as it did phase 6g's batch (TRAIN_PAR_LR).
+TRAIN_LR = 3e-5
 TRAIN_F32_GRAD_SHARE = 1e-3
 # A profiler trace can drop kernel records (a profiled adapted chunk once
 # traced 470 of 512 K1 launches) and never adds any: a count checked
 # against a trace takes the trace again, up to this many times, when it
 # comes up short.
 TRACE_ATTEMPTS = 5
+# Phases 4j, 6g and 6h spawn two gloo ranks on the card and take the
+# longest; they run at this depth of the model's 8 layers, widths
+# unchanged, so the whole run ends inside its 20 minutes.
+WORLD_PHASE_LAYERS = 4
+T_START = time.perf_counter()
 
 FULL = dict(
     d_model=2048, n_heads=16, n_layers=8, d_ff=8192, vocab_size=32768,
@@ -307,13 +330,34 @@ LIFECYCLE_FAULTS = {"prefill_dispatch": [2], "prefill_readback": [3],
                     "decode_dispatch": [3], "decode_readback": [4]}
 
 
+def prng_key(seed: int, device):
+    """``prng.PRNGKey(seed)`` on ``device``: JAX's threefry key, so a seed
+    gives the JAX package's weights and draws."""
+    from workloads_torch import prng
+
+    return prng.PRNGKey(seed, device=device)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
+# The phase in progress and when it began (``phase``, ``end_phase``).
+_CURRENT_PHASE: list = []
+
+
+def end_phase() -> None:
+    """Print the phase in progress's wall seconds on a line of its own."""
+    if _CURRENT_PHASE:
+        name, t0 = _CURRENT_PHASE.pop()
+        print(f"-- phase seconds {time.perf_counter() - t0:.1f}: {name}", flush=True)
+
+
 def phase(name: str) -> None:
+    end_phase()
     print(f"== {name}", flush=True)
+    _CURRENT_PHASE.append((name, time.perf_counter()))
 
 
 def ptxas_report(log: str) -> list[tuple[str, str, int]]:
@@ -1459,7 +1503,7 @@ def spec_phase(torch, params, config, f, counters, requests, plain, bf16_floor,
                       ("(f) sampling, spec on", dict(
                           temperature=spec["temperature"], top_k=spec["top_k"],
                           top_p=spec["top_p"],
-                          generator=torch.Generator(device).manual_seed(7)))):
+                          rng=prng_key(7, device)))):
         engine = ServeEngine(params, config, **base, **spec_kw, **kw)
         runs[label] = spec_drain(label, engine, requests, plain["tokens_per_s"])
         if label.startswith("(e)"):
@@ -1739,7 +1783,7 @@ def profile_round(torch, paged_mod, pa, params, draft, config, f, base, dequanti
 
 
 def spec_accept_on_card(torch, paged_mod):
-    """``_spec_accept`` with the card's generator passes the CPU
+    """``_spec_accept`` under a key on the card passes the CPU
     contract: 4000 draws, the first committed token's marginal within
     0.06 total variation of p, every acceptance length seen."""
     vocab, gamma, trials = 5, 2, 4000
@@ -1749,7 +1793,8 @@ def spec_accept_on_card(torch, paged_mod):
     drafts = torch.multinomial(q_dist.expand(trials * gamma, vocab), 1, replacement=True,
                                generator=gen).reshape(trials, gamma)
     committed, n = paged_mod._spec_accept(drafts, q_dist.expand(trials, gamma, vocab),
-                                          p_dist.expand(trials, gamma + 1, vocab), gen)
+                                          p_dist.expand(trials, gamma + 1, vocab),
+                                          prng_key(0, "cuda"))
     counts = torch.bincount(committed[:, 0], minlength=vocab).float().cpu() / trials
     tv = (counts - p_dist.cpu()).abs().sum().item()
     seen = sorted(set(n.cpu().tolist()))
@@ -2589,7 +2634,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
                            fault_injector=FaultInjector({"replica_crash": 3}))
         built = [rep.engine for rep in fleet.replicas]
         stats = instrument(fleet)
-        kw = dict(base, generator=torch.Generator(device).manual_seed(4242))
+        kw = dict(base, rng=prng_key(4242, device))
         factory, oracle = make_engine_factory(
             weights, cfg, engine_kw=kw, probe=fl["probe"] if oracle_probe else None,
             device=device)
@@ -2667,7 +2712,7 @@ def fleet_phase(torch, params, config, f, counters, plain, fl=FLEET, device="cud
     built = [rep.engine for rep in fleet.replicas]
     stats = instrument(fleet)
     factory, _ = make_engine_factory(
-        params, cfg16, engine_kw=dict(base, generator=torch.Generator(device).manual_seed(4242)),
+        params, cfg16, engine_kw=dict(base, rng=prng_key(4242, device)),
         device=device)
     fast = Backoff(base_s=0.05, max_s=0.2, jitter=0.0)
     asc = FleetAutoscaler(fleet, recording(factory, built), min_replicas=1, max_replicas=2,
@@ -2805,11 +2850,12 @@ CACHE_PROBE = """
 import json, sys
 import torch
 from workloads_torch.faststart import cache_stats
+from workloads_torch import prng
 from workloads_torch.model import ModelConfig, cast_params, init_params
 from workloads_torch.serve import ServeEngine
 cfg = ModelConfig(vocab_size=256, d_model=256, n_heads=2, n_layers=1, d_ff=512,
                   max_seq_len=64)
-params = cast_params(init_params(cfg, torch.Generator("cuda").manual_seed(0)), cfg.dtype)
+params = cast_params(init_params(cfg, prng.PRNGKey(0, device="cuda")), cfg.dtype)
 engine = ServeEngine(params, cfg, slots=2, page_size=16, compile_cache_dir=sys.argv[1],
                      device="cuda")
 rid = engine.submit([1, 2, 3], 8)
@@ -3001,7 +3047,7 @@ def profiling_phase(torch, params, config, f, counters, pf=PROFILE, fl=FLEET,
     built = [rep_.engine for rep_ in fleet.replicas]
     respawned = []
     factory, _ = make_engine_factory(
-        params, cfg16, engine_kw=dict(base, generator=torch.Generator(device).manual_seed(4242)),
+        params, cfg16, engine_kw=dict(base, rng=prng_key(4242, device)),
         device=device)
 
     def recording(slot):
@@ -3175,7 +3221,7 @@ def profiling_phase(torch, params, config, f, counters, pf=PROFILE, fl=FLEET,
         fleet.submit([1 + i], 2)
     fleet.run()
     factory, _ = make_engine_factory(
-        params, cfg16, engine_kw=dict(spec_kw, generator=torch.Generator(device).manual_seed(4242)),
+        params, cfg16, engine_kw=dict(spec_kw, rng=prng_key(4242, device)),
         device=device)
     use_snapshot = [False]
     spawned = []
@@ -3282,9 +3328,9 @@ def lora_train_path(torch, model_mod, train_mod, counters, f, device="cuda",
         dtype=torch.bfloat16, attention_impl="flash",
     )
     B, L = f["train_batch"], config.n_layers
-    base = model_mod.init_params(config, torch.Generator(device).manual_seed(0))
+    base = model_mod.init_params(config, prng_key(0, device))
     kept = [t.clone() for t in train_mod.tree_leaves(base)]
-    adapters = lora_init(config, 8, torch.Generator(device).manual_seed(1))
+    adapters = lora_init(config, 8, prng_key(1, device))
     start = [t.clone() for t in train_mod.tree_leaves(adapters)]
     optimizer = train_mod.AdamW(lr=1e-3, mu_dtype=torch.float32)
     state = optimizer.init(adapters)
@@ -3414,7 +3460,7 @@ def bench_engine_phase(torch, pb, counters, scale_name="tiny", device="cuda",
         out.update(got)
     # The lock-step baseline, float32, against generate().
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator(device).manual_seed(0))
+    params = init_params(config, prng_key(0, device))
     prompts = torch.as_tensor(
         np.random.default_rng(1).integers(0, config.vocab_size, (2, 8)), device=device)
     ctrl = PagePool(n_pages=32, page_size=4)
@@ -3597,7 +3643,7 @@ def tp_serve_arms(torch, f, tp, requests, device, mesh=None) -> dict:
     from workloads_torch.serve import ServeEngine
 
     config = tp_config(torch, f, torch.float32)
-    params = init_params(config, torch.Generator(device).manual_seed(0))
+    params = init_params(config, prng_key(0, device))
     adapters = synthetic_adapters(config, tp["lora_n"], rank=tp["lora_rank"],
                                   seed=tp["lora_seed"], device=device)
     tenants = [None] + sorted(adapters)
@@ -3639,7 +3685,7 @@ def tp_step(torch, f, tp, dtype, device, mesh=None):
 
     config = tp_config(torch, f, dtype)
     params = cast_params(init_params(tp_config(torch, f, torch.float32),
-                                     torch.Generator(device).manual_seed(0)), dtype)
+                                     prng_key(0, device)), dtype)
     lengths, ps = list(tp["step_lengths"]), f["page_size"]
     cover = -(-max(lengths) // ps)
     n_pages = len(lengths) * cover
@@ -3951,7 +3997,7 @@ TRAIN_PAR = dict(ranks=2, batch=4, max_seq_len=2049, steps=3, collective_iters=1
 TRAIN_PAR_ARMS = {"(a) DP2": ("mesh", (2, 1)), "(b) TP2": ("mesh", (1, 2)),
                   "(c) Ulysses sp2": ("sp", "ulysses"), "(d) ring sp2": ("sp", "ring")}
 TRAIN_PAR_CONTROL = {"(b0) TP2 without enter, control": ("no_enter", (1, 2))}
-# AdamW's learning rate for phase 6g.  At phase 6's TRAIN_LR (1e-4), three
+# AdamW's learning rate for phase 6g.  At 1e-4, three
 # steps on this batch rose and fell back (bf16: 15.03, 15.91, 15.13; NVIDIA
 # H100 80GB HBM3, 700 W); a smaller step falls from the first.
 TRAIN_PAR_LR = 3e-5
@@ -4324,11 +4370,12 @@ def train_parallel_phase(torch, f, tp=TRAIN_PAR, lr=TRAIN_PAR_LR, device="cuda")
     return launches
 
 
-# Phase 6h, the pipeline and expert layouts: phase 6's model on two gloo
-# ranks of the one card, as 6g, three float32 and three bf16 steps of each
-# arm on one global batch of PP_EP["batch"] x PP_EP["max_seq_len"] tokens
-# at TRAIN_PAR_LR: (e) PP2, the GPipe schedule over a ("data", "pipe")
-# mesh, 4 layers a stage, M = 4 microbatches of one row (K2-K4 on each
+# Phase 6h, the pipeline and expert layouts: phase 6's model (at
+# WORLD_PHASE_LAYERS of its layers) on two gloo ranks of the one card, as
+# 6g, three float32 and three bf16 steps of each arm on one global batch
+# of PP_EP["batch"] x PP_EP["max_seq_len"] tokens at TRAIN_PAR_LR: (e)
+# PP2, the GPipe schedule over a ("data", "pipe") mesh, n_layers / 2 a
+# stage, M = 4 microbatches of one row (K2-K4 on each
 # stage's layers at every one of the M + S - 1 schedule steps); (f) EP2,
 # the MoE model (MoEConfig(): 4 experts, capacity factor 2.0, so C =
 # 1,024 at 2,048 positions) over a ("data", "expert", "model") mesh, 2
@@ -4347,16 +4394,16 @@ PP_EP_CONTROLS = {"(e0) PP2 with the hand-off's backward cut, control": "pp",
 
 
 def pp_ep_init(torch, config, arm: str, device):
-    """The arm's full tree from seed 0 on ``device`` (a ``torch.Generator``
-    there): the model's (``pp``, the pipeline's stages stack these draws)
-    or the MoE model's (``ep``)."""
+    """The arm's full tree from ``PRNGKey(0)`` on ``device``: the model's
+    (``pp``, the pipeline's stages stack these draws) or the MoE model's
+    (``ep``)."""
     from workloads_torch.model import init_params
     from workloads_torch.moe import MoEConfig, init_moe_model_params
 
-    gen = torch.Generator(device).manual_seed(0)
+    key = prng_key(0, device)
     if arm == "pp":
-        return init_params(config, gen)
-    return init_moe_model_params(config, MoEConfig(), gen)
+        return init_params(config, key)
+    return init_moe_model_params(config, MoEConfig(), key)
 
 
 def pp_ep_one_device(torch, f, tp, device, lr) -> dict:
@@ -4775,6 +4822,261 @@ def busy_phase(torch, counters, busy=BUSY, device="cuda") -> tuple[int, int]:
     print(f"  sharing phase: {time.perf_counter() - t_phase:.1f} s; busy counts lease-held "
           f"host time, as the JAX probe's does", flush=True)
     return launches, pod_launches
+
+
+# Phase 4k, JAX's threefry keys on the card (workloads_torch/prng.py and the
+# threefry kernel): the kernel against its plain version bit for bit at every
+# shape below, in its three modes, under PRNGKey(0), PRNGKey(42) and a split
+# and a fold_in descendant of each; layer 0's w_up from PRNGKey(0) on the card
+# against the CPU's plain draw; then phase 4's 12 requests in float32, sampled
+# at the serve CLI's knobs under rng=PRNGKey(42): the graphed drain against
+# the eager one token for token, and superstep_k=4 pipelined against k=1 on
+# one request a slot (with slot turnover the admission draws interleave with
+# the chunk keys at other steps, in the JAX engine as here, so the streams
+# differ by design), K1 and threefry launches counted a decode step.
+PRNG = dict(shapes=((1,), (7,), (3, 5, 7), (8, 32768), (2048, 32768)), seeds=(0, 42),
+            temperature=0.8, top_k=50, top_p=0.95, rng_seed=42, w_up_ulps=4,
+            timing_launches=64)
+# The threefry kernel's bound by operations: about 80 int32 operations an
+# element (20 rounds of add, funnel-shift and xor, 5 key injections of two
+# adds, the counter and the output) over the H100 SXM's INT32 rate, 64
+# lanes an SM (Hopper white paper) on 132 SMs at the 1.98 GHz boost clock.
+THREEFRY_OPS_PER_ELEMENT = 80
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def threefry_bound_ms(elements: int, out_bytes: int) -> tuple[float, str]:
+    """The least time for ``elements`` hashes writing ``out_bytes``: the
+    larger of the operations over the INT32 rate and the bytes (the key
+    read once, the output written once) over the memory rate."""
+    ops_ms = elements * THREEFRY_OPS_PER_ELEMENT / INT32_OPS_PER_S * 1e3
+    bytes_ms = (16 + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return max((ops_ms, "operations"), (bytes_ms, "bytes"))
+
+
+def check_threefry_cases(torch, tf, prng, pr=PRNG) -> tuple[int, float]:
+    """The kernel against ``threefry_reference`` on the same keys: pair,
+    bits and the uniform of [tiny, 1) (Gumbel's range), bit for bit.
+    These launches are not the path's.  Returns (cases, the largest
+    |kernel - plain| of the uniforms)."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    cases, worst = 0, 0.0
+    launches = tf.threefry.launches
+    for seed in pr["seeds"]:
+        base = prng.PRNGKey(seed, device="cuda")
+        for label, key in ((f"PRNGKey({seed})", base),
+                           (f"split(PRNGKey({seed}), 3)[1]", prng.split(base, 3)[1]),
+                           (f"fold_in(PRNGKey({seed}), 7)", prng.fold_in(base, 7))):
+            for shape in pr["shapes"]:
+                n = 1
+                for d in shape:
+                    n *= d
+                for mode in ("pair", "bits", "uniform"):
+                    got = tf.threefry(key[None].contiguous(), n, mode=mode, minval=tiny)
+                    want = tf.threefry_reference(key[None], n, mode=mode, minval=tiny)
+                    torch.cuda.synchronize()
+                    if mode == "uniform":
+                        worst = max(worst, (got - want).abs().max().item())
+                        got, want = got.view(torch.int32), want.view(torch.int32)
+                    differ = int((got != want).sum().item())
+                    if differ or got.shape != want.shape:
+                        fail(f"threefry kernel {mode} under {label} at {shape}: {differ} "
+                             f"elements differ from the plain version")
+                    cases += 1
+                    del got, want
+            print(f"  threefry kernel = plain version bit for bit under {label}: pair, bits "
+                  f"and uniform at {', '.join(map(str, pr['shapes']))}", flush=True)
+    tf.threefry.launches = launches
+    torch.cuda.empty_cache()
+    return cases, worst
+
+
+def sampled_drain(torch, engine, requests, counters, label):
+    """Serve ``requests`` from a fresh engine (no warm-up request: it would
+    draw keys the compared drain does not), every kernel launch counted.
+    Fails unless every request is ``ok`` with its full count, no page is
+    left in use, and K1 launched n_layers times a decode step.  Returns
+    the streams, decode steps and launch counts."""
+    rids = [engine.submit(p, n) for p, n in requests]
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    steps = engine.chunks_run * engine.chunk
+    streams = [served.get(r) for r in rids]
+    statuses = {r.rid: r.status for r in engine.completed}
+    for rid, (_, n), toks in zip(rids, requests, streams):
+        if statuses.get(rid) != "ok" or toks is None or len(toks) != n:
+            fail(f"4k {label} {rid}: status {statuses.get(rid)}, "
+                 f"{None if toks is None else len(toks)} tokens, wanted {n}")
+    if engine.ctrl.used_pages != 0:
+        fail(f"4k {label}: {engine.ctrl.used_pages} pages still in use after the drain")
+    k1 = counts["paged_attention"]
+    if k1 == 0 or k1 != engine.config.n_layers * steps:
+        fail(f"4k {label}: paged_attention launched {k1} times, expected n_layers x decode "
+             f"steps = {engine.config.n_layers * steps}")
+    print(f"  {label}: {sum(len(s) for s in streams)} tokens in {wall:.2f} s (graph capture "
+          f"included), {steps} decode steps, K1 {k1} ({k1 / steps:.0f} a step), threefry "
+          f"{counts['threefry']} ({counts['threefry'] / steps:.2f} a step)", flush=True)
+    return {"streams": streams, "steps": steps, "counts": counts, "wall": wall}
+
+
+def sampled_chunk_times(torch, paged_mod, prng, engine, rng, f):
+    """One sampled decode chunk from the same state through the graph and
+    through the eager loop, under one chunk key: tokens and pools
+    bit-identical; each timed on the host's clock to a synchronise, mean
+    of 3.  Returns (graph ms, eager ms)."""
+    for _ in range(f["slots"]):
+        engine.submit(rng.integers(0, engine.config.vocab_size, f["decode_prompt"]),
+                      2 * engine.chunk)
+    engine._admit()
+    engine._cover_chunk()
+    inputs = (engine._dev(engine._tables), engine._dev(engine._tokens),
+              engine._dev(engine._positions), engine._dev(engine._occupied))
+    key = engine._next_key()
+    saved = [p.clone() for p in engine.pools]
+
+    def restore():
+        for pool, copy in zip(engine.pools, saved):
+            pool.copy_(copy)
+        torch.cuda.synchronize()
+
+    def graph_chunk():
+        return engine._graph.run(*inputs, *engine._unbounded, engine.chunk,
+                                 keys=prng.split(key, engine.chunk))[0].clone()
+
+    def eager_chunk():
+        with torch.inference_mode():
+            return paged_mod.paged_decode_chunk(
+                engine.params, engine.pools, *inputs, key, engine.temperature, engine.top_k,
+                engine.top_p, engine.config, engine.chunk, True)[0]
+
+    results, times = {}, {}
+    for name, fn in (("graph", graph_chunk), ("eager", eager_chunk)):
+        restore()
+        fn()
+        runs = []
+        for _ in range(3):
+            restore()
+            t0 = time.perf_counter()
+            toks = fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        results[name] = (toks, [p.clone() for p in engine.pools])
+        times[name] = sum(runs) / len(runs)
+    restore()
+    engine.close()
+    same = torch.equal(results["graph"][0], results["eager"][0]) and all(
+        torch.equal(a, b) for a, b in zip(results["graph"][1], results["eager"][1]))
+    print(f"  one sampled chunk ({engine.chunk} steps, {f['slots']} rows, float32) from the "
+          f"same state and key: CUDA graph {times['graph']:.3f} ms, eager loop "
+          f"{times['eager']:.3f} ms (host clock to a synchronise, mean of 3); tokens and pools "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail("a sampled graphed chunk differs from the eager loop from the same state")
+    return times["graph"], times["eager"]
+
+
+def prng_phase(torch, f, requests, pa, pr=PRNG) -> dict:
+    """Phase 4k.  Returns the threefry kernel's record (every key of the
+    contract's kernel line) and the phase's K1 launches."""
+    import numpy as np
+
+    from workloads_torch import paged as paged_mod
+    from workloads_torch import prng
+    from workloads_torch.model import ModelConfig, init_params
+    from workloads_torch.ops import threefry as tf
+    from workloads_torch.serve import ServeEngine
+
+    cases, worst = check_threefry_cases(torch, tf, prng, pr)
+    config = ModelConfig(
+        d_model=f["d_model"], n_heads=f["n_heads"], n_layers=f["n_layers"], d_ff=f["d_ff"],
+        vocab_size=f["vocab_size"], max_seq_len=f["decode_prompt"] + f["decode_lens"][1],
+        dtype=torch.float32,
+    )
+    # One seed, one model: the card's tree against the CPU's plain draw.
+    params = init_params(config, prng.PRNGKey(0, device="cuda"))
+    keys = prng.split(prng.PRNGKey(0, device="cpu"), 2 + config.n_layers)
+    want = prng.normal(prng.split(keys[2], 6)[2], (config.d_model, config.d_ff)) * 0.02
+    got = params["layers"][0]["w_up"].cpu()
+    ulps = ((got.double() - want.double()).abs()
+            / torch.from_numpy(np.spacing(want.abs().numpy())).double())
+    print(f"  layer 0 w_up [{config.d_model}, {config.d_ff}] from PRNGKey(0): card against "
+          f"the CPU's plain draw, max {ulps.max().item():.0f} ulp, "
+          f"{(ulps > 0).double().mean().item():.4f} of the values apart (limit "
+          f"{pr['w_up_ulps']} ulp)", flush=True)
+    if not ulps.max().item() <= pr["w_up_ulps"]:
+        fail("the card's init_params from PRNGKey(0) is not the CPU's within "
+             f"{pr['w_up_ulps']} ulp")
+    del keys, want, got, ulps
+    counters = {"paged_attention": pa.paged_attention, "threefry": tf.threefry}
+    knobs = dict(temperature=pr["temperature"], top_k=pr["top_k"], top_p=pr["top_p"])
+    base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["page_size"],
+                device="cuda", **knobs)
+
+    def engine(**kw):
+        return ServeEngine(params, config, rng=prng.PRNGKey(pr["rng_seed"], device="cuda"),
+                           **base, **kw)
+
+    runs = {"graph": sampled_drain(torch, engine(), requests, counters,
+                                   "(a) sampled drain, graphed")}
+    eager = engine()
+    eager._graph = None  # every step through paged_decode_chunk, eagerly
+    runs["eager"] = sampled_drain(torch, eager, requests, counters,
+                                  "(b) sampled drain, eager")
+    del eager
+    one_a_slot = requests[:f["slots"]]
+    runs["k1"] = sampled_drain(torch, engine(), one_a_slot, counters,
+                               f"(c) {f['slots']} requests, one a slot, k=1")
+    runs["k4"] = sampled_drain(torch, engine(superstep_k=4, pipelined=True), one_a_slot,
+                               counters, f"(d) {f['slots']} requests, superstep_k=4 pipelined")
+    if runs["graph"]["streams"] != runs["eager"]["streams"]:
+        fail("4k: the sampled graphed drain differs from the eager drain")
+    if runs["k4"]["streams"] != runs["k1"]["streams"]:
+        fail("4k: the sampled superstep_k=4 pipelined drain differs from k=1")
+    print(f"  sampled streams: graphed = eager on {len(requests)} requests, superstep_k=4 "
+          f"pipelined = k=1 on {len(one_a_slot)}, token for token (float32)", flush=True)
+    for name in ("graph", "k1", "k4"):
+        if runs[name]["counts"]["threefry"] < runs[name]["steps"]:
+            fail(f"4k {name}: threefry launched {runs[name]['counts']['threefry']} times over "
+                 f"{runs[name]['steps']} sampled decode steps")
+    launches = runs["graph"]["counts"]["threefry"]
+    chunk_graph_ms, chunk_eager_ms = sampled_chunk_times(torch, paged_mod, prng, engine(),
+                                                         np.random.default_rng(0), f)
+    # The kernel at the main path's shape, the sampled step's [slots, vocab]
+    # uniform, as a CUDA graph of launches (it is shorter than a launch).
+    shape = (f["slots"], config.vocab_size)
+    n = shape[0] * shape[1]
+    key = prng.PRNGKey(pr["rng_seed"], device="cuda")[None].contiguous()
+    tiny = float(torch.finfo(torch.float32).tiny)
+    before = tf.threefry.launches
+    kernel_ms = graph_ms(lambda i: tf.threefry(key, n, mode="uniform", minval=tiny),
+                         pr["timing_launches"])
+    tf.threefry.launches = before
+    plain_ms = cuda_ms(lambda i: tf.threefry_reference(key, n, mode="uniform", minval=tiny),
+                       20)
+    bound_ms, bound_by = threefry_bound_ms(n, 4 * n)
+    print(f"  threefry kernel at [{shape[0]}, {shape[1]}] (uniform): {kernel_ms * 1e3:.2f} us "
+          f"(a CUDA graph of {pr['timing_launches']} launches), plain {plain_ms * 1e3:.2f} us, "
+          f"bound {bound_ms * 1e3:.2f} us by {bound_by} ({bound_ms / kernel_ms:.3f} of it); no "
+          f"PyTorch call computes threefry2x32; {cases} kernel-vs-plain cases bit-identical; "
+          f"launches on the sampled path {launches}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    record = {
+        "name": "threefry", "route": "cuda", "source": "workloads_torch/ops/csrc/threefry.cu",
+        "replaces": "none: XLA's threefry2x32 (jax/_src/prng.py threefry_2x32), no "
+                    "pl.pallas_call",
+        "launches": launches, "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "sampled_chunk_graph_ms": chunk_graph_ms, "sampled_chunk_eager_ms": chunk_eager_ms,
+        "launches_a_step": launches / runs["graph"]["steps"],
+    }
+    k1 = sum(runs[name]["counts"]["paged_attention"] for name in runs)
+    return {"record": record, "k1": k1}
 
 
 def kernel_counters(pa, fa) -> dict:
@@ -5240,7 +5542,7 @@ def main() -> int:
         dtype=torch.bfloat16,
     )
     params = cast_params(
-        init_params(config, torch.Generator("cuda").manual_seed(0)), config.dtype
+        init_params(config, prng_key(0, "cuda")), config.dtype
     )
     n_params = sum(
         w.numel() for w in [params["embed"], params["unembed"]]
@@ -5397,13 +5699,22 @@ def main() -> int:
     print(f"  perfbench fleet arms: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{bench_fleet_launches}; card: {card}", flush=True)
 
-    # 4j. tensor-parallel serving, two ranks on the one card
+    # 4j. tensor-parallel serving, two ranks on the one card, at half the
+    # depth (widths unchanged), so the run keeps inside its time limit
     phase("serving path: tensor-parallel serving, 2 ranks over gloo on one card, float32 "
-          "arms and a bf16 step")
+          "arms and a bf16 step, 4 of the model's 8 layers")
     t0 = time.perf_counter()
-    tp_launches = tp_phase(torch, f, requests)
+    tp_launches = tp_phase(torch, dict(f, n_layers=WORLD_PHASE_LAYERS), requests)
     print(f"  tensor-parallel phase: {time.perf_counter() - t0:.1f} s, K1 launches "
           f"{tp_launches} over both ranks; card: {card}", flush=True)
+
+    # 4k. JAX's threefry keys on the card: the kernel, the seeded weights and
+    # the sampled streams
+    phase("serving path: JAX's threefry keys, the threefry kernel and sampled drains at "
+          "full width")
+    prng_out = prng_phase(torch, f, requests, pa)
+    threefry_record = dict(prng_out["record"], card=card)
+    print(f"  card: {card}", flush=True)
 
     # 5. numbers at the main path's shapes: 8 slots at the deepest
     # position a request of this run reaches (32 + 512 = 544 tokens).
@@ -5511,8 +5822,9 @@ def main() -> int:
         "replaces": "workloads/ops/paged_attention.py:56",
         "launches": launches + lifecycle_launches + kv_launches + spec_launches
         + lora_launches + fleet_launches + profiling_launches + bench_engine_launches
-        + bench_fleet_launches + tp_launches,
+        + bench_fleet_launches + tp_launches + prng_out["k1"],
         "lifecycle_launches": lifecycle_launches,
+        "prng_launches": prng_out["k1"],
         "kv_launches": kv_launches,
         "spec_launches": spec_launches,
         "lora_launches": lora_launches,
@@ -5571,19 +5883,20 @@ def main() -> int:
     record["bench_kernel_launches"] = bench_launches["paged_attention"]
     torch.cuda.empty_cache()
 
-    # 6g. the training layouts, two ranks on the one card
+    # 6g. the training layouts, two ranks on the one card, at half the depth
     phase("training path: data-, tensor- and sequence-parallel steps, 2 gloo ranks on one "
-          "card, full width")
+          "card, full width, 4 of the model's 8 layers")
     t0 = time.perf_counter()
-    train_par_launches = train_parallel_phase(torch, f)
+    train_par_launches = train_parallel_phase(torch, dict(f, n_layers=WORLD_PHASE_LAYERS))
     print(f"  training layouts phase: {time.perf_counter() - t0:.1f} s; card: {card}",
           flush=True)
 
-    # 6h. the pipeline and expert layouts, two ranks on the one card
+    # 6h. the pipeline and expert layouts, two ranks on the one card, at half
+    # the depth
     phase("training path: pipeline- and expert-parallel steps, 2 gloo ranks on one card, "
-          "full width")
+          "full width, 4 of the model's 8 layers")
     t0 = time.perf_counter()
-    pp_ep_launches_ = pp_ep_phase(torch, f)
+    pp_ep_launches_ = pp_ep_phase(torch, dict(f, n_layers=WORLD_PHASE_LAYERS))
     print(f"  pipeline and expert layouts phase: {time.perf_counter() - t0:.1f} s; card: "
           f"{card}", flush=True)
 
@@ -5602,8 +5915,10 @@ def main() -> int:
         rec["bench_launches"] = bench_launches[rec["name"]]
         rec["train_parallel_launches"] = train_par_launches[rec["name"]]
         rec["pipeline_expert_launches"] = pp_ep_launches_[rec["name"]]
-    print(f"  card: {card}", flush=True)
-    print(json.dumps({"kernels": [record, *flash_records]}), flush=True)
+    end_phase()
+    print(f"  chip_smoke: {time.perf_counter() - T_START:.1f} s in all; card: {card}",
+          flush=True)
+    print(json.dumps({"kernels": [record, *flash_records, threefry_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

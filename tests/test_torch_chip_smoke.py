@@ -75,6 +75,7 @@ def test_lora_phases_rehearse_on_the_cpu(capsys):
 
     from workloads_torch import model as model_mod
     from workloads_torch import train as train_mod
+    from workloads_torch import prng
     from workloads_torch.model import ModelConfig, cast_params, init_params
     from workloads_torch.ops import attention as fa
     from workloads_torch.ops import paged_attention as pa
@@ -87,7 +88,7 @@ def test_lora_phases_rehearse_on_the_cpu(capsys):
                  train_seq=33)
         config = ModelConfig(d_model=64, n_heads=4, n_layers=2, d_ff=128, vocab_size=256,
                              max_seq_len=40, dtype=torch.bfloat16)
-        params = cast_params(init_params(config, torch.Generator().manual_seed(0)),
+        params = cast_params(init_params(config, prng.PRNGKey(0, device="cpu")),
                              config.dtype)
         rng = np.random.default_rng(0)
         requests = [(rng.integers(0, 256, 8), n) for n in [16, 32, 24, 20] * 3]
@@ -116,6 +117,7 @@ def test_fleet_phase_rehearses_on_the_cpu(capsys):
     the float32 arms equal to one plain engine's streams."""
     import torch
 
+    from workloads_torch import prng
     from workloads_torch.model import ModelConfig, cast_params, init_params
     from workloads_torch.ops import attention as fa
     from workloads_torch.ops import paged_attention as pa
@@ -125,7 +127,7 @@ def test_fleet_phase_rehearses_on_the_cpu(capsys):
     try:
         config = ModelConfig(vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=128,
                              max_seq_len=64, dtype=torch.bfloat16)
-        params = cast_params(init_params(config, torch.Generator().manual_seed(0)),
+        params = cast_params(init_params(config, prng.PRNGKey(0, device="cpu")),
                              config.dtype)
         f = dict(chip_smoke.FULL, slots=2, page_size=4, decode_prompt=8)
         fl = dict(chip_smoke.FLEET, prompt=(4, 24), new=(4, 12), long_new=(8, 16),
@@ -165,6 +167,7 @@ def test_profiling_phase_rehearses_on_the_cpu(capsys):
     and a plain step give the same greedy tokens."""
     import torch
 
+    from workloads_torch import prng
     from workloads_torch.model import ModelConfig, cast_params, init_params
     from workloads_torch.ops import attention as fa
     from workloads_torch.ops import paged_attention as pa
@@ -174,7 +177,7 @@ def test_profiling_phase_rehearses_on_the_cpu(capsys):
     try:
         config = ModelConfig(vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=128,
                              max_seq_len=64, dtype=torch.float32)
-        params = cast_params(init_params(config, torch.Generator().manual_seed(0)),
+        params = cast_params(init_params(config, prng.PRNGKey(0, device="cpu")),
                              config.dtype)
         f = dict(chip_smoke.FULL, slots=2, page_size=4, decode_prompt=8)
         fl = dict(chip_smoke.FLEET, prompt=(4, 24), long_new=(8, 16), max_seq_len=48)

@@ -26,6 +26,7 @@ import torch
 from tpu_device_plugin.api.constants import HEALTHY, UNHEALTHY
 from tpu_device_plugin.device import HealthEvent
 from types import SimpleNamespace
+from workloads_torch import prng
 from workloads_torch.autoscaler import FleetAutoscaler
 from workloads_torch.backoff import Backoff
 from workloads_torch.control import GoodputController, ControlSignals
@@ -58,7 +59,7 @@ def make_engine_factory(*args, device="cpu", **kw):
 
 # ==== tests/test_supervisor.py
 CONFIG = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-PARAMS = init_params(CONFIG, torch.Generator().manual_seed(0))
+PARAMS = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 ENGINE_KW = dict(slots=2, page_size=4, prompt_bucket=8)
 PROBE = ([1, 2, 3], 4)
 
@@ -272,7 +273,7 @@ def test_probe_divergence_keeps_the_replacement_out():
         ),
         crash_loop_k=1000,
     )
-    bad_params = init_params(CONFIG, torch.Generator().manual_seed(9))
+    bad_params = init_params(CONFIG, prng.PRNGKey(9, device="cpu"))
     good_factory = sup.engine_factory
     sup.engine_factory = lambda slot: ServeEngine(
         bad_params, CONFIG, **ENGINE_KW
@@ -1299,7 +1300,7 @@ DRAFT_CONFIG = ModelConfig(
 # controller exists to retune away.  Greedy spec decoding stays exact
 # regardless of draft quality, so oracle parity still pins every
 # stream.
-BAD_DRAFT = init_params(DRAFT_CONFIG, torch.Generator().manual_seed(99))
+BAD_DRAFT = init_params(DRAFT_CONFIG, prng.PRNGKey(99, device="cpu"))
 CONTROL_FAST = Backoff(base_s=1e-6, max_s=1e-6, jitter=0.0)
 
 

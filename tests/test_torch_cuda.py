@@ -23,11 +23,13 @@ import pytest
 import torch
 
 import workloads_torch.model as tmodel
+from workloads_torch import prng
 from workloads_torch import train as ttrain
 from workloads_torch.generate import generate
 from workloads_torch.model import ModelConfig, init_params
 from workloads_torch.ops import attention as fa
 from workloads_torch.ops import paged_attention as pa
+from workloads_torch.ops.threefry import threefry
 from workloads_torch.paged import paged_decode_chunk
 from workloads_torch.serve import ServeEngine
 
@@ -175,7 +177,7 @@ def test_engine_on_the_card_matches_generate(cuda):
     """float32 tiny model on the card: the engine's greedy streams (paged
     decode through the kernel) equal generate()'s (dense cached decode)."""
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cuda"))
     engine = ServeEngine(params, config, slots=2, page_size=4, prompt_bucket=12,
                          chunk=4)
     prompts = [[5, 9, 13], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11], [42]]
@@ -408,17 +410,18 @@ def _on(params: dict, device) -> dict:
 @pytest.mark.parametrize("slots", [2, 4])
 def test_decode_graph_chunk_equals_the_eager_chunk(cuda, slots, dtype, sampling):
     """One chunk through the engine's CUDA graph and through the eager
-    loop from the same state (pools, inputs, generator): tokens and pools
-    bit-identical, the sampled draws too (each replay advances the
-    generator as an eager step does).  At 2 and 4 rows the pools of both
-    dtypes take K1's split route inside the graph; K1's count moves
-    n_layers a replay."""
+    loop from the same state (pools, inputs, the chunk's key): tokens and
+    pools bit-identical, the sampled draws too (replay i reads step i's
+    key, ``split(rng, chunk)[i]``, as eager step i does).  At 2 and 4
+    rows the pools of both dtypes take K1's split route inside the graph;
+    K1's count moves n_layers a replay, the threefry kernel's once a
+    sampled replay."""
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
-    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+    params = tmodel.cast_params(init_params(config, prng.PRNGKey(0, device="cuda")),
                                 dtype)
     engine = ServeEngine(params, config, slots=slots, page_size=4, prompt_bucket=12, chunk=4,
                          temperature=0.8 if sampling else 0.0, top_k=40 if sampling else 0,
-                         generator=torch.Generator("cuda").manual_seed(7))
+                         rng=prng.PRNGKey(7, device="cuda"))
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     assert pa.choose_splits(slots, config.kv_heads, engine.max_pages, sm_count) > 1
     for i in range(slots):
@@ -429,18 +432,20 @@ def test_decode_graph_chunk_equals_the_eager_chunk(cuda, slots, dtype, sampling)
               engine._dev(engine._positions), engine._dev(engine._occupied))
     engine._graph.capture()  # its warm-up writes the trash page: before the state is kept
     saved = [p.clone() for p in engine.pools]
-    state = engine.generator.get_state()
-    before = pa.paged_attention.launches
-    graph_toks = engine._graph.run(*inputs, *engine._unbounded, engine.chunk)[0].clone()
+    rng = engine._next_key() if sampling else None
+    keys = prng.split(rng, engine.chunk) if sampling else None
+    before = pa.paged_attention.launches, threefry.launches
+    graph_toks = engine._graph.run(*inputs, *engine._unbounded, engine.chunk,
+                                   keys=keys)[0].clone()
     torch.cuda.synchronize()
-    assert pa.paged_attention.launches - before == config.n_layers * engine.chunk
+    assert pa.paged_attention.launches - before[0] == config.n_layers * engine.chunk
+    assert threefry.launches - before[1] == (engine.chunk if sampling else 0)
     graph_pools = [p.clone() for p in engine.pools]
     for pool, copy in zip(engine.pools, saved):
         pool.copy_(copy)
-    engine.generator.set_state(state)
     with torch.inference_mode():
         eager_toks, _ = paged_decode_chunk(
-            engine.params, engine.pools, *inputs, engine.generator if sampling else None,
+            engine.params, engine.pools, *inputs, rng,
             engine.temperature, engine.top_k, engine.top_p, config, engine.chunk, sampling)
     torch.cuda.synchronize()
     assert torch.equal(graph_toks, eager_toks)
@@ -459,7 +464,7 @@ def test_card_engine_streams_equal_the_cpu_engine(cuda, mode):
     readbacks) emits the CPU engine's greedy streams, and K1 launched
     n_layers times a decode step."""
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator().manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cpu"))
     rng = torch.Generator().manual_seed(3)
     requests = [(torch.randint(0, 256, (n,), generator=rng).tolist(), new)
                 for n, new in ((3, 17), (19, 9), (11, 24), (1, 5), (26, 12))]
@@ -483,7 +488,7 @@ def test_engine_uploads_do_not_race_the_host_mirrors(cuda):
     upload queues behind device work, scribbling on the mirror an upload
     was made from until the device has caught up changes no token."""
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cuda"))
     requests = [([3, 1, 4, 1, 5], 17), ([2, 7], 9), ([9] * 11, 13), ([6, 6], 20)]
 
     def serve(racing: bool):
@@ -511,15 +516,15 @@ def test_engine_uploads_do_not_race_the_host_mirrors(cuda):
 
 
 def test_sampled_graph_stream_is_seeded(cuda):
-    """Sampling inside the graph: one generator seed gives one stream,
-    another seed another, and the draws change from step to step."""
+    """Sampling inside the graph: one key gives one stream, another key
+    another, and the draws change from step to step."""
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cuda"))
 
     def serve(seed):
         engine = ServeEngine(params, config, slots=2, page_size=4, prompt_bucket=8,
                              superstep_k=2, pipelined=True, temperature=0.8, top_k=40,
-                             generator=torch.Generator("cuda").manual_seed(seed))
+                             rng=prng.PRNGKey(seed, device="cuda"))
         rids = [engine.submit([1 + i, 2], 24) for i in range(3)]
         served = engine.run()
         return [served[r] for r in rids]
@@ -542,7 +547,7 @@ def test_bf16_decode_step_at_two_rows_splits_within_its_floor(cuda):
 
     config = ModelConfig(d_model=512, n_heads=8, n_layers=4, d_ff=2048, vocab_size=4096,
                          max_seq_len=512, dtype=torch.bfloat16)
-    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+    params = tmodel.cast_params(init_params(config, prng.PRNGKey(0, device="cuda")),
                                 torch.bfloat16)
     lengths, ps = [431, 250], 16
     width = -(-max(lengths) // ps) + 1
@@ -566,7 +571,7 @@ _LIFE_REQUESTS = [([3, 1, 4, 1, 5], 30), ([2, 7], 40), ([9] * 11, 25), ([6, 6], 
 
 def _life_model():
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
-    return config, init_params(config, torch.Generator("cuda").manual_seed(0))
+    return config, init_params(config, prng.PRNGKey(0, device="cuda"))
 
 
 def _life_engine(params, config, **kw):
@@ -597,9 +602,9 @@ def test_quarantine_mid_superstep_replays_into_the_dropped_supersteps_pages(cuda
                           **kw)
     graph_run = engine._graph.run
 
-    def slow_run(*args):
+    def slow_run(*args, **kwargs):
         torch.cuda._sleep(20_000_000)
-        return graph_run(*args)
+        return graph_run(*args, **kwargs)
 
     engine._graph.run = slow_run
     quarantine, allocate = engine._quarantine_step, engine.ctrl.allocate
@@ -767,7 +772,7 @@ def test_bf16_spill_and_reload_round_trip_bit_exactly(cuda):
     from workloads_torch.paged import read_page
 
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.bfloat16)
-    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+    params = tmodel.cast_params(init_params(config, prng.PRNGKey(0, device="cuda")),
                                 torch.bfloat16)
     engine = _kv_engine(params, config)
     _random_pools(engine)
@@ -836,16 +841,16 @@ def test_a_reload_queued_behind_a_superstep_in_flight_changes_no_token(cuda):
     streams are the CPU engine's, and some reload met a superstep in
     flight."""
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator().manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cpu"))
     kw = dict(superstep_k=2, pipelined=True, n_pages=20)
     want = _kv_turns(_kv_engine(params, config, device="cpu", **kw))
     engine = _kv_engine(_on(params, "cuda"), config, **kw)
     graph_run, reload = engine._graph.run, engine._reload_page
     in_flight = []
 
-    def slow_run(*args):
+    def slow_run(*args, **kwargs):
         torch.cuda._sleep(5_000_000)
-        return graph_run(*args)
+        return graph_run(*args, **kwargs)
 
     def watching_reload(blob):
         in_flight.append(any(not read.event.query() for read, _ in engine._pending_super))
@@ -896,7 +901,7 @@ def test_card_kv_runs_equal_the_cpu_engine(cuda, scenario, mode):
     from tests.test_torch_kv_hierarchy import KV_CASE, KV_COUNTERS, run_kv_scenario
 
     config = tiny_config(KV_CASE)
-    params = init_params(config, torch.Generator().manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cpu"))
     runs = {}
     for device in ("cpu", "cuda"):
         before = pa.paged_attention.launches
@@ -918,7 +923,7 @@ def _spec_engine(dtype, device="cuda", slots=3, **kw):
     from workloads_torch.quant import quantize_params
 
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
-    params = tmodel.cast_params(init_params(config, torch.Generator().manual_seed(0)), dtype)
+    params = tmodel.cast_params(init_params(config, prng.PRNGKey(0, device="cpu")), dtype)
     params = _on(params, device)
     return ServeEngine(params, config, slots=slots, page_size=4, prompt_bucket=8, chunk=4,
                        draft_params=quantize_params(params), draft_config=config, gamma=3,
@@ -930,7 +935,7 @@ def _spec_engine(dtype, device="cuda", slots=3, **kw):
 def test_spec_graph_round_equals_the_eager_round_at_two_covers(cuda, dtype, sampling):
     """One spec round through its captured graph and through
     ``paged.spec_chained_round`` eagerly from the same state (pools,
-    inputs, generator), at two cover buckets: committed tokens, n, the
+    inputs, the round's key), at two cover buckets: committed tokens, n, the
     carry and both pool pairs bit-identical (the trash page, which
     duplicate writes share, aside); K1's count moves (gamma+1) x layers
     a replay."""
@@ -938,7 +943,7 @@ def test_spec_graph_round_equals_the_eager_round_at_two_covers(cuda, dtype, samp
 
     engine = _spec_engine(dtype, temperature=0.8 if sampling else 0.0,
                           top_k=40 if sampling else 0,
-                          generator=torch.Generator("cuda").manual_seed(7))
+                          rng=prng.PRNGKey(7, device="cuda"))
     for i, n in enumerate((3, 11, 6)):
         engine.submit([(5 * i + j) % 256 for j in range(n)], 20)
     engine._admit()
@@ -959,20 +964,20 @@ def test_spec_graph_round_equals_the_eager_round_at_two_covers(cuda, dtype, samp
     for cover in covers:
         graph.capture(cover)  # its warm-up writes the trash page: before the state is kept
         saved = [p.clone() for p in pools]
-        state = engine.generator.get_state()
+        rng = engine._next_key() if sampling else None
         before = pa.paged_attention.launches
-        got = [t.clone() for t in graph.run(tables, cur, pos, occ, budget, eos, 1, cover)]
+        got = [t.clone() for t in graph.run(tables, cur, pos, occ, budget, eos, 1, cover,
+                                            keys=rng[None] if sampling else None)]
         torch.cuda.synchronize()
         assert pa.paged_attention.launches - before == u * engine.draft_config.n_layers
         got_pools = [p.clone() for p in pools]
         for p, s in zip(pools, saved):
             p.copy_(s)
-        engine.generator.set_state(state)
         with torch.inference_mode():
             want = spec_chained_round(
                 engine.params, engine.draft_params, engine.pools, engine.d_pools, tables, cur,
                 pos, occ, budget, eos, engine.config, engine.draft_config, engine.gamma,
-                cover, sampling=sampling, generator=engine.generator,
+                cover, sampling=sampling, rng=rng,
                 temperature=engine.temperature, top_k=engine.top_k, top_p=engine.top_p)
         torch.cuda.synchronize()
         assert torch.equal(got[0][0], want[0]) and torch.equal(got[1][0], want[1])
@@ -1079,11 +1084,11 @@ def test_card_spec_streams_equal_the_cpu_engine(cuda, mode):
 
 def test_auto_sampling_captures_both_graphs_on_one_generator(cuda):
     """spec="auto" with sampling: the decode graph and the spec graph both
-    capture and draw from the engine's one generator; every request gets
+    capture and draw from the engine's one key stream; every request gets
     its budget and the pool drains."""
     engine = _spec_engine(torch.bfloat16, slots=2, spec="auto", spec_breakeven=1.0,
                           temperature=0.8, top_k=40,
-                          generator=torch.Generator("cuda").manual_seed(3))
+                          rng=prng.PRNGKey(3, device="cuda"))
     rids = [engine.submit([4 + i, 8, 15], 14 + 3 * i) for i in range(3)]
     served = engine.run()
     assert [len(served[r]) for r in rids] == [14, 17, 20]
@@ -1108,7 +1113,7 @@ def test_lora_graph_chunk_equals_the_eager_chunk_with_mixed_adapters(cuda, dtype
     adapters: tokens and pools bit-identical; the graph holds one more
     static buffer, the adapter index, and K1 moves n_layers a replay."""
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=dtype)
-    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+    params = tmodel.cast_params(init_params(config, prng.PRNGKey(0, device="cuda")),
                                 dtype)
     adapters = _lora_adapters(config, "cuda")
     engine = ServeEngine(params, config, slots=3, page_size=4, prompt_bucket=8, chunk=4,
@@ -1148,7 +1153,7 @@ def test_a_graph_without_adapters_holds_no_index_buffer(cuda):
     """An engine without adapters captures the graph it captured before:
     no adapter buffer, and an index handed to it is refused."""
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cuda"))
     engine = ServeEngine(params, config, slots=2, page_size=4, prompt_bucket=8, chunk=4)
     assert engine._graph.aidx is None and engine._stacked_adapters is None
     with pytest.raises(ValueError, match="aidx"):
@@ -1167,7 +1172,7 @@ def test_card_lora_streams_equal_the_cpu_engine_with_one_capture(cuda, mode):
     greedy streams for a stream whose adapter mix changes at every
     admission, and its graph is captured once: churn replays it."""
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator().manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cpu"))
     adapters = _lora_adapters(config, "cpu")
     names = [None] + sorted(adapters)
     requests = [([(7 * i + j) % 256 for j in range(n)], new, names[i % 3])
@@ -1193,8 +1198,7 @@ def test_card_lora_spec_streams_equal_the_cpu_engine_without_recapture(cuda):
     """float32 speculation over adapters (the target's verify adapted,
     the int8 self-draft not): the card's streams equal the CPU's, and
     each cover's round graph is captured once through the churn."""
-    # One draw of the factors (on the CPU: a generator's numbers differ
-    # by device), moved to each engine's device.
+    # One draw of the factors on the CPU, moved to each engine's device.
     adapters = _lora_adapters(ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2,
                                           dtype=torch.float32), "cpu")
     out = {}
@@ -1221,7 +1225,7 @@ def test_pipelined_adapter_index_is_snapshotted_at_dispatch(cuda):
     copy: scribbling on the mirror after each upload, while the device
     is still busy, changes no token of any row."""
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-    params = init_params(config, torch.Generator("cuda").manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cuda"))
     adapters = _lora_adapters(config, "cuda")
     names = [None] + sorted(adapters)
     requests = [([3, 1, 4, 1, 5], 17), ([2, 7], 9), ([9] * 11, 13), ([6, 6], 20),
@@ -1279,9 +1283,9 @@ def test_lora_train_step_launches_the_flash_kernels_and_keeps_the_base(cuda, mon
     monkeypatch.setattr(tmodel, "flash_min_seq", lambda: 1)
     config = ModelConfig(max_seq_len=65, n_layers=2, n_heads=4, d_model=256,
                          attention_impl="flash")
-    base = init_params(config, torch.Generator("cuda").manual_seed(0))
+    base = init_params(config, prng.PRNGKey(0, device="cuda"))
     kept = [t.clone() for t in ttrain.tree_leaves(base)]
-    adapters = lora_init(config, 4, torch.Generator("cuda").manual_seed(1))
+    adapters = lora_init(config, 4, prng.PRNGKey(1, device="cuda"))
     optimizer = ttrain.AdamW(lr=1e-2, mu_dtype=torch.float32)
     state = optimizer.init(adapters)
     step = make_lora_train_step(config, optimizer, base)
@@ -1357,7 +1361,7 @@ def test_an_observed_engine_captures_and_streams_as_an_unobserved_one(cuda, dtyp
     from workloads_torch.quant import quantize_params
 
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
-    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+    params = tmodel.cast_params(init_params(config, prng.PRNGKey(0, device="cuda")),
                                 dtype)
     spec = dict(draft_params=quantize_params(params), draft_config=config, gamma=2)
     for mode in ({}, {"superstep_k": 2, "pipelined": True}, spec):
@@ -1541,7 +1545,7 @@ def test_an_engine_that_captures_under_an_active_profile_captures_once_and_strea
     from workloads_torch.profiler import ProfileSession
 
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
-    params = tmodel.cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)),
+    params = tmodel.cast_params(init_params(config, prng.PRNGKey(0, device="cuda")),
                                 dtype)
     want = _plain_streams(params, config)
     session = ProfileSession(str(tmp_path), max_secs=60.0)
@@ -1641,7 +1645,7 @@ def test_time_paged_chunks_graphed_tokens_equal_the_eager_chunks(cuda, dtype):
     from workloads_torch.perfbench import _paged_chunk_runner
 
     config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=dtype)
-    params = cast_params(init_params(config, torch.Generator("cuda").manual_seed(0)), dtype)
+    params = cast_params(init_params(config, prng.PRNGKey(0, device="cuda")), dtype)
     kw = dict(batch=3, prompt_len=5, page_size=4, chunk=4, n_hi=3, device=cuda)
     graphed = _paged_chunk_runner(params, config, **kw)(3)
     eager = _paged_chunk_runner(params, config, **kw, graph=False)(3)
@@ -1697,3 +1701,76 @@ def test_serve_burst_on_the_card_launches_k1(cuda):
     burst()
     assert pa.paged_attention.launches > built
     assert tokens > 0 and tokens % 32 == 0
+
+
+# ---- the threefry kernel ------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["pair", "bits", "uniform"])
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5, 7), (8, 32768)], ids=str)
+def test_threefry_kernel_bits_equal_the_plain_version(cuda, shape, mode):
+    """The kernel against ``threefry_reference`` on the same keys, bit for
+    bit (integer arithmetic; the uniform's multiply and add are IEEE
+    rounded), for one key, a batch of keys and a counter base; one launch
+    a call."""
+    from workloads_torch.ops.threefry import threefry_reference
+
+    n = 1
+    for d in shape:
+        n *= d
+    base = prng.PRNGKey(42, device="cuda")
+    for keys, at in ((base[None], 0), (prng.split(base, 3), 0), (prng.fold_in(base, 5)[None], 9)):
+        before = threefry.launches
+        got = threefry(keys, n, mode=mode, base=at, minval=-2.0, maxval=2.0)
+        assert threefry.launches - before == 1
+        want = threefry_reference(keys, n, mode=mode, base=at, minval=-2.0, maxval=2.0)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if mode == "uniform":
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want)
+
+
+def test_threefry_kernel_refuses_keys_it_does_not_take(cuda):
+    keys = prng.PRNGKey(0, device="cuda")[None]
+    with pytest.raises(ValueError, match="int64"):
+        threefry(keys.to(torch.int32), 4, mode="bits")
+    with pytest.raises(ValueError, match="contiguous"):
+        threefry(torch.zeros((2, 4), dtype=torch.int64, device="cuda")[:, ::2], 4, mode="bits")
+
+
+def test_seeded_weights_on_the_card_equal_the_cpus(cuda):
+    """One seed, one model: the card's init_params from PRNGKey(0) within
+    4 ulp of the CPU's (the same words, uniforms bit for bit; erfinv's
+    float32 ops may round apart on the two devices)."""
+    import numpy as np
+
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
+    card = init_params(config, prng.PRNGKey(0, device="cuda"))
+    host = init_params(config, prng.PRNGKey(0, device="cpu"))
+    for got, want in ((card["embed"], host["embed"]),
+                      (card["layers"][1]["w_up"], host["layers"][1]["w_up"])):
+        got, want = got.cpu().numpy(), want.numpy()
+        ulps = np.abs(got.astype(np.float64) - want) / np.spacing(np.abs(want))
+        assert ulps.max() <= 4
+
+
+def test_sampled_engine_on_the_card_equals_the_cpu_engine(cuda):
+    """float32, sampled at the CLI's knobs: the card's streams (graphed,
+    the threefry kernel in every step) equal the CPU engine's token for
+    token, with a key from the same seed on each side, and the kernel
+    launched once a sampled decode step at least."""
+    config = ModelConfig(max_seq_len=64, n_layers=2, n_kv_heads=2, dtype=torch.float32)
+    params = init_params(config, prng.PRNGKey(0, device="cpu"))
+    requests = [([3, 1, 4, 1, 5], 17), ([2, 7], 9), ([9] * 11, 13), ([6, 6], 20)]
+    streams = {}
+    for device in ("cpu", "cuda"):
+        engine = ServeEngine(_on(params, device), config, slots=2, page_size=4,
+                             prompt_bucket=8, chunk=4, device=device, temperature=0.8,
+                             top_k=50, top_p=0.95, rng=prng.PRNGKey(42, device=device))
+        rids = [engine.submit(p, n) for p, n in requests]
+        before = threefry.launches
+        served = engine.run()
+        streams[device] = [served[r] for r in rids]
+    assert threefry.launches - before >= engine.chunks_run * engine.chunk
+    assert streams["cuda"] == streams["cpu"]

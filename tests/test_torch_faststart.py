@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from tests.test_torch_superstep import one_torch_thread  # noqa: F401
+from workloads_torch import prng
 from workloads_torch.backoff import Backoff
 from workloads_torch.faststart import (
     SNAPSHOT_VERSION,
@@ -83,8 +84,8 @@ FAST = Backoff(base_s=1e-3, factor=2.0, max_s=8e-3, jitter=0.0)
 
 @pytest.fixture(scope="module")
 def models():
-    params = init_params(CONFIG, torch.Generator().manual_seed(0))
-    draft = init_params(DRAFT_CONFIG, torch.Generator().manual_seed(7))
+    params = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
+    draft = init_params(DRAFT_CONFIG, prng.PRNGKey(7, device="cpu"))
     return params, draft
 
 
@@ -242,7 +243,7 @@ def test_primed_respawn_streams_bit_identical_sampled(models):
     kw = dict(temperature=0.8, top_k=20)
     requests = [([5, 6, 7], 10), ([2, 4], 6)]
 
-    cold = _auto_engine(params, draft, generator=torch.Generator().manual_seed(123), **kw)
+    cold = _auto_engine(params, draft, rng=prng.PRNGKey(123, device="cpu"), **kw)
     rid = cold.submit(PROBE[0], PROBE[1])
     oracle = list(cold.run()[rid])
     snap = EngineSnapshot.capture(cold, probe=PROBE, probe_oracle=oracle)
@@ -250,7 +251,7 @@ def test_primed_respawn_streams_bit_identical_sampled(models):
     assert cold.calibration_reused == 0
     cold.close()
 
-    warm = _auto_engine(params, draft, generator=torch.Generator().manual_seed(123), **kw)
+    warm = _auto_engine(params, draft, rng=prng.PRNGKey(123, device="cpu"), **kw)
     assert snap.prime(warm)
     rid = warm.submit(PROBE[0], PROBE[1])
     assert list(warm.run()[rid]) == oracle

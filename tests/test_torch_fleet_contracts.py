@@ -26,6 +26,7 @@ import torch
 
 from tpu_device_plugin.api.constants import HEALTHY, UNHEALTHY
 from tpu_device_plugin.device import HealthEvent
+from workloads_torch import prng
 from workloads_torch.durable import KVDiskTier, SessionJournal, _pack_blob, _unpack_blob, atomic_write_bytes, atomic_write_json
 from workloads_torch.errors import EngineClosed, InvalidRequest, QueueFull
 from workloads_torch.faults import REPLICA_SEAMS, FaultInjector
@@ -58,7 +59,7 @@ def make_engine_factory(*args, device="cpu", **kw):
 
 # ==== tests/test_fleet.py
 CONFIG = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-PARAMS = init_params(CONFIG, torch.Generator().manual_seed(0))
+PARAMS = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 TERMINAL = {"ok", "cancelled", "expired", "failed"}
 
 
@@ -1684,7 +1685,7 @@ def test_durable_check_smoke(tmp_path):
     bit-identical to the uninterrupted durability-OFF oracle — then
     fresh submissions keep working (the rid counter fast-forwarded
     past every restored rid)."""
-    params = init_params(CONFIG, torch.Generator().manual_seed(0))
+    params = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
     reqs = _reqs()
 
     oracle = _mk_fleet(params, None)
@@ -1727,7 +1728,7 @@ def test_durable_check_smoke(tmp_path):
 
 
 def test_restore_is_boot_time_only_and_cold_start_is_zero(tmp_path):
-    params = init_params(CONFIG, torch.Generator().manual_seed(0))
+    params = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
     fleet = _mk_fleet(params, str(tmp_path))
     assert fleet.restore() == 0  # absent journal: cold start, no raise
     fleet.submit([1, 2, 3], 2)
@@ -1741,7 +1742,7 @@ def test_completed_sessions_restore_as_history_without_redispatch(tmp_path):
     tokens but move no terminal counters (they were the dead process's
     work); a journaled-complete live stream finishes without a single
     new dispatch."""
-    params = init_params(CONFIG, torch.Generator().manual_seed(0))
+    params = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
     reqs = _reqs()
     root = str(tmp_path)
     fleet = _mk_fleet(params, root)
@@ -2100,7 +2101,7 @@ def _run_fleet_chaos_impl(seed: int, params, adapters, root: str) -> None:
 
 
 def test_fleet_chaos_fuzz():
-    params = init_params(CONFIG, torch.Generator().manual_seed(0))
+    params = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
     adapters = synthetic_adapters(CONFIG, 2, rank=4, scale=0.3, seed=3, device="cpu")
     for seed in range(4):
         _serve_fuzz_run_fleet_chaos(seed, params, adapters)
@@ -2348,7 +2349,7 @@ def _run_supervised_chaos_impl(seed: int, params, adapters, root) -> None:
 
 
 def test_supervised_fleet_chaos_fuzz():
-    params = init_params(CONFIG, torch.Generator().manual_seed(0))
+    params = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
     adapters = synthetic_adapters(CONFIG, 2, rank=4, scale=0.3, seed=3, device="cpu")
     for seed in range(3):
         _run_supervised_chaos(seed, params, adapters)

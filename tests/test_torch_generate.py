@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import workloads_torch
+from workloads_torch import prng
 from workloads_torch.generate import (
     decode_step,
     filter_logits,
@@ -25,7 +26,7 @@ ATOL = 2e-4
 
 
 def _params(config=CONFIG, seed=0):
-    return init_params(config, torch.Generator().manual_seed(seed))
+    return init_params(config, prng.PRNGKey(seed, device="cpu"))
 
 
 def _tokens(shape, seed=1, vocab=256):
@@ -79,7 +80,7 @@ def test_generate_rejects_bad_requests():
     with pytest.raises(ValueError, match="at least one token"):
         generate(params, torch.zeros((1, 0), dtype=torch.long), CONFIG, 4,
                  device="cpu")
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="requires an rng key"):
         generate(params, torch.zeros((1, 3), dtype=torch.long), CONFIG, 4,
                  temperature=0.7, device="cpu")
 
@@ -133,14 +134,14 @@ def test_sample_logits_draws_from_the_filtered_distribution():
     is ever drawn."""
     logits = torch.tensor([[2.0, 1.0, 0.5, 0.0, -1.0, -3.0]])
     n = 20000
-    gen = torch.Generator().manual_seed(11)
-    draws = sample_logits(logits.expand(n, -1), gen, 1.0, 4, 1.0)
+    key = prng.PRNGKey(11, device="cpu")
+    draws = sample_logits(logits.expand(n, -1), key, 1.0, 4, 1.0)
     counts = np.bincount(draws.numpy(), minlength=6) / n
     want = torch.softmax(filter_logits(logits, 1.0, 4, 1.0), -1)[0].numpy()
     assert counts[4:].sum() == 0
     se = np.sqrt(want * (1 - want) / n)
     assert np.all(np.abs(counts - want) <= 4 * se + 1e-12), (counts, want)
-    # Greedy without a generator.
+    # Greedy without a key.
     assert sample_logits(logits, None, 1.0, 0, 1.0).tolist() == [0]
 
 

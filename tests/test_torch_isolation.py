@@ -80,6 +80,14 @@ def test_tensor_parallel_modules_are_scanned():
     )} <= scanned
 
 
+def test_prng_modules_are_scanned():
+    """The scan reaches the PRNG slice's modules: the key algebra and the
+    threefry kernel's wrapper."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {os.path.join("workloads_torch", "prng.py"),
+            os.path.join("workloads_torch", "ops", "threefry.py")} <= scanned
+
+
 def test_scan_catches_forbidden_lines():
     """The scan itself: it flags the JAX package and jax, not the port."""
     flagged = [
@@ -116,6 +124,7 @@ def test_every_module_imports_with_jax_and_workloads_blocked():
         "assert {'workloads_torch.perfbench', 'workloads_torch.mfu_sweep'} <= set(names)",
         "assert {'workloads_torch.' + m for m in ('pipeline', 'moe', 'vision')} <= set(names)",
         "assert {'workloads_torch.busy_probe', 'workloads_torch.oversubscribe'} <= set(names)",
+        "assert {'workloads_torch.prng', 'workloads_torch.ops.threefry'} <= set(names)",
         "print(len(names))",
     ])
     env = dict(os.environ)
@@ -147,6 +156,7 @@ for name in list(sys.modules):
         del sys.modules[name]
 sys.path.insert(0, ROOT)
 import torch
+from workloads_torch import prng
 from workloads_torch.fleet import Fleet, FleetServer
 from workloads_torch.ledger import ChipTimeLedger, FlightRecorder
 from workloads_torch.model import ModelConfig, init_params
@@ -155,7 +165,7 @@ from workloads_torch.supervisor import FleetSupervisor, make_engine_factory
 
 torch.set_num_threads(1)
 config = ModelConfig(max_seq_len=32, n_layers=1, dtype=torch.float32)
-params = init_params(config, torch.Generator().manual_seed(0))
+params = init_params(config, prng.PRNGKey(0, device="cpu"))
 kw = dict(slots=2, page_size=4, prompt_bucket=8)
 engines = [ServeEngine(params, config, device="cpu", ledger=ChipTimeLedger(name=str(i)), **kw)
            for i in range(2)]

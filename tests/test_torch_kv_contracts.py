@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests.test_torch_superstep import one_torch_thread  # noqa: F401
+from workloads_torch import prng
 from workloads_torch import durable
 from workloads_torch.faults import FaultInjector
 from workloads_torch.generate import generate
@@ -43,7 +44,7 @@ CONFIG = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(CONFIG, torch.Generator().manual_seed(0))
+    return init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 
 
 def _ref(params, prompt, new, config=CONFIG):
@@ -303,7 +304,7 @@ def test_second_request_reuses_prefix_tokens_identical(params):
 
 def test_shared_512_token_prefix_cuts_prefill_compute():
     config = ModelConfig(max_seq_len=640, n_layers=1, dtype=torch.float32)
-    p = init_params(config, torch.Generator().manual_seed(0))
+    p = init_params(config, prng.PRNGKey(0, device="cpu"))
     kw = dict(slots=2, page_size=16, prompt_bucket=64, chunk=16)
     engine = ServeEngine(p, config, device="cpu", prefix_cache=True, **kw)
     rng = np.random.default_rng(3)
@@ -733,7 +734,7 @@ def test_fanout_shares_prompt_pages_and_matches_greedy(params):
 
 def test_fanout_sampling_diverges(params):
     engine = _engine(params, slots=4, chunk=4, temperature=1.0,
-                     generator=torch.Generator().manual_seed(9))
+                     rng=prng.PRNGKey(9, device="cpu"))
     rids = engine.submit_fanout([1, 2, 3, 4, 5], 8, n_samples=4)
     served = engine.run()
     assert len({tuple(served[r]) for r in rids}) >= 2

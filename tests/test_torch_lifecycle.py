@@ -50,6 +50,7 @@ from tests.test_torch_superstep import one_torch_thread  # noqa: F401
 from tpu_device_plugin.api.constants import HEALTHY
 from tpu_device_plugin.api.constants import UNHEALTHY as DAEMON_UNHEALTHY
 from tpu_device_plugin.device import HealthEvent
+from workloads_torch import prng
 from workloads_torch import (
     EngineClosed,
     InvalidRequest,
@@ -214,7 +215,7 @@ STREAMS = [([3, 1, 4, 1, 5], 17), ([2, 7], 9), ([9] * 11, 13)]
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(CONFIG, torch.Generator().manual_seed(0))
+    return init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 
 
 def _engine(params, **kw):

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests.test_torch_superstep import one_torch_thread  # noqa: F401
+from workloads_torch import prng
 from workloads_torch.generate import filter_logits, generate
 from workloads_torch.lora import lora_init, main, make_lora_train_step, merge_lora
 from workloads_torch.model import ModelConfig, forward, init_params
@@ -39,8 +40,8 @@ DRAFT_CONFIG = ModelConfig(max_seq_len=64, n_layers=1, d_model=32, n_heads=2, d_
 TRAIN_CONFIG = ModelConfig(max_seq_len=16, n_layers=2, dtype=torch.float32)
 
 
-def _gen(seed: int) -> torch.Generator:
-    return torch.Generator().manual_seed(seed)
+def _key(seed: int) -> torch.Tensor:
+    return prng.PRNGKey(seed, device="cpu")
 
 
 def _adapter(seed: int, rank: int = 4, scale: float = 0.3) -> list:
@@ -50,7 +51,7 @@ def _adapter(seed: int, rank: int = 4, scale: float = 0.3) -> list:
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(CONFIG, _gen(0))
+    return init_params(CONFIG, _key(0))
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +61,7 @@ def adapters():
 
 @pytest.fixture(scope="module")
 def draft():
-    return init_params(DRAFT_CONFIG, _gen(7))
+    return init_params(DRAFT_CONFIG, _key(7))
 
 
 def _engine(params, adapters, **kw):
@@ -220,8 +221,8 @@ def test_validations(params, adapters):
 
 
 def test_zero_init_is_identity():
-    params = init_params(TRAIN_CONFIG, _gen(0))
-    adapters = lora_init(TRAIN_CONFIG, rank=4, generator=_gen(1))
+    params = init_params(TRAIN_CONFIG, _key(0))
+    adapters = lora_init(TRAIN_CONFIG, rank=4, key=prng.PRNGKey(1, device="cpu"))
     tokens = torch.arange(16).reshape(2, 8)
     base = forward(params, tokens, TRAIN_CONFIG)
     merged = forward(merge_lora(params, adapters), tokens, TRAIN_CONFIG)
@@ -229,8 +230,8 @@ def test_zero_init_is_identity():
 
 
 def test_training_updates_only_adapters_and_loss_falls():
-    params = init_params(TRAIN_CONFIG, _gen(0))
-    adapters = lora_init(TRAIN_CONFIG, rank=4, generator=_gen(1))
+    params = init_params(TRAIN_CONFIG, _key(0))
+    adapters = lora_init(TRAIN_CONFIG, rank=4, key=prng.PRNGKey(1, device="cpu"))
     optimizer = AdamW(lr=1e-2, mu_dtype=torch.float32)
     opt_state = optimizer.init(adapters)
     step = make_lora_train_step(TRAIN_CONFIG, optimizer, params)
@@ -252,9 +253,9 @@ def test_training_updates_only_adapters_and_loss_falls():
 
 
 def test_int8_base_merge_and_step():
-    params = init_params(TRAIN_CONFIG, _gen(0))
+    params = init_params(TRAIN_CONFIG, _key(0))
     qbase = quantize_params(params)
-    adapters = lora_init(TRAIN_CONFIG, rank=2, generator=_gen(1))
+    adapters = lora_init(TRAIN_CONFIG, rank=2, key=prng.PRNGKey(1, device="cpu"))
     tokens = torch.arange(16).reshape(2, 8)
     merged = forward(merge_lora(qbase, adapters), tokens, TRAIN_CONFIG)
     assert merged.shape == (2, 8, TRAIN_CONFIG.vocab_size)
@@ -270,7 +271,7 @@ def test_int8_base_merge_and_step():
 def test_gqa_targets_wq_wkv():
     gqa = ModelConfig(max_seq_len=16, n_layers=1, n_heads=4, n_kv_heads=2,
                       dtype=torch.float32)
-    adapters = lora_init(gqa, rank=2, generator=_gen(0))
+    adapters = lora_init(gqa, rank=2, key=prng.PRNGKey(0, device="cpu"))
     assert set(adapters[0]) == {"wq", "wkv", "wo"}
     assert adapters[0]["wkv"]["a"].shape == (64, 2)
     assert adapters[0]["wkv"]["b"].shape == (2, 2 * 2 * 16)
@@ -278,7 +279,7 @@ def test_gqa_targets_wq_wkv():
 
 def test_rank_validation():
     with pytest.raises(ValueError, match="rank"):
-        lora_init(CONFIG, rank=0, generator=_gen(0))
+        lora_init(CONFIG, rank=0, key=prng.PRNGKey(0, device="cpu"))
 
 
 def test_cli_entry(capsys):
@@ -291,17 +292,17 @@ def test_cli_entry(capsys):
 
 
 def test_merge_rejects_layer_count_mismatch():
-    params = init_params(TRAIN_CONFIG, _gen(0))
-    adapters = lora_init(TRAIN_CONFIG, rank=2, generator=_gen(1))
+    params = init_params(TRAIN_CONFIG, _key(0))
+    adapters = lora_init(TRAIN_CONFIG, rank=2, key=prng.PRNGKey(1, device="cpu"))
     with pytest.raises(ValueError, match="mismatch"):
         merge_lora(params, adapters[:1])
 
 
 def test_merge_dtype_follows_base():
-    params = init_params(TRAIN_CONFIG, _gen(0))
+    params = init_params(TRAIN_CONFIG, _key(0))
     bf16 = {"embed": params["embed"].bfloat16(), "unembed": params["unembed"].bfloat16(),
             "layers": [{k: v.bfloat16() for k, v in layer.items()} for layer in params["layers"]]}
-    adapters = lora_init(TRAIN_CONFIG, rank=2, generator=_gen(1))
+    adapters = lora_init(TRAIN_CONFIG, rank=2, key=prng.PRNGKey(1, device="cpu"))
     assert merge_lora(bf16, adapters)["layers"][0]["wqkv"].dtype == torch.bfloat16
     assert merge_lora(quantize_params(params), adapters)["layers"][0]["wqkv"].dtype == \
         torch.float32
@@ -475,7 +476,7 @@ def test_lookahead_composes_with_sampling_and_lora(params, draft):
     adapters = synthetic_adapters(CONFIG, 2, rank=4, scale=0.3, seed=3, device="cpu")
     engine = _engine(params, adapters, draft_params=draft, draft_config=DRAFT_CONFIG,
                      gamma=3, spec_lookahead=2, temperature=0.8, top_k=40,
-                     generator=_gen(5))
+                     rng=prng.PRNGKey(5, device="cpu"))
     names = [None] + sorted(adapters)
     rids = [engine.submit([1 + i, 2], 10, adapter=names[i % 3]) for i in range(4)]
     served = engine.run()
@@ -497,7 +498,7 @@ def test_sampling_spec_composes_with_lora_by_distribution(params, draft):
     temperature, top_k = 1.0, 3
     engine = _engine(params, adapters, slots=4, draft_params=draft,
                      draft_config=DRAFT_CONFIG, gamma=2, temperature=temperature,
-                     top_k=top_k, generator=_gen(9))
+                     top_k=top_k, rng=prng.PRNGKey(9, device="cpu"))
     prompt = [2, 4, 6]
     rids = [engine.submit(prompt, 2, adapter=name) for _ in range(400)]
     served = engine.run()

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+from workloads_torch import prng
 import torch
 
 from tests import torch_model_world as mw
@@ -110,7 +111,7 @@ def test_capacity_drops_overflow_tokens():
     token per sequence goes through the expert path."""
     from workloads_torch.moe import MoEConfig, init_moe_ffn_params, moe_ffn
 
-    params = init_moe_ffn_params(torch.Generator().manual_seed(0), 8, 16, 2)
+    params = init_moe_ffn_params(prng.PRNGKey(0, device="cpu"), 8, 16, 2)
     # A huge bias toward expert 0 for every token (x is all ones, so any
     # positive weight in column 0 dominates the zeroed column 1).
     params["router"] = torch.zeros_like(params["router"])
@@ -251,7 +252,7 @@ def test_moe_init_keys_independent_of_attention():
     from workloads_torch.moe import MoEConfig, init_moe_model_params
 
     config = ModelConfig(n_layers=2)
-    params = init_moe_model_params(config, MoEConfig(4), torch.Generator().manual_seed(0))
+    params = init_moe_model_params(config, MoEConfig(4), prng.PRNGKey(0, device="cpu"))
     router = params["layers"][1]["moe"]["router"].ravel()
     wqkv = params["layers"][0]["wqkv"].ravel()[: router.numel()]
     assert not torch.equal(router, wqkv)
@@ -262,7 +263,7 @@ def test_moe_init_keys_independent_of_attention():
     first = params["layers"][0]["moe"]["router"].ravel()
     assert not torch.equal(first, embed[: first.numel()])
     assert "w_up" not in params["layers"][0] and "w_down" not in params["layers"][0]
-    again = init_moe_model_params(config, MoEConfig(4), torch.Generator().manual_seed(0))
+    again = init_moe_model_params(config, MoEConfig(4), prng.PRNGKey(0, device="cpu"))
     assert torch.equal(again["layers"][1]["moe"]["w_down"],
                        params["layers"][1]["moe"]["w_down"])
 

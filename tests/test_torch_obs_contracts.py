@@ -28,6 +28,7 @@ import torch
 
 from tpu_device_plugin.metrics import MetricsServer, Registry
 from types import SimpleNamespace
+from workloads_torch import prng
 from workloads_torch.errors import InvalidRequest
 from workloads_torch.faults import FaultInjector
 from workloads_torch.fleet import DEFAULT_SLO_CLASSES, Fleet, SLOClass, TrafficGen
@@ -66,8 +67,8 @@ DRAFT_CONFIG = ModelConfig(
 
 @pytest.fixture(scope="module")
 def models():
-    params = init_params(CONFIG, torch.Generator().manual_seed(0))
-    draft = init_params(DRAFT_CONFIG, torch.Generator().manual_seed(7))
+    params = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
+    draft = init_params(DRAFT_CONFIG, prng.PRNGKey(7, device="cpu"))
     return params, draft
 
 
@@ -98,7 +99,7 @@ def test_token_streams_bit_identical_observer_on_off(models):
     def run(observer):
         engine = _engine(
             params, observer, temperature=0.8, top_k=5,
-            generator=torch.Generator().manual_seed(3),
+            rng=prng.PRNGKey(3, device="cpu"),
         )
         return engine, _run_stream(engine)
 
@@ -300,8 +301,8 @@ def test_observer_constructor_validates_ring_bounds():
 
 
 # ==== tests/test_fleet_trace.py (renamed here: _engine -> _fleet_trace_engine)
-PARAMS = init_params(CONFIG, torch.Generator().manual_seed(0))
-DRAFT_PARAMS = init_params(DRAFT_CONFIG, torch.Generator().manual_seed(7))
+PARAMS = init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
+DRAFT_PARAMS = init_params(DRAFT_CONFIG, prng.PRNGKey(7, device="cpu"))
 
 PROMPTS = [([3, 1, 4, 1, 5], 12), ([2, 7], 9), ([9] * 11, 13), ([5, 5], 8)]
 CLASSES = ["interactive", "bulk", "interactive", "bulk"]
@@ -673,18 +674,14 @@ def test_streams_bit_identical_ledger_on_off(models):
     configs = [
         dict(),
         dict(pipelined=True, temperature=0.8, top_k=20, top_p=0.9,
-             generator=torch.Generator().manual_seed(5)),
+             rng=prng.PRNGKey(5, device="cpu")),
         dict(superstep_k=2),
         dict(draft_params=draft, draft_config=DRAFT_CONFIG, gamma=2,
              spec="auto", spec_breakeven=1.0),
     ]
     def fresh(kw):
-        # A JAX key is a value and both engines start from it; a torch
-        # generator is consumed, so each engine gets its own copy.
-        kw = dict(kw)
-        if "generator" in kw:
-            kw["generator"] = torch.Generator().set_state(kw["generator"].get_state())
-        return kw
+        # A key is a value: both engines start from the same one.
+        return dict(kw)
 
     for kw in configs:
         bare = _run_stream(_ledger_engine(params, **fresh(kw)))

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from workloads_torch import prng
 from workloads_torch.generate import decode_step, init_kv_cache
 from workloads_torch.model import ModelConfig, init_params
 from workloads_torch.ops import _build
@@ -31,7 +32,7 @@ ATOL = 2e-4
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(CONFIG, torch.Generator().manual_seed(0))
+    return init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 
 
 def _tokens(shape, seed, vocab=256):
@@ -62,7 +63,7 @@ def _lockstep_reference(params, config, tokens):
 def test_paged_decode_matches_contiguous(config):
     """Token-by-token logits through the paged pools equal the contiguous
     cache, with tables grown on demand."""
-    params = init_params(config, torch.Generator().manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cpu"))
     batch, steps, page_size = 2, 12, 4
     tokens = _tokens((batch, steps), 1)
     ctrl = PagePool(n_pages=16, page_size=page_size)

@@ -98,6 +98,7 @@ from tests import torch_model_world as mw  # noqa: E402
 from tests import test_torch_fleet as tfleet  # noqa: E402
 from tests import test_torch_perfbench_fleet as tpbf  # noqa: E402
 from tests import test_torch_busy_probe as tbusy  # noqa: E402
+from tests import test_torch_prng as tprng  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
     LIFECYCLE_GOLDEN,
     golden_runs,
@@ -1259,6 +1260,106 @@ def write_perfbench_fleet_goldens(path: str = tpbf.FLEET_GOLDEN) -> None:
     print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(fields)} arms")
 
 
+def jax_prng_goldens() -> dict:
+    """JAX's draws for tests/test_torch_prng.py: the key words of every
+    seed, split/fold_in/bits/uniform/randint/normal/gumbel/categorical
+    over the grid, the vmapped split and categorical, the seeded trees,
+    the serve CLI's prompts and the sampled streams of the tiny float32
+    engine built from PRNGKey(0)."""
+    out = {f"seed/{s}": np.asarray(jax.random.PRNGKey(s)).astype(np.int64) for s in tprng.SEEDS}
+    logits = np.random.default_rng(3).standard_normal(tprng.CATEGORICAL_SHAPE) \
+        .astype(np.float32) * 3
+    out["categorical/logits"] = logits
+    for spec in tprng.KEYS:
+        name, key = spec[0], tprng.derive(jax.random, spec)
+        out[f"{name}/key"] = np.asarray(key).astype(np.int64)
+        for num in tprng.SPLIT_NUMS:
+            out[f"{name}/split/{num}"] = np.asarray(jax.random.split(key, num)).astype(np.int64)
+        for data in tprng.FOLD_DATA:
+            out[f"{name}/fold/{data}"] = np.asarray(jax.random.fold_in(key, data)).astype(np.int64)
+        out[f"{name}/categorical"] = np.asarray(jax.random.categorical(key, logits)).astype(np.int64)
+        for shape in tprng.SHAPES:
+            sid = tprng.shape_id(shape)
+            out[f"{name}/bits/{sid}"] = np.asarray(jax.random.bits(key, shape))
+            for lo, hi in tprng.UNIFORM_RANGES:
+                out[f"{name}/uniform/{(lo, hi)}/{sid}"] = np.asarray(
+                    jax.random.uniform(key, shape, jnp.float32, lo, hi))
+            for lo, hi in tprng.RANDINT_RANGES:
+                out[f"{name}/randint/{(lo, hi)}/{sid}"] = np.asarray(
+                    jax.random.randint(key, shape, lo, hi))
+            out[f"{name}/normal/{sid}"] = np.asarray(jax.random.normal(key, shape))
+            out[f"{name}/gumbel/{sid}"] = np.asarray(jax.random.gumbel(key, shape))
+    keys = jax.random.split(jax.random.PRNGKey(0), 4)
+    out["vmap/split"] = np.asarray(jax.vmap(lambda r: jax.random.split(r, 5))(keys)).astype(np.int64)
+    keys = jax.random.split(jax.random.PRNGKey(42), logits.shape[0])
+    out["vmap/categorical"] = np.asarray(jax.vmap(
+        lambda lg, kk: jax.random.categorical(kk, lg[None])[0])(logits, keys)).astype(np.int64)
+    config = jmodel.ModelConfig(**tprng.TINY, dtype=jnp.float32)
+    key = jax.random.PRNGKey(0)
+    trees = {"params/mha": jmodel.init_params(config, key),
+             "params/gqa": jmodel.init_params(
+                 jmodel.ModelConfig(**tprng.TINY, dtype=jnp.float32, n_kv_heads=2), key),
+             "adapters": jmulti.synthetic_adapters(
+                 config, tprng.ADAPTERS["n"], rank=tprng.ADAPTERS["rank"],
+                 seed=tprng.ADAPTERS["seed"]),
+             "moe": jmoe.init_moe_model_params(config, jmoe.MoEConfig(tprng.MOE_EXPERTS), key)}
+    for prefix, tree in trees.items():
+        flat = tprng.flat_tree(jax.tree.map(np.asarray, tree), prefix)
+        out[f"treekeys/{prefix}"] = np.asarray(sorted(flat))
+        # The GQA and MoE trees share every other leaf's key with MHA's.
+        out.update({f"tree/{k}": v for k, v in flat.items() if tprng.tree_leaf_kept(k)})
+    cli = tprng.CLI_PROMPTS
+    key, prompts = jax.random.PRNGKey(7), []
+    for _ in range(cli["requests"]):
+        # workloads/serve.py main()'s prompt loop.
+        key, k_prompt, k_len = jax.random.split(key, 3)
+        plen = int(jax.random.randint(k_len, (), 1, cli["prompt_len"] + 1))
+        prompts.append(np.asarray(jax.random.randint(k_prompt, (plen,), 0, cli["vocab"], jnp.int32)))
+    out["cli/lengths"] = np.asarray([len(p) for p in prompts])
+    out["cli/tokens"] = np.concatenate(prompts).astype(np.int64)
+    params = trees["params/mha"]
+    draft = jquant.quantize_params(params)
+
+    def make(kind, **kw):
+        if kind == "spec":
+            kw.update(draft_params=draft, draft_config=config)
+        return jserve.ServeEngine(params, config, rng=jax.random.PRNGKey(tprng.ENGINE_SEED),
+                                  **kw)
+
+    for mode in tprng.MODES:
+        out[f"stream/{mode}"] = tprng.run_sampled(make, mode)
+    prompt = np.random.default_rng(4).integers(0, config.vocab_size, (3, 6))
+    out["generate/prompt"] = prompt
+    key = jax.random.PRNGKey(tprng.GENERATE_SEED)
+    out["generate/tokens"] = np.asarray(jgen.generate(
+        params, jnp.asarray(prompt, jnp.int32), config, 10, rng=key,
+        **tprng.SAMPLE_KNOBS)).astype(np.int64)
+    toks, _ = jserve.serve_batch(
+        params, config, jnp.asarray(prompt, jnp.int32), 10, jpaged.PagePool(64, 4),
+        jpaged.init_page_pools(config, 64, 4), rng=key, **tprng.SAMPLE_KNOBS)
+    out["serve_batch/tokens"] = np.asarray(toks).astype(np.int64)
+    return out
+
+
+def test_prng_matches_jax_live():
+    """The frozen JAX draws of tests/test_torch_prng.py, drawn again:
+    every array equal to the file's."""
+    with np.load(tprng.PRNG_GOLDEN) as f:
+        frozen = {k: f[k] for k in f.files}
+    live = jax_prng_goldens()
+    assert sorted(live) == sorted(frozen)
+    for name, arr in live.items():
+        assert np.array_equal(arr, frozen[name]), name
+
+
+def write_prng_goldens(path: str = tprng.PRNG_GOLDEN) -> None:
+    """Freeze JAX's draws, seeded trees, CLI prompts and sampled streams
+    for tests/test_torch_prng.py."""
+    arrays = jax_prng_goldens()
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_fleet_goldens(path: str = tfleet.FLEET_GOLDEN) -> None:
     """Freeze the JAX fleet's scripted runs for tests/test_torch_fleet.py
     (streams, statuses, attempts, counters, event kinds, journal
@@ -1408,3 +1509,4 @@ if __name__ == "__main__":
     write_tp_goldens()
     write_train_parallel_goldens()
     write_model_goldens()
+    write_prng_goldens()

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tests.test_torch_superstep import one_torch_thread  # noqa: F401
+from workloads_torch import prng
 from workloads_torch.generate import generate
 from workloads_torch.model import ModelConfig, init_params
 from workloads_torch.ops import kernel_select as ks
@@ -134,7 +135,7 @@ CONFIG = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(CONFIG, torch.Generator().manual_seed(0))
+    return init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 
 
 def _stream_engine(params, slots: int):

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from tests.test_torch_superstep import one_torch_thread  # noqa: F401
+from workloads_torch import prng
 from workloads_torch import mfu_sweep
 from workloads_torch import model as tmodel
 from workloads_torch.generate import generate
@@ -210,7 +211,7 @@ CONFIG = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(CONFIG, torch.Generator().manual_seed(0))
+    return init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 
 
 def _randint(seed, shape):
@@ -240,12 +241,12 @@ def test_pages_recycle_across_batches(params):
 
 
 def test_serve_batch_releases_pages_when_a_step_raises(params):
-    """Sampling without a generator raises before any page is taken; a
+    """Sampling without a key raises before any page is taken; a
     pool that holds the prompts but not their growth raises mid-decode
     and gives back every page in its ``finally``."""
     ctrl = PagePool(n_pages=4, page_size=4)
     pools = init_page_pools(CONFIG, 4, 4, device="cpu")
-    with pytest.raises(ValueError, match="requires a torch.Generator"):
+    with pytest.raises(ValueError, match="requires an rng key"):
         serve_batch(params, CONFIG, _randint(1, (2, 8)), 4, ctrl, pools,
                     temperature=0.8)
     assert ctrl.used_pages == 0
@@ -255,7 +256,7 @@ def test_serve_batch_releases_pages_when_a_step_raises(params):
 
 
 def test_serve_batch_samples_from_its_generator(params):
-    """Sampled lock-step streams follow the generator: the same seed
+    """Sampled lock-step streams follow the key: the same seed
     gives the same tokens, and each is in the vocabulary."""
     outs = []
     for _ in range(2):
@@ -263,7 +264,7 @@ def test_serve_batch_samples_from_its_generator(params):
         pools = init_page_pools(CONFIG, 32, 4, device="cpu")
         out, _ = serve_batch(params, CONFIG, _randint(1, (2, 8)), 6, ctrl, pools,
                              temperature=0.8, top_k=50, top_p=0.95,
-                             generator=torch.Generator().manual_seed(3))
+                             rng=prng.PRNGKey(3, device="cpu"))
         outs.append(out)
     assert torch.equal(outs[0], outs[1])
     assert 0 <= int(outs[0].min()) and int(outs[0].max()) < CONFIG.vocab_size
@@ -302,7 +303,7 @@ def test_paged_chunks_are_the_greedy_stream():
     """The plain decode program the bench times: its tokens after the
     prefill's pick are generate()'s, chunk after chunk."""
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-    p = init_params(config, torch.Generator().manual_seed(0))
+    p = init_params(config, prng.PRNGKey(0, device="cpu"))
     run_chunks = _paged_chunk_runner(
         p, config, batch=3, prompt_len=5, page_size=4, chunk=4, n_hi=3,
         device=torch.device("cpu"),

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+from workloads_torch import prng
 import torch
 
 from tests import torch_model_world as mw
@@ -289,8 +290,8 @@ def test_one_stage_is_the_sequential_model():
     for name, w in want["grads"].items():
         assert np.abs(got[name] - w).max() <= 1e-6 * np.abs(w).max(), name
     config = mw.pp_config()
-    stacked = init_pipeline_params(config, 2, torch.Generator().manual_seed(4))
-    flat = init_params(config, torch.Generator().manual_seed(4))
+    stacked = init_pipeline_params(config, 2, prng.PRNGKey(4, device="cpu"))
+    flat = init_params(config, prng.PRNGKey(4, device="cpu"))
     for name, leaf in stacked["stages"].items():
         assert torch.equal(leaf[1, 0], flat["layers"][2][name]), name
 

@@ -27,6 +27,7 @@ sys.path.insert(
         os.path.abspath(__file__))), "tools"),
 )
 
+from workloads_torch import prng
 from workloads_torch.profiler import (  # noqa: E402
     DeviceTimeTable,
     ProfileSession,
@@ -539,7 +540,7 @@ def capture_params():
     from workloads_torch.model import ModelConfig, init_params
 
     config = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
-    return init_params(config, torch.Generator().manual_seed(0)), config
+    return init_params(config, prng.PRNGKey(0, device="cpu")), config
 
 
 def _run_observed(capture_params, obs):

@@ -21,6 +21,7 @@ import torch
 
 from tests.test_torch_golden import GOLDEN, params_to_torch, tiny_config
 from tests.test_torch_spec import SPEC_CASE, SPEC_GOLDEN
+from workloads_torch import prng
 from workloads_torch import convert
 from workloads_torch import generate as tgen
 from workloads_torch import paged as tpaged
@@ -180,7 +181,7 @@ CONFIG = ModelConfig(max_seq_len=32, n_layers=2, dtype=torch.float32)
 
 
 def _init(config=CONFIG, seed=0):
-    return init_params(config, torch.Generator().manual_seed(seed))
+    return init_params(config, prng.PRNGKey(seed, device="cpu"))
 
 
 def test_roundtrip_error_bounded():

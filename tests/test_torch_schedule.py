@@ -42,6 +42,7 @@ from tests.test_torch_golden import (
     tiny_config,
 )
 from tests.test_torch_superstep import SUPERSTEP_GOLDEN, one_torch_thread  # noqa: F401
+from workloads_torch import prng
 from workloads_torch import InvalidRequest
 from workloads_torch.generate import generate
 from workloads_torch.model import ModelConfig, init_params
@@ -154,7 +155,7 @@ STREAMS = [([3, 1, 4, 1, 5], 17), ([2, 7], 9), ([9] * 11, 13)]
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(CONFIG, torch.Generator().manual_seed(0))
+    return init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 
 
 def _engine(params, **kw):
@@ -353,7 +354,7 @@ def test_engine_pools_keep_their_storage(params):
 def test_sampled_superstep_stream_is_seeded(params):
     def run(seed):
         engine = _engine(params, superstep_k=2, pipelined=True, temperature=0.8, top_k=40,
-                         generator=torch.Generator().manual_seed(seed))
+                         rng=prng.PRNGKey(seed, device="cpu"))
         rids = [engine.submit([1 + i, 2], 10) for i in range(4)]
         served = engine.run()
         _hygiene(engine)

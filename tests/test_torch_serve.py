@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from workloads_torch import prng
 from workloads_torch import EngineClosed, InvalidRequest, QueueFull, RequestTooLarge
 from workloads_torch.generate import generate
 from workloads_torch.model import ModelConfig, init_params
@@ -19,7 +20,7 @@ CONFIG = ModelConfig(max_seq_len=64, n_layers=2, dtype=torch.float32)
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(CONFIG, torch.Generator().manual_seed(0))
+    return init_params(CONFIG, prng.PRNGKey(0, device="cpu"))
 
 
 def _engine(params, config=CONFIG, **kw):
@@ -54,7 +55,7 @@ def test_engine_greedy_matches_generate(config):
     """Every request gets exactly the tokens generate() produces for it
     alone: admission order, slot turnover and chunk overshoot change
     nothing."""
-    params = init_params(config, torch.Generator().manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cpu"))
     engine = _engine(params, config, prompt_bucket=12)
     requests = _mixed_requests(5)
     rids = [engine.submit(p, n) for p, n in requests]
@@ -201,7 +202,7 @@ def test_sampling_stream_is_seeded(params):
     seed gives one stream."""
     def run(seed):
         engine = _engine(params, temperature=0.8, top_k=20, top_p=0.9,
-                         generator=torch.Generator().manual_seed(seed))
+                         rng=prng.PRNGKey(seed, device="cpu"))
         rids = [engine.submit([1, 2, 3], 6) for _ in range(3)]
         served = engine.run()
         return [served[r] for r in rids]

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from tests.test_torch_superstep import one_torch_thread  # noqa: F401
+from workloads_torch import prng
 from workloads_torch.faults import FaultInjector
 from workloads_torch.generate import generate
 from workloads_torch.model import ModelConfig, init_params
@@ -37,8 +38,8 @@ STREAMS = [([3, 1, 4, 1, 5], 17), ([2, 7], 9), ([9] * 11, 13)]
 
 @pytest.fixture(scope="module")
 def models():
-    return (init_params(CONFIG, torch.Generator().manual_seed(0)),
-            init_params(DRAFT_CONFIG, torch.Generator().manual_seed(7)))
+    return (init_params(CONFIG, prng.PRNGKey(0, device="cpu")),
+            init_params(DRAFT_CONFIG, prng.PRNGKey(7, device="cpu")))
 
 
 def _ref(params, prompt, new, config=CONFIG):
@@ -111,7 +112,7 @@ def test_speculative_generate_validation(models):
         speculative_generate(target, draft, z, CONFIG, DRAFT_CONFIG, 60, device="cpu")
     small_vocab = ModelConfig(max_seq_len=64, vocab_size=128, dtype=torch.float32)
     with pytest.raises(ValueError, match="vocabulary"):
-        speculative_generate(target, init_params(small_vocab, torch.Generator().manual_seed(0)),
+        speculative_generate(target, init_params(small_vocab, prng.PRNGKey(0, device="cpu")),
                              z, CONFIG, small_vocab, 4, device="cpu")
 
 
@@ -129,7 +130,7 @@ def test_spec_accept_marginal_matches_target_distribution():
                                generator=g).reshape(trials, gamma)
     q = q_dist.expand(trials, gamma, vocab)
     p = p_dist.expand(trials, gamma + 1, vocab)
-    committed, n = _spec_accept(drafts, q, p, g)
+    committed, n = _spec_accept(drafts, q, p, prng.PRNGKey(0, device="cpu"))
     counts = np.bincount(committed[:, 0].numpy(), minlength=vocab) / trials
     assert np.abs(counts - p_dist.numpy()).sum() < 0.06, counts
     assert set(n.tolist()) == {0, 1, 2}
@@ -142,7 +143,7 @@ def test_spec_accept_identical_distributions_accept_everything():
     q = dist[:, None].expand(batch, gamma, vocab)
     p = dist[:, None].expand(batch, gamma + 1, vocab)
     drafts = torch.multinomial(dist, gamma, replacement=True, generator=g)
-    committed, n = _spec_accept(drafts, q, p, g)
+    committed, n = _spec_accept(drafts, q, p, prng.PRNGKey(1, device="cpu"))
     assert bool((n == gamma).all())
     assert torch.equal(committed[:, :gamma], drafts)
 
@@ -155,7 +156,7 @@ def test_spec_accept_certain_rejection_resamples_from_residual():
     p = torch.tensor([0.0, 1.0, 0.0, 0.0]).expand(1, gamma + 1, vocab)
     drafts = torch.zeros((1, gamma), dtype=torch.long)
     for seed in range(5):
-        committed, n = _spec_accept(drafts, q, p, torch.Generator().manual_seed(seed))
+        committed, n = _spec_accept(drafts, q, p, prng.PRNGKey(seed, device="cpu"))
         assert int(n[0]) == 0 and int(committed[0, 0]) == 1
 
 
@@ -173,7 +174,7 @@ def test_sampling_spec_self_draft_accepts_every_round(models):
     gamma, new = 3, 1 + 2 * 4  # the first token and two full rounds
     engine = ServeEngine(params, CONFIG, device="cpu", slots=1, page_size=4, prompt_bucket=8,
                          draft_params=params, draft_config=CONFIG, gamma=gamma,
-                         temperature=1.0, generator=torch.Generator().manual_seed(11))
+                         temperature=1.0, rng=prng.PRNGKey(11, device="cpu"))
     rid = engine.submit([5, 2, 9], new)
     assert len(engine.run()[rid]) == new
     assert engine.spec_rounds == 2, engine.spec_rounds
@@ -187,7 +188,7 @@ def test_sampling_spec_self_draft_accepts_every_round(models):
 def test_sampling_spec_real_draft_structurally_sound(models, kw):
     """A disagreeing draft at temperature > 0: every request gets exactly
     its budget, tokens stay in the vocabulary, the pool drains."""
-    engine = _engine(models, generator=torch.Generator().manual_seed(5), **kw)
+    engine = _engine(models, rng=prng.PRNGKey(5, device="cpu"), **kw)
     rids = [engine.submit([1 + i, 2, 3], 9 + i) for i in range(3)]
     served = engine.run()
     for i, rid in enumerate(rids):
@@ -323,19 +324,19 @@ def test_lookahead_composes_with_auto(models):
 @pytest.mark.parametrize("k", [1, 3])
 def test_calibration_path(models, k):
     """No threshold given: the engine calibrates at its first decode step
-    (a binary verdict), records the timings from a private generator,
-    and serves the reference stream."""
+    (a binary verdict), records the timings under a private key (the
+    engine's key is untouched), and serves the reference stream."""
     params, _ = models
     engine = _engine(models, spec="auto", spec_superstep_k=k)
     assert engine.spec_breakeven is None
     rid = engine.submit([1, 2, 3], 6)
-    state = engine.generator.get_state()
+    state = engine._rng.clone()
     out = engine.run()
     assert engine.spec_breakeven in (0.0, 2.0)
     assert engine.spec_calibration["threshold"] == engine.spec_breakeven
     assert engine.spec_calibration["plain_dispatch_ms"] > 0
     assert engine.spec_calibration["spec_dispatch_ms"] > 0
-    assert torch.equal(engine.generator.get_state(), state)
+    assert torch.equal(engine._rng, state)
     assert out[rid] == _ref(params, [1, 2, 3], 6)
     assert engine.ctrl.used_pages == 0
 
@@ -427,14 +428,14 @@ def test_spec_superstep_bit_identical_across_modes(models, mode_kw):
 
 
 def test_spec_superstep_sampled_bit_identical_to_k1(models):
-    """The draws run round by round from one generator, so sampled
+    """The draws run round by round from one key a round, so sampled
     streams, not only greedy ones, are the same for every k on a stream
     without slot turnover."""
     streams = [([3, 1, 4, 1, 5], 12), ([2, 7], 9)]
     served = {}
     for k in (1, 2, 4):
         served[k], engine = _serve(models, streams, spec_superstep_k=k, temperature=0.8,
-                                   top_k=40, generator=torch.Generator().manual_seed(5))
+                                   top_k=40, rng=prng.PRNGKey(5, device="cpu"))
         assert engine.ctrl.used_pages == 0, k
     assert served[2] == served[1] and served[4] == served[1]
 
@@ -611,7 +612,7 @@ def test_engine_validations(models, kw, match):
         kw.update(draft_params=draft, draft_config=DRAFT_CONFIG)
     elif which == "small_vocab":
         small = ModelConfig(max_seq_len=64, vocab_size=128, dtype=torch.float32)
-        kw.update(draft_params=init_params(small, torch.Generator().manual_seed(0)),
+        kw.update(draft_params=init_params(small, prng.PRNGKey(0, device="cpu")),
                   draft_config=small)
     with pytest.raises(ValueError, match=match):
         ServeEngine(params, CONFIG, device="cpu", **kw)

@@ -328,7 +328,7 @@ def _runner(golden, max_steps=6):
     pools = tuple(torch.from_numpy(inp[f"pool_{n}2"]).clone() for n in ("k", "v"))
     runner = DecodeGraph(
         _case_params(golden, case), pools, config, slots=4, max_pages=SS_MAX_PAGES,
-        max_steps=max_steps, generator=None, temperature=0.0, top_k=0, top_p=1.0,
+        max_steps=max_steps, temperature=0.0, top_k=0, top_p=1.0,
         sampling=False,
     )
     return runner, inp, config

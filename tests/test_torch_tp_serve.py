@@ -156,7 +156,7 @@ def test_spec_auto_takes_one_calibration_on_every_rank(worlds):
 def test_lookahead_sampling_is_structurally_sound(worlds):
     """TP x sampling x lookahead: budgets exact, tokens in the
     vocabulary, no page kept (the sampled tokens themselves are the
-    generator's; every rank draws the same ones, held by the lockstep
+    engine key's; every rank draws the same ones, held by the lockstep
     test)."""
     got = tw.result_of(worlds[2], "case:lookahead_sampling")
     assert [len(s) for s in got["streams"]] == [9, 9, 9]
@@ -365,7 +365,7 @@ def test_graphed_chunk_equals_eager_chunk_bit_for_bit():
             tok, pos = logits.argmax(-1), lengths.long()
             if graphed:
                 runner = DecodeGraph(params, pools, config, slots=2, max_pages=12, max_steps=4,
-                                     generator=None, temperature=0.0, top_k=0, top_p=1.0,
+                                     temperature=0.0, top_k=0, top_p=1.0,
                                      sampling=False)
                 runner.graph = _EagerReplay(runner)
                 toks = runner.run(tables, tok, pos, occ,

@@ -53,6 +53,7 @@ import torch
 
 import workloads_torch.model as tmodel
 from tests.test_torch_flash import case_golden, load_golden, share
+from workloads_torch import prng
 from workloads_torch import train as ttrain
 from workloads_torch.checkpoint import TrainCheckpointer
 from workloads_torch.model import ModelConfig, loss_fn
@@ -432,7 +433,7 @@ def test_make_forward_fn_equals_forward():
     the same logits bit for bit, MHA and GQA."""
     for config in (ModelConfig(dtype=torch.float32),
                    ModelConfig(n_kv_heads=2, dtype=torch.float32)):
-        params = tmodel.init_params(config, torch.Generator().manual_seed(3))
+        params = tmodel.init_params(config, prng.PRNGKey(3, device="cpu"))
         tokens = torch.randint(0, config.vocab_size, (2, 9), generator=torch.Generator()
                                .manual_seed(4))
         fn = tmodel.make_forward_fn(config)

@@ -41,6 +41,7 @@ import sys
 
 import numpy as np
 import pytest
+from workloads_torch import prng
 import torch
 
 from tests import torch_tp_world as tw
@@ -171,11 +172,27 @@ def test_lora_under_a_mesh_matches_one_device(worlds):
 
 def test_lora_cli_builds_its_mesh_over_the_world(worlds):
     """The LoRA CLI inside a 2-rank world: make_mesh()'s (1, 2) mesh,
-    replicated adapters, the loss falls on both ranks alike."""
+    replicated adapters, both ranks' losses alike and the one-device
+    CLI's.  (Whether they fall over these three steps, on three random
+    batches, is no property of the CLI: JAX's own goes 5.5435 -> 5.5451
+    here, and the port's, from the same weights, 5.5444 -> 5.5446.)"""
+    import contextlib
+    import io
+
+    from workloads_torch import lora
+
     outs = [tw.result_of(worlds[2], "lora_cli", r) for r in range(2)]
     assert outs[0] == outs[1]
-    first, last = (float(x) for x in re.search(r"loss (\S+) -> (\S+)", outs[0]).groups())
-    assert "done: steps=3 rank=2" in outs[0] and last < first
+    one = io.StringIO()
+    with contextlib.redirect_stdout(one):
+        lora.main(["--device", "cpu", "--steps", "3", "--rank", "2", "--batch-size", "4",
+                   "--seq-len", "16"])
+
+    def losses(text):
+        return re.search(r"loss (\S+) -> (\S+)", text).groups()
+
+    assert "done: steps=3 rank=2" in outs[0]
+    assert losses(outs[0]) == losses(one.getvalue())
 
 
 def test_bench_train_step_runs_on_the_world_mesh(worlds):
@@ -218,8 +235,11 @@ def test_sharded_step_counts_its_batch_arguments():
 # loss_fn's float32 loss and gradients (dense and flash routes, no
 # hooks), three one-device make_train_step steps (losses and parameters)
 # and two one-device LoRA steps (losses and factors), on the tree before
-# the hooks and the meshed steps existed.
-PARENT_DIGEST = "8df381e84b890c02de1609e43856cde76163131adad7c2fc7368692a26bc2988"
+# the hooks and the meshed steps existed.  Rewritten when ``lora_init``
+# moved to JAX's key stream: its factors are other numbers; with the old
+# ``torch.Generator`` factors put back, the digest was the old one,
+# 8df381e84b890c02de1609e43856cde76163131adad7c2fc7368692a26bc2988.
+PARENT_DIGEST = "6c121a7dcffe47ba66e28ee2b26512ff0a9836f9bb13db5f235a91ceff62a84d"
 
 
 def one_device_digest() -> str:
@@ -257,7 +277,7 @@ def one_device_digest() -> str:
     for value in one["params"].values():
         add(torch.from_numpy(value))
     base = trw.port_params()
-    adapters = lora.lora_init(config, 4, torch.Generator().manual_seed(5))
+    adapters = lora.lora_init(config, 4, prng.PRNGKey(5, device="cpu"))
     for entry in adapters:
         for ab in entry.values():
             ab["b"].normal_(0, 0.01, generator=torch.Generator().manual_seed(6))

@@ -21,6 +21,7 @@ import os
 from dataclasses import replace
 
 import numpy as np
+from workloads_torch import prng
 import torch
 
 from tests import torch_train_world as trw
@@ -172,7 +173,7 @@ def s_pp_cut(ctx) -> dict:
     mesh = make_pp_mesh(ctx.world, pipe_parallel=ctx.world, device_type="cpu")
     config = pp_config()
     (params, _), _ = make_pipeline_train_state(config, mesh, seed=0)
-    full = init_pipeline_params(config, ctx.world, torch.Generator().manual_seed(0))
+    full = init_pipeline_params(config, ctx.world, prng.PRNGKey(0, device="cpu"))
     stage = ctx.rank
     return {"shapes": {name: tuple(leaf.shape) for name, leaf in params["stages"].items()},
             "full": {name: tuple(leaf.shape) for name, leaf in full["stages"].items()},
@@ -205,7 +206,7 @@ def s_pp_refusals(ctx) -> dict:
     local = shard_tree(pp_port_params(2), pipeline_param_specs(pp_config()), mesh)
     return {
         "layers": _raises(lambda: init_pipeline_params(
-            ModelConfig(n_layers=3), 2, torch.Generator().manual_seed(0))),
+            ModelConfig(n_layers=3), 2, prng.PRNGKey(0, device="cpu"))),
         "microbatches": _raises(lambda: pipeline_loss_fn(
             local, torch.zeros((6, PP_CONFIG["max_seq_len"]), dtype=torch.int64), pp_config(),
             mesh, 4)),

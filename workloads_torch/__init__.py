@@ -7,7 +7,9 @@ Mirrors ``workloads/`` module for module (``model``, ``generate``,
 imports nothing of it: the JAX package stays the reference, and this package
 runs on a host with no JAX installed.  ``decode_graph`` has no JAX
 counterpart: it is the port's stand-in for a jitted decode loop, the
-serving engine's decode step as a CUDA graph.
+serving engine's decode step as a CUDA graph.  ``prng`` is the port's
+copy of JAX's threefry keys, so a seed gives the JAX package's weights
+and draws.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit ``cpu`` they raise instead of moving

@@ -160,10 +160,9 @@ def make_serve_burst_fn(target_burst_secs: float = 1.0, timed_section=nullcontex
     the lease; warming the engine executes a request (and captures its
     decode graph on a CUDA device), so it runs under ``timed_section``
     with the calibration, or a late-starting pod would compute unleased
-    inside a sibling's measured window.  The prompt comes from a numpy
-    seed (the JAX probe draws it with threefry, which torch lacks)."""
-    import numpy as np
-
+    inside a sibling's measured window.  Weights, prompt and sampler
+    keys are the JAX probe's (``PRNGKey`` 0, 1 and 2)."""
+    from . import prng
     from .model import ModelConfig, cast_params, init_params
     from .serve import ServeEngine
 
@@ -173,13 +172,14 @@ def make_serve_burst_fn(target_burst_secs: float = 1.0, timed_section=nullcontex
         max_seq_len=64,
     )
     params = cast_params(
-        init_params(config, torch.Generator(device).manual_seed(0)), config.dtype
+        init_params(config, prng.PRNGKey(0, device=device)), config.dtype
     )
-    prompt = [int(t) for t in np.random.default_rng(1).integers(0, config.vocab_size, 16)]
+    prompt = [int(t) for t in prng.randint(prng.PRNGKey(1, device="cpu"), (16,), 0,
+                                           config.vocab_size)]
     new_tokens = 32
     engine = ServeEngine(
         params, config, slots=2, page_size=8, prompt_bucket=16, chunk=8,
-        temperature=0.8, top_k=50, generator=torch.Generator(device).manual_seed(2),
+        temperature=0.8, top_k=50, rng=prng.PRNGKey(2, device=device),
         device=device,
     )
     if device.type == "cuda":

@@ -15,13 +15,17 @@ The graph holds addresses: the parameters, the page pools (updated in
 place, never rebound), and its own buffers ``tables``, ``tok``, ``pos``,
 ``live``, ``budget``, ``eos`` (the step's inputs, which it overwrites
 with its carry) and ``out`` (column ``i`` holds step ``i``'s emitted
-tokens).  Sampling draws from the engine's generator, registered with
-the graph so that each replay advances it as an eager step would.
+tokens).  Sampling draws under a key, as the JAX package's scan body
+does: the graph holds a ``keys`` buffer [max_steps, 2], ``run`` copies
+in the dispatch's step keys (``prng.split`` of the engine key, made by
+the caller), and step ``i`` reads row ``i``, so a replay draws what an
+eager step would, through the threefry kernel.
 
-The paged-attention wrapper counts its launches as the step runs, which
-under a graph is once, at capture; ``run`` adds what one captured step
-launched to ``paged_attention.launches`` at every replay instead, and
-the warm-up and capture leave the count as they found it.  CPU engines
+The kernel wrappers count their launches as the step runs, which under
+a graph is once, at capture; ``run`` adds what one captured step
+launched to ``paged_attention.launches`` and ``threefry.launches`` at
+every replay instead, and the warm-up and capture leave the counts as
+they found them.  CPU engines
 never build a ``DecodeGraph``: they run the eager functions.
 
 ``SpecGraph`` does the same for speculative decoding: it captures ONE
@@ -48,7 +52,28 @@ from __future__ import annotations
 import torch
 
 from .ops.paged_attention import paged_attention
+from .ops.threefry import threefry
 from .paged import decode_superstep_step, spec_chained_round
+
+
+def _check_keys(buf, keys, n: int) -> None:
+    """A sampling graph takes one key [2] a step (or round); a greedy
+    one takes none."""
+    if (buf is None) != (keys is None):
+        raise ValueError(
+            "step keys go with a sampling graph and only with one: graph samples: "
+            f"{buf is not None}, keys given: {keys is not None}"
+        )
+    if keys is not None and tuple(keys.shape) != (n, 2):
+        raise ValueError(f"keys must be [{n}, 2], got {tuple(keys.shape)}")
+
+
+def _launch_counts() -> tuple[int, int]:
+    return paged_attention.launches, threefry.launches
+
+
+def _restore_counts(counts: tuple[int, int]) -> None:
+    paged_attention.launches, threefry.launches = counts
 
 
 def _check_aidx(buf, aidx) -> None:
@@ -63,21 +88,19 @@ def _check_aidx(buf, aidx) -> None:
 
 class DecodeGraph:
     """One decode step over ``slots`` rows captured as a CUDA graph and
-    replayed up to ``max_steps`` times a dispatch.  ``params``, ``pools``
-    and ``generator`` (for ``sampling``) must keep their storage for the
-    graph's life.  Capture happens at the first ``run``."""
+    replayed up to ``max_steps`` times a dispatch.  ``params`` and
+    ``pools`` must keep their storage for the graph's life.  Capture
+    happens at the first ``run``."""
 
     def __init__(
         self, params: dict, pools: tuple[torch.Tensor, torch.Tensor], config,
-        *, slots: int, max_pages: int, max_steps: int,
-        generator: torch.Generator | None, temperature: float, top_k: int,
+        *, slots: int, max_pages: int, max_steps: int, temperature: float, top_k: int,
         top_p: float, sampling: bool, lora_stacked: list | None = None,
         lora_alpha: float = 1.0,
     ):
         device = pools[0].device
         self.params, self.pools, self.config = params, pools, config
         self.lora_stacked, self.lora_alpha = lora_stacked, lora_alpha
-        self.generator = generator if sampling else None
         self.sampling = sampling
         self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
         self.max_steps = max_steps
@@ -92,9 +115,12 @@ class DecodeGraph:
             self.col = torch.zeros(1, dtype=torch.long, device=device)
             self.aidx = (torch.zeros(slots, dtype=torch.int32, device=device)
                          if lora_stacked is not None else None)
+            self.keys = (torch.zeros((max_steps, 2), dtype=torch.int64, device=device)
+                         if sampling else None)
         self.graph = None
         self.captures = 0  # completed captures: 1 for the graph's life
         self.k1_per_step = 0  # paged_attention launches in one captured step
+        self.threefry_per_step = 0  # threefry launches in one captured step
 
     def _step(self) -> None:
         """The captured step: one decode step from the buffers, its
@@ -102,9 +128,10 @@ class DecodeGraph:
         buffers."""
         lora = (None if self.aidx is None
                 else (self.lora_stacked, self.aidx, self.lora_alpha))
+        key = None if self.keys is None else self.keys.index_select(0, self.col).reshape(2)
         nxt, tok, pos, live, budget = decode_superstep_step(
             self.params, self.pools, self.tables, self.tok, self.pos, self.live,
-            self.budget, self.eos, self.generator, self.temperature, self.top_k,
+            self.budget, self.eos, key, self.temperature, self.top_k,
             self.top_p, self.config, self.sampling, lora=lora,
         )
         self.out.index_copy_(1, self.col, nxt[:, None])
@@ -119,10 +146,10 @@ class DecodeGraph:
         """Warm up on a side stream (kernel build, library handles, the
         kernel's per-stream ticket buffer), then capture one step on it.
         The warm-up runs every row parked on the pools' trash page, and
-        the generator's state and the launch count come back as they
-        were: neither the pools' live pages, the draws nor the count see
-        it.  If anything raises, ``graph`` stays None (the next ``run``
-        captures afresh) and the count and the generator come back too."""
+        the launch counts come back as they were: neither the pools' live
+        pages nor the counts see it.  If anything raises, ``graph`` stays
+        None (the next ``run`` captures afresh) and the counts come back
+        too."""
         trash = self.pools[0].shape[1] - 1
         self.tables.fill_(trash)
         self.live.fill_(False)
@@ -130,8 +157,9 @@ class DecodeGraph:
         self.col.zero_()
         if self.aidx is not None:
             self.aidx.zero_()
-        launches = paged_attention.launches
-        rng_state = self.generator.get_state() if self.generator is not None else None
+        if self.keys is not None:
+            self.keys.zero_()
+        counts = _launch_counts()
         try:
             side = torch.cuda.Stream(self.tok.device)
             side.wait_stream(torch.cuda.current_stream(self.tok.device))
@@ -142,31 +170,29 @@ class DecodeGraph:
             torch.cuda.current_stream(self.tok.device).wait_stream(side)
             torch.cuda.synchronize(self.tok.device)
             graph = torch.cuda.CUDAGraph()
-            if self.generator is not None:
-                self.generator.set_state(rng_state)
-                graph.register_generator_state(self.generator)
-            before = paged_attention.launches
+            before = _launch_counts()
             with torch.cuda.graph(graph, stream=side):
                 self._step()
-            self.k1_per_step = paged_attention.launches - before
+            self.k1_per_step = paged_attention.launches - before[0]
+            self.threefry_per_step = threefry.launches - before[1]
         finally:
-            paged_attention.launches = launches
-            if self.generator is not None:
-                self.generator.set_state(rng_state)
+            _restore_counts(counts)
         self.graph = graph
         self.captures += 1
 
     @torch.inference_mode()
-    def run(self, tables, tok, pos, live, budget, eos, steps: int, aidx=None):
+    def run(self, tables, tok, pos, live, budget, eos, steps: int, aidx=None, keys=None):
         """``steps`` decode steps from these inputs (device tensors,
         [slots] and [slots, max_pages]), as replays of the captured step;
         ``aidx`` ([slots] adapter indices) is required with adapters and
-        refused without.  Returns (emitted [slots, steps], tok, pos,
+        refused without, ``keys`` ([steps, 2], one key a step) with
+        sampling and refused without.  Returns (emitted [slots, steps], tok, pos,
         live, budget): a view of ``out`` and the carry buffers, which the
         next ``run`` overwrites; read or copy them before it."""
         if not 1 <= steps <= self.max_steps:
             raise ValueError(f"steps must be in [1, {self.max_steps}], got {steps}")
         _check_aidx(self.aidx, aidx)
+        _check_keys(self.keys, keys, steps)
         if self.graph is None:
             self.capture()
         for buf, src in ((self.tables, tables), (self.tok, tok), (self.pos, pos),
@@ -174,11 +200,14 @@ class DecodeGraph:
             buf.copy_(src)
         if self.aidx is not None:
             self.aidx.copy_(aidx)
+        if self.keys is not None:
+            self.keys[:steps].copy_(keys)
         self.col.zero_()
         for _ in range(steps):
             self.graph.replay()
             # The replay launched what one captured step launched.
             paged_attention.launches += self.k1_per_step
+            threefry.launches += self.threefry_per_step
         return self.out[:, :steps], self.tok, self.pos, self.live, self.budget
 
 
@@ -186,9 +215,10 @@ class SpecGraph:
     """One speculative round over ``slots`` rows captured as a CUDA graph
     per cover bucket and replayed up to ``max_rounds`` times a dispatch.
     The graph holds the two parameter trees, both pool pairs (updated in
-    place, never rebound), ``generator`` (for ``sampling``) and its own
-    buffers: the inputs ``tables``, ``cur``, ``pos``, ``live``,
-    ``budget``, ``eos`` (overwritten with the carry at every replay) and
+    place, never rebound) and its own buffers: the inputs ``tables``,
+    ``cur``, ``pos``, ``live``, ``budget``, ``eos`` (overwritten with the
+    carry at every replay), with sampling ``keys`` (row ``i`` is round
+    ``i``'s key) and
     the outputs ``committed`` [max_rounds, slots, gamma+1], ``n`` and
     ``round_live`` [max_rounds, slots], row ``i`` from round ``i``.  A
     capture that raises leaves that cover's graph absent (the next
@@ -197,9 +227,9 @@ class SpecGraph:
 
     def __init__(
         self, t_params: dict, d_params: dict, t_pools, d_pools, t_config, d_config, *,
-        gamma: int, slots: int, max_pages: int, max_rounds: int,
-        generator: torch.Generator | None, temperature: float, top_k: int, top_p: float,
-        sampling: bool, lora_stacked: list | None = None, lora_alpha: float = 1.0,
+        gamma: int, slots: int, max_pages: int, max_rounds: int, temperature: float,
+        top_k: int, top_p: float, sampling: bool, lora_stacked: list | None = None,
+        lora_alpha: float = 1.0,
     ):
         device = t_pools[0].device
         self.lora_stacked, self.lora_alpha = lora_stacked, lora_alpha
@@ -207,7 +237,6 @@ class SpecGraph:
         self.t_pools, self.d_pools = t_pools, d_pools
         self.t_config, self.d_config = t_config, d_config
         self.gamma = gamma
-        self.generator = generator if sampling else None
         self.sampling = sampling
         self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
         self.max_rounds = max_rounds
@@ -226,10 +255,13 @@ class SpecGraph:
             self.row = torch.zeros(1, dtype=torch.long, device=device)
             self.aidx = (torch.zeros(slots, dtype=torch.int32, device=device)
                          if lora_stacked is not None else None)
+            self.keys = (torch.zeros((max_rounds, 2), dtype=torch.int64, device=device)
+                         if sampling else None)
         self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
         self.captures = 0
         self.captures_by_cover: dict[int, int] = {}
         self.k1_per_round = 0  # paged_attention launches in one captured round
+        self.threefry_per_round = 0  # threefry launches in one captured round
 
     def _round(self, cover: int) -> None:
         """The captured round: one chained round from the buffers, its
@@ -238,11 +270,12 @@ class SpecGraph:
         self.round_live.index_copy_(0, self.row, self.live[None])
         t_lora = (None if self.aidx is None
                   else (self.lora_stacked, self.aidx, self.lora_alpha))
+        key = None if self.keys is None else self.keys.index_select(0, self.row).reshape(2)
         committed, n, cur, pos, live, budget = spec_chained_round(
             self.t_params, self.d_params, self.t_pools, self.d_pools, self.tables,
             self.cur, self.pos, self.live, self.budget, self.eos, self.t_config,
             self.d_config, self.gamma, cover, sampling=self.sampling,
-            generator=self.generator, temperature=self.temperature, top_k=self.top_k,
+            rng=key, temperature=self.temperature, top_k=self.top_k,
             top_p=self.top_p, t_lora=t_lora,
         )
         self.committed.index_copy_(0, self.row, committed[None])
@@ -257,9 +290,9 @@ class SpecGraph:
     def capture(self, cover: int) -> None:
         """Warm up on a side stream, then capture one round at ``cover``
         on it.  The warm-up runs every row parked at position 0 on the
-        trash page; the generator's state and the launch count come back
-        as they were.  If anything raises, no graph is kept for
-        ``cover`` and the count and the generator come back too."""
+        trash page; the launch counts come back as they were.  If
+        anything raises, no graph is kept for ``cover`` and the counts
+        come back too."""
         device = self.cur.device
         trash = self.t_pools[0].shape[1] - 1
         self.tables.fill_(trash)
@@ -267,8 +300,9 @@ class SpecGraph:
         self.pos.zero_()
         if self.aidx is not None:
             self.aidx.zero_()
-        launches = paged_attention.launches
-        rng_state = self.generator.get_state() if self.generator is not None else None
+        if self.keys is not None:
+            self.keys.zero_()
+        counts = _launch_counts()
         try:
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
@@ -280,26 +314,24 @@ class SpecGraph:
             torch.cuda.synchronize(device)
             self.row.zero_()
             graph = torch.cuda.CUDAGraph()
-            if self.generator is not None:
-                self.generator.set_state(rng_state)
-                graph.register_generator_state(self.generator)
-            before = paged_attention.launches
+            before = _launch_counts()
             with torch.cuda.graph(graph, stream=side):
                 self._round(cover)
-            self.k1_per_round = paged_attention.launches - before
+            self.k1_per_round = paged_attention.launches - before[0]
+            self.threefry_per_round = threefry.launches - before[1]
         finally:
-            paged_attention.launches = launches
-            if self.generator is not None:
-                self.generator.set_state(rng_state)
+            _restore_counts(counts)
         self.graphs[cover] = graph
         self.captures += 1
         self.captures_by_cover[cover] = self.captures_by_cover.get(cover, 0) + 1
 
     @torch.inference_mode()
-    def run(self, tables, cur, pos, live, budget, eos, rounds: int, cover: int, aidx=None):
+    def run(self, tables, cur, pos, live, budget, eos, rounds: int, cover: int, aidx=None,
+            keys=None):
         """``rounds`` chained rounds from these inputs (device tensors),
         as replays of the round captured at ``cover``; ``aidx`` as in
-        ``DecodeGraph.run``.  Returns
+        ``DecodeGraph.run``, ``keys`` ([rounds, 2], each round's own key)
+        with sampling.  Returns
         (committed [rounds, slots, gamma+1], n [rounds, slots],
         round_live [rounds, slots], cur, pos, live, budget): views of the
         graph's buffers, which the next ``run`` overwrites; read or copy
@@ -307,6 +339,7 @@ class SpecGraph:
         if not 1 <= rounds <= self.max_rounds:
             raise ValueError(f"rounds must be in [1, {self.max_rounds}], got {rounds}")
         _check_aidx(self.aidx, aidx)
+        _check_keys(self.keys, keys, rounds)
         if cover not in self.graphs:
             self.capture(cover)
         graph = self.graphs[cover]
@@ -315,10 +348,13 @@ class SpecGraph:
             buf.copy_(src)
         if self.aidx is not None:
             self.aidx.copy_(aidx)
+        if self.keys is not None:
+            self.keys[:rounds].copy_(keys)
         self.row.zero_()
         for _ in range(rounds):
             graph.replay()
             # The replay launched what one captured round launched.
             paged_attention.launches += self.k1_per_round
+            threefry.launches += self.threefry_per_round
         return (self.committed[:rounds], self.n[:rounds], self.round_live[:rounds],
                 self.cur, self.pos, self.live, self.budget)

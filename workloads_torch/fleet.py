@@ -2549,9 +2549,7 @@ def make_fleet(
     registry).
 
     The port's engines run on ``device`` (default ``cuda``; pass
-    ``"cpu"`` explicitly; a ``device`` in ``engine_kw`` wins).  A
-    ``generator`` in ``engine_kw`` is a seed, as a JAX key is a value:
-    each replica starts its own generator from its state."""
+    ``"cpu"`` explicitly; a ``device`` in ``engine_kw`` wins)."""
     from .serve import ServeEngine
 
     if n < 1:
@@ -2561,10 +2559,6 @@ def make_fleet(
     engines = []
     for i in range(n):
         kw = dict(engine_kw)
-        if kw.get("generator") is not None:
-            gen = torch.Generator(kw["generator"].device)
-            gen.set_state(kw["generator"].get_state())
-            kw["generator"] = gen
         if observers is not None:
             kw["observer"] = observers[i]
         engines.append(ServeEngine(params, config, **kw))

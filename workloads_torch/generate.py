@@ -8,17 +8,18 @@ numerics follow the JAX package operation for operation: the prefill
 block and the serving engine's gathered-view prefill both go through
 ``decode_block``.
 
-Sampling draws from an explicit ``torch.Generator``.  Its numbers differ
-from ``jax.random``'s, so sampled streams are held to the filtered
-distribution (``filter_logits``), not token for token; greedy decoding
-is exact.
+Sampling draws from an explicit key (``workloads_torch.prng``, JAX's
+threefry), so one seed gives ``jax.random``'s draws: ``sample_logits`` is
+``categorical`` over ``filter_logits``, as in the JAX package, and sampled
+streams follow JAX's token for token but where the Gumbel-perturbed top
+two lie within float32 rounding of each other.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import resolve_device
+from . import prng, resolve_device
 from .model import (
     ModelConfig,
     _mlp,
@@ -164,29 +165,31 @@ def filter_logits(
 
 
 def sample_logits(
-    logits: torch.Tensor, generator: torch.Generator | None,
+    logits: torch.Tensor, key: torch.Tensor | None,
     temperature: float, top_k: int, top_p: float,
 ) -> torch.Tensor:
     """One decision per row of [batch, vocab] float32 logits: argmax
-    without a generator, else a draw from ``filter_logits``'s
-    distribution with ``generator``.  Returns [batch] int64."""
-    if generator is None:
+    without a key, else ``prng.categorical`` over ``filter_logits`` (one
+    key [2] for the whole batch, as the JAX package's draw; a batch of
+    keys [batch, 2] draws each row under its own, as its ``vmap`` over
+    keys does).  Returns [batch] int64."""
+    if key is None:
         return torch.argmax(logits, dim=-1)
     filtered = filter_logits(logits, temperature, top_k, top_p)
-    probs = torch.softmax(filtered, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return prng.categorical(key, filtered)
 
 
 @torch.inference_mode()
 def generate(
     params: dict, prompt, config: ModelConfig, max_new_tokens: int,
     temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-    generator: torch.Generator | None = None, device=None,
+    rng: torch.Tensor | None = None, device=None,
 ) -> torch.Tensor:
     """Decode: prompt [batch, prompt_len] -> [batch, max_new_tokens].
 
-    Greedy by default; ``temperature > 0`` samples and requires a
-    ``generator``.  Runs on ``device`` (default ``cuda``; pass "cpu"
+    Greedy by default; ``temperature > 0`` samples and requires ``rng``
+    (a ``prng`` key), split into one key a position as the JAX package
+    splits it.  Runs on ``device`` (default ``cuda``; pass "cpu"
     explicitly), where ``params`` must already live."""
     device = resolve_device(device)
     if params["embed"].device.type != device.type:
@@ -198,15 +201,15 @@ def generate(
     batch, prompt_len = prompt.shape
     if prompt_len < 1:
         raise ValueError("prompt must contain at least one token")
-    if temperature > 0.0 and generator is None:
-        raise ValueError("temperature > 0 requires a torch.Generator")
+    if temperature > 0.0 and rng is None:
+        raise ValueError("temperature > 0 requires an rng key")
     total = prompt_len + max_new_tokens
     if total > config.max_seq_len:
         raise ValueError(
             f"prompt_len + max_new_tokens = {total} exceeds "
             f"max_seq_len {config.max_seq_len}"
         )
-    sampler = generator if temperature > 0.0 else None
+    keys = prng.split(rng.to(device), total - 1) if temperature > 0.0 else None
     cache = init_kv_cache(config, batch, total, device)
     tok = torch.zeros(batch, dtype=torch.long, device=device)
     outs = []
@@ -216,6 +219,7 @@ def generate(
         if pos < prompt_len:
             tok = prompt[:, pos]
         logits, cache = decode_step(params, cache, tok, pos, config)
-        tok = sample_logits(logits, sampler, temperature, top_k, top_p)
+        tok = sample_logits(logits, None if keys is None else keys[pos], temperature,
+                            top_k, top_p)
         outs.append(tok)
     return torch.stack(outs, dim=1)[:, prompt_len - 1 :]

@@ -8,10 +8,8 @@ and autograd runs over the adapter leaves alone, so the base is never a
 leaf and comes out bit-unchanged.  Optimizer state exists only for the
 adapters.
 
-``lora_init`` draws from a ``torch.Generator``; the JAX package draws
-from ``jax.random`` (threefry), so one seed gives other numbers on the
-two sides.  Parity with the JAX package goes through factors carried
-across (``convert.adapters_from_jax``), never through seeds.
+``lora_init`` draws JAX's key stream (``prng``, threefry): one seed
+gives the JAX package's factors, within ``prng.normal``'s few ulp.
 
 Under a mesh (``mesh=``, as the JAX step's) the step goes through
 ``train.make_sharded_train_step`` with the base as its ``frozen``
@@ -26,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from . import prng
 from .model import ModelConfig, loss_fn, weight
 
 # Which layer weights get adapters; their (fan_in, fan_out) split comes
@@ -69,14 +68,15 @@ def _layer_shapes(config: ModelConfig) -> dict:
 
 
 def lora_init(
-    config: ModelConfig, rank: int, generator: torch.Generator, targets=_TARGETS
+    config: ModelConfig, rank: int, key: torch.Tensor, targets=_TARGETS
 ) -> list:
     """Adapter tree: per layer, per target weight, ``{"a": [fan_in, r],
-    "b": [r, fan_out]}`` float32 on the generator's device.  ``b`` starts
-    at zero, so the adapted model is exactly the base at step 0."""
+    "b": [r, fan_out]}`` float32 on the key's device, each ``a`` under
+    the next ``split`` of ``key`` as the JAX package draws it.  ``b``
+    starts at zero, so the adapted model is exactly the base at step 0."""
     if rank < 1:
         raise ValueError(f"rank must be >= 1, got {rank}")
-    device = generator.device
+    device = key.device
     shapes = _layer_shapes(config)
     adapters = []
     for _ in range(config.n_layers):
@@ -85,8 +85,8 @@ def lora_init(
             if name not in shapes:
                 continue
             fan_in, fan_out = _fans(name, shapes[name])
-            a = torch.randn((fan_in, rank), generator=generator, device=device,
-                            dtype=torch.float32)
+            key, ka = prng.split(key).unbind(0)
+            a = prng.normal(ka, (fan_in, rank))
             entry[name] = {
                 "a": a * (1.0 / fan_in**0.5),
                 "b": torch.zeros((rank, fan_out), dtype=torch.float32, device=device),
@@ -175,7 +175,7 @@ def main(argv=None) -> int:
     # As the JAX CLI: a mesh over the world when one is up (the adapters
     # replicated, the batch split over "data"), else one device.
     mesh, device = world_mesh(args.device)
-    base = init_params(config, torch.Generator(device).manual_seed(0))
+    base = init_params(config, prng.PRNGKey(0, device=device))
     if args.int8_base:
         from .quant import quantize_params
 
@@ -183,7 +183,7 @@ def main(argv=None) -> int:
     optimizer = AdamW(lr=1e-3, mu_dtype=torch.float32)
 
     def init():
-        return lora_init(config, args.rank, torch.Generator(device).manual_seed(1))
+        return lora_init(config, args.rank, prng.PRNGKey(1, device=device))
 
     if mesh is None:
         adapters = init()

@@ -28,6 +28,7 @@ from functools import partial
 import torch
 import torch.utils.checkpoint
 
+from . import prng
 from .ops import kernel_select
 from .quant import dequantize, is_quantized
 
@@ -86,39 +87,41 @@ class ModelConfig:
         return self.n_kv_heads or self.n_heads
 
 
-def init_params(config: ModelConfig, generator: torch.Generator) -> dict:
-    """A random parameter tree with the JAX package's tree and law:
-    every dense leaf N(0, 0.02) in float32, norm gains 1.  The draws
-    come from ``generator`` on its own device, so the tree lands there;
-    cast with ``cast_params`` for bf16 serving.  (The values differ from
-    ``jax.random``'s; parity tests convert the JAX tree instead.)"""
-    device = generator.device
+def init_params(config: ModelConfig, key: torch.Tensor) -> dict:
+    """A random parameter tree with the JAX package's tree, law and key
+    stream: ``split(key, 2 + n_layers)``, embed and unembed from the
+    first two keys, six keys a layer (``k[0]`` the fused qkv or ``wq``,
+    ``k[4]`` the GQA ``wkv``), every dense leaf ``normal * 0.02`` in
+    float32 and norm gains 1.  A ``prng`` key gives JAX's values (within
+    a few ulp: ``prng.normal``), on the key's device, so the tree lands
+    there; cast with ``cast_params`` for bf16 serving."""
+    device = key.device
+    keys = prng.split(key, 2 + config.n_layers)
     scale = 0.02
 
-    def dense(*shape):
-        return torch.randn(
-            shape, generator=generator, device=device, dtype=torch.float32
-        ) * scale
+    def dense(k, *shape):
+        return prng.normal(k, shape) * scale
 
     d, h, hd = config.d_model, config.n_heads, config.head_dim
     params = {
-        "embed": dense(config.vocab_size, d),
-        "unembed": dense(d, config.vocab_size),
+        "embed": dense(keys[0], config.vocab_size, d),
+        "unembed": dense(keys[1], d, config.vocab_size),
         "layers": [],
     }
-    for _ in range(config.n_layers):
+    for i in range(config.n_layers):
+        k = prng.split(keys[2 + i], 6)
         layer = {
             "ln1": torch.ones(d, device=device),
             "ln2": torch.ones(d, device=device),
         }
         if config.kv_heads == config.n_heads:
-            layer["wqkv"] = dense(d, 3, h, hd)
+            layer["wqkv"] = dense(k[0], d, 3, h, hd)
         else:
-            layer["wq"] = dense(d, h, hd)
-            layer["wkv"] = dense(d, 2, config.kv_heads, hd)
-        layer["wo"] = dense(h, hd, d)
-        layer["w_up"] = dense(d, config.d_ff)
-        layer["w_down"] = dense(config.d_ff, d)
+            layer["wq"] = dense(k[0], d, h, hd)
+            layer["wkv"] = dense(k[4], d, 2, config.kv_heads, hd)
+        layer["wo"] = dense(k[1], h, hd, d)
+        layer["w_up"] = dense(k[2], d, config.d_ff)
+        layer["w_down"] = dense(k[3], config.d_ff, d)
         params["layers"].append(layer)
     return params
 

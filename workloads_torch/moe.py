@@ -39,6 +39,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from . import prng
 from .model import (
     ModelConfig,
     _attention,
@@ -59,20 +60,21 @@ class MoEConfig:
     aux_loss_weight: float = 0.01
 
 
-def init_moe_ffn_params(generator: torch.Generator, d_model: int, d_ff: int,
+def init_moe_ffn_params(key: torch.Tensor, d_model: int, d_ff: int,
                         n_experts: int) -> dict:
     """Router ``[d, E]`` and experts ``w_up`` ``[E, d, f]``, ``w_down``
-    ``[E, f, d]``, N(0, 0.02) float32 from ``generator``, on its device."""
+    ``[E, f, d]``, ``normal * 0.02`` float32 under ``split(key, 3)``, as
+    the JAX package draws them, on the key's device."""
+    k = prng.split(key, 3)
     scale = 0.02
 
-    def dense(*shape):
-        return torch.randn(shape, generator=generator, device=generator.device,
-                           dtype=torch.float32) * scale
+    def dense(kk, *shape):
+        return prng.normal(kk, shape) * scale
 
     return {
-        "router": dense(d_model, n_experts),
-        "w_up": dense(n_experts, d_model, d_ff),
-        "w_down": dense(n_experts, d_ff, d_model),
+        "router": dense(k[0], d_model, n_experts),
+        "w_up": dense(k[1], n_experts, d_model, d_ff),
+        "w_down": dense(k[2], n_experts, d_ff, d_model),
     }
 
 
@@ -174,30 +176,16 @@ def moe_ffn(params: dict, x: torch.Tensor, moe: MoEConfig,
     return (y if h.reduce is None else h.reduce(y)), aux
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def _fold_in(seed: int, data: int) -> int:
-    """A seed for a stream kept apart from ``seed``'s (``jax.random.fold_in``'s
-    role): splitmix64 of the pair."""
-    z = (seed * 0x9E3779B97F4A7C15 + data + 1) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & ((1 << 63) - 1)
-
-
-def init_moe_model_params(config: ModelConfig, moe: MoEConfig,
-                          generator: torch.Generator) -> dict:
+def init_moe_model_params(config: ModelConfig, moe: MoEConfig, key: torch.Tensor) -> dict:
     """The model with its dense FFN swapped for MoE.  Router and expert
-    weights come from a second generator seeded from ``generator``'s seed
-    (``_fold_in``): drawing them from ``generator`` itself would tie them
-    to the stream ``init_params`` consumed."""
-    params = init_params(config, generator)
-    experts = torch.Generator(generator.device).manual_seed(
-        _fold_in(generator.initial_seed(), 1))
-    for layer in params["layers"]:
+    weights come from a fresh stream, ``split(fold_in(key, 1), n_layers)``
+    as in the JAX package: splitting ``key`` again would replay the keys
+    ``init_params`` consumed."""
+    params = init_params(config, key)
+    keys = prng.split(prng.fold_in(key, 1), config.n_layers)
+    for i, layer in enumerate(params["layers"]):
         del layer["w_up"], layer["w_down"]
-        layer["moe"] = init_moe_ffn_params(experts, config.d_model, config.d_ff,
+        layer["moe"] = init_moe_ffn_params(keys[i], config.d_model, config.d_ff,
                                            moe.n_experts)
     return params
 
@@ -253,15 +241,15 @@ def make_moe_mesh(n_devices: int, expert_parallel: int = 2, model_parallel: int 
 def make_moe_train_state(config: ModelConfig, moe: MoEConfig, mesh, seed: int = 0,
                          optimizer=None):
     """((params, opt_state), optimizer): this rank's cut of
-    ``init_moe_model_params`` from ``seed`` (a ``torch.Generator`` on the
-    mesh's device) by ``moe_param_specs`` (default optimizer ``AdamW()``)."""
+    ``init_moe_model_params`` from ``PRNGKey(seed)`` on the mesh's
+    device by ``moe_param_specs`` (default optimizer ``AdamW()``)."""
     from .distributed import mesh_device
     from .train import make_sharded_train_state
 
     device = mesh_device(mesh)
     return make_sharded_train_state(
         mesh,
-        lambda: init_moe_model_params(config, moe, torch.Generator(device).manual_seed(seed)),
+        lambda: init_moe_model_params(config, moe, prng.PRNGKey(seed, device=device)),
         moe_param_specs(config),
         optimizer,
     )

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from . import resolve_device
+from . import prng, resolve_device
 from .model import ModelConfig
 
 
@@ -38,20 +38,20 @@ def synthetic_adapters(
 ) -> dict:
     """N trained-looking adapters for demos and tests: ``lora_init``'s
     zero ``b`` is replaced with scaled normals so each tenant changes the
-    model.  Draws come from ``torch.Generator`` seeded from ``seed`` on
-    ``device`` (None means ``cuda``): the JAX package's seeds give other
-    numbers (it draws from ``jax.random``)."""
+    model.  Draws follow the JAX package's keys, ``PRNGKey(seed)`` for
+    the ``b`` factors and ``PRNGKey(seed + 1000 + i)`` for adapter ``i``'s
+    ``lora_init``, on ``device`` (None means ``cuda``)."""
     from .lora import lora_init
 
     device = resolve_device(device)
-    g = torch.Generator(device).manual_seed(seed)
+    key = prng.PRNGKey(seed, device=device)
     out = {}
     for i in range(n):
-        ad = lora_init(config, rank, torch.Generator(device).manual_seed(seed + 1000 + i))
+        ad = lora_init(config, rank, prng.PRNGKey(seed + 1000 + i, device=device))
         for layer in ad:
             for ab in layer.values():
-                ab["b"] = torch.randn(ab["b"].shape, generator=g, device=device,
-                                      dtype=torch.float32) * scale
+                key, k = prng.split(key).unbind(0)
+                ab["b"] = prng.normal(k, ab["b"].shape) * scale
         out[f"{prefix}-{i}"] = ad
     return out
 

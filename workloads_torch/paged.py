@@ -33,7 +33,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from . import resolve_device
+from . import prng, resolve_device
 from .generate import decode_block, filter_logits, sample_logits
 from .model import (
     ModelConfig,
@@ -1143,7 +1143,7 @@ def paged_decode_chunk(
     token: torch.Tensor,
     positions: torch.Tensor,
     occupancy: torch.Tensor,
-    generator: torch.Generator | None,
+    rng: torch.Tensor | None,
     temperature: float,
     top_k: int,
     top_p: float,
@@ -1153,7 +1153,8 @@ def paged_decode_chunk(
     lora=None,
     reduce=None,
 ):
-    """``chunk`` decode steps (the JAX package's lax.scan, as a loop).
+    """``chunk`` decode steps (the JAX package's lax.scan, as a loop);
+    sampling draws step ``i`` from ``split(rng, chunk)[i]``.
     token/positions: [batch], each row's current token and position.
     occupancy: [batch] bool; rows marked False are parked — their
     position and token freeze and their all-trash table swallows the
@@ -1165,12 +1166,13 @@ def paged_decode_chunk(
     pos = torch.broadcast_to(
         torch.as_tensor(positions, device=token.device), token.shape
     ).long()
+    keys = prng.split(rng, chunk) if sampling else None
     toks = []
-    for _ in range(chunk):
+    for i in range(chunk):
         logits, pools = _decode_core(params, pools, tables, tok, pos, config, lora=lora,
                                      reduce=reduce)
         nxt = sample_logits(
-            logits, generator if sampling else None, temperature, top_k, top_p
+            logits, keys[i] if sampling else None, temperature, top_k, top_p
         )
         pos = torch.where(occupancy, pos + 1, pos)
         tok = torch.where(occupancy, nxt, tok)
@@ -1187,7 +1189,7 @@ def decode_superstep_step(
     live: torch.Tensor,
     budget: torch.Tensor,
     eos: torch.Tensor,
-    generator: torch.Generator | None,
+    key: torch.Tensor | None,
     temperature: float,
     top_k: int,
     top_p: float,
@@ -1200,13 +1202,14 @@ def decode_superstep_step(
     ``paged_decode_superstep`` (and the step ``decode_graph`` captures):
     emit a token for every row, advance live rows, then retire a row on
     the step it emits ``eos`` or exhausts its ``budget``; retired and
-    parked rows freeze their position and token.  Returns (emitted
+    parked rows freeze their position and token.  ``key`` is the step's
+    own sampling key.  Returns (emitted
     [batch], tok, pos, live, budget); the pools update in place.
     ``lora``: per-row adapters (see ``_decode_core``)."""
     logits, _ = _decode_core(params, pools, tables, tok, pos, config, lora=lora,
                              reduce=reduce)
     nxt = sample_logits(
-        logits, generator if sampling else None, temperature, top_k, top_p
+        logits, key if sampling else None, temperature, top_k, top_p
     )
     pos = torch.where(live, pos + 1, pos)
     tok = torch.where(live, nxt, tok)
@@ -1226,7 +1229,7 @@ def paged_decode_superstep(
     live: torch.Tensor,
     budget: torch.Tensor,
     eos: torch.Tensor,
-    generator: torch.Generator | None,
+    rngs: torch.Tensor | None,
     temperature: float,
     top_k: int,
     top_p: float,
@@ -1241,8 +1244,10 @@ def paged_decode_superstep(
     retirement, the JAX package's ``paged_decode_superstep`` as a loop.
     live: [batch] bool, False rows (empty slots, rows retired earlier)
     frozen like ``paged_decode_chunk``'s parked rows; budget: [batch]
-    remaining tokens; eos: [batch] ids (-1 = none).  Draws come from
-    ``generator`` in the order ``k`` chunk calls take them.  tables must
+    remaining tokens; eos: [batch] ids (-1 = none).  rngs: [k, 2], one
+    engine key a chunk, each split ``chunk`` ways as
+    ``paged_decode_chunk`` splits its key, so the draws are the k chunk
+    calls'.  tables must
     cover each live row up to its retirement ceiling: a retired row keeps
     writing its frozen position.  Returns (tokens [batch, k*chunk], tok,
     pos, live, budget, pools): the carry after the last step, on the
@@ -1252,10 +1257,12 @@ def paged_decode_superstep(
     pos = torch.broadcast_to(
         torch.as_tensor(positions, device=token.device), token.shape
     ).long()
+    keys = prng.split(rngs, chunk).reshape(k * chunk, 2) if sampling else None
     toks = []
-    for _ in range(k * chunk):
+    for i in range(k * chunk):
         nxt, tok, pos, live, budget = decode_superstep_step(
-            params, pools, tables, tok, pos, live, budget, eos, generator,
+            params, pools, tables, tok, pos, live, budget, eos,
+            keys[i] if sampling else None,
             temperature, top_k, top_p, config, sampling, lora=lora, reduce=reduce,
         )
         toks.append(nxt)
@@ -1502,7 +1509,7 @@ def _rowwise_block_core(
 
 def _spec_accept(
     drafts: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
-    generator: torch.Generator,
+    rng: torch.Tensor,
 ):
     """Batched speculative REJECTION SAMPLING, the lossless acceptance
     rule: drafts [b, gamma] were drawn from the draft distributions
@@ -1513,15 +1520,17 @@ def _spec_accept(
     accepted, a bonus token from p_gamma.  The committed tokens are then
     distributed exactly as sequential sampling from p, whatever q is.
 
-    Two draws from ``generator``, in this order: the uniforms, then the
-    correction.  Returns (committed [b, gamma+1], n [b]): row b's new
-    tokens are committed[b, :n[b]+1]."""
+    Two draws, as the JAX package's: the uniforms under
+    ``fold_in(rng, 0)``, the correction under ``fold_in(rng, 1)``
+    (``categorical`` over the log of its distribution).  Returns
+    (committed [b, gamma+1], n [b]): row b's new tokens are
+    committed[b, :n[b]+1]."""
     batch, gamma = drafts.shape
     row = torch.arange(batch, device=drafts.device)
     idx = drafts.long()[..., None]
     p_x = torch.gather(p[:, :gamma], -1, idx)[..., 0]
     q_x = torch.gather(q, -1, idx)[..., 0]
-    u = torch.rand((batch, gamma), generator=generator, device=drafts.device)
+    u = prng.uniform(prng.fold_in(rng, 0), (batch, gamma))
     # u*q < p  <=>  u < p/q (q_x > 0: x was drawn from q); no divide.
     accept = u * q_x < p_x
     n = torch.argmin(
@@ -1538,7 +1547,7 @@ def _spec_accept(
     # A degenerate residual (p <= q everywhere, or float cancellation)
     # falls back to p_n: under exact arithmetic it has probability 0.
     dist = torch.where(norm > 1e-9, resid / torch.clamp_min(norm, 1e-9), p_n)
-    corr = torch.multinomial(dist, 1, generator=generator)[:, 0]
+    corr = prng.categorical(prng.fold_in(rng, 1), torch.log(torch.clamp_min(dist, 1e-38)))
     committed = torch.cat(
         [drafts.long(), torch.zeros((batch, 1), dtype=torch.long, device=drafts.device)],
         dim=1,
@@ -1569,15 +1578,15 @@ def _greedy_commit(drafts: torch.Tensor, picks: torch.Tensor):
 
 
 def _draft_steps(d_params, d_pools, tables, cur, positions, d_config, gamma,
-                 attention_fn=None, sampling=False, generator=None,
+                 attention_fn=None, sampling=False, rng=None,
                  temperature=0.0, top_k=0, top_p=1.0, reduce=None):
     """The draft phase: gamma + 1 draft decode steps from ``cur`` at
     per-row ``positions`` (step i at positions + i, so the kernel's page
     walk sees each step's own length); the extra step writes the final
     proposal's k/v, so a fully accepted round leaves no hole in the
     draft cache.  Sampling proposes from the draft's filtered
-    distribution (the target's knobs) and keeps it for the rejection
-    rule.  Returns (drafts [b, gamma], last [b], q [b, gamma, vocab] or
+    distribution (the target's knobs) under ``fold_in(rng, 2 + i)`` and
+    keeps it for the rejection rule.  Returns (drafts [b, gamma], last [b], q [b, gamma, vocab] or
     None)."""
     tok, proposals, qs = cur.long(), [], []
     for i in range(gamma + 1):
@@ -1585,9 +1594,8 @@ def _draft_steps(d_params, d_pools, tables, cur, positions, d_config, gamma,
                                  attention_fn, reduce=reduce)
         if sampling:
             f = filter_logits(logits, temperature, top_k, top_p)
-            probs = torch.softmax(f, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            qs.append(probs)
+            tok = prng.categorical(prng.fold_in(rng, 2 + i), f)
+            qs.append(torch.softmax(f, dim=-1))
         else:
             tok = torch.argmax(logits, dim=-1)
         proposals.append(tok)
@@ -1599,15 +1607,16 @@ def _draft_steps(d_params, d_pools, tables, cur, positions, d_config, gamma,
 def _spec_round_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
     gamma, cover_pages=None, d_attention_fn=None, occupancy=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0, pin_parked=True, t_lora=None,
+    rng=None, temperature=0.0, top_k=0, top_p=1.0, pin_parked=True, t_lora=None,
     reduce=None,
 ):
     """One batched speculative round: the draft proposes ``gamma`` tokens
     a row, the target scores every row's block [cur, d_1..d_gamma] in one
     rowwise forward, and each row commits its own accepted prefix plus
     the correction (greedy agreement, or ``_spec_accept`` under
-    ``sampling``, which draws from ``generator``: the draft's proposals,
-    then the uniforms, then the correction).  Both pool pairs update in
+    ``sampling``, which draws under ``rng``: the draft's proposals from
+    ``fold_in(rng, 2 + i)``, the uniforms and the correction from
+    ``fold_in(rng, 0)`` and ``fold_in(rng, 1)``).  Both pool pairs update in
     place.  ``cover_pages`` slices the tables to the columns live.
 
     With ``occupancy`` it also returns the chained next-round state
@@ -1624,8 +1633,8 @@ def _spec_round_core(
     row-parallel all-reduce of both models on a tensor-parallel rank
     (see ``_decode_core``).  Returns (committed [b, gamma+1], n [b]) or
     (committed, n, new_cur, new_pos)."""
-    if sampling and generator is None:
-        raise ValueError("sampling speculative round requires a torch.Generator")
+    if sampling and rng is None:
+        raise ValueError("sampling speculative round requires an rng key")
     batch = cur.shape[0]
     if cover_pages is not None:
         tables = tables[:, :cover_pages].contiguous()  # the kernel takes it contiguous
@@ -1634,14 +1643,14 @@ def _spec_round_core(
         positions = torch.where(occupancy, positions, 0)
     drafts, _, q = _draft_steps(
         d_params, d_pools, tables, cur, positions, d_config, gamma, d_attention_fn,
-        sampling, generator, temperature, top_k, top_p, reduce=reduce,
+        sampling, rng, temperature, top_k, top_p, reduce=reduce,
     )
     block = torch.cat([cur.long()[:, None], drafts], dim=1)
     t_logits, _ = _rowwise_block_core(t_params, t_pools, tables, block, positions, t_config,
                                       lora=t_lora, reduce=reduce)
     if sampling:
         p = torch.softmax(filter_logits(t_logits, temperature, top_k, top_p), dim=-1)
-        committed, n = _spec_accept(drafts, q, p, generator)
+        committed, n = _spec_accept(drafts, q, p, rng)
     else:
         committed, n = _greedy_commit(drafts, torch.argmax(t_logits, dim=-1))
     if occupancy is None:
@@ -1655,7 +1664,7 @@ def _spec_round_core(
 @torch.inference_mode()
 def paged_spec_round(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
-    gamma, cover_pages=None, sampling=False, generator=None, temperature=0.0, top_k=0,
+    gamma, cover_pages=None, sampling=False, rng=None, temperature=0.0, top_k=0,
     top_p=1.0, t_lora=None,
 ):
     """One batched speculative round over the paged caches.  cur: [batch]
@@ -1667,11 +1676,11 @@ def paged_spec_round(
     positions only up to each row's committed length, and later rounds
     overwrite them first.  ``sampling`` switches greedy agreement for
     lossless speculative sampling (``_spec_accept``) under
-    temperature/top_k/top_p, drawing from ``generator``.  ``t_lora``
+    temperature/top_k/top_p, drawing under the key ``rng``.  ``t_lora``
     adapts the target's verify per row (see ``_spec_round_core``)."""
     committed, n = _spec_round_core(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
-        gamma, cover_pages, sampling=sampling, generator=generator,
+        gamma, cover_pages, sampling=sampling, rng=rng,
         temperature=temperature, top_k=top_k, top_p=top_p, t_lora=t_lora,
     )
     return committed, n, t_pools, d_pools
@@ -1680,7 +1689,7 @@ def paged_spec_round(
 @torch.inference_mode()
 def paged_spec_round_chained(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
-    d_config, gamma, cover_pages=None, sampling=False, generator=None, temperature=0.0,
+    d_config, gamma, cover_pages=None, sampling=False, rng=None, temperature=0.0,
     top_k=0, top_p=1.0, t_lora=None,
 ):
     """``paged_spec_round`` with the chained next-round state on the
@@ -1691,7 +1700,7 @@ def paged_spec_round_chained(
     re-admitting a row injects its host-side (cur, pos)."""
     out = _spec_round_core(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config, d_config,
-        gamma, cover_pages, occupancy=occupancy, sampling=sampling, generator=generator,
+        gamma, cover_pages, occupancy=occupancy, sampling=sampling, rng=rng,
         temperature=temperature, top_k=top_k, top_p=top_p, t_lora=t_lora,
     )
     return (*out, t_pools, d_pools)
@@ -1700,21 +1709,22 @@ def paged_spec_round_chained(
 def _spec_superstep_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
     d_config, gamma, k, cover_pages=None, d_attention_fn=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
+    rng=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
 ):
     """``k`` chained rounds (``paged_spec_round_chained``'s body in a
-    loop); returns (committed [k, b, gamma+1], n [k, b], new_cur,
-    new_pos)."""
-    if sampling and generator is None:
-        raise ValueError("sampling speculative superstep requires a torch.Generator")
+    loop), round ``i`` drawing under ``split(rng, k)[i]``; returns
+    (committed [k, b, gamma+1], n [k, b], new_cur, new_pos)."""
+    if sampling and rng is None:
+        raise ValueError("sampling speculative superstep requires an rng key")
+    keys = prng.split(rng, k) if sampling else None
     committed, ns = [], []
     cur, pos = cur.long(), positions.long()
-    for _ in range(k):
+    for i in range(k):
         c, n, cur, pos = _spec_round_core(
             t_params, d_params, t_pools, d_pools, tables, cur, pos, t_config, d_config,
             gamma, cover_pages, d_attention_fn, occupancy=occupancy, sampling=sampling,
-            generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
-            t_lora=t_lora, reduce=reduce,
+            rng=keys[i] if sampling else None, temperature=temperature, top_k=top_k,
+            top_p=top_p, t_lora=t_lora, reduce=reduce,
         )
         committed.append(c)
         ns.append(n)
@@ -1724,7 +1734,7 @@ def _spec_superstep_core(
 @torch.inference_mode()
 def paged_spec_superstep(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, t_config,
-    d_config, gamma, k, cover_pages=None, sampling=False, generator=None,
+    d_config, gamma, k, cover_pages=None, sampling=False, rng=None,
     temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
 ):
     """``k`` chained speculative rounds in one dispatch (lookahead): the
@@ -1737,7 +1747,7 @@ def paged_spec_superstep(
     out = _spec_superstep_core(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy,
         t_config, d_config, gamma, k, cover_pages, sampling=sampling,
-        generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+        rng=rng, temperature=temperature, top_k=top_k, top_p=top_p,
         t_lora=t_lora, reduce=reduce,
     )
     return (*out, t_pools, d_pools)
@@ -1760,17 +1770,19 @@ def spec_retire(committed, n, live, budget, eos):
 def spec_chained_round(
     t_params, d_params, t_pools, d_pools, tables, cur, pos, live, budget, eos, t_config,
     d_config, gamma, cover_pages=None, d_attention_fn=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
+    rng=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
 ):
     """One round of the chained-retirement superstep (and the round
     ``decode_graph.SpecGraph`` captures): the round with ``live`` as its
     occupancy and frozen rows kept at their position, then the emission
-    rule.  Returns (committed, n, new_cur, new_pos, new_live,
+    rule.  ``rng`` is the round's own key (the chained superstep passes
+    ``split(key, 1)[0]`` of its engine key, the lookahead superstep
+    ``split(rng, k)[i]``).  Returns (committed, n, new_cur, new_pos, new_live,
     new_budget)."""
     committed, n, new_cur, new_pos = _spec_round_core(
         t_params, d_params, t_pools, d_pools, tables, cur, pos, t_config, d_config, gamma,
         cover_pages, d_attention_fn, occupancy=live, sampling=sampling,
-        generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+        rng=rng, temperature=temperature, top_k=top_k, top_p=top_p,
         pin_parked=False, t_lora=t_lora, reduce=reduce,
     )
     new_live, new_budget = spec_retire(committed, n, live, budget, eos)
@@ -1780,7 +1792,7 @@ def spec_chained_round(
 def _spec_superstep_chained_core(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
     budget, eos, t_config, d_config, gamma, k, cover_pages=None, d_attention_fn=None,
-    sampling=False, generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
+    sampling=False, rngs=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None,
     reduce=None,
 ):
     """``paged_spec_superstep_chained``'s body.  Empty slots (occupancy
@@ -1788,17 +1800,20 @@ def _spec_superstep_chained_core(
     freeze mid-way keep their real position (see ``_spec_round_core``'s
     ``pin_parked``).  Entry positions of occupied rows are inside the
     cover by the engine's pre-extension, and frozen positions never
-    grow."""
+    grow.  Round ``i`` draws under ``split(rngs[i], 1)[0]``, the k=1
+    superstep's one split of its engine key, as in the JAX package."""
     pos = torch.where(occupancy, positions.long(), 0)
     live = live & occupancy
     cur, budget = cur.long(), budget.clone()
+    keys = prng.split(rngs, 1)[:, 0] if sampling else None
     committed, ns, lives = [], [], []
-    for _ in range(k):
+    for i in range(k):
         lives.append(live)
         c, n, cur, pos, live, budget = spec_chained_round(
             t_params, d_params, t_pools, d_pools, tables, cur, pos, live, budget, eos,
-            t_config, d_config, gamma, cover_pages, d_attention_fn, sampling, generator,
-            temperature, top_k, top_p, t_lora=t_lora, reduce=reduce,
+            t_config, d_config, gamma, cover_pages, d_attention_fn, sampling,
+            keys[i] if sampling else None, temperature, top_k, top_p, t_lora=t_lora,
+            reduce=reduce,
         )
         committed.append(c)
         ns.append(n)
@@ -1810,7 +1825,7 @@ def _spec_superstep_chained_core(
 def paged_spec_superstep_chained(
     t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
     budget, eos, t_config, d_config, gamma, k, cover_pages=None, sampling=False,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
+    rngs=None, temperature=0.0, top_k=0, top_p=1.0, t_lora=None, reduce=None,
 ):
     """``k`` chained draft -> verify -> commit rounds in one dispatch with
     device-side acceptance masks and retirement: per round the engine's
@@ -1818,9 +1833,9 @@ def paged_spec_superstep_chained(
     its terminal token lands, freezing its token and position (its dead
     rounds write only its own overwritable slots or trash, never
     position 0, where shared pages live).  budget/eos: [batch] (eos -1 =
-    none); draws come from ``generator`` in the order k rounds take
-    them.  Tables must cover min(positions + k*(gamma+1), positions +
-    budget + gamma + 1) for live rows.  Returns (committed [k, batch,
+    none); rngs: [k, 2], one engine key a round.  Tables must cover
+    min(positions + k*(gamma+1), positions + budget + gamma + 1) for live
+    rows.  Returns (committed [k, batch,
     gamma+1], n [k, batch], round_live [k, batch] (the mask at each
     round's entry, the host's emission gate), new_cur, new_pos, new_live,
     new_budget, t_pools, d_pools).  ``t_lora`` adapts the target's verify
@@ -1828,7 +1843,7 @@ def paged_spec_superstep_chained(
     out = _spec_superstep_chained_core(
         t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy, live,
         budget, eos, t_config, d_config, gamma, k, cover_pages, sampling=sampling,
-        generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+        rngs=rngs, temperature=temperature, top_k=top_k, top_p=top_p,
         t_lora=t_lora, reduce=reduce,
     )
     return (*out, t_pools, d_pools)

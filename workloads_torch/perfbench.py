@@ -47,10 +47,11 @@ programs (a KV handoff's re-prefill, a speculative verify) let a stream
 part only at a near-tie (``_hold_near_ties``): ROADMAP Queue C's known
 floors.
 
-Seeds: weights from ``torch.Generator`` seed 0 (JAX's ``PRNGKey(0)``),
+Seeds: weights from ``prng.PRNGKey(0)`` and samplers from
+``rng=PRNGKey(3)``, as the JAX package's (``prng`` is JAX's threefry);
 prompts from numpy seeds (JAX's ``PRNGKey(n)``; ``fold_in(key, i)``
-becomes the seed ``[n, i]``), samplers from ``generator=`` seed 3
-(JAX's ``rng=``), traffic from the port's ``TrafficGen`` at JAX's seeds.
+becomes the seed ``[n, i]``), traffic from the port's ``TrafficGen`` at
+JAX's seeds.
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
 
@@ -63,7 +64,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import prng, resolve_device
 from .model import ModelConfig, cast_params, init_params
 from .ops import kernel_select
 
@@ -228,7 +229,7 @@ def _config(scale: BenchScale, max_seq_len: int) -> ModelConfig:
 def _params(config: ModelConfig, seed: int, device) -> dict:
     """Random weights from ``seed`` in the config's dtype, on ``device``."""
     return cast_params(
-        init_params(config, torch.Generator(device).manual_seed(seed)),
+        init_params(config, prng.PRNGKey(seed, device=device)),
         config.dtype,
     )
 
@@ -237,8 +238,8 @@ def _prompt(seed: int, length: int, vocab: int) -> list[int]:
     return [int(t) for t in np.random.default_rng(seed).integers(0, vocab, length)]
 
 
-def _sampler(seed: int, device) -> torch.Generator:
-    return torch.Generator(device).manual_seed(seed)
+def _sampler(seed: int, device) -> torch.Tensor:
+    return prng.PRNGKey(seed, device=device)
 
 
 def _model_config(scale: BenchScale) -> ModelConfig:
@@ -573,7 +574,7 @@ def _paged_chunk_runner(
     if graph:
         decode = DecodeGraph(
             params, pools, config, slots=batch, max_pages=max_pages,
-            max_steps=chunk, generator=None, temperature=0.0, top_k=0,
+            max_steps=chunk, temperature=0.0, top_k=0,
             top_p=1.0, sampling=False,
         )
         unbounded = (
@@ -695,7 +696,7 @@ def measure_serve(scale: BenchScale, device=None) -> dict:
             # Page-aligned bucket covering the prompt.
             prompt_bucket=-(-prompt_len // ps) * ps,
             temperature=0.8, top_k=50, top_p=0.95,
-            generator=_sampler(3, device),
+            rng=_sampler(3, device),
             # Pipelined stepping: each chunk's readback overlaps the
             # next chunk's compute.
             pipelined=True, device=device,
@@ -901,7 +902,7 @@ def measure_serve_latency(scale: BenchScale, device=None) -> dict:
     engine = ServeEngine(
         params, config, slots=batch, page_size=ps, chunk=chunk,
         prompt_bucket=-(-prompt_len // ps) * ps,
-        temperature=0.8, top_k=50, top_p=0.95, generator=_sampler(3, device),
+        temperature=0.8, top_k=50, top_p=0.95, rng=_sampler(3, device),
         pipelined=True, device=device,
     )
     engine.submit(prompt, 1 + hi * chunk)  # warm: capture, first launches
@@ -1221,7 +1222,7 @@ def measure_obs_overhead(scale: BenchScale, device=None) -> dict:
             params, config, slots=batch, page_size=ps, chunk=chunk,
             prompt_bucket=-(-prompt_len // ps) * ps,
             temperature=0.8, top_k=50, top_p=0.95,
-            generator=_sampler(3, device), pipelined=True, observer=obs,
+            rng=_sampler(3, device), pipelined=True, observer=obs,
             device=device,
         )
         engine.submit(prompt, 1 + hi * chunk)  # warm: capture, launches
@@ -1309,7 +1310,7 @@ def measure_profiler(scale: BenchScale, device=None) -> dict:
             params, config, slots=batch, page_size=ps, chunk=chunk,
             prompt_bucket=-(-prompt_len // ps) * ps,
             temperature=0.8, top_k=50, top_p=0.95,
-            generator=_sampler(3, device), pipelined=True, observer=obs,
+            rng=_sampler(3, device), pipelined=True, observer=obs,
             device=device,
         )
         if feed is not None:
@@ -1406,7 +1407,7 @@ def measure_ledger(scale: BenchScale, device=None) -> dict:
             params, config, slots=batch, page_size=ps, chunk=chunk,
             prompt_bucket=-(-prompt_len // ps) * ps,
             draft_params=draft, draft_config=config, gamma=4,
-            generator=_sampler(3, device), pipelined=True,
+            rng=_sampler(3, device), pipelined=True,
             fault_injector=injector, max_retries=4, ledger=led,
             device=device,
         )

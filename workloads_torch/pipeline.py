@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from . import prng
 from .model import (
     ModelConfig,
     _attention,
@@ -52,15 +53,15 @@ def make_pp_mesh(n_devices: int, pipe_parallel: int = 2, device_type: str | None
 
 
 def init_pipeline_params(config: ModelConfig, n_stages: int,
-                         generator: torch.Generator) -> dict:
-    """``model.init_params`` from ``generator`` with the layer list stacked
+                         key: torch.Tensor) -> dict:
+    """``model.init_params`` from ``key`` with the layer list stacked
     into ``[S, L/S, ...]`` leaves under ``"stages"`` (stage-major), ready
     to cut on the ``"pipe"`` axis."""
     if config.n_layers % n_stages:
         raise ValueError(
             f"n_layers ({config.n_layers}) must divide into {n_stages} stages"
         )
-    params = init_params(config, generator)
+    params = init_params(config, key)
     layers = params.pop("layers")
     per_stage = config.n_layers // n_stages
     params["stages"] = {
@@ -163,8 +164,8 @@ def pipeline_loss_fn(params: dict, tokens: torch.Tensor, config: ModelConfig, me
 
 def make_pipeline_train_state(config: ModelConfig, mesh, seed: int = 0, optimizer=None):
     """((params, opt_state), optimizer): this rank's cut of
-    ``init_pipeline_params`` from ``seed`` (a ``torch.Generator`` on the
-    mesh's device), stages cut on ``"pipe"``
+    ``init_pipeline_params`` from ``PRNGKey(seed)`` on the mesh's device,
+    stages cut on ``"pipe"``
     (``train.make_sharded_train_state``; default optimizer ``AdamW()``)."""
     from .distributed import mesh_device
     from .train import make_sharded_train_state
@@ -173,8 +174,7 @@ def make_pipeline_train_state(config: ModelConfig, mesh, seed: int = 0, optimize
     n_stages = _mesh_axis(mesh, "pipe")[0]
     return make_sharded_train_state(
         mesh,
-        lambda: init_pipeline_params(config, n_stages,
-                                     torch.Generator(device).manual_seed(seed)),
+        lambda: init_pipeline_params(config, n_stages, prng.PRNGKey(seed, device=device)),
         pipeline_param_specs(config),
         optimizer,
     )

@@ -103,7 +103,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import prng, resolve_device
 from .decode_graph import DecodeGraph, SpecGraph
 from .errors import EngineClosed, InvalidRequest, QueueFull, RequestTooLarge
 from .generate import sample_logits
@@ -264,7 +264,7 @@ class ServeEngine:
         temperature: float = 0.0,
         top_k: int = 0,
         top_p: float = 1.0,
-        generator: torch.Generator | None = None,
+        rng: torch.Tensor | None = None,
         mesh=None,
         max_pending: int | None = None,
         completed_limit: int | None = None,
@@ -582,9 +582,10 @@ class ServeEngine:
         self.temperature = float(temperature)
         self.top_k, self.top_p = int(top_k), float(top_p)
         self.sampling = self.temperature > 0.0
-        if generator is None:
-            generator = torch.Generator(self.device).manual_seed(0)
-        self.generator = generator
+        # The engine's key, split at every draw as the JAX engine's
+        # ``_next_key`` splits it (a key is a value: never changed in place).
+        self._rng = (rng.to(self.device) if rng is not None
+                     else prng.PRNGKey(0, device=self.device))
         # Multi-LoRA: adapters stacked once (index 0 is the zero BASE
         # entry, so adapter-less requests share the code path); the
         # per-slot indices are data, so the adapter mix never recaptures.
@@ -666,7 +667,7 @@ class ServeEngine:
             self._graph = DecodeGraph(
                 params, self.pools, config, slots=slots,
                 max_pages=self.max_pages, max_steps=self.chunk * superstep_k,
-                generator=self.generator, temperature=self.temperature,
+                temperature=self.temperature,
                 top_k=self.top_k, top_p=self.top_p, sampling=self.sampling,
                 lora_stacked=self._stacked_adapters, lora_alpha=self.lora_alpha,
             )
@@ -682,7 +683,7 @@ class ServeEngine:
                 params, draft_params, self.pools, self.d_pools, config, draft_config,
                 gamma=gamma, slots=slots, max_pages=self.max_pages,
                 max_rounds=max(spec_lookahead, spec_superstep_k),
-                generator=self.generator, temperature=self.temperature,
+                temperature=self.temperature,
                 top_k=self.top_k, top_p=self.top_p, sampling=self.sampling,
                 lora_stacked=self._stacked_adapters, lora_alpha=self.lora_alpha,
             )
@@ -865,6 +866,10 @@ class ServeEngine:
         return rids
 
     # ---- engine internals ----------------------------------------------
+
+    def _next_key(self) -> torch.Tensor:
+        self._rng, key = prng.split(self._rng).unbind(0)
+        return key
 
     def _seq_id(self, slot: int, req: Request):
         return ("slot", slot, req.rid)
@@ -1525,7 +1530,7 @@ class ServeEngine:
                                                adapter_idx=aidx)
                 self._maybe_fault("prefill_readback")
                 tok = int(sample_logits(
-                    logits, self.generator if self.sampling else None,
+                    logits, self._next_key() if self.sampling else None,
                     self.temperature, self.top_k, self.top_p,
                 )[0])
             except Exception as exc:  # noqa: BLE001 — recovery seam
@@ -1885,10 +1890,16 @@ class ServeEngine:
         for p in plans:
             if p["group_done"] is not None:
                 self._group_cleanup(p["group_done"])
+        # One key per admitted request, in plan order: the serial path's
+        # draws; each row samples under its own key (the rest under zeros).
+        keys = None
+        if self.sampling:
+            keys = torch.zeros((self.slots, 2), dtype=torch.int64, device=self.device)
+            for p in plans:
+                keys[p["slot"]] = self._next_key()
         self._maybe_fault("prefill_readback")
         toks_dev = sample_logits(
-            emitted, self.generator if self.sampling else None,
-            self.temperature, self.top_k, self.top_p,
+            emitted, keys, self.temperature, self.top_k, self.top_p,
         )
         toks = self._host_sync(lambda: toks_dev.cpu().numpy())
         self.admission_readbacks += 1
@@ -2173,17 +2184,19 @@ class ServeEngine:
         )
         aidx = self._aidx_dev()  # a parked row's index is 0, the base
         self._maybe_fault("decode_dispatch")
+        rng = self._next_key() if self.sampling else None
         if self._graph is None:
             toks, _ = paged_decode_chunk(
                 self.params, self.pools, tables, tok_in, pos, occupied,
-                self.generator, self.temperature, self.top_k, self.top_p,
+                rng, self.temperature, self.top_k, self.top_p,
                 self.config, self.chunk, self.sampling, lora=self._lora(aidx),
                 reduce=self._reduce,
             )
             last = toks[:, -1]
         else:
             toks, last, *_ = self._graph.run(
-                tables, tok_in, pos, occupied, *self._unbounded, self.chunk, aidx
+                tables, tok_in, pos, occupied, *self._unbounded, self.chunk, aidx,
+                keys=None if rng is None else prng.split(rng, self.chunk),
             )
         self.chunks_run += 1
         read = _Readback(toks)
@@ -2346,19 +2359,23 @@ class ServeEngine:
                 for host, chained in zip((tok_in, pos_in, live_in, budget_in), carry)
             )
         self._fresh_slots.clear()
+        # One engine key per chunk, in the k=1 path's draw order.
+        rngs = (torch.stack([self._next_key() for _ in range(self.superstep_k)])
+                if self.sampling else None)
         tables, eos_in = self._dev(self._tables), self._dev(eos)
         aidx = self._aidx_dev()
         self._maybe_fault("decode_dispatch")
         if self._graph is None:
             toks, *carry, _ = paged_decode_superstep(
                 self.params, self.pools, tables, tok_in, pos_in, live_in,
-                budget_in, eos_in, self.generator, self.temperature, self.top_k,
+                budget_in, eos_in, rngs, self.temperature, self.top_k,
                 self.top_p, self.config, self.chunk, self.superstep_k, self.sampling,
                 lora=self._lora(aidx), reduce=self._reduce,
             )
         else:
             toks, *carry = self._graph.run(
-                tables, tok_in, pos_in, live_in, budget_in, eos_in, span, aidx
+                tables, tok_in, pos_in, live_in, budget_in, eos_in, span, aidx,
+                keys=None if rngs is None else prng.split(rngs, self.chunk).reshape(span, 2),
             )
         self.chunks_run += self.superstep_k
         self.supersteps_run += 1
@@ -2453,46 +2470,50 @@ class ServeEngine:
         return min(self.max_pages, -(-need // 4) * 4)
 
     def _run_spec_lookahead(self, tables, cur, pos, occ, k: int, cover: int,
-                            generator=None, aidx=None):
+                            rng=None, aidx=None):
         """``k`` lookahead rounds (``paged_spec_superstep``) for the rows
         ``occ`` marks; on the card as ``k`` replays of the captured round
-        (budget unbounded, no eos: ``live`` stays ``occ``); ``aidx``
-        adapts the target's verify.  Returns (committed [k, slots,
+        (budget unbounded, no eos: ``live`` stays ``occ``), round ``i``
+        under ``split(rng, k)[i]``; ``aidx`` adapts the target's verify.
+        Returns (committed [k, slots,
         gamma+1], n [k, slots], new_cur, new_pos), the carry copied out
         of the graph's buffers."""
         if self._spec_graph is None:
             committed, n, new_cur, new_pos, _, _ = paged_spec_superstep(
                 self.params, self.draft_params, self.pools, self.d_pools, tables, cur, pos,
                 occ, self.config, self.draft_config, self.gamma, k, cover,
-                sampling=self.sampling, generator=generator if generator is not None else self.generator,
+                sampling=self.sampling, rng=rng,
                 temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
                 t_lora=self._lora(aidx), reduce=self._reduce,
             )
             return committed, n, new_cur, new_pos
         committed, n, _, new_cur, new_pos, _, _ = self._spec_graph.run(
-            tables, cur, torch.where(occ, pos, 0), occ, *self._unbounded, k, cover, aidx
+            tables, cur, torch.where(occ, pos, 0), occ, *self._unbounded, k, cover, aidx,
+            keys=prng.split(rng, k) if self.sampling else None,
         )
         return committed, n, new_cur.clone(), new_pos.clone()
 
     def _run_spec_chained(self, tables, cur, pos, occ, live, budget, eos, k: int,
-                          cover: int, generator=None, aidx=None):
+                          cover: int, rngs=None, aidx=None):
         """``k`` chained-retirement rounds
         (``paged_spec_superstep_chained``); on the card as ``k`` replays
-        of the captured round, empty slots pinned to position 0 at entry.
-        ``aidx`` adapts the target's verify.  Returns (committed, n,
+        of the captured round, empty slots pinned to position 0 at entry,
+        round ``i`` under ``split(rngs[i], 1)[0]``.  ``aidx`` adapts the
+        target's verify.  Returns (committed, n,
         round_live, new_cur, new_pos, new_live, new_budget), the carry
         copied out of the graph's buffers."""
         if self._spec_graph is None:
             out = paged_spec_superstep_chained(
                 self.params, self.draft_params, self.pools, self.d_pools, tables, cur, pos,
                 occ, live, budget, eos, self.config, self.draft_config, self.gamma, k,
-                cover, sampling=self.sampling, generator=generator if generator is not None else self.generator,
+                cover, sampling=self.sampling, rngs=rngs,
                 temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
                 t_lora=self._lora(aidx), reduce=self._reduce,
             )
             return out[:7]
         committed, n, round_live, *carry = self._spec_graph.run(
-            tables, cur, torch.where(occ, pos, 0), live & occ, budget, eos, k, cover, aidx
+            tables, cur, torch.where(occ, pos, 0), live & occ, budget, eos, k, cover, aidx,
+            keys=prng.split(rngs, 1)[:, 0] if self.sampling else None,
         )
         return (committed, n, round_live, *(c.clone() for c in carry))
 
@@ -2505,9 +2526,8 @@ class ServeEngine:
         ``slots`` (always speculate) or 0 (never).  The spec side assumes
         an acceptance of 0.75 of gamma, and its verify view is as wide as
         a row at half ``max_seq_len`` needs.  Draws come from a private
-        generator, and the engine's generator, which the card's graphs
-        draw from, is restored after: the served stream never sees the
-        probe.  An injected calibration (``spec_calibration=``) is
+        ``PRNGKey(0)``, never the engine's key: the served stream never
+        sees the probe.  An injected calibration (``spec_calibration=``) is
         adopted instead and counted in ``calibration_reused``.  On the
         card each timed chain ends in a synchronise."""
         if self._injected_calibration is not None:
@@ -2524,26 +2544,28 @@ class ServeEngine:
         occ = torch.zeros(self.slots, dtype=torch.bool, device=self.device)
         zeros = torch.zeros(self.slots, dtype=torch.long, device=self.device)
         zeros32 = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
-        private = torch.Generator(self.device).manual_seed(0)
-        saved = self.generator.get_state()
+        key = prng.PRNGKey(0, device=self.device)  # private; never self._next_key()
         aidx = self._aidx_dev(np.zeros(self.slots, np.int32))
 
         def plain_once(tok):
             if self._graph is None:
                 toks, _ = paged_decode_chunk(
-                    self.params, self.pools, tables, tok, zeros, occ, private,
+                    self.params, self.pools, tables, tok, zeros, occ, key,
                     self.temperature, self.top_k, self.top_p, self.config, self.chunk,
                     self.sampling, lora=self._lora(aidx), reduce=self._reduce,
                 )
                 return toks[:, -1]
             return self._graph.run(tables, tok, zeros, occ, *self._unbounded,
-                                   self.chunk, aidx)[1].clone()
+                                   self.chunk, aidx, keys=chunk_keys)[1].clone()
+
+        chunk_keys = prng.split(key, self.chunk) if self.sampling else None
+        rngs = torch.stack([key] * k)
 
         def spec_once(cur):
             if self.spec_superstep_k > 1:
                 return self._run_spec_chained(tables, cur, zeros, occ, occ, zeros32 + 1,
-                                              zeros32 - 1, k, cover, private, aidx)[3]
-            return self._run_spec_lookahead(tables, cur, zeros, occ, k, cover, private,
+                                              zeros32 - 1, k, cover, rngs, aidx)[3]
+            return self._run_spec_lookahead(tables, cur, zeros, occ, k, cover, key,
                                             aidx)[2]
 
         def timed(once, n: int) -> float:
@@ -2555,21 +2577,18 @@ class ServeEngine:
                 torch.cuda.synchronize(self.device)
             return time.perf_counter() - t0
 
-        try:
-            with torch.inference_mode():
-                for once in (plain_once, spec_once):
-                    timed(once, 1)  # warm: builds and captures, untimed
-                # Two-length slopes, median of interleaved repeats: the
-                # constant dispatch and readback cost cancels in each pair.
-                n_lo, n_hi = 2, 6
-                plain_slopes, spec_slopes = [], []
-                for _ in range(3):
-                    plain_slopes.append(
-                        (timed(plain_once, n_hi) - timed(plain_once, n_lo)) / (n_hi - n_lo))
-                    spec_slopes.append(
-                        (timed(spec_once, n_hi) - timed(spec_once, n_lo)) / (n_hi - n_lo))
-        finally:
-            self.generator.set_state(saved)
+        with torch.inference_mode():
+            for once in (plain_once, spec_once):
+                timed(once, 1)  # warm: builds and captures, untimed
+            # Two-length slopes, median of interleaved repeats: the
+            # constant dispatch and readback cost cancels in each pair.
+            n_lo, n_hi = 2, 6
+            plain_slopes, spec_slopes = [], []
+            for _ in range(3):
+                plain_slopes.append(
+                    (timed(plain_once, n_hi) - timed(plain_once, n_lo)) / (n_hi - n_lo))
+                spec_slopes.append(
+                    (timed(spec_once, n_hi) - timed(spec_once, n_lo)) / (n_hi - n_lo))
         per_plain = max(statistics.median(plain_slopes), 1e-9)
         per_spec = max(statistics.median(spec_slopes), 1e-9)
         tokens_plain = float(self.chunk)
@@ -2616,6 +2635,7 @@ class ServeEngine:
             table = self._extend_evicting(self._seq_id(slot, req), ub[slot] + u)
             self._tables[slot, : len(table)] = table
         cover = self._spec_cover(max(ub.values()) + u)
+        rng = self._next_key() if self.sampling else None
         self._maybe_fault("spec_dispatch")
         cur = self._dev(self._tokens)
         pos = self._dev(self._positions)
@@ -2626,7 +2646,7 @@ class ServeEngine:
             pos = torch.where(fresh, pos, c_pos)
         self._fresh_slots.clear()
         committed, n_acc, new_cur, new_pos = self._run_spec_lookahead(
-            self._dev(self._tables), cur, pos, self._dev(self._occupied), k, cover,
+            self._dev(self._tables), cur, pos, self._dev(self._occupied), k, cover, rng,
             aidx=self._aidx_dev(),
         )
         self.spec_rounds += k
@@ -2671,6 +2691,10 @@ class ServeEngine:
             if req.eos_token is not None:
                 eos[slot] = req.eos_token
             budget[slot] = req.max_new_tokens - len(req.tokens)
+        # One engine key per round, in the k=1 spec path's draw order
+        # (a k=1 spec step draws a key only when sampling).
+        rngs = (torch.stack([self._next_key() for _ in range(k)])
+                if self.sampling else None)
         self._maybe_fault("spec_dispatch")
         cur = self._dev(self._tokens)
         pos = self._dev(self._positions)
@@ -2689,7 +2713,7 @@ class ServeEngine:
         self._fresh_slots.clear()
         committed, n_acc, round_live, *carry = self._run_spec_chained(
             self._dev(self._tables), cur, pos, occ, live_in, budget_in, self._dev(eos), k,
-            cover, aidx=self._aidx_dev(),
+            cover, rngs, aidx=self._aidx_dev(),
         )
         self.spec_rounds += k
         self.spec_supersteps_run += 1
@@ -3102,6 +3126,19 @@ class ServeEngine:
 
 
 @torch.inference_mode()
+def cli_prompts(requests: int, prompt_len: int, vocab: int) -> list[list[int]]:
+    """The CLI's request prompts, the JAX CLI's: ``PRNGKey(7)`` split
+    three ways a request, a length in [1, prompt_len] and the tokens by
+    ``randint`` (on the CPU: they are host data)."""
+    key = prng.PRNGKey(7, device="cpu")
+    prompts = []
+    for _ in range(requests):
+        key, k_prompt, k_len = prng.split(key, 3).unbind(0)
+        plen = int(prng.randint(k_len, (), 1, prompt_len + 1))
+        prompts.append([int(t) for t in prng.randint(k_prompt, (plen,), 0, vocab)])
+    return prompts
+
+
 def serve_batch(
     params: dict,
     config: ModelConfig,
@@ -3112,19 +3149,20 @@ def serve_batch(
     temperature: float = 0.0,
     top_k: int = 0,
     top_p: float = 1.0,
-    generator: torch.Generator | None = None,
+    rng: torch.Tensor | None = None,
 ):
     """LOCKSTEP baseline: one admission batch through the paged cache —
     prefill as a single block forward, then per-token decode steps
     (``paged_decode_step``, eager); pages are allocated on demand and
     released when the whole batch retires, also when a step raises.
-    ``prompts`` [batch, P] lie on the pools' device; sampling draws from
-    ``generator`` (the JAX package's ``rng``).  Returns (tokens [batch,
-    max_new_tokens] int64, pools), the pools updated in place."""
-    if temperature > 0.0 and generator is None:
-        raise ValueError("temperature > 0 requires a torch.Generator")
+    ``prompts`` [batch, P] lie on the pools' device; sampling draws token
+    ``i`` under ``split(rng, max_new_tokens)[i]``.  Returns (tokens
+    [batch, max_new_tokens] int64, pools), the pools updated in place."""
+    if temperature > 0.0 and rng is None:
+        raise ValueError("temperature > 0 requires an rng key")
     device = pools[0].device
-    sampler = generator if temperature > 0.0 else None
+    keys = (prng.split(rng.to(device), max_new_tokens) if temperature > 0.0
+            else [None] * max_new_tokens)
     prompts = torch.as_tensor(prompts, device=device).long()
     batch, prompt_len = prompts.shape
     total = prompt_len + max_new_tokens
@@ -3140,7 +3178,7 @@ def serve_batch(
         logits, pools = paged_prefill(
             params, pools, tables, prompts, lengths, config
         )
-        tok = sample_logits(logits, sampler, temperature, top_k, top_p)
+        tok = sample_logits(logits, keys[0], temperature, top_k, top_p)
         out = [tok]
         for step in range(1, max_new_tokens):
             pos = prompt_len + step - 1
@@ -3153,7 +3191,7 @@ def serve_batch(
             logits, pools = paged_decode_step(
                 params, pools, tables, tok, pos, config
             )
-            tok = sample_logits(logits, sampler, temperature, top_k, top_p)
+            tok = sample_logits(logits, keys[step], temperature, top_k, top_p)
             out.append(tok)
     finally:
         for b in range(batch):
@@ -3200,8 +3238,8 @@ def _run_fleet_cli(
     targeting via ``SEAM@REPLICA:N``), optional self-healing
     supervision (``--supervise``), and a lifecycle summary.  Every
     engine, respawns and scale-ups included, runs on ``device``;
-    replica ``i`` samples from a generator seeded ``42 + i`` and every
-    respawn from one seeded 4242 (the canary's stream must repeat)."""
+    replica ``i`` samples under ``PRNGKey(42 + i)`` and every respawn
+    under ``PRNGKey(4242)`` (the canary's stream must repeat)."""
     from .faults import ENGINE_SEAMS, FaultInjector, REPLICA_SEAMS
     from .fleet import (
         ROLES,
@@ -3381,7 +3419,7 @@ def _run_fleet_cli(
             params, config, slots=args.slots, page_size=page_size,
             prompt_bucket=bucket, temperature=args.temperature,
             top_k=args.top_k, top_p=args.top_p,
-            generator=torch.Generator(device).manual_seed(42 + i),
+            rng=prng.PRNGKey(42 + i, device=device),
             pipelined=args.pipelined,
             superstep_k=args.superstep_k,
             prefill_budget=args.prefill_budget,
@@ -3452,7 +3490,7 @@ def _run_fleet_cli(
 
         def respawn_factory(slot):
             # Respawns share the fleet's weights and built kernels
-            # (warm restart) under a FIXED generator seed, so every
+            # (warm restart) under a FIXED rng, so every
             # respawn's canary stream is deterministic — the half-open
             # probe's bit-identity check needs exactly that.
             obs = None
@@ -3487,7 +3525,7 @@ def _run_fleet_cli(
                 params, config, slots=args.slots, page_size=page_size,
                 prompt_bucket=bucket, temperature=args.temperature,
                 top_k=args.top_k, top_p=args.top_p,
-                generator=torch.Generator(device).manual_seed(4242),
+                rng=prng.PRNGKey(4242, device=device),
                 pipelined=args.pipelined,
                 superstep_k=args.superstep_k,
                 prefill_budget=args.prefill_budget,
@@ -3553,7 +3591,7 @@ def _run_fleet_cli(
 
         def scale_factory(slot):
             # Scale-ups share the fleet's weights and built kernels
-            # under a FIXED generator seed — the canary probe's
+            # under a FIXED rng — the canary probe's
             # bit-identity check needs a deterministic stream.  A real
             # slot handle (scale-ups; calibration scratch engines pass
             # None) gets its own observer so the new replica's
@@ -3584,7 +3622,7 @@ def _run_fleet_cli(
                 observer=obs, ledger=led,
                 prompt_bucket=bucket, temperature=args.temperature,
                 top_k=args.top_k, top_p=args.top_p,
-                generator=torch.Generator(device).manual_seed(4242),
+                rng=prng.PRNGKey(4242, device=device),
                 pipelined=args.pipelined,
                 superstep_k=args.superstep_k,
                 prefill_budget=args.prefill_budget,
@@ -4294,7 +4332,7 @@ def main(argv=None) -> int:
         n_kv_heads=args.kv_heads,
     )
     params = cast_params(
-        init_params(config, torch.Generator(device).manual_seed(0)), config.dtype
+        init_params(config, prng.PRNGKey(0, device=device)), config.dtype
     )
     if args.int8:
         params = quantize_params(params)
@@ -4366,7 +4404,7 @@ def main(argv=None) -> int:
         params, config, slots=args.slots, page_size=page_size,
         prompt_bucket=bucket, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
-        generator=torch.Generator(device).manual_seed(42),
+        rng=prng.PRNGKey(42, device=device),
         pipelined=args.pipelined, superstep_k=args.superstep_k,
         prefill_budget=args.prefill_budget, prefix_cache=args.prefix_cache,
         kv_offload=args.kv_offload, kv_host_pages=args.kv_host_pages,
@@ -4378,11 +4416,9 @@ def main(argv=None) -> int:
     )
     if recorder is not None:
         recorder.attach_engine("0", engine)
-    rng = np.random.default_rng(7)
     rejected = 0
-    for i in range(args.requests):
-        plen = int(rng.integers(1, args.prompt_len + 1))
-        prompt = rng.integers(0, config.vocab_size, plen)
+    for i, prompt in enumerate(cli_prompts(args.requests, args.prompt_len,
+                                           config.vocab_size)):
         # Mixed lengths: the stream the engine's slot turnover exists for.
         try:
             engine.submit(prompt, max(1, args.max_new_tokens // (1 + i % 3)),

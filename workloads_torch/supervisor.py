@@ -811,10 +811,7 @@ def make_engine_factory(
     then seeds trust-on-first-use).
 
     Every engine runs on ``device`` (default ``cuda``; pass ``"cpu"``
-    explicitly; a ``device`` in ``engine_kw`` wins).  A ``generator``
-    in ``engine_kw`` is a seed: each engine the factory builds starts
-    its own generator from its state, so every respawn samples the
-    same stream.  The dense oracle is the port's ``generate``; in bf16
+    explicitly; a ``device`` in ``engine_kw`` wins).  The dense oracle is the port's ``generate``; in bf16
     it may part from the paged engine's K1 stream at a near tie, so a
     bf16 fleet takes ``FleetSupervisor.calibrate_probe``'s oracle.
 
@@ -829,10 +826,6 @@ def make_engine_factory(
 
     def factory(slot):
         kw = dict(engine_kw)
-        if kw.get("generator") is not None:
-            gen = torch.Generator(kw["generator"].device)
-            gen.set_state(kw["generator"].get_state())
-            kw["generator"] = gen
         engine = ServeEngine(params, config, **kw)
         if snapshot is not None:
             snapshot.prime(engine)

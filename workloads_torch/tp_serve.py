@@ -20,7 +20,7 @@ state, with the collectives written out:
   the cores' ``reduce`` hook), and nothing else is communicated:
   embedding, unembedding and norms are replicated, so every rank
   computes the same full logits and picks the same greedy token (and
-  the same sampled one, from generators of the same seed);
+  the same sampled one, under the same key: every rank takes one);
 * multi-LoRA adapters are cut like the weights they adapt
   (``shard_adapters``): on the column-parallel projections each
   adapter's ``b`` keeps the rank's heads, on ``wo`` its ``a`` keeps the
@@ -241,7 +241,7 @@ def make_tp_serve_programs(config: ModelConfig, mesh, chunk: int, sampling: bool
     """Tensor-parallel (prefill, decode_chunk) over the rank's cut of the
     state: ``prefill(params, pools, tables, prompts, lengths, lora=None)``
     and ``decode_chunk(params, pools, tables, token, positions,
-    occupancy, generator, temperature, top_k, top_p, lora=None)``, the
+    occupancy, rng, temperature, top_k, top_p, lora=None)``, the
     single-device ``paged_prefill``/``paged_decode_chunk`` with the
     all-reduce hook.  ``lora=(stacked, idx, alpha)`` takes the rank's
     ``shard_adapters`` cut.
@@ -257,10 +257,10 @@ def make_tp_serve_programs(config: ModelConfig, mesh, chunk: int, sampling: bool
         return paged_prefill(params, pools, tables, prompts, lengths, config, lora=lora,
                              reduce=reduce)
 
-    def tp_chunk(params, pools, tables, token, positions, occupancy, generator,
+    def tp_chunk(params, pools, tables, token, positions, occupancy, rng,
                  temperature, top_k, top_p, lora=None):
         return paged_decode_chunk(params, pools, tables, token, positions, occupancy,
-                                  generator, temperature, top_k, top_p, config, chunk,
+                                  rng, temperature, top_k, top_p, config, chunk,
                                   sampling, lora=lora, reduce=reduce)
 
     return tp_prefill, tp_chunk
@@ -269,17 +269,17 @@ def make_tp_serve_programs(config: ModelConfig, mesh, chunk: int, sampling: bool
 def make_tp_decode_superstep(config: ModelConfig, mesh, chunk: int, k: int,
                              sampling: bool):
     """Tensor-parallel plain-decode SUPERSTEP: ``call(params, pools,
-    tables, token, positions, live, budget, eos, generator, temperature,
+    tables, token, positions, live, budget, eos, rngs, temperature,
     top_k, top_p, lora=None)``, ``paged.paged_decode_superstep`` (``k``
     chunks with device-side retirement) with the all-reduce hook; the
     per-row carry comes back as the single-device function returns it."""
     _check_tp(config, mesh)
     reduce = model_all_reduce(mesh)
 
-    def call(params, pools, tables, token, positions, live, budget, eos, generator,
+    def call(params, pools, tables, token, positions, live, budget, eos, rngs,
              temperature, top_k, top_p, lora=None):
         return paged_decode_superstep(params, pools, tables, token, positions, live,
-                                      budget, eos, generator, temperature, top_k, top_p,
+                                      budget, eos, rngs, temperature, top_k, top_p,
                                       config, chunk, k, sampling, lora=lora,
                                       reduce=reduce)
 
@@ -312,12 +312,12 @@ def make_tp_spec_program(t_config: ModelConfig, d_config: ModelConfig, mesh, gam
 
     Returns ``spec_round(t_params, d_params, t_pools, d_pools, tables,
     cur, positions, occupancy=None, *, cover_pages=None, t_lora=None,
-    generator=None, temperature=0.0, top_k=0, top_p=1.0)`` ->
+    rng=None, temperature=0.0, top_k=0, top_p=1.0)`` ->
     (committed, n, t_pools, d_pools); with ``chained`` the occupancy mask
     is required and (new_cur, new_pos) come between n and the pools
     (``paged.paged_spec_round_chained``).  ``t_lora`` adapts the
     target's verify (the rank's ``shard_adapters`` cut); ``sampling``
-    draws from ``generator`` (the same seed on every rank)."""
+    draws under ``rng`` (the same key on every rank)."""
     _check_tp(t_config, mesh)
     _check_tp(d_config, mesh)
     reduce = model_all_reduce(mesh)
@@ -325,7 +325,7 @@ def make_tp_spec_program(t_config: ModelConfig, d_config: ModelConfig, mesh, gam
 
     @torch.inference_mode()
     def spec_round(t_params, d_params, t_pools, d_pools, tables, cur, positions,
-                   occupancy=None, *, cover_pages=None, t_lora=None, generator=None,
+                   occupancy=None, *, cover_pages=None, t_lora=None, rng=None,
                    temperature=0.0, top_k=0, top_p=1.0):
         if chained and occupancy is None:
             raise ValueError("the chained speculative round takes an occupancy mask")
@@ -333,7 +333,7 @@ def make_tp_spec_program(t_config: ModelConfig, d_config: ModelConfig, mesh, gam
             t_params, d_params, t_pools, d_pools, tables, cur, positions, t_config,
             d_config, gamma, cover_pages, d_attention_fn,
             occupancy=occupancy if chained else None, sampling=sampling,
-            generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+            rng=rng, temperature=temperature, top_k=top_k, top_p=top_p,
             t_lora=t_lora, reduce=reduce,
         )
         return (*out, t_pools, d_pools)
@@ -347,9 +347,10 @@ def make_tp_spec_superstep(t_config: ModelConfig, d_config: ModelConfig, mesh,
     """Tensor-parallel speculative SUPERSTEP: ``k`` chained rounds in one
     call on the rank's cut.  ``call(t_params, d_params, t_pools, d_pools,
     tables, cur, positions, occupancy, live=None, budget=None, eos=None,
-    *, cover_pages=None, t_lora=None, generator=None, temperature=0.0,
+    *, cover_pages=None, t_lora=None, rng=None, temperature=0.0,
     top_k=0, top_p=1.0)`` returns ``paged.paged_spec_superstep``'s
-    outputs, or with ``retire=True`` (live, budget and eos then required)
+    outputs (``rng`` the dispatch's key), or with ``retire=True`` (live,
+    budget and eos then required; ``rng`` one key a round, [k, 2])
     ``paged.paged_spec_superstep_chained``'s (the chained-retirement
     core of the engine's ``spec_superstep_k`` path)."""
     _check_tp(t_config, mesh)
@@ -360,8 +361,8 @@ def make_tp_spec_superstep(t_config: ModelConfig, d_config: ModelConfig, mesh,
     @torch.inference_mode()
     def call(t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy,
              live=None, budget=None, eos=None, *, cover_pages=None, t_lora=None,
-             generator=None, temperature=0.0, top_k=0, top_p=1.0):
-        samp = dict(sampling=sampling, generator=generator, temperature=temperature,
+             rng=None, temperature=0.0, top_k=0, top_p=1.0):
+        samp = dict(sampling=sampling, temperature=temperature,
                     top_k=top_k, top_p=top_p, t_lora=t_lora, reduce=reduce)
         if retire:
             if live is None or budget is None or eos is None:
@@ -369,12 +370,12 @@ def make_tp_spec_superstep(t_config: ModelConfig, d_config: ModelConfig, mesh,
             out = _spec_superstep_chained_core(
                 t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy,
                 live, budget, eos, t_config, d_config, gamma, k, cover_pages,
-                d_attention_fn, **samp,
+                d_attention_fn, rngs=rng, **samp,
             )
         else:
             out = _spec_superstep_core(
                 t_params, d_params, t_pools, d_pools, tables, cur, positions, occupancy,
-                t_config, d_config, gamma, k, cover_pages, d_attention_fn, **samp,
+                t_config, d_config, gamma, k, cover_pages, d_attention_fn, rng=rng, **samp,
             )
         return (*out, t_pools, d_pools)
 

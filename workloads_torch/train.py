@@ -47,7 +47,7 @@ from dataclasses import dataclass
 
 import torch
 
-from . import resolve_device
+from . import prng, resolve_device
 from .model import (
     ModelConfig,
     _mesh_axis,
@@ -365,13 +365,13 @@ def make_train_state(config: ModelConfig, seed: int = 0, device=None,
         if abstract:
             raise ValueError("abstract=True needs a mesh (make_sharded_train_state)")
         device = resolve_device(device)
-        params = init_params(config, torch.Generator(device).manual_seed(seed))
+        params = init_params(config, prng.PRNGKey(seed, device=device))
         return (params, optimizer.init(params)), optimizer
     from .distributed import mesh_device
 
     device = mesh_device(mesh)
     return make_sharded_train_state(
-        mesh, lambda: init_params(config, torch.Generator(device).manual_seed(seed)),
+        mesh, lambda: init_params(config, prng.PRNGKey(seed, device=device)),
         param_specs(config), optimizer, abstract=abstract)
 
 

@@ -155,7 +155,11 @@ Phases, each of which fails the run loudly:
    token for token, K1 n_layers a decode step and threefry at least once;
    a sampled chunk from one state graphed and eager, bit-identical, both
    timed; the kernel's time at the sampled step's [8, 32768] beside its
-   plain version's and its bound;
+   plain version's and its bound; the port's other draws on the card
+   against the CPU's, bit for bit (``prng_draw_checks``): phase 6's
+   ``train.synthetic_batch`` [8, 2048], perfbench's prompts in every
+   seed form (``DRAW_PROMPT_SEEDS``), ``_prompts`` and 6f's bf16
+   ``_rand_qkv`` at its shortest length;
 5. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events at the main paths' shapes (K1 and its library
    call as CUDA graphs: they are shorter than a launch through Python),
@@ -183,7 +187,8 @@ Phases, each of which fails the run loudly:
    chains' CUDA-graph replays counted in a profiled chain of replays
    (the wrappers count only the capture; a trace that drops records is
    taken again, up to 5 times) and one graphed chain equal
-   to the eager chain bit for bit; the sweep's kernel picks through
+   to the eager chain bit for bit, from q x 2^-10 so that its links
+   move q; the sweep's kernel picks through
    ``table_from_artifact`` and ``model._pick_kernel``; the arm's step
    time and MFU beside phase 6's;
 6g. the training layouts (``train_parallel_phase``, ``TRAIN_PAR``): the
@@ -217,6 +222,13 @@ Phases, each of which fails the run loudly:
    hand-off's backward cut, EP2 without the expert axis' f) each outside
    a drop gate; each rank's launches, peak memory, seconds, one
    hand-off's ms and one all-reduce of the combine's output;
+6i. the vision CNN (``vision_phase``, ``VISION``): ``vision.main`` at
+   its defaults (50 steps, batch 64, AdamW 1e-3) on the card, its loss
+   falling; JAX's test procedure (30 steps on one batch of 64, the loss
+   below 0.7 of the first); the card's PRNGKey(0) tree within 4 ulp of
+   the CPU's, its images for seed 1 bit-identical and its labels equal;
+   steps/s, the first and last loss, peak memory, the threefry launches
+   of the CLI's draws (added to the threefry record's) and the seconds;
 7. the sharing path (``busy_phase``, ``BUSY``), once the card is
    otherwise idle: ``workloads_torch.busy_probe`` pods time-slicing the
    one card under the cooperative chip lease, one chip, 6 s windows:
@@ -254,6 +266,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3880,7 +3893,7 @@ def bench_kernel_phase(torch, pb, ks, model_mod, fa, counters, phase6=None,
     chain of ``chain_links`` replays must trace that many K2, K3 and K4
     launches (the dense chain none) in one of ``TRACE_ATTEMPTS`` traces,
     none tracing more, and a graphed chain must equal the
-    eager chain bit for bit.  The kernel table round trip: the sweep's
+    eager chain bit for bit, its links moving q.  The kernel table round trip: the sweep's
     picks through ``kernel_pick_seq*`` and ``table_from_artifact`` come
     back the same, and ``model._pick_kernel`` under ``set_kernel_table``
     agrees at each swept length.  The train arm's step time and MFU are
@@ -3972,12 +3985,20 @@ def bench_kernel_phase(torch, pb, ks, model_mod, fa, counters, phase6=None,
                 fail(f"none of {TRACE_ATTEMPTS} traces of the {label} chain's {chain_links} "
                      f"replays shows {want} of each flash kernel")
             del run
-        graphed = pb._attention_chain(fa.flash_attention, q, k, v)(3).clone()
-        eager = pb._attention_chain(fa.flash_attention, q, k, v, graph=False)(3)
-        print(f"  graphed flash chain of 3 links equals the eager chain bit for bit: "
-              f"{torch.equal(graphed, eager)}", flush=True)
+        # From JAX's bf16 q (every |value| at least 0.0055) a link's 1e-6
+        # step stays under half a bf16 ulp, so the chains would be equal
+        # doing nothing; from q scaled by 2^-10 (exact) the links move it.
+        small = q * 2.0**-10
+        graphed = pb._attention_chain(fa.flash_attention, small, k, v)(3).clone()
+        eager = pb._attention_chain(fa.flash_attention, small, k, v, graph=False)(3)
+        moved = int((graphed != small).sum())
+        print(f"  graphed flash chain of 3 links from q x 2^-10 equals the eager chain bit for "
+              f"bit: {torch.equal(graphed, eager)}; the links moved {moved} of "
+              f"{small.numel()} values of q", flush=True)
         if not torch.equal(graphed, eager):
             fail("the graphed attention chain differs from the eager chain")
+        if moved == 0:
+            fail("the attention chain's links moved no value of q: equal chains prove nothing")
     return launches, train
 
 
@@ -4674,6 +4695,116 @@ def pp_ep_phase(torch, f, tp=PP_EP, lr=TRAIN_PAR_LR, device="cuda") -> dict:
 # (b) BASELINE config #3, four train pods at replicas 4, (c) two serving
 # pods at replicas 2.  The pass condition is the JAX harness's own,
 # ``oversubscribe.BASELINE_BUSY_FRACTION``.
+# Phase 6i, the vision CNN: its CLI at its defaults (50 steps, batch 64,
+# AdamW 1e-3), then JAX's tests/test_vision.py procedure (30 steps on one
+# batch of 64 from seed 0, the loss below 0.7 of the first); the card's
+# seeded tree within 4 ulp of the CPU's, its images for seed 1 the CPU's
+# bit for bit and its labels the CPU's.
+VISION = dict(steps=50, batch=64, image_seed=1, tree_ulps=4, fixed_steps=30, fixed_drop=0.7)
+
+
+def vision_phase(torch, card: str, vs=VISION, device="cuda") -> int:
+    """Phase 6i: ``vision.main`` on ``device`` with its step wrapped to
+    record each loss and the time it ended.  Returns the threefry
+    kernel's launches in the CLI's run (weights and batches draw through
+    it on the card)."""
+    import numpy as np
+
+    from workloads_torch import prng, train, vision
+    from workloads_torch.ops import threefry as tf
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    config = vision.VisionConfig()
+    # (a) the seeded tree and a batch, the card's against the CPU's.
+    tree = vision.init_params(config, prng.PRNGKey(0, device=device))
+    cpu_tree = vision.init_params(config, prng.PRNGKey(0, device="cpu"))
+    worst = 0.0
+    for name in sorted(tree):
+        want = cpu_tree[name].numpy()
+        got = tree[name].cpu().numpy()
+        ulps = (np.abs(got.astype(np.float64) - want.astype(np.float64))
+                / np.spacing(np.abs(want)))  # float32 ulps of the CPU's value
+        worst = max(worst, float(ulps.max()))
+    images, labels = vision.synthetic_batch(config, vs["batch"], seed=vs["image_seed"],
+                                            device=device)
+    cpu_images, cpu_labels = vision.synthetic_batch(config, vs["batch"],
+                                                    seed=vs["image_seed"], device="cpu")
+    same_images = torch.equal(images.cpu().view(torch.int32), cpu_images.view(torch.int32))
+    same_labels = torch.equal(labels.cpu(), cpu_labels)
+    print(f"  PRNGKey(0) tree on {device}: max {worst:.0f} ulp from the CPU's (limit "
+          f"{vs['tree_ulps']}); images for seed {vs['image_seed']} [{vs['batch']}, 28, 28, 1] "
+          f"{'bit-identical' if same_images else 'DIFFER'}, labels "
+          f"{'equal' if same_labels else 'DIFFER'}", flush=True)
+    if not worst <= vs["tree_ulps"]:
+        fail(f"6i: the card's vision tree is {worst} ulp from the CPU's")
+    if not (same_images and same_labels):
+        fail("6i: the card's vision batch differs from the CPU's")
+    del tree, cpu_tree
+
+    # (b) the CLI at its defaults.
+    losses, ends = [], []
+    build = vision.make_train_step
+
+    def recording(*args, **kwargs):
+        step = build(*args, **kwargs)
+
+        def run(*inputs):
+            out = step(*inputs)
+            losses.append(float(out[2]))
+            ends.append(time.perf_counter())
+            return out
+
+        return run
+
+    held = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    before = tf.threefry.launches
+    vision.make_train_step = recording
+    try:
+        t0 = time.perf_counter()
+        rc = vision.main(["--steps", str(vs["steps"]), "--batch-size", str(vs["batch"]),
+                          "--device", device])
+        wall = time.perf_counter() - t0
+    finally:
+        vision.make_train_step = build
+    launches = tf.threefry.launches - before
+    mem = (f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB above the "
+           f"{held / 2**30:.3f} GiB held before it" if cuda else "not measured (no card)")
+    rate = (len(ends) - 1) / (ends[-1] - ends[0]) if len(ends) > 1 else float("nan")
+    print(f"  vision.main --steps {vs['steps']} --batch-size {vs['batch']}: loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} ({losses[-1] / losses[0]:.3f} of the first), "
+          f"{rate:.1f} steps/s after the first step (host clock, each step read back), "
+          f"{wall:.2f} s in all, peak device memory {mem}, threefry launches {launches}; "
+          f"card: {card}", flush=True)
+    if rc != 0 or len(losses) != vs["steps"] or not all(math.isfinite(x) for x in losses):
+        fail(f"6i: vision.main returned {rc} with losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"6i: the vision CLI's loss did not fall: {losses[0]} -> {losses[-1]}")
+    if cuda and launches == 0:
+        fail("6i: the vision CLI drew nothing through the threefry kernel on the card")
+
+    # (c) JAX's test procedure: one batch, 30 steps.
+    (params, opt), optimizer = train.make_sharded_train_state(
+        None, lambda: vision.init_params(config, prng.PRNGKey(0, device=device)),
+        vision.param_specs(), optimizer=train.AdamW(lr=1e-3, mu_dtype=torch.float32))
+    step = vision.make_train_step(config, None, optimizer)
+    images, labels = vision.synthetic_batch(config, vs["batch"], seed=0, device=device)
+    fixed = []
+    for _ in range(vs["fixed_steps"]):
+        params, opt, loss = step(params, opt, images, labels)
+        fixed.append(float(loss))
+    print(f"  {vs['fixed_steps']} steps on one batch of {vs['batch']} (JAX's "
+          f"test_training_reduces_loss): {fixed[0]:.5f} -> {fixed[-1]:.5f} "
+          f"({fixed[-1] / fixed[0]:.3f} of the first, limit {vs['fixed_drop']}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s; card: {card}", flush=True)
+    if not fixed[-1] < vs["fixed_drop"] * fixed[0]:
+        fail(f"6i: 30 steps on one batch took the loss from {fixed[0]} to {fixed[-1]}")
+    return launches
+
+
 BUSY = dict(n_chips=1, chips_per_tray=1, duration=6.0, in_process_burst_secs=0.25, arms={
     "(a) matmul": dict(workload="matmul", replicas=4, pods=4, matrix_dim=1024),
     "(b) train": dict(workload="train", replicas=4, pods=4, matrix_dim=1024),
@@ -5012,6 +5143,9 @@ def prng_phase(torch, f, requests, pa, pr=PRNG) -> dict:
         fail("the card's init_params from PRNGKey(0) is not the CPU's within "
              f"{pr['w_up_ulps']} ulp")
     del keys, want, got, ulps
+    before = tf.threefry.launches
+    draws = prng_draw_checks(torch, f)
+    tf.threefry.launches = before  # comparison draws are not the path's
     counters = {"paged_attention": pa.paged_attention, "threefry": tf.threefry}
     knobs = dict(temperature=pr["temperature"], top_k=pr["top_k"], top_p=pr["top_p"])
     base = dict(slots=f["slots"], page_size=f["page_size"], chunk=f["page_size"],
@@ -5073,10 +5207,68 @@ def prng_phase(torch, f, requests, pa, pr=PRNG) -> dict:
         "launches": launches, "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "sampled_chunk_graph_ms": chunk_graph_ms, "sampled_chunk_eager_ms": chunk_eager_ms,
-        "launches_a_step": launches / runs["graph"]["steps"],
+        "launches_a_step": launches / runs["graph"]["steps"], "draw_checks": draws,
     }
     k1 = sum(runs[name]["counts"]["paged_attention"] for name in runs)
     return {"record": record, "k1": k1}
+
+
+# Phase 4k's draws, the card's against the CPU's: perfbench's prompt seed
+# forms (PRNGKey(n), and fold_in(PRNGKey(a), b) for (a, b)), each as long
+# as the engine phases' prompts.
+DRAW_PROMPT_SEEDS = (1, 2, 5, 7, 11, 13, 77, 100, (11, 0), (11, 100), (23, 0), (23, 100))
+
+
+def prng_draw_checks(torch, f, device="cuda", scale_name="full") -> int:
+    """The port's draws on JAX's keys, drawn on ``device`` against the
+    CPU's, bit for bit: ``train.synthetic_batch`` at phase 6's shape,
+    perfbench's prompts in every seed form (``_prompt`` draws on the
+    CPU, so its keys draw again on ``device``), ``_prompts`` at phase
+    4's shape and ``_rand_qkv`` at the shortest attention length of
+    perfbench's ``scale_name`` (6f's).  Returns the number of draws
+    compared."""
+    from workloads_torch import perfbench as pb
+    from workloads_torch import prng, train
+    from workloads_torch.model import ModelConfig
+
+    compared = []
+
+    def same(got, want, what):
+        if got.dtype in (torch.bfloat16, torch.float32):
+            got, want = (t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+                         for t in (got, want))
+        differ = int((got.cpu() != want).sum()) if got.shape == want.shape else -1
+        if differ:
+            fail(f"4k {what}: the draw on {device} differs from the CPU's "
+                 f"({differ} elements; -1: shapes {tuple(got.shape)}, {tuple(want.shape)})")
+        compared.append(what)
+
+    config = ModelConfig(vocab_size=f["vocab_size"], max_seq_len=f["train_seq"])
+    B = f["train_batch"]
+    same(train.synthetic_batch(config, B, seed=0, device=device),
+         train.synthetic_batch(config, B, seed=0, device="cpu"),
+         f"synthetic_batch [{B}, {config.max_seq_len}] seed 0")
+    length = f["decode_prompt"]
+    for seed in DRAW_PROMPT_SEEDS:
+        if isinstance(seed, int):
+            key = prng.PRNGKey(seed, device=device)
+        else:
+            key = prng.fold_in(prng.PRNGKey(seed[0], device=device), seed[1])
+        want = torch.tensor(pb._prompt(seed, length, f["vocab_size"]), dtype=torch.int32)
+        same(prng.randint(key, (length,), 0, f["vocab_size"]), want, f"_prompt({seed})")
+    same(pb._prompts(1, f["slots"], length, f["vocab_size"], device),
+         pb._prompts(1, f["slots"], length, f["vocab_size"], "cpu"),
+         f"_prompts(1, {f['slots']}, {length})")
+    scale = pb.BenchScale.named(scale_name)
+    seq = min(scale.attn_seqs)
+    for name, got, want in zip("qkv", pb._rand_qkv(seq, scale.attn_heads, device=device),
+                               pb._rand_qkv(seq, scale.attn_heads, device="cpu")):
+        same(got, want, f"_rand_qkv({seq}, {scale.attn_heads}) {name} (bf16)")
+    print(f"  draws on {device} = the CPU's bit for bit: synthetic_batch [{B}, "
+          f"{config.max_seq_len}] (vocab {config.vocab_size}), {len(DRAW_PROMPT_SEEDS)} prompt "
+          f"seed forms {list(DRAW_PROMPT_SEEDS)} at length {length}, _prompts(1, {f['slots']}, "
+          f"{length}), _rand_qkv({seq}, {scale.attn_heads}) q, k and v in bf16", flush=True)
+    return len(compared)
 
 
 def kernel_counters(pa, fa) -> dict:
@@ -5899,6 +6091,13 @@ def main() -> int:
     pp_ep_launches_ = pp_ep_phase(torch, dict(f, n_layers=WORLD_PHASE_LAYERS))
     print(f"  pipeline and expert layouts phase: {time.perf_counter() - t0:.1f} s; card: "
           f"{card}", flush=True)
+
+    # 6i. the vision CNN
+    phase("training path: the vision CNN (workloads_torch.vision) on the card")
+    vision_launches = vision_phase(torch, card)
+    threefry_record["launches"] += vision_launches
+    threefry_record["vision_launches"] = vision_launches
+    torch.cuda.empty_cache()
 
     # 7. the sharing path, once the card is otherwise idle
     phase("sharing path: oversubscribed pods time-slicing the card under the chip lease")

@@ -383,6 +383,60 @@ def test_train_parallel_phase_rehearses_on_the_cpu(capsys):
     assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
+DRAWS_TINY = dict(vocab_size=256, train_seq=64, train_batch=2, decode_prompt=8, slots=2)
+
+
+def test_prng_draw_checks_rehearse_on_the_cpu(capsys):
+    """Phase 4k's draws, ``device="cpu"`` against the CPU at a tiny
+    width: every draw and seed form runs and compares equal."""
+    import torch
+
+    f = dict(chip_smoke.FULL, **DRAWS_TINY)
+    n = chip_smoke.prng_draw_checks(torch, f, device="cpu", scale_name="tiny")
+    assert n == 1 + len(chip_smoke.DRAW_PROMPT_SEEDS) + 1 + 3
+    out = capsys.readouterr().out
+    assert "draws on cpu = the CPU's bit for bit: synthetic_batch [2, 64] (vocab 256)" in out
+    assert "_rand_qkv(128, 2) q, k and v in bf16" in out
+
+
+def test_prng_draw_checks_fail_on_a_parted_draw(monkeypatch, capsys):
+    """A prompt whose list is not its key's draw fails the phase."""
+    import torch
+
+    from workloads_torch import perfbench as pb
+
+    prompt = pb._prompt
+    monkeypatch.setattr(pb, "_prompt", lambda seed, length, vocab: [
+        (t + (seed == (23, 0))) % vocab for t in prompt(seed, length, vocab)])
+    with pytest.raises(SystemExit):
+        chip_smoke.prng_draw_checks(torch, dict(chip_smoke.FULL, **DRAWS_TINY),
+                                    device="cpu", scale_name="tiny")
+    assert "4k _prompt((23, 0)): the draw on cpu differs from the CPU's" in \
+        capsys.readouterr().err
+
+
+def test_vision_phase_rehearses_on_the_cpu(capsys):
+    """Phase 6i on the CPU: the CLI at 5 steps, JAX's 30-step procedure,
+    every gate (the tree and batch, trivially equal here; both losses
+    falling)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.vision_phase(torch, "cpu rehearsal",
+                                           dict(chip_smoke.VISION, steps=5), device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "PRNGKey(0) tree on cpu: max 0 ulp from the CPU's (limit 4); images for seed 1 " \
+        "[64, 28, 28, 1] bit-identical, labels equal" in out
+    assert "vision.main --steps 5 --batch-size 64: loss " in out
+    assert "peak device memory not measured (no card)" in out
+    assert "30 steps on one batch of 64 (JAX's test_training_reduces_loss)" in out
+    assert launches == 0  # off the card the hash runs its plain version, uncounted
+
+
 def _par_rank(loss32=(5.0, 4.9, 4.8), nll16=0.1, losses=(3.0, 2.9, 2.8), launches=6):
     import numpy as np
 

@@ -1614,6 +1614,10 @@ def test_graphed_attention_chain_equals_the_eager_chain(cuda, attn):
 
     fn = fa.flash_attention if attn == "flash" else _dense_causal
     q, k, v = _rand_qkv(1024, 8, 128, device=cuda)
+    # JAX's bf16 normals are at least 0.0055 in size, where a link's 1e-6
+    # step stays under half a bf16 ulp: from q itself no link moves it.
+    # Scaled by 2^-10 (exact in bf16), the links move q.
+    q = q * 2.0**-10
     wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     before = [w.launches for w in wrappers]
     graphed = _attention_chain(fn, q, k, v)

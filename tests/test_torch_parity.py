@@ -99,6 +99,7 @@ from tests import test_torch_fleet as tfleet  # noqa: E402
 from tests import test_torch_perfbench_fleet as tpbf  # noqa: E402
 from tests import test_torch_busy_probe as tbusy  # noqa: E402
 from tests import test_torch_prng as tprng  # noqa: E402
+from tests import test_torch_prng_draws as tdraws  # noqa: E402
 from tests.test_torch_lifecycle import (  # noqa: E402
     LIFECYCLE_GOLDEN,
     golden_runs,
@@ -1360,6 +1361,128 @@ def write_prng_goldens(path: str = tprng.PRNG_GOLDEN) -> None:
     print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
 
 
+# A JAX CLI in a process of its own, on one CPU device (this file's eight
+# would put the CLIs' make_mesh() on a 2 x 4 mesh), its step's losses
+# recorded by tests/test_torch_prng_draws.py's ``cli_losses``.
+_JAX_CLI = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from tests.test_torch_prng_draws import cli_losses
+losses, printed = cli_losses("workloads", sys.argv[2], sys.argv[3:])
+print(json.dumps({"losses": losses, "printed": printed}))
+"""
+
+
+def jax_cli_losses(which: str) -> dict:
+    import subprocess
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=1")
+    proc = subprocess.run([sys.executable, "-c", _JAX_CLI, ROOT, which, *tdraws.CLIS[which]],
+                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=600,
+                          check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def jax_bf16_floor(which: str) -> float:
+    """JAX's distance of the step-1 loss in bf16 from the float32 one, on
+    the weights and batch its CLI starts from (tdraws.port_bf16_floor's
+    twin)."""
+    from dataclasses import replace
+
+    if which == "vision":
+        config = jvision.VisionConfig()
+        params = jvision.init_params(config, jax.random.PRNGKey(0))
+        images, labels = jvision.synthetic_batch(config, 16, seed=1)
+        return abs(float(jvision.loss_fn(params, images, labels, config))
+                   - float(jvision.loss_fn(params, images, labels,
+                                           replace(config, dtype=jnp.float32))))
+    config = jmodel.ModelConfig(max_seq_len=16)
+    params = jmodel.init_params(config, jax.random.PRNGKey(0))
+    tokens = jtrain.synthetic_batch(config, 2 if which == "train" else 4, seed=1)
+    return abs(float(jmodel.loss_fn(params, tokens, config))
+               - float(jmodel.loss_fn(params, tokens, replace(config, dtype=jnp.float32))))
+
+
+def jax_prng_draws_goldens() -> dict:
+    """JAX's draws for tests/test_torch_prng_draws.py: bf16 uniform and
+    normal over the grid, synthetic_batch, the vision tree (the full one
+    sampled, a small one whole), templates, images and labels,
+    perfbench's prompts and attention inputs, and the CLIs' losses."""
+    out = {}
+    for spec in tdraws.KEYS:
+        name, key = spec[0], tprng.derive(jax.random, spec)
+        for shape in tdraws.BF16_SHAPES:
+            sid = tprng.shape_id(shape)
+            for lo, hi in tdraws.BF16_UNIFORM_RANGES:
+                out[f"{name}/uniform_bf16/{(lo, hi)}/{sid}"] = np.asarray(
+                    jax.random.uniform(key, shape, jnp.bfloat16, lo, hi)).view(np.int16)
+            out[f"{name}/normal_bf16/{sid}"] = np.asarray(
+                jax.random.normal(key, shape, jnp.bfloat16)).view(np.int16)
+    for vocab in tdraws.BATCH_VOCABS:
+        config = jmodel.ModelConfig(vocab_size=vocab, max_seq_len=tdraws.BATCH_SEQ)
+        for seed in tdraws.BATCH_SEEDS:
+            out[f"batch/{vocab}/{seed}"] = np.asarray(
+                jtrain.synthetic_batch(config, tdraws.BATCH_SIZE, seed=seed))
+    for size, kw in (("full", {}), ("small", tdraws.VISION_SMALL)):
+        tree = jvision.init_params(jvision.VisionConfig(**kw), jax.random.PRNGKey(0))
+        for name, leaf in tree.items():
+            leaf = np.asarray(leaf)
+            out[f"vision/{size}/{name}"] = (tdraws.vision_leaf_sample(leaf) if size == "full"
+                                            else leaf)
+            out[f"vision/{size}/{name}/shape"] = np.asarray(leaf.shape)
+    config = jvision.VisionConfig()
+    out["vision/templates"] = np.asarray(jax.random.normal(
+        jax.random.PRNGKey(715), (config.image_size ** 2 * config.channels, config.n_classes)))
+    for seed in tdraws.VISION_IMAGE_SEEDS:
+        images, labels = jvision.synthetic_batch(config, tdraws.VISION_IMAGE_BATCH, seed=seed)
+        out[f"vision/images/{seed}"] = np.asarray(images)
+        out[f"vision/labels/{seed}"] = np.asarray(labels).astype(np.int64)
+    images, labels = jvision.synthetic_batch(config, tdraws.VISION_LABEL_BATCH, seed=0)
+    out["vision/label_batch/digest"] = np.asarray(tdraws.images_digest(np.asarray(images)))
+    out["vision/label_batch/labels"] = np.asarray(labels).astype(np.int64)
+    for seed in tdraws.PROMPT_SEEDS:
+        # workloads/perfbench.py's prompt draws: PRNGKey(n), or
+        # fold_in(PRNGKey(a), b).
+        key = (jax.random.PRNGKey(seed) if isinstance(seed, int)
+               else jax.random.fold_in(jax.random.PRNGKey(seed[0]), seed[1]))
+        out[f"prompt/{tdraws.seed_id(seed)}"] = np.asarray(jax.random.randint(
+            key, (tdraws.PROMPT_LENGTH,), 0, tdraws.PROMPT_VOCAB, jnp.int32)).astype(np.int64)
+    p = tdraws.PROMPTS
+    out["prompts"] = np.asarray(jax.random.randint(
+        jax.random.PRNGKey(p["seed"]), (p["batch"], p["length"]), 0, p["vocab"],
+        jnp.int32)).astype(np.int64)
+    for which, arr in zip("qkv", jperf._rand_qkv(tdraws.QKV["seq"], tdraws.QKV["heads"],
+                                                 tdraws.QKV["head_dim"])):
+        out[f"qkv/{which}"] = np.asarray(arr).view(np.int16)
+    for which in tdraws.CLIS:
+        run = jax_cli_losses(which)
+        out[f"cli/{which}/losses"] = np.asarray(run["losses"], np.float64)
+        out[f"cli/{which}/printed"] = np.asarray(run["printed"])
+        out[f"cli/{which}/bf16_floor"] = np.asarray(jax_bf16_floor(which))
+    return out
+
+
+def test_prng_draws_match_jax_live():
+    """The frozen JAX draws and CLI losses of
+    tests/test_torch_prng_draws.py, drawn and run again: every array
+    equal to the file's."""
+    with np.load(tdraws.PRNG_DRAWS_GOLDEN) as f:
+        frozen = {k: f[k] for k in f.files}
+    live = jax_prng_draws_goldens()
+    assert sorted(live) == sorted(frozen)
+    for name, arr in live.items():
+        assert np.array_equal(arr, frozen[name]), name
+
+
+def write_prng_draws_goldens(path: str = tdraws.PRNG_DRAWS_GOLDEN) -> None:
+    """Freeze JAX's batches, vision draws, perfbench inputs, bf16 draws and
+    CLI losses for tests/test_torch_prng_draws.py."""
+    arrays = jax_prng_draws_goldens()
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes, {len(arrays)} arrays")
+
+
 def write_fleet_goldens(path: str = tfleet.FLEET_GOLDEN) -> None:
     """Freeze the JAX fleet's scripted runs for tests/test_torch_fleet.py
     (streams, statuses, attempts, counters, event kinds, journal
@@ -1510,3 +1633,4 @@ if __name__ == "__main__":
     write_train_parallel_goldens()
     write_model_goldens()
     write_prng_goldens()
+    write_prng_draws_goldens()

@@ -309,8 +309,7 @@ def test_paged_chunks_are_the_greedy_stream():
         device=torch.device("cpu"),
     )
     got = run_chunks(3)
-    prompts = torch.as_tensor(
-        np.random.default_rng(1).integers(0, config.vocab_size, (3, 5)))
+    prompts = prng.randint(prng.PRNGKey(1, device="cpu"), (3, 5), 0, config.vocab_size)
     want = generate(p, prompts, config, max_new_tokens=13, device="cpu")
     assert torch.equal(got, want[:, 1:])
     assert torch.equal(run_chunks(1), want[:, 1:5])  # fresh tables each run

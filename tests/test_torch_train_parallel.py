@@ -173,26 +173,25 @@ def test_lora_under_a_mesh_matches_one_device(worlds):
 def test_lora_cli_builds_its_mesh_over_the_world(worlds):
     """The LoRA CLI inside a 2-rank world: make_mesh()'s (1, 2) mesh,
     replicated adapters, both ranks' losses alike and the one-device
-    CLI's.  (Whether they fall over these three steps, on three random
-    batches, is no property of the CLI: JAX's own goes 5.5435 -> 5.5451
-    here, and the port's, from the same weights, 5.5444 -> 5.5446.)"""
-    import contextlib
-    import io
-
-    from workloads_torch import lora
+    CLI's, whose losses a step are JAX's CLI's within
+    tests/test_torch_prng_draws.py's tolerance.  (Whether they fall over
+    these three steps, on three random batches, is no property of the
+    CLI: JAX's own, and the port's from the same seeds, go 5.5435 ->
+    5.5451 here.)"""
+    from tests import test_torch_prng_draws as tdraws
 
     outs = [tw.result_of(worlds[2], "lora_cli", r) for r in range(2)]
     assert outs[0] == outs[1]
-    one = io.StringIO()
-    with contextlib.redirect_stdout(one):
-        lora.main(["--device", "cpu", "--steps", "3", "--rank", "2", "--batch-size", "4",
-                   "--seq-len", "16"])
+    one_losses, one = tdraws.cli_losses("workloads_torch", "lora",
+                                        tdraws.CLIS["lora"] + ["--device", "cpu"])
 
     def losses(text):
         return re.search(r"loss (\S+) -> (\S+)", text).groups()
 
     assert "done: steps=3 rank=2" in outs[0]
-    assert losses(outs[0]) == losses(one.getvalue())
+    assert losses(outs[0]) == losses(one)
+    with np.load(tdraws.PRNG_DRAWS_GOLDEN) as golden:
+        assert tdraws.cli_misses(golden, "lora", one_losses) == []
 
 
 def test_bench_train_step_runs_on_the_world_mesh(worlds):

@@ -28,6 +28,7 @@ import torch
 
 from tests import torch_model_world as mw
 from tests import torch_tp_world as tw
+from workloads_torch import prng
 
 LOSS_RTOL = 2.0**-20
 PARAM_RTOL = 1e-5
@@ -56,7 +57,7 @@ def test_forward_shapes_and_dtype():
     from workloads_torch.vision import VisionConfig, forward, init_params, synthetic_batch
 
     config = VisionConfig()
-    params = init_params(config, torch.Generator().manual_seed(0))
+    params = init_params(config, prng.PRNGKey(0, device="cpu"))
     images, labels = synthetic_batch(config, batch=4, device="cpu")
     assert images.shape == (4, 28, 28, 1) and labels.shape == (4,)
     logits = forward(params, images, config)

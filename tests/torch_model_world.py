@@ -444,7 +444,7 @@ def s_vision_train(ctx) -> dict:
     config = vision.VisionConfig()
     mesh = vision.make_data_mesh("cpu")
     (params, opt), optimizer = train.make_sharded_train_state(
-        mesh, lambda: vision.init_params(config, torch.Generator().manual_seed(0)),
+        mesh, lambda: vision.init_params(config, prng.PRNGKey(0, device="cpu")),
         vision.param_specs(), optimizer=train.AdamW(lr=1e-3, mu_dtype=torch.float32))
     step = vision.make_train_step(config, mesh, optimizer)
     images, labels = vision.synthetic_batch(config, 64, seed=0, device="cpu")

@@ -49,9 +49,11 @@ floors.
 
 Seeds: weights from ``prng.PRNGKey(0)`` and samplers from
 ``rng=PRNGKey(3)``, as the JAX package's (``prng`` is JAX's threefry);
-prompts from numpy seeds (JAX's ``PRNGKey(n)``; ``fold_in(key, i)``
-becomes the seed ``[n, i]``), traffic from the port's ``TrafficGen`` at
-JAX's seeds.
+prompts from ``randint(PRNGKey(n))``, or ``randint(fold_in(PRNGKey(a),
+b))`` for the seed ``(a, b)``, the training batch from
+``train.synthetic_batch``'s ``PRNGKey(0)`` and attention inputs from
+``split(PRNGKey(seq), 3)``, all JAX's draws; traffic from the port's
+``TrafficGen`` at JAX's seeds.
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
 
@@ -234,8 +236,16 @@ def _params(config: ModelConfig, seed: int, device) -> dict:
     )
 
 
-def _prompt(seed: int, length: int, vocab: int) -> list[int]:
-    return [int(t) for t in np.random.default_rng(seed).integers(0, vocab, length)]
+def _prompt(seed: int | tuple[int, int], length: int, vocab: int) -> list[int]:
+    """JAX's ``randint(PRNGKey(seed), (length,), 0, vocab)`` as a list;
+    a seed ``(a, b)`` draws under ``fold_in(PRNGKey(a), b)``.  Drawn on
+    the CPU: the result is host data."""
+    if isinstance(seed, int):
+        key = prng.PRNGKey(seed, device="cpu")
+    else:
+        a, b = seed
+        key = prng.fold_in(prng.PRNGKey(a, device="cpu"), b)
+    return prng.randint(key, (length,), 0, vocab).tolist()
 
 
 def _sampler(seed: int, device) -> torch.Tensor:
@@ -443,15 +453,11 @@ def measure_flash_vs_xla(scale: BenchScale, device=None) -> dict:
 
 def _rand_qkv(seq: int, heads: int, head_dim: int = 128,
               dtype=torch.bfloat16, device=None):
-    """Standard-normal (q, k, v), each [1, seq, heads, head_dim], from
-    numpy seed ``seq`` (JAX's ``PRNGKey(seq)``)."""
-    rng = np.random.default_rng(seq)
-    return tuple(
-        torch.from_numpy(
-            rng.standard_normal((1, seq, heads, head_dim), dtype=np.float32)
-        ).to(device=device, dtype=dtype)
-        for _ in range(3)
-    )
+    """Standard-normal (q, k, v), each [1, seq, heads, head_dim] in
+    ``dtype``, as JAX's: ``normal(kk, ..., dtype)`` for each ``kk`` of
+    ``split(PRNGKey(seq), 3)``, drawn on ``device``."""
+    keys = prng.split(prng.PRNGKey(seq, device=device), 3)
+    return tuple(prng.normal(kk, (1, seq, heads, head_dim), dtype=dtype) for kk in keys)
 
 
 def measure_window(scale: BenchScale, device=None) -> dict:
@@ -485,9 +491,10 @@ def measure_window(scale: BenchScale, device=None) -> dict:
 
 
 def _prompts(seed: int, batch: int, length: int, vocab: int, device) -> torch.Tensor:
-    """[batch, length] int64 tokens from numpy seed ``seed``."""
-    rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.integers(0, vocab, (batch, length)), device=device)
+    """[batch, length] tokens, JAX's ``randint(PRNGKey(seed), (batch,
+    length), 0, vocab)`` drawn on ``device``, in int64 as the decode
+    programs take them."""
+    return prng.randint(prng.PRNGKey(seed, device=device), (batch, length), 0, vocab).long()
 
 
 def measure_decode(scale: BenchScale, device=None) -> dict:
@@ -3700,11 +3707,11 @@ def measure_kv_sched(scale: BenchScale, device=None) -> dict:
     n_tenants = 3
     n_req = 6 * batch  # far beyond n_rep * batch slots: oversubscribed
     vocab = config.vocab_size
-    tenant_prefix = [_prompt([11, tid], prefix_len, vocab) for tid in range(n_tenants)]
+    tenant_prefix = [_prompt((11, tid), prefix_len, vocab) for tid in range(n_tenants)]
     reqs = []
     for i in range(n_req):
         tid = i % n_tenants
-        tail = _prompt([11, 100 + i], 1 + i % tail_max, vocab)
+        tail = _prompt((11, 100 + i), 1 + i % tail_max, vocab)
         new = 1 + chunk + (i * chunk) % (max_new - chunk)
         reqs.append((tid, tenant_prefix[tid] + tail, new))
     # Tight pools: just enough pages to keep the decode slots fed, so
@@ -3904,7 +3911,7 @@ def measure_goodput_ctrl(scale: BenchScale, device=None) -> dict:
     reqs = []
     for i in range(n_req):
         plen = 1 + ps + (i * 7) % prompt_max
-        prompt = _prompt([23, i], min(plen, prompt_max), config.vocab_size)
+        prompt = _prompt((23, i), min(plen, prompt_max), config.vocab_size)
         new = 1 + chunk + (i % 3) * chunk
         cls = "interactive" if i % 3 else "bulk"
         reqs.append((prompt, new, cls))
@@ -4135,10 +4142,10 @@ def measure_durability(scale: BenchScale, device=None) -> dict:
     params = _params(config, 0, device)
     n_rep = 2
     n_req = 2 * batch
-    sys_prefix = _prompt([23, 0], prefix_len, config.vocab_size)
+    sys_prefix = _prompt((23, 0), prefix_len, config.vocab_size)
     reqs = []
     for i in range(n_req):
-        tail = _prompt([23, 100 + i], 1 + i % tail_max, config.vocab_size)
+        tail = _prompt((23, 100 + i), 1 + i % tail_max, config.vocab_size)
         # Budgets long enough that a 3-step kill is mid-stream for most.
         new = max_new - (i * chunk) % (2 * chunk)
         reqs.append((sys_prefix + tail, new))

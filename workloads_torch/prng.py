@@ -23,10 +23,19 @@ Bits, keys and uniforms are integer arithmetic and equal JAX's exactly.
 ``normal`` runs XLA's own float32 erfinv polynomial (not
 ``torch.erfinv``, which lands up to 63 ulp from ``lax.erf_inv``) and
 ``gumbel`` two ``torch.log``s; both sit within a few ulp of JAX's.
+
+``uniform`` and ``normal`` also draw bfloat16, by JAX's rule for a type
+of fewer than 8 mantissa bits: only the low byte of ``bits1 ^ bits2``,
+shifted right by one under 1.0's exponent, so a bf16 draw is one of 128
+values.  ``_bf16_values`` computes those 128 once, on the CPU, op by op
+as XLA rounds them (every bf16 operation rounded; the normal's erfinv in
+float32), and a draw gathers from them by its 7 bits: equal to JAX's bit
+for bit, and the same on the card as on the CPU.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -98,11 +107,46 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return _hash(key, shape, "bits")
 
 
-def uniform(key: torch.Tensor, shape=(), minval: float = 0.0, maxval: float = 1.0
-            ) -> torch.Tensor:
-    """``jax.random.uniform`` in float32 over ``[minval, maxval)``:
-    mantissa bits under 1.0's exponent, minus 1, scaled, floored at
-    ``minval``."""
+def _check_dtype(dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"draws float32 or bfloat16, got {dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_values(minval: float, maxval: float, normal: bool) -> torch.Tensor:
+    """The 128 bf16 values a draw can take, by its 7 random bits, on the
+    CPU: ``_uniform``'s ``(bits | 1.0) - 1``, times ``maxval - minval``,
+    plus ``minval``, floored at ``minval``, each operation rounded to
+    bf16; for ``normal`` then ``bf16(sqrt 2) * bf16(erf_inv)`` with the
+    erfinv in float32 (XLA computes a bf16 erf_inv in float32)."""
+    bf16 = torch.bfloat16
+    mant = torch.arange(128, dtype=torch.int16) | 0x3F80
+    floats = mant.view(bf16) - torch.tensor(1.0, dtype=bf16)
+    lo, hi = torch.tensor(minval, dtype=bf16), torch.tensor(maxval, dtype=bf16)
+    values = torch.maximum(floats * (hi - lo) + lo, lo)
+    if normal:
+        values = torch.tensor(math.sqrt(2), dtype=bf16) * erfinv_f32(values.float()).to(bf16)
+    return values
+
+
+def _bf16_draw(key: torch.Tensor, shape, minval: float, maxval: float, normal: bool
+               ) -> torch.Tensor:
+    """A bf16 draw: ``random_bits``' low byte (JAX's 8-bit draw, the
+    truncation of ``bits1 ^ bits2``) shifted right by one picks one of
+    ``_bf16_values``."""
+    bits = random_bits(key, shape)
+    values = _bf16_values(float(minval), float(maxval), normal).to(bits.device)
+    return values[(bits & 0xFF) >> 1]
+
+
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0, maxval: float = 1.0,
+            dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform`` over ``[minval, maxval)`` in ``dtype``
+    (float32 or bfloat16): mantissa bits under 1.0's exponent, minus 1,
+    scaled, floored at ``minval``."""
+    _check_dtype(dtype)
+    if dtype == torch.bfloat16:
+        return _bf16_draw(key, shape, minval, maxval, normal=False)
     return _hash(key, shape, "uniform", minval=minval, maxval=maxval)
 
 
@@ -160,9 +204,15 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.normal`` in float32 (``_normal_real``): sqrt(2) times
-    the erfinv of a uniform over (-1, 1)."""
+def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal`` in ``dtype`` (float32 or bfloat16,
+    ``_normal_real``): sqrt(2) times the erfinv of a uniform over
+    (nextafter(-1, 0), 1) in that type."""
+    _check_dtype(dtype)
+    if dtype == torch.bfloat16:
+        lo = float(torch.nextafter(torch.tensor(-1.0, dtype=torch.bfloat16),
+                                   torch.tensor(0.0, dtype=torch.bfloat16)))
+        return _bf16_draw(key, shape, lo, 1.0, normal=True)
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     return _SQRT2_F32 * erfinv_f32(uniform(key, shape, lo, 1.0))
 

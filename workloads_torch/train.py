@@ -492,12 +492,12 @@ def seq_parallel_attention(config: ModelConfig, mesh, attention: str = "ring"):
 
 def synthetic_batch(config: ModelConfig, batch_size: int, seed: int = 0,
                     device=None) -> torch.Tensor:
-    """Uniform random tokens [batch_size, max_seq_len] int64 from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    device = resolve_device(device)
-    g = torch.Generator(device).manual_seed(seed)
-    return torch.randint(0, config.vocab_size, (batch_size, config.max_seq_len),
-                         generator=g, device=device)
+    """JAX's ``synthetic_batch``: uniform random tokens [batch_size,
+    max_seq_len] from ``randint(PRNGKey(seed), ..., 0, vocab_size)`` on
+    ``device``, JAX's int32 values in int32 (``forward`` and
+    ``cross_entropy`` index with ``.long()``, so no cast here)."""
+    return prng.randint(prng.PRNGKey(seed, device=device),
+                        (batch_size, config.max_seq_len), 0, config.vocab_size)
 
 
 def _agreed_step(step: int | None, device) -> int | None:

@@ -8,7 +8,9 @@ kernels, NHWC activations), so a converted JAX tree
 ``F.conv2d`` on permuted views.  The step is
 ``train.make_sharded_train_step`` over a ``("data",)`` mesh (pure data
 parallelism, the natural cut for a small CNN), or one device, and the
-inputs are synthetic MNIST-shaped tensors: no download.
+inputs are synthetic MNIST-shaped tensors: no download.  Weights, images
+and probe templates draw from ``prng``'s threefry keys in the JAX
+package's key schedule, so a seed gives JAX's tree and batches.
 
 Architecture (small on purpose, the upstream MNIST net's shape): conv
 3x3 x32 -> conv 3x3 x64 -> 2x2 maxpool -> dense 128 -> dense 10.
@@ -24,7 +26,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from . import resolve_device
+from . import prng, resolve_device
 from .model import cross_entropy
 
 # The probe templates' seed: one fixed task for every batch.
@@ -42,22 +44,19 @@ class VisionConfig:
     dtype: torch.dtype = torch.bfloat16
 
 
-def init_params(config: VisionConfig, generator: torch.Generator) -> dict:
-    """N(0, 0.1) float32 weights from ``generator``, on its device."""
+def init_params(config: VisionConfig, key: torch.Tensor) -> dict:
+    """N(0, 0.1) float32 weights from the ``prng`` key ``key``, on its
+    device: ``split(key, 4)``, one key a leaf in JAX's order."""
+    k1, k2, k3, k4 = prng.split(key, 4)
     scale = 0.1
     pooled = config.image_size // 2
     flat = pooled * pooled * config.conv2
-
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=generator.device,
-                           dtype=torch.float32) * scale
-
     return {
         # HWIO conv layout, jax.lax.conv_general_dilated's native order.
-        "conv1": normal(3, 3, config.channels, config.conv1),
-        "conv2": normal(3, 3, config.conv1, config.conv2),
-        "dense1": normal(flat, config.hidden),
-        "dense2": normal(config.hidden, config.n_classes),
+        "conv1": prng.normal(k1, (3, 3, config.channels, config.conv1)) * scale,
+        "conv2": prng.normal(k2, (3, 3, config.conv1, config.conv2)) * scale,
+        "dense1": prng.normal(k3, (flat, config.hidden)) * scale,
+        "dense2": prng.normal(k4, (config.hidden, config.n_classes)) * scale,
     }
 
 
@@ -92,21 +91,18 @@ def loss_fn(params, images, labels, config: VisionConfig) -> torch.Tensor:
 
 def synthetic_batch(config: VisionConfig, batch: int, seed: int = 0, device=None):
     """MNIST-shaped synthetic data with learnable, class-balanced labels:
-    images uniform in [0, 1) from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (None means ``cuda``), and each label the
-    argmax over n_classes fixed random linear probes of the centred image
-    (iid projections of iid pixels: near-uniform over classes, and
-    linearly separable, so the loss falls).  The probe templates come
-    from a generator seeded with ``TEMPLATE_SEED``, the same for every
-    batch.  Returns (images ``[batch, H, W, C]`` float32, labels
-    ``[batch]`` int64)."""
-    device = resolve_device(device)
-    images = torch.rand(
-        (batch, config.image_size, config.image_size, config.channels),
-        generator=torch.Generator(device).manual_seed(seed), device=device)
-    templates = torch.randn(
-        (config.image_size * config.image_size * config.channels, config.n_classes),
-        generator=torch.Generator(device).manual_seed(TEMPLATE_SEED), device=device)
+    images ``uniform(PRNGKey(seed))`` in [0, 1) on ``device`` (None means
+    ``cuda``), and each label the argmax over n_classes fixed random
+    linear probes of the centred image (iid projections of iid pixels:
+    near-uniform over classes, and linearly separable, so the loss
+    falls).  The probe templates are ``normal(PRNGKey(TEMPLATE_SEED))``,
+    the same for every batch.  As JAX's; returns (images ``[batch, H, W,
+    C]`` float32, labels ``[batch]`` int64)."""
+    images = prng.uniform(prng.PRNGKey(seed, device=device),
+                          (batch, config.image_size, config.image_size, config.channels))
+    templates = prng.normal(
+        prng.PRNGKey(TEMPLATE_SEED, device=device),
+        (config.image_size * config.image_size * config.channels, config.n_classes))
     # Centre the pixels first: positive-mean inputs would correlate every
     # probe through the shared DC component and skew the argmax toward
     # one class.
@@ -168,7 +164,7 @@ def main(argv=None) -> int:
     config = VisionConfig()
     (params, opt_state), optimizer = make_sharded_train_state(
         mesh,
-        lambda: init_params(config, torch.Generator(device).manual_seed(0)),
+        lambda: init_params(config, prng.PRNGKey(0, device=device)),
         param_specs(),
         optimizer=AdamW(lr=1e-3, mu_dtype=torch.float32),
     )

@@ -47,7 +47,10 @@ COPIED = ["errors", "faults", "backoff", "durable", "obs", "ledger", "fleet",
 # make_serve_burst_fn, run_probe, main: --device, no JAX_PLATFORMS);
 # the harness's pods run the port's probe on a torch device type
 # (run_pods, the pod half of run; main's --device), and its gRPC loads
-# on first use (_LazyModule) so that the pod half runs without it.
+# on first use (_LazyModule) so that the pod half runs without it.  On a
+# card engine the observer's device time is CUDA-event time split into
+# prefill and decode (StepRecord, EngineObserver._step_begin/_step_end),
+# which the trace's device lane draws (trace_events).
 ALLOWED = {
     ("lease", "lease_path"),
     ("lease", "claim_lease_path"),
@@ -81,6 +84,10 @@ ALLOWED = {
     ("ops/kernel_select", "device_kind"),
     ("ops/kernel_select", "kernel_table"),
     ("ops/kernel_select", "kernel_for_seq"),
+    ("obs", "StepRecord"),
+    ("obs", "EngineObserver._step_begin"),
+    ("obs", "EngineObserver._step_end"),
+    ("obs", "trace_events"),
 }
 
 

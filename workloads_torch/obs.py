@@ -32,9 +32,20 @@ counters only — so the metrics lint and trace tooling stay fast.
 
 The PyTorch port's own copy of ``workloads/obs.py`` (the port imports
 nothing of the JAX package); tests/test_torch_copies.py holds every
-definition to it.  ``device_table`` (profiler.py's ``DeviceTimeTable``)
-calibrates ``StepRecord.device_ms``, the step's wall less its host-sync
-stall, as in JAX.
+definition to it, but for the device time of a card engine.  There JAX's
+``StepRecord.device_ms``, the step's wall less its host-sync stall, is
+not the device's time: the wall holds host work the device overlaps, and
+the host also waits outside the syncs (in graph launches behind a full
+queue).  Over the benchmark's generate traffic on an H100 it read 86% of
+the profiler's device busy time for the same steps.  So on the card the
+engine brackets each prefill sweep and each decode dispatch with a pair
+of CUDA timing events, read at the host sync that reads the work back,
+and ``StepRecord`` carries ``prefill_device_ms`` and
+``decode_device_ms``, whose sum is ``device_ms`` (``StepRecord``,
+``EngineObserver._step_begin``/``_step_end``; ``trace_events`` draws the
+two on the device lane).  CPU engines keep JAX's derivation, and
+``device_table`` (profiler.py's ``DeviceTimeTable``) calibrates it as in
+JAX; on the card the table takes the event time.
 """
 
 from __future__ import annotations
@@ -236,17 +247,21 @@ ENGINE_METRICS: tuple[MetricSpec, ...] = (
     ),
     MetricSpec(
         "engine_device_seconds", "histogram", ("engine",),
-        "estimated DEVICE time of one dispatching step (step wall "
-        "minus the engine-measured host-sync stall, smoothed through "
-        "the per-(program, seq-bucket, batch-bucket) calibration "
-        "table when one is attached — workloads/profiler.py); "
+        "DEVICE time of one step: on a card engine the CUDA-event time "
+        "of the prefill sweeps and decode dispatches the step read back "
+        "(a pipelined chunk on the step after its dispatch); on the CPU "
+        "the step wall minus the engine-measured host-sync stall, "
+        "smoothed through the per-(program, seq-bucket, batch-bucket) "
+        "calibration table when one is attached (profiler.py); "
         "sub-millisecond DEVICE_SECONDS_BUCKETS ladder",
     ),
     MetricSpec(
         "engine_device_busy_fraction", "gauge", ("engine",),
-        "fraction of observed step wall the device was busy "
-        "(scrape-time, cumulative over this observer's run — the "
-        "device-side split of the chip-second the ledger charges)",
+        "fraction of observed step wall the device was busy: summed "
+        "engine_device_seconds over summed step wall (scrape-time, "
+        "cumulative over this observer's run; CUDA-event time on a "
+        "card engine — the device-side split of the chip-second the "
+        "ledger charges)",
     ),
     MetricSpec(
         "engine_host_stall_fraction", "gauge", ("engine",),
@@ -757,10 +772,17 @@ class StepRecord:
     # fused readback reconciled).
     host_sync_ms: float = 0.0
     tokens_overdecoded: int = 0
-    # Device-time attribution (workloads/profiler.py): estimated DEVICE
-    # ms inside this step's wall window (0.0 for idle steps and for
-    # records from older tooling — the default keeps them identical).
+    # Device-time attribution (workloads/profiler.py): DEVICE ms of this
+    # step (0.0 for idle steps and for records from older tooling — the
+    # default keeps them identical).  On a card engine it is
+    # prefill_device_ms + decode_device_ms, the CUDA-event time of the
+    # prefill sweeps and the decode dispatches whose work this step READ
+    # BACK: under ``pipelined`` chunk N is read back in step N+1, so its
+    # time lands on that record.  CPU engines record no events (both
+    # 0.0) and estimate device_ms as the step wall less its host syncs.
     device_ms: float = 0.0
+    prefill_device_ms: float = 0.0
+    decode_device_ms: float = 0.0
 
 
 @dataclass
@@ -1130,12 +1152,14 @@ class EngineObserver:
             getattr(engine, "tokens_overdecoded", 0),
             getattr(prefix, "hits", 0),
             getattr(prefix, "misses", 0),
+            getattr(engine, "prefill_device_s", 0.0),
+            getattr(engine, "decode_device_s", 0.0),
         )
 
     def _step_end(self, engine, snap: tuple, finished) -> StepRecord:
         (
             t0, tokens0, adm0, ret0, pd0, sw0, ch0, sr0, ms0, dt0, hs0,
-            od0, ph0, pm0,
+            od0, ph0, pm0, pdev0, ddev0,
         ) = snap
         dur = time.perf_counter() - t0
         host_sync = getattr(engine, "host_sync_s", 0.0) - hs0
@@ -1165,8 +1189,19 @@ class EngineObserver:
         program = mode
         if mode == "idle" and engine.prefill_dispatches - pd0 > 0:
             program = "prefill"
+        # A card engine times its sweeps and dispatches with CUDA events
+        # (ServeEngine._phase_event): the step's device time is theirs,
+        # read back this step, and the table takes it as measured.
+        prefill_ms = (getattr(engine, "prefill_device_s", 0.0) - pdev0) * 1000.0
+        decode_ms = (getattr(engine, "decode_device_s", 0.0) - ddev0) * 1000.0
+        timed = getattr(engine, "_phase_event", None) is not None
         device_ms = 0.0
-        if program != "idle":
+        if timed:
+            device_ms = prefill_ms + decode_ms
+            if self.device_table is not None and program != "idle" and device_ms > 0:
+                batch = int(engine._occupied.sum())
+                self.device_table.observe(program, tokens, batch, device_ms)
+        elif program != "idle":
             measured_ms = max((dur - host_sync) * 1000.0, 0.0)
             device_ms = measured_ms
             if self.device_table is not None:
@@ -1200,6 +1235,8 @@ class EngineObserver:
             host_sync_ms=round(host_sync * 1000, 3),
             tokens_overdecoded=overdecoded,
             device_ms=round(device_ms, 3),
+            prefill_device_ms=round(prefill_ms, 3),
+            decode_device_ms=round(decode_ms, 3),
         )
         self._step_index += 1
         if len(self.steps) == self.steps.maxlen:
@@ -2013,21 +2050,32 @@ def trace_events(observer: EngineObserver, t0: float | None = None) -> dict:
         # device window rendered directly under its step() span — in
         # the merged fleet trace this lane rides each replica's
         # process, aligned under that replica's attempt spans.
-        if getattr(rec, "device_ms", 0.0) > 0:
+        # A card engine's record splits it into the prefill and the
+        # decode time it read back, drawn one after the other.
+        split = [
+            (program, ms) for program, ms in (
+                ("prefill", getattr(rec, "prefill_device_ms", 0.0)),
+                ("decode", getattr(rec, "decode_device_ms", 0.0)),
+            ) if ms > 0
+        ]
+        if not split and getattr(rec, "device_ms", 0.0) > 0:
             program = rec.mode
             if program == "idle" and rec.prefill_dispatches > 0:
                 program = "prefill"
+            split = [(program, rec.device_ms)]
+        ts = _us(rec.t_start, t0)
+        for program, ms in split:
+            dur = max(round(ms * 1000.0, 3), 0.0)
             events.append({
                 "ph": "X", "pid": 2, "tid": 2, "cat": "device",
-                "name": f"device[{program}]",
-                "ts": _us(rec.t_start, t0),
-                "dur": max(round(rec.device_ms * 1000.0, 3), 0.0),
+                "name": f"device[{program}]", "ts": ts, "dur": dur,
                 "args": {
-                    "device_ms": rec.device_ms,
+                    "device_ms": ms,
                     "host_sync_ms": rec.host_sync_ms,
                     "mode": rec.mode,
                 },
             })
+            ts = round(ts + dur, 3)
         for counter, value in (
             ("occupancy", rec.occupancy),
             ("queue_depth", rec.queue_depth),

@@ -94,6 +94,7 @@ Run on the card with ``python -m workloads_torch.serve``; pass
 
 from __future__ import annotations
 
+import functools
 import itertools
 import queue
 import time
@@ -102,6 +103,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import prng, resolve_device
 from .decode_graph import DecodeGraph, SpecGraph
@@ -195,14 +197,25 @@ class Request:
         return self.t_admit - self.t_submit
 
 
+def _phase_events(observer, device: torch.device):
+    """An engine's timing-event factory: CUDA events that time, for an
+    observer of a card engine; else None, and no event is made."""
+    if observer is None or device.type != "cuda":
+        return None
+    return functools.partial(torch.cuda.Event, enable_timing=True)
+
+
 class _Readback:
     """Decoded tensors on their way to the host.  From the card they are
     copied into pinned memory behind one event as soon as they are
     dispatched (before anything later, such as a graph replay, can
     overwrite their buffers), so the host blocks only when it reads
-    them."""
+    them.  ``phase`` is the dispatch's pair of timing events
+    (``ServeEngine._phase_end``), recorded before the copies, so the
+    read that waits for this event finds the pair complete."""
 
-    def __init__(self, *tensors: torch.Tensor):
+    def __init__(self, *tensors: torch.Tensor, phase=None):
+        self.phase = phase
         self.event = None
         if tensors[0].is_cuda:
             self.hosts = []
@@ -738,6 +751,15 @@ class ServeEngine:
         self._obs = observer
         if observer is not None:
             observer._bind(self)
+        # Device time by phase, for the observer of a card engine: a pair
+        # of timing events brackets each prefill sweep's launches and each
+        # decode dispatch, and is read at the host sync that reads that
+        # work back (never one of its own): StepRecord.prefill_device_ms
+        # and decode_device_ms.  Without an observer no event is made.
+        self.prefill_device_s = 0.0
+        self.decode_device_s = 0.0
+        self._phase_event = _phase_events(observer, self.device)
+        self._prefill_phases: list = []  # swept, first tokens not read yet
         self.ledger = ledger
         self.ledger_phase = "serve"
         # Finished requests in retirement order; bounded by
@@ -1088,12 +1110,43 @@ class ServeEngine:
         and the engine_host_sync_seconds histogram).  Every readback goes
         through here, so the account cannot drift from the syncs made."""
         t0 = time.perf_counter()
-        out = fetch()
+        with record_function("engine.sync"):
+            out = fetch()
         dt = time.perf_counter() - t0
         self.host_sync_s += dt
         if self._obs is not None:
             self._obs._note_readback(dt)
         return out
+
+    def _phase_start(self):
+        """A timing event recorded now on the engine's stream, or None
+        (and nothing recorded) without an observer on a card engine."""
+        if self._phase_event is None:
+            return None
+        start = self._phase_event()
+        start.record()
+        return start
+
+    def _phase_end(self, start):
+        """``(start, end)`` with ``end`` recorded now, or None."""
+        if start is None:
+            return None
+        end = self._phase_event()
+        end.record()
+        return start, end
+
+    def _phase_read(self, phase: str, pair) -> None:
+        """Add a pair's device seconds to ``prefill_device_s`` or
+        ``decode_device_s``.  Called only after the host sync that read
+        the pair's work back, so ``elapsed_time`` waits for nothing."""
+        if pair is None:
+            return
+        start, end = pair
+        secs = start.elapsed_time(end) / 1000.0
+        if phase == "prefill":
+            self.prefill_device_s += secs
+        else:
+            self.decode_device_s += secs
 
     def _note_recovery(self) -> None:
         """After every good host readback: close the recovery window the
@@ -1461,7 +1514,15 @@ class ServeEngine:
         sweep.  Returns the requests that finished at admission
         (max_new_tokens == 1 or an instant eos); in the batched loop a
         retirement there frees budget, so it plans again on untouched
-        slots."""
+        slots.  Spanned ``engine.admit`` when a request waits for a free
+        slot or an admission is mid-prefill."""
+        if self._inflight_prefill or (self.pending and not self._occupied.all()):
+            with record_function("engine.admit"):
+                return self._admit_now()
+        return self._admit_now()
+
+    def _admit_now(self) -> list[Request]:
+        """``_admit``'s work, outside its span."""
         if self.prefill_budget is not None:
             return self._admit_budgeted()
         if not self.batched_admission:
@@ -1845,15 +1906,25 @@ class ServeEngine:
             self.prefills_run += 1
             self.prefill_tokens += p["n"] - p["start_page"] * ps
         active = sorted({ci for p in rows for ci in range(p["start_page"] // bp, -(-p["n"] // B))})
-        arrays = self._prefill_row_arrays(rows)
-        emitted = torch.zeros(
-            (self.slots, self.config.vocab_size), dtype=torch.float32,
-            device=self.device,
-        )
-        self.prefill_sweeps += 1
-        for ci in active:
-            emitted = self._dispatch_prefill_ci(rows, ci, *arrays, emitted)
+        with record_function("engine.prefill"):
+            start = self._phase_start()
+            arrays = self._prefill_row_arrays(rows)
+            emitted = torch.zeros(
+                (self.slots, self.config.vocab_size), dtype=torch.float32,
+                device=self.device,
+            )
+            self.prefill_sweeps += 1
+            for ci in active:
+                emitted = self._dispatch_prefill_ci(rows, ci, *arrays, emitted)
+            self._note_sweep(start)
         return emitted
+
+    def _note_sweep(self, start) -> None:
+        """Close a sweep's timing pair; the next first-token readback
+        reads it (``_finish_admissions``)."""
+        pair = self._phase_end(start)
+        if pair is not None:
+            self._prefill_phases.append(pair)
 
     def _finish_admissions(
         self, plans: list[dict], emitted: torch.Tensor | None
@@ -1902,6 +1973,9 @@ class ServeEngine:
             emitted, keys, self.temperature, self.top_k, self.top_p,
         )
         toks = self._host_sync(lambda: toks_dev.cpu().numpy())
+        for pair in self._prefill_phases:
+            self._phase_read("prefill", pair)
+        self._prefill_phases.clear()
         self.admission_readbacks += 1
         self._note_recovery()
         finished = []
@@ -2035,21 +2109,24 @@ class ServeEngine:
         self._maybe_fault("prefill_dispatch")
         self.prefill_sweeps += 1
         group_key, arrays = None, None
-        for _ in range(max_chunks):
-            todo = [p for p in self._inflight_prefill
-                    if p["prefill"] and p["cursor"] <= p["last_ci"]]
-            if not todo:
-                break
-            ci = todo[0]["cursor"]
-            group = [p for p in todo if p["cursor"] == ci]
-            key = tuple(id(p) for p in group)
-            if key != group_key:
-                # A group's inputs depend only on its rows: an unchanged
-                # group reuses one upload.
-                arrays, group_key = self._prefill_row_arrays(group), key
-            emitted = self._dispatch_prefill_ci(group, ci, *arrays, emitted)
-            for p in group:
-                p["cursor"] += 1
+        with record_function("engine.prefill"):
+            start = self._phase_start()
+            for _ in range(max_chunks):
+                todo = [p for p in self._inflight_prefill
+                        if p["prefill"] and p["cursor"] <= p["last_ci"]]
+                if not todo:
+                    break
+                ci = todo[0]["cursor"]
+                group = [p for p in todo if p["cursor"] == ci]
+                key = tuple(id(p) for p in group)
+                if key != group_key:
+                    # A group's inputs depend only on its rows: an unchanged
+                    # group reuses one upload.
+                    arrays, group_key = self._prefill_row_arrays(group), key
+                emitted = self._dispatch_prefill_ci(group, ci, *arrays, emitted)
+                for p in group:
+                    p["cursor"] += 1
+            self._note_sweep(start)
         return emitted
 
     def _abort_partial(self, plan: dict) -> Request:
@@ -2101,14 +2178,23 @@ class ServeEngine:
         An observer brackets the step with its begin/end hooks (one
         StepRecord a call), and a chip-time ledger brackets the same
         window; both read host counters only.  Without either this is a
-        passthrough."""
+        passthrough.
+
+        Phase spans (``torch.profiler.record_function``, one enter and
+        exit each when no profiler runs): ``engine.step`` around the
+        step, ``engine.admit`` around an admission with work,
+        ``engine.prefill`` around each prefill sweep, ``engine.decode``
+        around each decode dispatch up to its readback copy, and
+        ``engine.sync`` around every host sync."""
         obs = self._obs
         led = self.ledger
         if obs is None and led is None:
-            return self._step_impl()
+            with record_function("engine.step"):
+                return self._step_impl()
         lsnap = led.step_begin(self) if led is not None else None
         snap = obs._step_begin(self) if obs is not None else None
-        finished = self._step_impl()
+        with record_function("engine.step"):
+            finished = self._step_impl()
         if led is not None:
             led.step_end(self, lsnap, finished)
         if obs is not None:
@@ -2173,7 +2259,25 @@ class ServeEngine:
         self._record_mode(use_spec)
         if use_spec:
             return finished + self._step_spec()
+        with record_function("engine.decode"):
+            read, last = self._dispatch_chunk()
+        snapshot = dict(self._slot_req)
+        for slot in snapshot:
+            self._positions[slot] += self.chunk
+        if not self.pipelined:
+            return finished + self._consume_chunk(read, snapshot)
+        self._chained_tok = last
+        prev, self._pending_read = self._pending_read, (read, snapshot)
+        if prev is not None:
+            # Reading the previous chunk now overlaps the one in flight.
+            finished += self._consume_chunk(*prev)
+        return finished
+
+    def _dispatch_chunk(self) -> tuple[_Readback, torch.Tensor]:
+        """Dispatch one decode chunk for the occupied slots: (its
+        readback, the device's last tokens a pipelined chunk chains on)."""
         self._cover_chunk()
+        start = self._phase_start()
         tok_in = self._dev(self._tokens)
         if self.pipelined and self._chained_tok is not None:
             tok_in = torch.where(self._fresh_mask(), tok_in, self._chained_tok)
@@ -2199,18 +2303,7 @@ class ServeEngine:
                 keys=None if rng is None else prng.split(rng, self.chunk),
             )
         self.chunks_run += 1
-        read = _Readback(toks)
-        snapshot = dict(self._slot_req)
-        for slot in snapshot:
-            self._positions[slot] += self.chunk
-        if not self.pipelined:
-            return finished + self._consume_chunk(read, snapshot)
-        self._chained_tok = last
-        prev, self._pending_read = self._pending_read, (read, snapshot)
-        if prev is not None:
-            # Reading the previous chunk now overlaps the one in flight.
-            finished += self._consume_chunk(*prev)
-        return finished
+        return _Readback(toks, phase=self._phase_end(start)), last
 
     def _cover_chunk(self) -> None:
         """Extend every occupied row's table one chunk past its position
@@ -2238,6 +2331,7 @@ class ServeEngine:
         emission and retirement for the slots as they were at dispatch."""
         self._maybe_fault("decode_readback")
         toks = self._host_sync(read.numpy)
+        self._phase_read("decode", read.phase)
         self._note_recovery()
         finished = []
         for slot, req in snapshot.items():
@@ -2301,7 +2395,8 @@ class ServeEngine:
                             finished += self._step_spec()
                         return finished
                 else:
-                    self._dispatch_superstep()
+                    with record_function("engine.decode"):
+                        self._dispatch_superstep()
                     dispatched = "plain"
         finished += self._admit()
         finished += self._poll_health()
@@ -2345,6 +2440,7 @@ class ServeEngine:
             if req.eos_token is not None:
                 eos[slot] = req.eos_token
             budget[slot] = req.max_new_tokens - len(req.tokens)
+        start = self._phase_start()
         tok_in = self._dev(self._tokens)
         pos_in = self._dev(self._positions)
         live_in = self._dev(self._occupied)
@@ -2381,7 +2477,8 @@ class ServeEngine:
         self.supersteps_run += 1
         if self.pipelined:
             self._super_chained = tuple(carry)
-        self._pending_super.append((_Readback(toks), dict(self._slot_req)))
+        self._pending_super.append(
+            (_Readback(toks, phase=self._phase_end(start)), dict(self._slot_req)))
 
     def _consume_superstep(self, read: _Readback, snapshot: dict) -> list[Request]:
         """The superstep's one readback: emit each row's live prefix
@@ -2390,6 +2487,7 @@ class ServeEngine:
         rows, and count the dead steps each retiring row sat frozen for."""
         self._maybe_fault("decode_readback")
         toks = self._host_sync(read.numpy)
+        self._phase_read("decode", read.phase)
         self._note_recovery()
         span = toks.shape[1]
         finished = []
@@ -2626,31 +2724,33 @@ class ServeEngine:
         compute dead rounds; admission waits for the dispatch boundary).
         With ``pipelined`` the rounds are read back only after the next
         dispatch goes out, chained on the device's (cur, pos)."""
-        k = self.spec_lookahead
-        u = (self.gamma + 1) * k
-        in_flight = set(self._pending_spec[1]) if self._pending_spec else set()
-        ub = {slot: int(self._positions[slot]) + (u if slot in in_flight else 0)
-              for slot in self._slot_req}
-        for slot, req in self._slot_req.items():
-            table = self._extend_evicting(self._seq_id(slot, req), ub[slot] + u)
-            self._tables[slot, : len(table)] = table
-        cover = self._spec_cover(max(ub.values()) + u)
-        rng = self._next_key() if self.sampling else None
-        self._maybe_fault("spec_dispatch")
-        cur = self._dev(self._tokens)
-        pos = self._dev(self._positions)
-        if self.pipelined and self._spec_chained is not None:
-            fresh = self._fresh_mask()
-            c_cur, c_pos = self._spec_chained
-            cur = torch.where(fresh, cur, c_cur)
-            pos = torch.where(fresh, pos, c_pos)
-        self._fresh_slots.clear()
-        committed, n_acc, new_cur, new_pos = self._run_spec_lookahead(
-            self._dev(self._tables), cur, pos, self._dev(self._occupied), k, cover, rng,
-            aidx=self._aidx_dev(),
-        )
-        self.spec_rounds += k
-        read = _Readback(committed, n_acc)
+        with record_function("engine.decode"):
+            k = self.spec_lookahead
+            u = (self.gamma + 1) * k
+            in_flight = set(self._pending_spec[1]) if self._pending_spec else set()
+            ub = {slot: int(self._positions[slot]) + (u if slot in in_flight else 0)
+                  for slot in self._slot_req}
+            for slot, req in self._slot_req.items():
+                table = self._extend_evicting(self._seq_id(slot, req), ub[slot] + u)
+                self._tables[slot, : len(table)] = table
+            cover = self._spec_cover(max(ub.values()) + u)
+            rng = self._next_key() if self.sampling else None
+            self._maybe_fault("spec_dispatch")
+            start = self._phase_start()
+            cur = self._dev(self._tokens)
+            pos = self._dev(self._positions)
+            if self.pipelined and self._spec_chained is not None:
+                fresh = self._fresh_mask()
+                c_cur, c_pos = self._spec_chained
+                cur = torch.where(fresh, cur, c_cur)
+                pos = torch.where(fresh, pos, c_pos)
+            self._fresh_slots.clear()
+            committed, n_acc, new_cur, new_pos = self._run_spec_lookahead(
+                self._dev(self._tables), cur, pos, self._dev(self._occupied), k, cover, rng,
+                aidx=self._aidx_dev(),
+            )
+            self.spec_rounds += k
+            read = _Readback(committed, n_acc, phase=self._phase_end(start))
         snapshot = dict(self._slot_req)
         if not self.pipelined:
             return self._consume_spec(read, snapshot)
@@ -2673,53 +2773,56 @@ class ServeEngine:
         retiring round commits its whole block; dead writes past it land
         on the mirror's trailing trash columns), so nothing is allocated
         mid-superstep and no commitment is overrun."""
-        k = self.spec_superstep_k
-        u = (self.gamma + 1) * k
-        in_flight = set(self._pending_spec[1]) if self._pending_spec else set()
-        targets = {}
-        for slot, req in self._slot_req.items():
-            pos = int(self._positions[slot])
-            ceiling = pos + (req.max_new_tokens - len(req.tokens)) + self.gamma + 1
-            targets[slot] = min(pos + u * (2 if slot in in_flight else 1), ceiling)
-        for slot, req in self._slot_req.items():
-            table = self._extend_evicting(self._seq_id(slot, req), targets[slot])
-            self._tables[slot, : len(table)] = table
-        cover = self._spec_cover(max(targets.values()))
-        eos = np.full(self.slots, -1, np.int32)
-        budget = np.zeros(self.slots, np.int32)
-        for slot, req in self._slot_req.items():
-            if req.eos_token is not None:
-                eos[slot] = req.eos_token
-            budget[slot] = req.max_new_tokens - len(req.tokens)
-        # One engine key per round, in the k=1 spec path's draw order
-        # (a k=1 spec step draws a key only when sampling).
-        rngs = (torch.stack([self._next_key() for _ in range(k)])
-                if self.sampling else None)
-        self._maybe_fault("spec_dispatch")
-        cur = self._dev(self._tokens)
-        pos = self._dev(self._positions)
-        occ = self._dev(self._occupied)
-        live_in = occ
-        budget_in = self._dev(budget)
-        if self.pipelined and self._spec_chained is not None:
-            # Chain on the previous superstep's device carry; only fresh
-            # slots take their host state.
-            fresh = self._fresh_mask()
-            c_cur, c_pos, c_live, c_budget = self._spec_chained
-            cur = torch.where(fresh, cur, c_cur)
-            pos = torch.where(fresh, pos, c_pos)
-            live_in = torch.where(fresh, live_in, c_live)
-            budget_in = torch.where(fresh, budget_in, c_budget)
-        self._fresh_slots.clear()
-        committed, n_acc, round_live, *carry = self._run_spec_chained(
-            self._dev(self._tables), cur, pos, occ, live_in, budget_in, self._dev(eos), k,
-            cover, rngs, aidx=self._aidx_dev(),
-        )
-        self.spec_rounds += k
-        self.spec_supersteps_run += 1
-        snapshot = dict(self._slot_req)
-        prev, self._pending_spec = self._pending_spec, (
-            _Readback(committed, n_acc, round_live), snapshot)
+        with record_function("engine.decode"):
+            k = self.spec_superstep_k
+            u = (self.gamma + 1) * k
+            in_flight = set(self._pending_spec[1]) if self._pending_spec else set()
+            targets = {}
+            for slot, req in self._slot_req.items():
+                pos = int(self._positions[slot])
+                ceiling = pos + (req.max_new_tokens - len(req.tokens)) + self.gamma + 1
+                targets[slot] = min(pos + u * (2 if slot in in_flight else 1), ceiling)
+            for slot, req in self._slot_req.items():
+                table = self._extend_evicting(self._seq_id(slot, req), targets[slot])
+                self._tables[slot, : len(table)] = table
+            cover = self._spec_cover(max(targets.values()))
+            eos = np.full(self.slots, -1, np.int32)
+            budget = np.zeros(self.slots, np.int32)
+            for slot, req in self._slot_req.items():
+                if req.eos_token is not None:
+                    eos[slot] = req.eos_token
+                budget[slot] = req.max_new_tokens - len(req.tokens)
+            # One engine key per round, in the k=1 spec path's draw order
+            # (a k=1 spec step draws a key only when sampling).
+            rngs = (torch.stack([self._next_key() for _ in range(k)])
+                    if self.sampling else None)
+            self._maybe_fault("spec_dispatch")
+            start = self._phase_start()
+            cur = self._dev(self._tokens)
+            pos = self._dev(self._positions)
+            occ = self._dev(self._occupied)
+            live_in = occ
+            budget_in = self._dev(budget)
+            if self.pipelined and self._spec_chained is not None:
+                # Chain on the previous superstep's device carry; only fresh
+                # slots take their host state.
+                fresh = self._fresh_mask()
+                c_cur, c_pos, c_live, c_budget = self._spec_chained
+                cur = torch.where(fresh, cur, c_cur)
+                pos = torch.where(fresh, pos, c_pos)
+                live_in = torch.where(fresh, live_in, c_live)
+                budget_in = torch.where(fresh, budget_in, c_budget)
+            self._fresh_slots.clear()
+            committed, n_acc, round_live, *carry = self._run_spec_chained(
+                self._dev(self._tables), cur, pos, occ, live_in, budget_in, self._dev(eos), k,
+                cover, rngs, aidx=self._aidx_dev(),
+            )
+            self.spec_rounds += k
+            self.spec_supersteps_run += 1
+            snapshot = dict(self._slot_req)
+            prev, self._pending_spec = self._pending_spec, (
+                _Readback(committed, n_acc, round_live, phase=self._phase_end(start)),
+                snapshot)
         if not self.pipelined:
             return []
         self._spec_chained = tuple(carry)
@@ -2736,6 +2839,7 @@ class ServeEngine:
         round's live mask (``_apply_spec_super``)."""
         self._maybe_fault("spec_readback")
         fetched = self._host_sync(read.arrays)
+        self._phase_read("decode", read.phase)
         self._note_recovery()
         if len(fetched) == 3:
             return self._apply_spec_super(fetched, snapshot)

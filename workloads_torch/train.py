@@ -46,6 +46,7 @@ import os
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from . import prng, resolve_device
 from .model import (
@@ -297,6 +298,11 @@ def make_sharded_train_step(loss_fn, mesh, optimizer, batch_specs=None, frozen=N
 
     ``mesh=None`` is the one-device step: the whole batch, no exchange.
 
+    Two profiler spans (``torch.profiler.record_function``) mark the
+    step's phases: ``train.loss_grad`` around the loss and its gradients,
+    ``train.optimizer`` around the update (the data-parallel reduce lies
+    between them, in neither).
+
     ``step.aot_compile(params, opt_state, *batch)`` stands for JAX's
     ahead-of-time compile: it checks the batch's arity and returns
     ``run(params, opt_state, *batch)``, the step itself.  It runs no
@@ -327,8 +333,9 @@ def make_sharded_train_step(loss_fn, mesh, optimizer, batch_specs=None, frozen=N
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss = loss_fn(params, *args)
-            grads = list(torch.autograd.grad(loss, leaves))
+            with record_function("train.loss_grad"):
+                loss = loss_fn(params, *args)
+                grads = list(torch.autograd.grad(loss, leaves))
         finally:
             for p in leaves:
                 p.requires_grad_(False)
@@ -340,7 +347,8 @@ def make_sharded_train_step(loss_fn, mesh, optimizer, batch_specs=None, frozen=N
             loss = loss.float().clone()
             torch.distributed.all_reduce(loss, group=data)
             loss.div_(n_data)
-        opt_state = adamw(params, grads, opt_state, optimizer)
+        with record_function("train.optimizer"):
+            opt_state = adamw(params, grads, opt_state, optimizer)
         return params, opt_state, loss
 
     def aot_compile(params, opt_state, *batch):

@@ -1778,3 +1778,33 @@ def test_sampled_engine_on_the_card_equals_the_cpu_engine(cuda):
         streams[device] = [served[r] for r in rids]
     assert threefry.launches - before >= engine.chunks_run * engine.chunk
     assert streams["cuda"] == streams["cpu"]
+
+
+@pytest.mark.parametrize("name", ["first_chunk", "second_chunk_cached_prefix",
+                                  "full_width_one_row_continues"])
+def test_bf16_prefill_chunk_compact_equals_padded(cuda, name):
+    """bf16 on the card: the engine's compact [R, W] prefill chunk against
+    the padded [slots, bucket] one on the same rows (float32 on the CPU is
+    tests/test_torch_prefill_compact.py's).  The first-token logits and
+    the pages the rows write agree within the port's bf16 limit, 2^-10 of
+    the largest value compared; every other page is left as it was."""
+    from tests.test_torch_golden import BF16_SAME_ROUNDING, tiny_config
+    from tests.test_torch_prefill_compact import compact_against_padded
+
+    config = tiny_config(("bf16", None, None))
+    params = tmodel.cast_params(init_params(config, prng.PRNGKey(0, device="cpu")),
+                                torch.bfloat16)
+    out = compact_against_padded(_on(params, "cuda"), config, name, cuda)
+    (lc, pc), (lp, pp) = out["compact"], out["padded"]
+    written = out["written"]
+    logit_gap = float((lc - lp).abs().max() / lp.abs().max())
+    page_gaps = [float((a[:, written] - b[:, written]).abs().max()
+                       / b[:, written].abs().max()) for a, b in zip(pc, pp)]
+    print(f"{name}: logits {logit_gap:.3g}, pages {page_gaps[0]:.3g} / {page_gaps[1]:.3g} "
+          f"of the largest value")
+    assert logit_gap <= BF16_SAME_ROUNDING
+    assert max(page_gaps) <= BF16_SAME_ROUNDING
+    for a, b in zip(pc, pp):
+        rest = torch.ones(a.shape[1], dtype=torch.bool)
+        rest[written] = False
+        assert torch.equal(a[:, rest], b[:, rest])

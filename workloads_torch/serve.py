@@ -715,6 +715,9 @@ class ServeEngine:
         self.prefill_tokens = 0  # prompt tokens forwarded
         self.prefill_sweeps = 0  # batched-admission sweeps
         self.prefill_dispatches = 0  # prefill program calls
+        # Token rows the target's prefill dispatches ran, padding included
+        # (prefill_tokens / prefill_padded_tokens: the dispatches' fill).
+        self.prefill_padded_tokens = 0
         self.prefill_deferred_tokens = 0  # prompt tokens the budget parked
         self.admission_readbacks = 0  # first-token host reads
         self.spec_rounds = 0
@@ -1653,6 +1656,7 @@ class ServeEngine:
         lengths = self._dev(np.asarray([n], np.int32))
         if start_page == 0 and n <= B:
             self.prefill_dispatches += count
+            self.prefill_padded_tokens += count * B
             tokens = np.zeros((1, B), np.int64)
             tokens[0, :n] = prompt
             logits, _ = paged_prefill(params, pools, table, self._dev(tokens), lengths, config,
@@ -1661,6 +1665,7 @@ class ServeEngine:
         n_chunks = -(-n // B)
         for ci in range(start_page // bp, n_chunks):
             self.prefill_dispatches += count
+            self.prefill_padded_tokens += count * B
             tokens = np.zeros((1, B), np.int64)
             width = min(B, n - ci * B)
             tokens[0, :width] = prompt[ci * B : ci * B + width]
@@ -1834,68 +1839,68 @@ class ServeEngine:
         if g["members_left"] == 0:
             plan["group_done"] = req.group
 
-    def _prefill_row_arrays(self, rows: list[dict]):
-        """The prefill sweep's per-row inputs: host lengths, and device
-        tables, lengths and start pages, and the rows' ``lora`` (rows not
-        in ``rows`` keep trash tables, length 0 and the base adapter, as
-        parked decode rows do)."""
-        lengths = np.zeros(self.slots, np.int32)
-        starts = np.zeros(self.slots, np.int32)
-        aidx = np.zeros(self.slots, np.int32)
-        tables = np.full((self.slots, self.max_pages), self.ctrl.trash, np.int32)
-        for p in rows:
-            lengths[p["slot"]] = p["n"]
-            starts[p["slot"]] = p["start_page"]
-            aidx[p["slot"]] = p["aidx"]
-            t = self.ctrl.tables[p["seq"]]
-            tables[p["slot"], : len(t)] = t
-        return (lengths, self._dev(tables), self._dev(lengths), self._dev(starts),
-                self._lora(self._aidx_dev(aidx)))
-
-    def _dispatch_prefill_ci(
-        self, rows: list[dict], ci: int, lengths: np.ndarray, tables_dev,
-        lengths_dev, row_start, lora, emitted: torch.Tensor,
-    ) -> torch.Tensor:
-        """ONE [slots, bucket] prefill chunk at chunk index ``ci`` for
-        ``rows``, into the target pools and the draft pools; a row's
-        logits land in ``emitted`` from the chunk where its prompt ends,
-        and ``row_start`` sends the columns of its cached prefix to the
-        trash page; ``lora`` adapts the target's rows (the draft's stay
+    def _dispatch_prefill_ci(self, rows: list[dict], ci: int, emitted: torch.Tensor) -> None:
+        """ONE compact prefill chunk at chunk index ``ci`` for ``rows``
+        (each covers ``ci`` with its uncached span), into the target pools
+        and the draft pools: [R, W] for the R rows and W their longest
+        remaining span in the chunk, rounded up to a page, not [slots,
+        bucket].  Tokens, tables, lengths, start pages (which send the
+        columns of a row's cached prefix to the trash page), adapter
+        indices and the emitting rows go up in one staged copy.  A row's
+        logits land in ``emitted`` at its slot from the chunk where its
+        prompt ends; ``lora`` adapts the target's rows (the draft's stay
         unadapted).  The unbudgeted and the budgeted sweep both dispatch
         through here."""
-        B, bp = self.prompt_bucket, self.prompt_bucket // self.page_size
+        B, ps = self.prompt_bucket, self.page_size
         start = ci * B
-        chunk = np.zeros((self.slots, B), np.int64)
-        for p in rows:
-            width = min(B, p["n"] - start)
-            if width > 0:
-                chunk[p["slot"], :width] = p["prompt"][start : start + width]
-        chunk_dev = self._dev(chunk)
+        R = len(rows)
+        W = min(B, -(-max(p["n"] - start for p in rows) // ps) * ps)
+        cover = ci * (B // ps) + W // ps
+        emit = [i for i, p in enumerate(rows) if p["n"] <= start + B]
+        adapters = self._stacked_adapters is not None
+        sizes = (R * W, R * cover, R, R, R * adapters, len(emit), len(emit))
+        staging = np.zeros(sum(sizes), np.int64)
+        parts = np.split(staging, np.cumsum(sizes)[:-1])
+        parts[1][:] = self.ctrl.trash
+        for i, p in enumerate(rows):
+            span = p["prompt"][start : start + min(W, p["n"] - start)]
+            parts[0][i * W : i * W + len(span)] = span
+            t = self.ctrl.tables[p["seq"]][:cover]
+            parts[1][i * cover : i * cover + len(t)] = t
+            parts[2][i], parts[3][i] = p["n"], p["start_page"]
+            if adapters:
+                parts[4][i] = p["aidx"]
+        parts[5][:] = emit
+        parts[6][:] = [rows[i]["slot"] for i in emit]
+        tokens, tables, lengths, row_start, aidx, emit_rows, emit_slots = torch.split(
+            self._dev(staging), sizes)
+        tokens, tables = tokens.view(R, W), tables.view(R, cover)
         logits, _ = paged_prefill_chunk(
-            self.params, self.pools, tables_dev, chunk_dev, lengths_dev,
-            self.config, start_page=ci * bp, cover_pages=(ci + 1) * bp, emit=True,
-            row_start=row_start, lora=lora, reduce=self._reduce,
+            self.params, self.pools, tables, tokens, lengths, self.config,
+            start_page=ci * (B // ps), cover_pages=cover, emit=bool(emit),
+            row_start=row_start, lora=self._lora(aidx if adapters else None),
+            reduce=self._reduce,
         )
         self.prefill_dispatches += 1
-        emit_mask = (lengths > start) & (lengths <= start + B)
-        emitted = torch.where(self._dev(emit_mask)[:, None], logits, emitted)
+        self.prefill_padded_tokens += R * W
+        if emit:
+            emitted[emit_slots] = logits[emit_rows]
         if self.d_pools is not None:
             # The draft pools run the same chunk (no logits).
             paged_prefill_chunk(
-                self.draft_params, self.d_pools, tables_dev, chunk_dev, lengths_dev,
-                self.draft_config, start_page=ci * bp, cover_pages=(ci + 1) * bp,
+                self.draft_params, self.d_pools, tables, tokens, lengths,
+                self.draft_config, start_page=ci * (B // ps), cover_pages=cover,
                 emit=False, row_start=row_start, reduce=self._reduce,
             )
-        return emitted
 
     def _sweep_prefill(self, plans: list[dict]) -> torch.Tensor | None:
-        """Stack the planned rows that prefill into one ragged [slots,
-        bucket] batch and run the page-aligned chunks some row's uncached
-        span covers (a chunk only cached prefixes cover is skipped, so a
-        hit keeps its saving beside a miss; a row riding an active chunk
-        inside its cached span recomputes the same values and writes
-        them to the trash page).  Returns the [slots, vocab] first-token
-        logits, or None when no row prefills (only group reuse)."""
+        """Run the planned rows that prefill through the page-aligned
+        chunks some row's uncached span covers, each chunk a compact batch
+        of the rows whose uncached span covers it (a chunk only cached
+        prefixes cover is skipped, and a row sits out the chunks its
+        cached prefix covers and those past its prompt).  Returns the
+        [slots, vocab] first-token logits, or None when no row prefills
+        (only group reuse)."""
         rows = [p for p in plans if p["prefill"]]
         if not rows:
             return None
@@ -1908,14 +1913,15 @@ class ServeEngine:
         active = sorted({ci for p in rows for ci in range(p["start_page"] // bp, -(-p["n"] // B))})
         with record_function("engine.prefill"):
             start = self._phase_start()
-            arrays = self._prefill_row_arrays(rows)
             emitted = torch.zeros(
                 (self.slots, self.config.vocab_size), dtype=torch.float32,
                 device=self.device,
             )
             self.prefill_sweeps += 1
             for ci in active:
-                emitted = self._dispatch_prefill_ci(rows, ci, *arrays, emitted)
+                chunk_rows = [p for p in rows
+                              if p["start_page"] // bp <= ci < -(-p["n"] // B)]
+                self._dispatch_prefill_ci(chunk_rows, ci, emitted)
             self._note_sweep(start)
         return emitted
 
@@ -2108,7 +2114,6 @@ class ServeEngine:
             return emitted
         self._maybe_fault("prefill_dispatch")
         self.prefill_sweeps += 1
-        group_key, arrays = None, None
         with record_function("engine.prefill"):
             start = self._phase_start()
             for _ in range(max_chunks):
@@ -2118,12 +2123,7 @@ class ServeEngine:
                     break
                 ci = todo[0]["cursor"]
                 group = [p for p in todo if p["cursor"] == ci]
-                key = tuple(id(p) for p in group)
-                if key != group_key:
-                    # A group's inputs depend only on its rows: an unchanged
-                    # group reuses one upload.
-                    arrays, group_key = self._prefill_row_arrays(group), key
-                emitted = self._dispatch_prefill_ci(group, ci, *arrays, emitted)
+                self._dispatch_prefill_ci(group, ci, emitted)
                 for p in group:
                     p["cursor"] += 1
             self._note_sweep(start)
@@ -4585,7 +4585,8 @@ def main(argv=None) -> int:
         print(
             f"prefix cache: hits={engine.prefix.hits} misses={engine.prefix.misses} "
             f"cached_pages={engine.prefix.cached_pages} "
-            f"prefill_tokens={engine.prefill_tokens}"
+            f"prefill_tokens={engine.prefill_tokens} "
+            f"prefill_padded_tokens={engine.prefill_padded_tokens}"
         )
     if (rejected or engine.steps_quarantined or engine.requests_expired
             or engine.requests_failed or args.kv_offload):

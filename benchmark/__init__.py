@@ -9,8 +9,13 @@ One command runs one cell once, from the root of a checkout:
 mixes and metrics; everything else is found by name under this folder:
 
 - ``configs/<config>.json``: a model configuration's sizes and source;
-- ``cells/<cell>.json``: a cell's engine or trainer settings and the
-  limits of its correctness check;
+- ``families/<family>.py``: the block family a configuration names by
+  its ``"family"`` key (``dense`` without one): the port's config and
+  train step, the weights, the plain reference and the work counts of
+  that block;
+- ``cells/<cell>.json``: a cell's engine or trainer settings, the engine
+  counters it records beside the fixed ones, and the limits of its
+  correctness check;
 - ``traffic/<mix>.json``: a traffic mix's parameters, read by the
   generator of its ``kind`` (``traffic/<kind>.py``);
 - ``metrics/<metric>.py``: the reader of one metric;
@@ -18,5 +23,6 @@ mixes and metrics; everything else is found by name under this folder:
   ``correct``; it imports nothing of the port.
 
 Nothing here imports ``jax`` or the JAX package ``workloads``; the port
-is imported only by ``serving.py`` and ``training.py``, inside a run.
+is imported only by ``serving.py``, ``training.py`` and the families,
+inside a run.
 """

@@ -6,8 +6,8 @@ runs never run this.
     python3 benchmark/calibrate.py --workload <cell> --seconds <s> SEED [SEED ...]
 
 - Serving: a run's window and sample as ``run.py`` makes them; the
-  program's widest gap, and the control's: the reference in float8
-  (``reference.model``'s ``fp8``) at each position of the same prompts
+  program's widest gap, and the control's: the family's reference in
+  float8 (its ``fp8``) at each position of the same prompts
   and served tokens, the gap of the token it puts first.
 - Training: the program's numbers after its first steps; the control
   (the reference in float8 in the program's place); and the fault "half
@@ -41,10 +41,10 @@ def serve_readings(runner) -> dict:
     with torch.no_grad():
         for ask in sample:
             served = list(ask.req.tokens)
-            exact = ref.served_logits(runner.params, ask.prompt, served, runner.cfg,
-                                      runner.device)
-            low = ref.served_logits(runner.params, ask.prompt, served, runner.cfg,
-                                    runner.device, fp8=True)
+            exact = runner.family.served_logits(runner.params, ask.prompt, served,
+                                                runner.cfg, runner.device)
+            low = runner.family.served_logits(runner.params, ask.prompt, served,
+                                              runner.cfg, runner.device, fp8=True)
             control.append(ref.widest_gap(exact, low.argmax(dim=-1)))
     return {"program": {"max_gap": checks["max_gap"]["value"]},
             "control": {"max_gap": max(control) if control else None},

@@ -9,6 +9,8 @@ counters, and the rows of the chunk it dispatched.  Once the window has
 closed, a sample of the requests it finished (the longest among them) is
 run through the reference, and the widest gap by which a served token's
 reference logit lies below the reference's best decides ``correct``.
+The weights, the port's config and the reference come from the
+configuration's block family (``spec.family``).
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from benchmark import draws, trace, weights, work
+from benchmark import draws, spec, trace
 from benchmark.reference import model as ref
 
+# The engine's counters every serving cell records over the window; a
+# cell's settings may name more (``"counters"``).
 COUNTERS = ("generated_tokens", "chunks_run", "prefill_dispatches", "prefill_tokens",
             "requests_admitted", "prefill_sweeps")
 
@@ -65,6 +69,8 @@ class ServeRun:
         self.cell, self.seed, self.seconds = cell, seed, seconds
         self.trace_on, self.device, self.scratch = trace_on, torch.device(device), scratch
         self.cfg, self.settings, self.mix = cell.config, cell.settings, cell.mix
+        self.family = cell.family
+        self.counters = COUNTERS + tuple(self.settings.get("counters", ()))
         self.run: dict = {"cfg": self.cfg, "settings": self.settings, "mix": self.mix}
 
     # ---- set-up --------------------------------------------------------
@@ -73,8 +79,8 @@ class ServeRun:
         from workloads_torch.serve import ServeEngine
 
         dtype = getattr(torch, self.cfg["dtype"])
-        self.params = weights.make_params(self.cfg, self.seed, dtype, self.device)
-        self.engine = ServeEngine(self.params, model_config(self.cfg, dtype),
+        self.params = self.family.make_params(self.cfg, self.seed, dtype, self.device)
+        self.engine = ServeEngine(self.params, self.family.port_config(self.cfg, dtype),
                                   device=self.device, **self.settings["engine"])
         self.feed = self.cell.kind.Feed(self.mix, self.settings, self.seed,
                                         self.cfg["vocab_size"], self.seconds)
@@ -109,7 +115,7 @@ class ServeRun:
         self.asks: list[Ask] = []
         self.stepping = 0.0  # wall seconds of step() calls that dispatched work
         self.steps = 0
-        before = {k: getattr(e, k) for k in COUNTERS}
+        before = {k: getattr(e, k) for k in self.counters}
         t0 = time.perf_counter()
         end = t0 + self.seconds
         self.feed.start(t0)
@@ -123,7 +129,7 @@ class ServeRun:
             unsent=[replace(a) for a in unsent], window_s=t_end - t0, t0=t0,
             asks=[replace(a) for a in self.asks], stepping_s=self.stepping,
             steps=self.steps, chunk=e.chunk,
-            counters={k: getattr(e, k) - before[k] for k in COUNTERS})
+            counters={k: getattr(e, k) - before[k] for k in self.counters})
         self.run["slice"] = self._profile_slice(unsent) if self.trace_on else None
 
     def _tick(self, end: float, positions: list[int] | None = None) -> None:
@@ -247,8 +253,8 @@ class ServeRun:
         with torch.no_grad():
             for ask in sample:
                 served = list(ask.req.tokens)
-                logits = ref.served_logits(self.params, ask.prompt, served, self.cfg,
-                                           self.device)
+                logits = self.family.served_logits(self.params, ask.prompt, served,
+                                                   self.cfg, self.device)
                 chosen = torch.tensor(served, dtype=torch.int64, device=self.device)
                 gaps.append(ref.widest_gap(logits, chosen))
                 del logits
@@ -265,16 +271,18 @@ class ServeRun:
 def decode_flops(cfg: dict, asks: list[Ask], end: float) -> float:
     """Model FLOPs of the prompt and output tokens the window processed:
     each admitted prompt (its last token's logits included) and each
-    token decoded after the first, at its position."""
+    token decoded after the first, at its position, as the
+    configuration's block family counts them."""
+    span_flops = spec.family(cfg).span_flops
     total = 0.0
     for a in asks:
         if a.t_admit is None or a.t_admit > end:
             continue
         p = len(a.prompt)
-        total += work.span_flops(cfg, 0, p, logits=False)
+        total += span_flops(cfg, 0, p, logits=False)
         total += 2 * cfg["hidden_size"] * cfg["vocab_size"]
         if a.seen > 1:
-            total += work.span_flops(cfg, p, p + a.seen - 1, logits=True)
+            total += span_flops(cfg, p, p + a.seen - 1, logits=True)
     return total
 
 

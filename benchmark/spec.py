@@ -1,5 +1,6 @@
 """Finding a cell's files by name: ``BENCHMARK.json``, the cell, its
-configuration, its traffic mix and the readers of its metrics."""
+configuration, its block family, its traffic mix and the readers of its
+metrics."""
 
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ class Cell:
         self.settings = load_json(self.dir / "cells" / f"{name}.json")
         config = config_entry(self.bench, self.entry["config"])
         self.config = load_json(self.root / config["file"])
+        self.family = family(self.config, self.root)
         self.mix = load_json(self.dir / "traffic" / f"{self.entry['traffic']}.json")
         self.kind = load_module(self.dir / "traffic" / f"{self.mix['kind']}.py")
         self.chips = int(self.entry["chips"])
@@ -70,6 +72,18 @@ class Cell:
     def metric_reader(self, name: str):
         """The ``read(run)`` function of ``metrics/<name>.py``."""
         return load_module(self.dir / "metrics" / f"{name}.py").read
+
+
+def family(cfg: dict, root: Path = ROOT):
+    """The block family of a configuration: ``families/<name>.py`` for its
+    ``"family"`` key, ``dense`` without one.  The module gives the port's
+    config and train step, the weights, the reference and the work
+    counts of that block."""
+    name = cfg.get("family", "dense")
+    path = Path(root) / HERE.name / "families" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no block family {name!r}: {path} is missing")
+    return load_module(path)
 
 
 def load_module(path: Path):

@@ -10,7 +10,9 @@ step), and every leaf's change after the last of them (against the
 weights drawn again from the seed).  The window then runs further steps
 on further batches, each ending in a synchronise.  Once it has closed and
 the program's state is freed, the reference follows the same steps in
-float32 from the same weights and batches.
+float32 from the same weights and batches.  The weights, the port's
+config and train step and the reference come from the configuration's
+block family (``spec.family``).
 """
 
 from __future__ import annotations
@@ -23,9 +25,8 @@ import time
 
 import torch
 
-from benchmark import trace, weights
+from benchmark import spec, trace
 from benchmark.reference import model as ref
-from benchmark.serving import model_config
 
 
 def _sync(device) -> None:
@@ -38,6 +39,7 @@ class TrainRun:
         self.cell, self.seed, self.seconds = cell, seed, seconds
         self.trace_on, self.device, self.scratch = trace_on, torch.device(device), scratch
         self.cfg, self.settings, self.mix = cell.config, cell.settings, cell.mix
+        self.family = cell.family
         self.run: dict = {"cfg": self.cfg, "settings": self.settings, "mix": self.mix}
         self.opt = dict(self.settings["optimizer"])
 
@@ -48,17 +50,17 @@ class TrainRun:
     # ---- set-up --------------------------------------------------------
 
     def setup(self) -> None:
-        from workloads_torch.train import AdamW, make_train_step
+        from workloads_torch.train import AdamW
 
-        trainer = self.settings["trainer"]
-        config = model_config(
+        fam, trainer = self.family, self.settings["trainer"]
+        config = fam.port_config(
             self.cfg, getattr(torch, self.cfg["dtype"]),
             attention_impl=trainer["attention_impl"], remat_layers=bool(trainer["remat_layers"]))
         config = dataclasses.replace(config, max_seq_len=int(self.mix["seq_len"]))
         self.optimizer = AdamW(**self.opt)
-        self.params = weights.make_params(self.cfg, self.seed, torch.float32, self.device)
+        self.params = fam.make_params(self.cfg, self.seed, torch.float32, self.device)
         self.state = self.optimizer.init(self.params)
-        self.step = make_train_step(config, self.optimizer)
+        self.step = fam.port_train_step(config, self.optimizer)
         self.steps_done = 0
         losses = []
         for i in range(int(self.settings["check"]["steps"])):
@@ -67,13 +69,12 @@ class TrainRun:
             if i == 0:
                 scale = 1.0 / (1.0 - self.optimizer.b2)
                 self.grad_norms = {p: math.sqrt(float(nu.sum()) * scale)
-                                   for p, nu in weights.leaf_items(self.state["nu"])}
+                                   for p, nu in fam.leaf_items(self.state["nu"])}
         self.losses = [float(x) for x in losses]
-        start = weights.make_params(self.cfg, self.seed, torch.float32, self.device)
+        start = fam.make_params(self.cfg, self.seed, torch.float32, self.device)
         self.change_norms = {
             p: float((now - then).norm())
-            for (p, now), (_, then) in zip(weights.leaf_items(self.params),
-                                           weights.leaf_items(start))}
+            for (p, now), (_, then) in zip(fam.leaf_items(self.params), fam.leaf_items(start))}
         del start
         _sync(self.device)
 
@@ -138,11 +139,13 @@ class TrainRun:
 def reference_reading(cfg: dict, seed: int, batch, opt: dict, steps: int, device,
                       fp8: bool = False, rows_of=None) -> dict:
     """The reference's losses, first gradients' norms and changes after
-    ``steps`` steps, from the seed's weights and batches."""
+    ``steps`` steps, from the seed's weights and batches, by the
+    configuration's block family."""
+    fam = spec.family(cfg)
     ref.highest_precision()
-    params = weights.make_params(cfg, seed, torch.float32, device)
-    paths = [p for p, _ in weights.leaf_items(params)]
-    leaves = [t.requires_grad_(True) for _, t in weights.leaf_items(params)]
+    params = fam.make_params(cfg, seed, torch.float32, device)
+    paths = [p for p, _ in fam.leaf_items(params)]
+    leaves = [t.requires_grad_(True) for _, t in fam.leaf_items(params)]
     start = [t.detach().clone() for t in leaves]
     adam = ref.AdamW(leaves, opt.get("lr", 1e-3), opt.get("b1", 0.9), opt.get("b2", 0.999),
                      opt.get("eps", 1e-8), opt.get("weight_decay", 1e-4))
@@ -150,7 +153,7 @@ def reference_reading(cfg: dict, seed: int, batch, opt: dict, steps: int, device
     for s in range(1, steps + 1):
         tokens = batch(s).long()
         rows = None if rows_of is None else rows_of(tokens)
-        loss, grads = ref.loss_and_grads(params, tokens, cfg, leaves, fp8, rows)
+        loss, grads = fam.loss_and_grads(params, tokens, cfg, leaves, fp8, rows)
         losses.append(loss)
         if s == 1:
             grad_norms = {p: float(g.norm()) for p, g in zip(paths, grads)}

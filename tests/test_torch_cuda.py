@@ -1808,3 +1808,127 @@ def test_bf16_prefill_chunk_compact_equals_padded(cuda, name):
         rest = torch.ones(a.shape[1], dtype=torch.bool)
         rest[written] = False
         assert torch.equal(a[:, rest], b[:, rest])
+
+
+# ---- the serving expert layer (moe.expert_ffn) on the card --------------
+
+
+def _expert_config(**over) -> ModelConfig:
+    """A Mellum2-shaped bf16 block at a card-test size: head_dim 64 apart
+    from d_model / n_heads, a GQA group of 4, three sliding layers and a
+    YaRN full layer, 16 SwiGLU experts at top-4 (weights: the CPU tests'
+    ``expert_params``)."""
+    cfg = dict(vocab_size=256, d_model=256, n_heads=8, n_kv_heads=2, head_dim=64,
+               n_layers=4, max_seq_len=96, dtype=torch.bfloat16, rope_theta=500000.0,
+               layer_windows=(8, 8, 8, None), layer_rope=("default",) * 3 + ("yarn",),
+               yarn=tmodel.Yarn(16, 8192, 32, 1, 1.2772588722239782),
+               n_routed_experts=16, experts_per_token=4, d_expert=64)
+    cfg.update(over)
+    return ModelConfig(**cfg)
+
+
+@pytest.mark.parametrize("routing", ["spread", "one_expert", "some_empty"])
+def test_grouped_swiglu_on_the_card_is_the_loop(cuda, routing):
+    """The grouped products (``torch._grouped_mm``, bf16) against the loop
+    over experts on the same sorted rows: both round h and the output to
+    bf16 once from float32 sums taken in another order, so they agree
+    within 2^-6 of the largest output (a few bf16 ulps)."""
+    from workloads_torch import moe as tmoe
+
+    g = torch.Generator("cuda").manual_seed(1)
+    experts, d, f, rows = 16, 256, 128, 200
+    x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+    wgu = (torch.randn(experts, d, 2 * f, generator=g, device="cuda") * 0.1).bfloat16()
+    wd = (torch.randn(experts, f, d, generator=g, device="cuda") * 0.1).bfloat16()
+    if routing == "spread":
+        ids = torch.randint(0, experts, (rows,), generator=g, device="cuda")
+    elif routing == "one_expert":
+        ids = torch.full((rows,), 5, device="cuda")
+    else:
+        ids = torch.randint(0, 4, (rows,), generator=g, device="cuda") * 4
+    ids = ids.sort().values
+    offs = torch.searchsorted(ids, torch.arange(experts, device="cuda"), right=True)
+    offs = offs.to(torch.int32)
+    got = tmoe.grouped_swiglu(x, wgu, wd, offs)
+    want = tmoe.grouped_swiglu_reference(x, wgu, wd, offs)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert float((got - want).abs().max()) <= 2**-6 * float(want.abs().max())
+    with pytest.raises(ValueError, match="bf16"):
+        tmoe.grouped_swiglu(x.float(), wgu.float(), wd.float(), offs)
+
+
+def test_expert_decode_graph_chunk_equals_the_eager_chunk(cuda):
+    """One chunk of the expert block through the engine's CUDA graph and
+    through the eager loop from the same state: tokens, pools and the
+    expert-read counter bit-identical, K1 launched n_layers times a replay.
+    The layer's routing, sort and grouped products run inside the
+    captured step."""
+    from tests.test_torch_mellum2 import expert_params
+
+    config = _expert_config()
+    params = expert_params(config, device="cuda")
+    engine = ServeEngine(params, config, slots=4, page_size=8, prompt_bucket=16, chunk=8,
+                         moe_counters=True)
+    for i in range(4):
+        engine.submit([(7 * i + j) % 256 for j in range(5 + 9 * i)], 30)
+    engine._admit()
+    engine._cover_chunk()
+    inputs = (engine._dev(engine._tables), engine._dev(engine._tokens),
+              engine._dev(engine._positions), engine._dev(engine._occupied))
+    engine._graph.capture()
+    assert engine.moe_decode_expert_reads == 0
+    saved = [p.clone() for p in engine.pools]
+    before = pa.paged_attention.launches
+    graph_toks = engine._graph.run(*inputs, *engine._unbounded, engine.chunk)[0].clone()
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches - before == config.n_layers * engine.chunk
+    graph_pools = [p.clone() for p in engine.pools]
+    graph_reads = engine._moe_reads.clone()
+    for pool, copy in zip(engine.pools, saved):
+        pool.copy_(copy)
+    eager_reads = torch.zeros_like(graph_reads)
+    with torch.inference_mode():
+        eager_toks, _ = paged_decode_chunk(
+            engine.params, engine.pools, *inputs, None, 0.0, 0, 1.0, config, engine.chunk,
+            False, moe_reads=eager_reads)
+    torch.cuda.synchronize()
+    assert torch.equal(graph_toks, eager_toks)
+    for a, b in zip(graph_pools, engine.pools):
+        assert torch.equal(a, b)
+    assert torch.equal(graph_reads, eager_reads)
+    calls = engine.chunk * config.n_layers
+    assert config.experts_per_token * calls <= int(graph_reads) \
+        <= min(config.n_routed_experts, 4 * config.experts_per_token) * calls
+
+
+def test_expert_decode_step_on_the_card_is_the_loop(cuda, monkeypatch):
+    """The eager decode step's logits with the grouped products against
+    the same step with the loop over experts in their place.  Each
+    layer's expert output rounds to bf16 from sums taken in another
+    order, and every later layer carries that on, so the two agree
+    within 2^-6 of the largest logit (a few bf16 ulps), not bit for
+    bit."""
+    from workloads_torch import moe as tmoe
+    from workloads_torch.paged import _decode_core
+
+    from tests.test_torch_mellum2 import expert_params
+
+    config = _expert_config()
+    params = expert_params(config, device="cuda")
+    engine = ServeEngine(params, config, slots=4, page_size=8, prompt_bucket=16, chunk=8)
+    for i in range(4):
+        engine.submit([(5 * i + j) % 256 for j in range(6 + 11 * i)], 30)
+    engine._admit()
+    engine._cover_chunk()
+    inputs = (engine._dev(engine._tables), engine._dev(engine._tokens),
+              engine._dev(engine._positions))
+    saved = [p.clone() for p in engine.pools]
+    with torch.inference_mode():
+        grouped, _ = _decode_core(engine.params, engine.pools, *inputs, config)
+        for pool, copy in zip(engine.pools, saved):
+            pool.copy_(copy)
+        monkeypatch.setattr(tmoe, "grouped_swiglu", tmoe.grouped_swiglu_reference)
+        loop, _ = _decode_core(engine.params, engine.pools, *inputs, config)
+    gap = float((grouped - loop).abs().max() / loop.abs().max())
+    print(f"grouped against loop: {gap:.3g} of the largest logit")
+    assert gap <= 2**-6

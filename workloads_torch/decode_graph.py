@@ -28,6 +28,13 @@ every replay instead, and the warm-up and capture leave the counts as
 they found them.  CPU engines
 never build a ``DecodeGraph``: they run the eager functions.
 
+With an expert config the captured step holds the expert layer
+(``moe.expert_ffn``: routing, the sort by expert and the grouped
+products, all on static shapes) and, given ``moe_reads`` (an int64 [1]
+device tensor), adds to it on the device at every replay the experts
+the step's expert-layer calls read.  The warm-up and capture leave it
+as they found it, as they leave the launch counts.
+
 ``SpecGraph`` does the same for speculative decoding: it captures ONE
 round of the chained-retirement superstep (``paged.spec_chained_round``:
 gamma + 1 draft decode steps through the paged-attention kernel, the
@@ -96,10 +103,11 @@ class DecodeGraph:
         self, params: dict, pools: tuple[torch.Tensor, torch.Tensor], config,
         *, slots: int, max_pages: int, max_steps: int, temperature: float, top_k: int,
         top_p: float, sampling: bool, lora_stacked: list | None = None,
-        lora_alpha: float = 1.0,
+        lora_alpha: float = 1.0, moe_reads: torch.Tensor | None = None,
     ):
         device = pools[0].device
         self.params, self.pools, self.config = params, pools, config
+        self.moe_reads = moe_reads
         self.lora_stacked, self.lora_alpha = lora_stacked, lora_alpha
         self.sampling = sampling
         self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
@@ -132,7 +140,7 @@ class DecodeGraph:
         nxt, tok, pos, live, budget = decode_superstep_step(
             self.params, self.pools, self.tables, self.tok, self.pos, self.live,
             self.budget, self.eos, key, self.temperature, self.top_k,
-            self.top_p, self.config, self.sampling, lora=lora,
+            self.top_p, self.config, self.sampling, lora=lora, moe_reads=self.moe_reads,
         )
         self.out.index_copy_(1, self.col, nxt[:, None])
         self.col.add_(1)
@@ -160,6 +168,7 @@ class DecodeGraph:
         if self.keys is not None:
             self.keys.zero_()
         counts = _launch_counts()
+        reads = None if self.moe_reads is None else self.moe_reads.clone()
         try:
             side = torch.cuda.Stream(self.tok.device)
             side.wait_stream(torch.cuda.current_stream(self.tok.device))
@@ -177,6 +186,8 @@ class DecodeGraph:
             self.threefry_per_step = threefry.launches - before[1]
         finally:
             _restore_counts(counts)
+            if reads is not None:
+                self.moe_reads.copy_(reads)
         self.graph = graph
         self.captures += 1
 

@@ -22,14 +22,15 @@ import torch
 from . import prng, resolve_device
 from .model import (
     ModelConfig,
-    _mlp,
     _rmsnorm,
     apply_rope,
+    causal_mask,
     masked_attention,
     project_qkv,
-    rope_angles,
+    rope_tables,
     weight,
 )
+from .moe import ffn
 
 
 def init_kv_cache(
@@ -61,7 +62,11 @@ def decode_block(
     q/k/v and output projections (``multi_lora.py``); None is the plain
     model.  ``reduce`` (None: identity) takes the output of every ``wo``
     and ``w_down`` product, after the adapter's delta: the row-parallel
-    all-reduce of a tensor-parallel rank (``tp_serve.py``)."""
+    all-reduce of a tensor-parallel rank (``tp_serve.py``).
+
+    Each layer attends under its own window and rotary kind, the masks
+    and angles made once a kind, and runs the config's FFN
+    (``moe.ffn``: the expert layer where it has experts)."""
     if unembed not in ("all", "last", "none", "hidden"):
         raise ValueError(
             f"unembed must be 'all', 'last', 'hidden' or 'none', got "
@@ -80,13 +85,11 @@ def decode_block(
     x = params["embed"].to(config.dtype)[tokens.long()]  # [b, s, d]
     k_pos = torch.arange(max_len, device=device)
     row_pos = pos + torch.arange(s, device=device)
-    angles = rope_angles(row_pos, config.head_dim)
+    angles = rope_tables(row_pos, config)
     # Row i attends to cache positions <= pos+i (its own slot included),
-    # bounded below by the sliding window when the config sets one.
-    mask = k_pos[None, :] <= row_pos[:, None]
-    if config.attention_window is not None:
-        mask &= k_pos[None, :] > row_pos[:, None] - config.attention_window
-    mask = mask[None, None]  # [1, 1, s, max_len]
+    # bounded below by the layer's sliding window where it has one.
+    masks = {w: causal_mask(row_pos[:, None], k_pos[None, :], w)[None, None]
+             for w in config.windows}  # [1, 1, s, max_len]
     if lora is not None:
         from .multi_lora import apply_qkv, apply_wo
 
@@ -97,17 +100,19 @@ def decode_block(
         q, k, v = project_qkv(h, layer)  # [b, s, H|Hkv, hd]
         if lora is not None:
             q, k, v = apply_qkv(q, k, v, h, stacked[i], aidx, config, alpha, config.dtype)
-        q, k = apply_rope(q, angles), apply_rope(k, angles)
+        a, scale = angles[config.layer_rope_kind(i)]
+        q, k = apply_rope(q, a, scale), apply_rope(k, a, scale)
         cache[i, 0, :, pos : pos + s] = k
         cache[i, 1, :, pos : pos + s] = v
-        attn = masked_attention(q, cache[i, 0], cache[i, 1], mask, config.head_dim)
+        attn = masked_attention(q, cache[i, 0], cache[i, 1], masks[config.layer_window(i)],
+                                config.head_dim)
         proj = torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
         if lora is not None:
             proj = apply_wo(proj, attn, stacked[i], aidx, alpha)
         if reduce is not None:
             proj = reduce(proj)
         x = x + proj
-        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce)
+        x = x + ffn(_rmsnorm(x, layer["ln2"]), layer, config, reduce)
 
     if unembed == "none":
         return None, cache

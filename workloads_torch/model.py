@@ -18,10 +18,22 @@ representation: a tensor, or the int8 serving dict of ``quant.py``.
 ``param_specs`` is the tensor-parallel cut of the tree, ``shard_leaf``
 takes one rank's slice of a leaf and ``shard_tree`` of a whole tree
 (``tp_serve.py``, ``train.py``).
+
+Beyond the JAX package's block, a config may give each layer its own
+attention window and rotary kind (``layer_windows``, ``layer_rope``:
+plain RoPE at ``rope_theta``, or ``yarn``'s scaled frequencies and
+attention factor), a ``head_dim`` apart from ``d_model // n_heads``,
+and a sparse SwiGLU expert FFN on every layer (``n_routed_experts``;
+the layer is ``moe.expert_ffn``, the tree's ``layers[i]["moe"]``).  The
+defaults are the JAX package's block.  The serving paths
+(``generate.decode_block``, ``paged.py``) run every one of these;
+``forward`` and the training paths run the per-layer pattern but not
+the expert FFN.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import partial
 
@@ -31,6 +43,25 @@ import torch.utils.checkpoint
 from . import prng
 from .ops import kernel_select
 from .quant import dequantize, is_quantized
+
+
+ROPE_KINDS = ("default", "yarn")
+
+
+@dataclass(frozen=True)
+class Yarn:
+    """YaRN's rotary scaling (arXiv:2309.00071), as HF ``transformers``
+    computes it (``_compute_yarn_parameters`` with ``truncate``): the
+    low frequencies interpolated by ``factor``, the high ones kept, a
+    linear ramp between the correction dims of ``beta_fast`` and
+    ``beta_slow`` rotations over ``original_max_position_embeddings``;
+    cos and sin scaled by ``attention_factor``."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float
+    beta_slow: float
+    attention_factor: float
 
 
 @dataclass(frozen=True)
@@ -55,6 +86,23 @@ class ModelConfig:
     # (torch.utils.checkpoint, the counterpart of jax.checkpoint):
     # activations are recomputed instead of stored.
     remat_layers: bool = False
+    # Query/key/value head size; None = d_model // n_heads.
+    head_dim: int | None = None
+    # The rotary base of every layer.
+    rope_theta: float = 10000.0
+    # Per-layer attention pattern: each layer's window (None = full
+    # causal span), or None for ``attention_window`` on every layer.
+    layer_windows: tuple | None = None
+    # Per-layer rotary kind, one of ROPE_KINDS ("yarn" scales by
+    # ``yarn``), or None for "default" on every layer.
+    layer_rope: tuple | None = None
+    yarn: Yarn | None = None
+    # Sparse expert FFN on every layer (0 = the dense MLP):
+    # n_routed_experts SwiGLU experts of width d_expert, experts_per_token
+    # routed a token, their gates renormalised (moe.expert_ffn).
+    n_routed_experts: int = 0
+    experts_per_token: int = 0
+    d_expert: int = 0
 
     def __post_init__(self):
         if self.attention_impl not in ("native", "flash"):
@@ -77,14 +125,59 @@ class ModelConfig:
                 f"dtype must be torch.float32 or torch.bfloat16, got "
                 f"{self.dtype}"
             )
-
-    @property
-    def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.head_dim < 2 or self.head_dim % 2:
+            raise ValueError(f"head_dim must be even and >= 2, got {self.head_dim}")
+        for name in ("layer_windows", "layer_rope"):
+            pattern = getattr(self, name)
+            if pattern is not None and len(pattern) != self.n_layers:
+                raise ValueError(
+                    f"{name} has {len(pattern)} entries for {self.n_layers} layers"
+                )
+        if any(w is not None and w < 1 for w in self.layer_windows or ()):
+            raise ValueError(f"layer_windows must be >= 1 or None, got {self.layer_windows}")
+        if any(kind not in ROPE_KINDS for kind in self.layer_rope or ()):
+            raise ValueError(f"layer_rope kinds must be in {ROPE_KINDS}, got {self.layer_rope}")
+        if "yarn" in (self.layer_rope or ()) and self.yarn is None:
+            raise ValueError('a "yarn" layer needs the config\'s yarn scaling')
+        if self.n_routed_experts and not (
+            1 <= self.experts_per_token <= self.n_routed_experts and self.d_expert >= 1
+        ):
+            raise ValueError(
+                f"an expert FFN needs 1 <= experts_per_token ({self.experts_per_token}) <= "
+                f"n_routed_experts ({self.n_routed_experts}) and d_expert >= 1 "
+                f"({self.d_expert})"
+            )
 
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    def layer_window(self, i: int) -> int | None:
+        """Layer ``i``'s attention window (None: the full causal span)."""
+        return self.attention_window if self.layer_windows is None else self.layer_windows[i]
+
+    def layer_rope_kind(self, i: int) -> str:
+        """Layer ``i``'s rotary kind, one of ``ROPE_KINDS``."""
+        return "default" if self.layer_rope is None else self.layer_rope[i]
+
+    @property
+    def windows(self) -> list:
+        """The distinct windows the layers use, in layer order."""
+        return list(dict.fromkeys(self.layer_window(i) for i in range(self.n_layers)))
+
+    @property
+    def rope_kinds(self) -> list:
+        """The distinct rotary kinds the layers use, in layer order."""
+        return list(dict.fromkeys(self.layer_rope_kind(i) for i in range(self.n_layers)))
+
+    @property
+    def plain_block(self) -> bool:
+        """Every layer is the JAX package's dense block: one window, plain
+        RoPE, the dense MLP."""
+        return (self.layer_windows is None and self.layer_rope is None
+                and not self.n_routed_experts)
 
 
 def init_params(config: ModelConfig, key: torch.Tensor) -> dict:
@@ -214,22 +307,78 @@ def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     return (x.float() * torch.rsqrt(var + 1e-6)).to(x.dtype) * gain.to(x.dtype)
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int) -> torch.Tensor:
-    """Rotary angles for the given positions: [n_positions, head_dim//2]."""
+def rope_inv_freq(head_dim: int, theta: float = 10000.0, yarn: Yarn | None = None,
+                  device=None) -> torch.Tensor:
+    """The rotary inverse frequencies [head_dim//2], float32: ``theta **
+    (-i / half)``, or with ``yarn`` HF's YaRN blend of those and the
+    same over ``factor`` by a ramp over dims ``floor(corr(beta_fast))``
+    to ``ceil(corr(beta_slow))``, ``corr(n) = head_dim ln(original /
+    (2 pi n)) / (2 ln theta)``."""
     half = head_dim // 2
-    exponent = torch.arange(half, dtype=torch.float32, device=positions.device)
-    freqs = 1.0 / (10000.0 ** (exponent / half))
-    return positions.float()[:, None] * freqs[None, :]
+    exponent = torch.arange(half, dtype=torch.float32, device=device)
+    if yarn is None:
+        return 1.0 / (theta ** (exponent / half))
+    pos_freqs = theta ** (exponent / half)
+
+    def corr(rotations: float) -> float:
+        return head_dim * math.log(
+            yarn.original_max_position_embeddings / (rotations * 2 * math.pi)
+        ) / (2 * math.log(theta))
+
+    low = max(math.floor(corr(yarn.beta_fast)), 0)
+    high = min(math.ceil(corr(yarn.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((exponent - low) / (high - low)).clamp(0, 1)
+    return (1.0 / (yarn.factor * pos_freqs)) * ramp + (1.0 / pos_freqs) * (1 - ramp)
 
 
-def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """Rotate x [batch, seq, heads, head_dim] by angles [seq, head_dim//2]
-    (seq may be 1 for broadcasting a single position)."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 10000.0,
+                yarn: Yarn | None = None) -> torch.Tensor:
+    """Rotary angles for the given positions (any shape): [*positions.shape,
+    head_dim//2]."""
+    freqs = rope_inv_freq(head_dim, theta, yarn, positions.device)
+    return positions.float()[..., None] * freqs
+
+
+def rope_tables(positions: torch.Tensor, config: ModelConfig) -> dict:
+    """{rotary kind: (angles, scale)} for every kind the config's layers
+    use: ``rope_angles`` at ``positions`` and the factor cos and sin are
+    scaled by (1 for "default", the YaRN attention factor for "yarn")."""
+    return {
+        kind: (rope_angles(positions, config.head_dim, config.rope_theta,
+                           config.yarn if kind == "yarn" else None),
+               config.yarn.attention_factor if kind == "yarn" else 1.0)
+        for kind in config.rope_kinds
+    }
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Rotate x [batch, seq, heads, head_dim] by angles [seq, head_dim//2],
+    shared by every row (seq may be 1 for broadcasting a single
+    position), or [batch, seq, head_dim//2], each row its own; cos and
+    sin are scaled by ``scale`` in float32 before the cast to x's dtype
+    (YaRN's attention factor)."""
     half = x.shape[-1] // 2
-    cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
+    if angles.ndim == 2:
+        angles = angles[None]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None) -> torch.Tensor:
+    """``k_pos <= q_pos``, and ``k_pos > q_pos - window`` under a window:
+    a query attends to its own position and, under a window, to the
+    ``window - 1`` before it (the shapes broadcast)."""
+    mask = k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
 
 
 def masked_attention(
@@ -317,16 +466,21 @@ def _pick_kernel(seq: int) -> str:
 
 def _attention(
     x: torch.Tensor, layer: dict, config: ModelConfig, attention_fn=None, reduce=None,
-    enter=None,
+    enter=None, index: int = 0,
 ) -> torch.Tensor:
+    """Layer ``index``'s attention (its window and rotary kind) over
+    positions 0 .. seq-1."""
     batch, seq, _ = x.shape
+    window = config.layer_window(index)
     q, k, v = project_qkv(x if enter is None else enter(x), layer)
-    angles = rope_angles(torch.arange(seq, device=x.device), config.head_dim)
-    q, k = apply_rope(q, angles), apply_rope(k, angles)
+    ids = torch.arange(seq, device=x.device)
+    kind = config.layer_rope_kind(index)
+    angles, scale = rope_tables(ids, config)[kind]
+    q, k = apply_rope(q, angles, scale), apply_rope(k, angles, scale)
     if attention_fn is not None:
         # An injected core computes full causal spans; training full-span
         # while serving windowed would be a train/serve mismatch.
-        if config.attention_window is not None:
+        if window is not None:
             raise ValueError(
                 "attention_window is not supported with an injected attention_fn"
             )
@@ -337,12 +491,9 @@ def _attention(
     ):
         from .ops.attention import flash_attention
 
-        out = flash_attention(q, k, v, window=config.attention_window)
+        out = flash_attention(q, k, v, window=window)
     else:
-        ids = torch.arange(seq, device=x.device)
-        mask = ids[None, :] <= ids[:, None]
-        if config.attention_window is not None:
-            mask &= ids[None, :] > ids[:, None] - config.attention_window
+        mask = causal_mask(ids[:, None], ids[None, :], window)
         out = masked_attention(q, k, v, mask[None, None], config.head_dim)
     out = torch.einsum("bshk,hkd->bsd", out, weight(layer["wo"], x.dtype))
     return out if reduce is None else reduce(out)
@@ -385,21 +536,27 @@ def forward(
     ``param_specs`` cut of ``params``.  ``enter`` (None: identity) takes
     the input of every column-parallel product (``wqkv``/``wq``/``wkv``
     and ``w_up``): under autograd, the hook that sums that input's
-    gradient over the model group (``distributed.model_hooks``)."""
+    gradient over the model group (``distributed.model_hooks``).  An
+    expert config raises: its FFN runs on the serving paths only."""
+    if config.n_routed_experts:
+        raise ValueError(
+            "forward runs the dense MLP; an expert config is served through "
+            "generate.decode_block and paged.py, and has no training path"
+        )
     x = params["embed"].to(config.dtype)[tokens.long()]
 
-    def layer_step(x, layer):
+    def layer_step(x, layer, index):
         x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, attention_fn, reduce,
-                           enter)
+                           enter, index)
         return x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce, enter)
 
-    for layer in params["layers"]:
+    for i, layer in enumerate(params["layers"]):
         if config.remat_layers and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
-                layer_step, x, layer, use_reentrant=False
+                layer_step, x, layer, i, use_reentrant=False
             )
         else:
-            x = layer_step(x, layer)
+            x = layer_step(x, layer, i)
     # Final projection in float32 for a stable softmax/loss.
     return x.float() @ weight(params["unembed"], torch.float32)
 

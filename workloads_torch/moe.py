@@ -28,6 +28,19 @@ product (``distributed.group_mean``).
 ``model.py`` for this layer, trained over a ``("data", "expert",
 "model")`` mesh (``make_moe_mesh``): dp x ep x tp in one step, the
 attention keeping the Megatron ``"model"`` cut.
+
+The serving paths run another expert layer, ``expert_ffn``: dropless
+top-k over SwiGLU experts (a config with ``n_routed_experts``; the layer's
+``moe`` leaves are ``router`` [d, E], ``w_gate_up`` [E, d, 2f], the gate
+then the up columns, and ``w_down`` [E, f, d]).  The router's logits and
+softmax are float32; the top ``experts_per_token`` gates are divided by
+their sum (HF's ``norm_topk_prob``) and cast to the compute dtype.  Every
+(token, expert) pair is computed, as one grouped product over the rows
+sorted by expert (``grouped_swiglu``: ``torch._grouped_mm`` on the card,
+each expert's weights read once a call).  Shapes depend on the token
+count alone and nothing is read back to the host, so the layer is
+captured in the decode step's CUDA graph (``decode_graph.py``).
+``ffn`` picks it or the dense MLP by the config.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from . import prng
 from .model import (
@@ -45,6 +59,7 @@ from .model import (
     _attention,
     _gelu_tanh,
     _mesh_axis,
+    _mlp,
     _rmsnorm,
     cross_entropy,
     init_params,
@@ -212,8 +227,8 @@ def moe_forward(params: dict, tokens: torch.Tensor, config: ModelConfig, moe: Mo
         hooks = expert_hooks(mesh)
     x = params["embed"].to(config.dtype)[tokens.long()]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params["layers"]:
-        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, None, reduce, enter)
+    for i, layer in enumerate(params["layers"]):
+        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, None, reduce, enter, i)
         ffn_out, aux = moe_ffn(layer["moe"], _rmsnorm(x, layer["ln2"]), moe, hooks)
         x = x + ffn_out
         aux_total = aux_total + aux
@@ -264,3 +279,90 @@ def make_moe_train_step(config: ModelConfig, moe: MoEConfig, mesh, optimizer):
     return make_sharded_train_step(
         lambda p, t: moe_loss_fn(p, t, config, moe, mesh), mesh, optimizer
     )
+
+
+# ---- the serving expert layer: dropless top-k SwiGLU -------------------
+
+
+def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """(gates [n, top_k] in x's dtype, experts [n, top_k] int64) of x [n,
+    d]: float32 logits and softmax, the ``top_k`` largest, divided by
+    their sum (HF's ``norm_topk_prob``)."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top, experts = torch.topk(probs, top_k, dim=-1)
+    return (top / top.sum(dim=-1, keepdim=True)).to(x.dtype), experts
+
+
+def grouped_swiglu_reference(x: torch.Tensor, w_gate_up: torch.Tensor, w_down: torch.Tensor,
+                             offs: torch.Tensor) -> torch.Tensor:
+    """``grouped_swiglu`` as a loop over the experts: rows ``offs[e-1] ..
+    offs[e] - 1`` of x through expert e's ``down(silu(x W_gate) * (x
+    W_up))``.  Reads ``offs`` on the host."""
+    f = w_down.shape[1]
+    out = x.new_zeros(x.shape[0], w_down.shape[2])
+    start = 0
+    for e, end in enumerate(offs.tolist()):
+        if end > start:
+            h = x[start:end] @ w_gate_up[e]
+            out[start:end] = (F.silu(h[:, :f]) * h[:, f:]) @ w_down[e]
+        start = end
+    return out
+
+
+def grouped_swiglu(x: torch.Tensor, w_gate_up: torch.Tensor, w_down: torch.Tensor,
+                   offs: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU over its rows of x [R, d], the rows sorted by
+    expert with ``offs`` [E] int32 the cumulative ends: [R, d].  On the
+    card two grouped products (``torch._grouped_mm``, bf16) read each
+    expert's weights once and take ``offs`` on the device; on the CPU
+    the loop of ``grouped_swiglu_reference``."""
+    if x.device.type == "cpu":
+        return grouped_swiglu_reference(x, w_gate_up, w_down, offs)
+    if x.dtype != torch.bfloat16 or w_gate_up.dtype != torch.bfloat16:
+        raise ValueError(
+            f"the grouped expert product on the card takes bf16, got {x.dtype} "
+            f"rows and {w_gate_up.dtype} weights"
+        )
+    f = w_down.shape[1]
+    h = torch._grouped_mm(x, w_gate_up, offs=offs)
+    a = F.silu(h[:, :f]) * h[:, f:]
+    del h
+    return torch._grouped_mm(a, w_down, offs=offs)
+
+
+def expert_ffn(x: torch.Tensor, params: dict, config: ModelConfig,
+               offs_out: list | None = None) -> torch.Tensor:
+    """The dropless top-k SwiGLU expert layer over x [..., d] (``params``
+    a layer's ``moe`` leaves): route every token, sort its
+    ``experts_per_token`` (token, expert) rows by expert (stable, so a
+    run's order is fixed), one ``grouped_swiglu`` over them, back to
+    token order, and each token's gate-weighted sum (one product a token,
+    accumulated in float32).  ``offs_out`` (None: not kept), a list,
+    gains the call's ``offs``: each expert's cumulative end of rows."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    n, k = x2.shape[0], config.experts_per_token
+    with record_function("moe.route"):
+        gates, experts = route(x2, params["router"], k)
+        sorted_experts, order = torch.sort(experts.reshape(-1), stable=True)
+        ids = torch.arange(config.n_routed_experts, device=x.device)
+        offs = torch.searchsorted(sorted_experts, ids, right=True).to(torch.int32)
+        if offs_out is not None:
+            offs_out.append(offs)
+    with record_function("moe.experts"):
+        y_sorted = grouped_swiglu(x2[order // k], params["w_gate_up"], params["w_down"],
+                                  offs)
+        y = torch.empty_like(y_sorted)
+        y[order] = y_sorted
+        out = torch.bmm(gates[:, None, :], y.view(n, k, -1))[:, 0]
+    return out.reshape(shape)
+
+
+def ffn(x: torch.Tensor, layer: dict, config: ModelConfig, reduce=None,
+        offs_out: list | None = None) -> torch.Tensor:
+    """A layer's feed-forward block on the serving paths: the expert
+    layer where the config has experts (``offs_out`` as ``expert_ffn``'s),
+    else the dense MLP (``reduce`` as ``model._mlp``'s)."""
+    if config.n_routed_experts:
+        return expert_ffn(x, layer["moe"], config, offs_out)
+    return _mlp(x, layer, reduce)

@@ -62,6 +62,9 @@ def stack_adapters(adapters: list, config: ModelConfig) -> list:
     Every adapter must target the same weights at the same rank."""
     if not adapters:
         raise ValueError("stack_adapters needs at least one adapter")
+    if config.n_routed_experts:
+        raise ValueError("LoRA adapters have no expert layer: serve an expert config "
+                         "without adapters")
     n_layers = len(adapters[0])
     for i, ad in enumerate(adapters):
         if len(ad) != n_layers:

@@ -37,13 +37,15 @@ from . import prng, resolve_device
 from .generate import decode_block, filter_logits, sample_logits
 from .model import (
     ModelConfig,
-    _mlp,
     _rmsnorm,
+    apply_rope,
+    causal_mask,
     masked_attention,
     project_qkv,
-    rope_angles,
+    rope_tables,
     weight,
 )
+from .moe import ffn
 from .multi_lora import apply_qkv, apply_wo
 from .ops.paged_attention import paged_attention
 
@@ -1025,19 +1027,6 @@ def copy_page(
     return pools
 
 
-def _rope_rows(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """Rotate x [batch, s, heads, head_dim] by per-row angles
-    [batch, head_dim//2] (one position per row) or [batch, s,
-    head_dim//2]."""
-    half = x.shape[-1] // 2
-    if angles.ndim == 2:
-        angles = angles[:, None, :]
-    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-
-
 def _write_slots(
     pool: torch.Tensor, layer: int, page: torch.Tensor, slot: torch.Tensor,
     new: torch.Tensor,
@@ -1059,10 +1048,15 @@ def _decode_core(
     attention_fn=None,
     lora=None,
     reduce=None,
+    moe_reads=None,
 ):
     """One token per row through the paged cache: write the new k/v into
     each row's current page slot, then run paged attention over the
-    row's live pages.  positions: [batch], each row's own position.
+    row's live pages under the layer's window, with the layer's rotary
+    kind and FFN (``moe.ffn``; ``moe_reads``, an int64 [1] device
+    tensor or None, gains the experts the step's expert-layer calls
+    read, ``_count_reads``).
+    positions: [batch], each row's own position.
     ``attention_fn(q, k_pages, v_pages, tables, lengths, layer)``
     replaces the attention op (as in the JAX package), e.g. to hold the
     kernel against its plain version inside a whole step.
@@ -1084,9 +1078,10 @@ def _decode_core(
     page = tables[row, col].long()
     slot = positions % page_size
     lengths = (positions + 1).to(torch.int32)
-    angles = rope_angles(positions, config.head_dim)  # [batch, half]
+    angles = rope_tables(positions[:, None], config)  # kind -> ([batch, 1, half], scale)
     if lora is not None:
         stacked, aidx, alpha = lora
+    offs = [] if moe_reads is not None else None
 
     x = params["embed"].to(config.dtype)[token.long()][:, None]  # [b, 1, d]
     for i, layer in enumerate(params["layers"]):
@@ -1094,13 +1089,14 @@ def _decode_core(
         q, k, v = project_qkv(h, layer)  # [b, 1, H|Hkv, hd]
         if lora is not None:
             q, k, v = apply_qkv(q, k, v, h, stacked[i], aidx, config, alpha, config.dtype)
-        q, k = _rope_rows(q, angles), _rope_rows(k, angles)
+        a, scale = angles[config.layer_rope_kind(i)]
+        q, k = apply_rope(q, a, scale), apply_rope(k, a, scale)
         _write_slots(k_pages, i, page, slot, k[:, 0])
         _write_slots(v_pages, i, page, slot, v[:, 0])
         if attention_fn is None:
             attn = paged_attention(
                 q[:, 0].contiguous(), k_pages, v_pages, tables, lengths,
-                layer=i, window=config.attention_window,
+                layer=i, window=config.layer_window(i),
             )
         else:
             attn = attention_fn(q[:, 0].contiguous(), k_pages, v_pages, tables, lengths, i)
@@ -1110,9 +1106,20 @@ def _decode_core(
         if reduce is not None:
             proj = reduce(proj)
         x = x + proj[:, None]
-        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce)
+        x = x + ffn(_rmsnorm(x, layer["ln2"]), layer, config, reduce, offs)
+    if offs:
+        _count_reads(moe_reads, offs)
     logits = x[:, 0].float() @ weight(params["unembed"], torch.float32)
     return logits, (k_pages, v_pages)
+
+
+def _count_reads(moe_reads: torch.Tensor, offs: list) -> None:
+    """Add to ``moe_reads`` the experts that received at least one row in
+    each of a step's expert-layer calls (``offs``, each call's
+    cumulative ends of rows), counted once a step."""
+    ends = torch.stack(offs)
+    counts = torch.diff(ends, dim=1, prepend=ends.new_zeros(ends.shape[0], 1))
+    moe_reads.add_((counts > 0).sum())
 
 
 @torch.inference_mode()
@@ -1152,6 +1159,7 @@ def paged_decode_chunk(
     sampling: bool,
     lora=None,
     reduce=None,
+    moe_reads=None,
 ):
     """``chunk`` decode steps (the JAX package's lax.scan, as a loop);
     sampling draws step ``i`` from ``split(rng, chunk)[i]``.
@@ -1160,8 +1168,9 @@ def paged_decode_chunk(
     position and token freeze and their all-trash table swallows the
     dead write.  tables must cover positions + chunk for occupied rows.
     ``lora=(stacked, idx, alpha)``: per-row adapters (see
-    ``_decode_core``); idx is data.  Returns (tokens [batch, chunk],
-    pools updated in place)."""
+    ``_decode_core``); idx is data.  ``moe_reads`` (None: not counted)
+    gains the expert layers' reads (``_decode_core``).  Returns (tokens [batch,
+    chunk], pools updated in place)."""
     tok = token.long()
     pos = torch.broadcast_to(
         torch.as_tensor(positions, device=token.device), token.shape
@@ -1170,7 +1179,7 @@ def paged_decode_chunk(
     toks = []
     for i in range(chunk):
         logits, pools = _decode_core(params, pools, tables, tok, pos, config, lora=lora,
-                                     reduce=reduce)
+                                     reduce=reduce, moe_reads=moe_reads)
         nxt = sample_logits(
             logits, keys[i] if sampling else None, temperature, top_k, top_p
         )
@@ -1197,6 +1206,7 @@ def decode_superstep_step(
     sampling: bool,
     lora=None,
     reduce=None,
+    moe_reads=None,
 ):
     """ONE decode step with device-side retirement, the body of
     ``paged_decode_superstep`` (and the step ``decode_graph`` captures):
@@ -1205,9 +1215,10 @@ def decode_superstep_step(
     parked rows freeze their position and token.  ``key`` is the step's
     own sampling key.  Returns (emitted
     [batch], tok, pos, live, budget); the pools update in place.
-    ``lora``: per-row adapters (see ``_decode_core``)."""
+    ``lora``: per-row adapters (see ``_decode_core``); ``moe_reads``
+    as ``paged_decode_chunk``'s."""
     logits, _ = _decode_core(params, pools, tables, tok, pos, config, lora=lora,
-                             reduce=reduce)
+                             reduce=reduce, moe_reads=moe_reads)
     nxt = sample_logits(
         logits, key if sampling else None, temperature, top_k, top_p
     )
@@ -1239,6 +1250,7 @@ def paged_decode_superstep(
     sampling: bool,
     lora=None,
     reduce=None,
+    moe_reads=None,
 ):
     """``k`` chained decode chunks (``k * chunk`` steps) with device-side
     retirement, the JAX package's ``paged_decode_superstep`` as a loop.
@@ -1252,7 +1264,7 @@ def paged_decode_superstep(
     writing its frozen position.  Returns (tokens [batch, k*chunk], tok,
     pos, live, budget, pools): the carry after the last step, on the
     device, and the pools updated in place.  ``lora``: per-row adapters
-    (see ``_decode_core``)."""
+    (see ``_decode_core``); ``moe_reads`` as ``paged_decode_chunk``'s."""
     tok = token.long()
     pos = torch.broadcast_to(
         torch.as_tensor(positions, device=token.device), token.shape
@@ -1264,6 +1276,7 @@ def paged_decode_superstep(
             params, pools, tables, tok, pos, live, budget, eos,
             keys[i] if sampling else None,
             temperature, top_k, top_p, config, sampling, lora=lora, reduce=reduce,
+            moe_reads=moe_reads,
         )
         toks.append(nxt)
     return torch.stack(toks, dim=1), tok, pos, live, budget, pools
@@ -1472,13 +1485,10 @@ def _rowwise_block_core(
 
     offs = torch.arange(s, device=device)
     pos_grid = positions[:, None] + offs[None, :]  # [b, s]
-    angles = rope_angles(pos_grid.reshape(-1), config.head_dim).reshape(batch, s, -1)
+    angles = rope_tables(pos_grid, config)  # kind -> ([b, s, half], scale)
     k_pos = torch.arange(T, device=device)[None, None, :]
-    row_pos = pos_grid[:, :, None]
-    mask = k_pos <= row_pos
-    if config.attention_window is not None:
-        mask &= k_pos > row_pos - config.attention_window
-    mask = mask[:, None]  # [b, 1, s, T]
+    masks = {w: causal_mask(pos_grid[:, :, None], k_pos, w)[:, None]
+             for w in config.windows}  # [b, 1, s, T]
     rows = torch.arange(batch, device=device)[:, None].expand(batch, s)
     cols = positions.clamp(0, max(T - s, 0))[:, None] + offs[None, :]
     if lora is not None:
@@ -1490,17 +1500,19 @@ def _rowwise_block_core(
         q, k, v = project_qkv(h, layer)
         if lora is not None:
             q, k, v = apply_qkv(q, k, v, h, stacked[i], aidx, config, alpha, config.dtype)
-        q, k = _rope_rows(q, angles), _rope_rows(k, angles)
+        a, scale = angles[config.layer_rope_kind(i)]
+        q, k = apply_rope(q, a, scale), apply_rope(k, a, scale)
         view_k[i, rows, cols] = k.to(view_k.dtype)
         view_v[i, rows, cols] = v.to(view_v.dtype)
-        attn = masked_attention(q, view_k[i], view_v[i], mask, config.head_dim)
+        attn = masked_attention(q, view_k[i], view_v[i], masks[config.layer_window(i)],
+                                config.head_dim)
         proj = torch.einsum("bshk,hkd->bsd", attn, weight(layer["wo"], x.dtype))
         if lora is not None:
             proj = apply_wo(proj, attn, stacked[i], aidx, alpha)
         if reduce is not None:
             proj = reduce(proj)
         x = x + proj
-        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer, reduce)
+        x = x + ffn(_rmsnorm(x, layer["ln2"]), layer, config, reduce)
     logits = x.float() @ weight(params["unembed"], torch.float32)
     _scatter_view(k_pages, view_k, t_cov, page_size)
     _scatter_view(v_pages, view_v, t_cov, page_size)

@@ -52,11 +52,21 @@ def make_pp_mesh(n_devices: int, pipe_parallel: int = 2, device_type: str | None
                           divisor="pipe_parallel")
 
 
+def _check_block(config: ModelConfig) -> None:
+    """The pipeline stacks one dense block kind over its stages."""
+    if not config.plain_block:
+        raise ValueError(
+            "the pipeline runs the dense block with one window and plain RoPE on "
+            "every layer: it has no expert layer and no per-layer pattern"
+        )
+
+
 def init_pipeline_params(config: ModelConfig, n_stages: int,
                          key: torch.Tensor) -> dict:
     """``model.init_params`` from ``key`` with the layer list stacked
     into ``[S, L/S, ...]`` leaves under ``"stages"`` (stage-major), ready
     to cut on the ``"pipe"`` axis."""
+    _check_block(config)
     if config.n_layers % n_stages:
         raise ValueError(
             f"n_layers ({config.n_layers}) must divide into {n_stages} stages"
@@ -136,6 +146,7 @@ def pipeline_forward(params: dict, tokens: torch.Tensor, config: ModelConfig, me
     rank; ``make_pipeline_train_step`` passes each data rank its rows),
     ``batch`` divisible by ``n_microbatches``.  ``handoff`` as
     ``_pipeline_local``."""
+    _check_block(config)
     from .distributed import axis_hooks
 
     n_stages = _mesh_axis(mesh, "pipe")[0]

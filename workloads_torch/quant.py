@@ -60,7 +60,11 @@ def is_quantized(entry) -> bool:
 def quantize_params(params: dict) -> dict:
     """The parameter tree with every product weight (the layers'
     projections and the unembed) stored int8; norm gains and the
-    embedding stay float.  New tensors; ``params`` is not changed."""
+    embedding stay float.  New tensors; ``params`` is not changed.  A
+    tree with expert layers (``moe``) raises: int8 serving has none."""
+    if any("moe" in layer for layer in params["layers"]):
+        raise ValueError("int8 weight-only serving has no expert layer: serve an "
+                         "expert config's weights as they are")
     out = {k: v for k, v in params.items() if k not in ("layers", "unembed")}
     out["unembed"] = quantize(params["unembed"], axis=0)  # [d, vocab]
     out["layers"] = [

@@ -308,6 +308,7 @@ class ServeEngine:
         lora_alpha: float = 1.0,
         observer=None,
         ledger=None,
+        moe_counters: bool = False,
         device=None,
     ):
         if slots < 1:
@@ -333,6 +334,8 @@ class ServeEngine:
                 f"mode_trace_limit must be >= 1 or None (unbounded), got "
                 f"{mode_trace_limit}"
             )
+        if moe_counters and not config.n_routed_experts:
+            raise ValueError("moe_counters counts the expert layer; the config has none")
         if (draft_params is None) != (draft_config is None):
             raise ValueError(
                 "draft_params and draft_config come together (speculative "
@@ -676,6 +679,11 @@ class ServeEngine:
         # Under a mesh every step dispatches eagerly: a gloo collective
         # cannot be captured in a graph.
         self._graph = None
+        # With ``moe_counters``, the experts the decode steps read
+        # (moe_decode_expert_reads), summed on the device inside the
+        # step; without, the step carries no counting kernels.
+        self._moe_reads = (torch.zeros(1, dtype=torch.int64, device=self.device)
+                           if moe_counters else None)
         if self.device.type == "cuda" and mesh is None:
             self._graph = DecodeGraph(
                 params, self.pools, config, slots=slots,
@@ -683,6 +691,7 @@ class ServeEngine:
                 temperature=self.temperature,
                 top_k=self.top_k, top_p=self.top_p, sampling=self.sampling,
                 lora_stacked=self._stacked_adapters, lora_alpha=self.lora_alpha,
+                moe_reads=self._moe_reads,
             )
             self._unbounded = (
                 torch.full((slots,), _UNBOUNDED, dtype=torch.int32, device=self.device),
@@ -711,6 +720,11 @@ class ServeEngine:
         # engine_host_sync_seconds histogram (obs.py).
         self.host_sync_s = 0.0
         self.generated_tokens = 0
+        # Routed (token, expert) rows of the live rows of the decode
+        # steps, every layer counted (0 without experts): a chunk's
+        # occupied rows at its dispatch, a superstep's live steps at its
+        # readback.
+        self.moe_decode_assignments = 0
         self.prefills_run = 0
         self.prefill_tokens = 0  # prompt tokens forwarded
         self.prefill_sweeps = 0  # batched-admission sweeps
@@ -928,6 +942,20 @@ class ServeEngine:
     def _extend_evicting(self, seq, n_tokens: int) -> list:
         self._ensure_free(self.ctrl.pages_needed(n_tokens) - len(self.ctrl.tables[seq]))
         return self.ctrl.extend(seq, n_tokens)
+
+    # ---- the expert layer's decode counters -----------------------------
+
+    def _count_routed(self, rows: int) -> None:
+        """Add ``rows`` live decode rows' routed (token, expert) rows,
+        every layer counted, to ``moe_decode_assignments``."""
+        self.moe_decode_assignments += rows * self.config.experts_per_token * self.config.n_layers
+
+    @property
+    def moe_decode_expert_reads(self) -> int:
+        """Experts that received at least one row, summed over the decode
+        steps' expert-layer calls (0 without ``moe_counters``).  Summed on
+        the device; reading it waits for the work in flight."""
+        return 0 if self._moe_reads is None else int(self._moe_reads)
 
     # ---- KV-cache hierarchy: host-RAM and disk tiers ---------------------
 
@@ -2294,7 +2322,7 @@ class ServeEngine:
                 self.params, self.pools, tables, tok_in, pos, occupied,
                 rng, self.temperature, self.top_k, self.top_p,
                 self.config, self.chunk, self.sampling, lora=self._lora(aidx),
-                reduce=self._reduce,
+                reduce=self._reduce, moe_reads=self._moe_reads,
             )
             last = toks[:, -1]
         else:
@@ -2302,6 +2330,7 @@ class ServeEngine:
                 tables, tok_in, pos, occupied, *self._unbounded, self.chunk, aidx,
                 keys=None if rng is None else prng.split(rng, self.chunk),
             )
+        self._count_routed(int(self._occupied.sum()) * self.chunk)
         self.chunks_run += 1
         return _Readback(toks, phase=self._phase_end(start)), last
 
@@ -2466,7 +2495,7 @@ class ServeEngine:
                 self.params, self.pools, tables, tok_in, pos_in, live_in,
                 budget_in, eos_in, rngs, self.temperature, self.top_k,
                 self.top_p, self.config, self.chunk, self.superstep_k, self.sampling,
-                lora=self._lora(aidx), reduce=self._reduce,
+                lora=self._lora(aidx), reduce=self._reduce, moe_reads=self._moe_reads,
             )
         else:
             toks, *carry = self._graph.run(
@@ -2500,6 +2529,7 @@ class ServeEngine:
             before = len(req.tokens)
             self._emit(req, toks[slot])
             advance = len(req.tokens) - before
+            self._count_routed(advance)
             self._positions[slot] += advance
             self._tokens[slot] = toks[slot, advance - 1]
             if req.done:

@@ -64,6 +64,11 @@ POOL_SPEC = (None, None, "model", None, None)
 
 
 def _check_tp(config: ModelConfig, mesh) -> int:
+    if config.n_routed_experts:
+        raise ValueError(
+            "tensor-parallel serving has no expert layer: serve an expert "
+            "config on one device"
+        )
     mp = _mesh_axis(mesh, "model")[0]
     if config.n_heads % mp or config.kv_heads % mp:
         raise ValueError(
@@ -232,7 +237,7 @@ def _tp_paged_attention(config: ModelConfig, mesh):
 
     def attention(q, k_pages, v_pages, tables, lengths, layer):
         return paged_attention(q, k_pages, v_pages, tables, lengths, layer=layer,
-                               window=config.attention_window)
+                               window=config.layer_window(layer))
 
     return attention
 
